@@ -3,9 +3,12 @@
 A port of ``accl_tpu`` (the JAX/TPU package, which stays the reference)
 to one NVIDIA H100: the same per-rank driver API (``ACCL``, buffers,
 communicators, async requests, wire compression), a world-level gang
-engine whose ranks are regions of one card's memory, and hand-written
-CUDA ring reduce-scatter / all-gather kernels for the large-message
-lane.  It imports torch, numpy and the standard library only.
+engine whose ranks are regions of one card's memory, hand-written CUDA
+ring reduce-scatter / all-gather kernels for the large-message lane, the
+int8 block-scaled and fused wire lanes, and the fused tensor-parallel
+matmul with its hand-written CUDA matmul and matmul-reduce-scatter
+kernels (``accl_tpu_torch.ops.fused``).  It imports torch, numpy and the
+standard library only.
 
     world = CudaWorld(8)            # on the card; CudaWorld(8, "cpu") for CPU
     world.run(fn)                   # fn(accl, rank) on one thread per rank
@@ -31,4 +34,4 @@ from .constants import (  # noqa: F401
     TuningKey,
 )
 from .request import Request  # noqa: F401
-from .state import load_world_state  # noqa: F401
+from .state import load_world_state, tp_weight_shards  # noqa: F401

@@ -7,11 +7,17 @@ device, submits it through the request queue, and on completion syncs
 results back and checks the engine retcode.  The collective algorithms
 live in the engine (backends/cuda.py), as in the reference.
 
+Wire compression: ``compress_dtype`` selects the f16/bf16 cast lanes or
+the int8 block-scaled lane (float32 operands only); an armed
+:class:`~accl_tpu_torch.arithconfig.CompressionPolicy` (``ACCL_COMPRESS``,
+or :meth:`ACCL.set_compression`) selects it automatically.  ``fused=``
+(default ``ACCL_FUSED``) puts allreduce, allgather and reduce_scatter on
+the chunked ring lane of ``ops/fused.py``.
+
 Left out of this port, and refused where a call asks for them: kernel
-streams (``stream_flags``), the int8 block-scaled wire lane
-(``compress_dtype=DataType.int8``) and the fused compute/communication
-lane (``fused=True``).  Persistent plans, the sanitizer, tuning tables,
-resilience and observability are not part of it either.
+streams (``stream_flags``).  Persistent plans, the sanitizer, tuning
+tables (and the table route that arms ``fused``), resilience and
+observability are not part of it either.
 """
 from __future__ import annotations
 
@@ -21,7 +27,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .arithconfig import DEFAULT_ARITH_CONFIG
+from .arithconfig import (
+    COMPRESS_OFF_TOKENS,
+    DEFAULT_ARITH_CONFIG,
+    compress_block_from_env,
+    compression_policy_from_env,
+    int8_block_config,
+)
 from .backends.base import CCLODevice
 from .buffer import BaseBuffer, DummyBuffer
 from .communicator import Communicator, Rank
@@ -82,6 +94,17 @@ class ACCL:
         self._call_memo: OrderedDict = OrderedDict()
         self._call_memo_cap = 512
         self._async_pending: list = []
+        #: the int8 pair's error-feedback twin: (uncompressed, compressed)
+        #: -> arithcfg id, filled at initialize
+        self._arith_ids_ef: dict[tuple[DataType, DataType], int] = {}
+        #: wire-compression policy (arithconfig.CompressionPolicy), armed
+        #: at initialize from ACCL_COMPRESS or by set_compression; None
+        #: leaves every call's compress_dtype as the caller gave it
+        self._compress_policy = None
+        #: fused-lane default for calls that pass fused=None
+        #: (ACCL_FUSED, read once here)
+        self._fused_default = os.environ.get("ACCL_FUSED", "0") \
+            not in ("", "0")
 
     # ------------------------------------------------------------------
     # bring-up (reference accl.cpp:1082-1130)
@@ -92,8 +115,10 @@ class ACCL:
                    max_eager_size: Optional[int] = None,
                    max_rendezvous_size: int = DEFAULT_MAX_RENDEZVOUS_SIZE,
                    timeout: Optional[int] = None) -> None:
-        """Soft reset, rx pool, world communicator, arithmetic configs,
-        timeout and thresholds, static tuning, enable (reference order)."""
+        """Soft reset, rx pool, world communicator, arithmetic configs
+        (with the int8 pair and its error-feedback twin, block from
+        ``ACCL_COMPRESS_BLOCK``), timeout and thresholds, static tuning,
+        the ``ACCL_COMPRESS`` policy, enable (reference order)."""
         if self._initialized:
             raise ACCLError("ACCL already initialized")
         self._config_call(CfgFunc.reset_periph)
@@ -103,6 +128,12 @@ class ACCL:
         self._communicators = [comm]
         for key, cfg in DEFAULT_ARITH_CONFIG.items():
             self._arith_ids[key] = self._device.upload_arithconfig(cfg)
+        block = compress_block_from_env()
+        i8_pair = (DataType.float32, DataType.int8)
+        self._arith_ids[i8_pair] = self._device.upload_arithconfig(
+            int8_block_config(block))
+        self._arith_ids_ef = {i8_pair: self._device.upload_arithconfig(
+            int8_block_config(block, error_feedback=True))}
         self._call_memo.clear()
         if timeout is None:
             timeout = default_timeout()
@@ -111,6 +142,14 @@ class ACCL:
             egr_rx_buf_size if max_eager_size is None else max_eager_size)
         self.set_max_rendezvous_msg_size(max_rendezvous_size)
         self.apply_static_tuning()
+        # an explicit ACCL_COMPRESS=0 disarms; unset leaves it disarmed
+        raw_compress = os.environ.get("ACCL_COMPRESS", "").strip().lower()
+        if raw_compress in COMPRESS_OFF_TOKENS:
+            self.set_compression(None)
+        else:
+            env_compress = compression_policy_from_env()
+            if env_compress is not None:
+                self.set_compression(env_compress)
         self._config_call(CfgFunc.enable_pkt)
         self._initialized = True
 
@@ -206,6 +245,19 @@ class ACCL:
     def apply_static_tuning(self) -> None:
         for key, value in self.static_tuning().items():
             self.set_tuning(key, value)
+
+    def set_compression(self, policy) -> None:
+        """Arm (or disarm, with ``None``) the wire-compression policy
+        (:class:`~accl_tpu_torch.arithconfig.CompressionPolicy`): calls
+        that match its collective, dtype and size thresholds get their
+        ``compress_dtype`` chosen for them.  Drops the descriptor memo,
+        whose entries predate the policy."""
+        self._compress_policy = policy
+        self._call_memo.clear()
+
+    @property
+    def compression_policy(self):
+        return self._compress_policy
 
     def set_tuning(self, key: int, value: int) -> None:
         """Write one tuning register (constants.TuningKey);
@@ -448,21 +500,17 @@ class ACCL:
         if stream_flags != StreamFlags.NO_STREAM:
             raise ACCLError("kernel streams (stream_flags) are not part of "
                             "accl_tpu_torch yet")
-        if fused:
-            raise ACCLError("the fused compute/communication lane "
-                            "(fused=True) is not part of accl_tpu_torch yet")
-        if compress_dtype == DataType.int8:
-            raise ACCLError("the int8 block-scaled wire lane "
-                            "(compress_dtype=DataType.int8) is not part of "
-                            "accl_tpu_torch yet")
 
         def _bkey(b):
             return None if b is None else (b.address, b.data_type,
                                            b.is_host_only)
 
+        # fused=None resolves to the driver default before the lookup, so
+        # two calls that differ only in fused never share a descriptor
+        fused = self._fused_default if fused is None else bool(fused)
         memo_key = (scenario, count, comm_id, root_src_dst, function, tag,
                     _bkey(op0), _bkey(op1), _bkey(res), compress_dtype,
-                    op0_dtype, res_dtype)
+                    op0_dtype, res_dtype, fused)
         cached = self._call_memo.get(memo_key)
         if cached is not None:
             self._call_memo.move_to_end(memo_key)
@@ -479,6 +527,13 @@ class ACCL:
             dtypes.add(res_dtype)
         dtypes.discard(DataType.none)
         compression = CompressionFlags.NO_COMPRESSION
+
+        # the armed policy fills in compress_dtype for eligible calls the
+        # caller left unset; mixed-dtype calls are never auto-compressed
+        if compress_dtype is None and self._compress_policy is not None \
+                and len(dtypes) == 1:
+            compress_dtype = self._compress_policy.select(
+                scenario, count, comm_id, next(iter(dtypes)))
 
         def flag_operands(compressed_dtype: DataType) -> CompressionFlags:
             flags = CompressionFlags.NO_COMPRESSION
@@ -523,6 +578,29 @@ class ACCL:
                     raise ACCLError(f"unsupported dtype {uncompressed!r}")
                 arithcfg = self._arith_ids[pair]
                 compression = CompressionFlags.ETH_COMPRESSED
+            elif compress_dtype == DataType.int8:
+                # block-scaled lane: its wire form (int8, per-block fp32
+                # scales) has no flat-buffer residence, so no operand may
+                # be int8-typed and the ETH flag stands alone
+                pair = (uncompressed, compress_dtype)
+                if pair not in self._arith_ids:
+                    raise ACCLError(f"no arithmetic config for dtype pair {pair}")
+                if uncompressed != DataType.float32:
+                    raise ACCLError(
+                        f"int8 block-scaled wire lane supports float32 "
+                        f"operands only (got {uncompressed.name})")
+                if any(not b.is_dummy and b.data_type == DataType.int8
+                       for b in (op0, op1, res)):
+                    raise ACCLError(
+                        "int8 block-scaled wire lane: operands must be "
+                        "float32 — a flat int8 buffer cannot hold the "
+                        "(int8, per-block scale) wire representation")
+                use_ef = (self._compress_policy is not None
+                          and self._compress_policy.wants_error_feedback(
+                              comm_id))
+                arithcfg = (self._arith_ids_ef[pair] if use_ef
+                            else self._arith_ids[pair])
+                compression = CompressionFlags.ETH_COMPRESSED
             else:
                 pair = (uncompressed, compress_dtype)
                 if pair not in self._arith_ids:
@@ -535,7 +613,7 @@ class ACCL:
                         root_src_dst=root_src_dst, function=function, tag=tag,
                         arithcfg=arithcfg, compression_flags=compression,
                         stream_flags=stream_flags, addr_0=op0.address,
-                        addr_1=op1.address, addr_2=res.address)
+                        addr_1=op1.address, addr_2=res.address, fused=fused)
         self._call_memo[memo_key] = call
         while len(self._call_memo) > self._call_memo_cap:
             self._call_memo.popitem(last=False)

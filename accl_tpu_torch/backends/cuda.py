@@ -11,15 +11,19 @@ thread.  Payloads of allreduce / allgather / reduce-scatter at or above
 ``ACCL_RING_THRESHOLD`` bytes (default 4 MiB) go through the segmented
 ring drivers to the hand-written CUDA ring kernels (ops/ring.py); below
 it plain torch ops over the gang's operands do the work, in the lane
-order of the JAX engine's ``_collective_fn``.
+order of the JAX engine's ``_collective_fn``.  A descriptor marked
+``fused`` takes those three collectives at any size to the chunked ring
+lane (ops/fused.py); the int8 block-scaled wire spec takes the ring lane
+to the quantized ring (ops/quantized.py), and the fused lane to its
+quantized chunks.
 
 The kernels take a table of per-rank device pointers, so operands that
 are whole buffers of the gang's dtype reach them without a copy.
 
 Left out of this port: persistent plans and plan rings, batched async
-dispatch, kernel streams, the int8 and fused lanes, resilience,
-observability and link accounting.  A descriptor that asks for one of
-them is refused with an ACCLError.
+dispatch, kernel streams, resilience, observability and link accounting
+(the int8 lane's wire-byte accounting with it).  A descriptor that asks
+for one of them is refused with an ACCLError.
 """
 from __future__ import annotations
 
@@ -34,7 +38,11 @@ import numpy as np
 import torch
 
 from ..accl import ACCL
-from ..arithconfig import COMPRESSOR_WIRE_DTYPE, ArithConfig
+from ..arithconfig import (
+    COMPRESSOR_WIRE_DTYPE,
+    DEFAULT_COMPRESS_BLOCK,
+    ArithConfig,
+)
 from ..buffer import BaseBuffer
 from ..communicator import Communicator, Rank
 from ..constants import (
@@ -49,6 +57,8 @@ from ..constants import (
     TuningKey,
     env_int,
 )
+from ..ops import fused as fused_ops
+from ..ops import quantized as q_ops
 from ..ops import ring as ring_ops
 from ..request import Request
 from ..utils.logging import get_logger
@@ -123,7 +133,7 @@ def _parse_wire_spec(wire_dtype: str):
     names the block-scaled lane."""
     if wire_dtype.startswith("int8"):
         parts = wire_dtype.split(":")
-        block = int(parts[1]) if len(parts) > 1 else 256
+        block = int(parts[1]) if len(parts) > 1 else DEFAULT_COMPRESS_BLOCK
         return "int8", block, len(parts) > 2 and parts[2] == "1"
     return wire_dtype, 0, False
 
@@ -133,11 +143,21 @@ _WIRE_TORCH = {"float16": torch.float16, "bfloat16": torch.bfloat16}
 
 def _wire_roundtrip(x: torch.Tensor, wire_dtype: str) -> torch.Tensor:
     """One wire hop of compression: the payload crosses in the config's
-    compressed dtype and is widened on arrival (round to nearest even,
-    as in the JAX engine)."""
+    compressed representation and is widened on arrival — a cast pair
+    (round to nearest even, as in the JAX engine) for the f16/bf16
+    lanes, a blockwise quantize/dequantize for the int8 lane (its scale
+    is absmax * f32(1/127), as XLA compiles the JAX engine's, so a second
+    roundtrip can move a block's values by an ulp there and here
+    alike)."""
     if not wire_dtype:
         return x
-    name, _block, _ef = _parse_wire_spec(wire_dtype)
+    name, block, _ef = _parse_wire_spec(wire_dtype)
+    if name == "int8":
+        if x.element_size() <= 1:
+            return x
+        q, sc, n = q_ops.quantize_blockwise(x.reshape(-1), block)
+        return q_ops.dequantize_blockwise(q, sc, n).reshape(x.shape).to(
+            x.dtype)
     if name not in _WIRE_TORCH:
         raise ACCLError(f"wire lane {name!r} is not part of accl_tpu_torch yet")
     wd = _WIRE_TORCH[name]
@@ -178,20 +198,29 @@ def _tree_gather(vs: list, root: int) -> torch.Tensor:
 
 
 def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
-                        func: int, wire_dtype: str, ring: bool) -> Callable:
+                        func: int, wire_dtype: str, ring: bool,
+                        fused: bool) -> Callable:
     """The program that takes the place of the JAX engine's
     ``_collective_fn`` (tpu.py:2100): a function from the gang's per-rank
     operands ([in_len] each, rank order) to the per-rank results, in the
-    same lane order — the ring drivers at or above the threshold, plain
-    torch ops over the rank axis below it."""
+    same lane order — the fused lane when the descriptor asks for it, the
+    quantized ring for the int8 wire spec on the ring lane, the ring
+    drivers at or above the threshold, plain torch ops over the rank axis
+    below it."""
     n = in_len // nranks if op in (Operation.scatter, Operation.reduce_scatter,
                                    Operation.alltoall) else in_len
     is_max = func == int(ReduceFunction.MAX)
     red = "max" if is_max else "sum"
-    name, _block, _ef = _parse_wire_spec(wire_dtype)
-    if name == "int8":
-        raise ACCLError("the int8 block-scaled wire lane is not part of "
-                        "accl_tpu_torch yet")
+    wire_name, wire_block, wire_ef = _parse_wire_spec(wire_dtype)
+    # the quantized ring owns its wire hops: SUM only, and the payload
+    # must divide into the ring; MAX and ragged payloads take the
+    # roundtrip model around the plain ring (tpu.py:2146-2171)
+    q_ring = (ring and wire_name == "int8" and not is_max
+              and op in (Operation.allreduce, Operation.allgather,
+                         Operation.reduce_scatter)
+              and in_len % nranks == 0)
+    # the fused lane's int8 twin quantizes inside its chunk loop
+    fused_q = fused and wire_name == "int8" and not is_max
 
     def quant(v):
         return _wire_roundtrip(v, wire_dtype)
@@ -200,7 +229,43 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
         stacked = torch.stack(vs)
         return stacked.amax(0) if is_max else stacked.sum(0)
 
+    def q_ring_body(vs: list) -> list:
+        if op == Operation.allreduce:
+            return q_ops.quantized_all_reduce(vs, wire_block, wire_ef)
+        if op == Operation.allgather:
+            return q_ops.quantized_ring_all_gather(vs, wire_block)
+        return q_ops.quantized_ring_reduce_scatter(vs, wire_block, wire_ef)
+
+    def fused_body(vs: list) -> list:
+        # the fused lane owns its wire hops end to end: int8 inside the
+        # chunk loop, the cast lanes roundtrip at the endpoints
+        # (tpu.py:2177-2199)
+        if fused_q:
+            w = (wire_block, wire_ef)
+            vf = [v.to(torch.float32) for v in vs]
+            if op == Operation.allreduce:
+                outs = fused_ops.chunked_ring_all_reduce(vf, wire=w)
+            elif op == Operation.allgather:
+                outs = fused_ops.chunked_ring_all_gather(vf, wire=w)
+            else:
+                outs = fused_ops.chunked_ring_reduce_scatter(vf, wire=w)
+            return [o.to(vs[0].dtype) for o in outs]
+        vs = [quant(v) for v in vs]
+        if op == Operation.allreduce:
+            outs = fused_ops.chunked_ring_all_reduce(vs, red)
+        elif op == Operation.allgather:
+            outs = fused_ops.chunked_ring_all_gather(vs)
+        else:
+            outs = fused_ops.chunked_ring_reduce_scatter(vs, red)
+        return [quant(o) for o in outs]
+
     def body(vs: list) -> list:
+        if fused:
+            return fused_body(vs)
+        if q_ring:
+            dt = vs[0].dtype
+            return [o.to(dt) for o in
+                    q_ring_body([v.to(torch.float32) for v in vs])]
         vs = [quant(v) for v in vs]
         if ring:
             if op == Operation.allreduce:
@@ -327,13 +392,19 @@ class CudaEngine:
             return self._arithcfg_ids[cfg]
 
     def wire_dtype_for(self, arithcfg_id: int) -> str:
-        """Wire dtype name of a config ("" for identity pairs)."""
+        """Wire spec of a config: "" for identity pairs, the dtype name
+        for the cast lanes, ``int8:<block>:<ef>`` for the block-scaled
+        lane (decoded by :func:`_parse_wire_spec`)."""
         if not 0 <= arithcfg_id < len(self._arithcfgs):
             return ""
         cfg = self._arithcfgs[arithcfg_id]
         if cfg.elem_ratio_log == 0:
             return ""
-        return COMPRESSOR_WIRE_DTYPE.get(cfg.compressor_tdest, "")
+        name = COMPRESSOR_WIRE_DTYPE.get(cfg.compressor_tdest, "")
+        if name == "int8":
+            return (f"int8:{cfg.block or DEFAULT_COMPRESS_BLOCK}"
+                    f":{int(bool(cfg.error_feedback))}")
+        return name
 
     # ------------------------------------------------------------------
     # submission
@@ -561,8 +632,6 @@ class CudaEngine:
                 return plan
         nranks = len(members)
         any_call = next(iter(gang.values()))[0]
-        if any_call.fused:
-            raise ACCLError("the fused lane is not part of accl_tpu_torch yet")
         n = any_call.count
         root = any_call.root_src_dst
         wire_dtype = (self.wire_dtype_for(any_call.arithcfg)
@@ -605,6 +674,12 @@ class CudaEngine:
                 and nranks > 1
                 and in_len * np.dtype(dtype).itemsize
                 >= self.ring_threshold_bytes)
+        # the fused lane is a descriptor opt-in and takes precedence over
+        # the threshold's choice (tpu.py:1795-1801)
+        fused = (bool(any_call.fused)
+                 and op in (Operation.allreduce, Operation.allgather,
+                            Operation.reduce_scatter)
+                 and nranks > 1)
         plan = {
             "in_len": in_len,
             "dtype": None if dtype is None else torch_dtype(dtype),
@@ -613,7 +688,7 @@ class CudaEngine:
             "program": (None if op == Operation.barrier else
                         _collective_program(op, nranks, in_len, root,
                                             any_call.function, wire_dtype,
-                                            ring)),
+                                            ring, fused)),
         }
         with self._lock:
             self._gang_plans[sig] = plan

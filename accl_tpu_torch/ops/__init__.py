@@ -1,1 +1,10 @@
 """Device kernels of the port and their plain PyTorch versions."""
+
+from .fused import fused_matmul_allreduce  # noqa: F401
+from .quantized import (  # noqa: F401
+    dequantize_blockwise,
+    quantize_blockwise,
+    quantized_all_reduce,
+    quantized_ring_all_gather,
+    quantized_ring_reduce_scatter,
+)

@@ -3,9 +3,9 @@
 Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, at first use, into the
 git-ignored ``build/accl_tpu_torch/`` directory beside the package, and
-loaded with ``ctypes``.  The library name carries a hash of the source
-and the flags, so an edited source is rebuilt and a current one is
-reused.  Nothing here runs at import time: a machine without ``nvcc``
+loaded with ``ctypes``.  The library name carries a hash of the source,
+the shared ``csrc/*.cuh`` headers and the flags, so an edited source is
+rebuilt and a current one is reused.  Nothing here runs at import time: a machine without ``nvcc``
 imports the package and fails only when a kernel is asked for.
 """
 from __future__ import annotations
@@ -36,6 +36,16 @@ SIGNATURES = {
         "accl_ring_all_gather": ([_vp, _vp, _i64, _i64, _i32, _i32, _i32,
                                   _vp, _vp, _i32, _vp], _i32),
     },
+    "fused": {
+        "accl_fused_error_string": ([_i32], ctypes.c_char_p),
+        "accl_matmul": ([_vp, _vp, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
+                        _i32),
+        "accl_fused_matmul_rs_stripes": ([_i32, _i32, _i64, _i64, _i32],
+                                         _i32),
+        "accl_fused_matmul_rs": ([_vp, _vp, _vp, _i64, _i64, _i64, _i32,
+                                  _i32, _i32, _vp, _vp, _vp, _i32, _vp],
+                                 _i32),
+    },
 }
 
 _lock = threading.Lock()
@@ -62,8 +72,12 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library path for one source: its name carries a hash of the
+    source, every shared header in csrc/ and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

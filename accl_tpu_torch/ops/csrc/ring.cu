@@ -34,52 +34,10 @@
 //  * a wait that exceeds SPIN_TIMEOUT_NS traps, so a broken handshake
 //    fails the launch instead of hanging the card.
 #include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 
-#define MAXP 32
+#include "ring_sync.cuh"
+
 #define THREADS 256
-#define SPIN_TIMEOUT_NS 10000000000ULL
-
-struct PtrTable { const void* p[MAXP]; };
-struct OutTable { void* p[MAXP]; };
-
-// -- flow-control algebra (twin of accl_tpu/ops/ring.py:132-148) ----------
-__host__ __device__ __forceinline__ bool ag_waits_ack(int step, int P) { return step >= 1; }
-__host__ __device__ __forceinline__ bool ag_signals_ack(int step, int P) { return step <= P - 3; }
-__host__ __device__ __forceinline__ bool rs_waits_ack(int step, int P) { return step >= 2; }
-__host__ __device__ __forceinline__ bool rs_signals_ack(int step, int P) { return step <= P - 4; }
-
-// -- flags ----------------------------------------------------------------
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void add_release(int* p) {
-  __threadfence();
-  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" :: "l"(p) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Block-wide wait until *p >= target.  Thread 0 spins; the barrier after
-// it orders every thread's later loads after the acquire.
-__device__ __forceinline__ void wait_geq(const int* p, int target) {
-  if (threadIdx.x == 0) {
-    uint64_t t0 = global_ns();
-    while (ld_acquire(p) < target) {
-      __nanosleep(64);
-      if (global_ns() - t0 > SPIN_TIMEOUT_NS) __trap();
-    }
-  }
-  __syncthreads();
-}
 
 // -- element ops ----------------------------------------------------------
 template <typename T> __device__ __forceinline__ T ldcg(const T* p) { return __ldcg(p); }
@@ -101,8 +59,6 @@ template <> __device__ __forceinline__ __half fold_max<__half>(__half a, __half 
 template <typename T, bool IS_MAX> __device__ __forceinline__ T fold(T a, T b) {
   return IS_MAX ? fold_max<T>(a, b) : fold_sum<T>(a, b);
 }
-
-__device__ __forceinline__ int pmod(int a, int P) { return ((a % P) + P) % P; }
 
 // Flags: filled[P][S][2] then ack[P][S][2] (int32).  filled[r][k][slot]
 // counts the times rank r's slot was written by its left neighbour;

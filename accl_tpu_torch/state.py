@@ -10,10 +10,16 @@ communicator table and the ring threshold.  ``state`` is plain data:
 :func:`load_world_state` creates the same buffers with the same contents,
 the same communicators (same ids on every rank) and the same threshold,
 so the two worlds compute the same thing.
+
+:func:`tp_weight_shards` splits a full row-parallel weight into the
+per-rank K-shards the fused tensor-parallel matmuls (``ops/fused.py``)
+take, the way ``P("tp", None)`` shards it in the JAX package's model
+(``accl_tpu/models/transformer.py`` ``param_specs``).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .constants import TuningKey
 
@@ -45,3 +51,23 @@ def load_world_state(world, state: dict) -> dict:
             accl.set_tuning(int(TuningKey.RING_THRESHOLD_BYTES),
                             int(state["ring_threshold_bytes"]))
     return {"buffers": buffers, "comms": comm_ids}
+
+
+def tp_weight_shards(w_full, P: int, device="cuda") -> list:
+    """A full row-parallel weight — numpy ``[K, N]``, or an output
+    projection ``[H, Dh, D]`` taken as ``[H * Dh, D]`` — split along K
+    into P contiguous shards ``[K / P, N]`` (rank r gets rows
+    ``r * K / P`` to ``(r + 1) * K / P``), as tensors on ``device``."""
+    w = np.asarray(w_full)
+    if w.ndim == 3:
+        w = w.reshape(w.shape[0] * w.shape[1], w.shape[2])
+    if w.ndim != 2:
+        raise ValueError(f"tp_weight_shards: want [K, N] or [H, Dh, D], got "
+                         f"shape {w.shape}")
+    K = w.shape[0]
+    if K % P:
+        raise ValueError(f"tp_weight_shards: K ({K}) does not divide into "
+                         f"{P} shards")
+    k = K // P
+    return [torch.from_numpy(np.ascontiguousarray(w[r * k:(r + 1) * k])).to(
+        device) for r in range(P)]

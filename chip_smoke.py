@@ -4,29 +4,71 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from accl_tpu_torch/ops/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     main path's per-launch shape (P=8 ranks, n = DEFAULT_SEG_ELEMS / 8)
-     and at a ragged size: fp32 SUM and MAX, int32 SUM and fp32
-     all-gather bitwise, fp16 SUM within one fp16 ulp;
-  4. the main path: CudaWorld(8) on the card, ACCL calls on 8 rank
-     threads — fp32 SUM allreduce at 4, 16, 64 and 256 MiB per rank, MAX
-     allreduce, allgather and reduce-scatter at 64 MiB per rank, and
-     bcast / gather / scatter / alltoall / a small allreduce below the
-     ring threshold.  Every result is held against the plain composition
-     on the card (bitwise on the ring lane) and a float64 reference
-     (rtol 1e-5, atol 1e-5); both kernels' launch counts must rise;
+  2. build the CUDA kernels from accl_tpu_torch/ops/csrc with nvcc, one
+     nvcc per source, all started together;
+  3. each kernel against its plain PyTorch version on the card, at every
+     shape the main path gives it:
+     - the ring kernels at the driver's per-launch shape (P=8 ranks,
+       n = DEFAULT_SEG_ELEMS / 8) and at a ragged size: fp32 SUM and MAX,
+       int32 SUM and fp32 all-gather bitwise, fp16 SUM within one ulp;
+       the all-gather also at the tensor-parallel path's n = (M / 8) N;
+     - the matmul kernel (accl_matmul, at M and M / (8 CHUNKS) rows) and
+       the fused matmul reduce-scatter kernel (accl_fused_matmul_rs, P=8,
+       m = M / 8) on f32 and bf16 at Llama-3-8B's TP=8 MLP-down and
+       attention-out shapes and at a ragged shape: bitwise on
+       integer-valued inputs; on N(0, 1) inputs within the dot-product
+       bound |err| <= 2 K 2^-24 (|x| @ |w|) of a float64 product, and
+       within the fp32 spread sqrt(K) 2^-24 (|x| @ |w|) of the plain
+       version (K = P * K for the fused kernel, whose sum runs over P
+       ranks' partials).  A control computes the plain version on
+       bf16-rounded operands, which must fall outside the spread, and on
+       TF32, printed beside;
+  4. the main path, in three parts, each driven with every launch count
+     set to 0 just before it and read just after:
+     a. the driver: CudaWorld(8) on the card, ACCL calls on 8 rank
+        threads — fp32 SUM allreduce at 4, 16, 64 and 256 MiB per rank,
+        MAX allreduce, allgather and reduce-scatter at 64 MiB per rank,
+        and bcast / gather / scatter / alltoall / a small allreduce below
+        the ring threshold.  Every result is held against the plain
+        composition on the card (bitwise on the ring lane) and a float64
+        reference (rtol 1e-5, atol 1e-5); both ring kernels must launch;
+     b. the fused tensor-parallel matmul at Llama-3-8B's widths (hidden
+        4096, intermediate 14336, 32 query heads of 128; Meta's
+        config.json for meta-llama/Meta-Llama-3-8B) at TP=8 and 4096
+        tokens: fused_matmul_allreduce_pallas and
+        fused_matmul_allreduce(chunks=CHUNKS, use_pallas=True) over 8
+        rank lists at the MLP-down and attention-out shapes, each held to
+        the float64 sum_r x_r @ w_r within the dot-product bound and to
+        the same form built from the plain versions within the fp32
+        spread; the matmul, fused and ring all-gather kernels must launch;
+     c. the fused and int8 driver lanes on the same CudaWorld(8) at 64
+        MiB per rank: fused=True allreduce, reduce_scatter and allgather
+        (bitwise equal to the ring lane: its driver results for
+        reduce_scatter and allgather, its fold at one segment for
+        allreduce, whose driver run folds per 1 MiB segment), and fp32
+        allreduce with compress_dtype=DataType.int8 without and with
+        error feedback (bitwise equal to the plain int8 composition, its
+        error against float64 printed beside the bound P (2 5 sqrt(P) /
+        127) of tests/test_quantized.py);
   5. times with CUDA events after warm-up (median of 5 runs): each kernel
-     per launch beside its plain version, a one-call library yardstick
-     and its bound (bytes read once + written once over 3.35 TB/s), and
-     the driver's allreduce algbw / busbw per size.
+     per launch, at the shape the main path launches it most, beside its
+     plain version, a library yardstick and its bound (bytes read once +
+     written once over 3.35 TB/s, or operations over the peak for their
+     type, 67 TFLOP/s fp32 or 989 TFLOP/s bf16, whichever is larger),
+     with its times at the path's other shape as an extra field; the
+     driver's allreduce algbw / busbw per size; and at 64 MiB per rank
+     the busbw of the fused and int8 lanes beside the lossless ring's.
 
-It prints one JSON line per measurement, a {"kernels": [...]} line, the
-card's name and power limit, and last {"ok": true, "device": {...}}.
-Without CUDA it exits 2 and prints no result.
+TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 = False):
+the plain versions and yardsticks multiply in full fp32, as the kernels
+do.  It prints one JSON line per measurement, a {"kernels": [...]}
+line, the card's name and power limit, and last {"ok": true, "device":
+{...}}.  Without CUDA it exits 2 and prints no result.
 """
 import argparse
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -38,7 +80,24 @@ import torch
 P = 8
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 SEED = 1234
+#: Llama-3-8B at TP=8 and 4096 tokens: (M, K per rank, N) of the two
+#: row-parallel projections.  MLP-down: intermediate 14336 / 8 = 1792;
+#: attention-out: 32 heads x 128 / 8 = 512; hidden 4096.
+TOKENS = 4096
+TP_SHAPES = {"mlp_down": (TOKENS, 14336 // P, 4096),
+             "attn_out": (TOKENS, 32 * 128 // P, 4096)}
+RAGGED_MKN = (1000, 333, 777)
+#: chunks of the pipelined form fused_matmul_allreduce(chunks=...): its
+#: matmuls run on M / (P CHUNKS)-row blocks
+CHUNKS = 4
+#: elements per rank of the ring all-gather in fused_matmul_allreduce_pallas
+#: (a [M / P, N] block; N = 4096 at both shapes)
+TP_GATHER_N = TOKENS // P * 4096
+#: payload per rank of the fused and int8 driver lanes
+LANE_MIB = 64
 
 
 def fail(msg: str) -> None:
@@ -124,8 +183,520 @@ def check_kernels(ring) -> dict:
                          f"to the plain version")
                 errs["ring_all_gather"] = max(errs["ring_all_gather"],
                                               max_err(g, w))
+    # the tensor-parallel path's all-gather: one reduced [M / P, N] f32
+    # block per rank
+    src = [rand((TP_GATHER_N,), torch.float32, gen) for _ in range(P)]
+    got_ag = ring.ring_all_gather(src)
+    torch.cuda.synchronize()
+    for g, w in zip(got_ag, ring.ring_all_gather_plain(src)):
+        if not torch.equal(g, w):
+            fail(f"ring_all_gather fp32 n={TP_GATHER_N}: not bitwise equal "
+                 f"to the plain version")
+    del src, got_ag
     emit({"phase": "kernel_vs_plain", "ok": True, "max_abs_err": errs})
     return errs
+
+
+def ints(shape, dtype, gen) -> torch.Tensor:
+    """Integer values in [-3, 3]: every product and partial sum of the
+    matmuls here is exact in fp32 (and in bf16 inputs)."""
+    return torch.randint(-3, 4, shape, generator=gen, device="cuda").to(dtype)
+
+
+def ref64(xs, ws):
+    """float64 sum_r xs[r] @ ws[r] and two bounds on an fp32 result's
+    error, from a = sum_r |xs[r]| @ |ws[r]| and K_total, the length of
+    the whole sum:
+    - worst case: 2 K_total 2^-24 a, which no fp32 order can exceed;
+    - spread: sqrt(K_total) 2^-24 a, the reach of rounding errors that
+      add as a random walk.  An fp32 product stays far inside it, one
+      that rounds its operands to TF32 or bf16 does not (the controls
+      of check_fused_kernels measure both).
+    xs[r] may carry leading batch dimensions."""
+    ref = absref = None
+    for x, w in zip(xs, ws):
+        xd, wd = x.double(), w.double()
+        p, a = xd @ wd, xd.abs() @ wd.abs()
+        ref = p if ref is None else ref + p
+        absref = a if absref is None else absref + a
+    k_total = len(xs) * xs[0].shape[-1]
+    return (ref, 2 * k_total * 2.0 ** -24 * absref,
+            np.sqrt(k_total) * 2.0 ** -24 * absref)
+
+
+def within_bound(got, ref, bound) -> bool:
+    return bool(((got.double() - ref).abs() <= bound).all())
+
+
+def spread_ratio(got, want, spread) -> float:
+    """max |got - want| / spread, elementwise."""
+    return float(((got.double() - want.double()).abs() / spread).max())
+
+
+def hold(what, got, plain, ref, worst, spread) -> float:
+    """An fp32-accumulating result on N(0, 1) inputs: within the worst
+    case of float64, and within the fp32 spread of its plain version.
+    Returns max |got - plain|."""
+    if not within_bound(got, ref, worst):
+        fail(f"{what}: outside the dot-product bound of float64 (max abs "
+             f"err {max_err(got, ref)})")
+    if not within_bound(got, plain.double(), spread):
+        fail(f"{what}: off its plain version by more than the fp32 spread "
+             f"sqrt(K) 2^-24 (|x|@|w|) (max abs err {max_err(got, plain)}, "
+             f"{spread_ratio(got, plain, spread)} of the spread): does it "
+             f"round its operands?")
+    return max_err(got, plain)
+
+
+def controls(plain_fn, xs, ws, plain, spread) -> dict:
+    """What the spread check reads on the plain version computed with
+    reduced-precision operands, the faults it is there to catch: bf16
+    operands, which must read above 1 (outside the spread) or the check
+    proves nothing, and TF32 (cuBLAS with allow_tf32), printed beside."""
+    got = {}
+    bf = plain_fn([x.bfloat16() for x in xs], [w.bfloat16() for w in ws])
+    got["bf16_operands"] = max(spread_ratio(b, p, s)
+                               for b, p, s in zip(bf, plain, spread))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf = plain_fn(xs, ws)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    got["tf32"] = max(spread_ratio(t, p, s)
+                      for t, p, s in zip(tf, plain, spread))
+    if not got["bf16_operands"] > 1:
+        fail(f"the spread check does not catch bf16 operands: they read "
+             f"{got['bf16_operands']} of the spread")
+    return got
+
+
+def check_fused_kernels(F) -> dict:
+    """Phase 3, matmul kernels: accl_matmul and accl_fused_matmul_rs
+    against their plain versions at every shape the tensor-parallel path
+    gives them (A: M and M / (P C) rows; B: m = M / P) and a ragged one,
+    f32 and bf16: bitwise on integer-valued inputs; on N(0, 1) inputs
+    within the worst case of float64 and the fp32 spread of the plain
+    version (``hold``).  Returns the largest |kernel - plain| per kernel
+    on the random inputs, the spread ratios per kernel and those of the
+    reduced-precision controls."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    errs = {"pallas_matmul": 0.0, "fused_matmul_reduce_scatter": 0.0}
+    ratios = {"pallas_matmul": 0.0, "fused_matmul_reduce_scatter": 0.0}
+    ctl = {}
+
+    def a_plain(xs, ws):
+        return [F.pallas_matmul_plain(xs[0], ws[0])]
+
+    for M, K, N in (*TP_SHAPES.values(), RAGGED_MKN):
+        a_rows = (M, M // (P * CHUNKS)) if (M, K, N) != RAGGED_MKN else (M,)
+        m = M // P
+        for dt in (torch.float32, torch.bfloat16):
+            for rows in a_rows:
+                tag = f"pallas_matmul [{rows},{K}]@[{K},{N}] {dt}"
+                x, w = ints((rows, K), dt, gen), ints((K, N), dt, gen)
+                got = F.pallas_matmul(x, w)
+                torch.cuda.synchronize()
+                if not torch.equal(got, F.pallas_matmul_plain(x, w)):
+                    fail(f"{tag}: integer inputs not bitwise equal to the "
+                         f"plain version")
+                x, w = rand((rows, K), dt, gen), rand((K, N), dt, gen)
+                got = F.pallas_matmul(x, w)
+                torch.cuda.synchronize()
+                plain = F.pallas_matmul_plain(x, w)
+                ref, worst, spread = ref64([x], [w])
+                errs["pallas_matmul"] = max(errs["pallas_matmul"], hold(
+                    tag, got, plain, ref, worst, spread))
+                ratios["pallas_matmul"] = max(ratios["pallas_matmul"],
+                                              spread_ratio(got, plain, spread))
+                if dt == torch.float32 and rows == M:
+                    ctl[f"pallas_matmul [{M},{K}]@[{K},{N}]"] = controls(
+                        a_plain, [x], [w], [plain], [spread])
+                del x, w, got, plain, ref, worst, spread
+
+            tag = (f"fused_matmul_reduce_scatter P={P} x [{P},{m},{K}] @ "
+                   f"[{K},{N}] {dt}")
+            xs = [ints((P, m, K), dt, gen) for _ in range(P)]
+            ws = [ints((K, N), dt, gen) for _ in range(P)]
+            got = F.fused_matmul_reduce_scatter(xs, ws)
+            torch.cuda.synchronize()
+            want = F.fused_matmul_reduce_scatter_plain(xs, ws)
+            if not all(torch.equal(g, v) for g, v in zip(got, want)):
+                fail(f"{tag}: integer inputs not bitwise equal to the plain "
+                     f"version")
+            xs = [rand((P, m, K), dt, gen) for _ in range(P)]
+            ws = [rand((K, N), dt, gen) for _ in range(P)]
+            got = F.fused_matmul_reduce_scatter(xs, ws)
+            torch.cuda.synchronize()
+            want = F.fused_matmul_reduce_scatter_plain(xs, ws)
+            ref, worst, spread = ref64(xs, ws)  # [P, m, N]: block r is rank r's
+            for r in range(P):
+                errs["fused_matmul_reduce_scatter"] = max(
+                    errs["fused_matmul_reduce_scatter"],
+                    hold(f"{tag} rank {r}", got[r], want[r], ref[r], worst[r],
+                         spread[r]))
+                ratios["fused_matmul_reduce_scatter"] = max(
+                    ratios["fused_matmul_reduce_scatter"],
+                    spread_ratio(got[r], want[r], spread[r]))
+            if dt == torch.float32 and (M, K, N) != RAGGED_MKN:
+                ctl[f"fused_matmul_reduce_scatter [{P},{m},{K}]@[{K},{N}]"] = \
+                    controls(F.fused_matmul_reduce_scatter_plain, xs, ws,
+                             want, list(spread))
+            del xs, ws, got, want, ref, worst, spread
+    torch.cuda.empty_cache()
+    emit({"phase": "matmul_kernels_vs_plain", "ok": True,
+          "max_abs_err_vs_plain": errs, "max_spread_ratio": ratios,
+          "control_spread_ratios": ctl})
+    return errs
+
+
+def tensor_core_ops(lib_path) -> int:
+    """Tensor-core instructions (HMMA, HGMMA, IMMA) in a built library's
+    SASS: the matmul kernels must multiply in full fp32."""
+    from accl_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0 or "Function" not in out.stdout:
+        fail(f"cuobjdump -sass {lib_path}: {out.stderr.strip()[:500]}")
+    return len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", out.stdout))
+
+
+def reset_counts(ring, F) -> None:
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather,
+               F.pallas_matmul, F.fused_matmul_reduce_scatter):
+        fn.launches = 0
+
+
+def read_counts(ring, F) -> dict:
+    return {"ring_reduce_scatter": ring.ring_reduce_scatter.launches,
+            "ring_all_gather": ring.ring_all_gather.launches,
+            "pallas_matmul": F.pallas_matmul.launches,
+            "fused_matmul_reduce_scatter":
+                F.fused_matmul_reduce_scatter.launches}
+
+
+def tp_path(ring, F) -> dict:
+    """Phase 4b: the fused tensor-parallel matmul at Llama-3-8B's TP=8
+    widths, 8 rank lists.  Each form's result is held to the float64 sum
+    and to the same form built from the plain versions (``hold``).
+    Returns the launches of the run and those of one
+    fused_matmul_allreduce_pallas call at the MLP-down shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    inputs = {}
+    for name, (M, K, N) in TP_SHAPES.items():
+        inputs[name] = ([rand((M, K), torch.float32, gen) for _ in range(P)],
+                        [rand((K, N), torch.float32, gen) for _ in range(P)])
+    torch.cuda.synchronize()
+
+    def pallas_plain(xs, ws):
+        M, K = xs[0].shape
+        mine = F.fused_matmul_reduce_scatter_plain(
+            [x.view(P, M // P, K) for x in xs], ws)
+        return [g.view(M, -1) for g in
+                ring.ring_all_gather_plain([b.view(-1) for b in mine])]
+
+    forms = {
+        "fused_matmul_allreduce_pallas": (
+            F.fused_matmul_allreduce_pallas, pallas_plain),
+        f"fused_matmul_allreduce_chunks{CHUNKS}": (
+            lambda xs, ws: F.fused_matmul_allreduce(
+                xs, ws, use_pallas=True, chunks=CHUNKS),
+            lambda xs, ws: F.fused_matmul_allreduce(
+                xs, ws, use_pallas=False, chunks=CHUNKS))}
+    per_call = {}
+    reset_counts(ring, F)
+    for name, (xs, ws) in inputs.items():
+        ref, worst, spread = ref64(xs, ws)
+        for form, (run, run_plain) in forms.items():
+            before = read_counts(ring, F)
+            t0 = time.perf_counter()
+            outs = run(xs, ws)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            after = read_counts(ring, F)
+            launched = {k: after[k] - before[k] for k in after}
+            if name == "mlp_down" and form == "fused_matmul_allreduce_pallas":
+                per_call = launched
+            plain = run_plain(xs, ws)
+            err_plain = 0.0
+            for r, o in enumerate(outs):
+                if tuple(o.shape) != tuple(ref.shape) or \
+                        not torch.isfinite(o).all():
+                    fail(f"{form} {name} rank {r}: shape {tuple(o.shape)} or "
+                         f"non-finite values")
+                err_plain = max(err_plain, hold(f"{form} {name} rank {r}", o,
+                                                plain[r], ref, worst, spread))
+                if not torch.equal(o, outs[0]):
+                    fail(f"{form} {name}: rank {r} differs from rank 0")
+            emit({"phase": "tp_path", "shape": name, "form": form,
+                  "M_K_N_per_rank": list(TP_SHAPES[name]), "ranks": P,
+                  "max_abs_err_vs_f64": max_err(outs[0], ref),
+                  "max_abs_err_vs_plain": err_plain,
+                  "max_spread_ratio_vs_plain": spread_ratio(outs[0], plain[0],
+                                                            spread),
+                  "launches": launched, "first_call_s": first_s, "ok": True})
+            del outs, plain
+        del ref, worst, spread
+    launches = read_counts(ring, F)
+    for k in ("pallas_matmul", "fused_matmul_reduce_scatter",
+              "ring_all_gather"):
+        if launches[k] < 1:
+            fail(f"the tensor-parallel path did not launch {k}: {launches}")
+    del inputs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_call_mlp_down": per_call}
+
+
+def lane_bufs(world, in_len, out_len, gen):
+    sends = [world.accls[r].create_buffer(in_len, np.float32)
+             for r in range(P)]
+    recvs = [world.accls[r].create_buffer(out_len, np.float32)
+             for r in range(P)]
+    fill(sends, gen)
+    return sends, recvs
+
+
+def driver_lanes(world, ring, F, q_ops, DataType, CompressionPolicy) -> dict:
+    """Phase 4c: the fused and int8 driver lanes at LANE_MIB per rank on
+    the same world, each checked against the lossless ring lane (fused)
+    or the plain int8 composition (int8).  Returns, per lane, the call
+    that runs it and its busbw factor, for phase 5."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    count = LANE_MIB * MIB // 4
+    n = count // P
+    ar_s, ar_r = lane_bufs(world, count, count, gen)
+    rs_s, rs_r = lane_bufs(world, count, n, gen)
+    ag_s, ag_r = lane_bufs(world, n, count, gen)
+    outs = {}
+    torch.cuda.synchronize()
+    reset_counts(ring, F)
+
+    def caller(kind, sends, recvs, cnt, **kw):
+        def call(accl, rank):
+            getattr(accl, kind)(sends[rank], recvs[rank], cnt,
+                                from_fpga=True, to_fpga=True, **kw)
+        return call
+
+    def ef_policy(on):
+        pol = CompressionPolicy(dtype=DataType.int8, error_feedback=True)
+        for a in world.accls:
+            a.set_compression(pol if on else None)
+
+    i8 = DataType.int8
+    lanes = {
+        "ring_allreduce": (caller("allreduce", ar_s, ar_r, count), ar_r,
+                           2 * (P - 1) / P, False),
+        "fused_allreduce": (caller("allreduce", ar_s, ar_r, count,
+                                   fused=True), ar_r, 2 * (P - 1) / P, False),
+        "int8_allreduce": (caller("allreduce", ar_s, ar_r, count,
+                                  compress_dtype=i8), ar_r, 2 * (P - 1) / P,
+                           False),
+        "int8_ef_allreduce": (caller("allreduce", ar_s, ar_r, count,
+                                     compress_dtype=i8), ar_r,
+                              2 * (P - 1) / P, True),
+        "ring_reduce_scatter": (caller("reduce_scatter", rs_s, rs_r, n),
+                                rs_r, (P - 1) / P, False),
+        "fused_reduce_scatter": (caller("reduce_scatter", rs_s, rs_r, n,
+                                        fused=True), rs_r, (P - 1) / P, False),
+        "ring_allgather": (caller("allgather", ag_s, ag_r, n), ag_r,
+                           (P - 1) / P, False),
+        "fused_allgather": (caller("allgather", ag_s, ag_r, n, fused=True),
+                            ag_r, (P - 1) / P, False),
+    }
+    for name, (call, recvs, _bus, ef) in lanes.items():
+        ef_policy(ef)
+        before = read_counts(ring, F)
+        t0 = time.perf_counter()
+        world.run(call)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        after = read_counts(ring, F)
+        ef_policy(False)
+        outs[name] = [r.dev.clone() for r in recvs]
+        emit({"phase": "driver_lane_run", "lane": name,
+              "mib_per_rank": LANE_MIB, "first_call_s": first_s,
+              "launches": {k: after[k] - before[k] for k in after}})
+    launches = read_counts(ring, F)
+
+    xs = [b.dev for b in ar_s]
+    one_segment = ring.ring_all_reduce_segmented(xs, "sum",
+                                                 seg_elems=count, plain=True)
+    full = torch.stack([x.double() for x in xs]).sum(0)
+    checks = (("fused_allreduce", one_segment),
+              ("fused_reduce_scatter", outs["ring_reduce_scatter"]),
+              ("fused_allgather", outs["ring_allgather"]))
+    for name, want in checks:
+        for r in range(P):
+            if not torch.equal(outs[name][r], want[r]):
+                fail(f"{name} rank {r}: not bitwise equal to the ring lane "
+                     f"(max abs err {max_err(outs[name][r], want[r])})")
+    for r in range(P):
+        if not torch.allclose(outs["fused_allreduce"][r].double(), full,
+                              rtol=1e-5, atol=1e-5):
+            fail(f"fused_allreduce rank {r}: off the float64 reference")
+    del one_segment
+    bound = P * (2 * 5 * np.sqrt(P) / 127)
+    errs = {}
+    for name, ef in (("int8_allreduce", False), ("int8_ef_allreduce", True)):
+        want = q_ops.quantized_all_reduce(xs, q_ops.DEFAULT_BLOCK, ef)
+        for r in range(P):
+            if not torch.equal(outs[name][r], want[r]):
+                fail(f"{name} rank {r}: not bitwise equal to the plain int8 "
+                     f"composition")
+        errs[name] = max_err(outs[name][0], full)
+        if errs[name] > bound or not torch.isfinite(outs[name][0]).all():
+            fail(f"{name}: max abs err {errs[name]} against float64 over "
+                 f"the bound {bound}")
+        del want
+    if torch.equal(outs["int8_allreduce"][0], outs["int8_ef_allreduce"][0]):
+        fail("error feedback left the int8 result unchanged")
+    emit({"phase": "driver_lanes", "mib_per_rank": LANE_MIB, "ranks": P,
+          "int8_max_abs_err_vs_f64": errs, "int8_err_bound": bound,
+          "launches": launches, "ok": True})
+    del outs, full
+    torch.cuda.empty_cache()
+    return {"lanes": {k: (v[0], v[2], v[3]) for k, v in lanes.items()},
+            "set_ef": ef_policy, "launches": launches}
+
+
+def time_lanes(world, lanes, set_ef) -> list:
+    """Phase 5c: seconds per call and busbw of each lane at LANE_MIB per
+    rank, host clock around calls that end in a synchronize."""
+    rows = []
+    for name, (call, bus, ef) in lanes.items():
+        set_ef(ef)
+        world.run(call)
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(3):
+            t = time.perf_counter()
+            for _ in range(3):
+                world.run(call)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t) / 3)
+        set_ef(False)
+        s = statistics.median(samples)
+        algbw = LANE_MIB * MIB / s / 1e9
+        row = {"phase": "driver_lane_time", "lane": name,
+               "mib_per_rank": LANE_MIB, "ranks": P, "s_per_call": s,
+               "algbw_GBps": algbw, "busbw_GBps": algbw * bus}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def matmul_bound(ops, nbytes, dt) -> tuple:
+    """(bound ms, "operations" or "bytes") for ops on dt inputs moving
+    nbytes."""
+    peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+    ops_ms = ops / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def time_matmul(F, rows, K, N, dt, gen, iters) -> dict:
+    """accl_matmul on [rows, K] @ [K, N] per launch, interleaved with its
+    plain version (kernel, plain, plain, kernel), beside torch.matmul and
+    the bound."""
+    x, w = rand((rows, K), dt, gen), rand((K, N), dt, gen)
+    out = torch.empty(rows, N, device="cuda")
+    ms = [cuda_ms(lambda: F.pallas_matmul(x, w, out=out), iters)]
+    plain = [cuda_ms(lambda: F.pallas_matmul_plain(x, w), iters)]
+    plain.append(cuda_ms(lambda: F.pallas_matmul_plain(x, w), iters))
+    ms.append(cuda_ms(lambda: F.pallas_matmul(x, w, out=out), iters))
+    lib = cuda_ms(lambda: torch.matmul(x, w), iters)
+    el = torch.finfo(dt).bits // 8
+    ops = 2 * rows * K * N
+    bound, by = matmul_bound(ops, (rows * K + K * N) * el + rows * N * 4, dt)
+    return {"shape": f"[{rows},{K}] @ [{K},{N}] {dt}",
+            "ms": statistics.median(ms), "plain_ms": statistics.median(plain),
+            "library_ms": lib, "bound_ms": bound, "bound_by": by,
+            "tflops": ops / (statistics.median(ms) * 1e-3) / 1e12}
+
+
+def time_fused_kernels(ring, F, errs, launches, per_call) -> list:
+    """Phase 5b: the matmul kernels per launch at the MLP-down shapes the
+    tensor-parallel path launches them at, f32 as there: accl_matmul on
+    M / (P CHUNKS) = 128-row blocks (fused_matmul_allreduce(chunks=...)),
+    with its time at M rows beside; accl_fused_matmul_rs at m = M / P.
+    Each beside its plain version, its library yardstick and its bound;
+    bf16 times are printed beside."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    M, K, N = TP_SHAPES["mlp_down"]
+    m = M // P
+    counts0 = read_counts(ring, F)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        el = torch.finfo(dt).bits // 8
+        a_row = time_matmul(F, M // (P * CHUNKS), K, N, dt, gen, 20)
+        a_full = time_matmul(F, M, K, N, dt, gen, 5)
+        xs = [rand((P, m, K), dt, gen) for _ in range(P)]
+        ws = [rand((K, N), dt, gen) for _ in range(P)]
+        outs = [torch.empty(m, N, device="cuda") for _ in range(P)]
+        # interleaved: kernel, plain, plain, kernel
+        b_ms = [cuda_ms(lambda: F.fused_matmul_reduce_scatter(xs, ws, outs),
+                        2, runs=3)]
+        b_plain = [cuda_ms(lambda: F.fused_matmul_reduce_scatter_plain(
+            xs, ws), 2, runs=3)]
+        b_plain.append(cuda_ms(lambda: F.fused_matmul_reduce_scatter_plain(
+            xs, ws), 2, runs=3))
+        b_ms.append(cuda_ms(lambda: F.fused_matmul_reduce_scatter(
+            xs, ws, outs), 2, runs=3))
+
+        def library_b():
+            # each rank's P partials in one matmul, then the sum over ranks
+            parts = torch.stack([torch.matmul(x.view(P * m, K), w)
+                                 for x, w in zip(xs, ws)])
+            return torch.sum(parts, dim=0).view(P, m, N)
+
+        b_lib = cuda_ms(library_b, 2, runs=3)
+        del xs, ws, outs
+        torch.cuda.empty_cache()
+        b_ops = 2 * P * P * m * K * N
+        b_bound, b_by = matmul_bound(
+            b_ops, (P * P * m * K + P * K * N) * el + P * m * N * 4, dt)
+        lib_tag = " (bf16 out, tensor cores)" if dt == torch.bfloat16 else ""
+        a_extra = {f"at_M{M}": {k: a_full[k] for k in
+                                ("shape", "ms", "plain_ms", "library_ms",
+                                 "bound_ms", "tflops")}}
+        b_row = {"shape": f"P={P} x [{P},{m},{K}] @ [{K},{N}] {dt}",
+                 "ms": statistics.median(b_ms),
+                 "plain_ms": statistics.median(b_plain), "library_ms": b_lib,
+                 "bound_ms": b_bound, "bound_by": b_by,
+                 "tflops": b_ops / (statistics.median(b_ms) * 1e-3) / 1e12}
+        for name, t, kernel, fn_line, lib_call, extra in (
+                ("pallas_matmul", a_row, "accl_matmul",
+                 "accl_tpu/ops/fused.py:341", "torch.matmul", a_extra),
+                ("fused_matmul_reduce_scatter", b_row,
+                 "accl_fused_matmul_rs", "accl_tpu/ops/fused.py:476",
+                 "torch.matmul per rank + torch.sum over ranks", {})):
+            row = {"name": name, "route": "cuda",
+                   "source": "accl_tpu_torch/ops/csrc/fused.cu",
+                   "kernel": kernel, "replaces": fn_line,
+                   "launches": launches[name],
+                   "max_abs_err": errs[name], "ms": t["ms"],
+                   "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                   "library_call": lib_call + lib_tag, "checked": True,
+                   "shape": t["shape"], "tflops": t["tflops"],
+                   "launches_per_fused_matmul_allreduce_pallas_mlp_down":
+                       per_call.get(name, 0), **extra}
+            if dt == torch.bfloat16:
+                emit({"phase": "kernel_time_bf16", **row})
+            else:
+                emit({"phase": "kernel_time", **row})
+                rows.append(row)
+    for fn, k in ((ring.ring_reduce_scatter, "ring_reduce_scatter"),
+                  (ring.ring_all_gather, "ring_all_gather"),
+                  (F.pallas_matmul, "pallas_matmul"),
+                  (F.fused_matmul_reduce_scatter,
+                   "fused_matmul_reduce_scatter")):
+        fn.launches = counts0[k]  # the timing launches are not main-path
+    return rows
 
 
 def fill(bufs, gen):
@@ -133,12 +704,11 @@ def fill(bufs, gen):
         b.dev.copy_(torch.randn(b.dev.shape[0], generator=gen, device="cuda"))
 
 
-def main_path(ring, CudaWorld, ReduceFunction, sizes) -> dict:
-    """Phase 4: the driver's main path through ACCL on 8 rank threads."""
+def main_path(ring, F, CudaWorld, ReduceFunction, sizes) -> dict:
+    """Phase 4a: the driver's main path through ACCL on 8 rank threads."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     world = CudaWorld(P)  # the card, by default
-    ring.ring_reduce_scatter.launches = 0
-    ring.ring_all_gather.launches = 0
+    reset_counts(ring, F)
     per_size = {}
     try:
         # -- below the ring threshold: host-synced calls -----------------
@@ -259,9 +829,9 @@ def main_path(ring, CudaWorld, ReduceFunction, sizes) -> dict:
         ring_case("allreduce", other * MIB, ReduceFunction.MAX)
         ring_case("allgather", other * MIB)
         ring_case("reduce_scatter", other * MIB)
-        launches = {"ring_reduce_scatter": ring.ring_reduce_scatter.launches,
-                    "ring_all_gather": ring.ring_all_gather.launches}
-        if min(launches.values()) < 1:
+        launches = read_counts(ring, F)
+        if min(launches["ring_reduce_scatter"],
+               launches["ring_all_gather"]) < 1:
             fail(f"the main path did not launch every kernel: {launches}")
         return {"world": world, "launches": launches, "per_size": per_size}
     except BaseException:
@@ -299,6 +869,22 @@ def time_kernels(ring, errs, launches, per_big, big_mib) -> list:
              cuda_ms(lambda: ring.ring_reduce_scatter(tiny), 50),
              "ring_all_gather":
              cuda_ms(lambda: ring.ring_all_gather(tiny_ag), 50)}
+    # the all-gather of fused_matmul_allreduce_pallas: [M / P, N] per rank
+    tp_in = [rand((TP_GATHER_N,), torch.float32, gen) for _ in range(P)]
+    tp_out = [torch.empty(P, TP_GATHER_N, device="cuda") for _ in range(P)]
+    tp_ms = [cuda_ms(lambda: ring.ring_all_gather(tp_in, out=tp_out), 5)]
+    tp_plain = [cuda_ms(lambda: ring.ring_all_gather_plain(tp_in), 5)]
+    tp_plain.append(cuda_ms(lambda: ring.ring_all_gather_plain(tp_in), 5))
+    tp_ms.append(cuda_ms(lambda: ring.ring_all_gather(tp_in, out=tp_out), 5))
+    tp_lib = cuda_ms(lambda: torch.cat(tp_in), 5)
+    tp_bytes = (P + P * P) * TP_GATHER_N * 4
+    at_tp = {"ring_reduce_scatter": {}, "ring_all_gather": {
+        f"at_n{TP_GATHER_N}": {
+            "shape": f"P={P} x [{TP_GATHER_N}] fp32 per launch",
+            "ms": statistics.median(tp_ms),
+            "plain_ms": statistics.median(tp_plain), "library_ms": tp_lib,
+            "bound_ms": tp_bytes / HBM_BYTES_PER_S * 1e3}}}
+    del tp_in, tp_out
     # the timing launches are not main-path launches
     ring.ring_reduce_scatter.launches = rs_count0
     ring.ring_all_gather.launches = ag_count0
@@ -321,7 +907,8 @@ def time_kernels(ring, errs, launches, per_big, big_mib) -> list:
                "library_call": lib_call, "checked": True,
                "shape": f"P={P} x [{P},{n}] fp32 per launch",
                "floor_ms_at_n256": floor[name],
-               f"launches_per_{big_mib}MiB_allreduce": per_big[name]}
+               f"launches_per_{big_mib}MiB_allreduce": per_big[name],
+               **at_tp[name]}
         emit({"phase": "kernel_time", **row})
         rows.append(row)
     return rows
@@ -340,8 +927,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    from accl_tpu_torch import CudaWorld, ReduceFunction
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from accl_tpu_torch import CudaWorld, DataType, ReduceFunction
+    from accl_tpu_torch.arithconfig import CompressionPolicy
     from accl_tpu_torch.ops import _build
+    from accl_tpu_torch.ops import fused as F
+    from accl_tpu_torch.ops import quantized as q_ops
     from accl_tpu_torch.ops import ring
 
     card = card_line()
@@ -349,22 +941,35 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
+    tc_ops = tensor_core_ops(_build._target("fused"))
+    if tc_ops:
+        fail(f"the matmul kernels' SASS holds {tc_ops} tensor-core "
+             f"instructions: the fp32 path must not use TF32")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": _build.build_seconds,
+          "fused_sass_tensor_core_ops": tc_ops,
           "ptxas": [ln.strip() for log in _build.build_log.values()
                     for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})
     errs = check_kernels(ring)
-    mp = main_path(ring, CudaWorld, ReduceFunction, sizes)
+    errs.update(check_fused_kernels(F))
+    mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
+        tp = tp_path(ring, F)
+        lanes = driver_lanes(world, ring, F, q_ops, DataType,
+                             CompressionPolicy)
+        # the main path's launches: the sum over its three parts
+        launches = {k: mp["launches"][k] + tp["launches"][k]
+                    + lanes["launches"][k] for k in mp["launches"]}
         if args.no_timing:
-            emit({"phase": "main_path_done", "launches": mp["launches"]})
+            emit({"phase": "main_path_done", "launches": launches})
             return 0
         per_big = dict(zip(("ring_reduce_scatter", "ring_all_gather"),
                            mp["per_size"][sizes[-1]][3]))
-        rows = time_kernels(ring, errs, mp["launches"], per_big,
-                            sizes[-1])
+        rows = time_kernels(ring, errs, launches, per_big, sizes[-1])
+        rows += time_fused_kernels(ring, F, errs, launches,
+                                   tp["per_call_mlp_down"])
         by_name = {row["name"]: row["ms"] for row in rows}
         for mib, (_s, _r, call, launched) in sorted(mp["per_size"].items()):
             iters = 5
@@ -390,14 +995,16 @@ def main() -> int:
                   "busbw_GBps": algbw * 2 * (P - 1) / P,
                   "launches": list(launched),
                   "kernel_s_est": kern_s, "kernel_share_est": kern_s / s})
+        time_lanes(world, lanes["lanes"], lanes["set_ef"])
     finally:
         world.close()
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
+    # the run drives one card, whatever else the host holds
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

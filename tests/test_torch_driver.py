@@ -11,6 +11,15 @@ Tolerances:
 - bitwise for the ring lane (threshold 0: the port's plain ring folds in
   the Pallas kernels' order), for MAX, and for every pure data movement
   (bcast, gather, scatter, allgather, alltoall, send/recv, copy);
+- bitwise for the fused lane at any size (the chunked ring folds in the
+  same order in both packages), and for the int8 lane wherever the sum
+  is a ring (the quantized ring, the fused lane's quantized chunks, and
+  the roundtrip model around the plain ring for MAX and ragged
+  payloads);
+- for int8 SUM below the threshold, where the two packages' psums may
+  round to neighbouring fp32 values before the exit roundtrip: bitwise
+  but for at most 2 elements per result, each exactly one quantization
+  step of its own block away (``_int8_psum_parity``);
 - bitwise for the f16/bf16 cast lanes around data movement and around
   the ring lane (torch and JAX both round to nearest even);
 - rtol=1e-6, atol=1e-6 for fp32 SUM below the threshold, because XLA's
@@ -22,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from accl_tpu import ACCLError as JACCLError
 from accl_tpu import DataType as JDataType
 from accl_tpu import ReduceFunction as JReduce
 from accl_tpu.backends.tpu import TpuWorld
@@ -31,10 +41,14 @@ from accl_tpu_torch import (
     ACCLError,
     CudaWorld,
     DataType,
+    Operation,
     ReduceFunction,
     StreamFlags,
     load_world_state,
 )
+from accl_tpu_torch.ops import fused as tfused
+from accl_tpu_torch.ops import quantized as tquant
+from accl_tpu_torch.ops import ring as tring
 
 NR = 4
 N = 64
@@ -385,15 +399,225 @@ def test_left_out_lanes_raise(worlds):
     _, cw = worlds
     accl = cw.accls[0]
     x = accl.create_buffer_like(_data(N, 0, 16))
-    y = accl.create_buffer(N, np.float32)
-    with pytest.raises(ACCLError, match="int8"):
-        accl.allreduce(x, y, N, compress_dtype=DataType.int8)
-    with pytest.raises(ACCLError, match="fused"):
-        accl.allreduce(x, y, N, fused=True)
-    with pytest.raises(ACCLError, match="fused"):
-        accl.reduce_scatter(x, y, N // NR, fused=True)
     with pytest.raises(ACCLError, match="stream"):
         accl.send(x, N, 1, stream_flags=StreamFlags.OP0_STREAM)
+
+
+def _torch_inputs(inputs, i=0):
+    return [torch.from_numpy(inputs[r][i]) for r in range(NR)]
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_fused_lane_bitwise(worlds, lane):
+    # the fused lane takes allreduce, reduce_scatter and allgather at any
+    # size: below the threshold too, where the unfused call is a psum
+    inputs = {r: [_data(N * NR, r, 18)] for r in range(NR)}
+    ragged = N * NR - 6  # pads to a multiple of P * C inside the lane
+
+    def fn(accl, rank, bufs, lib):
+        Red, _ = _enums(lib)
+        x = bufs[0]
+        ar = accl.create_buffer(N * NR, np.float32)
+        accl.allreduce(x, ar, N * NR, fused=True)
+        mx = accl.create_buffer(N * NR, np.float32)
+        accl.allreduce(x, mx, N * NR, function=Red.MAX, fused=True)
+        rg = accl.create_buffer(ragged, np.float32)
+        accl.allreduce(x, rg, ragged, fused=True)
+        rs = accl.create_buffer(N, np.float32)
+        accl.reduce_scatter(x, rs, N, fused=True)
+        ag = accl.create_buffer(N * NR * NR, np.float32)
+        accl.allgather(x, ag, N * NR, fused=True)
+        return [ar.host.copy(), mx.host.copy(), rg.host.copy(),
+                rs.host.copy(), ag.host.copy()]
+
+    got_j, got_t = _run_both(worlds, inputs, fn, LANES[lane])
+    _same(got_j, got_t)
+    # N * NR divides P * C (C = 4): the fused lane equals the ring lane
+    ringed = tring.ring_all_reduce(_torch_inputs(inputs))
+    np.testing.assert_array_equal(got_t[1][0], ringed[1].numpy())
+
+
+def test_fused_default_from_env_and_per_call_override(monkeypatch):
+    # ACCL_FUSED=1 makes fused the default; fused=False on the same
+    # buffers must still give the unfused lane's result (the descriptor
+    # memo keys on the resolved flag)
+    monkeypatch.setenv("ACCL_FUSED", "1")
+    inputs = {r: [_data(N * NR, r, 19)] for r in range(NR)}
+
+    def fn(accl, rank, bufs, lib):
+        y = accl.create_buffer(N * NR, np.float32)
+        out = []
+        for fused in (None, False, None, True):
+            accl.allreduce(bufs[0], y, N * NR, fused=fused)
+            out.append(y.host.copy())
+        return out
+
+    with TpuWorld(NR) as tw, CudaWorld(NR, device="cpu") as cw:
+        got_j, got_t = _run_both((tw, cw), inputs, fn)
+    for rj, rt in zip(got_j, got_t):
+        _same([rj[0::2] + rj[3:]], [rt[0::2] + rt[3:]])
+        _same([rj[1:2]], [rt[1:2]], exact=False)
+    xs = _torch_inputs(inputs)
+    fused = tfused.chunked_ring_all_reduce(xs)[0].numpy()
+    plain = torch.stack(xs).sum(0).numpy()  # the port's unfused psum
+    assert not np.array_equal(fused, plain)
+    for rt in got_t:
+        for got in (rt[0], rt[2], rt[3]):
+            np.testing.assert_array_equal(got, fused)
+        np.testing.assert_array_equal(rt[1], plain)
+
+
+def test_descriptor_memo_keys_on_the_resolved_fused_flag(monkeypatch):
+    monkeypatch.setenv("ACCL_FUSED", "1")
+    with CudaWorld(2, device="cpu") as w:
+        a = w.accls[0]
+        x = a.create_buffer(8, np.float32)
+        y = a.create_buffer(8, np.float32)
+        d_default = a._build(Operation.allreduce, 8, 0, op0=x, res=y)
+        d_off = a._build(Operation.allreduce, 8, 0, op0=x, res=y,
+                         fused=False)
+        d_on = a._build(Operation.allreduce, 8, 0, op0=x, res=y, fused=True)
+        assert d_default.fused and not d_off.fused
+        assert d_on is d_default and d_off is not d_default
+
+
+def _int8_psum_parity(a, b, key, block=256, max_moved=2):
+    """int8 SUM below the threshold: the exit roundtrip quantizes each
+    package's psum, and the two psums may add in different orders.  All
+    but ``max_moved`` elements must be bitwise equal, and each one that
+    moved must sit exactly one quantization step of its own block away
+    (a neighbouring int8 code under the same scale)."""
+    moved = np.flatnonzero(a != b)
+    assert moved.size <= max_moved, (key, moved.size)
+    for i in moved:
+        blk = a[i // block * block:(i // block + 1) * block]
+        step = np.float32(np.abs(blk).max()) * np.float32(1 / 127)
+        np.testing.assert_allclose(abs(float(b[i]) - float(a[i])), step,
+                                   rtol=1e-5, err_msg=f"{key}[{i}]")
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_int8_wire_lane(worlds, lane):
+    # ring lane: SUM allreduce / reduce_scatter / allgather ride the
+    # quantized ring; MAX and a ragged count fall back to the roundtrip
+    # model around the plain ring; fused=True takes the fused lane's
+    # quantized chunks at any size
+    inputs = {r: [_data(N * NR, r, 20)] for r in range(NR)}
+    ragged = N * NR - 2
+
+    def fn(accl, rank, bufs, lib):
+        Red, DT = _enums(lib)
+        i8 = DT.int8
+        x = bufs[0]
+        out = {}
+        for key, func, count, fused in (
+                ("ar", Red.SUM, N * NR, None), ("max", Red.MAX, N * NR, None),
+                ("ragged", Red.SUM, ragged, None),
+                ("fused", Red.SUM, N * NR, True),
+                ("fused_max", Red.MAX, N * NR, True)):
+            b = accl.create_buffer(count, np.float32)
+            accl.allreduce(x, b, count, function=func, compress_dtype=i8,
+                           fused=fused)
+            out[key] = b.host.copy()
+        rs = accl.create_buffer(N, np.float32)
+        accl.reduce_scatter(x, rs, N, compress_dtype=i8)
+        out["rs"] = rs.host.copy()
+        ag = accl.create_buffer(N * NR * NR, np.float32)
+        accl.allgather(x, ag, N * NR, compress_dtype=i8)
+        out["ag"] = ag.host.copy()
+        b = accl.create_buffer(N * NR, np.float32)
+        if rank == 1:
+            b.host[:] = x.host
+        accl.bcast(b, N * NR, root=1, compress_dtype=i8)
+        out["bcast"] = b.host.copy()
+        return [out[k] for k in sorted(out)]
+
+    got_j, got_t = _run_both(worlds, inputs, fn, LANES[lane])
+    keys = sorted(["ar", "max", "ragged", "fused", "fused_max", "rs", "ag",
+                   "bcast"])
+    sums = {"ar", "ragged", "rs"}
+    for rj, rt in zip(got_j, got_t):
+        for k, a, b in zip(keys, rj, rt):
+            if lane == "plain" and k in sums:
+                _int8_psum_parity(a, b, k)
+            else:
+                np.testing.assert_array_equal(b, a, err_msg=k)
+    if lane == "ring":
+        want = tquant.quantized_all_reduce(_torch_inputs(inputs))
+        np.testing.assert_array_equal(got_t[0][keys.index("ar")],
+                                      want[0].numpy())
+    exact = np.sum([inputs[r][0] for r in range(NR)], axis=0)
+    np.testing.assert_allclose(got_t[0][keys.index("ar")], exact,
+                               atol=NR * (2 * 5 * np.sqrt(NR) / 127))
+
+
+def test_int8_policy_from_env_with_error_feedback(monkeypatch):
+    # ACCL_COMPRESS=int8 + ACCL_COMPRESS_EF=1 arm the policy at
+    # initialize: uncompressed calls get the int8 lane's error-feedback
+    # twin, on the quantized ring and in the fused lane's chunks
+    monkeypatch.setenv("ACCL_COMPRESS", "int8")
+    monkeypatch.setenv("ACCL_COMPRESS_EF", "1")
+    monkeypatch.setenv("ACCL_COMPRESS_MIN_BYTES", "0")
+    monkeypatch.setenv("ACCL_COMPRESS_BLOCK", "32")
+    inputs = {r: [_data(N * NR, r, 21)] for r in range(NR)}
+
+    def fn(accl, rank, bufs, lib):
+        x = bufs[0]
+        ar = accl.create_buffer(N * NR, np.float32)
+        accl.allreduce(x, ar, N * NR)
+        fz = accl.create_buffer(N * NR, np.float32)
+        accl.allreduce(x, fz, N * NR, fused=True)
+        rs = accl.create_buffer(N, np.float32)
+        accl.reduce_scatter(x, rs, N)
+        return [ar.host.copy(), fz.host.copy(), rs.host.copy()]
+
+    with TpuWorld(NR) as tw, CudaWorld(NR, device="cpu") as cw:
+        pol = cw.accls[0].compression_policy
+        assert pol.dtype == DataType.int8 and pol.error_feedback
+        assert pol.block == 32
+        got_j, got_t = _run_both((tw, cw), inputs, fn, RING)
+    _same(got_j, got_t)
+    xs = _torch_inputs(inputs)
+    with_ef = tquant.quantized_all_reduce(xs, 32, error_feedback=True)
+    without = tquant.quantized_all_reduce(xs, 32, error_feedback=False)
+    np.testing.assert_array_equal(got_t[0][0], with_ef[0].numpy())
+    assert not np.array_equal(got_t[0][0], without[0].numpy())
+
+
+def test_compression_policy_select_matches_jax():
+    from accl_tpu.arithconfig import CompressionPolicy as JPolicy
+    from accl_tpu_torch.arithconfig import CompressionPolicy
+
+    jp, tp = JPolicy(min_bytes=1024), CompressionPolicy(min_bytes=1024)
+    jp.per_comm[3] = None
+    tp.per_comm[3] = None
+    for scen in (Operation.allreduce, Operation.send, Operation.alltoall,
+                 Operation.bcast):
+        for count in (0, 255, 256, 1 << 20):
+            for comm in (0, 3):
+                for dt in ("float32", "float64"):
+                    a = jp.select(int(scen), count, comm, JDataType[dt])
+                    b = tp.select(int(scen), count, comm, DataType[dt])
+                    assert (a is None and b is None) or a.name == b.name
+    assert tp.wants_error_feedback(0) is False
+
+
+def test_int8_operand_checks_raise_like_jax(worlds):
+    msgs = []
+    for world, DT, Err in zip(worlds, (JDataType, DataType),
+                              (JACCLError, ACCLError)):
+        accl = world.accls[0]
+        f64 = accl.create_buffer(N, np.float64)
+        f32 = accl.create_buffer(N, np.float32)
+        i8 = accl.create_buffer(N, np.int8)
+        got = []
+        for src, dst in ((f64, f64), (i8, f32), (f32, i8)):
+            with pytest.raises(Err) as e:
+                accl.allreduce(src, dst, N, compress_dtype=DT.int8)
+            got.append(str(e.value))
+        msgs.append(got)
+    assert msgs[0] == msgs[1]
+    assert "float32" in msgs[1][1]
 
 
 def test_barrier_nop_and_duration(worlds):

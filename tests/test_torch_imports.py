@@ -12,7 +12,8 @@ import torch
 PKG = pathlib.Path(__file__).resolve().parents[1] / "accl_tpu_torch"
 SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "request", "state", "backends.base", "backends.cuda",
-              "ops.ring", "ops._build", "utils.logging"]
+              "ops.ring", "ops.quantized", "ops.fused", "ops._build",
+              "utils.logging"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 
