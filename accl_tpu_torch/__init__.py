@@ -7,8 +7,11 @@ engine whose ranks are regions of one card's memory, hand-written CUDA
 ring reduce-scatter / all-gather kernels for the large-message lane, the
 int8 block-scaled and fused wire lanes, and the fused tensor-parallel
 matmul with its hand-written CUDA matmul and matmul-reduce-scatter
-kernels (``accl_tpu_torch.ops.fused``).  It imports torch, numpy and the
-standard library only.
+kernels (``accl_tpu_torch.ops.fused``), and the model layer's serving
+path (``accl_tpu_torch.models``: a tensor-parallel transformer forward,
+prefill, decode and generation) with hand-written CUDA flash-attention
+forward kernels (``accl_tpu_torch.ops.flash``).  It imports torch, numpy
+and the standard library only.
 
     world = CudaWorld(8)            # on the card; CudaWorld(8, "cpu") for CPU
     world.run(fn)                   # fn(accl, rank) on one thread per rank
@@ -34,4 +37,9 @@ from .constants import (  # noqa: F401
     TuningKey,
 )
 from .request import Request  # noqa: F401
-from .state import load_world_state, tp_weight_shards  # noqa: F401
+from .state import (  # noqa: F401
+    load_world_state,
+    model_params_from_jax,
+    model_params_to_numpy,
+    tp_weight_shards,
+)

@@ -61,6 +61,7 @@ from ..ops import fused as fused_ops
 from ..ops import quantized as q_ops
 from ..ops import ring as ring_ops
 from ..request import Request
+from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 from .base import CCLODevice
 
@@ -766,15 +767,7 @@ class CudaWorld:
     rank.  ``device`` defaults to the card; without CUDA that raises."""
 
     def __init__(self, nranks: int, device="cuda"):
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise ACCLError("CudaWorld: no CUDA device is available (pass "
-                            "device='cpu' to run the plain versions on the "
-                            "CPU)")
-        if dev.type not in ("cuda", "cpu"):
-            raise ACCLError(f"CudaWorld: unsupported device {dev}")
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        dev = resolve_device(device, "CudaWorld")
         self.nranks = nranks
         self.engine = CudaEngine(nranks, dev)
         self.devices = [CudaDeviceView(self.engine, r) for r in range(nranks)]

@@ -1,5 +1,6 @@
 """Device kernels of the port and their plain PyTorch versions."""
 
+from .flash import flash_attention  # noqa: F401
 from .fused import fused_matmul_allreduce  # noqa: F401
 from .quantized import (  # noqa: F401
     dequantize_blockwise,

@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_f32 = ctypes.c_float
 #: C signatures of each library's entry points: name -> (argtypes, restype)
 SIGNATURES = {
     "ring": {
@@ -45,6 +46,14 @@ SIGNATURES = {
         "accl_fused_matmul_rs": ([_vp, _vp, _vp, _i64, _i64, _i64, _i32,
                                   _i32, _i32, _vp, _vp, _vp, _i32, _vp],
                                  _i32),
+    },
+    "flash": {
+        "accl_flash_error_string": ([_i32], ctypes.c_char_p),
+        "accl_flash_ctas": ([_i32, _i32], ctypes.c_longlong),
+        "accl_flash_fwd_resident": ([_vp] * 5 + [_i32] * 9 + [_f32, _f32, _i32,
+                                                               _vp], _i32),
+        "accl_flash_fwd_grid": ([_vp] * 5 + [_i32] * 10 + [_f32, _f32, _i32,
+                                                            _vp], _i32),
     },
 }
 

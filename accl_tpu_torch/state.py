@@ -15,6 +15,10 @@ so the two worlds compute the same thing.
 per-rank K-shards the fused tensor-parallel matmuls (``ops/fused.py``)
 take, the way ``P("tp", None)`` shards it in the JAX package's model
 (``accl_tpu/models/transformer.py`` ``param_specs``).
+
+:func:`model_params_from_jax` carries the JAX package's model parameters
+(its pytree, as numpy arrays) into the port's layout, split over the
+tensor-parallel ranks; :func:`model_params_to_numpy` takes them back.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 
 from .constants import TuningKey
+from .models.transformer import shard_params
+from .utils.device import resolve_device
 
 
 def load_world_state(world, state: dict) -> dict:
@@ -71,3 +77,34 @@ def tp_weight_shards(w_full, P: int, device="cuda") -> list:
     k = K // P
     return [torch.from_numpy(np.ascontiguousarray(w[r * k:(r + 1) * k])).to(
         device) for r in range(P)]
+
+
+def model_params_from_jax(params: dict, cfg, tp: int = 1,
+                          device="cuda") -> dict:
+    """The JAX package's parameter pytree (``{"embed", "blocks": [...],
+    "ln_f"}``, numpy arrays) as the port's parameters on ``device``:
+    replicated leaves once, sharded leaves split over ``tp`` ranks by
+    ``param_specs``."""
+    dev = resolve_device(device, "model_params_from_jax")
+
+    def conv(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    full = {"embed": conv(params["embed"]), "ln_f": conv(params["ln_f"]),
+            "blocks": [{k: conv(v) for k, v in blk.items()}
+                       for blk in params["blocks"]]}
+    return shard_params(full, cfg, tp)
+
+
+def model_params_to_numpy(params: dict, cfg) -> dict:
+    """The port's parameters, split over any rank count, back in the JAX
+    pytree's layout as numpy arrays."""
+    full = shard_params(params, cfg, 1)
+
+    def conv(leaf):
+        t = leaf[0] if isinstance(leaf, list) else leaf
+        return t.detach().cpu().numpy()
+
+    return {"embed": conv(full["embed"]), "ln_f": conv(full["ln_f"]),
+            "blocks": [{k: conv(v) for k, v in blk.items()}
+                       for blk in full["blocks"]]}

@@ -23,7 +23,12 @@ Phases, each fatal on failure:
        ranks' partials).  A control computes the plain version on
        bf16-rounded operands, which must fall outside the spread, and on
        TF32, printed beside;
-  4. the main path, in three parts, each driven with every launch count
+     - the flash-attention kernels (flash_fwd_resident, flash_fwd_grid)
+       at the serving path's per-rank shapes, a windowed, two
+       cross-length and two ragged calls, in f32 with f32 and bf16 MXU
+       dtypes and in bf16: out and lse within FLASH_BOUND of the plain
+       version, and a bf16-operand control outside the f32 bound;
+  4. the main path, in four parts, each driven with every launch count
      set to 0 just before it and read just after:
      a. the driver: CudaWorld(8) on the card, ACCL calls on 8 rank
         threads — fp32 SUM allreduce at 4, 16, 64 and 256 MiB per rank,
@@ -50,6 +55,16 @@ Phases, each fatal on failure:
         error feedback (bitwise equal to the plain int8 composition, its
         error against float64 printed beside the bound P (2 5 sqrt(P) /
         127) of tests/test_quantized.py);
+     d. the model's serving path (accl_tpu_torch.models) at Llama-3-8B
+        width, cut to 4 layers, TP=8 over rank lists, fp32, random
+        weights from a seed (LLAMA3_8B): the scoring forward on 2 x 4096
+        tokens (flash_fwd_resident must launch), with fused=True, with
+        attn="dense" and at TP=1, each held to it within LOGIT_BOUND; the
+        forward on 1 x 8192 tokens (flash_fwd_grid must launch); generate
+        for 4 requests of 128-token prompts and 32 new tokens, greedy,
+        held to forward's argmax; teacher-forced prefill and decode held
+        to forward's logits.  Prints first-call seconds, launches,
+        prefill tokens/s, ms per decode step and peak memory;
   5. times with CUDA events after warm-up (median of 5 runs): each kernel
      per launch, at the shape the main path launches it most, beside its
      plain version, a library yardstick and its bound (bytes read once +
@@ -364,18 +379,25 @@ def tensor_core_ops(lib_path) -> int:
     return len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", out.stdout))
 
 
-def reset_counts(ring, F) -> None:
+def reset_counts(ring, F, FL=None) -> None:
     for fn in (ring.ring_reduce_scatter, ring.ring_all_gather,
                F.pallas_matmul, F.fused_matmul_reduce_scatter):
         fn.launches = 0
+    if FL is not None:
+        FL.flash_fwd_resident.launches = 0
+        FL.flash_fwd_grid.launches = 0
 
 
-def read_counts(ring, F) -> dict:
-    return {"ring_reduce_scatter": ring.ring_reduce_scatter.launches,
-            "ring_all_gather": ring.ring_all_gather.launches,
-            "pallas_matmul": F.pallas_matmul.launches,
-            "fused_matmul_reduce_scatter":
-                F.fused_matmul_reduce_scatter.launches}
+def read_counts(ring, F, FL=None) -> dict:
+    counts = {"ring_reduce_scatter": ring.ring_reduce_scatter.launches,
+              "ring_all_gather": ring.ring_all_gather.launches,
+              "pallas_matmul": F.pallas_matmul.launches,
+              "fused_matmul_reduce_scatter":
+                  F.fused_matmul_reduce_scatter.launches}
+    if FL is not None:
+        counts["flash_fwd_resident"] = FL.flash_fwd_resident.launches
+        counts["flash_fwd_grid"] = FL.flash_fwd_grid.launches
+    return counts
 
 
 def tp_path(ring, F) -> dict:
@@ -914,6 +936,340 @@ def time_kernels(ring, errs, launches, per_big, big_mib) -> list:
     return rows
 
 
+#: Llama-3-8B at full width (Meta's config.json for meta-llama/Meta-Llama-3-8B:
+#: hidden 4096, intermediate 14336, 32 query and 8 K/V heads of 128,
+#: vocabulary 128256, RoPE theta 500000), depth cut from 32 layers to 4
+#: (no kernel shape depends on depth; 5.6 GB of fp32 weights)
+LLAMA3_8B = dict(vocab=128256, d_model=4096, n_layers=4, n_heads=32,
+                 n_kv_heads=8, d_head=128, d_ff=14336, mlp="swiglu",
+                 rope=True, rope_theta=500000.0, attn="flash",
+                 dtype="float32")
+#: one rank's flash launch at TP=8 (4 q heads over 1 K/V head): (q rows
+#: N, K/V rows Nk, T) on 2 x 4096 tokens (resident) and 1 x 8192 (grid)
+FLASH_RESIDENT = (8, 2, 4096)
+FLASH_GRID = (4, 1, 8192)
+D_HEAD = 128
+#: (input dtype, MXU dtype) of the flash checks
+FLASH_DTYPES = ((torch.float32, torch.float32),
+                (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.bfloat16))
+#: max |kernel - plain| allowed on out and on lse, per MXU dtype, set from
+#: the readings of the first card run (NVIDIA H100 80GB HBM3, 700 W): the
+#: two fold in different orders and rescale their running max at other
+#: columns (64 against the resolver's block_k).  float32: readings up to
+#: 6.9e-7 (out) and 9.5e-7 (lse); the bf16-operand control read 9.0e-3
+#: and above.  bfloat16: readings up to 3.9e-3 (one bf16 ulp of a bf16
+#: output), the bound two ulps at |out| < 2
+FLASH_BOUND = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+#: max |logits - TP=8 flash forward's| of the serving path's other runs
+#: (fused, dense, TP=1, teacher-forced prefill and decode), fp32 at
+#: Llama-3-8B width (|logits| ~ 1), set from the first card run's
+#: readings (2.7e-5 to 7.2e-5; NVIDIA H100 80GB HBM3, 700 W): the runs
+#: sum the same products in other orders (per-rank partials, chunked
+#: ring, other cuBLAS kernels at other row counts)
+LOGIT_BOUND = 4e-4
+
+
+def flash_cfg(FL, N, Nk, T, Tk, dt, mxu, kernel, causal, window=None):
+    """The resolved schedule the packed entry would hand the kernels."""
+    return FL._resolve_schedule(T, Tk, D_HEAD, dt, causal, 256, 512, mxu,
+                                kernel, None, False, None, None,
+                                window) + (N // Nk,)
+
+
+def check_flash_kernels(FL) -> dict:
+    """Phase 3c: flash_fwd_resident and flash_fwd_grid against their plain
+    versions at the model path's per-rank shapes (resident: q [8, 4096,
+    128], k/v [2, 4096, 128]; grid: q [4, 8192, 128], k/v [1, 8192, 128]),
+    a windowed grid call, non-causal cross-length calls and a ragged call
+    (T = 1200: the resolver's blocks halve to 16, the kernel's last 64-row
+    tile is partial), in float32 with float32 and bfloat16 MXU dtypes and
+    in bfloat16.  out and lse within FLASH_BOUND of the plain version; a
+    control (the plain version with bf16-rounded operands against the
+    float32 one) must fall outside the float32 bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    errs = {"flash_fwd_resident": 0.0, "flash_fwd_grid": 0.0}
+    readings, controls_ = [], {}
+    calls = (("model_resident", *FLASH_RESIDENT, FLASH_RESIDENT[2], True,
+              None, "resident", FLASH_DTYPES),
+             ("model_grid", *FLASH_GRID, FLASH_GRID[2], True, None, "grid",
+              FLASH_DTYPES),
+             ("window_1000", 4, 1, 2048, 2048, True, 1000, "grid",
+              FLASH_DTYPES[::2]),
+             ("cross_length", 8, 2, 1024, 1536, False, None, "resident",
+              FLASH_DTYPES[::2]),
+             ("cross_length", 8, 2, 1024, 1536, False, None, "grid",
+              FLASH_DTYPES[::2]),
+             ("ragged_1200", 8, 2, 1200, 1200, True, None, "resident",
+              FLASH_DTYPES[:1]),
+             ("ragged_1200", 8, 2, 1200, 1200, True, None, "grid",
+              FLASH_DTYPES[:1]))
+    for tag, N, Nk, T, Tk, causal, window, kernel, dtypes in calls:
+        name = f"flash_fwd_{kernel}"
+        fn, plain = getattr(FL, name), getattr(FL, name + "_plain")
+        for dt, mxu in dtypes:
+            q = rand((N, T, D_HEAD), dt, gen)
+            k, v = rand((Nk, Tk, D_HEAD), dt, gen), rand((Nk, Tk, D_HEAD), dt,
+                                                          gen)
+            cfg = flash_cfg(FL, N, Nk, T, Tk, dt, mxu, kernel, causal, window)
+            out, lse = fn(q, k, v, cfg)
+            torch.cuda.synchronize()
+            want, want_lse = plain(q, k, v, cfg)
+            e_out, e_lse = max_err(out, want), max_err(lse, want_lse)
+            finite = bool(torch.isfinite(out).all() and
+                          torch.isfinite(lse).all())
+            row = {"call": tag, "kernel": name, "q": [N, T, D_HEAD],
+                   "kv": [Nk, Tk, D_HEAD], "causal": causal,
+                   "window": window, "dtype": str(dt), "mxu": str(mxu),
+                   "blocks": list(cfg[1:4]), "ctas": FL.kernel_ctas(N, T),
+                   "max_abs_err_out": e_out, "max_abs_err_lse": e_lse}
+            readings.append(row)
+            bound = FLASH_BOUND[mxu]
+            if not finite or e_out > bound or e_lse > bound:
+                fail(f"{name} {tag} {dt}/{mxu}: off its plain version "
+                     f"(out {e_out}, lse {e_lse}, bound {bound}, finite "
+                     f"{finite})")
+            errs[name] = max(errs[name], e_out)
+            if tag.startswith("model") and mxu == torch.float32:
+                ctl_cfg = flash_cfg(FL, N, Nk, T, Tk, dt, torch.bfloat16,
+                                    kernel, causal, window)
+                c_out, c_lse = plain(q, k, v, ctl_cfg)
+                controls_[f"{name} {tag}"] = {
+                    "out": max_err(c_out, want), "lse": max_err(c_lse,
+                                                                want_lse)}
+                if not controls_[f"{name} {tag}"]["out"] > bound:
+                    fail(f"the float32 bound {bound} does not catch bf16 "
+                         f"operands: {controls_[f'{name} {tag}']}")
+                del c_out, c_lse
+            del q, k, v, out, lse, want, want_lse
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_kernels_vs_plain", "ok": True, "bound": {
+        str(k): b for k, b in FLASH_BOUND.items()}, "readings": readings,
+          "bf16_operand_control": controls_})
+    return errs
+
+
+def serving_path(ring, F, FL, M) -> dict:
+    """Phase 4d: the model's serving path at Llama-3-8B width (LLAMA3_8B,
+    4 layers), TP=8 over rank lists, fp32, weights from a seed on the
+    card.  Runs, each with every launch count set to 0 just before and
+    read just after: the scoring forward on 2 x 4096 tokens (resident
+    kernel), again with fused=True, with attn="dense", and at TP=1 on the
+    same weights; the forward on 1 x 8192 tokens (grid kernel); and
+    serving: generate for 4 requests of 128-token prompts, 32 new tokens,
+    greedy, with prefill and decode_step timed alone.  Logits must be
+    finite and within LOGIT_BOUND of the TP=8 flash forward (fused, dense,
+    TP=1), teacher-forced decode within it of forward's, and every
+    generated token the argmax of forward's logits where the top-2 margin
+    exceeds it."""
+    cfg = M.ModelConfig(**LLAMA3_8B)
+    dense_cfg = M.ModelConfig(**{**LLAMA3_8B, "attn": "dense"})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p1 = M.init_params(gen, cfg, tp=1)
+    p8 = M.shard_params(p1, cfg, P)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok4k = torch.randint(0, cfg.vocab, (2, 4096), generator=gen,
+                          device="cuda")
+    tok8k = torch.randint(0, cfg.vocab, (1, 8192), generator=gen,
+                          device="cuda")
+    total = {}
+    runs = {}
+
+    def run(name, fn):
+        reset_counts(ring, F, FL)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = read_counts(ring, F, FL)
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+        runs[name] = {"first_call_s": secs, "launches": counts}
+        return out
+
+    def logit_err(got, ref):
+        # float32 difference: a float64 copy of 4 GB logits would set the
+        # phase's peak memory
+        return float((got - ref).abs().max())
+
+    def check(name, got, ref, bound):
+        e = logit_err(got, ref)
+        runs[name]["max_abs_err_vs_tp8_flash"] = e
+        if tuple(got.shape) != tuple(ref.shape) or \
+                not torch.isfinite(got).all() or e > bound:
+            fail(f"{name}: logits {tuple(got.shape)} off the TP=8 flash "
+                 f"forward by {e} (bound {bound}) or not finite")
+
+    ref = run("forward_4096_tp8", lambda: M.forward(p8, tok4k, cfg))
+    if not torch.isfinite(ref).all() or \
+            tuple(ref.shape) != (*tok4k.shape, cfg.vocab):
+        fail(f"forward_4096_tp8: logits {tuple(ref.shape)} not finite")
+    check("forward_4096_tp8_fused", run(
+        "forward_4096_tp8_fused", lambda: M.forward(p8, tok4k, cfg,
+                                                    fused=True)),
+          ref, LOGIT_BOUND)
+    check("forward_4096_tp8_dense", run(
+        "forward_4096_tp8_dense", lambda: M.forward(p8, tok4k, dense_cfg)),
+          ref, LOGIT_BOUND)
+    check("forward_4096_tp1", run(
+        "forward_4096_tp1", lambda: M.forward(p1, tok4k, cfg)),
+          ref, LOGIT_BOUND)
+    del ref
+    torch.cuda.empty_cache()
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lg8k = run("forward_8192_tp8", lambda: M.forward(p8, tok8k, cfg))
+    fwd_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    if not torch.isfinite(lg8k).all() or \
+            tuple(lg8k.shape) != (*tok8k.shape, cfg.vocab):
+        fail("forward_8192_tp8: logits not finite or of the wrong shape")
+    del lg8k
+    torch.cuda.empty_cache()
+    per_forward = {"flash_fwd_resident":
+                   runs["forward_4096_tp8"]["launches"]["flash_fwd_resident"],
+                   "flash_fwd_grid":
+                   runs["forward_8192_tp8"]["launches"]["flash_fwd_grid"]}
+    if per_forward != {"flash_fwd_resident": cfg.n_layers * P,
+                       "flash_fwd_grid": cfg.n_layers * P}:
+        fail(f"the 4096-token forward must launch flash_fwd_resident and "
+             f"the 8192-token one flash_fwd_grid once per layer and rank: "
+             f"{per_forward}")
+    if runs["forward_4096_tp8"]["launches"]["flash_fwd_grid"] or \
+            runs["forward_8192_tp8"]["launches"]["flash_fwd_resident"]:
+        fail(f"a forward launched the other flash kernel: {runs}")
+
+    # -- serving: 4 requests, 128-token prompts, 32 new tokens ------------
+    B, Tp, new = 4, 128, 32
+    prompt = torch.randint(0, cfg.vocab, (B, Tp), generator=gen,
+                           device="cuda")
+    Tp = prompt.shape[1]
+    cont = torch.randint(0, cfg.vocab, (B, 8), generator=gen, device="cuda")
+    generated = run("generate", lambda: M.generate(p8, prompt, cfg, new))
+    if tuple(generated.shape) != (B, new) or int(generated.min()) < 0 or \
+            int(generated.max()) >= cfg.vocab:
+        fail(f"generate: tokens {tuple(generated.shape)} out of range")
+
+    def serve_prefill():
+        cache = M.init_kv_cache(cfg, B, Tp + cont.shape[1], tp=P)
+        return M.prefill(p8, prompt, cache, cfg)
+
+    lg_pre, cache = run("prefill", serve_prefill)
+    steps = []
+    for t in range(cont.shape[1]):
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        lg, cache = M.decode_step(p8, cont[:, t], cache, cfg)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t_step, lg))
+    teacher = torch.cat([prompt, cont], dim=1)
+    want = run("forward_teacher", lambda: M.forward(p8, teacher, cfg))
+    e_pre = logit_err(lg_pre, want[:, :Tp])
+    e_dec = max(logit_err(lg, want[:, Tp + t]) for t, (_s, lg) in
+                enumerate(steps))
+    if e_pre > LOGIT_BOUND or e_dec > LOGIT_BOUND:
+        fail(f"teacher-forced prefill/decode off forward's logits: "
+             f"{e_pre}, {e_dec} (bound {LOGIT_BOUND})")
+    seq = torch.cat([prompt, generated[:, :-1]], dim=1)
+    lg_seq = run("forward_generated", lambda: M.forward(p8, seq, cfg))[
+        :, Tp - 1:]
+    top2 = torch.topk(lg_seq, 2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > LOGIT_BOUND
+    agree = lg_seq.argmax(-1) == generated
+    if not bool(agree[decided].all()):
+        fail("generate: a greedy token differs from forward's argmax where "
+             "the top-2 margin exceeds the logit bound")
+    ms_step = statistics.median(s for s, _lg in steps) * 1e3
+    emit({"phase": "serving_path", "ok": True, "config": LLAMA3_8B,
+          "reduced": "n_layers 32 -> 4", "tp": P, "init_s": init_s,
+          "runs": runs, "launches": total, "per_forward": per_forward,
+          "prefill_tokens_per_s": B * Tp / runs["prefill"]["first_call_s"],
+          "ms_per_decode_step": ms_step,
+          "generate_s": runs["generate"]["first_call_s"],
+          "teacher_forced_max_abs_err": {"prefill": e_pre, "decode": e_dec},
+          "greedy_tokens_checked": int(decided.sum()),
+          "weights_gb": sum(t.numel() * 4 for t in (
+              p1["embed"], *(w for blk in p1["blocks"] for leaf in
+                             blk.values() for w in (leaf if isinstance(
+                                 leaf, list) else [leaf])))) / 1e9,
+          "forward_8192_peak_gb_above_held": fwd_peak,
+          "peak_mem_gb": max(peak_before,
+                             torch.cuda.max_memory_allocated()) / 1e9})
+    del p1, p8, want, lg_seq, steps, cache
+    torch.cuda.empty_cache()
+    return {"launches": total, "per_forward": per_forward}
+
+
+def attention_bound(N, T, Tk, causal, dt) -> tuple:
+    """(bound ms, "operations" or "bytes") of one forward: QK^T and PV over
+    the cells the mask keeps (T (T + 1) / 2 per head when causal), 2
+    operations per multiply-add; q, k, v read and out, lse written once."""
+    cells = T * (T + 1) // 2 if causal else T * Tk
+    el = torch.finfo(dt).bits // 8
+    ops = 2 * 2 * D_HEAD * cells * N
+    nbytes = (2 * N * T * D_HEAD + 2 * N * Tk * D_HEAD) * el + N * T * 4
+    return matmul_bound(ops, nbytes, dt) + (ops,)
+
+
+def time_flash_kernels(FL, errs, launches, per_forward) -> list:
+    """Phase 5d: each flash kernel per launch at the model path's per-rank
+    shape, fp32 with the fp32 MXU dtype as there, interleaved with its
+    plain version (kernel, plain, plain, kernel), beside SDPA with GQA
+    (torch.nn.functional.scaled_dot_product_attention, a yardstick only)
+    and the bound; bf16 inputs are printed beside."""
+    import torch.nn.functional as tnf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = []
+    for name, (N, Nk, T), kernel in (("flash_fwd_resident", FLASH_RESIDENT,
+                                      "resident"),
+                                     ("flash_fwd_grid", FLASH_GRID, "grid")):
+        fn, plain = getattr(FL, name), getattr(FL, name + "_plain")
+        for dt in (torch.float32, torch.bfloat16):
+            q = rand((N, T, D_HEAD), dt, gen)
+            k, v = rand((Nk, T, D_HEAD), dt, gen), rand((Nk, T, D_HEAD), dt,
+                                                         gen)
+            cfg = flash_cfg(FL, N, Nk, T, T, dt, dt, kernel, True)
+            ms = [cuda_ms(lambda: fn(q, k, v, cfg), 5, runs=3)]
+            p_ms = [cuda_ms(lambda: plain(q, k, v, cfg), 1, runs=3)]
+            p_ms.append(cuda_ms(lambda: plain(q, k, v, cfg), 1, runs=3))
+            ms.append(cuda_ms(lambda: fn(q, k, v, cfg), 5, runs=3))
+            qs = q.view(Nk, N // Nk, T, D_HEAD)
+            ks, vs = k.view(Nk, 1, T, D_HEAD), v.view(Nk, 1, T, D_HEAD)
+            lib = cuda_ms(lambda: tnf.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), 5, runs=3)
+            bound, by, ops = attention_bound(N, T, T, True, dt)
+            t = statistics.median(ms)
+            row = {"name": name, "route": "cuda",
+                   "source": "accl_tpu_torch/ops/csrc/flash.cu",
+                   "kernel": name, "replaces": (
+                       "accl_tpu/ops/flash.py:288" if kernel == "resident"
+                       else "accl_tpu/ops/flash.py:188"),
+                   "launches": launches[name], "max_abs_err": errs[name],
+                   "ms": t, "plain_ms": statistics.median(p_ms),
+                   "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                   "library_call": "scaled_dot_product_attention(is_causal, "
+                                   "enable_gqa)", "checked": True,
+                   "shape": f"q [{N},{T},{D_HEAD}] k/v [{Nk},{T},{D_HEAD}] "
+                            f"causal {dt} mxu {dt}",
+                   "ctas": FL.kernel_ctas(N, T),
+                   "tflops": ops / (t * 1e-3) / 1e12,
+                   "launches_per_forward": per_forward[name]}
+            del q, k, v, qs, ks, vs
+            if dt == torch.bfloat16:
+                emit({"phase": "kernel_time_bf16", **row})
+            else:
+                emit({"phase": "kernel_time", **row})
+                rows.append(row)
+    torch.cuda.empty_cache()
+    FL.flash_fwd_resident.launches = launches["flash_fwd_resident"]
+    FL.flash_fwd_grid.launches = launches["flash_fwd_grid"]
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="4,16,64,256",
@@ -932,6 +1288,8 @@ def main() -> int:
     from accl_tpu_torch import CudaWorld, DataType, ReduceFunction
     from accl_tpu_torch.arithconfig import CompressionPolicy
     from accl_tpu_torch.ops import _build
+    from accl_tpu_torch import models as M
+    from accl_tpu_torch.ops import flash as FL
     from accl_tpu_torch.ops import fused as F
     from accl_tpu_torch.ops import quantized as q_ops
     from accl_tpu_torch.ops import ring
@@ -953,15 +1311,20 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]})
     errs = check_kernels(ring)
     errs.update(check_fused_kernels(F))
+    errs.update(check_flash_kernels(FL))
     mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
         tp = tp_path(ring, F)
         lanes = driver_lanes(world, ring, F, q_ops, DataType,
                              CompressionPolicy)
-        # the main path's launches: the sum over its three parts
+        serve = serving_path(ring, F, FL, M)
+        # the main path's launches: the sum over its four parts
         launches = {k: mp["launches"][k] + tp["launches"][k]
-                    + lanes["launches"][k] for k in mp["launches"]}
+                    + lanes["launches"][k] + serve["launches"][k]
+                    for k in mp["launches"]}
+        launches.update({k: serve["launches"][k] for k in
+                         ("flash_fwd_resident", "flash_fwd_grid")})
         if args.no_timing:
             emit({"phase": "main_path_done", "launches": launches})
             return 0
@@ -970,6 +1333,7 @@ def main() -> int:
         rows = time_kernels(ring, errs, launches, per_big, sizes[-1])
         rows += time_fused_kernels(ring, F, errs, launches,
                                    tp["per_call_mlp_down"])
+        rows += time_flash_kernels(FL, errs, launches, serve["per_forward"])
         by_name = {row["name"]: row["ms"] for row in rows}
         for mib, (_s, _r, call, launched) in sorted(mp["per_size"].items()):
             iters = 5

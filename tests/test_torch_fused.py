@@ -284,26 +284,3 @@ def test_tp_weight_shards_match_param_specs(name, shape):
 def test_tp_weight_shards_refuse_uneven_k():
     with pytest.raises(ValueError, match="divide"):
         tp_weight_shards(np.zeros((10, 3), np.float32), NR, device="cpu")
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_kernels_match_plain_on_card(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    P, m, K, N = 8, 125, 333, 777
-    g = torch.Generator().manual_seed(7)
-    xs = [torch.randint(-3, 4, (P, m, K), generator=g).to(dtype).cuda()
-          for _ in range(P)]
-    ws = [torch.randint(-3, 4, (K, N), generator=g).to(dtype).cuda()
-          for _ in range(P)]
-    a = TF.pallas_matmul(xs[0][0], ws[0])
-    assert torch.equal(a, TF.pallas_matmul_plain(xs[0][0], ws[0]))
-    got = TF.fused_matmul_reduce_scatter(xs, ws)
-    want = TF.fused_matmul_reduce_scatter_plain(xs, ws)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)

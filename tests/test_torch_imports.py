@@ -12,7 +12,10 @@ import torch
 PKG = pathlib.Path(__file__).resolve().parents[1] / "accl_tpu_torch"
 SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "request", "state", "backends.base", "backends.cuda",
-              "ops.ring", "ops.quantized", "ops.fused", "ops._build",
+              "ops.ring", "ops.quantized", "ops.fused", "ops.flash",
+              "ops._build", "parallel", "parallel.collectives",
+              "parallel.mesh", "parallel.ring_attention", "models",
+              "models.transformer", "models.decode", "utils.device",
               "utils.logging"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
@@ -64,3 +67,27 @@ def test_cuda_world_on_the_cpu_when_asked():
     with CudaWorld(2, device="cpu") as w:
         assert w.engine.device.type == "cpu"
         assert w.accls[1].rank == 1 and w.accls[0].size == 2
+
+
+def test_model_entry_points_default_to_the_card_and_raise_without_one():
+    import numpy as np
+
+    from accl_tpu_torch import ACCLError, model_params_from_jax
+    from accl_tpu_torch.models import ModelConfig, init_kv_cache, init_params
+    from accl_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = ModelConfig(vocab=8, d_model=4, n_layers=1, n_heads=2, d_head=2,
+                      d_ff=4)
+    rng = np.random.default_rng(0)
+    calls = [lambda: init_params(rng, cfg),
+             lambda: init_kv_cache(cfg, 1, 4),
+             lambda: make_mesh(tp=2),
+             lambda: model_params_from_jax({}, cfg)]
+    for call in calls:
+        with pytest.raises(ACCLError, match="no CUDA device"):
+            call()
+    params = init_params(rng, cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert make_mesh(tp=2, device="cpu").shape == {"tp": 2}
