@@ -1,4 +1,4 @@
-"""The flagship transformer LM, forward half.
+"""The flagship transformer LM: forward, loss and the train step.
 
 Port of ``accl_tpu/models/transformer.py``.  Tensor parallelism runs over
 P ranks held as lists (the convention of ``ops/fused.py``): the head and
@@ -13,18 +13,25 @@ the rank list (``lax.psum``'s role), or with ``fused=True`` the pipelined
 
 Parameters are a plain dict in the JAX pytree's layout, the sharded
 leaves replaced by rank lists (``shard_params``).  ``attn="flash"`` runs
-the flash kernels of ``ops/flash.py``; ``attn="dense"`` the dense
-reference.  The training half (``loss_fn``, ``make_train_step``) and
-sequence parallelism come in later slices.
+the flash kernels of ``ops/flash.py``, backward included; ``attn="dense"``
+the dense reference.  ``remat`` checkpoints each block.
+
+Training (``make_train_step``) holds the parameters once for all data
+members: each member's local ``(loss_sum, count)`` is backpropagated in
+turn, and autograd's accumulation into the shared leaves sums the
+replicated gradients over the members, the role JAX's replication-aware
+transpose plays; the tp-sharded leaves keep per-shard gradients.  The SGD
+update is applied in place.  Sequence parallelism comes in a later slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import ACCLError
 from ..ops.flash import flash_attention
@@ -32,13 +39,14 @@ from ..ops.fused import fused_chunks, fused_matmul_allreduce
 from ..parallel.collectives import all_reduce
 from ..parallel.ring_attention import _dense_attention, expand_gqa_kv
 from ..utils.device import resolve_device
+from ..utils.tree import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     """The JAX package's ModelConfig, with the same fields, defaults and
-    validation.  ``sp_schedule`` and ``remat`` matter only to the slices
-    that port sequence parallelism and training."""
+    validation.  ``sp_schedule`` matters only to the slice that ports
+    sequence parallelism."""
 
     vocab: int = 256
     d_model: int = 128
@@ -283,17 +291,33 @@ def _local_attention(q, k, v, cfg: ModelConfig):
     return _dense_attention(q, k, v, causal=True, window=cfg.attn_window)
 
 
+def _no_sp(sp: int) -> None:
+    if sp > 1:
+        raise ACCLError("sequence parallelism needs ring_attention "
+                        "(accl_tpu/parallel/ring_attention.py), which is "
+                        "not part of accl_tpu_torch yet")
+
+
+def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool):
+    """One transformer block on the residual stream [B, T, D]."""
+    h = _rmsnorm(x, blk["ln1"])
+    qs, ks, vs = block_qkv(h, blk, cfg, rope_pos)
+    attn = [_local_attention(q, k, v, cfg) for q, k, v in zip(qs, ks, vs)]
+    x = block_attn_out(x, attn, blk, cfg, fused=fused)
+    return block_mlp(x, blk, cfg, fused=fused)
+
+
 def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
             sp: int = 1):
     """Token ids [B, T] -> logits [B, T, vocab], tensor-parallel over the
     ranks ``params`` is split over (``shard_params``), on the device the
     parameters live on.  ``fused=True`` pipelines the row-parallel
-    combines (the fused lane; no effect at tp = 1).  ``sp`` > 1 needs
-    ring attention, not ported yet."""
-    if sp > 1:
-        raise ACCLError("sequence parallelism needs ring_attention "
-                        "(accl_tpu/parallel/ring_attention.py), which is "
-                        "not part of accl_tpu_torch yet")
+    combines (the fused lane; no effect at tp = 1).  With ``cfg.remat``
+    each block is recomputed on the backward pass
+    (``torch.utils.checkpoint``, ``jax.checkpoint``'s role): only the
+    block inputs stay live across layers.  ``sp`` > 1 needs ring
+    attention, not ported yet."""
+    _no_sp(sp)
     if cfg.sp_schedule == "zigzag":
         raise ValueError("sp_schedule='zigzag' requires an sp axis "
                          "(tokens are in zigzag order)")
@@ -303,10 +327,128 @@ def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
     rope_pos = (_global_positions(tokens.shape[1], embed.device)
                 if cfg.rope else None)
     for blk in params["blocks"]:
-        h = _rmsnorm(x, blk["ln1"])
-        qs, ks, vs = block_qkv(h, blk, cfg, rope_pos)
-        attn = [_local_attention(q, k, v, cfg) for q, k, v in zip(qs, ks, vs)]
-        x = block_attn_out(x, attn, blk, cfg, fused=fused)
-        x = block_mlp(x, blk, cfg, fused=fused)
+        if cfg.remat:
+            x = checkpoint(_block, x, blk, cfg, rope_pos, fused,
+                           use_reentrant=False)
+        else:
+            x = _block(x, blk, cfg, rope_pos, fused)
     x = _rmsnorm(x, params["ln_f"])
     return _mm(x, embed.to(cfg.tdtype).t())
+
+
+def loss_fn(params, tokens, cfg: ModelConfig, fused: bool = False,
+            sp: int = 1):
+    """Next-token cross entropy on [B, T] tokens: the last position has no
+    label and is masked.  Returns (sum_loss, count), float32 scalars local
+    to the caller (the sum-and-count discipline).  ``sp`` > 1 needs ring
+    attention, not ported yet."""
+    _no_sp(sp)
+    logits = forward(params, tokens, cfg, fused=fused).float()
+    tokens = torch.as_tensor(tokens, device=logits.device).long()
+    B, Tl = tokens.shape
+    labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+    valid = torch.ones((B, Tl), dtype=torch.bool, device=logits.device)
+    valid[:, -1] = False
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return torch.sum(nll), torch.sum(valid.float())
+
+
+def _mean_grads(loss_closures: Sequence[Callable], params):
+    """Mean gradients for loss closures returning a LOCAL ``(loss_sum,
+    count)`` pair, one closure per data-parallel member (the
+    sum-and-count discipline of the JAX package's ``_mean_grads``).
+
+    Each member's loss_sum is backpropagated into the shared leaves in
+    turn, so a leaf's gradient is the sum over the members (JAX's psum
+    of replicated gradients) and a tp-sharded leaf keeps its shard's.
+    The counts and losses sum over the members; gradients are divided by
+    the total.  Returns ``(g_mean, mean_loss)``, g_mean in ``params``'s
+    structure; the leaves are left without gradients."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(True)
+    total = loss_tot = None
+    try:
+        for closure in loss_closures:
+            loss_sum, count = closure(params)
+            loss_sum.backward()
+            loss_sum, count = loss_sum.detach(), count.detach()
+            total = count if total is None else total + count
+            loss_tot = loss_sum if loss_tot is None else loss_tot + loss_sum
+        denom = torch.clamp_min(total, 1.0)
+        grads = {id(p): (p.grad.div_(denom) if p.grad is not None
+                         else torch.zeros_like(p)) for p in leaves}
+    finally:
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(False)
+    return tree_map(lambda p: grads[id(p)], params), loss_tot / denom
+
+
+def sum_count_device_step(loss_closures: Sequence[Callable], params,
+                          lr: float):
+    """Plain SGD over :func:`_mean_grads`: p - lr g_mean for every leaf,
+    in place (the parameters are updated, not copied).  Returns
+    ``(params, mean_loss)``."""
+    g_mean, mean_loss = _mean_grads(loss_closures, params)
+    with torch.no_grad():
+        for p, g in zip(tree_leaves(params), tree_leaves(g_mean)):
+            p.sub_(g.mul_(lr))
+    return params, mean_loss
+
+
+def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
+                    dp: Optional[str] = "dp", tp: Optional[str] = "tp",
+                    sp: Optional[str] = "sp", optimizer=None, params=None,
+                    check_vma: Optional[bool] = None, fused: bool = False):
+    """The train step over ``mesh`` (a ``parallel.mesh.RankMesh``), plain
+    SGD at ``lr``.  Returns ``(step_fn, (param_specs, token_spec))`` with
+    ``step_fn(params, tokens) -> (params, mean_loss)``: the token batch
+    [B, T] split over the ``dp`` members (B divisible by dp), each
+    member's ``loss_fn`` over the tp rank lists, the mean gradient as
+    ``_mean_grads`` forms it, and the update applied to ``params`` in
+    place.  ``params`` must be split over the mesh's tp extent
+    (``shard_params``) and live on its device.  ``token_spec`` names the
+    axes the token dimensions split over, as ``P(dp, sp)``.
+
+    Axes not in the mesh are dropped.  An sp extent above 1 needs ring
+    attention (raises); ``optimizer`` (optax) raises; ``check_vma`` is
+    accepted and changes nothing."""
+    if optimizer is not None:
+        raise ACCLError("make_train_step(optimizer=...): the optax optimizer "
+                        "path is not part of accl_tpu_torch (the card has no "
+                        "optax); plain SGD only")
+    shape = mesh.shape
+    dp = dp if dp in shape else None
+    tp = tp if tp in shape else None
+    sp = sp if sp in shape else None
+    if cfg.sp_schedule == "zigzag" and sp is None:
+        raise ValueError("ModelConfig(sp_schedule='zigzag') needs an 'sp' "
+                         "axis in the mesh — zigzag-ordered tokens train "
+                         "on wrong labels without the zigzag ring")
+    n_dp = shape[dp] if dp else 1
+    n_tp = shape[tp] if tp else 1
+    _no_sp(shape[sp] if sp else 1)
+
+    def step_fn(params, tokens):
+        if tp_size(params) != n_tp:
+            raise ValueError(f"params are split over {tp_size(params)} tp "
+                             f"ranks, the mesh has {n_tp}")
+        if params["embed"].device != mesh.device:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"mesh on {mesh.device}")
+        tokens = torch.as_tensor(tokens, device=mesh.device)
+        B = tokens.shape[0]
+        if B % n_dp:
+            raise ValueError(f"batch {B} does not split over {n_dp} dp "
+                             f"members")
+        b = B // n_dp
+        closures = [
+            (lambda p, t=tokens[d * b:(d + 1) * b]:
+             loss_fn(p, t, cfg, fused=fused)) for d in range(n_dp)]
+        return sum_count_device_step(closures, params, lr)
+
+    return step_fn, (param_specs(cfg), (dp, sp))

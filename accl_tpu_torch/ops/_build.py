@@ -55,6 +55,13 @@ SIGNATURES = {
         "accl_flash_fwd_grid": ([_vp] * 5 + [_i32] * 10 + [_f32, _f32, _i32,
                                                             _vp], _i32),
     },
+    "flash_bwd": {
+        "accl_flash_bwd_error_string": ([_i32], ctypes.c_char_p),
+        "accl_flash_bwd_ctas": ([_i32] * 5, ctypes.c_longlong),
+        "accl_flash_bwd_dq": ([_vp] * 7 + [_i32] * 9 + [_f32, _i32, _vp],
+                              _i32),
+        "accl_flash_bwd_dkv": ([_vp] * 8 + [_i32] * 9 + [_i32, _vp], _i32),
+    },
 }
 
 _lock = threading.Lock()

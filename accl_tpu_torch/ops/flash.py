@@ -1,10 +1,11 @@
-"""Flash attention, forward half.
+"""Flash attention, forward and backward.
 
 Port of ``accl_tpu/ops/flash.py``: tiled QK^T -> online softmax -> PV
 with the running (max, denominator) carried across K blocks, so the
 [Tq, Tk] score matrix never materializes; every entry also yields the
 log-sum-exp statistics (natural-log units) that distributed callers fold
-partial attentions with.
+partial attentions with.  The entries are differentiable in q, k and v,
+through both outputs.
 
 Two schedules, chosen by the JAX package's own rule (``_resolve_schedule``
 with ``_RESIDENT_KV_BYTES``, copied so that both packages pick the same
@@ -16,19 +17,26 @@ kernel for the same inputs):
   with causal live/diagonal predicates and the sliding ``window``
   (``_flash_kernel_grid``) -> the CUDA kernel ``flash_fwd_grid``.
 
-Both kernels are in ``csrc/flash.cu``.  Beside each sits its plain
-PyTorch version: the Pallas fold written block by block, with the same
-``bq``/``bk``/``ck`` loops, log2 domain, clamps and casts.  A wrapper runs
-the plain version only when it is given CPU tensors; given CUDA tensors
-it launches its kernel or raises.  Each wrapper counts its launches in
-its ``launches`` attribute.
+Both kernels are in ``csrc/flash.cu``.  The backward (``_flash_backward``)
+rebuilds the normalized probabilities per block from the saved lse and
+runs two kernels of ``csrc/flash_bwd.cu``, whatever the forward schedule:
+
+- ``flash_bwd_dq`` (``_flash_bwd_dq_kernel``): dQ accumulated over the
+  live k blocks of each q block;
+- ``flash_bwd_dkv`` (``_flash_bwd_dkv_kernel``): dK and dV accumulated
+  over the live q blocks of every q head of each K/V head's group.
+
+Beside each kernel sits its plain PyTorch version: the Pallas kernel
+written block by block, with the same block loops, chunk sub-folds, log2
+domain, clamps and casts.  A wrapper runs the plain version only when it
+is given CPU tensors; given CUDA tensors it launches its kernel or
+raises.  Each wrapper counts its launches in its ``launches`` attribute.
 
 ``mxu_dtype`` is the matmul input format, bfloat16 by default even for
 float32 inputs (the q product, K, V and the probabilities are rounded to
 it; accumulation is always float32); pass ``torch.float32`` for exact
-float32 numerics.  Not ported yet, each raising an ``ACCLError`` naming
-itself: ``kernel="resident_skew"`` and the backward kernels
-(``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``).
+float32 numerics.  Not ported yet, raising an ``ACCLError`` naming
+itself: ``kernel="resident_skew"``.
 """
 from __future__ import annotations
 
@@ -402,20 +410,265 @@ def _flash_forward_impl(qp, kp, vp, cfg):
     return flash_fwd_grid(qp, kp, vp, cfg)
 
 
+# ---------------------------------------------------------------------------
+# backward: dQ per q block over k blocks, dK/dV per k block over q blocks
+# ---------------------------------------------------------------------------
+#
+# With the saved (out, lse), the normalized probabilities rebuild per
+# block as P = exp2(s2 - l2) (q2 pre-scaled by a log2(e), l2 = lse
+# log2(e)), and
+#
+#   dV_j  = sum_i P_ij dO_i
+#   dS_ij = P_ij (dO_i . V_j - dvec_i),  dvec_i = dO_i . out_i - dlse_i
+#   dQ_i  = a sum_j dS_ij K_j,   dK_j = a sum_i dS_ij Q_i
+#
+# Causal cells are predicated exactly like the forward grid schedule.
+
+def _bwd_p_block(q2, kb, l2, row0, col0, masked, window):
+    """``_flash_bwd_p_block``: the normalized probability block
+    [..., rows(q2), rows(kb)] from MXU-dtype q2/kb and the log2 lse
+    [..., rows, 1]; dead rows (lse = NEG_INF) give zeros; ``masked``
+    applies row >= col (and row - col < window) at the global offsets."""
+    s2 = torch.matmul(q2.float(), kb.float().transpose(-1, -2))
+    p = torch.where(l2 <= NEG_INF / 2, 0.0, torch.exp2(s2 - l2))
+    if masked:
+        rows = row0 + torch.arange(s2.shape[-2], device=s2.device)[:, None]
+        cols = col0 + torch.arange(s2.shape[-1], device=s2.device)[None, :]
+        keep = rows >= cols
+        if window is not None:
+            keep = keep & (rows - cols < window)
+        p = torch.where(keep, p, 0.0)
+    return p
+
+
+def _bwd_bounds(cfg, T, Tk):
+    """(nq, nk, nq_eff, nk_eff): the block counts and, under a window, the
+    bounded extents of the dq kernel's k axis and the dkv kernel's q
+    axis (``_flash_backward``)."""
+    bq, bk, window = cfg[1], cfg[2], cfg[9]
+    nq, nk = T // bq, Tk // bk
+    if window is None:
+        return nq, nk, nq, nk
+    return (nq, nk, min(nq, (bk + window - 2) // bq + 2),
+            min(nk, (window - 1 + bq + bk - 1) // bk + 1))
+
+
+def _grouped(x, Nk):
+    """[N, T, ...] -> [Nk, N / Nk, T, ...]: packed q row n under K/V row
+    n // (N / Nk)."""
+    return x.reshape((Nk, x.shape[0] // Nk) + tuple(x.shape[1:]))
+
+
+def flash_bwd_dq_plain(q2, kp, vp, do, l2, dvec, cfg):
+    """``_flash_bwd_dq_kernel`` in torch: per q block, the cells
+    (``_grid_live_masked``, the window's bounded k range from
+    ``_window_first_block``, phantom cells past nk dead) folded in
+    ``chunk_k`` sub-chunks, dS cast to the MXU dtype before dS @ K; dq =
+    acc * a in q2's dtype.  q2/do [N, T, D], kp/vp [Nk, Tk, D], l2/dvec
+    [N, T] float32."""
+    (causal, bq, bk, ck, mxu, _kernel, _nc, _qt, _fd, window, _sm,
+     _g) = cfg
+    N, T, D = q2.shape
+    Nk, Tk = kp.shape[0], kp.shape[1]
+    nq, nk, _nq_eff, nk_eff = _bwd_bounds(cfg, T, Tk)
+    a = 1.0 / float(D) ** 0.5
+    q, dom = _grouped(q2.to(mxu), Nk), _grouped(do.to(mxu), Nk)
+    k, v = kp.to(mxu)[:, None], vp.to(mxu)[:, None]
+    l2g, dvg = _grouped(l2[..., None], Nk), _grouped(dvec[..., None], Nk)
+    dq = torch.empty_like(q2)
+    for iq in range(nq):
+        rs = slice(iq * bq, (iq + 1) * bq)
+        qb, dob, l2b, dvb = q[:, :, rs], dom[:, :, rs], l2g[:, :, rs], \
+            dvg[:, :, rs]
+        acc = torch.zeros(qb.shape, dtype=torch.float32, device=q2.device)
+        first = (_window_first_block(iq, bq, bk, window)
+                 if window is not None else 0)
+        for j in range(nk_eff):
+            ik = j + first
+            live, diag = _grid_live_masked(iq, ik, bq, bk, causal, window)
+            if window is not None:
+                live = live and ik < nk
+                diag = diag and live
+            if not live:
+                continue
+            for c in range(bk // ck):
+                off = ik * bk + c * ck
+                kb, vb = k[:, :, off:off + ck], v[:, :, off:off + ck]
+                p = _bwd_p_block(qb, kb, l2b, iq * bq, off,
+                                 causal and diag, window)
+                dp = torch.matmul(dob.float(), vb.float().transpose(-1, -2))
+                ds = p * (dp - dvb)
+                acc = acc + torch.matmul(ds.to(mxu).float(), kb.float())
+        dq[:, rs] = (acc * a).to(q2.dtype).reshape(N, bq, D)
+    return dq
+
+
+def flash_bwd_dkv_plain(q2, kp, vp, do, l2, dvec, cfg):
+    """``_flash_bwd_dkv_kernel`` in torch: per k block, the sequential
+    axis over every q head of the K/V head's group and its live q blocks
+    (``nq_eff`` of them from the causal base ``(ik bk) // bq`` under a
+    window, phantom cells past nq dead), each folded in ``_snap_chunk(ck,
+    bq)`` sub-chunks: dV += P^T dO, dK += dS^T q2 with P and dS cast to
+    the MXU dtype; dk = acc / log2(e)."""
+    (causal, bq, bk, ck, mxu, _kernel, _nc, _qt, _fd, window, _sm,
+     _g) = cfg
+    N, T, D = q2.shape
+    Nk, Tk = kp.shape[0], kp.shape[1]
+    G = N // Nk
+    nq, nk, nq_eff, _nk_eff = _bwd_bounds(cfg, T, Tk)
+    ckq = _snap_chunk(ck, bq)
+    q, dom = _grouped(q2.to(mxu), Nk), _grouped(do.to(mxu), Nk)
+    l2g, dvg = _grouped(l2[..., None], Nk), _grouped(dvec[..., None], Nk)
+    k, v = kp.to(mxu), vp.to(mxu)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    for ik in range(nk):
+        cs = slice(ik * bk, (ik + 1) * bk)
+        kb, vb = k[:, cs], v[:, cs]
+        dk_acc = torch.zeros(kb.shape, dtype=torch.float32, device=kp.device)
+        dv_acc = torch.zeros_like(dk_acc)
+        for j in range(nq_eff * G):
+            g, j2 = divmod(j, nq_eff)
+            iq = j2 + ((ik * bk) // bq if window is not None else 0)
+            live, diag = _grid_live_masked(iq, ik, bq, bk, causal, window)
+            if window is not None:
+                live = live and iq < nq
+                diag = diag and live
+            if not live:
+                continue
+            for c in range(bq // ckq):
+                r0 = iq * bq + c * ckq
+                rs = slice(r0, r0 + ckq)
+                qc, doc = q[:, g, rs], dom[:, g, rs]
+                p = _bwd_p_block(qc, kb, l2g[:, g, rs], r0, ik * bk,
+                                 causal and diag, window)
+                dv_acc = dv_acc + torch.matmul(
+                    p.to(mxu).float().transpose(-1, -2), doc.float())
+                dp = torch.matmul(doc.float(), vb.float().transpose(-1, -2))
+                ds = (p * (dp - dvg[:, g, rs])).to(mxu)
+                dk_acc = dk_acc + torch.matmul(ds.float().transpose(-1, -2),
+                                               qc.float())
+        dk[:, cs] = (dk_acc * (1.0 / _LOG2E)).to(kp.dtype)
+        dv[:, cs] = dv_acc.to(vp.dtype)
+    return dk, dv
+
+
+def _launch_bwd(fn_name, outs, q2, kp, vp, do, l2, dvec, cfg):
+    """Check the operands and launch ``fn_name`` of csrc/flash_bwd.cu
+    into ``outs`` on the operands' card."""
+    causal, mxu, window = cfg[0], cfg[4], cfg[9]
+    N, T, D = q2.shape
+    Nk, Tk = kp.shape[0], kp.shape[1]
+    dt = q2.dtype
+    for t in (q2, kp, vp, do, *outs):
+        if t.device != q2.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError("flash backward kernel: q2, k, v, dO and the "
+                             "gradients must be contiguous, on one device, "
+                             "of one dtype")
+    for t in (l2, dvec):
+        if (t.device != q2.device or t.dtype != torch.float32
+                or tuple(t.shape) != (N, T) or not t.is_contiguous()):
+            raise ValueError(f"flash backward kernel: l2 and dvec must be "
+                             f"contiguous float32 [{N}, {T}]")
+    if dt not in KERNEL_DTYPES or mxu not in KERNEL_DTYPES:
+        raise ValueError(f"flash backward kernel: takes float32 or bfloat16 "
+                         f"inputs and MXU dtypes, got {dt} and {mxu}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash backward kernel: head size {D} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    lib = _build.load("flash_bwd")
+    dev = q2.device
+    args = [q2.data_ptr(), kp.data_ptr(), vp.data_ptr(), do.data_ptr(),
+            l2.data_ptr(), dvec.data_ptr(), *(o.data_ptr() for o in outs),
+            N, Nk, T, Tk, D, KERNEL_DTYPES[dt], int(causal), window or 0,
+            int(mxu == torch.bfloat16)]
+    if fn_name == "accl_flash_bwd_dq":
+        args.append(1.0 / float(D) ** 0.5)
+    args += [dev.index or 0, torch.cuda.current_stream(dev).cuda_stream]
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        msg = lib.accl_flash_bwd_error_string(rc).decode()
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} ({msg})")
+
+
+def flash_bwd_dq(q2, kp, vp, do, l2, dvec, cfg):
+    """dQ [N, T, D] in q2's dtype from the prepared operands of
+    ``_flash_backward``.  On the card: the ``flash_bwd_dq`` kernel."""
+    if _on_cpu(q2):
+        return flash_bwd_dq_plain(q2, kp, vp, do, l2, dvec, cfg)
+    dq = torch.empty_like(q2)
+    _launch_bwd("accl_flash_bwd_dq", (dq,), q2, kp, vp, do, l2, dvec, cfg)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q2, kp, vp, do, l2, dvec, cfg):
+    """(dK, dV) [Nk, Tk, D] in k's dtype from the prepared operands of
+    ``_flash_backward``.  On the card: the ``flash_bwd_dkv`` kernel."""
+    if _on_cpu(q2):
+        return flash_bwd_dkv_plain(q2, kp, vp, do, l2, dvec, cfg)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    _launch_bwd("accl_flash_bwd_dkv", (dk, dv), q2, kp, vp, do, l2, dvec,
+                cfg)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def bwd_kernel_ctas(N: int, Nk: int, T: int, Tk: int) -> tuple:
+    """Thread blocks of one (dq, dkv) launch pair (needs the built
+    library, so the card)."""
+    lib = _build.load("flash_bwd")
+    return (int(lib.accl_flash_bwd_ctas(0, N, Nk, T, Tk)),
+            int(lib.accl_flash_bwd_ctas(1, N, Nk, T, Tk)))
+
+
+def _flash_backward(qp, kp, vp, out, lse, g_out, g_lse, cfg):
+    """The host-side prep of ``_flash_backward``: q2 = q a log2(e) taken
+    in float32 and cast back to q's dtype, l2 = lse log2(e), dvec =
+    rowsum(dO out) - g_lse (the subtract skipped when the lse output was
+    unused); then the dq and dkv kernels.  Returns (dq, dk, dv)."""
+    D = qp.shape[-1]
+    a = 1.0 / float(D) ** 0.5
+    q2 = (qp.float() * (a * _LOG2E)).to(qp.dtype)
+    l2 = (lse * _LOG2E).contiguous()
+    dvec = torch.sum(g_out.float() * out.float(), dim=-1)
+    if g_lse is not None:
+        dvec = dvec - g_lse.float()
+    dvec = dvec.contiguous()
+    g_out = g_out.contiguous()
+    dq = flash_bwd_dq(q2, kp, vp, g_out, l2, dvec, cfg)
+    dk, dv = flash_bwd_dkv(q2, kp, vp, g_out, l2, dvec, cfg)
+    return dq, dk, dv
+
+
 class _FlashPacked(torch.autograd.Function):
     """The role of ``_flash_packed_diff`` (the custom-vjp boundary): the
-    forward is the schedule dispatch; the backward needs the flash
-    backward kernels, which come with the training slice."""
+    forward is the schedule dispatch, saving (q, k, v, out, lse); the
+    backward is ``_flash_diff_bwd``.  Gradients are not materialized, so
+    an unused lse output arrives as None (JAX's symbolic zero) and the
+    dvec subtract is skipped; an unused out becomes zeros."""
 
     @staticmethod
     def forward(ctx, qp, kp, vp, cfg):
-        return _flash_forward_impl(qp, kp, vp, cfg)
+        out, lse = _flash_forward_impl(qp, kp, vp, cfg)
+        ctx.save_for_backward(qp, kp, vp, out, lse)
+        ctx.cfg = cfg
+        ctx.set_materialize_grads(False)
+        return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        raise ACCLError("flash attention backward (_flash_bwd_dq_kernel, "
-                        "_flash_bwd_dkv_kernel) is not part of "
-                        "accl_tpu_torch yet")
+        qp, kp, vp, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = _flash_backward(qp, kp, vp, out, lse, g_out, g_lse,
+                                     ctx.cfg)
+        return dq, dk, dv, None
 
 
 def _flash_call_packed(qp, kp, vp, causal, block_q, block_k, mxu_dtype,

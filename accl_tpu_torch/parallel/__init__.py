@@ -1,7 +1,7 @@
 """The SPMD layer over rank lists: meshes of rank slots on one card, the
-functional collectives, and the dense attention reference.  Port of
-``accl_tpu/parallel`` (``strategies.py`` and the sequence-parallel
-attention schedules are not ported yet)."""
+functional collectives, the parallelism strategies, and the dense
+attention reference.  Port of ``accl_tpu/parallel`` (the
+sequence-parallel attention schedules are not ported yet)."""
 
 from .collectives import (  # noqa: F401
     all_gather,
@@ -22,3 +22,13 @@ from .collectives import (  # noqa: F401
 )
 from .mesh import MeshConfig, RankMesh, make_mesh  # noqa: F401
 from .ring_attention import expand_gqa_kv  # noqa: F401
+from .strategies import (  # noqa: F401
+    column_parallel,
+    expert_combine,
+    expert_dispatch,
+    pipeline_apply,
+    row_parallel,
+    sync_gradients,
+    zero_shard_gradients,
+    zero_unshard_params,
+)

@@ -28,7 +28,14 @@ Phases, each fatal on failure:
        cross-length and two ragged calls, in f32 with f32 and bf16 MXU
        dtypes and in bf16: out and lse within FLASH_BOUND of the plain
        version, and a bf16-operand control outside the f32 bound;
-  4. the main path, in four parts, each driven with every launch count
+     - the flash backward kernels (flash_bwd_dq, flash_bwd_dkv) at the
+       training path's per-rank shape (q and dO [8, 4096, 128], K/V
+       [2, 4096, 128], causal) with the lse cotangent zero and nonzero,
+       and at a windowed, a cross-length and a ragged call with halved
+       blocks, in f32 with f32 and bf16 MXU dtypes and in bf16: dq, dk
+       and dv within BWD_BOUND of the plain version, and a bf16-operand
+       control outside the f32 bound;
+  4. the main path, in five parts, each driven with every launch count
      set to 0 just before it and read just after:
      a. the driver: CudaWorld(8) on the card, ACCL calls on 8 rank
         threads — fp32 SUM allreduce at 4, 16, 64 and 256 MiB per rank,
@@ -65,12 +72,27 @@ Phases, each fatal on failure:
         held to forward's argmax; teacher-forced prefill and decode held
         to forward's logits.  Prints first-call seconds, launches,
         prefill tokens/s, ms per decode step and peak memory;
+     e. the model's training path at the same width and depth, fp32:
+        make_train_step on make_mesh(dp=2, tp=4) (8 rank slots), 1 x 4096
+        tokens per dp member, 3 SGD steps at TRAIN_LR on a repeated
+        batch; the loss must be finite and fall, and flash_fwd_resident,
+        flash_bwd_dq and flash_bwd_dkv must each launch 32 times a step.
+        The first step is held three ways: to the same step with
+        attn="dense" and remat (loss within TRAIN_LOSS_BOUND, each
+        leaf's gradient, recovered as (p - p') / lr, within
+        TRAIN_GRAD_BOUND plus the update's fp32 rounding floor), to the
+        same step with remat (within REMAT_BOUND), and to one step
+        synced by sync_gradients(compress="int8", error_feedback=True)
+        over the dp list (the loss after it within TRACK_TOL of the
+        fp32 run's).  Prints seconds per step, tokens/s and peak memory;
   5. times with CUDA events after warm-up (median of 5 runs): each kernel
      per launch, at the shape the main path launches it most, beside its
      plain version, a library yardstick and its bound (bytes read once +
      written once over 3.35 TB/s, or operations over the peak for their
      type, 67 TFLOP/s fp32 or 989 TFLOP/s bf16, whichever is larger),
-     with its times at the path's other shape as an extra field; the
+     with its times at the path's other shape as an extra field (the
+     flash backward kernels beside SDPA's backward by autograd, its
+     forward time subtracted); the
      driver's allreduce algbw / busbw per size; and at 64 MiB per rank
      the busbw of the fused and int8 lanes beside the lossless ring's.
 
@@ -105,6 +127,9 @@ TOKENS = 4096
 TP_SHAPES = {"mlp_down": (TOKENS, 14336 // P, 4096),
              "attn_out": (TOKENS, 32 * 128 // P, 4096)}
 RAGGED_MKN = (1000, 333, 777)
+#: the flash kernels' wrappers in accl_tpu_torch/ops/flash.py
+FLASH_KERNELS = ("flash_fwd_resident", "flash_fwd_grid", "flash_bwd_dq",
+                 "flash_bwd_dkv")
 #: chunks of the pipelined form fused_matmul_allreduce(chunks=...): its
 #: matmuls run on M / (P CHUNKS)-row blocks
 CHUNKS = 4
@@ -384,8 +409,8 @@ def reset_counts(ring, F, FL=None) -> None:
                F.pallas_matmul, F.fused_matmul_reduce_scatter):
         fn.launches = 0
     if FL is not None:
-        FL.flash_fwd_resident.launches = 0
-        FL.flash_fwd_grid.launches = 0
+        for fn in FLASH_KERNELS:
+            getattr(FL, fn).launches = 0
 
 
 def read_counts(ring, F, FL=None) -> dict:
@@ -395,8 +420,7 @@ def read_counts(ring, F, FL=None) -> dict:
               "fused_matmul_reduce_scatter":
                   F.fused_matmul_reduce_scatter.launches}
     if FL is not None:
-        counts["flash_fwd_resident"] = FL.flash_fwd_resident.launches
-        counts["flash_fwd_grid"] = FL.flash_fwd_grid.launches
+        counts.update({fn: getattr(FL, fn).launches for fn in FLASH_KERNELS})
     return counts
 
 
@@ -1049,6 +1073,122 @@ def check_flash_kernels(FL) -> dict:
     return errs
 
 
+#: one rank's flash backward launch on the training path (dp 2 x tp 4,
+#: 1 x 4096 tokens per dp member: 8 q heads over 2 K/V heads): (N, Nk, T)
+FLASH_TRAIN = (8, 2, 4096)
+#: max |kernel - plain| / max |plain| allowed on dq, dk and dv, per MXU
+#: dtype.  float32: both sum the same fp32 products in other orders
+#: (64-row tiles with FMAs against the plain version's blocks through
+#: cuBLAS).  dk and dv sum G T = 16384 terms per element at the training
+#: shape, whose rounding errors add as a random walk to ~sqrt(16384)
+#: 2^-24 = 7.6e-6 of the largest partial sum; the bound is 4 times that,
+#: 3e-5 (readings up to 6.7e-6 on the first card run, NVIDIA H100 80GB
+#: HBM3, 700 W; the bf16-operand control read 2.5e-3 and above).
+#: bfloat16: a P or dS entry whose fp32 value rounds to the other bf16
+#: neighbour moves by one bf16 ulp (2^-8), and bf16 outputs round once
+#: more: two bf16 ulps of the largest value, as FLASH_BOUND (readings up
+#: to 2.7e-3)
+BWD_BOUND = {torch.float32: 3e-5, torch.bfloat16: 1.6e-2}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float32."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def bwd_operands(FL, N, Nk, T, Tk, dt, mxu, causal, window, g_lse, gen):
+    """The backward kernels' operands as _FlashPacked.backward prepares
+    them: a forward through the kernels on N(0, 1) q, k, v, an N(0, 1)
+    dO and, with g_lse, an N(0, 1) lse cotangent."""
+    q = rand((N, T, D_HEAD), dt, gen)
+    k, v = rand((Nk, Tk, D_HEAD), dt, gen), rand((Nk, Tk, D_HEAD), dt, gen)
+    cfg = flash_cfg(FL, N, Nk, T, Tk, dt, mxu, "auto", causal, window)
+    out, lse = FL._flash_forward_impl(q, k, v, cfg)
+    do = rand((N, T, D_HEAD), dt, gen)
+    a = 1.0 / D_HEAD ** 0.5
+    q2 = (q.float() * (a * FL._LOG2E)).to(dt)
+    dvec = torch.sum(do.float() * out.float(), dim=-1)
+    if g_lse:
+        dvec = dvec - rand((N, T), torch.float32, gen)
+    return (q2, k, v, do, (lse * FL._LOG2E).contiguous(),
+            dvec.contiguous()), cfg
+
+
+def check_flash_bwd_kernels(FL) -> dict:
+    """Phase 3d: flash_bwd_dq and flash_bwd_dkv against their plain
+    versions at the training path's per-rank shape (FLASH_TRAIN, causal,
+    GQA group 4) with the lse cotangent zero and nonzero, a windowed call,
+    a non-causal cross-length call and a ragged call (T = 1200: the
+    resolver's blocks halve to 16, the kernels' last 64-row tile is
+    partial), in float32 with float32 and bfloat16 MXU dtypes and in
+    bfloat16.  dq, dk and dv finite and within BWD_BOUND of the plain
+    version; a control (the plain version with bf16-rounded operands
+    against the float32 one) must fall outside the float32 bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    errs = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    readings, controls_ = [], {}
+    N, Nk, T = FLASH_TRAIN
+    calls = [("train", N, Nk, T, T, True, None, g, FLASH_DTYPES)
+             for g in (False, True)]
+    calls += [("window_1000", 4, 1, 2048, 2048, True, 1000, True,
+               FLASH_DTYPES[::2]),
+              ("cross_length", 8, 2, 1024, 1536, False, None, True,
+               FLASH_DTYPES[::2]),
+              ("ragged_1200", 8, 2, 1200, 1200, True, None, True,
+               FLASH_DTYPES[:1])]
+    for tag, N, Nk, T, Tk, causal, window, g_lse, dtypes in calls:
+        for dt, mxu in dtypes:
+            ops, cfg = bwd_operands(FL, N, Nk, T, Tk, dt, mxu, causal,
+                                    window, g_lse, gen)
+            dq = FL.flash_bwd_dq(*ops, cfg)
+            dk, dv = FL.flash_bwd_dkv(*ops, cfg)
+            torch.cuda.synchronize()
+            want_dq = FL.flash_bwd_dq_plain(*ops, cfg)
+            want_dk, want_dv = FL.flash_bwd_dkv_plain(*ops, cfg)
+            e = {"dq": rel_err(dq, want_dq), "dk": rel_err(dk, want_dk),
+                 "dv": rel_err(dv, want_dv)}
+            finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+            readings.append({"call": tag, "q": [N, T, D_HEAD],
+                             "kv": [Nk, Tk, D_HEAD], "causal": causal,
+                             "window": window, "g_lse": g_lse,
+                             "dtype": str(dt), "mxu": str(mxu),
+                             "blocks": list(cfg[1:4]),
+                             "ctas": FL.bwd_kernel_ctas(N, Nk, T, Tk),
+                             "rel_err": e,
+                             "max_abs": {"dq": float(want_dq.abs().max()),
+                                         "dk": float(want_dk.abs().max()),
+                                         "dv": float(want_dv.abs().max())}})
+            bound = BWD_BOUND[mxu]
+            if not finite or max(e.values()) > bound:
+                fail(f"flash backward {tag} {dt}/{mxu} g_lse={g_lse}: off "
+                     f"the plain version ({e}, bound {bound}, finite "
+                     f"{finite})")
+            errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"],
+                                       max_err(dq, want_dq))
+            errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"],
+                                        max_err(dk, want_dk),
+                                        max_err(dv, want_dv))
+            if tag == "train" and mxu == torch.float32:
+                ctl_cfg = cfg[:4] + (torch.bfloat16,) + cfg[5:]
+                c_dq = FL.flash_bwd_dq_plain(*ops, ctl_cfg)
+                c_dk, c_dv = FL.flash_bwd_dkv_plain(*ops, ctl_cfg)
+                ctl = {"dq": rel_err(c_dq, want_dq),
+                       "dk": rel_err(c_dk, want_dk),
+                       "dv": rel_err(c_dv, want_dv)}
+                controls_[f"{tag} g_lse={g_lse}"] = ctl
+                if not min(ctl.values()) > bound:
+                    fail(f"the float32 bound {bound} does not catch bf16 "
+                         f"operands: {ctl}")
+                del c_dq, c_dk, c_dv
+            del ops, dq, dk, dv, want_dq, want_dk, want_dv
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_bwd_kernels_vs_plain", "ok": True,
+          "bound_rel_to_max": {str(k): b for k, b in BWD_BOUND.items()},
+          "readings": readings, "bf16_operand_control": controls_})
+    return errs
+
+
 def serving_path(ring, F, FL, M) -> dict:
     """Phase 4d: the model's serving path at Llama-3-8B width (LLAMA3_8B,
     4 layers), TP=8 over rank lists, fp32, weights from a seed on the
@@ -1203,6 +1343,181 @@ def serving_path(ring, F, FL, M) -> dict:
     return {"launches": total, "per_forward": per_forward}
 
 
+#: the training path's learning rate: large enough that each leaf's
+#: update stands well above the fp32 rounding of the parameter it is
+#: added to (so the gradient can be recovered from it), small enough that
+#: plain SGD on a repeated batch still descends
+TRAIN_LR = 1.0
+TRAIN_STEPS = 3
+#: relative bound on the first step's loss against the same step with
+#: attn="dense" (fp32 both; the two sum the attention in other orders)
+TRAIN_LOSS_BOUND = 1e-5
+#: relative L2 bound on each leaf's gradient against the dense step's,
+#: recovered as (p - p') / lr; a wrong dQ or dK/dV gives O(1) there.  The
+#: fp32 rounding of each update p - lr g is added on top per leaf:
+#: 2 ||ulp(p) / 2|| / ||p - p'|| (two independent roundings)
+TRAIN_GRAD_BOUND = 1e-3
+#: the same step with remat=True: the same kernels on the same values
+REMAT_BOUND = 1e-6
+
+
+def train_path(ring, F, FL, M, S, TE, T_) -> dict:
+    """Phase 4e: the model's training path at Llama-3-8B width (LLAMA3_8B,
+    4 layers), make_train_step on make_mesh(dp=2, tp=4), fp32, 1 x 4096
+    tokens per dp member, weights from a seed on the card.  Runs, each
+    with every launch count set to 0 just before and read just after:
+    TRAIN_STEPS flash steps on one repeated batch, the first of them also
+    as a dense + remat step, a flash + remat step and an int8 + EF synced
+    step from the same weights."""
+    cfg = M.ModelConfig(**LLAMA3_8B)
+    mesh = S.make_mesh(dp=2, tp=4)
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    torch.cuda.empty_cache()
+    p0 = M.init_params(gen, cfg, tp=tp)
+    tokens = torch.randint(0, cfg.vocab, (dp, 4096), generator=gen,
+                           device="cuda")
+    n_tok = tokens.numel()
+    torch.cuda.synchronize()
+    total, runs = {}, {}
+
+    def run(name, fn):
+        reset_counts(ring, F, FL)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = read_counts(ring, F, FL)
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+        runs[name] = {"s": secs, "launches": counts}
+        return out
+
+    def stepper(c):
+        return M.make_train_step(mesh, c, lr=TRAIN_LR)[0]
+
+    # -- the first flash step, from a copy of p0 -------------------------
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = T_.tree_map(torch.clone, p0)
+    step = stepper(cfg)
+    params, loss = run("step_1", lambda: step(params, tokens))
+    peak_step = (torch.cuda.max_memory_allocated() - held) / 1e9
+    losses = [float(loss)]
+
+    def compare(p_other):
+        """Per leaf (d, floor, ||Delta||): d = ||Delta - Delta'|| /
+        ||Delta||, Delta = p0 - p after the flash step and Delta' the
+        other step's, both exact fp32 differences of nearby values; floor
+        = 2 ||ulp(p0) / 2|| / ||Delta||.  Squares are summed in float64
+        over chunks, so no float64 copy of a 2 GB leaf is made."""
+        out = []
+        for a, b, z in zip(T_.tree_leaves(params), T_.tree_leaves(p_other),
+                           T_.tree_leaves(p0)):
+            a, b, z = a.reshape(-1), b.reshape(-1), z.reshape(-1)
+            sums = np.zeros(3)
+            for i in range(0, z.numel(), 1 << 26):
+                za, aa, bb = (t[i:i + (1 << 26)] for t in (z, a, b))
+                ulp = torch.nextafter(za, torch.full_like(za, np.inf)) - za
+                sums += [float(((za - aa).double() ** 2).sum()),
+                         float(((aa - bb).double() ** 2).sum()),
+                         float(((ulp / 2).double() ** 2).sum())]
+            nd, diff, half_ulp = np.sqrt(sums)
+            out.append((diff / max(nd, 1e-300), 2 * half_ulp / max(nd, 1e-300),
+                        nd))
+        return out
+
+    # -- the same step with attn="dense" and remat -----------------------
+    dense_cfg = M.ModelConfig(**{**LLAMA3_8B, "attn": "dense",
+                                 "remat": True})
+    other = T_.tree_map(torch.clone, p0)
+    dstep = stepper(dense_cfg)
+    other, dloss = run("step_1_dense_remat", lambda: dstep(other, tokens))
+    dense_cmp = compare(other)
+    loss_err = abs(float(dloss) - losses[0]) / abs(losses[0])
+    worst = max(d - (TRAIN_GRAD_BOUND + f) for d, f, _n in dense_cmp)
+    if loss_err > TRAIN_LOSS_BOUND or worst > 0:
+        fail(f"the flash train step is off the dense one: loss {loss_err} "
+             f"(bound {TRAIN_LOSS_BOUND}), per-leaf gradient "
+             f"{[(d, TRAIN_GRAD_BOUND + f) for d, f, _n in dense_cmp]}")
+    del other
+    torch.cuda.empty_cache()
+
+    # -- the same step with remat ----------------------------------------
+    remat_cfg = M.ModelConfig(**{**LLAMA3_8B, "remat": True})
+    other = T_.tree_map(torch.clone, p0)
+    rstep = stepper(remat_cfg)
+    other, rloss = run("step_1_remat", lambda: rstep(other, tokens))
+    remat_cmp = compare(other)
+    remat_loss_err = abs(float(rloss) - losses[0]) / abs(losses[0])
+    if remat_loss_err > REMAT_BOUND or \
+            max(d for d, _f, _n in remat_cmp) > REMAT_BOUND:
+        fail(f"the remat train step is off the plain one: loss "
+             f"{remat_loss_err}, per-leaf {[d for d, _f, _n in remat_cmp]} "
+             f"(bound {REMAT_BOUND})")
+    del other
+    torch.cuda.empty_cache()
+
+    # -- one int8 + EF synced step ---------------------------------------
+    other = T_.tree_map(torch.clone, p0)
+    qstep = TE._make_step(cfg, "int8_ef", TRAIN_LR, dp)
+    other, qloss0 = run("step_1_int8_ef",
+                        lambda: qstep(other, tokens.view(dp, 1, -1)))
+    with torch.no_grad():
+        s_, c_ = M.loss_fn(other, tokens, cfg)
+    int8_loss_after = float(s_ / c_)
+    del other, s_, c_
+    torch.cuda.empty_cache()
+
+    # -- the rest of the run ---------------------------------------------
+    for i in range(2, TRAIN_STEPS + 1):
+        params, loss = run(f"step_{i}", lambda: step(params, tokens))
+        losses.append(float(loss))
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    if not all(np.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"training: losses {losses} not finite or not falling")
+    int8_dev = abs(int8_loss_after - losses[1])
+    if abs(float(qloss0) - losses[0]) > TE.TRACK_TOL or \
+            int8_dev > TE.TRACK_TOL:
+        fail(f"the int8 + EF step: loss after it {int8_loss_after} against "
+             f"the fp32 run's {losses[1]} (TRACK_TOL {TE.TRACK_TOL})")
+    per_step = {k: runs["step_1"]["launches"][k] for k in
+                ("flash_fwd_resident", "flash_bwd_dq", "flash_bwd_dkv")}
+    want = cfg.n_layers * dp * tp
+    for i in range(1, TRAIN_STEPS + 1):
+        got = {k: runs[f"step_{i}"]["launches"][k] for k in per_step}
+        if got != dict.fromkeys(per_step, want):
+            fail(f"training step {i} must launch each flash kernel {want} "
+                 f"times (layers x dp x tp): {got}")
+    step_s = [runs[f"step_{i}"]["s"] for i in range(1, TRAIN_STEPS + 1)]
+    emit({"phase": "train_path", "ok": True, "config": LLAMA3_8B,
+          "reduced": "n_layers 32 -> 4", "mesh": mesh.shape,
+          "tokens_per_step": n_tok, "lr": TRAIN_LR, "losses": losses,
+          "s_per_step": step_s,
+          "tokens_per_s": n_tok / statistics.median(step_s[1:]),
+          "launches_per_step": per_step, "runs": runs, "launches": total,
+          "dense_remat": {"loss_rel_err": loss_err,
+                          "grad_rel_l2_max": max(d for d, _f, _n in
+                                                 dense_cmp),
+                          "rounding_floor_max": max(f for _d, f, _n in
+                                                    dense_cmp),
+                          "per_leaf": [[d, f] for d, f, _n in dense_cmp],
+                          "bound": TRAIN_GRAD_BOUND},
+          "remat": {"loss_rel_err": remat_loss_err,
+                    "grad_rel_l2_max": max(d for d, _f, _n in remat_cmp),
+                    "bound": REMAT_BOUND},
+          "int8_ef": {"loss_after": int8_loss_after,
+                      "fp32_loss_after": losses[1], "abs_dev": int8_dev,
+                      "track_tol": TE.TRACK_TOL},
+          "first_step_peak_gb_above_held": peak_step,
+          "phase_peak_gb_above_held": peak, "held_gb": held / 1e9,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del params, p0
+    torch.cuda.empty_cache()
+    return {"launches": total, "per_step": per_step}
+
+
 def attention_bound(N, T, Tk, causal, dt) -> tuple:
     """(bound ms, "operations" or "bytes") of one forward: QK^T and PV over
     the cells the mask keeps (T (T + 1) / 2 per head when causal), 2
@@ -1270,6 +1585,95 @@ def time_flash_kernels(FL, errs, launches, per_forward) -> list:
     return rows
 
 
+def bwd_bound(which, N, Nk, T, dt) -> tuple:
+    """(bound ms, "operations" or "bytes", operations) of one causal
+    backward launch: dq's three products (S, dP, dS K) or dkv's four (S,
+    dP, P^T dO, dS^T q) over the T (T + 1) / 2 kept cells per q head, 2
+    operations per multiply-add; q2, dO, K, V, l2 and dvec read once, the
+    gradients written once."""
+    cells = T * (T + 1) // 2
+    el = torch.finfo(dt).bits // 8
+    ops = (3 if which == "dq" else 4) * 2 * D_HEAD * cells * N
+    reads = (2 * N * T * D_HEAD + 2 * Nk * T * D_HEAD) * el + 2 * N * T * 4
+    writes = (N if which == "dq" else 2 * Nk) * T * D_HEAD * el
+    return matmul_bound(ops, reads + writes, dt) + (ops,)
+
+
+def time_flash_bwd_kernels(FL, errs, launches, per_step) -> list:
+    """Phase 5e: each flash backward kernel per launch at the training
+    path's per-rank shape (FLASH_TRAIN, causal), fp32 with the fp32 MXU
+    dtype as there, interleaved with its plain version (kernel, plain,
+    plain, kernel), beside SDPA's backward by autograd with GQA
+    (torch.nn.functional.scaled_dot_product_attention, a yardstick only;
+    its forward time subtracted; it computes dq, dk and dv in one) and the
+    bound; bf16 inputs are printed beside."""
+    import torch.nn.functional as tnf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    N, Nk, T = FLASH_TRAIN
+    counts0 = {k: getattr(FL, k).launches for k in FLASH_KERNELS}
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        ops, cfg = bwd_operands(FL, N, Nk, T, T, dt, dt, True, None, False,
+                                gen)
+        q = rand((Nk, N // Nk, T, D_HEAD), dt, gen).requires_grad_(True)
+        k = rand((Nk, 1, T, D_HEAD), dt, gen).requires_grad_(True)
+        v = rand((Nk, 1, T, D_HEAD), dt, gen).requires_grad_(True)
+        do = rand((Nk, N // Nk, T, D_HEAD), dt, gen)
+
+        def sdpa():
+            return tnf.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    enable_gqa=True)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                sdpa()
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (q, k, v), do)
+
+        lib = (cuda_ms(sdpa_fwd_bwd, 3, runs=3)
+               - cuda_ms(sdpa_fwd, 3, runs=3))
+        for name, fn, plain in (
+                ("flash_bwd_dq", FL.flash_bwd_dq, FL.flash_bwd_dq_plain),
+                ("flash_bwd_dkv", FL.flash_bwd_dkv, FL.flash_bwd_dkv_plain)):
+            ms = [cuda_ms(lambda: fn(*ops, cfg), 3, runs=3)]
+            p_ms = [cuda_ms(lambda: plain(*ops, cfg), 1, runs=3)]
+            p_ms.append(cuda_ms(lambda: plain(*ops, cfg), 1, runs=3))
+            ms.append(cuda_ms(lambda: fn(*ops, cfg), 3, runs=3))
+            which = name.split("_")[-1]
+            bound, by, n_ops = bwd_bound(which, N, Nk, T, dt)
+            t = statistics.median(ms)
+            row = {"name": name, "route": "cuda",
+                   "source": "accl_tpu_torch/ops/csrc/flash_bwd.cu",
+                   "kernel": name, "replaces": (
+                       "accl_tpu/ops/flash.py:873" if which == "dq"
+                       else "accl_tpu/ops/flash.py:939"),
+                   "launches": launches[name], "max_abs_err": errs[name],
+                   "ms": t, "plain_ms": statistics.median(p_ms),
+                   "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                   "library_call": "scaled_dot_product_attention(is_causal, "
+                                   "enable_gqa) backward by autograd (dq, "
+                                   "dk and dv together), forward time "
+                                   "subtracted", "checked": True,
+                   "shape": f"q, dO [{N},{T},{D_HEAD}] k/v "
+                            f"[{Nk},{T},{D_HEAD}] causal {dt} mxu {dt}",
+                   "ctas": FL.bwd_kernel_ctas(N, Nk, T, T)[
+                       0 if which == "dq" else 1],
+                   "tflops": n_ops / (t * 1e-3) / 1e12,
+                   "launches_per_train_step": per_step[name]}
+            if dt == torch.bfloat16:
+                emit({"phase": "kernel_time_bf16", **row})
+            else:
+                emit({"phase": "kernel_time", **row})
+                rows.append(row)
+        del ops, q, k, v, do
+    torch.cuda.empty_cache()
+    for key, val in counts0.items():  # the timing launches are not main-path
+        getattr(FL, key).launches = val
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="4,16,64,256",
@@ -1289,6 +1693,9 @@ def main() -> int:
     from accl_tpu_torch.arithconfig import CompressionPolicy
     from accl_tpu_torch.ops import _build
     from accl_tpu_torch import models as M
+    from accl_tpu_torch import parallel as S
+    from accl_tpu_torch.bench import ef_convergence as TE
+    from accl_tpu_torch.utils import tree as T_
     from accl_tpu_torch.ops import flash as FL
     from accl_tpu_torch.ops import fused as F
     from accl_tpu_torch.ops import quantized as q_ops
@@ -1312,6 +1719,7 @@ def main() -> int:
     errs = check_kernels(ring)
     errs.update(check_fused_kernels(F))
     errs.update(check_flash_kernels(FL))
+    errs.update(check_flash_bwd_kernels(FL))
     mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
@@ -1319,12 +1727,13 @@ def main() -> int:
         lanes = driver_lanes(world, ring, F, q_ops, DataType,
                              CompressionPolicy)
         serve = serving_path(ring, F, FL, M)
-        # the main path's launches: the sum over its four parts
+        train = train_path(ring, F, FL, M, S, TE, T_)
+        # the main path's launches: the sum over its five parts
         launches = {k: mp["launches"][k] + tp["launches"][k]
                     + lanes["launches"][k] + serve["launches"][k]
-                    for k in mp["launches"]}
-        launches.update({k: serve["launches"][k] for k in
-                         ("flash_fwd_resident", "flash_fwd_grid")})
+                    + train["launches"][k] for k in mp["launches"]}
+        launches.update({k: serve["launches"][k] + train["launches"][k]
+                         for k in FLASH_KERNELS})
         if args.no_timing:
             emit({"phase": "main_path_done", "launches": launches})
             return 0
@@ -1334,6 +1743,7 @@ def main() -> int:
         rows += time_fused_kernels(ring, F, errs, launches,
                                    tp["per_call_mlp_down"])
         rows += time_flash_kernels(FL, errs, launches, serve["per_forward"])
+        rows += time_flash_bwd_kernels(FL, errs, launches, train["per_step"])
         by_name = {row["name"]: row["ms"] for row in rows}
         for mib, (_s, _r, call, launched) in sorted(mp["per_size"].items()):
             iters = 5

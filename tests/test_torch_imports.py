@@ -14,9 +14,10 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "request", "state", "backends.base", "backends.cuda",
               "ops.ring", "ops.quantized", "ops.fused", "ops.flash",
               "ops._build", "parallel", "parallel.collectives",
-              "parallel.mesh", "parallel.ring_attention", "models",
-              "models.transformer", "models.decode", "utils.device",
-              "utils.logging"]
+              "parallel.mesh", "parallel.ring_attention",
+              "parallel.strategies", "models", "models.transformer",
+              "models.decode", "bench", "bench.ef_convergence",
+              "utils.device", "utils.logging", "utils.tree"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 
@@ -70,9 +71,12 @@ def test_cuda_world_on_the_cpu_when_asked():
 
 
 def test_model_entry_points_default_to_the_card_and_raise_without_one():
+    import io
+
     import numpy as np
 
     from accl_tpu_torch import ACCLError, model_params_from_jax
+    from accl_tpu_torch.bench.ef_convergence import run_ef_convergence
     from accl_tpu_torch.models import ModelConfig, init_kv_cache, init_params
     from accl_tpu_torch.parallel import make_mesh
 
@@ -84,7 +88,8 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one():
     calls = [lambda: init_params(rng, cfg),
              lambda: init_kv_cache(cfg, 1, 4),
              lambda: make_mesh(tp=2),
-             lambda: model_params_from_jax({}, cfg)]
+             lambda: model_params_from_jax({}, cfg),
+             lambda: run_ef_convergence(io.StringIO(), steps=1)]
     for call in calls:
         with pytest.raises(ACCLError, match="no CUDA device"):
             call()
