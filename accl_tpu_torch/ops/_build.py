@@ -26,7 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_f32 = ctypes.c_float
+_f32, _u32, _ll = ctypes.c_float, ctypes.c_uint, ctypes.c_longlong
 #: C signatures of each library's entry points: name -> (argtypes, restype)
 SIGNATURES = {
     "ring": {
@@ -54,6 +54,8 @@ SIGNATURES = {
                                                                _vp], _i32),
         "accl_flash_fwd_grid": ([_vp] * 5 + [_i32] * 10 + [_f32, _f32, _i32,
                                                             _vp], _i32),
+        "accl_flash_fwd_resident_skew": ([_vp] * 5 + [_i32] * 9
+                                         + [_f32, _f32, _i32, _vp], _i32),
     },
     "flash_bwd": {
         "accl_flash_bwd_error_string": ([_i32], ctypes.c_char_p),
@@ -61,6 +63,16 @@ SIGNATURES = {
         "accl_flash_bwd_dq": ([_vp] * 7 + [_i32] * 9 + [_f32, _i32, _vp],
                               _i32),
         "accl_flash_bwd_dkv": ([_vp] * 8 + [_i32] * 9 + [_i32, _vp], _i32),
+    },
+    "reduce_ops": {
+        "accl_reduce_ops_error_string": ([_i32], ctypes.c_char_p),
+        "accl_combine": ([_vp, _vp, _vp, _ll, _ll, _i32, _i32, _i32, _vp],
+                         _i32),
+    },
+    "compression": {
+        "accl_compression_error_string": ([_i32], ctypes.c_char_p),
+        "accl_cast": ([_vp, _vp, _ll, _ll, _ll, _i32, _i32, _i32, _u32, _i32,
+                       _vp], _i32),
     },
 }
 

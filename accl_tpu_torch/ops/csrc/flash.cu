@@ -12,7 +12,16 @@
 //    grid_resident mode: every (q tile, k tile) cell is judged by the
 //    live/diagonal predicates of _grid_live_masked (:856), and a sliding
 //    window bounds the k range to the tiles the q tile can see, starting
-//    at _window_first_block (:848).
+//    at _window_first_block (:848);
+//  * flash_fwd_resident_skew <- _flash_kernel_resident_skew (:403, call
+//    :733 via :709-714): the resident walk with the next K tile's scores
+//    computed before the current tile's softmax and PV.  It shares the
+//    stage, score and consume device functions with the resident mode and
+//    folds in the same order, so its out and lse equal flash_fwd_resident's
+//    bit for bit, as the Pallas pair are.  The lookahead score tile (64 x
+//    64 fp32, 16 KB a CTA) lives in registers, 16 per thread: another
+//    16 KB of shared memory would drop the resident mode's two CTAs per SM
+//    to one, and the K tile's buffer is free again once it is scored.
 //
 // Both share the fold of _softmax_fold / _fold_consume / _finalize
 // (:36-152), in the same log2 domain: q arrives pre-scaled by
@@ -95,34 +104,37 @@ struct Smem {
   static constexpr size_t bytes = (size_t)(QS + KP + VS) * sizeof(float);
 };
 
-// One K/V tile folded into the running state of this thread's rows.
-// kt: tile index; masked: apply the per-cell test (diagonal, window edge
-// or the ragged end of K).
+// Stage K tile kt and V tile vt into shared memory (a negative index
+// stages nothing), rounded to bfloat16 under mxu_bf16; rows past Tk are
+// zero.  Call between two barriers.
 template <typename T, int D>
-__device__ __forceinline__ void fold_tile(const Params& p, const T* kg, const T* vg,
-                                          float* Qs, float* Ks, float* Vs, int q0, int kt,
-                                          bool masked, float (&m)[RI], float (&l)[RI],
-                                          float (&acc)[RI][D / 16]) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int c0 = kt * BK;
-  __syncthreads();  // the previous tile's reads of Ks (as p) and Vs are done
-  for (int i = tid; i < BK * D; i += THREADS) {
+__device__ __forceinline__ void stage_tiles(const Params& p, const T* kg, const T* vg, float* Ks,
+                                            float* Vs, int kt, int vt) {
+  for (int i = threadIdx.x; i < BK * D; i += THREADS) {
     const int c = i / D, d = i - c * D;
-    float kx = 0.f, vx = 0.f;
-    if (c0 + c < p.Tk) {
-      kx = load(kg, (int64_t)(c0 + c) * D + d);
-      vx = load(vg, (int64_t)(c0 + c) * D + d);
-      if (p.mxu_bf16) {
-        kx = round_bf16(kx);
-        vx = round_bf16(vx);
+    if (kt >= 0) {
+      float kx = 0.f;
+      if (kt * BK + c < p.Tk) {
+        kx = load(kg, (int64_t)(kt * BK + c) * D + d);
+        if (p.mxu_bf16) kx = round_bf16(kx);
       }
+      Ks[c * (D + 1) + d] = kx;
     }
-    Ks[c * (D + 1) + d] = kx;
-    Vs[c * D + d] = vx;
+    if (vt >= 0) {
+      float vx = 0.f;
+      if (vt * BK + c < p.Tk) {
+        vx = load(vg, (int64_t)(vt * BK + c) * D + d);
+        if (p.mxu_bf16) vx = round_bf16(vx);
+      }
+      Vs[c * D + d] = vx;
+    }
   }
-  __syncthreads();
+}
 
-  float s[RI][CJ];
+// This thread's 4 x 4 cells of the score tile q K^T of the staged K tile.
+template <int D>
+__device__ __forceinline__ void score_tile(const float* Qs, const float* Ks, float (&s)[RI][CJ]) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -139,6 +151,19 @@ __device__ __forceinline__ void fold_tile(const Params& p, const T* kg, const T*
 #pragma unroll
       for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
   }
+}
+
+// Fold the scores s of K/V tile kt, with V tile kt staged in Vs, into the
+// running state of this thread's rows.  masked: apply the per-cell test
+// (diagonal, window edge or the ragged end of K).  The probabilities are
+// written over Ks, after a barrier that ends every read of it.
+template <int D>
+__device__ __forceinline__ void consume_tile(const Params& p, float* Ks, const float* Vs, int q0,
+                                             int kt, bool masked, float (&s)[RI][CJ],
+                                             float (&m)[RI], float (&l)[RI],
+                                             float (&acc)[RI][D / 16]) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int c0 = kt * BK;
   if (masked) {
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
@@ -211,7 +236,24 @@ __device__ __forceinline__ void fold_tile(const Params& p, const T* kg, const T*
   }
 }
 
-template <typename T, int D, bool GRID>
+// One K/V tile folded into the running state of this thread's rows: stage
+// it, score it, consume it.
+template <typename T, int D>
+__device__ __forceinline__ void fold_tile(const Params& p, const T* kg, const T* vg,
+                                          float* Qs, float* Ks, float* Vs, int q0, int kt,
+                                          bool masked, float (&m)[RI], float (&l)[RI],
+                                          float (&acc)[RI][D / 16]) {
+  __syncthreads();  // the previous tile's reads of Ks (as p) and Vs are done
+  stage_tiles<T, D>(p, kg, vg, Ks, Vs, kt, kt);
+  __syncthreads();
+  float s[RI][CJ];
+  score_tile<D>(Qs, Ks, s);
+  consume_tile<D>(p, Ks, Vs, q0, kt, masked, s, m, l, acc);
+}
+
+enum { MODE_RESIDENT = 0, MODE_GRID = 1, MODE_SKEW = 2 };
+
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -255,7 +297,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
 
   const int nkt = (p.Tk + BK - 1) / BK;
   const int q_last = q0 + BQ - 1;  // the tile's last row (rows past T are never stored)
-  if (GRID) {
+  if (MODE == MODE_GRID) {
     // _grid_live_masked over this q tile's cells, the k range bounded by
     // the window (_window_first_block)
     const int first = p.window > 0 ? max(q0 - (p.window - 1), 0) / BK : 0;
@@ -282,9 +324,39 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
     // straddle the diagonal, the rest is future
     const int n_past = p.causal ? q0 / BK : nkt;
     const int n_live = p.causal ? min((q0 + BQ + BK - 1) / BK, nkt) : nkt;
-    for (int kt = 0; kt < n_live; ++kt)
-      fold_tile<T, D>(p, kg, vg, Qs, Ks, Vs, q0, kt, kt >= n_past || kt * BK + BK > p.Tk, m,
-                      l, acc);
+    if (MODE == MODE_RESIDENT) {
+      for (int kt = 0; kt < n_live; ++kt)
+        fold_tile<T, D>(p, kg, vg, Qs, Ks, Vs, q0, kt, kt >= n_past || kt * BK + BK > p.Tk,
+                        m, l, acc);
+    } else {
+      // the skew (_flash_kernel_resident_skew): tile kt + 1's scores are
+      // computed before tile kt is consumed, and carried in registers to
+      // the next step; the same device functions in the same fold order,
+      // so out and lse equal the resident mode's bit for bit.  The TPU
+      // kernel's discarded lookahead past the last tile is not computed.
+      float s_cur[RI][CJ], s_nxt[RI][CJ];
+      if (n_live > 0) {
+        __syncthreads();
+        stage_tiles<T, D>(p, kg, vg, Ks, Vs, 0, -1);
+        __syncthreads();
+        score_tile<D>(Qs, Ks, s_cur);
+      }
+      for (int kt = 0; kt < n_live; ++kt) {
+        const bool ahead = kt + 1 < n_live;
+        __syncthreads();  // the scores and the previous fold are done with Ks and Vs
+        stage_tiles<T, D>(p, kg, vg, Ks, Vs, ahead ? kt + 1 : -1, kt);
+        __syncthreads();
+        if (ahead) score_tile<D>(Qs, Ks, s_nxt);
+        consume_tile<D>(p, Ks, Vs, q0, kt, kt >= n_past || kt * BK + BK > p.Tk, s_cur, m, l,
+                        acc);
+        if (ahead) {
+#pragma unroll
+          for (int i = 0; i < RI; ++i)
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) s_cur[i][j] = s_nxt[i][j];
+        }
+      }
+    }
   }
 
   T* og = (T*)p.out + (int64_t)n * p.T * D;
@@ -305,9 +377,9 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd(Params p) {
   }
 }
 
-template <typename T, int D, bool GRID>
+template <typename T, int D, int MODE>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const auto kern = flash_fwd<T, D, GRID>;
+  const auto kern = flash_fwd<T, D, MODE>;
   const size_t smem = Smem<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -318,7 +390,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool GRID>
+template <int MODE>
 int dispatch(const Params& p, int head_dim, int dtype, int device, void* stream) {
   if (p.N <= 0 || p.Nk <= 0 || p.T < 0 || p.Tk < 0 || p.N % p.Nk != 0)
     return (int)cudaErrorInvalidValue;
@@ -329,8 +401,8 @@ int dispatch(const Params& p, int head_dim, int dtype, int device, void* stream)
   const cudaStream_t st = (cudaStream_t)stream;
 #define ACCL_FLASH_CASE(DIM)                                                              \
   case DIM:                                                                               \
-    e = dtype == DT_F32    ? launch<float, DIM, GRID>(p, st)                              \
-        : dtype == DT_BF16 ? launch<__nv_bfloat16, DIM, GRID>(p, st)                      \
+    e = dtype == DT_F32    ? launch<float, DIM, MODE>(p, st)                              \
+        : dtype == DT_BF16 ? launch<__nv_bfloat16, DIM, MODE>(p, st)                      \
                            : cudaErrorInvalidValue;                                       \
     break;
   switch (head_dim) {
@@ -382,7 +454,17 @@ int accl_flash_fwd_resident(const void* q, const void* k, const void* v, void* o
                             int device, void* stream) {
   const Params p = make_params(q, k, v, out, lse, N, Nk, T, Tk, causal, 0, mxu_bf16, static_on,
                                static_max, scale);
-  return dispatch<false>(p, D, dtype, device, stream);
+  return dispatch<MODE_RESIDENT>(p, D, dtype, device, stream);
+}
+
+int accl_flash_fwd_resident_skew(const void* q, const void* k, const void* v, void* out,
+                                 float* lse, int N, int Nk, int T, int Tk, int D, int dtype,
+                                 int causal, int mxu_bf16, int static_on, float static_max,
+                                 float scale, int device, void* stream) {
+  if (static_on) return (int)cudaErrorInvalidValue;  // the resolver refuses static_max
+  const Params p = make_params(q, k, v, out, lse, N, Nk, T, Tk, causal, 0, mxu_bf16, 0, 0.f,
+                               scale);
+  return dispatch<MODE_SKEW>(p, D, dtype, device, stream);
 }
 
 int accl_flash_fwd_grid(const void* q, const void* k, const void* v, void* out, float* lse,
@@ -392,7 +474,7 @@ int accl_flash_fwd_grid(const void* q, const void* k, const void* v, void* out, 
   if (window < 0 || (window > 0 && !causal)) return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, out, lse, N, Nk, T, Tk, causal, window, mxu_bf16,
                                static_on, static_max, scale);
-  return dispatch<true>(p, D, dtype, device, stream);
+  return dispatch<MODE_GRID>(p, D, dtype, device, stream);
 }
 
 }  // extern "C"

@@ -7,17 +7,21 @@ log-sum-exp statistics (natural-log units) that distributed callers fold
 partial attentions with.  The entries are differentiable in q, k and v,
 through both outputs.
 
-Two schedules, chosen by the JAX package's own rule (``_resolve_schedule``
-with ``_RESIDENT_KV_BYTES``, copied so that both packages pick the same
-kernel for the same inputs):
+Three schedules, chosen by the JAX package's own rule
+(``_resolve_schedule`` with ``_RESIDENT_KV_BYTES``, copied so that both
+packages pick the same kernel for the same inputs):
 
 - ``resident``: the K/V row of one packed head walked whole per q block
   (``_flash_kernel_resident``) -> the CUDA kernel ``flash_fwd_resident``;
+- ``resident_skew``, only when asked for by name: the resident walk with
+  block j+1's QK^T issued before block j's softmax and PV
+  (``_flash_kernel_resident_skew``) -> ``flash_fwd_resident_skew``, whose
+  out and lse equal ``flash_fwd_resident``'s bit for bit;
 - ``grid`` and ``grid_resident``: one fold per (q block, k block) cell,
   with causal live/diagonal predicates and the sliding ``window``
   (``_flash_kernel_grid``) -> the CUDA kernel ``flash_fwd_grid``.
 
-Both kernels are in ``csrc/flash.cu``.  The backward (``_flash_backward``)
+The kernels are in ``csrc/flash.cu``.  The backward (``_flash_backward``)
 rebuilds the normalized probabilities per block from the saved lse and
 runs two kernels of ``csrc/flash_bwd.cu``, whatever the forward schedule:
 
@@ -35,8 +39,14 @@ raises.  Each wrapper counts its launches in its ``launches`` attribute.
 ``mxu_dtype`` is the matmul input format, bfloat16 by default even for
 float32 inputs (the q product, K, V and the probabilities are rounded to
 it; accumulation is always float32); pass ``torch.float32`` for exact
-float32 numerics.  Not ported yet, raising an ``ACCLError`` naming
-itself: ``kernel="resident_skew"``.
+float32 numerics.
+
+What the card honours: the schedule (resident, resident_skew, grid /
+grid_resident, one kernel each), ``causal``, ``window``, ``static_max``,
+the input and MXU dtypes.  The kernels walk their own 64-row tiles, so
+``block_q``, ``block_k``, ``chunk_k``, ``q_tiles``, ``fuse_denom`` and
+``kv_cast_scratch`` are validated and resolved as the JAX package does
+(and shape the plain versions) but change nothing on the card.
 """
 from __future__ import annotations
 
@@ -44,7 +54,6 @@ from typing import Optional
 
 import torch
 
-from ..constants import ACCLError
 from . import _build
 
 NEG_INF = -1e30
@@ -293,6 +302,16 @@ def flash_fwd_resident_plain(qp, kp, vp, cfg):
     return _run_plain(qp, kp, vp, cfg, cells)
 
 
+def flash_fwd_resident_skew_plain(qp, kp, vp, cfg):
+    """``_flash_kernel_resident_skew`` in torch: the resident chain with
+    whole ``block_k`` folds and one q tile, which is what the skewed
+    schedule computes (only the issue order of its matmuls differs)."""
+    (causal, bq, bk, _ck, mxu, kernel, nc, _qt, _fuse_denom, window,
+     static_max, g) = cfg
+    return flash_fwd_resident_plain(qp, kp, vp, (
+        causal, bq, bk, bk, mxu, kernel, nc, 1, False, window, static_max, g))
+
+
 def flash_fwd_grid_plain(qp, kp, vp, cfg):
     """``_flash_kernel_grid`` in torch: per (q block, k block) cell the
     live/diagonal predicates; under a window the k range is bounded to
@@ -392,6 +411,19 @@ def flash_fwd_grid(qp, kp, vp, cfg):
 flash_fwd_grid.launches = 0
 
 
+def flash_fwd_resident_skew(qp, kp, vp, cfg):
+    """The skewed resident schedule on packed operands -> (out, lse).  On
+    the card: the ``flash_fwd_resident_skew`` kernel."""
+    if _on_cpu(qp):
+        return flash_fwd_resident_skew_plain(qp, kp, vp, cfg)
+    res = _launch("accl_flash_fwd_resident_skew", qp, kp, vp, cfg)
+    flash_fwd_resident_skew.launches += 1
+    return res
+
+
+flash_fwd_resident_skew.launches = 0
+
+
 def kernel_ctas(N: int, T: int) -> int:
     """Thread blocks one kernel launch over N packed heads of T rows uses
     (needs the built library, so the card)."""
@@ -401,12 +433,10 @@ def kernel_ctas(N: int, T: int) -> int:
 def _flash_forward_impl(qp, kp, vp, cfg):
     """The schedule dispatch (``_flash_forward_impl``)."""
     kernel = cfg[5]
-    if kernel == "resident_skew":
-        raise ACCLError("flash kernel 'resident_skew' "
-                        "(_flash_kernel_resident_skew) is not part of "
-                        "accl_tpu_torch yet")
     if kernel == "resident":
         return flash_fwd_resident(qp, kp, vp, cfg)
+    if kernel == "resident_skew":
+        return flash_fwd_resident_skew(qp, kp, vp, cfg)
     return flash_fwd_grid(qp, kp, vp, cfg)
 
 
@@ -728,11 +758,13 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 256,
                     window: Optional[int] = None,
                     static_max: Optional[float] = None):
     """q, k, v: [B, T, H, D] (k/v may have fewer heads, GQA) -> [B, T, H,
-    D].  ``kernel``: "resident", "grid", "grid_resident" or "auto" (by
-    K/V size, the JAX package's rule); ``window`` (causal, grid) keeps
-    each row's trailing ``window`` columns; ``static_max`` pins the
-    softmax shift.  ``q_tiles`` and ``fuse_denom`` are validated as the
-    JAX package does; on the card they change nothing."""
+    D].  ``kernel``: "resident", "resident_skew", "grid", "grid_resident"
+    or "auto" (resident or grid by K/V size, the JAX package's rule);
+    ``window`` (causal, grid) keeps each row's trailing ``window``
+    columns; ``static_max`` pins the softmax shift.  On the card these,
+    ``causal`` and the dtypes choose what runs; ``block_q``, ``block_k``,
+    ``q_tiles`` and ``fuse_denom`` are validated as the JAX package does
+    but change nothing there (the kernels walk 64-row tiles)."""
     out, _lse = _flash_call(q, k, v, causal, block_q, block_k, mxu_dtype,
                             kernel, q_tiles, fuse_denom, window, static_max)
     return out

@@ -35,7 +35,20 @@ Phases, each fatal on failure:
        blocks, in f32 with f32 and bf16 MXU dtypes and in bf16: dq, dk
        and dv within BWD_BOUND of the plain version, and a bf16-operand
        control outside the f32 bound;
-  4. the main path, in five parts, each driven with every launch count
+     - the plugin kernels: the combine kernel (accl_combine) on all
+       12 lanes (fp32, fp64, int32, int64, fp16, bf16 by sum and by max)
+       at the bench shape (64 Mi elements) and at 4099, with donate,
+       bitwise against a + b and torch.maximum; the cast kernel
+       (accl_cast) both ways for fp16 and bf16, at the bench shape and at
+       a ragged length holding NaN, inf, overflow and fp16 subnormals,
+       bitwise against Tensor.to, and at every geometry of phase 4f's
+       tuning grid (4 cols x 2 block_rows) the same way; its stochastic
+       rounding to bf16, e5m2 and e4m3fn bitwise against the plain
+       version, and unbiased at 1 + 2^-12;
+     - flash_fwd_resident_skew at the serving path's per-rank shape in
+       the three flash dtype pairs: bitwise equal to flash_fwd_resident,
+       and within FLASH_BOUND of its plain version;
+  4. the main path, in six parts, each driven with every launch count
      set to 0 just before it and read just after:
      a. the driver: CudaWorld(8) on the card, ACCL calls on 8 rank
         threads — fp32 SUM allreduce at 4, 16, 64 and 256 MiB per rank,
@@ -85,6 +98,20 @@ Phases, each fatal on failure:
         synced by sync_gradients(compress="int8", error_feedback=True)
         over the dp list (the loss after it within TRACK_TOL of the
         fp32 run's).  Prints seconds per step, tokens/s and peak memory;
+     f. the plugin lanes, as bench.py and the tuning tools run
+        them, in four parts: the reduce lane (pallas_add with donate on
+        [524288, 128] fp32, block_rows 512 and 2048, chained, beside
+        torch.add in place, GB/s = 3 x bytes / time); the bf16
+        compression roundtrip of 64 Mi fp32 (nearest, and stochastic with
+        the seed stepped per call) beside the Tensor.to pair (12 bytes an
+        element); a short tune_compress grid (4 cols x 2 block_rows) and
+        its best geometry; the flash schedule sweep's distinct card
+        candidates at [16, 2048, 128] causal (resident, resident_skew,
+        grid, static_max, bf16 inputs; the other candidates are aliases),
+        each held within FLASH_BOUND of the plain version of its kernel
+        before it is timed (outside the counted parts).
+        The combine kernel, the cast kernel (in the lanes and in the
+        tuning grid) and the skew kernel must each launch;
   5. times with CUDA events after warm-up (median of 5 runs): each kernel
      per launch, at the shape the main path launches it most, beside its
      plain version, a library yardstick and its bound (bytes read once +
@@ -92,7 +119,9 @@ Phases, each fatal on failure:
      type, 67 TFLOP/s fp32 or 989 TFLOP/s bf16, whichever is larger),
      with its times at the path's other shape as an extra field (the
      flash backward kernels beside SDPA's backward by autograd, its
-     forward time subtracted); the
+     forward time subtracted; the plugin kernels at the bench shapes,
+     the cast kernel also at phase 4f's tuned geometry; the skew beside
+     flash_fwd_resident and SDPA); the
      driver's allreduce algbw / busbw per size; and at 64 MiB per rank
      the busbw of the fused and int8 lanes beside the lossless ring's.
 
@@ -129,7 +158,7 @@ TP_SHAPES = {"mlp_down": (TOKENS, 14336 // P, 4096),
 RAGGED_MKN = (1000, 333, 777)
 #: the flash kernels' wrappers in accl_tpu_torch/ops/flash.py
 FLASH_KERNELS = ("flash_fwd_resident", "flash_fwd_grid", "flash_bwd_dq",
-                 "flash_bwd_dkv")
+                 "flash_bwd_dkv", "flash_fwd_resident_skew")
 #: chunks of the pipelined form fused_matmul_allreduce(chunks=...): its
 #: matmuls run on M / (P CHUNKS)-row blocks
 CHUNKS = 4
@@ -404,16 +433,20 @@ def tensor_core_ops(lib_path) -> int:
     return len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", out.stdout))
 
 
-def reset_counts(ring, F, FL=None) -> None:
+def reset_counts(ring, F, FL=None, PL=None) -> None:
+    """Every launch count to 0: the ring and matmul wrappers, the flash
+    wrappers (FL) and the plugin wrappers (PL, name -> wrapper)."""
     for fn in (ring.ring_reduce_scatter, ring.ring_all_gather,
                F.pallas_matmul, F.fused_matmul_reduce_scatter):
         fn.launches = 0
     if FL is not None:
         for fn in FLASH_KERNELS:
             getattr(FL, fn).launches = 0
+    for fn in (PL or {}).values():
+        fn.launches = 0
 
 
-def read_counts(ring, F, FL=None) -> dict:
+def read_counts(ring, F, FL=None, PL=None) -> dict:
     counts = {"ring_reduce_scatter": ring.ring_reduce_scatter.launches,
               "ring_all_gather": ring.ring_all_gather.launches,
               "pallas_matmul": F.pallas_matmul.launches,
@@ -421,6 +454,7 @@ def read_counts(ring, F, FL=None) -> dict:
                   F.fused_matmul_reduce_scatter.launches}
     if FL is not None:
         counts.update({fn: getattr(FL, fn).launches for fn in FLASH_KERNELS})
+    counts.update({name: fn.launches for name, fn in (PL or {}).items()})
     return counts
 
 
@@ -1674,6 +1708,446 @@ def time_flash_bwd_kernels(FL, errs, launches, per_step) -> list:
     return rows
 
 
+#: the plugin lanes' bench shapes (bench.py): the reduce lane on 64 Mi
+#: fp32 elements as [524288, 128] over the block_rows ladder, the
+#: compression roundtrip on 64 Mi fp32 elements as [131072, 512]
+PLUGIN_N = 64 << 20
+COMBINE_LADDER = (512, 2048)
+#: the combine kernel's dtypes: with sum and max, the 12 ARITH_LANE lanes
+COMBINE_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64,
+                  torch.float16, torch.bfloat16)
+#: phase 4f's short tuning grid: the 4 column counts x 2 tile depths
+TUNE_COLS = (128, 512, 1024, 4096)
+TUNE_BLOCK_ROWS = (256, 1024)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits, for comparisons that see -0.0 and NaN payloads."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def check_plugin_kernels(R, C) -> dict:
+    """Phase 3e: the combine kernel on all 12 lanes (6 dtypes x sum, max)
+    at the bench shape (PLUGIN_N elements) and at 4099, bitwise against
+    its plain version (a + b, torch.maximum), and with donate; the cast
+    kernel both ways for both half types at the bench shape and at a
+    ragged length holding NaN, inf, overflow and fp16 subnormals, bitwise
+    against its plain version, which is Tensor.to; the same kernel at every
+    geometry of phase 4f's tuning grid (TUNE_COLS x TUNE_BLOCK_ROWS), both
+    ways for both half types, bitwise against Tensor.to; the stochastic
+    cast to bf16, e5m2 and e4m3fn bitwise against its plain version (the
+    same hash and rounding in integer torch ops) at two tile depths, and
+    unbiased at 1 + 2^-12.  Returns the largest |kernel - plain| read per
+    kernel-line row on the bench-shape inputs (finite by construction)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    errs = {"combine_2d": 0.0, "cast_2d": 0.0, "cast2d": 0.0}
+    for n in (PLUGIN_N, 4099):
+        for dt in COMBINE_DTYPES:
+            a, b = rand((n,), dt, gen), rand((n,), dt, gen)
+            b[:7] = a[:7]  # ties
+            for op in ("sum", "max"):
+                got = R.reduce_lane(a, b, op)
+                torch.cuda.synchronize()
+                want = R._combine_2d_plain(a, b, op == "max")
+                if not torch.equal(bits(got), bits(want)):
+                    fail(f"combine {dt} {op} n={n}: not bitwise equal to the "
+                         f"plain version")
+                errs["combine_2d"] = max(errs["combine_2d"],
+                                         max_err(got, want))
+                del got, want
+            want = a + b
+            got = R.pallas_add(a, b, donate=True)
+            torch.cuda.synchronize()
+            if got is not a or not torch.equal(bits(a), bits(want)):
+                fail(f"combine {dt} donate n={n}: not a + b in a's storage")
+            del a, b, got, want
+    torch.cuda.empty_cache()
+    ragged = rand((3 * 512 * 7 + 5,), torch.float32, gen) * 4
+    ragged[:9] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                               70000.0, -0.0, 1e-6, 3e-8, 6e-5, 65520.0],
+                              device="cuda")
+    big = rand((PLUGIN_N,), torch.float32, gen) * 4
+    for x in (big, ragged):
+        for dt in (torch.float16, torch.bfloat16):
+            y = C.compress_cast(x, dt)
+            z = C.decompress_cast(y)
+            torch.cuda.synchronize()
+            want_y, want_z = x.to(dt), y.float()
+            if not torch.equal(bits(y), bits(want_y)):
+                fail(f"compress_cast {dt} n={x.numel()}: not bitwise equal "
+                     f"to Tensor.to")
+            if not torch.equal(bits(z), bits(want_z)):
+                fail(f"decompress_cast {dt} n={x.numel()}: not bitwise "
+                     f"equal to Tensor.to")
+            if x is big:
+                errs["cast_2d"] = max(errs["cast_2d"], max_err(y, want_y),
+                                      max_err(z, want_z))
+            del y, z, want_y, want_z
+    geometries = []
+    for cols in TUNE_COLS:
+        for br in TUNE_BLOCK_ROWS:
+            xv = big.view(-1, cols)
+            for dt in (torch.float16, torch.bfloat16):
+                y = C._cast_2d(xv, 0, dt, False, br)
+                z = C._cast_2d(y, 0, torch.float32, False, br)
+                torch.cuda.synchronize()
+                want_y, want_z = xv.to(dt), y.float()
+                if not (torch.equal(bits(y), bits(want_y))
+                        and torch.equal(bits(z), bits(want_z))):
+                    fail(f"cast at [{xv.shape[0]}, {cols}] block_rows {br} "
+                         f"{dt}: not bitwise equal to Tensor.to")
+                errs["cast2d"] = max(errs["cast2d"], max_err(y, want_y),
+                                     max_err(z, want_z))
+                del y, z, want_y, want_z
+            geometries.append([cols, br])
+    del big, ragged, xv
+    xs = rand((PLUGIN_N // 512, 512), torch.float32, gen) * 30
+    xs[0, :6] = torch.tensor([float("inf"), -float("inf"), 1e6, -1e6, 1e-30,
+                              -0.0], device="cuda")
+    sr = {}
+    for dt in C.STOCHASTIC_TARGETS:
+        for x, br in ((xs, C._BLOCK_ROWS), (xs[:40], 3)):
+            got = C._cast_2d(x, SEED, dt, True, br)
+            torch.cuda.synchronize()
+            want = C._cast_2d_plain(x, SEED, dt, True, br)
+            if not torch.equal(bits(got), bits(want)):
+                fail(f"stochastic cast {dt} block_rows {br}: not bitwise "
+                     f"equal to the plain version ("
+                     f"{int((bits(got) != bits(want)).sum())} differ)")
+            if not torch.equal(C.decompress_cast(got), got.float()):
+                fail(f"decompress_cast {dt}: not Tensor.to")
+            del got, want
+    x0 = 1 + 2.0 ** -12
+    one = torch.full((1 << 20,), x0, device="cuda")
+    y = C.compress_cast(one, torch.bfloat16, stochastic=True, seed=SEED)
+    frac = float((y.float() > 1).double().mean())
+    sigma = np.sqrt((1 / 32) * (31 / 32) / one.numel())
+    sr["bf16_1+2^-12"] = {"frac_up": frac, "want": 1 / 32, "sigma": sigma,
+                          "values": torch.unique(y.float()).tolist()}
+    if abs(frac - 1 / 32) > 4 * sigma or \
+            sr["bf16_1+2^-12"]["values"] != [1.0, 1.0 + 2.0 ** -7]:
+        fail(f"stochastic rounding of 1 + 2^-12 is biased: {sr}")
+    del xs, one, y
+    torch.cuda.empty_cache()
+    emit({"phase": "plugin_kernels_vs_plain", "ok": True,
+          "combine_lanes": 2 * len(COMBINE_DTYPES), "bitwise": True,
+          "cast_geometries": geometries, "max_abs_err": errs,
+          "stochastic": sr})
+    return errs
+
+
+def check_skew_kernel(FL) -> dict:
+    """Phase 3f: flash_fwd_resident_skew at the serving path's per-rank
+    shape (FLASH_RESIDENT, causal) in float32 with float32 and bfloat16
+    MXU dtypes and in bfloat16: out and lse bitwise equal to
+    flash_fwd_resident's, and within FLASH_BOUND of its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    N, Nk, T = FLASH_RESIDENT
+    err, readings = 0.0, []
+    for dt, mxu in FLASH_DTYPES:
+        q = rand((N, T, D_HEAD), dt, gen)
+        k, v = rand((Nk, T, D_HEAD), dt, gen), rand((Nk, T, D_HEAD), dt, gen)
+        cfg = flash_cfg(FL, N, Nk, T, T, dt, mxu, "resident_skew", True)
+        out, lse = FL.flash_fwd_resident_skew(q, k, v, cfg)
+        r_out, r_lse = FL.flash_fwd_resident(
+            q, k, v, flash_cfg(FL, N, Nk, T, T, dt, mxu, "resident", True))
+        torch.cuda.synchronize()
+        if not (torch.equal(bits(out), bits(r_out))
+                and torch.equal(bits(lse), bits(r_lse))):
+            fail(f"flash_fwd_resident_skew {dt}/{mxu}: not bitwise equal to "
+                 f"flash_fwd_resident (out {max_err(out, r_out)}, lse "
+                 f"{max_err(lse, r_lse)})")
+        want, want_lse = FL.flash_fwd_resident_skew_plain(q, k, v, cfg)
+        e_out, e_lse = max_err(out, want), max_err(lse, want_lse)
+        bound = FLASH_BOUND[mxu]
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+        if not finite or e_out > bound or e_lse > bound:
+            fail(f"flash_fwd_resident_skew {dt}/{mxu}: off its plain version "
+                 f"(out {e_out}, lse {e_lse}, bound {bound})")
+        readings.append({"dtype": str(dt), "mxu": str(mxu),
+                         "max_abs_err_out": e_out, "max_abs_err_lse": e_lse})
+        err = max(err, e_out)
+        del q, k, v, out, lse, r_out, r_lse, want, want_lse
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_skew_vs_resident_and_plain", "ok": True,
+          "q": [N, T, D_HEAD], "kv": [Nk, T, D_HEAD], "causal": True,
+          "bitwise_vs_flash_fwd_resident": True, "readings": readings})
+    return {"flash_fwd_resident_skew": err}
+
+
+def plugin_path(ring, F, FL, R, C, PL) -> dict:
+    """Phase 4f: the plugin lanes as the bench of record and the tuning
+    tools run them, in four parts, each with every launch count set to 0
+    just before it and read just after: the reduce lane (pallas_add with
+    donate on [524288, 128] fp32 over the block_rows ladder, chained,
+    beside torch.add in place, 3 x bytes / time); the bf16 compression
+    roundtrip on 64 Mi fp32 (nearest even, and stochastic with the seed
+    stepped per call) beside the Tensor.to pair, 12 bytes an element; the
+    short tune_compress grid (TUNE_COLS x TUNE_BLOCK_ROWS) and its best
+    geometry; and the flash schedule sweep's distinct card candidates at
+    the shape of record (resident, resident_skew, grid, static_max, bf16
+    inputs), each held to the plain version of its kernel before it is
+    timed."""
+    from accl_tpu_torch.bench import flash_sweep as FS
+    from accl_tpu_torch.bench import kernel_tune as KT
+    from accl_tpu_torch.bench import timing
+
+    timed_chain, timed_chain_ab = timing.make_harness()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    parts, total = {}, {}
+
+    def part(name, fn):
+        reset_counts(ring, F, FL, PL)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts(ring, F, FL, PL)
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+        parts[name] = {"s": time.perf_counter() - t,
+                       "launches": {k: v for k, v in counts.items() if v}}
+        return out
+
+    def reduce_lane():
+        a = rand((PLUGIN_N // 128, 128), torch.float32, gen)
+        b = rand((PLUGIN_N // 128, 128), torch.float32, gen)
+        if not torch.equal(R.pallas_add(a, b), a + b):
+            fail("the reduce lane's sum is not a + b")
+        fns = {f"pallas_add_block_rows{br}": (
+            lambda v, w, br=br: R.pallas_add(v, w, block_rows=br,
+                                             donate=True))
+            for br in COMBINE_LADDER}
+        fns["torch.add"] = lambda v, w: torch.add(v, w, out=v)
+        best = timed_chain_ab(fns, a, iters=20, trials=3, consts=(b,))
+        if not torch.isfinite(a).all():
+            fail("the chained reduce lane left non-finite values")
+        return {k: {"s": t, "GBps": 3 * PLUGIN_N * 4 / t / 1e9}
+                for k, t in best.items()}
+
+    def compression():
+        x = rand((PLUGIN_N,), torch.float32, gen)
+        bf = torch.bfloat16
+        if not torch.equal(C.decompress_cast(C.compress_cast(x, bf)),
+                           x.to(bf).float()):
+            fail("the compression roundtrip is not the Tensor.to pair")
+        seeds = iter(range(1 << 30))
+        fns = {"cast_roundtrip": lambda v: C.decompress_cast(
+                   C.compress_cast(v, bf)),
+               "cast_roundtrip_stochastic": lambda v: C.decompress_cast(
+                   C.compress_cast(v, bf, stochastic=True, seed=next(seeds))),
+               "Tensor.to": lambda v: v.to(bf).to(torch.float32)}
+        best = timed_chain_ab(fns, x, iters=20, trials=3)
+        return {k: {"s": t, "GBps": 12 * PLUGIN_N / t / 1e9}
+                for k, t in best.items()}
+
+    def sweep_checks(cands, groups):
+        """Each distinct card candidate at the sweep shape against the
+        plain version of the kernel it runs, within FLASH_BOUND of its
+        MXU dtype, before it is timed (outside the counted parts: these
+        launches are comparisons)."""
+        q, k, v = FS.make_inputs()
+        readings = {}
+        for rep in groups:
+            dt = cands[rep].opts["dtype"]
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            cfg = FS.schedule(cands[rep])
+            out = cands[rep](qd, kd, vd)
+            plain = getattr(FL, FS.KERNEL_OF[cfg[5]] + "_plain")
+            want, _lse = plain(qd, kd, vd, cfg)
+            err, bound = max_err(out, want), FLASH_BOUND[cfg[4]]
+            if not (torch.isfinite(out).all() and out.shape == q.shape
+                    and err <= bound):
+                fail(f"flash sweep candidate {rep} ({FS.KERNEL_OF[cfg[5]]}"
+                     f"): off its plain version ({err}, bound {bound})")
+            readings[rep] = {"kernel": FS.KERNEL_OF[cfg[5]],
+                             "max_abs_err": err, "bound": bound}
+            del qd, kd, vd, out, want, _lse
+        del q, k, v
+        return readings
+
+    def sweep(cands, groups):
+        best, best_mm, aliases = FS.run_sweep(timed_chain, cands, rounds=2,
+                                              iters=16, log=lambda m: None)
+        rep = FS.report(best, best_mm, aliases)
+        dead = {n: r for n, r in rep["schedules"].items() if "error" in r}
+        if dead:
+            fail(f"flash sweep candidates failed: {dead}")
+        rep["distinct"] = {r: groups[r] for r in groups}
+        return rep
+
+    lanes = {"reduce_lane": part("reduce_lane", reduce_lane),
+             "compression": part("compression", compression)}
+    tune = part("tune_compress", lambda: KT.tune_compress(
+        n=PLUGIN_N, cols=TUNE_COLS, block_rows=TUNE_BLOCK_ROWS, rounds=2,
+        iters=8, log=lambda m: None))
+    cands = FS.build(FS.D128_SPECS)
+    groups, _refused = FS.collapse(cands)
+    sweep_errs = sweep_checks(cands, groups)
+    rep = part("flash_sweep", lambda: sweep(cands, groups))
+    rep["vs_plain"] = sweep_errs
+    torch.cuda.empty_cache()
+    for name, key in (("reduce_lane", "combine_2d"),
+                      ("compression", "cast_2d"), ("tune_compress", "cast_2d"),
+                      ("flash_sweep", "flash_fwd_resident_skew")):
+        if parts[name]["launches"].get(key, 0) < 1:
+            fail(f"the plugin path's {name} did not launch {key}: {parts}")
+    best = tune["best"]
+    emit({"phase": "plugin_path", "ok": True, "n": PLUGIN_N,
+          "lanes": lanes, "tune_compress": tune,
+          "tuned_geometry": [best["cols"], best["block_rows"]],
+          "flash_sweep": rep, "parts": parts, "launches": total})
+    return {"launches": total, "parts": parts,
+            "tuned": (best["cols"], best["block_rows"])}
+
+
+def time_plugin_kernels(R, C, FL, errs, plugin, PL) -> list:
+    """Phase 5f: the plugin kernels per launch at the bench shapes,
+    interleaved with their plain versions (kernel, plain, plain, kernel),
+    beside one PyTorch call computing the same function and the byte
+    bound: combine_2d (fp32 sum, block_rows 512; 2048 and max beside);
+    cast_2d (f32 -> bf16 nearest at [131072, 512], block_rows 1024;
+    decompress and stochastic beside); cast2d, the same kernel at the
+    tuned geometry of phase 4f; flash_fwd_resident_skew at the serving
+    shape, fp32 with the fp32 MXU dtype, beside flash_fwd_resident and
+    SDPA."""
+    import torch.nn.functional as tnf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    counts0 = {k: fn.launches for k, fn in PL.items()}
+    skew0 = FL.flash_fwd_resident_skew.launches
+    launches, parts = plugin["launches"], plugin["parts"]
+
+    def interleaved(kernel, plain, iters, plain_iters=None):
+        p_it = plain_iters or iters
+        ms = [cuda_ms(kernel, iters)]
+        p_ms = [cuda_ms(plain, p_it, runs=3), cuda_ms(plain, p_it, runs=3)]
+        ms.append(cuda_ms(kernel, iters))
+        return statistics.median(ms), statistics.median(p_ms)
+
+    rows = []
+    a = rand((PLUGIN_N // 128, 128), torch.float32, gen)
+    b = rand((PLUGIN_N // 128, 128), torch.float32, gen)
+    out = torch.empty_like(a)
+    ms, p_ms = interleaved(lambda: R._pallas_combine_2d(a, b),
+                           lambda: R._combine_2d_plain(a, b, False), 20)
+    lib = cuda_ms(lambda: torch.add(a, b, out=out), 20)
+    bound = 3 * PLUGIN_N * 4 / HBM_BYTES_PER_S * 1e3
+    extra = {"at_block_rows2048_ms": cuda_ms(
+                 lambda: R._pallas_combine_2d(a, b, block_rows=2048), 20),
+             "max": {"ms": cuda_ms(lambda: R._pallas_combine_2d(a, b, True),
+                                   20),
+                     "library_ms": cuda_ms(
+                         lambda: torch.maximum(a, b, out=out), 20)}}
+    rows.append({"name": "combine_2d", "route": "cuda",
+                 "source": "accl_tpu_torch/ops/csrc/reduce_ops.cu",
+                 "kernel": "accl_combine",
+                 "replaces": "accl_tpu/ops/reduce_ops.py:39",
+                 "launches": launches["combine_2d"],
+                 "max_abs_err": errs["combine_2d"], "ms": ms,
+                 "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
+                 "library_ms": lib, "library_call": "torch.add(a, b, out=)",
+                 "checked": True, "shape": "[524288, 128] fp32 sum, "
+                                           "block_rows 512",
+                 "GBps": 3 * PLUGIN_N * 4 / ms / 1e6,
+                 "launches_per_pallas_add": 1, **extra})
+    del a, b, out
+    x = rand((PLUGIN_N // 512, 512), torch.float32, gen)
+    h = x.to(torch.bfloat16)
+    bf, f32 = torch.bfloat16, torch.float32
+    bound = 6 * PLUGIN_N / HBM_BYTES_PER_S * 1e3  # 4 + 2 bytes an element
+    ms, p_ms = interleaved(lambda: C._cast_2d(x, 0, bf, False),
+                           lambda: C._cast_2d_plain(x, 0, bf, False, 1024), 20)
+    lib = cuda_ms(lambda: x.to(bf), 20)
+    d_ms, d_p = interleaved(lambda: C._cast_2d(h, 0, f32, False),
+                            lambda: C._cast_2d_plain(h, 0, f32, False, 1024),
+                            20)
+    d_lib = cuda_ms(lambda: h.to(f32), 20)
+    s_ms, s_p = interleaved(lambda: C._cast_2d(x, 7, bf, True),
+                            lambda: C._cast_2d_plain(x, 7, bf, True, 1024),
+                            20, plain_iters=2)
+    rows.append({"name": "cast_2d", "route": "cuda",
+                 "source": "accl_tpu_torch/ops/csrc/compression.cu",
+                 "kernel": "accl_cast",
+                 "replaces": "accl_tpu/ops/compression.py:54",
+                 "launches": parts["compression"]["launches"]["cast_2d"],
+                 "max_abs_err": errs["cast_2d"], "ms": ms, "plain_ms": p_ms,
+                 "bound_ms": bound, "bound_by": "bytes", "library_ms": lib,
+                 "library_call": "Tensor.to(torch.bfloat16)", "checked": True,
+                 "shape": "[131072, 512] fp32 -> bf16 nearest, block_rows "
+                          "1024",
+                 "GBps": 6 * PLUGIN_N / ms / 1e6,
+                 "launches_per_roundtrip": 2,
+                 "decompress": {"ms": d_ms, "plain_ms": d_p,
+                                "library_ms": d_lib, "bound_ms": bound,
+                                "shape": "[131072, 512] bf16 -> fp32"},
+                 "stochastic": {"ms": s_ms, "plain_ms": s_p,
+                                "library_ms": None, "bound_ms": bound,
+                                "shape": "[131072, 512] fp32 -> bf16 "
+                                         "stochastic"}})
+    cols, br = plugin["tuned"]
+    xv, hv = x.view(-1, cols), h.view(-1, cols)
+    t_ms, t_p = interleaved(lambda: C._cast_2d(xv, 0, bf, False, br),
+                            lambda: C._cast_2d_plain(xv, 0, bf, False, br),
+                            20)
+    t_lib = cuda_ms(lambda: xv.to(bf), 20)
+    t_d = cuda_ms(lambda: C._cast_2d(hv, 0, f32, False, br), 20)
+    rows.append({"name": "cast2d", "route": "cuda",
+                 "source": "accl_tpu_torch/ops/csrc/compression.cu",
+                 "kernel": "accl_cast (tuned geometry)",
+                 "replaces": "scripts/kernel_tune.py:96",
+                 "launches": parts["tune_compress"]["launches"]["cast_2d"],
+                 "max_abs_err": errs["cast2d"], "ms": t_ms, "plain_ms": t_p,
+                 "bound_ms": bound, "bound_by": "bytes", "library_ms": t_lib,
+                 "library_call": "Tensor.to(torch.bfloat16)", "checked": True,
+                 "shape": f"[{PLUGIN_N // cols}, {cols}] fp32 -> bf16 "
+                          f"nearest, block_rows {br}",
+                 "geometry": [cols, br], "decompress_ms": t_d,
+                 "launches_per_roundtrip": 2})
+    del x, h, xv, hv
+    torch.cuda.empty_cache()
+    N, Nk, T = FLASH_RESIDENT
+    dt = torch.float32
+    q = rand((N, T, D_HEAD), dt, gen)
+    k, v = rand((Nk, T, D_HEAD), dt, gen), rand((Nk, T, D_HEAD), dt, gen)
+    cfg = flash_cfg(FL, N, Nk, T, T, dt, dt, "resident_skew", True)
+    r_cfg = flash_cfg(FL, N, Nk, T, T, dt, dt, "resident", True)
+    ms, p_ms = interleaved(
+        lambda: FL.flash_fwd_resident_skew(q, k, v, cfg),
+        lambda: FL.flash_fwd_resident_skew_plain(q, k, v, cfg), 5,
+        plain_iters=1)
+    res_ms = cuda_ms(lambda: FL.flash_fwd_resident(q, k, v, r_cfg), 5,
+                     runs=3)
+    qs = q.view(Nk, N // Nk, T, D_HEAD)
+    ks, vs = k.view(Nk, 1, T, D_HEAD), v.view(Nk, 1, T, D_HEAD)
+    lib = cuda_ms(lambda: tnf.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), 5, runs=3)
+    bound, by, ops = attention_bound(N, T, T, True, dt)
+    rows.append({"name": "flash_fwd_resident_skew", "route": "cuda",
+                 "source": "accl_tpu_torch/ops/csrc/flash.cu",
+                 "kernel": "flash_fwd_resident_skew",
+                 "replaces": "accl_tpu/ops/flash.py:403",
+                 "launches": launches["flash_fwd_resident_skew"],
+                 "max_abs_err": errs["flash_fwd_resident_skew"], "ms": ms,
+                 "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                 "library_ms": lib,
+                 "library_call": "scaled_dot_product_attention(is_causal, "
+                                 "enable_gqa)", "checked": True,
+                 "shape": f"q [{N},{T},{D_HEAD}] k/v [{Nk},{T},{D_HEAD}] "
+                          f"causal {dt} mxu {dt}",
+                 "flash_fwd_resident_ms": res_ms,
+                 "tflops": ops / (ms * 1e-3) / 1e12,
+                 "launches_per_forward": 1})
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    for row in rows:
+        emit({"phase": "kernel_time", **row})
+    for key, n in counts0.items():  # the timing launches are not main-path
+        PL[key].launches = n
+    FL.flash_fwd_resident_skew.launches = skew0
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="4,16,64,256",
@@ -1698,8 +2172,11 @@ def main() -> int:
     from accl_tpu_torch.utils import tree as T_
     from accl_tpu_torch.ops import flash as FL
     from accl_tpu_torch.ops import fused as F
+    from accl_tpu_torch.ops import compression as C
     from accl_tpu_torch.ops import quantized as q_ops
+    from accl_tpu_torch.ops import reduce_ops as R
     from accl_tpu_torch.ops import ring
+    PL = {"combine_2d": R._pallas_combine_2d, "cast_2d": C._cast_2d}
 
     card = card_line()
     print(card, flush=True)
@@ -1720,6 +2197,8 @@ def main() -> int:
     errs.update(check_fused_kernels(F))
     errs.update(check_flash_kernels(FL))
     errs.update(check_flash_bwd_kernels(FL))
+    errs.update(check_plugin_kernels(R, C))
+    errs.update(check_skew_kernel(FL))
     mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
@@ -1728,12 +2207,15 @@ def main() -> int:
                              CompressionPolicy)
         serve = serving_path(ring, F, FL, M)
         train = train_path(ring, F, FL, M, S, TE, T_)
-        # the main path's launches: the sum over its five parts
+        plugin = plugin_path(ring, F, FL, R, C, PL)
+        # the main path's launches: the sum over its six parts
         launches = {k: mp["launches"][k] + tp["launches"][k]
                     + lanes["launches"][k] + serve["launches"][k]
-                    + train["launches"][k] for k in mp["launches"]}
+                    + train["launches"][k] + plugin["launches"][k]
+                    for k in mp["launches"]}
         launches.update({k: serve["launches"][k] + train["launches"][k]
-                         for k in FLASH_KERNELS})
+                         + plugin["launches"][k] for k in FLASH_KERNELS})
+        launches.update({k: plugin["launches"][k] for k in PL})
         if args.no_timing:
             emit({"phase": "main_path_done", "launches": launches})
             return 0
@@ -1744,6 +2226,9 @@ def main() -> int:
                                    tp["per_call_mlp_down"])
         rows += time_flash_kernels(FL, errs, launches, serve["per_forward"])
         rows += time_flash_bwd_kernels(FL, errs, launches, train["per_step"])
+        rows += time_plugin_kernels(R, C, FL, errs, {**plugin,
+                                                     "launches": launches},
+                                    PL)
         by_name = {row["name"]: row["ms"] for row in rows}
         for mib, (_s, _r, call, launched) in sorted(mp["per_size"].items()):
             iters = 5

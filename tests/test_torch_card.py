@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from accl_tpu_torch.models import transformer as TT
+from accl_tpu_torch.ops import compression as TC
 from accl_tpu_torch.ops import flash as TFL
 from accl_tpu_torch.ops import fused as TF
+from accl_tpu_torch.ops import reduce_ops as TR
 from accl_tpu_torch.ops import ring as tring
 
 pytestmark = pytest.mark.cuda
@@ -197,3 +199,88 @@ def test_model_train_step_on_card_matches_cpu():
     assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
     for a, b in zip(TT.tree_leaves(card), TT.tree_leaves(cpu)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", list(TR.KERNEL_DTYPES))
+@pytest.mark.parametrize("n,block_rows", [(4099, 0), (1 << 20, 16)])
+def test_combine_kernel_matches_plain_on_card(dtype, n, block_rows):
+    """Every ARITH_LANE lane (6 dtypes x sum, max), bitwise against a + b
+    and torch.maximum, a ragged length included, and donate in place."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, n, generator=g, device="cuda")
+    if not dtype.is_floating_point:
+        x = x * 1000
+    a, b = x[0].to(dtype), x[1].to(dtype)
+    b[:7] = a[:7]
+    before = TR._pallas_combine_2d.launches
+    assert torch.equal(TR.pallas_add(a, b, block_rows=block_rows), a + b)
+    assert torch.equal(TR.pallas_max(a, b), torch.maximum(a, b))
+    want = a + b
+    assert TR.pallas_add(a, b, donate=True) is a and torch.equal(a, want)
+    torch.cuda.synchronize()
+    assert TR._pallas_combine_2d.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_cast_kernels_match_tensor_to_on_card(dtype):
+    """Nearest-even casts both ways, bitwise against Tensor.to: NaN, inf,
+    overflow and fp16 subnormals included, at a ragged length."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(3 * 512 * 7 + 5, generator=g, device="cuda") * 4
+    x[:9] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                          70000.0, -0.0, 1e-6, 3e-8, 6e-5, 65520.0],
+                         device="cuda")
+    before = TC._cast_2d.launches
+    y = TC.compress_cast(x, dtype)
+    assert torch.equal(y.view(torch.int16), x.to(dtype).view(torch.int16))
+    z = TC.decompress_cast(y)
+    assert torch.equal(z.view(torch.int32), y.float().view(torch.int32))
+    torch.cuda.synchronize()
+    assert TC._cast_2d.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", list(TC.STOCHASTIC_TARGETS))
+@pytest.mark.parametrize("block_rows", [TC._BLOCK_ROWS, 3])
+def test_stochastic_cast_kernel_matches_plain_on_card(dtype, block_rows):
+    """Stochastic rounding bitwise against its plain version on the same
+    CUDA tensor (the hash and the rounding in integer torch ops)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(40, 512, generator=g, device="cuda") * 30
+    x[0, :6] = torch.tensor([float("inf"), -float("inf"), 1e6, -1e6, 1e-30,
+                             -0.0], device="cuda")
+    got = TC._cast_2d(x, 12345, dtype, True, block_rows)
+    want = TC._cast_2d_plain(x, 12345, dtype, True, block_rows)
+    iv = torch.int16 if dtype == torch.bfloat16 else torch.uint8
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(iv), want.view(iv))
+    assert torch.equal(TC.decompress_cast(got), got.float())
+
+
+@pytest.mark.parametrize("dt,mxu", FLASH_DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_skew_kernel_matches_resident_on_card(causal, dt, mxu):
+    """flash_fwd_resident_skew bitwise equal to flash_fwd_resident (same
+    device functions, same fold order) and within chip_smoke.py's
+    FLASH_BOUND of its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    N, Nk, T, D = 8, 2, 320, 128
+    q = torch.randn(N, T, D, generator=g, device="cuda").to(dt)
+    k = torch.randn(Nk, T, D, generator=g, device="cuda").to(dt)
+    v = torch.randn(Nk, T, D, generator=g, device="cuda").to(dt)
+    before = TFL.flash_fwd_resident_skew.launches
+    out, lse = TFL.flash_attention_packed_lse(
+        q, k, v, causal=causal, mxu_dtype=mxu, kernel="resident_skew",
+        block_q=64, block_k=64)
+    ref, ref_lse = TFL.flash_attention_packed_lse(
+        q, k, v, causal=causal, mxu_dtype=mxu, kernel="resident",
+        block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    assert TFL.flash_fwd_resident_skew.launches == before + 1
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    cfg = TFL._resolve_schedule(T, T, D, dt, causal, 64, 64, mxu,
+                                "resident_skew", None, False, None,
+                                None) + (N // Nk,)
+    want, want_lse = TFL.flash_fwd_resident_skew_plain(q, k, v, cfg)
+    tol = 1e-5 if mxu == torch.float32 else 1.6e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol)

@@ -25,7 +25,6 @@ import pytest
 import torch
 
 import accl_tpu.ops.flash as JF
-from accl_tpu_torch import ACCLError
 from accl_tpu_torch.ops import flash as TF
 
 TOL = {"float32": 5e-6, "bfloat16": 4e-3}
@@ -220,15 +219,82 @@ def test_resolve_schedule_agrees_with_jax():
 
 
 def test_unported_parts_raise():
+    # nothing of the flash module is left unported: resident_skew runs
+    # (equal to the resident schedule, test_resident_skew_*) ...
     q = torch.randn(2, 32, 16)
-    with pytest.raises(ACCLError, match="resident_skew"):
-        TF.flash_attention_packed(q, q, q, kernel="resident_skew")
-    # the backward is ported: gradients reach q (tests/test_torch_flash_bwd)
+    out = TF.flash_attention_packed(q, q, q, kernel="resident_skew")
+    assert torch.equal(out, TF.flash_attention_packed(
+        q, q, q, kernel="resident", chunk_k=None, q_tiles=1,
+        fuse_denom=False))
+    # ... and the backward is ported: gradients reach q
+    # (tests/test_torch_flash_bwd)
     qg = q.clone().requires_grad_(True)
     out = TF.flash_attention_packed(qg, q, q, causal=True,
                                     mxu_dtype=torch.float32)
     out.sum().backward()
     assert qg.grad.shape == q.shape and bool(torch.isfinite(qg.grad).all())
+    qg.grad = None
+    TF.flash_attention_packed(qg, q, q, causal=True, kernel="resident_skew",
+                              mxu_dtype=torch.float32).sum().backward()
+    assert bool(torch.isfinite(qg.grad).all())
+
+
+@pytest.mark.parametrize("mxu", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_resident_skew_matches_jax(causal, mxu):
+    """tests/test_flash_attention.py:562's shape and blocks, through the
+    JAX skew kernel in interpret mode and the port's skew entry."""
+    N, T, D = 2, 256, 32
+    arrays = _arrays(23 + causal, (N, T, D), (N, T, D), (N, T, D))
+    kw = dict(causal=causal, block_q=64, block_k=64, kernel="resident_skew",
+              q_tiles=1, fuse_denom=False)
+    (jo, jl), (to, tl) = _both(JF.flash_attention_packed_lse,
+                               TF.flash_attention_packed_lse, arrays,
+                               "float32", mxu, **kw)
+    _close(to, jo, mxu, "out")
+    _close(tl, jl, mxu, "lse")
+
+
+@pytest.mark.parametrize("dt,mxu", CASES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_resident_skew_plain_is_the_resident_plain(causal, dt, mxu):
+    """The skew computes what the resident chain does (whole block_k
+    folds, one q tile): its plain version equals the resident plain
+    version bit for bit, through the public entries and directly."""
+    N, Nk, T, D = 4, 2, 96, 32
+    q, k, v = (torch.from_numpy(a).to(TDT[dt]) for a in _arrays(
+        31, (N, T, D), (Nk, T, D), (Nk, T, D)))
+    kw = dict(causal=causal, block_q=32, block_k=48, mxu_dtype=TDT[mxu])
+    so, sl = TF.flash_attention_packed_lse(q, k, v, kernel="resident_skew",
+                                           **kw)
+    ro, rl = TF.flash_attention_packed_lse(q, k, v, kernel="resident",
+                                           chunk_k=None, q_tiles=1,
+                                           fuse_denom=False, **kw)
+    assert torch.equal(so, ro) and torch.equal(sl, rl)
+    # the skew plain version forces whole-block folds whatever cfg says
+    cfg = TF._resolve_schedule(T, T, D, TDT[dt], causal, 32, 48, TDT[mxu],
+                               "resident", 16, False, 2, None) + (2,)
+    assert cfg[3] == 16 and cfg[7] == 2
+    got = TF.flash_fwd_resident_skew_plain(q, k, v, cfg)
+    want = TF.flash_fwd_resident_plain(
+        q, k, v, cfg[:3] + (48,) + cfg[4:7] + (1, False) + cfg[9:])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_resident_skew_rejects_options_as_jax_does():
+    x = torch.zeros(1, 128, 32)
+    jx = jnp.zeros((1, 128, 32), jnp.float32)
+    for kw, match in (({"q_tiles": 2}, "single-chain"),
+                      ({"chunk_k": 64}, "chunk_k"),
+                      ({"kv_cast_scratch": True}, "kv_cast_scratch"),
+                      ({"static_max": 40.0}, "static_max"),
+                      ({"fuse_denom": True}, "fuse_denom")):
+        with pytest.raises(ValueError, match=match) as jerr:
+            JF.flash_attention_packed(jx, jx, jx, kernel="resident_skew",
+                                      interpret=True, **kw)
+        with pytest.raises(ValueError, match=match) as terr:
+            TF.flash_attention_packed(x, x, x, kernel="resident_skew", **kw)
+        assert str(terr.value) == str(jerr.value)
 
 
 def test_shape_errors_match_jax():

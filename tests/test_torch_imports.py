@@ -13,11 +13,13 @@ PKG = pathlib.Path(__file__).resolve().parents[1] / "accl_tpu_torch"
 SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "request", "state", "backends.base", "backends.cuda",
               "ops.ring", "ops.quantized", "ops.fused", "ops.flash",
-              "ops._build", "parallel", "parallel.collectives",
-              "parallel.mesh", "parallel.ring_attention",
-              "parallel.strategies", "models", "models.transformer",
-              "models.decode", "bench", "bench.ef_convergence",
-              "utils.device", "utils.logging", "utils.tree"]
+              "ops.reduce_ops", "ops.compression", "ops._build", "parallel",
+              "parallel.collectives", "parallel.mesh",
+              "parallel.ring_attention", "parallel.strategies", "models",
+              "models.transformer", "models.decode", "bench",
+              "bench.ef_convergence", "bench.timing", "bench.flash_sweep",
+              "bench.kernel_tune", "utils.device", "utils.logging",
+              "utils.tree"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 
