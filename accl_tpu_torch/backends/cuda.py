@@ -260,7 +260,9 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
             outs = fused_ops.chunked_ring_reduce_scatter(vs, red)
         return [quant(o) for o in outs]
 
-    def body(vs: list) -> list:
+    def body(vs: list, outs: Optional[list] = None) -> list:
+        """``outs``: per-rank result views the ring drivers may write
+        into directly (lossless ring lane only, see ``_direct_outs``)."""
         if fused:
             return fused_body(vs)
         if q_ring:
@@ -270,11 +272,12 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
         vs = [quant(v) for v in vs]
         if ring:
             if op == Operation.allreduce:
-                outs = ring_ops.ring_all_reduce_segmented(vs, red)
+                outs = ring_ops.ring_all_reduce_segmented(vs, red, out=outs)
             elif op == Operation.allgather:
-                outs = ring_ops.ring_all_gather_segmented(vs)
+                outs = ring_ops.ring_all_gather_segmented(vs, out=outs)
             else:
-                outs = ring_ops.ring_reduce_scatter_segmented(vs, red)
+                outs = ring_ops.ring_reduce_scatter_segmented(vs, red,
+                                                              out=outs)
         elif op in (Operation.allreduce, Operation.reduce):
             total = reduce_all(vs)
             outs = [total] * nranks
@@ -682,7 +685,14 @@ class CudaEngine:
                             Operation.reduce_scatter)
                  and nranks > 1)
         plan = {
+            "op": op,
             "in_len": in_len,
+            # the lossless ring lane writes straight into the result
+            # buffers: no wire roundtrip runs after it
+            "out_len": ({Operation.allreduce: in_len,
+                         Operation.allgather: in_len * nranks,
+                         Operation.reduce_scatter: in_len // nranks}[op]
+                        if ring and not fused and not wire_dtype else 0),
             "dtype": None if dtype is None else torch_dtype(dtype),
             "ops": ops,
             "ring": ring,
@@ -715,13 +725,37 @@ class CudaEngine:
                 pad = shard.new_zeros(in_len - shard.shape[0])
                 shard = torch.cat([shard, pad])
             xs.append(shard)
+        outs = self._direct_outs(plan, xs)
         t0 = time.perf_counter_ns()
-        ys = plan["program"](xs)
+        ys = plan["program"](xs, outs)
         t1 = time.perf_counter_ns()
-        for (_buf, _off, res, roff), y in zip(plan["ops"], ys):
-            if res is not None:
+        for r, ((_buf, _off, res, roff), y) in enumerate(zip(plan["ops"],
+                                                             ys)):
+            if res is not None and (outs is None or y is not outs[r]):
                 res.dev[roff:roff + y.shape[0]].copy_(y)
         return t1 - t0
+
+    @staticmethod
+    def _direct_outs(plan: dict, xs: list) -> Optional[list]:
+        """The ranks' result views, when the ring drivers may write into
+        them in place of a copy afterwards: every rank's result buffer
+        has the datapath dtype and room for the whole result, and the
+        views alias the operands only as the kernels allow
+        (``ring.alias_fault``).  Otherwise None, and the results are
+        copied."""
+        n, dtype = plan["out_len"], plan["dtype"]
+        if not n:
+            return None
+        outs = []
+        for _buf, _off, res, roff in plan["ops"]:
+            if res is None or res.dev.dtype != dtype or \
+                    res.dev.shape[0] - roff < n:
+                return None
+            outs.append(res.dev[roff:roff + n])
+        in_place = plan["op"] == Operation.allreduce
+        if ring_ops.alias_fault(xs, outs, in_place):
+            return None
+        return outs
 
     def shutdown(self) -> None:
         with self._ready_cv:

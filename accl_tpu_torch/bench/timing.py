@@ -1,5 +1,7 @@
-"""Chained timing harness, shared by the port's bench lanes
-(``flash_sweep``, ``kernel_tune`` and ``chip_smoke.py``'s plugin phase).
+"""Timing harnesses on the card, shared by the port's bench lanes
+(``flash_sweep``, ``kernel_tune``, ``ring_split``) and ``chip_smoke.py``.
+
+``make_harness`` is the chained harness of the bench lanes.
 
 Port of ``accl_tpu/bench/timing.py`` (``make_harness``).  The method:
 
@@ -16,9 +18,26 @@ Port of ``accl_tpu/bench/timing.py`` (``make_harness``).  The method:
 
 The card is the default.  ``device="cpu"`` times on the host clock and
 exists for the tests only: no number from it is a device time.
+
+``events_ms`` times back-to-back launches between two CUDA events, which
+measures the host whenever the host takes longer to enqueue a launch
+than the device takes to run it.  ``split_ms`` separates the two: it
+holds the stream behind ``torch.cuda._sleep`` while the host enqueues
+every launch, so the device then runs them back to back, and reads
+
+- ``device_ms``: CUDA events around the launches, over their count;
+- ``host_enqueue_ms``: ``time.perf_counter`` around the enqueues, over
+  their count.
+
+A hold that ends before the host has enqueued everything is doubled and
+the window taken again, at most ``tries`` times: the driver's queue of
+pending launches is bounded, so a window of more launches than it holds
+blocks the host until the hold ends, whatever its length.  Such a window
+reports ``device_ms`` None.
 """
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -73,3 +92,81 @@ def make_harness(device: str = "cuda"):
         return best
 
     return timed_chain, timed_chain_ab
+
+
+def events_ms(fn, iters: int, runs: int = 5) -> float:
+    """Median over ``runs`` of the per-call time of ``iters`` calls,
+    timed with CUDA events after one warm-up run: the slower of the
+    device's and the host's rate."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+
+_cycles_per_ms = None
+
+
+def _calibrate() -> float:
+    """GPU clock cycles per millisecond, read from one ``_sleep``."""
+    global _cycles_per_ms
+    if _cycles_per_ms is None:
+        torch.cuda._sleep(1_000_000)  # warm-up
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(20_000_000)
+        b.record()
+        b.synchronize()
+        _cycles_per_ms = 20_000_000 / a.elapsed_time(b)
+    return _cycles_per_ms
+
+
+def split_ms(fn, iters: int, runs: int = 5, tries: int = 4) -> dict:
+    """Median over ``runs`` windows of ``iters`` calls of ``fn``:
+    ``device_ms`` per call with the stream held until every call is
+    enqueued (None when no hold of ``tries`` doublings outlasted the
+    enqueues), and ``host_enqueue_ms`` per call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    guess_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    hold_ms = 2 * guess_ms + 5
+    dev, host = [], []
+    while len(host) < runs:
+        torch.cuda._sleep(int(hold_ms * _calibrate()))
+        held = torch.cuda.Event()
+        held.record()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        b.record()
+        still_held = not held.query()
+        b.synchronize()
+        if not still_held and tries > 0:
+            tries -= 1
+            hold_ms *= 2
+            continue
+        if still_held:
+            dev.append(a.elapsed_time(b) / iters)
+        host.append((t1 - t0) * 1e3 / iters)
+    return {"device_ms": statistics.median(dev) if len(dev) == runs else None,
+            "host_enqueue_ms": statistics.median(host),
+            "device_ms_runs": dev, "host_enqueue_ms_runs": host}

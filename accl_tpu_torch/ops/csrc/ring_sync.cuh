@@ -18,6 +18,13 @@ __host__ __device__ __forceinline__ bool ag_signals_ack(int step, int P) { retur
 __host__ __device__ __forceinline__ bool rs_waits_ack(int step, int P) { return step >= 2; }
 __host__ __device__ __forceinline__ bool rs_signals_ack(int step, int P) { return step <= P - 4; }
 
+// -- the long schedule of a persistent launch (ring.cu) ---------------------
+// A stripe of U tiles makes H = U (P - 1) hops, numbered across its tiles,
+// hop h landing in slot h % 2, each landing read once: the windows of the
+// reduce-scatter's landing slot over a ring of H hops, rs_*(hop, H + 1).
+__host__ __device__ __forceinline__ bool tile_waits_ack(int64_t hop, int64_t H) { return hop >= 2; }
+__host__ __device__ __forceinline__ bool tile_signals_ack(int64_t hop, int64_t H) { return hop <= H - 3; }
+
 // -- flags ----------------------------------------------------------------
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -27,6 +34,16 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 
 __device__ __forceinline__ void add_release(int* p) {
   __threadfence();
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" :: "l"(p) : "memory");
+}
+
+// Publish, after a __syncthreads, what the whole block wrote: one
+// thread's release reduction.  The barrier orders the block's writes
+// before it, and a release is cumulative, so a reader that acquires the
+// count sees them all (the pattern of CUTLASS's GenericBarrier, whose
+// fence.acq_rel + red.relaxed is the same release; add_release's extra
+// fence is the heavier fence.sc).
+__device__ __forceinline__ void arrive_release(int* p) {
   asm volatile("red.release.gpu.global.add.s32 [%0], 1;" :: "l"(p) : "memory");
 }
 

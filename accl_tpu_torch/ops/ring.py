@@ -1,10 +1,11 @@
 """Ring collectives over P ranks held as separate tensors on one device.
 
 Port of ``accl_tpu/ops/ring.py``.  There each rank is a chip and the two
-Pallas kernels hop over inter-chip remote DMA; here every rank's buffer
-is a tensor on the same card, and the two hand-written CUDA kernels in
-``csrc/ring.cu`` hop between regions of its memory through a table of
-per-rank pointers.
+Pallas kernels hop over inter-chip remote DMA, one launch per segment
+and phase; here every rank's buffer is a tensor on the same card, and
+the two hand-written CUDA kernels in ``csrc/ring.cu`` hop between
+regions of its memory through a table of per-rank pointers, one
+persistent launch per phase that walks every segment of a call.
 
 Every function takes a list with one tensor per rank, in ring order.
 Beside each kernel wrapper sits its plain PyTorch version, a Python loop
@@ -16,7 +17,9 @@ in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import functools
+import threading
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -107,6 +110,106 @@ def ring_all_gather_plain(xs: Sequence[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
+# the launch geometry of csrc/ring.cu, and its plain version
+# ---------------------------------------------------------------------------
+#: bytes of one landing slot: a tile of one chunk
+SLOT_BYTES = 32768
+#: the most that one launch's landing slots may take: they should stay
+#: in the card's 50 MB L2
+SCRATCH_BYTES = 32 << 20
+#: threads of a block (THREADS in csrc/ring.cu)
+THREADS = 256
+_NO_LIMIT = 1 << 62
+
+
+class Part(NamedTuple):
+    """Segments of one width in a launch: element j of chunk c of segment
+    i sits at ``x_off + i x_seg + c x_chunk + j`` in an operand and at
+    ``o_off + i o_seg + c o_chunk + j`` in a result; columns with
+    ``c w + j >= lim`` are padding, neither read nor written."""
+    nseg: int
+    w: int
+    x_off: int
+    x_seg: int
+    x_chunk: int
+    o_off: int
+    o_seg: int
+    o_chunk: int
+    lim: int = _NO_LIMIT
+
+
+def tile_waits_ack(hop: int, H: int) -> bool:
+    """A stripe of H hops, numbered across its tiles, each landing read
+    once: the reduce-scatter's windows over a ring of H + 1
+    (tile_waits_ack in csrc/ring_sync.cuh)."""
+    return rs_waits_ack(hop, H + 1)
+
+
+def tile_signals_ack(hop: int, H: int) -> bool:
+    return rs_signals_ack(hop, H + 1)
+
+
+def allreduce_parts(N: int, P: int, seg_elems: int = DEFAULT_SEG_ELEMS):
+    """The segments of a flat [N] allreduce, as the reference cuts them
+    (accl_tpu/ops/ring.py:461-476): whole segments of length
+    max(P, (min(seg_elems, N) // P) P), chunk width length / P, then a
+    ragged last segment of chunk width ceil(s / P) whose padding is
+    masked.  Operand and result share the layout."""
+    seg = max(P, (min(seg_elems, N) // P) * P)
+    nfull, rem = divmod(N, seg)
+    parts = []
+    if nfull:
+        w = seg // P
+        parts.append(Part(nfull, w, 0, seg, w, 0, seg, w))
+    if rem:
+        wl = -(-rem // P)
+        off = nfull * seg
+        parts.append(Part(1, wl, off, 0, wl, off, 0, wl, rem))
+    return parts
+
+
+def tiling(parts, P: int, elem: int, resident: int):
+    """(tile width, tiles, stripes per rank) of one launch.  Stripes: as
+    many as fit co-resident (``resident`` blocks over P ranks), no more
+    than there are tiles, and no more than SCRATCH_BYTES of slots.  The
+    tile width spreads the columns over those stripes, between one
+    16-byte vector per thread and SLOT_BYTES."""
+    fit = resident // P
+    if fit < 1:
+        raise RuntimeError(f"ring kernel: {P} ranks do not fit co-resident "
+                           f"on this card")
+    V = 16 // elem
+
+    def up(a, b):
+        return -(-a // b) * b
+
+    slot = max(V, SLOT_BYTES // elem)
+    cap = min(fit, max(1, SCRATCH_BYTES // (P * 2 * slot * elem)))
+    cols = sum(p.nseg * p.w for p in parts)
+    widest = max(p.w for p in parts)
+    tw = max(up(-(-cols // cap), THREADS * V), THREADS * V)
+    tw = min(tw, slot, up(widest, V))
+    ntiles = sum(p.nseg * -(-p.w // tw) for p in parts)
+    stripes = min(fit, ntiles, max(1, SCRATCH_BYTES // (P * 2 * tw * elem)))
+    return tw, ntiles, stripes
+
+
+def _geometry(parts, tw: int, ntiles: int, aligned: bool, V: int):
+    """The GEOMETRY_WORDS int64 words of struct Geometry (csrc/ring.cu)."""
+    words, first = [], 0
+    for p in list(parts) + [Part(0, 1, 0, 0, 0, 0, 0, 0)] * (2 - len(parts)):
+        tps = -(-p.w // tw) if p.nseg else 1
+        strides = (p.x_off, p.x_seg if p.nseg > 1 else 0, p.x_chunk,
+                   p.o_off, p.o_seg if p.nseg > 1 else 0, p.o_chunk)
+        vec = aligned and all(v % V == 0 for v in strides)
+        words += [p.nseg, p.w, tps, first if p.nseg else ntiles, *strides,
+                  p.lim, int(vec)]
+        first += p.nseg * tps
+    words += [tw, ntiles]
+    return (ctypes.c_int64 * len(words))(*words)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 def _check(xs, out, what: str):
@@ -134,16 +237,69 @@ def _raise_on(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def _stripes(lib, kind: int, dt: torch.dtype, is_max: bool, P: int, n: int,
-             device: torch.device) -> int:
-    S = lib.accl_ring_stripes(kind, KERNEL_DTYPES[dt], int(is_max), P, n,
-                              device.index or 0)
-    if S < 0:
-        _raise_on(lib, -S, "accl_ring_stripes")
-    if S == 0:
-        raise RuntimeError(f"ring kernel: {P} ranks do not fit co-resident "
-                           f"on this card")
-    return S
+@functools.lru_cache(maxsize=None)
+def _resident(kind: int, dtype_code: int, device: int) -> int:
+    """Blocks of one kernel that fit on the card together (cached)."""
+    lib = _build.load("ring")
+    got = lib.accl_ring_resident(kind, dtype_code, device)
+    if got < 0:
+        _raise_on(lib, -got, "accl_ring_resident")
+    return got
+
+
+_scratch_lock = threading.Lock()
+#: (device, stream) -> [landing slots (bytes), flags (int32, kept zero)]
+_scratch: dict = {}
+
+
+def _scratch_for(dev: torch.device, stream, nbytes: int, nflags: int):
+    """The slots and flags of one launch, kept per device and stream and
+    reused in stream order; the kernels leave the flags at zero."""
+    key = (dev.index, stream.cuda_stream)
+    with _scratch_lock:
+        cur = _scratch.get(key)
+        if cur is None or cur[0].numel() < nbytes:
+            slots = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            cur = [slots, cur[1] if cur else None]
+        if cur[1] is None or cur[1].numel() < nflags:
+            cur[1] = torch.zeros(nflags, dtype=torch.int32, device=dev)
+        _scratch[key] = cur
+        return cur
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(parts: tuple, P: int, elem: int, k: int, code: int, device: int,
+          aligned: bool):
+    """(stripes, geometry words, slot bytes) of one launch (cached: a
+    driver repeats the same few shapes)."""
+    tw, ntiles, S = tiling(parts, P, elem, _resident(k, code, device))
+    return S, _geometry(parts, tw, ntiles, aligned, 16 // elem), \
+        P * S * 2 * tw * elem
+
+
+def _launch(kind: str, xs, outs, parts, op: str = "sum") -> None:
+    """One launch of csrc/ring.cu over ``parts``: kind "rs" (rank r's
+    result at chunk r of the result layout) or "ag" (rank r's operand at
+    chunk r of the operand layout).  Counts it on its wrapper."""
+    dev, dt = xs[0].device, xs[0].dtype
+    P, elem = len(xs), xs[0].element_size()
+    code = KERNEL_DTYPES[dt]
+    k = 2 if kind == "ag" else int(op == "max")
+    xp = [t.data_ptr() for t in xs]
+    op_ = [t.data_ptr() for t in outs]
+    aligned = all(a % 16 == 0 for a in xp + op_)
+    device = dev.index or 0
+    S, geo, nbytes = _plan(tuple(parts), P, elem, k, code, device, aligned)
+    stream = torch.cuda.current_stream(dev)
+    slots, flags = _scratch_for(dev, stream, nbytes, P * S * 4)
+    lib = _build.load("ring")
+    rc = lib.accl_ring_launch(
+        k, code, (ctypes.c_void_p * P)(*xp), (ctypes.c_void_p * P)(*op_), P,
+        S, geo, slots.data_ptr(), flags.data_ptr(), device,
+        stream.cuda_stream)
+    wrapper = ring_all_gather if kind == "ag" else ring_reduce_scatter
+    _raise_on(lib, rc, wrapper.__name__)
+    wrapper.launches += 1
 
 
 def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
@@ -159,13 +315,14 @@ def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
                          f"got {shape}")
     n = shape[1]
     row = xs[0].stride(0)
+    strides = (row, 1)
     for x in xs:
-        if tuple(x.shape) != shape or x.stride() != (row, 1):
+        if x.shape != shape or x.stride() != strides:
             raise ValueError("ring_reduce_scatter: operands need one shape "
                              "and strides (row, 1)")
     if out is not None:
         for o in out:
-            if tuple(o.shape) != (n,) or not o.is_contiguous():
+            if o.shape != (n,) or not o.is_contiguous():
                 raise ValueError("ring_reduce_scatter: outputs must be "
                                  f"contiguous [{n}]")
     if xs[0].device.type == "cpu":
@@ -176,22 +333,8 @@ def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
     if P == 1:
         out[0].copy_(xs[0][0])
         return list(out)
-    if n == 0:
-        return list(out)
-    lib = _build.load("ring")
-    dev = xs[0].device
-    S = _stripes(lib, 0, xs[0].dtype, op == "max", P, n, dev)
-    # scratch may be freed when this returns, before the kernel ends: the
-    # caching allocator hands it out again only to work queued after the
-    # kernel on this stream
-    landing = torch.empty(P * 2 * n, dtype=xs[0].dtype, device=dev)
-    flags = torch.empty(P * S * 4, dtype=torch.int32, device=dev)
-    rc = lib.accl_ring_reduce_scatter(
-        _ptrs(xs), row, _ptrs(out), n, P, KERNEL_DTYPES[xs[0].dtype],
-        int(op == "max"), S, landing.data_ptr(), flags.data_ptr(),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, rc, "ring_reduce_scatter")
-    ring_reduce_scatter.launches += 1
+    if n:
+        _launch("rs", xs, out, [Part(1, n, 0, 0, row, 0, 0, 0)], op)
     return list(out)
 
 
@@ -224,19 +367,8 @@ def ring_all_gather(xs: Sequence[torch.Tensor],
     if P == 1:
         out[0][0].copy_(xs[0])
         return list(out)
-    if n == 0:
-        return list(out)
-    lib = _build.load("ring")
-    dev = xs[0].device
-    S = _stripes(lib, 1, xs[0].dtype, False, P, n, dev)
-    comm = torch.empty(P * 2 * n, dtype=xs[0].dtype, device=dev)
-    flags = torch.empty(P * S * 4, dtype=torch.int32, device=dev)
-    rc = lib.accl_ring_all_gather(
-        _ptrs(xs), _ptrs(out), row, n, P, KERNEL_DTYPES[xs[0].dtype], S,
-        comm.data_ptr(), flags.data_ptr(), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, rc, "ring_all_gather")
-    ring_all_gather.launches += 1
+    if n:
+        _launch("ag", xs, out, [Part(1, n, 0, 0, 0, 0, 0, row)])
     return list(out)
 
 
@@ -269,18 +401,58 @@ def ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
 
 # ---------------------------------------------------------------------------
 # segmentation drivers (twins of accl_tpu/ops/ring.py:450-528): the same
-# segment lengths and ragged-tail padding, so each element lands in the
-# same rank's chunk and is folded in the same order.  One launch per
-# segment and phase.
+# segment lengths, so each element lands in the same rank's chunk and is
+# folded in the same order.  On the card each phase is one launch that
+# walks every segment.  CPU tensors, and ``plain=True`` on any device,
+# compose the plain versions segment by segment with the reference's
+# zero-padded ragged tail: the reference result chip_smoke.py holds the
+# card's against.
 # ---------------------------------------------------------------------------
-def ring_all_reduce_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
-                              seg_elems: int = DEFAULT_SEG_ELEMS,
-                              plain: bool = False):
-    """Flat per-rank [N] -> [N] allreduced; the last segment is padded up
-    to a multiple of P."""
+def _span(t: torch.Tensor):
+    """[first, last) byte address a contiguous tensor covers."""
+    a = t.data_ptr()
+    return a, a + t.numel() * t.element_size()
+
+
+def alias_fault(xs, outs, in_place: bool = False) -> Optional[str]:
+    """Why the kernels may not write the flat results ``outs`` while they
+    read the flat operands ``xs``, or None.  A launch reads every rank's
+    operand and writes every rank's result, so each result must be
+    disjoint from every operand and every other result.  The one
+    exception, with ``in_place`` (the allreduce): a result may be exactly
+    its own rank's operand, because the last read of each element and
+    its write are one thread's, and the all-gather runs in a later
+    launch."""
+    spans = [_span(t) for t in xs]
+    P = len(spans)
+    for r, o in enumerate(outs):
+        a, b = _span(o)
+        for q, (c, d) in enumerate(spans):
+            if a < d and c < b and a < b and not (
+                    in_place and q == r and (a, b) == (c, d)):
+                kind = "operand" if q < P else "result"
+                return f"rank {r}'s result overlaps rank {q % P}'s {kind}"
+        spans.append((a, b))
+    return None
+
+
+def _flat_check(xs, out, what: str, out_len: int, in_place: bool = False):
+    _check(xs, out, what)
+    n = xs[0].shape[0]
+    for x in xs:
+        if x.dim() != 1 or x.shape[0] != n or not x.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous [{n}]")
+    for o in out or ():
+        if tuple(o.shape) != (out_len,) or not o.is_contiguous():
+            raise ValueError(f"{what}: results must be contiguous "
+                             f"[{out_len}]")
+    fault = alias_fault(xs, out or (), in_place)
+    if fault:
+        raise ValueError(f"{what}: {fault}")
+
+
+def _segments_plain(xs, op, seg_elems):
     P = len(xs)
-    if P == 1:
-        return [xs[0].clone()]
     N = xs[0].shape[0]
     seg = max(P, (min(seg_elems, N) // P) * P)
     outs = [torch.empty_like(x) for x in xs]
@@ -290,54 +462,104 @@ def ring_all_reduce_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
         padded = -(-s // P) * P
         if padded == s:
             ring_all_reduce([x[off:off + s] for x in xs], op,
-                            out=[o[off:off + s] for o in outs], plain=plain)
+                            out=[o[off:off + s] for o in outs], plain=True)
         else:
             pieces = []
             for x in xs:
                 p = x.new_zeros(padded)
                 p[:s] = x[off:off + s]
                 pieces.append(p)
-            for o, r in zip(outs, ring_all_reduce(pieces, op, plain=plain)):
+            for o, r in zip(outs, ring_all_reduce(pieces, op, plain=True)):
                 o[off:off + s] = r[:s]
         off += s
     return outs
 
 
+def _into(out, results):
+    if out is None:
+        return results
+    for o, r in zip(out, results):
+        o.copy_(r)
+    return list(out)
+
+
+def ring_all_reduce_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
+                              seg_elems: int = DEFAULT_SEG_ELEMS,
+                              plain: bool = False,
+                              out: Optional[Sequence[torch.Tensor]] = None):
+    """Flat per-rank [N] -> [N] allreduced, segment by segment; the last
+    segment is ragged.  ``out`` may be the operands themselves, or
+    results disjoint from every operand (``alias_fault``)."""
+    P = len(xs)
+    N = xs[0].shape[0]
+    _flat_check(xs, out, "ring_all_reduce_segmented", N, in_place=True)
+    _fold(op)
+    if P == 1:
+        return _into(out, [xs[0].clone()])
+    if plain or xs[0].device.type == "cpu":
+        return _into(out, _segments_plain(xs, op, seg_elems))
+    if out is None:
+        out = [torch.empty_like(x) for x in xs]
+    if N == 0:
+        return list(out)
+    parts = allreduce_parts(N, P, seg_elems)
+    _launch("rs", xs, out, parts, op)
+    _launch("ag", out, out, parts)
+    return list(out)
+
+
 def ring_all_gather_segmented(xs: Sequence[torch.Tensor],
                               seg_elems: int = DEFAULT_SEG_ELEMS,
-                              plain: bool = False):
-    """Flat per-rank [n] -> [P * n] (rank-major), segmented; each segment
-    gathers straight into its columns of the [P, n] result."""
+                              plain: bool = False,
+                              out: Optional[Sequence[torch.Tensor]] = None):
+    """Flat per-rank [n] -> [P * n] (rank-major).  Segments do not change
+    which rank owns an element here, so on the card and the CPU this is
+    one all-gather into the [P, n] view of each result; ``plain=True``
+    gathers segment by segment.  Results must be disjoint from every
+    operand and from each other."""
     P = len(xs)
-    if P == 1:
-        return [xs[0].clone()]
     n = xs[0].shape[0]
+    _flat_check(xs, out, "ring_all_gather_segmented", P * n)
+    if P == 1:
+        return _into(out, [xs[0].clone()])
+    if out is None:
+        out = [x.new_empty(P * n) for x in xs]
+    if not plain:
+        ring_all_gather(xs, out=[o.view(P, n) for o in out])
+        return list(out)
     seg = min(seg_elems, n)
-    outs = [x.new_empty(P * n) for x in xs]
     off = 0
     while off < n:
         s = min(seg, n - off)
-        _phases(plain)[1]([x[off:off + s] for x in xs],
-                          out=[o.view(P, n)[:, off:off + s] for o in outs])
+        ring_all_gather_plain([x[off:off + s] for x in xs],
+                              out=[o.view(P, n)[:, off:off + s] for o in out])
         off += s
-    return outs
+    return list(out)
 
 
 def ring_reduce_scatter_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
                                   seg_elems: int = DEFAULT_SEG_ELEMS,
-                                  plain: bool = False):
-    """Flat per-rank [P * n] (rank-major) -> that rank's reduced [n],
-    segmented along the per-rank chunk dimension."""
+                                  plain: bool = False,
+                                  out: Optional[Sequence[torch.Tensor]] = None):
+    """Flat per-rank [P * n] (rank-major) -> that rank's reduced [n].  As
+    for the all-gather, one reduce-scatter of the [P, n] views;
+    ``plain=True`` folds segment by segment.  Results must be disjoint
+    from every operand and from each other."""
     P = len(xs)
-    if P == 1:
-        return [xs[0].clone()]
     n = xs[0].shape[0] // P
+    _flat_check(xs, out, "ring_reduce_scatter_segmented", n)
+    _fold(op)
+    if P == 1:
+        return _into(out, [xs[0].clone()])
+    if out is None:
+        out = [x.new_empty(n) for x in xs]
+    if not plain:
+        return ring_reduce_scatter([x.view(P, n) for x in xs], op, out=out)
     seg = min(seg_elems, n)
-    outs = [x.new_empty(n) for x in xs]
     off = 0
     while off < n:
         s = min(seg, n - off)
-        _phases(plain)[0]([x.view(P, n)[:, off:off + s] for x in xs], op,
-                          out=[o[off:off + s] for o in outs])
+        ring_reduce_scatter_plain([x.view(P, n)[:, off:off + s] for x in xs],
+                                  op, out=[o[off:off + s] for o in out])
         off += s
-    return outs
+    return list(out)

@@ -8,10 +8,16 @@ Phases, each fatal on failure:
      nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it:
-     - the ring kernels at the driver's per-launch shape (P=8 ranks,
-       n = DEFAULT_SEG_ELEMS / 8) and at a ragged size: fp32 SUM and MAX,
+     - the ring kernels at one 1 MiB segment (P=8 ranks, n =
+       DEFAULT_SEG_ELEMS / 8) and at a ragged size: fp32 SUM and MAX,
        int32 SUM and fp32 all-gather bitwise, fp16 SUM within one ulp;
-       the all-gather also at the tensor-parallel path's n = (M / 8) N;
+       the segmented allreduce (one launch per phase over every segment)
+       at whole segments of many tiles, odd N with a ragged tail, many
+       small segments and fewer elements than ranks, in all five kernel
+       dtypes, SUM and MAX with NaN present, out of place and in place,
+       bitwise against the plain composition; both kernels at one tile
+       and many in all five dtypes, bitwise; the all-gather also at the
+       tensor-parallel path's n = (M / 8) N;
      - the matmul kernel (accl_matmul, at M and M / (8 CHUNKS) rows) and
        the fused matmul reduce-scatter kernel (accl_fused_matmul_rs, P=8,
        m = M / 8) on f32 and bf16 at Llama-3-8B's TP=8 MLP-down and
@@ -56,7 +62,9 @@ Phases, each fatal on failure:
         and bcast / gather / scatter / alltoall / a small allreduce below
         the ring threshold.  Every result is held against the plain
         composition on the card (bitwise on the ring lane) and a float64
-        reference (rtol 1e-5, atol 1e-5); both ring kernels must launch;
+        reference (rtol 1e-5, atol 1e-5); each ring call must launch
+        one kernel per phase (an allreduce one reduce-scatter and one
+        all-gather, at every size);
      b. the fused tensor-parallel matmul at Llama-3-8B's widths (hidden
         4096, intermediate 14336, 32 query heads of 128; Meta's
         config.json for meta-llama/Meta-Llama-3-8B) at TP=8 and 4096
@@ -122,7 +130,11 @@ Phases, each fatal on failure:
      forward time subtracted; the plugin kernels at the bench shapes,
      the cast kernel also at phase 4f's tuned geometry; the skew beside
      flash_fwd_resident and SDPA); the
-     driver's allreduce algbw / busbw per size; and at 64 MiB per rank
+     driver's allreduce algbw / busbw per size; the ring kernels also
+     with the stream held behind torch.cuda._sleep until every launch is
+     enqueued (device time) and on the host clock around the enqueues
+     (accl_tpu_torch/bench/timing.py, split_ms), and the segmented allreduce's
+     two launches at each driver size the same way; and at 64 MiB per rank
      the busbw of the fused and int8 lanes beside the lossless ring's.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 = False):
@@ -132,6 +144,7 @@ line, the card's name and power limit, and last {"ok": true, "device":
 {...}}.  Without CUDA it exits 2 and prints no result.
 """
 import argparse
+import itertools
 import json
 import os
 import re
@@ -142,6 +155,8 @@ import time
 
 import numpy as np
 import torch
+
+from accl_tpu_torch.bench.timing import events_ms as cuda_ms, split_ms
 
 P = 8
 MIB = 1 << 20
@@ -185,24 +200,6 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, runs: int = 5) -> float:
-    """Median over ``runs`` of the per-call time of ``iters`` calls,
-    timed with CUDA events after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / iters)
-    return statistics.median(times)
 
 
 def rand(shape, dtype, gen) -> torch.Tensor:
@@ -252,6 +249,9 @@ def check_kernels(ring) -> dict:
                          f"to the plain version")
                 errs["ring_all_gather"] = max(errs["ring_all_gather"],
                                               max_err(g, w))
+    errs_walk = check_segment_walk(ring)
+    for k in errs:
+        errs[k] = max(errs[k], errs_walk)
     # the tensor-parallel path's all-gather: one reduced [M / P, N] f32
     # block per rank
     src = [rand((TP_GATHER_N,), torch.float32, gen) for _ in range(P)]
@@ -264,6 +264,67 @@ def check_kernels(ring) -> dict:
     del src, got_ag
     emit({"phase": "kernel_vs_plain", "ok": True, "max_abs_err": errs})
     return errs
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality that holds NaN to its payload."""
+    if a.dtype.is_floating_point:
+        iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(iv), b.view(iv))
+    return torch.equal(a, b)
+
+
+#: (N per rank, seg_elems) of the segment-walking checks: whole segments
+#: of many tiles; a ragged tail at odd N; a ragged tail of chunk width 1;
+#: and fewer elements than ranks
+WALK_SHAPES = ((8 * 4 * 32768, 8 * 32768), (3 * 8 * 4099 + 13, 8 * 4099),
+               (8 * 1000 + 5, 8 * 1000), (5, 1 << 18))
+
+
+def check_segment_walk(ring) -> float:
+    """Phase 3: the segment-walking launches (one per phase over every
+    segment of an allreduce) against the plain composition, bitwise, in
+    every kernel dtype, SUM and MAX (MAX with NaN present), out of place
+    and in place; and the one-segment forms at 1 and many tiles."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst = 0.0
+    for (N, seg), dtype, op in itertools.product(
+            WALK_SHAPES, ring.KERNEL_DTYPES, ("sum", "max")):
+        xs = [rand((N,), dtype, gen) for _ in range(P)]
+        if op == "max" and dtype.is_floating_point:
+            for r, x in enumerate(xs):
+                x[r::97] = float("nan")
+        want = ring.ring_all_reduce_segmented(xs, op, seg, plain=True)
+        got = ring.ring_all_reduce_segmented(xs, op, seg)
+        same = [x.clone() for x in xs]
+        ring.ring_all_reduce_segmented(same, op, seg, out=same)
+        torch.cuda.synchronize()
+        for r in range(P):
+            for what, g in (("out of place", got[r]), ("in place", same[r])):
+                if not same_bits(g, want[r]):
+                    fail(f"segment walk {dtype} {op} N={N} seg={seg} "
+                         f"{what} rank {r}: not bitwise equal to the plain "
+                         f"composition")
+            if op == "sum":
+                worst = max(worst, max_err(got[r], want[r]))
+    for n, dtype in itertools.product((256, 4099, 3 * 32768 + 7),
+                                      ring.KERNEL_DTYPES):
+        xs = [rand((P, n), dtype, gen) for _ in range(P)]
+        got = ring.ring_reduce_scatter(xs, "sum")
+        gathered = ring.ring_all_gather(got)
+        torch.cuda.synchronize()
+        for g, w in zip(got, ring.ring_reduce_scatter_plain(xs, "sum")):
+            if not same_bits(g, w):
+                fail(f"ring_reduce_scatter {dtype} n={n}: not bitwise equal "
+                     f"to the plain version")
+        for g, w in zip(gathered, ring.ring_all_gather_plain(got)):
+            if not same_bits(g, w):
+                fail(f"ring_all_gather {dtype} n={n}: not bitwise equal to "
+                     f"the plain version")
+    emit({"phase": "segment_walk_vs_plain", "ok": True,
+          "shapes": [list(s) for s in WALK_SHAPES],
+          "dtypes": [str(d) for d in ring.KERNEL_DTYPES]})
+    return worst
 
 
 def ints(shape, dtype, gen) -> torch.Tensor:
@@ -870,6 +931,12 @@ def main_path(ring, F, CudaWorld, ReduceFunction, sizes) -> dict:
             first_s = time.perf_counter() - t0
             launched = (ring.ring_reduce_scatter.launches - before[0],
                         ring.ring_all_gather.launches - before[1])
+            # one launch per phase per call, whatever the segment count
+            expect = {"allreduce": (1, 1), "allgather": (0, 1),
+                      "reduce_scatter": (1, 0)}[kind]
+            if launched != expect:
+                fail(f"{kind} {nbytes // MIB} MiB launched (reduce-scatter, "
+                     f"all-gather) = {launched}, not {expect}")
             xs = [b.dev for b in sends]
             red = "max" if func == ReduceFunction.MAX else "sum"
             if kind == "allreduce":
@@ -919,8 +986,14 @@ def main_path(ring, F, CudaWorld, ReduceFunction, sizes) -> dict:
         raise
 
 
-def time_kernels(ring, errs, launches, per_big, big_mib) -> list:
-    """Phase 5a: each kernel per launch at the main path's shape."""
+def time_kernels(ring, errs, launches, per_big, big_mib, sizes) -> tuple:
+    """Phase 5a: each ring kernel per launch at the main path's shapes,
+    three ways: ``ms``, CUDA events around back-to-back launches (the
+    slower of the device and the host); ``device_ms``, the same with the
+    stream held until every launch is enqueued; ``host_enqueue_ms``, the
+    host clock around the enqueues.  Then the device time of the
+    segmented allreduce (one launch per phase) at each driver size.
+    Returns (rows, allreduce device ms by MiB per rank)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     n = ring.DEFAULT_SEG_ELEMS // P
     xs = [rand((P, n), torch.float32, gen) for _ in range(P)]
@@ -930,41 +1003,89 @@ def time_kernels(ring, errs, launches, per_big, big_mib) -> list:
     ag_out = [torch.empty(P, n, device="cuda") for _ in range(P)]
     rs_count0 = ring.ring_reduce_scatter.launches
     ag_count0 = ring.ring_all_gather.launches
+
+    def gather_all(src, dst):
+        # the all-gather of every rank: P gathers of the P blocks
+        for r in range(P):
+            torch.cat(src, out=dst[r].view(-1))
+
+    def rs_call():
+        ring.ring_reduce_scatter(xs, out=outs)
+
+    def ag_call():
+        ring.ring_all_gather(ag_in, out=ag_out)
+
     # interleaved: kernel, plain, plain, kernel
-    rs_ms = [cuda_ms(lambda: ring.ring_reduce_scatter(xs, out=outs), 50)]
+    rs_ms = [cuda_ms(rs_call, 50)]
     rs_plain = [cuda_ms(lambda: ring.ring_reduce_scatter_plain(xs), 20)]
     rs_plain.append(cuda_ms(lambda: ring.ring_reduce_scatter_plain(xs), 20))
-    rs_ms.append(cuda_ms(lambda: ring.ring_reduce_scatter(xs, out=outs), 50))
+    rs_ms.append(cuda_ms(rs_call, 50))
     rs_lib = cuda_ms(lambda: torch.sum(stacked, dim=0), 50)
-    ag_ms = [cuda_ms(lambda: ring.ring_all_gather(ag_in, out=ag_out), 50)]
+    ag_ms = [cuda_ms(ag_call, 50)]
     ag_plain = [cuda_ms(lambda: ring.ring_all_gather_plain(ag_in), 20)]
     ag_plain.append(cuda_ms(lambda: ring.ring_all_gather_plain(ag_in), 20))
-    ag_ms.append(cuda_ms(lambda: ring.ring_all_gather(ag_in, out=ag_out), 50))
-    ag_lib = cuda_ms(lambda: torch.cat(ag_in), 50)
+    ag_ms.append(cuda_ms(ag_call, 50))
+    ag_lib = cuda_ms(lambda: gather_all(ag_in, ag_out), 50)
+    ag_lib_one = cuda_ms(lambda: torch.cat(ag_in), 50)
+    split = {"ring_reduce_scatter": split_ms(rs_call, 50),
+             "ring_all_gather": split_ms(ag_call, 50)}
     # the per-launch floor: the same hops at 256 elements per chunk, where
     # the bytes are negligible and the flag handshakes are all that is left
     tiny = [rand((P, 256), torch.float32, gen) for _ in range(P)]
     tiny_ag = [rand((256,), torch.float32, gen) for _ in range(P)]
-    floor = {"ring_reduce_scatter":
-             cuda_ms(lambda: ring.ring_reduce_scatter(tiny), 50),
-             "ring_all_gather":
-             cuda_ms(lambda: ring.ring_all_gather(tiny_ag), 50)}
+    floor_fns = {"ring_reduce_scatter": lambda: ring.ring_reduce_scatter(tiny),
+                 "ring_all_gather": lambda: ring.ring_all_gather(tiny_ag)}
+    floor = {k: {"ms": cuda_ms(fn, 50), **split_ms(fn, 50)}
+             for k, fn in floor_fns.items()}
     # the all-gather of fused_matmul_allreduce_pallas: [M / P, N] per rank
     tp_in = [rand((TP_GATHER_N,), torch.float32, gen) for _ in range(P)]
     tp_out = [torch.empty(P, TP_GATHER_N, device="cuda") for _ in range(P)]
-    tp_ms = [cuda_ms(lambda: ring.ring_all_gather(tp_in, out=tp_out), 5)]
+
+    def tp_call():
+        ring.ring_all_gather(tp_in, out=tp_out)
+
+    tp_ms = [cuda_ms(tp_call, 5)]
     tp_plain = [cuda_ms(lambda: ring.ring_all_gather_plain(tp_in), 5)]
     tp_plain.append(cuda_ms(lambda: ring.ring_all_gather_plain(tp_in), 5))
-    tp_ms.append(cuda_ms(lambda: ring.ring_all_gather(tp_in, out=tp_out), 5))
-    tp_lib = cuda_ms(lambda: torch.cat(tp_in), 5)
+    tp_ms.append(cuda_ms(tp_call, 5))
+    tp_lib = cuda_ms(lambda: gather_all(tp_in, tp_out), 5)
+    tp_lib_one = cuda_ms(lambda: torch.cat(tp_in), 5)
+    tp_split = split_ms(tp_call, 5)
     tp_bytes = (P + P * P) * TP_GATHER_N * 4
     at_tp = {"ring_reduce_scatter": {}, "ring_all_gather": {
         f"at_n{TP_GATHER_N}": {
             "shape": f"P={P} x [{TP_GATHER_N}] fp32 per launch",
             "ms": statistics.median(tp_ms),
+            "device_ms": tp_split["device_ms"],
+            "host_enqueue_ms": tp_split["host_enqueue_ms"],
             "plain_ms": statistics.median(tp_plain), "library_ms": tp_lib,
+            "library_ms_one_rank": tp_lib_one,
             "bound_ms": tp_bytes / HBM_BYTES_PER_S * 1e3}}}
     del tp_in, tp_out
+    # the driver's allreduce, kernels alone: both launches of one call
+    ar_device = {}
+    for mib in sizes:
+        count = mib * MIB // 4
+        ar_in = [rand((count,), torch.float32, gen) for _ in range(P)]
+        ar_out = [torch.empty_like(x) for x in ar_in]
+
+        def ar_call():
+            ring.ring_all_reduce_segmented(ar_in, "sum", out=ar_out)
+
+        before = (ring.ring_reduce_scatter.launches,
+                  ring.ring_all_gather.launches)
+        ar_call()
+        per_call = [ring.ring_reduce_scatter.launches - before[0],
+                    ring.ring_all_gather.launches - before[1]]
+        t = split_ms(ar_call, 3, 3)
+        ar_device[mib] = t["device_ms"]
+        emit({"phase": "allreduce_kernels", "mib_per_rank": mib, "ranks": P,
+              "launches_per_call": per_call,
+              "device_ms": t["device_ms"],
+              "host_enqueue_ms": t["host_enqueue_ms"],
+              "bound_ms": 2 * (P + 1) * count * 4 / HBM_BYTES_PER_S * 1e3})
+        del ar_in, ar_out
+        torch.cuda.empty_cache()
     # the timing launches are not main-path launches
     ring.ring_reduce_scatter.launches = rs_count0
     ring.ring_all_gather.launches = ag_count0
@@ -972,26 +1093,32 @@ def time_kernels(ring, errs, launches, per_big, big_mib) -> list:
     rs_bytes = P * P * n * el + P * n * el      # read operands, write chunks
     ag_bytes = P * n * el + P * P * n * el      # read blocks, write gathers
     rows = []
-    for name, ms, plain, lib, nbytes, src_line, lib_call in (
-            ("ring_reduce_scatter", rs_ms, rs_plain, rs_lib, rs_bytes,
-             "accl_tpu/ops/ring.py:274", "torch.sum(stack, dim=0)"),
-            ("ring_all_gather", ag_ms, ag_plain, ag_lib, ag_bytes,
-             "accl_tpu/ops/ring.py:151", "torch.cat")):
+    for name, ms, plain, lib, lib_one, nbytes, src_line, lib_call in (
+            ("ring_reduce_scatter", rs_ms, rs_plain, rs_lib, None, rs_bytes,
+             "accl_tpu/ops/ring.py:274",
+             "torch.sum(stack, dim=0): every rank's chunk"),
+            ("ring_all_gather", ag_ms, ag_plain, ag_lib, ag_lib_one, ag_bytes,
+             "accl_tpu/ops/ring.py:151",
+             f"torch.cat(blocks, out=gather[r]) for each of the {P} ranks")):
         row = {"name": name, "route": "cuda",
                "source": "accl_tpu_torch/ops/csrc/ring.cu",
                "replaces": src_line, "launches": launches[name],
                "max_abs_err": errs[name], "ms": statistics.median(ms),
+               "device_ms": split[name]["device_ms"],
+               "host_enqueue_ms": split[name]["host_enqueue_ms"],
                "plain_ms": statistics.median(plain),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes", "library_ms": lib,
                "library_call": lib_call, "checked": True,
                "shape": f"P={P} x [{P},{n}] fp32 per launch",
-               "floor_ms_at_n256": floor[name],
+               "floor_at_n256": floor[name],
                f"launches_per_{big_mib}MiB_allreduce": per_big[name],
                **at_tp[name]}
+        if lib_one is not None:
+            row["library_ms_one_rank"] = lib_one
         emit({"phase": "kernel_time", **row})
         rows.append(row)
-    return rows
+    return rows, ar_device
 
 
 #: Llama-3-8B at full width (Meta's config.json for meta-llama/Meta-Llama-3-8B:
@@ -2221,7 +2348,8 @@ def main() -> int:
             return 0
         per_big = dict(zip(("ring_reduce_scatter", "ring_all_gather"),
                            mp["per_size"][sizes[-1]][3]))
-        rows = time_kernels(ring, errs, launches, per_big, sizes[-1])
+        rows, ar_device = time_kernels(ring, errs, launches, per_big,
+                                       sizes[-1], sizes)
         rows += time_fused_kernels(ring, F, errs, launches,
                                    tp["per_call_mlp_down"])
         rows += time_flash_kernels(FL, errs, launches, serve["per_forward"])
@@ -2229,7 +2357,6 @@ def main() -> int:
         rows += time_plugin_kernels(R, C, FL, errs, {**plugin,
                                                      "launches": launches},
                                     PL)
-        by_name = {row["name"]: row["ms"] for row in rows}
         for mib, (_s, _r, call, launched) in sorted(mp["per_size"].items()):
             iters = 5
             world.run(call)
@@ -2243,12 +2370,9 @@ def main() -> int:
                 samples.append((time.perf_counter() - t) / iters)
             s = statistics.median(samples)
             algbw = mib * MIB / s / 1e9
-            # device share of the call: its launches times the measured
-            # per-launch kernel time (the segment shape is the same at
-            # every size), over the call's wall time
-            kern_s = sum(cnt * by_name[k] / 1e3
-                         for k, cnt in zip(("ring_reduce_scatter",
-                                            "ring_all_gather"), launched))
+            # device share of the call: the device time of its two
+            # launches (phase 5a, stream held), over the call's wall time
+            kern_s = ar_device[mib] / 1e3
             emit({"phase": "driver_allreduce", "mib_per_rank": mib,
                   "ranks": P, "s_per_call": s, "algbw_GBps": algbw,
                   "busbw_GBps": algbw * 2 * (P - 1) / P,

@@ -284,3 +284,110 @@ def test_flash_skew_kernel_matches_resident_on_card(causal, dt, mxu):
     tol = 1e-5 if mxu == torch.float32 else 1.6e-2
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol)
+
+
+def _same_bits(a, b):
+    if a.dtype.is_floating_point:
+        iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(iv), b.view(iv))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", list(tring.KERNEL_DTYPES))
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("N,seg", [(8 * 3 * 4096, 8 * 4096),
+                                   (3 * 8 * 4099 + 13, 8 * 4099),
+                                   (8 * 37 + 5, 16), (5, 1 << 18)])
+def test_segment_walk_matches_plain_on_card(dtype, op, N, seg):
+    """The segmented allreduce, one launch per phase over every segment,
+    bitwise against the plain composition (the reference's padded
+    segments): whole segments of several tiles, odd N with a ragged tail,
+    many small segments, fewer elements than ranks; MAX with NaN
+    present; out of place and in place."""
+    P = 8
+    g = torch.Generator(device="cuda").manual_seed(9)
+    xs = []
+    for r in range(P):
+        x = torch.randn(N, generator=g, device="cuda") * 1000
+        x = x.to(dtype)
+        if op == "max" and dtype.is_floating_point:
+            x[r::97] = float("nan")
+        xs.append(x)
+    want = tring.ring_all_reduce_segmented(xs, op, seg, plain=True)
+    before = (tring.ring_reduce_scatter.launches,
+              tring.ring_all_gather.launches)
+    got = tring.ring_all_reduce_segmented(xs, op, seg)
+    same = [x.clone() for x in xs]
+    tring.ring_all_reduce_segmented(same, op, seg, out=same)
+    torch.cuda.synchronize()
+    assert (tring.ring_reduce_scatter.launches - before[0],
+            tring.ring_all_gather.launches - before[1]) == (2, 2)
+    for r in range(P):
+        assert _same_bits(got[r], want[r])
+        assert _same_bits(same[r], want[r])
+
+
+def test_segmented_drivers_refuse_unsafe_out_on_card():
+    """A result that overlaps an operand without being its own rank's
+    (allreduce) is refused before any launch."""
+    P, n = 8, 4096
+    base = torch.zeros(P, 3 * P * n, device="cuda")
+    xs = [base[r, :n] for r in range(P)]
+    before = (tring.ring_reduce_scatter.launches,
+              tring.ring_all_gather.launches)
+    with pytest.raises(ValueError, match="overlaps"):
+        tring.ring_all_reduce_segmented(
+            xs, "sum", out=[base[r, 4:n + 4] for r in range(P)])
+    with pytest.raises(ValueError, match="overlaps"):
+        tring.ring_all_reduce_segmented(xs, "sum", out=xs[1:] + xs[:1])
+    with pytest.raises(ValueError, match="overlaps"):
+        tring.ring_all_gather_segmented(
+            xs, out=[base[r, :P * n] for r in range(P)])
+    assert (tring.ring_reduce_scatter.launches,
+            tring.ring_all_gather.launches) == before
+
+
+@pytest.mark.parametrize("dtype", list(tring.KERNEL_DTYPES))
+@pytest.mark.parametrize("n", [1, 256, 4099, 3 * 32768 + 7])
+def test_one_segment_kernels_match_plain_on_card(dtype, n):
+    """ring_reduce_scatter and ring_all_gather on one segment, one tile
+    to many, with strided operand rows and strided result rows."""
+    P = 8
+    g = torch.Generator(device="cuda").manual_seed(10)
+    xs = [(torch.randn(P, n + 3, generator=g, device="cuda") * 1000)
+          .to(dtype)[:, :n] for _ in range(P)]
+    got = tring.ring_reduce_scatter(xs, "sum")
+    outs = [torch.zeros(P, n + 5, dtype=dtype, device="cuda")[:, :n]
+            for _ in range(P)]
+    gathered = tring.ring_all_gather(got, out=outs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, tring.ring_reduce_scatter_plain(xs, "sum")):
+        assert _same_bits(a, b)
+    for a, b in zip(gathered, tring.ring_all_gather_plain(got)):
+        assert _same_bits(a, b)
+
+
+def test_driver_ring_lane_one_launch_per_phase_on_card():
+    """CudaWorld on the card: an in-place allreduce over 3 segments and a
+    ragged tail launches each ring kernel once and writes the result
+    buffers directly, bitwise equal to the plain composition."""
+    from accl_tpu_torch import CudaWorld
+
+    P, N = 4, 3 * (1 << 18) + 7
+    with CudaWorld(P) as world:
+        world.engine.ring_threshold_bytes = 0
+        g = torch.Generator(device="cuda").manual_seed(11)
+        bufs = [world.accls[r].create_buffer(N, np.float32) for r in range(P)]
+        for b in bufs:
+            b.dev.copy_(torch.randn(N, generator=g, device="cuda"))
+        want = tring.ring_all_reduce_segmented([b.dev.clone() for b in bufs],
+                                               "sum", plain=True)
+        before = (tring.ring_reduce_scatter.launches,
+                  tring.ring_all_gather.launches)
+        world.run(lambda a, r: a.allreduce(bufs[r], bufs[r], N,
+                                           from_fpga=True, to_fpga=True))
+        torch.cuda.synchronize()
+        assert (tring.ring_reduce_scatter.launches - before[0],
+                tring.ring_all_gather.launches - before[1]) == (1, 1)
+        for r in range(P):
+            assert torch.equal(bufs[r].dev, want[r])
