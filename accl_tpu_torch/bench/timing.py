@@ -1,5 +1,6 @@
 """Timing harnesses on the card, shared by the port's bench lanes
-(``flash_sweep``, ``kernel_tune``, ``ring_split``) and ``chip_smoke.py``.
+(``flash_sweep``, ``kernel_tune``, ``ring_split``, ``matmul_split``) and
+``chip_smoke.py``.
 
 ``make_harness`` is the chained harness of the bench lanes.
 

@@ -37,12 +37,12 @@ SIGNATURES = {
     },
     "fused": {
         "accl_fused_error_string": ([_i32], ctypes.c_char_p),
-        "accl_matmul": ([_vp, _vp, _vp, _i64, _i64, _i64, _i32, _i32, _vp],
-                        _i32),
-        "accl_fused_matmul_rs_stripes": ([_i32, _i32, _i64, _i64, _i32],
-                                         _i32),
+        "accl_fused_kernel_info": ([_i32, _i32, _vp], _i32),
+        "accl_matmul": ([_vp, _vp, _vp, _i64, _i64, _i64, _i32, _i32, _i32,
+                         _i64, _i32, _vp, _vp, _i32, _vp], _i32),
+        "accl_fused_resident": ([_i32, _i32], _i32),
         "accl_fused_matmul_rs": ([_vp, _vp, _vp, _i64, _i64, _i64, _i32,
-                                  _i32, _i32, _vp, _vp, _vp, _i32, _vp],
+                                  _i32, _i32, _i32, _vp, _vp, _i32, _vp],
                                  _i32),
     },
     "flash": {

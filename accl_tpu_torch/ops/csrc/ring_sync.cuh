@@ -32,17 +32,12 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-__device__ __forceinline__ void add_release(int* p) {
-  __threadfence();
-  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" :: "l"(p) : "memory");
-}
-
 // Publish, after a __syncthreads, what the whole block wrote: one
 // thread's release reduction.  The barrier orders the block's writes
 // before it, and a release is cumulative, so a reader that acquires the
 // count sees them all (the pattern of CUTLASS's GenericBarrier, whose
-// fence.acq_rel + red.relaxed is the same release; add_release's extra
-// fence is the heavier fence.sc).
+// fence.acq_rel + red.relaxed is the same release; a __threadfence
+// before it, the heavier fence.sc, is not needed).
 __device__ __forceinline__ void arrive_release(int* p) {
   asm volatile("red.release.gpu.global.add.s32 [%0], 1;" :: "l"(p) : "memory");
 }

@@ -20,7 +20,8 @@ rank, in ring order, and returns one per rank):
    the reduce-scatter computes each local partial product just in time
    and the all-gather relays reduced product rows.  ``pallas_matmul`` is
    its compute half: the hand-written CUDA kernel ``accl_matmul``
-   (``csrc/fused.cu``) on the card.
+   (``csrc/fused.cu``) on the card, launched under ``matmul_plan``
+   (tile rows and split of K from the shape and the card's SM count).
 
 3. ``fused_matmul_reduce_scatter`` — the hand-scheduled kernel
    ``accl_fused_matmul_rs`` (``csrc/fused.cu``): the ring reduce-scatter
@@ -41,8 +42,10 @@ layer) and the device-trace stamp rows (with observability).
 """
 from __future__ import annotations
 
+import functools
 import os
-from typing import Optional, Sequence
+import threading
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -219,6 +222,72 @@ def chunked_ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: ranks one fused launch can hold (MAXP in csrc/ring_sync.cuh)
 MAX_RANKS = 32
+#: the tile geometry of csrc/fused.cu: output tile columns (BN), k per
+#: pipeline stage (BK), the fused kernel's tile rows (FUSED_BM) and the
+#: row counts accl_matmul is built for, largest first
+TILE_N = 128
+TILE_K = 16
+FUSED_TILE_M = 128
+TILE_MS = (128, 64)
+#: blocks of accl_matmul that one SM holds (__launch_bounds__(256, 2), at
+#: most 64 KB of shared memory each; the fused kernel holds one per SM)
+BLOCKS_PER_SM = 2
+#: the most ranges K is split into, and the fewest TILE_K slices in one
+MAX_SPLIT = 16
+MIN_SPLIT_SLICES = 4
+
+
+class MatmulPlan(NamedTuple):
+    """One ``accl_matmul`` launch: output tiles of ``bm`` x TILE_N, a grid
+    of (tiles along n, tiles along m, ``split``) blocks, block z taking k
+    in [z k_per_split, (z + 1) k_per_split) (the last range is cut at
+    k).  A split tile's partials are summed in the order z = 0, 1, ...."""
+    bm: int
+    split: int
+    k_per_split: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def matmul_plan(m: int, n: int, k: int, sms: int) -> MatmulPlan:
+    """Tile rows and split of K for ``[m, k] @ [k, n]`` on a card of
+    ``sms`` SMs.  128-row tiles when they alone give every SM a block;
+    else 64-row tiles, and when those are still fewer than the SMs, K is
+    split so that tiles x split fills the BLOCKS_PER_SM blocks every SM
+    holds without starting a second wave (each range at least
+    MIN_SPLIT_SLICES slices of TILE_K, at most MAX_SPLIT ranges).  At
+    [128, 1792] @ [1792, 4096] on 132 SMs: 64 tiles of 64 x 128, K split
+    in 4 ranges of 448, 256 blocks."""
+    tiles_n = _cdiv(n, TILE_N)
+    big, small = TILE_MS
+    bm = big if _cdiv(m, big) * tiles_n >= sms else small
+    tiles = max(1, _cdiv(m, bm) * tiles_n)
+    slices = _cdiv(k, TILE_K)
+    split = 1
+    if tiles < sms:
+        split = max(1, min(sms * BLOCKS_PER_SM // tiles,
+                           slices // MIN_SPLIT_SLICES, MAX_SPLIT))
+    per = max(1, _cdiv(slices, split))
+    return MatmulPlan(bm, max(1, _cdiv(slices, per)), per * TILE_K)
+
+
+def stripe_tiles(tiles: int, stripes: int, st: int) -> tuple:
+    """[first, last) of the row-major FUSED_TILE_M x TILE_N output tiles
+    that stripe ``st`` of the fused kernel owns on every rank."""
+    return st * tiles // stripes, (st + 1) * tiles // stripes
+
+
+def fused_stripes(P: int, tiles: int, resident: int) -> int:
+    """Tile stripes per rank of one fused launch: as many as fit
+    co-resident (``resident`` blocks over P ranks), at most one per
+    output tile, so that every stripe holds a tile."""
+    fit = resident // P
+    if fit < 1:
+        raise RuntimeError(f"fused matmul kernel: {P} ranks do not fit "
+                           f"co-resident on this card")
+    return min(fit, max(1, tiles))
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -240,6 +309,55 @@ def _check_operands(ts, what: str) -> None:
     if dev.type == "cuda" and dt not in KERNEL_DTYPES:
         raise ValueError(f"{what}: the CUDA kernel takes float32 or "
                          f"bfloat16, not {dt}")
+
+
+def _vec(ts, k: int, n: int, elem: int) -> bool:
+    """Whether the kernels may move 16 bytes at a time: every row of
+    every operand and result starts on 16 bytes."""
+    v = 16 // elem
+    return k % v == 0 and n % v == 0 and all(t.data_ptr() % 16 == 0
+                                             for t in ts)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(m: int, n: int, k: int, device: int) -> MatmulPlan:
+    return matmul_plan(m, n, k, _sms(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(dtype_code: int, device: int) -> int:
+    """Blocks of the fused kernel that fit on the card together (cached
+    per device and dtype)."""
+    lib = _build.load("fused")
+    got = lib.accl_fused_resident(dtype_code, device)
+    if got < 0:
+        _raise_on(lib, -got, "accl_fused_resident")
+    return got
+
+
+_scratch_lock = threading.Lock()
+#: (device, stream, name) -> scratch tensor, reused in stream order: the
+#: split-K partials ("ws", float32) and the split-K counters and ring
+#: flags ("counters", "flags", int32, which the kernels leave at zero)
+_scratch: dict = {}
+
+
+def _scratch_for(dev: torch.device, stream, name: str, numel: int):
+    key = (dev.index, stream.cuda_stream, name)
+    with _scratch_lock:
+        cur = _scratch.get(key)
+        if cur is None or cur.numel() < numel:
+            if name == "ws":
+                cur = torch.empty(numel, dtype=torch.float32, device=dev)
+            else:
+                cur = torch.zeros(numel, dtype=torch.int32, device=dev)
+            _scratch[key] = cur
+        return cur
 
 
 # ---------------------------------------------------------------------------
@@ -274,11 +392,22 @@ def pallas_matmul(x: torch.Tensor, w: torch.Tensor,
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    lib = _build.load("fused")
     dev = x.device
+    device = dev.index or 0
+    plan = _plan(m, n, k, device)
+    stream = torch.cuda.current_stream(dev)
+    ws = counters = None
+    if plan.split > 1:
+        ws = _scratch_for(dev, stream, "ws", plan.split * m * n).data_ptr()
+        counters = _scratch_for(dev, stream, "counters",
+                                _cdiv(m, plan.bm) * _cdiv(n, TILE_N)
+                                ).data_ptr()
+    lib = _build.load("fused")
     rc = lib.accl_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                         KERNEL_DTYPES[x.dtype], dev.index or 0,
-                         torch.cuda.current_stream(dev).cuda_stream)
+                         KERNEL_DTYPES[x.dtype], plan.bm, plan.split,
+                         plan.k_per_split,
+                         int(_vec((x, w, out), k, n, x.element_size())),
+                         ws, counters, device, stream.cuda_stream)
     _raise_on(lib, rc, "pallas_matmul")
     pallas_matmul.launches += 1
     return out
@@ -384,24 +513,21 @@ def fused_matmul_reduce_scatter(xs: Sequence[torch.Tensor],
                for _ in range(P)]
     if m == 0 or N == 0:
         return list(out)
-    lib = _build.load("fused")
     dt = KERNEL_DTYPES[xs[0].dtype]
-    S = lib.accl_fused_matmul_rs_stripes(dt, P, m, N, dev.index or 0)
-    if S < 0:
-        _raise_on(lib, -S, "accl_fused_matmul_rs_stripes")
-    if S == 0:
-        raise RuntimeError(f"fused matmul kernel: {P} ranks do not fit "
-                           f"co-resident on this card")
-    # scratch may be freed when this returns, before the kernel ends: the
-    # caching allocator hands it out again only to work queued after the
-    # kernel on this stream
+    device = dev.index or 0
+    S = fused_stripes(P, _cdiv(m, FUSED_TILE_M) * _cdiv(N, TILE_N),
+                      _resident(dt, device))
+    stream = torch.cuda.current_stream(dev)
+    flags = _scratch_for(dev, stream, "flags", P * S * 4)
+    # the landing slots may be freed when this returns, before the kernel
+    # ends: the caching allocator hands them out again only to work queued
+    # after the kernel on this stream
     landing = torch.empty(P * 2 * m * N, dtype=torch.float32, device=dev)
-    prod = torch.empty(P * m * N, dtype=torch.float32, device=dev)
-    flags = torch.empty(P * S * 4, dtype=torch.int32, device=dev)
+    vec = _vec([*xs, *ws, *out, landing], K, N, xs[0].element_size())
+    lib = _build.load("fused")
     rc = lib.accl_fused_matmul_rs(
-        _ptrs(xs), _ptrs(ws), _ptrs(out), m, N, K, P, dt, S,
-        landing.data_ptr(), prod.data_ptr(), flags.data_ptr(),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        _ptrs(xs), _ptrs(ws), _ptrs(out), m, N, K, P, dt, S, int(vec),
+        landing.data_ptr(), flags.data_ptr(), device, stream.cuda_stream)
     _raise_on(lib, rc, "fused_matmul_reduce_scatter")
     fused_matmul_reduce_scatter.launches += 1
     return list(out)

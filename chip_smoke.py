@@ -5,7 +5,11 @@
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from accl_tpu_torch/ops/csrc with nvcc, one
-     nvcc per source, all started together;
+     nvcc per source, all started together; the build line carries
+     ptxas's register and spill lines, each matmul kernel's registers,
+     spill bytes, shared memory and blocks per SM as the runtime reports
+     them, and the tensor-core instructions in the matmul kernels' SASS
+     (must be 0);
   3. each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it:
      - the ring kernels at one 1 MiB segment (P=8 ranks, n =
@@ -130,11 +134,13 @@ Phases, each fatal on failure:
      forward time subtracted; the plugin kernels at the bench shapes,
      the cast kernel also at phase 4f's tuned geometry; the skew beside
      flash_fwd_resident and SDPA); the
-     driver's allreduce algbw / busbw per size; the ring kernels also
-     with the stream held behind torch.cuda._sleep until every launch is
-     enqueued (device time) and on the host clock around the enqueues
-     (accl_tpu_torch/bench/timing.py, split_ms), and the segmented allreduce's
-     two launches at each driver size the same way; and at 64 MiB per rank
+     driver's allreduce algbw / busbw per size; the ring and matmul
+     kernels (with each matmul shape's launch plan) also with the stream
+     held behind torch.cuda._sleep until every launch is enqueued
+     (device time) and on the host clock around the enqueues
+     (accl_tpu_torch/bench/timing.py, split_ms), and the segmented
+     allreduce's two launches at each driver size the same way; and at
+     64 MiB per rank
      the busbw of the fused and int8 lanes beside the lossless ring's.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 = False):
@@ -494,6 +500,37 @@ def tensor_core_ops(lib_path) -> int:
     return len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", out.stdout))
 
 
+#: the kernels of csrc/fused.cu in the order accl_fused_kernel_info numbers
+#: them
+FUSED_KERNEL_NAMES = ("matmul_kernel<float, 128>", "matmul_kernel<float, 64>",
+                      "matmul_kernel<bf16, 128>", "matmul_kernel<bf16, 64>",
+                      "fused_matmul_rs_kernel<float>",
+                      "fused_matmul_rs_kernel<bf16>")
+
+
+def fused_kernel_info(F) -> dict:
+    """Registers, spill (local) bytes, static and dynamic shared memory and
+    resident blocks per SM of each matmul kernel, as the runtime reports
+    them at the footprint it is launched with."""
+    import ctypes
+
+    from accl_tpu_torch.ops import _build
+
+    lib = _build.load("fused")
+    info = {}
+    for which, name in enumerate(FUSED_KERNEL_NAMES):
+        out = (ctypes.c_int * 5)()
+        rc = lib.accl_fused_kernel_info(which, torch.cuda.current_device(),
+                                        out)
+        if rc:
+            F._raise_on(lib, rc, f"accl_fused_kernel_info {name}")
+        info[name] = dict(zip(("registers", "local_bytes", "static_smem",
+                               "dynamic_smem", "blocks_per_sm"), out))
+        if info[name]["blocks_per_sm"] < 1:
+            fail(f"{name} does not fit on an SM: {info[name]}")
+    return info
+
+
 def reset_counts(ring, F, FL=None, PL=None) -> None:
     """Every launch count to 0: the ring and matmul wrappers, the flash
     wrappers (FL) and the plugin wrappers (PL, name -> wrapper)."""
@@ -749,6 +786,8 @@ def time_matmul(F, rows, K, N, dt, gen, iters) -> dict:
     plain = [cuda_ms(lambda: F.pallas_matmul_plain(x, w), iters)]
     plain.append(cuda_ms(lambda: F.pallas_matmul_plain(x, w), iters))
     ms.append(cuda_ms(lambda: F.pallas_matmul(x, w, out=out), iters))
+    # device time with the stream held, apart from the host's enqueue
+    split = split_ms(lambda: F.pallas_matmul(x, w, out=out), iters)
     lib = cuda_ms(lambda: torch.matmul(x, w), iters)
     el = torch.finfo(dt).bits // 8
     ops = 2 * rows * K * N
@@ -756,7 +795,10 @@ def time_matmul(F, rows, K, N, dt, gen, iters) -> dict:
     return {"shape": f"[{rows},{K}] @ [{K},{N}] {dt}",
             "ms": statistics.median(ms), "plain_ms": statistics.median(plain),
             "library_ms": lib, "bound_ms": bound, "bound_by": by,
-            "tflops": ops / (statistics.median(ms) * 1e-3) / 1e12}
+            "tflops": ops / (statistics.median(ms) * 1e-3) / 1e12,
+            "device_ms": split["device_ms"],
+            "host_enqueue_ms": split["host_enqueue_ms"],
+            "plan": list(F._plan(rows, N, K, torch.cuda.current_device()))}
 
 
 def time_fused_kernels(ring, F, errs, launches, per_call) -> list:
@@ -787,6 +829,8 @@ def time_fused_kernels(ring, F, errs, launches, per_call) -> list:
             xs, ws), 2, runs=3))
         b_ms.append(cuda_ms(lambda: F.fused_matmul_reduce_scatter(
             xs, ws, outs), 2, runs=3))
+        b_split = split_ms(lambda: F.fused_matmul_reduce_scatter(
+            xs, ws, outs), 2, runs=3)
 
         def library_b():
             # each rank's P partials in one matmul, then the sum over ranks
@@ -803,18 +847,23 @@ def time_fused_kernels(ring, F, errs, launches, per_call) -> list:
         lib_tag = " (bf16 out, tensor cores)" if dt == torch.bfloat16 else ""
         a_extra = {f"at_M{M}": {k: a_full[k] for k in
                                 ("shape", "ms", "plain_ms", "library_ms",
-                                 "bound_ms", "tflops")}}
+                                 "bound_ms", "tflops", "device_ms",
+                                 "host_enqueue_ms", "plan")},
+                   "device_ms": a_row["device_ms"],
+                   "host_enqueue_ms": a_row["host_enqueue_ms"],
+                   "plan": a_row["plan"]}
         b_row = {"shape": f"P={P} x [{P},{m},{K}] @ [{K},{N}] {dt}",
                  "ms": statistics.median(b_ms),
                  "plain_ms": statistics.median(b_plain), "library_ms": b_lib,
                  "bound_ms": b_bound, "bound_by": b_by,
                  "tflops": b_ops / (statistics.median(b_ms) * 1e-3) / 1e12}
+        b_extra = {k: b_split[k] for k in ("device_ms", "host_enqueue_ms")}
         for name, t, kernel, fn_line, lib_call, extra in (
                 ("pallas_matmul", a_row, "accl_matmul",
                  "accl_tpu/ops/fused.py:341", "torch.matmul", a_extra),
                 ("fused_matmul_reduce_scatter", b_row,
                  "accl_fused_matmul_rs", "accl_tpu/ops/fused.py:476",
-                 "torch.matmul per rank + torch.sum over ranks", {})):
+                 "torch.matmul per rank + torch.sum over ranks", b_extra)):
             row = {"name": name, "route": "cuda",
                    "source": "accl_tpu_torch/ops/csrc/fused.cu",
                    "kernel": kernel, "replaces": fn_line,
@@ -2317,6 +2366,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": _build.build_seconds,
           "fused_sass_tensor_core_ops": tc_ops,
+          "fused_kernels": fused_kernel_info(F),
           "ptxas": [ln.strip() for log in _build.build_log.values()
                     for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})

@@ -68,6 +68,105 @@ def test_fused_kernels_match_plain_on_card(dtype):
         assert torch.equal(a, b)
 
 
+MATMUL_EDGE_SHAPES = [(1, 1792, 4096), (127, 333, 777), (128, 1792, 4096),
+                      (129, 40, 128), (4096, 1792, 4096), (64, 17, 129),
+                      (512, 512, 4096)]
+
+
+def _spread(x, w):
+    """sqrt(K) 2^-24 (|x| @ |w|): the reach of fp32 rounding errors that
+    add as a random walk (chip_smoke.py's ``ref64``)."""
+    return (x.shape[-1] ** 0.5 * 2.0 ** -24
+            * (x.double().abs() @ w.double().abs()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", MATMUL_EDGE_SHAPES)
+def test_matmul_kernel_plans_match_plain_on_card(m, k, n, dtype):
+    """accl_matmul under the plan for each shape (64- and 128-row tiles,
+    splits of K, ragged and unaligned edges): bitwise on integers, within
+    the fp32 spread on N(0, 1), and two launches on the same inputs give
+    the same bits (the split's fixed-order sum)."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randint(-3, 4, (m, k), generator=g, device="cuda").to(dtype)
+    w = torch.randint(-3, 4, (k, n), generator=g, device="cuda").to(dtype)
+    before = TF.pallas_matmul.launches
+    assert torch.equal(TF.pallas_matmul(x, w), TF.pallas_matmul_plain(x, w))
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    w = torch.randn(k, n, generator=g, device="cuda").to(dtype)
+    a, b = TF.pallas_matmul(x, w), TF.pallas_matmul(x, w)
+    torch.cuda.synchronize()
+    assert TF.pallas_matmul.launches == before + 3
+    assert torch.equal(a, b)
+    plain = TF.pallas_matmul_plain(x, w)
+    assert bool(((a.double() - plain.double()).abs() <= _spread(x, w)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,m,K,N", [(2, 64, 96, 256), (3, 100, 333, 777),
+                                     (8, 512, 1792, 4096), (8, 125, 40, 130)])
+def test_fused_kernel_back_to_back_matches_plain_on_card(P, m, K, N, dtype):
+    """accl_fused_matmul_rs launched three times back to back on one
+    stream with no memset between (each block leaves its flags at 0),
+    bitwise on integers each time, and within the fp32 spread of the
+    plain version on N(0, 1) (K = P K: the sum runs over P ranks)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    xs = [torch.randint(-3, 4, (P, m, K), generator=g,
+                        device="cuda").to(dtype) for _ in range(P)]
+    ws = [torch.randint(-3, 4, (K, N), generator=g,
+                        device="cuda").to(dtype) for _ in range(P)]
+    want = TF.fused_matmul_reduce_scatter_plain(xs, ws)
+    before = TF.fused_matmul_reduce_scatter.launches
+    runs = [TF.fused_matmul_reduce_scatter(xs, ws) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert TF.fused_matmul_reduce_scatter.launches == before + 3
+    for got in runs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    xs = [torch.randn(P, m, K, generator=g, device="cuda").to(dtype)
+          for _ in range(P)]
+    ws = [torch.randn(K, N, generator=g, device="cuda").to(dtype)
+          for _ in range(P)]
+    got = TF.fused_matmul_reduce_scatter(xs, ws)
+    again = TF.fused_matmul_reduce_scatter(xs, ws)
+    want = TF.fused_matmul_reduce_scatter_plain(xs, ws)
+    torch.cuda.synchronize()
+    absref = sum(x.double().abs() @ w.double().abs() for x, w in zip(xs, ws))
+    spread = (P * K) ** 0.5 * 2.0 ** -24 * absref
+    for r in range(P):
+        assert torch.equal(got[r], again[r])
+        assert bool(((got[r].double() - want[r].double()).abs()
+                     <= spread[r]).all())
+
+
+def test_matmul_kernels_launch_above_48kb_of_shared_memory_on_card():
+    """The fp32 128-row kernels take 64 KB of dynamic shared memory: the
+    opt-in is set before the occupancy query and the launch, which the
+    runtime would otherwise refuse."""
+    import ctypes
+
+    from accl_tpu_torch.ops import _build
+
+    lib = _build.load("fused")
+    info = {}
+    for which in range(6):
+        out = (ctypes.c_int * 5)()
+        assert lib.accl_fused_kernel_info(which, 0, out) == 0
+        info[which] = list(out)
+    assert info[0][3] > 48 * 1024 and info[4][3] > 48 * 1024
+    assert all(v[4] >= 1 for v in info.values())
+    assert TF._resident(0, 0) >= 8
+    x = torch.ones(4096, 64, device="cuda")
+    w = torch.ones(64, 4096, device="cuda")
+    assert TF.matmul_plan(4096, 4096, 64, TF._sms(0)).bm == 128
+    assert torch.equal(TF.pallas_matmul(x, w),
+                       torch.full((4096, 4096), 64.0, device="cuda"))
+    xs = [torch.ones(8, 128, 64, device="cuda") for _ in range(8)]
+    ws = [torch.ones(64, 256, device="cuda") for _ in range(8)]
+    for o in TF.fused_matmul_reduce_scatter(xs, ws):
+        assert torch.equal(o, torch.full((128, 256), 512.0, device="cuda"))
+
+
 @pytest.mark.parametrize("dt,mxu", FLASH_DTYPES)
 @pytest.mark.parametrize("kernel,causal,window", [
     ("resident", True, None), ("resident", False, None),
