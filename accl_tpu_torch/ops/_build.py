@@ -57,10 +57,10 @@ SIGNATURES = {
     },
     "flash_bwd": {
         "accl_flash_bwd_error_string": ([_i32], ctypes.c_char_p),
-        "accl_flash_bwd_ctas": ([_i32] * 5, ctypes.c_longlong),
+        "accl_flash_bwd_kernel_info": ([_i32] * 5 + [_vp], _i32),
         "accl_flash_bwd_dq": ([_vp] * 7 + [_i32] * 9 + [_f32, _i32, _vp],
                               _i32),
-        "accl_flash_bwd_dkv": ([_vp] * 8 + [_i32] * 9 + [_i32, _vp], _i32),
+        "accl_flash_bwd_dkv": ([_vp] * 12 + [_i32] * 10 + [_i32, _vp], _i32),
     },
     "reduce_ops": {
         "accl_reduce_ops_error_string": ([_i32], ctypes.c_char_p),

@@ -28,7 +28,12 @@ runs two kernels of ``csrc/flash_bwd.cu``, whatever the forward schedule:
 - ``flash_bwd_dq`` (``_flash_bwd_dq_kernel``): dQ accumulated over the
   live k blocks of each q block;
 - ``flash_bwd_dkv`` (``_flash_bwd_dkv_kernel``): dK and dV accumulated
-  over the live q blocks of every q head of each K/V head's group.
+  over the live q blocks of every q head of each K/V head's group, that
+  walk cut into work items by ``bwd_plan`` so that the causal load
+  spreads over the card.
+
+Both run an fp32 FMA mainloop for the float32 MXU dtype and a
+tensor-core one for bfloat16.
 
 Beside each kernel sits its plain PyTorch version: the Pallas kernel
 written block by block, with the same block loops, chunk sub-folds, log2
@@ -50,11 +55,13 @@ the input and MXU dtypes.  The kernels walk their own 64-row tiles, so
 """
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
+from .fused import _cdiv, _scratch_for, _sms
 
 NEG_INF = -1e30
 _LOG2E = 1.4426950408889634  # log2(e)
@@ -582,9 +589,114 @@ def flash_bwd_dkv_plain(q2, kp, vp, do, l2, dvec, cfg):
     return dk, dv
 
 
+#: q and K/V rows of the backward kernels' tiles (csrc/flash_bwd.cu BQ, BK)
+BWD_TILE = 64
+#: a dK/dV item holds at most 1 / BWD_ITEM_SHARE of one SM's average
+#: work, per MXU dtype (the mainloop: fp32 FMA at 1 CTA per SM, bf16
+#: tensor cores at 2), the fastest of 4-32 at the training shape on an
+#: H100 ...
+BWD_ITEM_SHARE = {torch.float32: 12, torch.bfloat16: 6}
+#: ... and, unless its tile has fewer, at least this many steps
+BWD_MIN_ITEM = 4
+
+
+class BwdPlan(NamedTuple):
+    """One backward launch pair.  ``flash_bwd_dq`` runs one CTA per
+    (packed q head, q tile), ``dq_ctas`` of them, last q tiles first.
+    ``flash_bwd_dkv`` runs one CTA per item: ``items`` are (tile, j0, j1,
+    slot) in launch order, longest first, K/V tile ``tile = kt Nk + kv
+    head`` over steps [j0, j1) of its walk, step j being q head j //
+    nlive of its group at q tile first + j % nlive (``_live_q``);
+    ``tiles`` holds (parts, first_slot) per tile: an item alone on its
+    tile stores dK and dV, the items of a split tile store fp32 partials
+    into slots first_slot, first_slot + 1, ... (``slot``), and the last to
+    finish sums them in that order.  ``steps`` counts the dK/dV walk's
+    (q head, q tile, k tile) cells, ``heaviest`` the longest item's,
+    ``per_sm`` the average over the SMs."""
+    items: tuple
+    tiles: tuple
+    slots: int
+    dq_ctas: int
+    steps: int
+    heaviest: int
+    per_sm: float
+
+
+def _live_q(kt: int, T: int, Tk: int, causal: bool, window) -> tuple:
+    """(first q tile, live q tiles) of K/V tile ``kt``, per q head: from
+    the diagonal to the last q tile whose window still reaches the tile
+    (csrc/flash_bwd.cu ``live_q``)."""
+    nqt = _cdiv(T, BWD_TILE)
+    k_last = min(kt * BWD_TILE + BWD_TILE, Tk) - 1
+    first = kt if causal else 0
+    last = (min(nqt - 1, (k_last + window - 1) // BWD_TILE) if window
+            else nqt - 1)
+    return first, max(0, last - first + 1)
+
+
+def bwd_plan(N: int, Nk: int, T: int, Tk: int, causal: bool, window,
+             sms: int, mxu=torch.bfloat16) -> BwdPlan:
+    """Work items of the backward kernels on a card of ``sms`` SMs under
+    MXU dtype ``mxu``.  Each K/V tile's walk (every q head of its group
+    over its live q tiles) is cut into near-equal ranges of at most
+    max(BWD_MIN_ITEM, the average work per SM / BWD_ITEM_SHARE[mxu])
+    steps, launched longest first, so that the causal load (the first k
+    tile sees every q tile, the last one) spreads over the card.  At N 8,
+    Nk 2, T 4096 causal on 132 SMs: 16,640 steps, 126 per SM; items of
+    at most 11 steps in fp32 (1,572 items), 22 in bf16 (816)."""
+    G = N // Nk
+    nkt = _cdiv(Tk, BWD_TILE)
+    lens = [G * _live_q(kt, T, Tk, causal, window)[1] for kt in range(nkt)]
+    steps = Nk * sum(lens)
+    per_sm = steps / sms
+    cap = max(BWD_MIN_ITEM, _cdiv(steps, sms * BWD_ITEM_SHARE[mxu]))
+    items, tiles, slots = [], [], 0
+    for kt in range(nkt):
+        L = lens[kt]
+        parts = max(1, _cdiv(L, cap))
+        for kvn in range(Nk):
+            tile = kt * Nk + kvn
+            tiles.append((parts, slots if parts > 1 else 0))
+            for i in range(parts):
+                items.append((tile, i * L // parts, (i + 1) * L // parts,
+                              slots + i if parts > 1 else -1))
+            if parts > 1:
+                slots += parts
+    items.sort(key=lambda it: (it[1] - it[2], it[0], it[1]))
+    return BwdPlan(tuple(items), tuple(tiles), slots,
+                   N * _cdiv(T, BWD_TILE), steps,
+                   max((j1 - j0 for _t, j0, j1, _s in items), default=0),
+                   per_sm)
+
+
+_plan_lock = threading.Lock()
+#: (device, N, Nk, T, Tk, causal, window, mxu) -> (plan, items, tiles):
+#: the plan and its tables on the card, uploaded once per shape
+_plans: dict = {}
+
+
+def _plan_on(dev: torch.device, N, Nk, T, Tk, causal, window, mxu) -> tuple:
+    key = (dev.index, N, Nk, T, Tk, bool(causal), window or 0, mxu)
+    with _plan_lock:
+        got = _plans.get(key)
+        if got is None:
+            plan = bwd_plan(N, Nk, T, Tk, causal, window or 0,
+                            _sms(dev.index or 0), mxu)
+
+            def table(rows, width):
+                flat = [x for row in rows for x in row] or [0] * width
+                return torch.tensor(flat, dtype=torch.int32, device=dev)
+
+            got = (plan, table(plan.items, 4), table(plan.tiles, 2))
+            _plans[key] = got
+        return got
+
+
 def _launch_bwd(fn_name, outs, q2, kp, vp, do, l2, dvec, cfg):
     """Check the operands and launch ``fn_name`` of csrc/flash_bwd.cu
-    into ``outs`` on the operands' card."""
+    into ``outs`` on the operands' card: the fp32 mainloop for the
+    float32 MXU dtype, the tensor-core one for bfloat16; ``flash_bwd_dkv``
+    under ``bwd_plan``."""
     causal, mxu, window = cfg[0], cfg[4], cfg[9]
     N, T, D = q2.shape
     Nk, Tk = kp.shape[0], kp.shape[1]
@@ -594,6 +706,9 @@ def _launch_bwd(fn_name, outs, q2, kp, vp, do, l2, dvec, cfg):
             raise ValueError("flash backward kernel: q2, k, v, dO and the "
                              "gradients must be contiguous, on one device, "
                              "of one dtype")
+        if t.data_ptr() % 16:
+            raise ValueError("flash backward kernel: q2, k, v, dO and the "
+                             "gradients must start on 16 bytes")
     for t in (l2, dvec):
         if (t.device != q2.device or t.dtype != torch.float32
                 or tuple(t.shape) != (N, T) or not t.is_contiguous()):
@@ -607,13 +722,23 @@ def _launch_bwd(fn_name, outs, q2, kp, vp, do, l2, dvec, cfg):
                          f"{KERNEL_HEAD_DIMS}")
     lib = _build.load("flash_bwd")
     dev = q2.device
+    stream = torch.cuda.current_stream(dev)
     args = [q2.data_ptr(), kp.data_ptr(), vp.data_ptr(), do.data_ptr(),
-            l2.data_ptr(), dvec.data_ptr(), *(o.data_ptr() for o in outs),
-            N, Nk, T, Tk, D, KERNEL_DTYPES[dt], int(causal), window or 0,
-            int(mxu == torch.bfloat16)]
+            l2.data_ptr(), dvec.data_ptr(), *(o.data_ptr() for o in outs)]
+    if fn_name == "accl_flash_bwd_dkv":
+        plan, items, tiles = _plan_on(dev, N, Nk, T, Tk, causal, window,
+                                      mxu)
+        ws = (_scratch_for(dev, stream, "ws", plan.slots * 2 * BWD_TILE * D)
+              .data_ptr() if plan.slots else None)
+        counters = _scratch_for(dev, stream, "counters",
+                                max(1, len(plan.tiles)))
+        args += [items.data_ptr(), tiles.data_ptr(), ws,
+                 counters.data_ptr(), len(plan.items)]
+    args += [N, Nk, T, Tk, D, KERNEL_DTYPES[dt], int(causal), window or 0,
+             int(mxu == torch.bfloat16)]
     if fn_name == "accl_flash_bwd_dq":
         args.append(1.0 / float(D) ** 0.5)
-    args += [dev.index or 0, torch.cuda.current_stream(dev).cuda_stream]
+    args += [dev.index or 0, stream.cuda_stream]
     rc = getattr(lib, fn_name)(*args)
     if rc != 0:
         msg = lib.accl_flash_bwd_error_string(rc).decode()
@@ -636,7 +761,8 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q2, kp, vp, do, l2, dvec, cfg):
     """(dK, dV) [Nk, Tk, D] in k's dtype from the prepared operands of
-    ``_flash_backward``.  On the card: the ``flash_bwd_dkv`` kernel."""
+    ``_flash_backward``.  On the card: the ``flash_bwd_dkv`` kernel, one
+    CTA per item of ``bwd_plan``."""
     if _on_cpu(q2):
         return flash_bwd_dkv_plain(q2, kp, vp, do, l2, dvec, cfg)
     dk, dv = torch.empty_like(kp), torch.empty_like(vp)
@@ -649,12 +775,26 @@ def flash_bwd_dkv(q2, kp, vp, do, l2, dvec, cfg):
 flash_bwd_dkv.launches = 0
 
 
-def bwd_kernel_ctas(N: int, Nk: int, T: int, Tk: int) -> tuple:
-    """Thread blocks of one (dq, dkv) launch pair (needs the built
-    library, so the card)."""
+def bwd_kernel_info(D: int, dtype, mxu, device: int = 0) -> dict:
+    """Registers, spill (local) bytes, static and dynamic shared memory
+    and resident CTAs per SM of the dq and dkv kernels that take these
+    dtypes, as the runtime reports them at their launch footprint."""
+    import ctypes
+
     lib = _build.load("flash_bwd")
-    return (int(lib.accl_flash_bwd_ctas(0, N, Nk, T, Tk)),
-            int(lib.accl_flash_bwd_ctas(1, N, Nk, T, Tk)))
+    info = {}
+    for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkv")):
+        out = (ctypes.c_int * 5)()
+        rc = lib.accl_flash_bwd_kernel_info(which, D, KERNEL_DTYPES[dtype],
+                                            int(mxu == torch.bfloat16),
+                                            device, out)
+        if rc != 0:
+            msg = lib.accl_flash_bwd_error_string(rc).decode()
+            raise RuntimeError(f"accl_flash_bwd_kernel_info: CUDA error "
+                               f"{rc} ({msg})")
+        info[name] = dict(zip(("registers", "local_bytes", "static_smem",
+                               "dynamic_smem", "ctas_per_sm"), out))
+    return info
 
 
 def _flash_backward(qp, kp, vp, out, lse, g_out, g_lse, cfg):

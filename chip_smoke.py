@@ -9,7 +9,9 @@ Phases, each fatal on failure:
      ptxas's register and spill lines, each matmul kernel's registers,
      spill bytes, shared memory and blocks per SM as the runtime reports
      them, and the tensor-core instructions in the matmul kernels' SASS
-     (must be 0);
+     (must be 0) and in each flash backward kernel's (0 in every fp32
+     instantiation, more than 0 in every bf16-MXU one); the flash
+     backward kernels' registers, shared memory and CTAs per SM;
   3. each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it:
      - the ring kernels at one 1 MiB segment (P=8 ranks, n =
@@ -43,8 +45,11 @@ Phases, each fatal on failure:
        [2, 4096, 128], causal) with the lse cotangent zero and nonzero,
        and at a windowed, a cross-length and a ragged call with halved
        blocks, in f32 with f32 and bf16 MXU dtypes and in bf16: dq, dk
-       and dv within BWD_BOUND of the plain version, and a bf16-operand
-       control outside the f32 bound;
+       and dv within BWD_BOUND of the plain version and bitwise equal
+       over two launches, and a bf16-operand control outside the f32
+       bound; each call's launch plan (dq CTAs, dK/dV items, the heaviest
+       item against the average work per SM, which must stay within
+       BWD_ITEM_SHARE_MAX at the training shape, CTAs per SM);
      - the plugin kernels: the combine kernel (accl_combine) on all
        12 lanes (fp32, fp64, int32, int64, fp16, bf16 by sum and by max)
        at the bench shape (64 Mi elements) and at 4099, with donate,
@@ -498,6 +503,48 @@ def tensor_core_ops(lib_path) -> int:
     if out.returncode != 0 or "Function" not in out.stdout:
         fail(f"cuobjdump -sass {lib_path}: {out.stderr.strip()[:500]}")
     return len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", out.stdout))
+
+
+#: a flash backward kernel's mangled symbol: name, element type, D
+BWD_KERNEL_SYMBOL = r"(flash_bwd_(?:dq|dkv)_[fm]ma)I(f|13__nv_bfloat16)Li(\d+)E"
+
+
+def tensor_core_ops_by_function(lib_path) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA, IMMA) per kernel of a built
+    library's SASS, by the kernel's name as it appears in the mangled
+    symbol, with its template arguments: flash_bwd_dq_mma<float, 128>."""
+    from accl_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0 or "Function" not in out.stdout:
+        fail(f"cuobjdump -sass {lib_path}: {out.stderr.strip()[:500]}")
+    counts = {}
+    for part in out.stdout.split("Function : ")[1:]:
+        m = re.search(BWD_KERNEL_SYMBOL, part.split()[0])
+        name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
+                f"{m.group(3)}>") if m else part.split()[0]
+        counts[name] = len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", part))
+    return counts
+
+
+def check_flash_bwd_sass(lib_path) -> dict:
+    """The flash backward kernels' tensor-core instructions per
+    instantiation: the fp32 mainloop (``*_fma``, the float32 MXU dtype)
+    must hold none, the bf16 one (``*_mma``) some."""
+    counts = {k: v for k, v in tensor_core_ops_by_function(lib_path).items()
+              if k.startswith("flash_bwd_")}
+    fma = {k: v for k, v in counts.items() if "_fma<" in k}
+    mma = {k: v for k, v in counts.items() if "_mma<" in k}
+    if len(fma) != 12 or len(mma) != 12:
+        fail(f"flash_bwd SASS: expected 12 fp32 and 12 bf16-MXU kernels, "
+             f"found {sorted(counts)}")
+    if any(fma.values()) or not all(mma.values()):
+        fail(f"flash_bwd SASS: the fp32 kernels must hold no tensor-core "
+             f"instruction and the bf16-MXU ones some: {counts}")
+    return counts
 
 
 #: the kernels of csrc/fused.cu in the order accl_fused_kernel_info numbers
@@ -1301,6 +1348,27 @@ FLASH_TRAIN = (8, 2, 4096)
 BWD_BOUND = {torch.float32: 3e-5, torch.bfloat16: 1.6e-2}
 
 
+#: the most a dK/dV item may hold of one SM's average work at FLASH_TRAIN
+BWD_ITEM_SHARE_MAX = 1 / 3
+
+
+def bwd_plan_reading(FL, N, Nk, T, Tk, causal, window, dt, mxu) -> dict:
+    """What one backward launch pair runs: dq's CTAs, dK/dV's plan items,
+    the heaviest item's steps against the average per SM, the split
+    tiles, and the resident CTAs per SM of both kernels."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = FL.bwd_plan(N, Nk, T, Tk, causal, window or 0, sms, mxu)
+    info = FL.bwd_kernel_info(D_HEAD, dt, mxu)
+    per_sm = {k: v["ctas_per_sm"] for k, v in info.items()}
+    return {"dq_ctas": plan.dq_ctas, "dkv_items": len(plan.items),
+            "heaviest_item_steps": plan.heaviest,
+            "steps_per_sm": plan.per_sm,
+            "heaviest_share": plan.heaviest / plan.per_sm,
+            "split_tiles": sum(p > 1 for p, _ in plan.tiles),
+            "tiles": len(plan.tiles), "ctas_per_sm": per_sm,
+            "dkv_waves": len(plan.items) / (sms * per_sm["flash_bwd_dkv"])}
+
+
 def rel_err(got, want) -> float:
     """max |got - want| / max |want|, in float32."""
     return float((got.float() - want.float()).abs().max()
@@ -1351,9 +1419,19 @@ def check_flash_bwd_kernels(FL) -> dict:
         for dt, mxu in dtypes:
             ops, cfg = bwd_operands(FL, N, Nk, T, Tk, dt, mxu, causal,
                                     window, g_lse, gen)
+            plan = bwd_plan_reading(FL, N, Nk, T, Tk, causal, window, dt,
+                                    mxu)
+            if tag == "train" and plan["heaviest_share"] > BWD_ITEM_SHARE_MAX:
+                fail(f"flash_bwd_dkv plan at {FLASH_TRAIN}: the heaviest "
+                     f"item holds {plan['heaviest_share']:.3f} of an SM's "
+                     f"average work (at most {BWD_ITEM_SHARE_MAX:.3f})")
             dq = FL.flash_bwd_dq(*ops, cfg)
             dk, dv = FL.flash_bwd_dkv(*ops, cfg)
+            again = (FL.flash_bwd_dq(*ops, cfg), *FL.flash_bwd_dkv(*ops, cfg))
             torch.cuda.synchronize()
+            if not all(same_bits(a, b) for a, b in zip((dq, dk, dv), again)):
+                fail(f"flash backward {tag} {dt}/{mxu}: two launches differ")
+            del again
             want_dq = FL.flash_bwd_dq_plain(*ops, cfg)
             want_dk, want_dv = FL.flash_bwd_dkv_plain(*ops, cfg)
             e = {"dq": rel_err(dq, want_dq), "dk": rel_err(dk, want_dk),
@@ -1364,7 +1442,7 @@ def check_flash_bwd_kernels(FL) -> dict:
                              "window": window, "g_lse": g_lse,
                              "dtype": str(dt), "mxu": str(mxu),
                              "blocks": list(cfg[1:4]),
-                             "ctas": FL.bwd_kernel_ctas(N, Nk, T, Tk),
+                             "plan": plan, "bitwise_repeat": True,
                              "rel_err": e,
                              "max_abs": {"dq": float(want_dq.abs().max()),
                                          "dk": float(want_dk.abs().max()),
@@ -1854,8 +1932,11 @@ def time_flash_bwd_kernels(FL, errs, launches, per_step) -> list:
             which = name.split("_")[-1]
             bound, by, n_ops = bwd_bound(which, N, Nk, T, dt)
             t = statistics.median(ms)
+            sp = split_ms(lambda: fn(*ops, cfg), 10, runs=3)
             row = {"name": name, "route": "cuda",
                    "source": "accl_tpu_torch/ops/csrc/flash_bwd.cu",
+                   "device_ms": sp["device_ms"],
+                   "host_enqueue_ms": sp["host_enqueue_ms"],
                    "kernel": name, "replaces": (
                        "accl_tpu/ops/flash.py:873" if which == "dq"
                        else "accl_tpu/ops/flash.py:939"),
@@ -1868,8 +1949,8 @@ def time_flash_bwd_kernels(FL, errs, launches, per_step) -> list:
                                    "subtracted", "checked": True,
                    "shape": f"q, dO [{N},{T},{D_HEAD}] k/v "
                             f"[{Nk},{T},{D_HEAD}] causal {dt} mxu {dt}",
-                   "ctas": FL.bwd_kernel_ctas(N, Nk, T, T)[
-                       0 if which == "dq" else 1],
+                   "plan": bwd_plan_reading(FL, N, Nk, T, T, True, None,
+                                            dt, dt),
                    "tflops": n_ops / (t * 1e-3) / 1e12,
                    "launches_per_train_step": per_step[name]}
             if dt == torch.bfloat16:
@@ -2363,10 +2444,15 @@ def main() -> int:
     if tc_ops:
         fail(f"the matmul kernels' SASS holds {tc_ops} tensor-core "
              f"instructions: the fp32 path must not use TF32")
+    bwd_tc = check_flash_bwd_sass(_build._target("flash_bwd"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": _build.build_seconds,
           "fused_sass_tensor_core_ops": tc_ops,
+          "flash_bwd_sass_tensor_core_ops": bwd_tc,
           "fused_kernels": fused_kernel_info(F),
+          "flash_bwd_kernels": {
+              f"{dt} in, {mxu} MXU": FL.bwd_kernel_info(D_HEAD, dt, mxu)
+              for dt, mxu in FLASH_DTYPES},
           "ptxas": [ln.strip() for log in _build.build_log.values()
                     for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})

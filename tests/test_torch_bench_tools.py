@@ -1,5 +1,5 @@
-"""The port's bench tools (accl_tpu_torch/bench/timing.py, flash_sweep.py
-and kernel_tune.py) on the CPU at tiny shapes, with device="cpu": the
+"""The port's bench tools (accl_tpu_torch/bench/timing.py, flash_sweep.py,
+kernel_tune.py and flash_bwd_split.py) on the CPU at tiny shapes, with device="cpu": the
 harness chains and interleaves, the sweep collapses candidates that
 differ only in options the card ignores into aliases of one timing, and
 the tuning sweeps cover their grids.  No time from here is a device
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from accl_tpu_torch import ACCLError
+from accl_tpu_torch.bench import flash_bwd_split as FBS
 from accl_tpu_torch.bench import flash_sweep as FS
 from accl_tpu_torch.bench import kernel_tune as KT
 from accl_tpu_torch.bench import timing
@@ -154,3 +155,42 @@ def test_tune_compress_covers_its_grid_beside_tensor_to():
 def test_kernel_tune_cli_parses():
     with pytest.raises(SystemExit):
         KT.main(["bogus"])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_bwd_split_operands_are_the_backward_prep(dt):
+    """The split tool's operands at a tiny shape are what the autograd
+    backward hands the kernels: dq, dk and dv through the wrappers (the
+    plain versions on the CPU) equal the packed entry's gradients."""
+    from accl_tpu_torch.ops import flash as TFL
+
+    shape = (4, 2, 64, 32)
+    gen = torch.Generator().manual_seed(5)
+    ops, cfg = FBS.operands(TFL, dt, gen, shape)
+    q2, k, v, do, l2, dvec = ops
+    assert q2.shape == do.shape == (4, 64, 32) and k.shape == (2, 64, 32)
+    assert q2.dtype == dt and l2.dtype == dvec.dtype == torch.float32
+    assert cfg[4] == dt and cfg[0] and cfg[-1] == 2
+    before = (TFL.flash_bwd_dq.launches, TFL.flash_bwd_dkv.launches)
+    dq = TFL.flash_bwd_dq(*ops, cfg)
+    dk, dv = TFL.flash_bwd_dkv(*ops, cfg)
+    assert (TFL.flash_bwd_dq.launches, TFL.flash_bwd_dkv.launches) == before
+    gen = torch.Generator().manual_seed(5)
+    q, kk, vv = (torch.randn(s, generator=gen).to(dt).requires_grad_(True)
+                 for s in ((4, 64, 32), (2, 64, 32), (2, 64, 32)))
+    g_out = torch.randn((4, 64, 32), generator=gen).to(dt)
+    out, _lse = TFL.flash_attention_packed_lse(q, kk, vv, causal=True,
+                                               mxu_dtype=dt)
+    out.backward(g_out)
+    # q2 is rounded to the input dtype: dq = dS K a, the same products
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    for got, want in ((dq, q.grad), (dk, kk.grad), (dv, vv.grad)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_bwd_split_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["flash_bwd_split"])
+    assert FBS.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err

@@ -270,6 +270,44 @@ def test_flash_bwd_kernels_match_plain_on_card(case, dt, mxu):
         assert _rel_err(got, want) <= bound
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_repeat_bitwise_on_card(dt):
+    """Two launches of each backward kernel on the same operands give the
+    same bits: dK/dV's split tiles sum their partials in a fixed order
+    whichever item arrives last, and no float atomics run."""
+    ops, cfg = _bwd_operands(8, 2, 1024, 1024, dt, dt, True, None, True, 6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert TFL.bwd_plan(8, 2, 1024, 1024, True, 0, sms, dt).slots > 0
+    first = (TFL.flash_bwd_dq(*ops, cfg), *TFL.flash_bwd_dkv(*ops, cfg))
+    for _ in range(3):
+        again = (TFL.flash_bwd_dq(*ops, cfg), *TFL.flash_bwd_dkv(*ops, cfg))
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt,mxu", FLASH_DTYPES)
+@pytest.mark.parametrize("N,Nk,T", [(4, 4, 640), (8, 2, 640), (8, 1, 640),
+                                    (8, 2, 1200)])
+def test_flash_bwd_split_tiles_match_plain_on_card(N, Nk, T, dt, mxu):
+    """dK/dV run as plan items with split tiles at GQA groups 1, 4 and 8
+    and at a ragged T, within the bounds of
+    test_flash_bwd_kernels_match_plain_on_card."""
+    ops, cfg = _bwd_operands(N, Nk, T, T, dt, mxu, True, None, True, 8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = TFL.bwd_plan(N, Nk, T, T, True, 0, sms, mxu)
+    assert plan.slots > 0 and len(plan.items) > len(plan.tiles)
+    dq = TFL.flash_bwd_dq(*ops, cfg)
+    dk, dv = TFL.flash_bwd_dkv(*ops, cfg)
+    torch.cuda.synchronize()
+    want_dq = TFL.flash_bwd_dq_plain(*ops, cfg)
+    want_dk, want_dv = TFL.flash_bwd_dkv_plain(*ops, cfg)
+    bound = 3e-5 if mxu == torch.float32 else 1.6e-2
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert bool(torch.isfinite(got).all())
+        assert _rel_err(got, want) <= bound
+
+
 def test_model_train_step_on_card_matches_cpu():
     """One dp 2 x tp 2 flash train step of a small GQA/SwiGLU/RoPE model on
     the card (flash kernels forward and backward, cuBLAS) against the same

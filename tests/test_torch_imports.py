@@ -18,8 +18,8 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "parallel.ring_attention", "parallel.strategies", "models",
               "models.transformer", "models.decode", "bench",
               "bench.ef_convergence", "bench.timing", "bench.flash_sweep",
-              "bench.kernel_tune", "utils.device", "utils.logging",
-              "utils.tree"]
+              "bench.kernel_tune", "bench.flash_bwd_split", "utils.device",
+              "utils.logging", "utils.tree"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 
