@@ -47,13 +47,9 @@ SIGNATURES = {
     },
     "flash": {
         "accl_flash_error_string": ([_i32], ctypes.c_char_p),
-        "accl_flash_ctas": ([_i32, _i32], ctypes.c_longlong),
-        "accl_flash_fwd_resident": ([_vp] * 5 + [_i32] * 9 + [_f32, _f32, _i32,
-                                                               _vp], _i32),
-        "accl_flash_fwd_grid": ([_vp] * 5 + [_i32] * 10 + [_f32, _f32, _i32,
-                                                            _vp], _i32),
-        "accl_flash_fwd_resident_skew": ([_vp] * 5 + [_i32] * 9
-                                         + [_f32, _f32, _i32, _vp], _i32),
+        "accl_flash_kernel_info": ([_i32] * 5 + [_vp], _i32),
+        "accl_flash_fwd": ([_vp] * 5 + [_i32] * 10
+                           + [_f32, _f32, _i32, _i32, _vp], _i32),
     },
     "flash_bwd": {
         "accl_flash_bwd_error_string": ([_i32], ctypes.c_char_p),

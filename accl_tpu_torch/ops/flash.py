@@ -21,7 +21,10 @@ packages pick the same kernel for the same inputs):
   with causal live/diagonal predicates and the sliding ``window``
   (``_flash_kernel_grid``) -> the CUDA kernel ``flash_fwd_grid``.
 
-The kernels are in ``csrc/flash.cu``.  The backward (``_flash_backward``)
+The kernels are in ``csrc/flash.cu``: an fp32 FMA mainloop for the
+float32 MXU dtype, one q head per CTA, and a tensor-core (wgmma) one for
+bfloat16, ``fwd_heads`` q heads of one GQA group per CTA; every schedule
+walks the 64-row tiles of ``fwd_walk``.  The backward (``_flash_backward``)
 rebuilds the normalized probabilities per block from the saved lse and
 runs two kernels of ``csrc/flash_bwd.cu``, whatever the forward schedule:
 
@@ -347,9 +350,67 @@ def flash_fwd_grid_plain(qp, kp, vp, cfg):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _launch(fn_name, qp, kp, vp, cfg):
-    """Check the operands, allocate (out, lse) and launch ``fn_name`` of
-    csrc/flash.cu on the operands' card."""
+#: q and K/V rows of the forward kernels' tiles (csrc/flash.cu BQ, BK):
+#: a q tile of the tensor-core mainloop (one warpgroup), a K/V tile of both
+FWD_TILE = 64
+#: q rows of one CTA of the fp32 mainloop (csrc/flash.cu FMA_BQ)
+FWD_FMA_ROWS = 128
+#: q heads of one GQA group that one CTA of the tensor-core forward serves
+#: (one warpgroup each, sharing the K/V tiles and the masks), where the
+#: group divides by it (csrc/flash.cu MAX_HEADS)
+FWD_HEADS = 2
+
+
+def fwd_heads(group: int, mxu) -> int:
+    """q heads per CTA of the forward kernels: FWD_HEADS on the bfloat16
+    (tensor-core) mainloop where the GQA group divides by it, else 1; the
+    float32 mainloop runs one head per CTA."""
+    return (FWD_HEADS if mxu == torch.bfloat16 and group % FWD_HEADS == 0
+            else 1)
+
+
+def fwd_rows(mxu) -> int:
+    """q rows of one CTA's tile: FWD_TILE on the tensor-core mainloop
+    (per head), FWD_FMA_ROWS on the fp32 one."""
+    return FWD_TILE if mxu == torch.bfloat16 else FWD_FMA_ROWS
+
+
+def kernel_ctas(N: int, T: int, group: int = 1, mxu=torch.float32) -> int:
+    """Thread blocks one forward launch over N packed heads of T rows uses:
+    one per (``fwd_heads`` q heads, ``fwd_rows``-row q tile)."""
+    return N // fwd_heads(group, mxu) * _cdiv(T, fwd_rows(mxu))
+
+
+def fwd_walk(qt: int, T: int, Tk: int, causal: bool, window,
+             rows: int = FWD_TILE) -> tuple:
+    """(first, end, masked) of the forward kernels' q tile ``qt`` of
+    ``rows`` rows: it folds the 64-row k tiles [first, end) in order, and
+    ``masked[kt - first]`` says whether tile kt takes the per-cell test (it
+    overhangs K, straddles the diagonal or the window edge); csrc/flash.cu
+    ``walk`` and ``tile_masked``."""
+    q0 = qt * rows
+    nkt = _cdiv(Tk, FWD_TILE)
+    first = max(q0 - (window - 1), 0) // FWD_TILE if window else 0
+    end = min((q0 + rows - 1) // FWD_TILE + 1, nkt) if causal else nkt
+    masked = tuple(
+        kt * FWD_TILE + FWD_TILE > Tk
+        or (causal and kt * FWD_TILE + FWD_TILE - 1 > q0)
+        or bool(window and kt * FWD_TILE < q0 + rows - window)
+        for kt in range(first, end))
+    return first, end, masked
+
+
+def _aligned(x):
+    """x, or a fresh copy when its data does not start on 16 bytes (the
+    kernels read rows as 16-byte chunks)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(qp, kp, vp, cfg):
+    """Check the operands, allocate (out, lse) and launch the forward of
+    csrc/flash.cu on the operands' card, one kernel for every schedule:
+    the fp32 FMA mainloop for the float32 MXU dtype, the tensor-core one
+    for bfloat16."""
     (causal, _bq, _bk, _ck, mxu, _kernel, _nc, _qt, _fd, window, static_max,
      _g) = cfg
     N, T, D = qp.shape
@@ -365,21 +426,21 @@ def _launch(fn_name, qp, kp, vp, cfg):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel: head size {D} not in "
                          f"{KERNEL_HEAD_DIMS}")
+    qp, kp, vp = _aligned(qp), _aligned(kp), _aligned(vp)
     out = torch.empty_like(qp)
     lse = torch.empty((N, T), dtype=torch.float32, device=qp.device)
     lib = _build.load("flash")
     dev = qp.device
-    args = [qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), N, Nk, T, Tk, D, KERNEL_DTYPES[dt], int(causal)]
-    if fn_name == "accl_flash_fwd_grid":
-        args.append(window or 0)
-    args += [int(mxu == torch.bfloat16), int(static_max is not None),
-             float(static_max or 0.0), _LOG2E / float(D) ** 0.5,
-             dev.index or 0, torch.cuda.current_stream(dev).cuda_stream]
-    rc = getattr(lib, fn_name)(*args)
+    rc = lib.accl_flash_fwd(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), N, Nk, T, Tk, D, KERNEL_DTYPES[dt], int(causal),
+        window or 0, int(mxu == torch.bfloat16), int(static_max is not None),
+        float(static_max or 0.0), _LOG2E / float(D) ** 0.5,
+        fwd_heads(N // Nk, mxu), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.accl_flash_error_string(rc).decode()
-        raise RuntimeError(f"{fn_name}: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"accl_flash_fwd: CUDA error {rc} ({msg})")
     return out, lse
 
 
@@ -392,49 +453,72 @@ def _on_cpu(qp) -> bool:
     return False
 
 
+def _count(wrapper, cfg):
+    """One launch of ``wrapper``'s kernel; ``launches_tc`` counts those on
+    the tensor-core (bfloat16 MXU) mainloop."""
+    wrapper.launches += 1
+    wrapper.launches_tc += cfg[4] == torch.bfloat16
+
+
 def flash_fwd_resident(qp, kp, vp, cfg):
     """The resident schedule on packed operands -> (out [N, T, D], lse
-    [N, T] float32).  On the card: the ``flash_fwd_resident`` kernel."""
+    [N, T] float32).  On the card: the forward kernel."""
     if _on_cpu(qp):
         return flash_fwd_resident_plain(qp, kp, vp, cfg)
-    res = _launch("accl_flash_fwd_resident", qp, kp, vp, cfg)
-    flash_fwd_resident.launches += 1
+    res = _launch(qp, kp, vp, cfg)
+    _count(flash_fwd_resident, cfg)
     return res
-
-
-flash_fwd_resident.launches = 0
 
 
 def flash_fwd_grid(qp, kp, vp, cfg):
     """The grid schedule (and grid_resident) on packed operands -> (out,
-    lse).  On the card: the ``flash_fwd_grid`` kernel."""
+    lse).  On the card: the forward kernel, windowed as the schedule
+    says."""
     if _on_cpu(qp):
         return flash_fwd_grid_plain(qp, kp, vp, cfg)
-    res = _launch("accl_flash_fwd_grid", qp, kp, vp, cfg)
-    flash_fwd_grid.launches += 1
+    res = _launch(qp, kp, vp, cfg)
+    _count(flash_fwd_grid, cfg)
     return res
-
-
-flash_fwd_grid.launches = 0
 
 
 def flash_fwd_resident_skew(qp, kp, vp, cfg):
-    """The skewed resident schedule on packed operands -> (out, lse).  On
-    the card: the ``flash_fwd_resident_skew`` kernel."""
+    """The skewed resident schedule on packed operands -> (out, lse), bit
+    for bit the resident schedule's.  On the card: the forward kernel,
+    whose tensor-core mainloop issues tile j + 1's scores before tile j's
+    softmax in every schedule."""
     if _on_cpu(qp):
         return flash_fwd_resident_skew_plain(qp, kp, vp, cfg)
-    res = _launch("accl_flash_fwd_resident_skew", qp, kp, vp, cfg)
-    flash_fwd_resident_skew.launches += 1
+    res = _launch(qp, kp, vp, cfg)
+    _count(flash_fwd_resident_skew, cfg)
     return res
 
 
-flash_fwd_resident_skew.launches = 0
+for _w in (flash_fwd_resident, flash_fwd_grid, flash_fwd_resident_skew):
+    _w.launches = 0
+    _w.launches_tc = 0
 
 
-def kernel_ctas(N: int, T: int) -> int:
-    """Thread blocks one kernel launch over N packed heads of T rows uses
-    (needs the built library, so the card)."""
-    return int(_build.load("flash").accl_flash_ctas(N, T))
+def fwd_kernel_info(D: int, dtype, mxu, device: int = 0) -> dict:
+    """Registers, spill (local) bytes, static and dynamic shared memory
+    and resident CTAs per SM of the forward kernel that takes these
+    dtypes (``flash_fwd_fma`` for the float32 MXU dtype, else
+    ``flash_fwd_wgmma``), at the launch footprint of ``fwd_heads`` heads
+    per CTA (of an even GQA group), as the runtime reports them."""
+    import ctypes
+
+    lib = _build.load("flash")
+    out = (ctypes.c_int * 5)()
+    rc = lib.accl_flash_kernel_info(D, KERNEL_DTYPES[dtype],
+                                    int(mxu == torch.bfloat16),
+                                    fwd_heads(FWD_HEADS, mxu), device, out)
+    if rc != 0:
+        msg = lib.accl_flash_error_string(rc).decode()
+        raise RuntimeError(f"accl_flash_kernel_info: CUDA error {rc} "
+                           f"({msg})")
+    name = "flash_fwd_wgmma" if mxu == torch.bfloat16 else "flash_fwd_fma"
+    return {"kernel": name, **dict(zip(
+        ("registers", "local_bytes", "static_smem", "dynamic_smem",
+         "ctas_per_sm"), out))}
 
 
 def _flash_forward_impl(qp, kp, vp, cfg):

@@ -9,9 +9,10 @@ Phases, each fatal on failure:
      ptxas's register and spill lines, each matmul kernel's registers,
      spill bytes, shared memory and blocks per SM as the runtime reports
      them, and the tensor-core instructions in the matmul kernels' SASS
-     (must be 0) and in each flash backward kernel's (0 in every fp32
-     instantiation, more than 0 in every bf16-MXU one); the flash
-     backward kernels' registers, shared memory and CTAs per SM;
+     (must be 0) and in each flash forward and backward kernel's (0 in
+     every fp32 instantiation, more than 0 in every bf16-MXU one, HGMMA
+     and HMMA counted apart); the flash forward and backward kernels'
+     registers, shared memory and CTAs per SM;
   3. each kernel against its plain PyTorch version on the card, at every
      shape the main path gives it:
      - the ring kernels at one 1 MiB segment (P=8 ranks, n =
@@ -37,9 +38,10 @@ Phases, each fatal on failure:
        TF32, printed beside;
      - the flash-attention kernels (flash_fwd_resident, flash_fwd_grid)
        at the serving path's per-rank shapes, a windowed, two
-       cross-length and two ragged calls, in f32 with f32 and bf16 MXU
-       dtypes and in bf16: out and lse within FLASH_BOUND of the plain
-       version, and a bf16-operand control outside the f32 bound;
+       cross-length, two ragged calls and one at head size 64, in f32
+       with f32 and bf16 MXU dtypes and in bf16: out and lse within
+       FLASH_BOUND of the plain version and bitwise equal over two
+       launches, and a bf16-operand control outside the f32 bound;
      - the flash backward kernels (flash_bwd_dq, flash_bwd_dkv) at the
        training path's per-rank shape (q and dO [8, 4096, 128], K/V
        [2, 4096, 128], causal) with the lse cotangent zero and nonzero,
@@ -97,7 +99,12 @@ Phases, each fatal on failure:
         weights from a seed (LLAMA3_8B): the scoring forward on 2 x 4096
         tokens (flash_fwd_resident must launch), with fused=True, with
         attn="dense" and at TP=1, each held to it within LOGIT_BOUND; the
-        forward on 1 x 8192 tokens (flash_fwd_grid must launch); generate
+        forward on 1 x 8192 tokens (flash_fwd_grid must launch); the 2 x
+        4096 forward in bfloat16 (ModelConfig(dtype="bfloat16"), the
+        weights cast to bf16:
+        flash_fwd_resident must launch once per layer and rank, every
+        launch on the tensor-core mainloop, the logits finite; its s per
+        forward, warm, printed beside the fp32 forward's); generate
         for 4 requests of 128-token prompts and 32 new tokens, greedy,
         held to forward's argmax; teacher-forced prefill and decode held
         to forward's logits.  Prints first-call seconds, launches,
@@ -505,14 +512,17 @@ def tensor_core_ops(lib_path) -> int:
     return len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", out.stdout))
 
 
-#: a flash backward kernel's mangled symbol: name, element type, D
-BWD_KERNEL_SYMBOL = r"(flash_bwd_(?:dq|dkv)_[fm]ma)I(f|13__nv_bfloat16)Li(\d+)E"
+#: a flash kernel's mangled symbol: name, element type, D
+KERNEL_SYMBOL = (r"(flash_bwd_(?:dq|dkv)_[fm]ma|flash_fwd_(?:fma|wgmma))"
+                 r"I(f|13__nv_bfloat16)Li(\d+)E")
+TENSOR_CORE_OPS = ("HGMMA", "HMMA", "IMMA")
 
 
 def tensor_core_ops_by_function(lib_path) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA, IMMA) per kernel of a built
-    library's SASS, by the kernel's name as it appears in the mangled
-    symbol, with its template arguments: flash_bwd_dq_mma<float, 128>."""
+    """Tensor-core instructions (HGMMA, HMMA, IMMA, counted apart) per
+    kernel of a built library's SASS, by the kernel's name as it appears
+    in the mangled symbol, with its template arguments:
+    flash_bwd_dq_mma<float, 128>, flash_fwd_wgmma<bf16, 64>."""
     from accl_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
@@ -523,28 +533,43 @@ def tensor_core_ops_by_function(lib_path) -> dict:
         fail(f"cuobjdump -sass {lib_path}: {out.stderr.strip()[:500]}")
     counts = {}
     for part in out.stdout.split("Function : ")[1:]:
-        m = re.search(BWD_KERNEL_SYMBOL, part.split()[0])
+        m = re.search(KERNEL_SYMBOL, part.split()[0])
         name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
                 f"{m.group(3)}>") if m else part.split()[0]
-        counts[name] = len(re.findall(r"\b(?:HMMA|HGMMA|IMMA)\b", part))
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", part))
+                        for op in TENSOR_CORE_OPS}
+    return counts
+
+
+def check_flash_sass(lib_path, prefix, fp32, tc, n) -> dict:
+    """The tensor-core instructions of one flash library's kernels per
+    instantiation: the fp32 mainloop (``fp32``, the float32 MXU dtype)
+    must hold none, the bf16 one (``tc``) some, ``n`` instantiations
+    each.  Returns the counts, HGMMA and HMMA apart."""
+    counts = {k: v for k, v in tensor_core_ops_by_function(lib_path).items()
+              if k.startswith(prefix)}
+    fma = {k: sum(v.values()) for k, v in counts.items() if f"{fp32}<" in k}
+    mma = {k: sum(v.values()) for k, v in counts.items() if f"{tc}<" in k}
+    if len(fma) != n or len(mma) != n:
+        fail(f"{prefix} SASS: expected {n} fp32 and {n} bf16-MXU kernels, "
+             f"found {sorted(counts)}")
+    if any(fma.values()) or not all(mma.values()):
+        fail(f"{prefix} SASS: the fp32 kernels must hold no tensor-core "
+             f"instruction and the bf16-MXU ones some: {counts}")
     return counts
 
 
 def check_flash_bwd_sass(lib_path) -> dict:
-    """The flash backward kernels' tensor-core instructions per
-    instantiation: the fp32 mainloop (``*_fma``, the float32 MXU dtype)
-    must hold none, the bf16 one (``*_mma``) some."""
-    counts = {k: v for k, v in tensor_core_ops_by_function(lib_path).items()
-              if k.startswith("flash_bwd_")}
-    fma = {k: v for k, v in counts.items() if "_fma<" in k}
-    mma = {k: v for k, v in counts.items() if "_mma<" in k}
-    if len(fma) != 12 or len(mma) != 12:
-        fail(f"flash_bwd SASS: expected 12 fp32 and 12 bf16-MXU kernels, "
-             f"found {sorted(counts)}")
-    if any(fma.values()) or not all(mma.values()):
-        fail(f"flash_bwd SASS: the fp32 kernels must hold no tensor-core "
-             f"instruction and the bf16-MXU ones some: {counts}")
-    return counts
+    """The flash backward kernels: ``*_fma`` none, ``*_mma`` some, 12
+    instantiations each."""
+    return check_flash_sass(lib_path, "flash_bwd_", "_fma", "_mma", 12)
+
+
+def check_flash_fwd_sass(lib_path) -> dict:
+    """The flash forward kernels (every schedule): ``flash_fwd_fma``
+    none, ``flash_fwd_wgmma`` some, 6 instantiations each (2 input dtypes
+    x 3 head sizes)."""
+    return check_flash_sass(lib_path, "flash_fwd_", "_fma", "_wgmma", 6)
 
 
 #: the kernels of csrc/fused.cu in the order accl_fused_kernel_info numbers
@@ -1251,9 +1276,10 @@ FLASH_BOUND = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
 LOGIT_BOUND = 4e-4
 
 
-def flash_cfg(FL, N, Nk, T, Tk, dt, mxu, kernel, causal, window=None):
+def flash_cfg(FL, N, Nk, T, Tk, dt, mxu, kernel, causal, window=None,
+              D=D_HEAD):
     """The resolved schedule the packed entry would hand the kernels."""
-    return FL._resolve_schedule(T, Tk, D_HEAD, dt, causal, 256, 512, mxu,
+    return FL._resolve_schedule(T, Tk, D, dt, causal, 256, 512, mxu,
                                 kernel, None, False, None, None,
                                 window) + (N // Nk,)
 
@@ -1262,54 +1288,63 @@ def check_flash_kernels(FL) -> dict:
     """Phase 3c: flash_fwd_resident and flash_fwd_grid against their plain
     versions at the model path's per-rank shapes (resident: q [8, 4096,
     128], k/v [2, 4096, 128]; grid: q [4, 8192, 128], k/v [1, 8192, 128]),
-    a windowed grid call, non-causal cross-length calls and a ragged call
+    a windowed grid call, non-causal cross-length calls, a ragged call
     (T = 1200: the resolver's blocks halve to 16, the kernel's last 64-row
-    tile is partial), in float32 with float32 and bfloat16 MXU dtypes and
-    in bfloat16.  out and lse within FLASH_BOUND of the plain version; a
-    control (the plain version with bf16-rounded operands against the
+    tile is partial) and a call at head size 64, in float32 with float32
+    and bfloat16 MXU dtypes and in bfloat16.  out and lse within
+    FLASH_BOUND of the plain version and bitwise equal over two launches;
+    a control (the plain version with bf16-rounded operands against the
     float32 one) must fall outside the float32 bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     errs = {"flash_fwd_resident": 0.0, "flash_fwd_grid": 0.0}
     readings, controls_ = [], {}
     calls = (("model_resident", *FLASH_RESIDENT, FLASH_RESIDENT[2], True,
-              None, "resident", FLASH_DTYPES),
+              None, "resident", FLASH_DTYPES, D_HEAD),
              ("model_grid", *FLASH_GRID, FLASH_GRID[2], True, None, "grid",
-              FLASH_DTYPES),
+              FLASH_DTYPES, D_HEAD),
              ("window_1000", 4, 1, 2048, 2048, True, 1000, "grid",
-              FLASH_DTYPES[::2]),
+              FLASH_DTYPES[::2], D_HEAD),
              ("cross_length", 8, 2, 1024, 1536, False, None, "resident",
-              FLASH_DTYPES[::2]),
+              FLASH_DTYPES[::2], D_HEAD),
              ("cross_length", 8, 2, 1024, 1536, False, None, "grid",
-              FLASH_DTYPES[::2]),
+              FLASH_DTYPES[::2], D_HEAD),
              ("ragged_1200", 8, 2, 1200, 1200, True, None, "resident",
-              FLASH_DTYPES[:1]),
+              FLASH_DTYPES[:1], D_HEAD),
              ("ragged_1200", 8, 2, 1200, 1200, True, None, "grid",
-              FLASH_DTYPES[:1]))
-    for tag, N, Nk, T, Tk, causal, window, kernel, dtypes in calls:
+              FLASH_DTYPES[:1], D_HEAD),
+             ("head_64", 8, 2, 2048, 2048, True, None, "resident",
+              FLASH_DTYPES, 64))
+    for tag, N, Nk, T, Tk, causal, window, kernel, dtypes, D in calls:
         name = f"flash_fwd_{kernel}"
         fn, plain = getattr(FL, name), getattr(FL, name + "_plain")
         for dt, mxu in dtypes:
-            q = rand((N, T, D_HEAD), dt, gen)
-            k, v = rand((Nk, Tk, D_HEAD), dt, gen), rand((Nk, Tk, D_HEAD), dt,
-                                                          gen)
-            cfg = flash_cfg(FL, N, Nk, T, Tk, dt, mxu, kernel, causal, window)
+            q = rand((N, T, D), dt, gen)
+            k, v = rand((Nk, Tk, D), dt, gen), rand((Nk, Tk, D), dt, gen)
+            cfg = flash_cfg(FL, N, Nk, T, Tk, dt, mxu, kernel, causal, window,
+                            D)
             out, lse = fn(q, k, v, cfg)
+            again, again_lse = fn(q, k, v, cfg)
             torch.cuda.synchronize()
+            repeat = same_bits(out, again) and same_bits(lse, again_lse)
+            del again, again_lse
             want, want_lse = plain(q, k, v, cfg)
             e_out, e_lse = max_err(out, want), max_err(lse, want_lse)
             finite = bool(torch.isfinite(out).all() and
                           torch.isfinite(lse).all())
-            row = {"call": tag, "kernel": name, "q": [N, T, D_HEAD],
-                   "kv": [Nk, Tk, D_HEAD], "causal": causal,
+            row = {"call": tag, "kernel": name, "q": [N, T, D],
+                   "kv": [Nk, Tk, D], "causal": causal,
                    "window": window, "dtype": str(dt), "mxu": str(mxu),
-                   "blocks": list(cfg[1:4]), "ctas": FL.kernel_ctas(N, T),
-                   "max_abs_err_out": e_out, "max_abs_err_lse": e_lse}
+                   "blocks": list(cfg[1:4]),
+                   "ctas": FL.kernel_ctas(N, T, N // Nk, mxu),
+                   "max_abs_err_out": e_out, "max_abs_err_lse": e_lse,
+                   "repeat_bitwise": repeat}
             readings.append(row)
             bound = FLASH_BOUND[mxu]
-            if not finite or e_out > bound or e_lse > bound:
-                fail(f"{name} {tag} {dt}/{mxu}: off its plain version "
-                     f"(out {e_out}, lse {e_lse}, bound {bound}, finite "
-                     f"{finite})")
+            if not finite or e_out > bound or e_lse > bound or not repeat:
+                fail(f"{name} {tag} {dt}/{mxu}: off its plain version or "
+                     f"not bitwise over two launches (out {e_out}, lse "
+                     f"{e_lse}, bound {bound}, finite {finite}, repeat "
+                     f"{repeat})")
             errs[name] = max(errs[name], e_out)
             if tag.startswith("model") and mxu == torch.float32:
                 ctl_cfg = flash_cfg(FL, N, Nk, T, Tk, dt, torch.bfloat16,
@@ -1477,7 +1512,7 @@ def check_flash_bwd_kernels(FL) -> dict:
     return errs
 
 
-def serving_path(ring, F, FL, M) -> dict:
+def serving_path(ring, F, FL, M, T_) -> dict:
     """Phase 4d: the model's serving path at Llama-3-8B width (LLAMA3_8B,
     4 layers), TP=8 over rank lists, fp32, weights from a seed on the
     card.  Runs, each with every launch count set to 0 just before and
@@ -1545,7 +1580,36 @@ def serving_path(ring, F, FL, M) -> dict:
     check("forward_4096_tp1", run(
         "forward_4096_tp1", lambda: M.forward(p1, tok4k, cfg)),
           ref, LOGIT_BOUND)
-    del ref
+    # the same model in bfloat16, its weights held in bf16 (with float32
+    # norm scales both packages promote the activations back to float32
+    # at the first norm): the flash forward on the tensor cores
+    cfg16 = M.ModelConfig(**{**LLAMA3_8B, "dtype": "bfloat16"})
+    p16 = T_.tree_map(lambda t: t.to(torch.bfloat16), p8)
+    FL.flash_fwd_resident.launches_tc = 0
+    lg16 = run("forward_4096_tp8_bf16", lambda: M.forward(p16, tok4k, cfg16))
+    tc = FL.flash_fwd_resident.launches_tc
+    bf16_run = runs["forward_4096_tp8_bf16"]
+    bf16_run["flash_fwd_resident_tensor_core_launches"] = tc
+    if not torch.isfinite(lg16).all() or \
+            tuple(lg16.shape) != (*tok4k.shape, cfg.vocab):
+        fail(f"forward_4096_tp8_bf16: logits {tuple(lg16.shape)} not "
+             f"finite or of the wrong shape")
+    if bf16_run["launches"]["flash_fwd_resident"] != cfg.n_layers * P or \
+            tc != cfg.n_layers * P:
+        fail(f"the bf16 forward must launch flash_fwd_resident once per "
+             f"layer and rank on the tensor cores: {bf16_run}, {tc}")
+    bf16_run["max_abs_diff_vs_fp32"] = logit_err(lg16.float(), ref)
+    del lg16, ref
+    torch.cuda.empty_cache()
+    # s per forward, warm, fp32 and bf16 side by side (not counted)
+    for name, w, c in (("forward_4096_tp8", p8, cfg),
+                       ("forward_4096_tp8_bf16", p16, cfg16)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        M.forward(w, tok4k, c)
+        torch.cuda.synchronize()
+        runs[name]["warm_s"] = time.perf_counter() - t
+    del p16
     torch.cuda.empty_cache()
     peak_before = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1858,7 +1922,7 @@ def time_flash_kernels(FL, errs, launches, per_forward) -> list:
                                    "enable_gqa)", "checked": True,
                    "shape": f"q [{N},{T},{D_HEAD}] k/v [{Nk},{T},{D_HEAD}] "
                             f"causal {dt} mxu {dt}",
-                   "ctas": FL.kernel_ctas(N, T),
+                   "ctas": FL.kernel_ctas(N, T, N // Nk, dt),
                    "tflops": ops / (t * 1e-3) / 1e12,
                    "launches_per_forward": per_forward[name]}
             del q, k, v, qs, ks, vs
@@ -2445,11 +2509,16 @@ def main() -> int:
         fail(f"the matmul kernels' SASS holds {tc_ops} tensor-core "
              f"instructions: the fp32 path must not use TF32")
     bwd_tc = check_flash_bwd_sass(_build._target("flash_bwd"))
+    fwd_tc = check_flash_fwd_sass(_build._target("flash"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": _build.build_seconds,
           "fused_sass_tensor_core_ops": tc_ops,
           "flash_bwd_sass_tensor_core_ops": bwd_tc,
+          "flash_fwd_sass_tensor_core_ops": fwd_tc,
           "fused_kernels": fused_kernel_info(F),
+          "flash_fwd_kernels": {
+              f"{dt} in, {mxu} MXU, D {d}": FL.fwd_kernel_info(d, dt, mxu)
+              for dt, mxu in FLASH_DTYPES for d in FL.KERNEL_HEAD_DIMS},
           "flash_bwd_kernels": {
               f"{dt} in, {mxu} MXU": FL.bwd_kernel_info(D_HEAD, dt, mxu)
               for dt, mxu in FLASH_DTYPES},
@@ -2468,7 +2537,7 @@ def main() -> int:
         tp = tp_path(ring, F)
         lanes = driver_lanes(world, ring, F, q_ops, DataType,
                              CompressionPolicy)
-        serve = serving_path(ring, F, FL, M)
+        serve = serving_path(ring, F, FL, M, T_)
         train = train_path(ring, F, FL, M, S, TE, T_)
         plugin = plugin_path(ring, F, FL, R, C, PL)
         # the main path's launches: the sum over its six parts

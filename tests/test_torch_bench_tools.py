@@ -10,6 +10,7 @@ import torch
 
 from accl_tpu_torch import ACCLError
 from accl_tpu_torch.bench import flash_bwd_split as FBS
+from accl_tpu_torch.bench import flash_fwd_split as FFS
 from accl_tpu_torch.bench import flash_sweep as FS
 from accl_tpu_torch.bench import kernel_tune as KT
 from accl_tpu_torch.bench import timing
@@ -194,3 +195,76 @@ def test_flash_bwd_split_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr("sys.argv", ["flash_bwd_split"])
     assert FBS.main() == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_flash_fwd_split_imports_no_jax():
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import accl_tpu_torch.bench.flash_fwd_split\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'accl_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_flash_fwd_split_parses_its_arguments(monkeypatch, capsys):
+    with pytest.raises(SystemExit):
+        FFS.main(["--bogus"])
+    with pytest.raises(SystemExit):
+        FFS.main(["--iters", "x"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert FFS.main(["--tag", "parent", "--out", "p.json", "--iters",
+                     "3"]) == 2
+
+
+def test_flash_fwd_split_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert FFS.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dt,mxu", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("kernel", FFS.KERNELS)
+def test_flash_fwd_split_operands_are_what_the_entries_resolve(kernel, dt,
+                                                               mxu):
+    """At a tiny shape the split tool's operands and schedule are the
+    packed entry's: the wrappers (plain versions on the CPU) give the
+    entry's out and lse, and launch nothing."""
+    from accl_tpu_torch.ops import flash as TFL
+
+    shape = (4, 2, 96, 32)
+    (q, k, v), cfg = FFS.operands(TFL, shape, dt, mxu, kernel,
+                                  torch.Generator().manual_seed(3))
+    assert q.shape == (4, 96, 32) and k.shape == v.shape == (2, 96, 32)
+    assert q.dtype == dt and cfg[4] == mxu and cfg[5] == kernel
+    assert cfg[0] and cfg[-1] == 2
+    fn = getattr(TFL, f"flash_fwd_{kernel}")
+    before = (fn.launches, fn.launches_tc)
+    out, lse = fn(q, k, v, cfg)
+    assert (fn.launches, fn.launches_tc) == before
+    want, want_lse = TFL.flash_attention_packed_lse(q, k, v, causal=True,
+                                                    mxu_dtype=mxu,
+                                                    kernel=kernel)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+
+
+def test_flash_fwd_split_bound_counts_the_causal_work():
+    N, Nk, T, D = FFS.SHAPES["FLASH_RESIDENT"]
+    b = FFS.bound((N, Nk, T, D), torch.float32, torch.float32)
+    assert b["ops"] == 4 * D * (T * (T + 1) // 2) * N
+    assert b["bytes"] == (2 * N * T * D + 2 * Nk * T * D) * 4 + N * T * 4
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(b["ops"] / 67e12 * 1e3)
+    b16 = FFS.bound((N, Nk, T, D), torch.bfloat16, torch.bfloat16)
+    assert b16["bound_ms"] == pytest.approx(b["ops"] / 989e12 * 1e3)
+    # one rank's launches at the serving path's widths, 0.513 and 1.026 ms
+    # in fp32 (PERF.md)
+    assert round(b["bound_ms"], 3) == 0.513
+    grid = FFS.bound(FFS.SHAPES["FLASH_GRID"], torch.float32, torch.float32)
+    assert round(grid["bound_ms"], 3) == 1.026

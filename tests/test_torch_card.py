@@ -198,6 +198,67 @@ def test_flash_kernels_match_plain_on_card(kernel, causal, window, dt, mxu):
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (N, Nk, T, Tk, causal, window, static_max, kernel)
+    (8, 2, 1200, 1200, True, None, None, "resident"),   # ragged T
+    (8, 2, 1200, 1200, True, None, None, "grid"),
+    (8, 2, 1024, 1536, False, None, None, "resident"),  # cross length
+    (8, 2, 1024, 1536, False, None, None, "grid"),
+    (4, 1, 2048, 2048, True, 1000, None, "grid"),       # window
+    (8, 2, 640, 640, True, None, 12.0, "resident"),     # static_max
+    (8, 2, 640, 640, True, None, 12.0, "grid"),
+    (6, 3, 640, 640, True, None, None, "resident"),     # odd group: 1 head
+], ids=lambda c: "_".join(str(x) for x in c))
+def test_flash_tensor_core_forward_matches_plain_on_card(case, dt, D):
+    """The bfloat16 MXU dtype (the tensor-core mainloop, two q heads of a
+    GQA group per CTA where the group is even) against the plain version
+    within chip_smoke.py's FLASH_BOUND for bf16, 1.6e-2 (two bf16 ulps)."""
+    N, Nk, T, Tk, causal, window, static_max, kernel = case
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(N, T, D, generator=g, device="cuda").to(dt)
+    k = torch.randn(Nk, Tk, D, generator=g, device="cuda").to(dt)
+    v = torch.randn(Nk, Tk, D, generator=g, device="cuda").to(dt)
+    mxu = torch.bfloat16
+    cfg = TFL._resolve_schedule(T, Tk, D, dt, causal, 256, 512, mxu, kernel,
+                                None, False, None, None, window,
+                                static_max) + (N // Nk,)
+    fn = TFL.flash_fwd_resident if kernel == "resident" \
+        else TFL.flash_fwd_grid
+    plain = TFL.flash_fwd_resident_plain if kernel == "resident" \
+        else TFL.flash_fwd_grid_plain
+    before = (fn.launches, fn.launches_tc)
+    out, lse = fn(q, k, v, cfg)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_tc) == (before[0] + 1, before[1] + 1)
+    want, want_lse = plain(q, k, v, cfg)
+    assert bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1.6e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1.6e-2)
+
+
+@pytest.mark.parametrize("dt,mxu", FLASH_DTYPES)
+@pytest.mark.parametrize("kernel", ["resident", "grid", "resident_skew"])
+def test_flash_forward_repeats_bitwise_on_card(kernel, dt, mxu):
+    """Two launches of each forward kernel on the same operands give the
+    same bits (out and lse)."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    N, Nk, T, D = 8, 2, 1200, 128
+    q = torch.randn(N, T, D, generator=g, device="cuda").to(dt)
+    k = torch.randn(Nk, T, D, generator=g, device="cuda").to(dt)
+    v = torch.randn(Nk, T, D, generator=g, device="cuda").to(dt)
+    cfg = TFL._resolve_schedule(T, T, D, dt, True, 256, 512, mxu, kernel,
+                                None, False, None, None) + (N // Nk,)
+    fn = getattr(TFL, f"flash_fwd_{kernel}")
+    first = fn(q, k, v, cfg)
+    for _ in range(3):
+        again = fn(q, k, v, cfg)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_model_forward_on_card_matches_cpu(fused):
     """The tp = 2 flash forward of a small GQA/SwiGLU/RoPE model: on the
