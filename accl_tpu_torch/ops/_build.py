@@ -60,13 +60,14 @@ SIGNATURES = {
     },
     "reduce_ops": {
         "accl_reduce_ops_error_string": ([_i32], ctypes.c_char_p),
-        "accl_combine": ([_vp, _vp, _vp, _ll, _ll, _i32, _i32, _i32, _vp],
-                         _i32),
+        "accl_combine_kernel_info": ([_i32] * 4 + [_vp], _i32),
+        "accl_combine": ([_vp, _vp, _vp, _ll] + [_i32] * 5 + [_vp], _i32),
     },
     "compression": {
         "accl_compression_error_string": ([_i32], ctypes.c_char_p),
-        "accl_cast": ([_vp, _vp, _ll, _ll, _ll, _i32, _i32, _i32, _u32, _i32,
-                       _vp], _i32),
+        "accl_cast_kernel_info": ([_i32] * 5 + [_vp], _i32),
+        "accl_cast": ([_vp, _vp, _ll, _ll, _i32, _i32, _i32, _u32] + [_i32] * 3
+                      + [_vp], _i32),
     },
 }
 

@@ -4,8 +4,12 @@ Port of ``accl_tpu/ops/compression.py``: streaming casts at a 2:1 width
 ratio (reference kernels/plugins/hp_compression/hp_compression.cpp:70-144),
 fp32 -> fp16 / bf16 and back, with optional stochastic rounding.  The
 payload is viewed as ``[rows, 512]`` tiles (``_to_tiles`` pads the tail) and
-cast in ``block_rows``-row tiles by the CUDA kernel ``accl_cast``
-(``csrc/compression.cu``) in place of the Pallas kernel ``_cast_2d``.
+cast by the CUDA kernel ``accl_cast`` (``csrc/compression.cu``) in place of
+the Pallas kernel ``_cast_2d``, under the streaming plan of
+``reduce_ops.stream_plan`` (one CTA per block of the flat run of
+4-element vectors).  The ``block_rows``-row tiles of the Pallas grid do
+not shape the launch; they define the stochastic rounding's random bits,
+and nothing else.
 
 - Rounding to nearest even: fp32 -> float16 or bfloat16, as ``Tensor.to``
   rounds.
@@ -33,10 +37,12 @@ as the port's does.  They are the benchmark-of-record compression stage
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
-from .reduce_ops import _to_tiles
+from .reduce_ops import _to_tiles, kernel_info, stream_plan
 
 #: rows per tile (the JAX package's on-chip choice) and lanes per row
 _BLOCK_ROWS = 1024
@@ -53,6 +59,12 @@ STOCHASTIC_TARGETS = {torch.bfloat16: (7, -126), torch.float8_e5m2: (2, -14),
 #: sources of the cast back to float32
 WIDEN_SOURCES = (torch.float16, torch.bfloat16, torch.float8_e5m2,
                  torch.float8_e4m3fn)
+#: elements per vector of the cast kernel and its vectors per thread,
+#: nearest and widening, and stochastic (csrc/compression.cu CHUNK,
+#: UNROLL, SR_UNROLL)
+CHUNK = 4
+UNROLL = 1
+SR_UNROLL = 4
 
 _M32 = 0xFFFFFFFF
 
@@ -140,12 +152,23 @@ def _cast_2d_plain(x2d, seed, dtype, stochastic, block_rows):
         x2d, _random_bits(seed, rows, cols, block_rows, x2d.device), dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def cast_kernel_info(src, dst, stochastic: bool, vec: bool,
+                     device: int) -> dict:
+    """``reduce_ops.kernel_info`` of the cast kernel of one pair (cached
+    per device)."""
+    return kernel_info(_build.load("compression"), "accl_cast_kernel_info",
+                       _CODES[src], _CODES[dst], int(stochastic), int(vec),
+                       device)
+
+
 def _cast_2d(x2d: torch.Tensor, seed: int, dtype, stochastic: bool,
              block_rows: int = _BLOCK_ROWS) -> torch.Tensor:
-    """Cast a [rows, cols] tensor to ``dtype`` in ``block_rows``-row tiles
-    (the column count is the tensor's, so the tuning sweep reuses this);
-    stochastic rounding seeds tile t with ``seed + t``.  On the card: the
-    ``accl_cast`` kernel of csrc/compression.cu."""
+    """Cast a [rows, cols] tensor to ``dtype``; stochastic rounding seeds
+    tile t of the ``block_rows``-row tiles with ``seed + t`` (the column
+    count is the tensor's, so the tuning sweep reuses this; only the
+    stochastic bits depend on the geometry).  On the card: the
+    ``accl_cast`` kernel of csrc/compression.cu under ``stream_plan``."""
     if x2d.dim() != 2:
         raise ValueError(f"cast: a 2-d view, got {tuple(x2d.shape)}")
     _check_pair(x2d.dtype, dtype, stochastic)
@@ -163,10 +186,14 @@ def _cast_2d(x2d: torch.Tensor, seed: int, dtype, stochastic: bool,
     if x2d.numel() == 0:
         return out
     lib = _build.load("compression")
-    dev = x2d.device
-    rc = lib.accl_cast(x2d.data_ptr(), out.data_ptr(), rows, cols, block_rows,
+    dev, n = x2d.device.index or 0, x2d.numel()
+    vec = x2d.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = (stream_plan(n // CHUNK, SR_UNROLL if stochastic else UNROLL)
+            if vec else stream_plan(n))
+    rc = lib.accl_cast(x2d.data_ptr(), out.data_ptr(), n, block_rows * cols,
                        _CODES[x2d.dtype], _CODES[dtype], int(stochastic), seed,
-                       dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+                       int(vec), plan.grid, dev,
+                       torch.cuda.current_stream(x2d.device).cuda_stream)
     if rc != 0:
         msg = lib.accl_compression_error_string(rc).decode()
         raise RuntimeError(f"accl_cast: CUDA error {rc} ({msg})")

@@ -61,7 +61,12 @@ Phases, each fatal on failure:
        bitwise against Tensor.to, and at every geometry of phase 4f's
        tuning grid (4 cols x 2 block_rows) the same way; its stochastic
        rounding to bf16, e5m2 and e4m3fn bitwise against the plain
-       version, and unbiased at 1 + 2^-12;
+       version, and unbiased at 1 + 2^-12; the stochastic edges (NaN,
+       fp32 subnormals, +-FLT_MAX, inf, the fp8 range thresholds, values
+       below 2^-24) bitwise, with the widening cast after them; a tile of
+       15 elements; every lane on views one element off 16-byte
+       alignment; each stochastic target bitwise equal over two
+       launches of one seed and different for the next seed;
      - flash_fwd_resident_skew at the serving path's per-rank shape in
        the three flash dtype pairs: bitwise equal to flash_fwd_resident,
        and within FLASH_BOUND of its plain version;
@@ -144,7 +149,9 @@ Phases, each fatal on failure:
      with its times at the path's other shape as an extra field (the
      flash backward kernels beside SDPA's backward by autograd, its
      forward time subtracted; the plugin kernels at the bench shapes,
-     the cast kernel also at phase 4f's tuned geometry; the skew beside
+     the cast kernel also at phase 4f's tuned geometry, its fp8 widening
+     and stochastic lanes and the bf16 combine beside, each with GB/s and
+     its share of the byte bound; the skew beside
      flash_fwd_resident and SDPA); the
      driver's allreduce algbw / busbw per size; the ring and matmul
      kernels (with each matmul shape's launch plan) also with the stream
@@ -2048,6 +2055,144 @@ def bits(t: torch.Tensor) -> torch.Tensor:
                    8: torch.int64}[t.element_size()])
 
 
+def plugin_kernel_info(R, C) -> dict:
+    """accl_combine_kernel_info and accl_cast_kernel_info of every
+    instantiation the lanes launch: registers, local bytes and CTAs per
+    SM."""
+    dev = torch.cuda.current_device()
+    combine, cast = {}, {}
+    for dt in COMBINE_DTYPES:
+        for is_max in (False, True):
+            for vec in (True, False):
+                combine[f"{dt} {'max' if is_max else 'sum'} "
+                        f"{'vec' if vec else 'elem'}"] = \
+                    R.combine_kernel_info(R.KERNEL_DTYPES[dt], is_max, vec,
+                                          dev)
+    pairs = ([(torch.float32, d, False) for d in C.NEAREST_TARGETS]
+             + [(s, torch.float32, False) for s in C.WIDEN_SOURCES]
+             + [(torch.float32, d, True) for d in C.STOCHASTIC_TARGETS])
+    for src, dst, sr in pairs:
+        for vec in (True, False):
+            cast[f"{src} -> {dst} {'stochastic' if sr else 'nearest'} "
+                 f"{'vec' if vec else 'elem'}"] = \
+                C.cast_kernel_info(src, dst, sr, vec, dev)
+    return {"accl_combine_kernel_info": combine,
+            "accl_cast_kernel_info": cast}
+
+
+#: stochastic rounding's edge inputs: NaN, fp32 subnormals, +-FLT_MAX, inf,
+#: zeros, the fp8 range thresholds (e5m2 57344-65536, e4m3fn 448-480), the
+#: bottoms of their normal ranges, and values below 2^-24 / 2^-17, where
+#: the kernel takes its 64-bit add
+SR_EDGES = (float("nan"), -float("nan"), 1e-40, -1e-40, 1.4e-45,
+            3.4028235e38, -3.4028235e38, float("inf"), -float("inf"), 0.0,
+            -0.0, 57344.0, 61440.0, 65504.0, 65520.0, 65535.0, 65536.0,
+            -65536.0, 448.0, 464.0, 479.0, 480.0, -480.0, 2.0 ** -14,
+            2.0 ** -15, 2.0 ** -6, 2.0 ** -7, 2.0 ** -16, 2.0 ** -9,
+            2.0 ** -17, 2.0 ** -18, 2.0 ** -24, 2.0 ** -25, 3e-8, 1e-10,
+            -1e-10, 1e-30, 1.0 + 2.0 ** -12)
+
+
+def same_bits_or_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal where neither is NaN, and NaN in the same places:
+    the widening cast keeps cvt's NaN payload, which Tensor.to's software
+    fp8 conversion does not share."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(bits(a)[~na], bits(b)[~nb])
+
+
+def check_plugin_edges(R, C, gen) -> dict:
+    """Phase 3e's edge cases: the stochastic edges (SR_EDGES scattered over
+    a [4096, 512] input with tiny and subnormal-range rows) bitwise against
+    the plain version, and the widening cast after them; a tile of 15
+    elements ([40, 5], block_rows 3); every lane on views one element off
+    16-byte alignment (the kernels' element path) against the plain
+    versions; two launches of each stochastic target bitwise equal for
+    one seed, different for the next."""
+    out = {}
+    x = rand((4096, 512), torch.float32, gen) * 30
+    x[1] = rand((512,), torch.float32, gen) * 1e-9   # below 2^-24
+    x[2] = rand((512,), torch.float32, gen) * 1e-5   # fp8 subnormal range
+    x[3] = rand((512,), torch.float32, gen) * 1e-39  # fp32 subnormals
+    edges = torch.tensor(SR_EDGES, device="cuda")
+    pos = torch.randperm(x.numel(), generator=gen, device="cuda")[:4096]
+    x.view(-1)[pos] = edges.repeat(-(-4096 // edges.numel()))[:4096]
+    x[0, :edges.numel()] = edges
+    tile15 = rand((40, 5), torch.float32, gen) * 30
+    tile15.view(-1)[:edges.numel()] = edges[:tile15.numel()]
+    for dt in C.STOCHASTIC_TARGETS:
+        for name, xv, br in (("edges", x, C._BLOCK_ROWS), ("tile15", tile15,
+                                                           3)):
+            got = C._cast_2d(xv, SEED, dt, True, br)
+            z = C.decompress_cast(got)
+            torch.cuda.synchronize()
+            want = C._cast_2d_plain(xv, SEED, dt, True, br)
+            if not torch.equal(bits(got), bits(want)):
+                fail(f"stochastic cast {dt} {name}: not bitwise equal to the "
+                     f"plain version ({int((bits(got) != bits(want)).sum())} "
+                     f"differ)")
+            if not same_bits_or_nan(z, got.float()):
+                fail(f"decompress_cast {dt} after the {name}: not Tensor.to")
+        again = C._cast_2d(x, SEED, dt, True, C._BLOCK_ROWS)
+        first = C._cast_2d(x, SEED, dt, True, C._BLOCK_ROWS)
+        other = C._cast_2d(x, SEED + 1, dt, True, C._BLOCK_ROWS)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(again), bits(first)) or \
+                torch.equal(bits(other), bits(first)):
+            fail(f"stochastic cast {dt}: not repeatable for one seed, or "
+                 f"the same for the next seed")
+        out[str(dt)] = {"changed_by_next_seed":
+                        int((bits(other) != bits(first)).sum())}
+        del got, z, want, again, first, other
+    # one element off 16-byte alignment: the element path of both kernels
+    rows = 4099
+    for dt in COMBINE_DTYPES:
+        buf_a = rand((rows * 128 + 1,), dt, gen)
+        buf_b = rand((rows * 128 + 1,), dt, gen)
+        a, b = buf_a[1:].view(rows, 128), buf_b[1:].view(rows, 128)
+        if a.data_ptr() % 16 == 0 or b.data_ptr() % 16 == 0:
+            fail("the unaligned combine operands are aligned")
+        for is_max in (False, True):
+            got = R._pallas_combine_2d(a, b, is_max)
+            torch.cuda.synchronize()
+            if not torch.equal(bits(got), bits(R._combine_2d_plain(a, b,
+                                                                   is_max))):
+                fail(f"combine {dt} max={is_max} unaligned: not the plain "
+                     f"version")
+        want = a + b
+        if R._pallas_combine_2d(a, b, False, 0, True) is not a or \
+                not torch.equal(bits(a), bits(want)):
+            fail(f"combine {dt} donate unaligned: not a + b in a's storage")
+        del buf_a, buf_b, a, b, got, want
+    buf = rand((4099 * 512 + 1,), torch.float32, gen) * 4
+    buf[1:1 + len(SR_EDGES)] = torch.tensor(SR_EDGES, device="cuda")
+    xu = buf[1:].view(4099, 512)
+    pairs = ([(dt, False) for dt in C.NEAREST_TARGETS]
+             + [(dt, True) for dt in C.STOCHASTIC_TARGETS])
+    for dt, stochastic in pairs:
+        got = C._cast_2d(xu, SEED, dt, stochastic, 7)
+        torch.cuda.synchronize()
+        want = C._cast_2d_plain(xu, SEED, dt, stochastic, 7)
+        if not torch.equal(bits(got), bits(want)):
+            fail(f"cast {dt} stochastic={stochastic} unaligned: not the "
+                 f"plain version")
+    for src in C.WIDEN_SOURCES:
+        hb = xu.to(src).view(-1)
+        hbuf = torch.empty(hb.numel() + 1, dtype=src, device="cuda")
+        hbuf[1:] = hb
+        hu = hbuf[1:].view(4099, 512)
+        got = C._cast_2d(hu, 0, torch.float32, False, 7)
+        torch.cuda.synchronize()
+        if not same_bits_or_nan(got, hu.float()) or (
+                src in (torch.float16, torch.bfloat16)
+                and not torch.equal(bits(got), bits(hu.float()))):
+            fail(f"cast {src} -> float32 unaligned: not Tensor.to")
+        del hb, hbuf, hu, got
+    del x, tile15, buf, xu
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_plugin_kernels(R, C) -> dict:
     """Phase 3e: the combine kernel on all 12 lanes (6 dtypes x sum, max)
     at the bench shape (PLUGIN_N elements) and at 4099, bitwise against
@@ -2151,10 +2296,11 @@ def check_plugin_kernels(R, C) -> dict:
         fail(f"stochastic rounding of 1 + 2^-12 is biased: {sr}")
     del xs, one, y
     torch.cuda.empty_cache()
+    edges = check_plugin_edges(R, C, gen)
     emit({"phase": "plugin_kernels_vs_plain", "ok": True,
           "combine_lanes": 2 * len(COMBINE_DTYPES), "bitwise": True,
           "cast_geometries": geometries, "max_abs_err": errs,
-          "stochastic": sr})
+          "stochastic": sr, "edges": edges})
     return errs
 
 
@@ -2346,6 +2492,15 @@ def time_plugin_kernels(R, C, FL, errs, plugin, PL) -> list:
         ms.append(cuda_ms(kernel, iters))
         return statistics.median(ms), statistics.median(p_ms)
 
+    def lane_time(kernel, nbytes, library=None):
+        """One more lane of a kernel: ms, GB/s, share of its byte bound,
+        beside the PyTorch call computing it where there is one."""
+        t = cuda_ms(kernel, 20)
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        return {"ms": t, "bound_ms": b, "GBps": nbytes / t / 1e6,
+                "share_of_bound": b / t,
+                "library_ms": cuda_ms(library, 20) if library else None}
+
     rows = []
     a = rand((PLUGIN_N // 128, 128), torch.float32, gen)
     b = rand((PLUGIN_N // 128, 128), torch.float32, gen)
@@ -2360,7 +2515,14 @@ def time_plugin_kernels(R, C, FL, errs, plugin, PL) -> list:
                                    20),
                      "library_ms": cuda_ms(
                          lambda: torch.maximum(a, b, out=out), 20)}}
+    ah, bh = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    oh = torch.empty_like(ah)
+    extra["bf16_sum"] = lane_time(
+        lambda: R._pallas_combine_2d(ah, bh), 3 * PLUGIN_N * 2,
+        lambda: torch.add(ah, bh, out=oh))
+    del ah, bh, oh
     rows.append({"name": "combine_2d", "route": "cuda",
+                 "share_of_bound": bound / ms,
                  "source": "accl_tpu_torch/ops/csrc/reduce_ops.cu",
                  "kernel": "accl_combine",
                  "replaces": "accl_tpu/ops/reduce_ops.py:39",
@@ -2387,6 +2549,16 @@ def time_plugin_kernels(R, C, FL, errs, plugin, PL) -> list:
     s_ms, s_p = interleaved(lambda: C._cast_2d(x, 7, bf, True),
                             lambda: C._cast_2d_plain(x, 7, bf, True, 1024),
                             20, plain_iters=2)
+    fp8 = {}
+    for dt in (torch.float8_e5m2, torch.float8_e4m3fn):
+        name = str(dt).replace("torch.float8_", "")
+        fp8[f"stochastic_{name}"] = lane_time(
+            lambda dt=dt: C._cast_2d(x, 7, dt, True), 5 * PLUGIN_N)
+        q = x.to(dt)
+        fp8[f"widen_{name}"] = lane_time(
+            lambda q=q: C._cast_2d(q, 0, f32, False), 5 * PLUGIN_N,
+            lambda q=q: q.to(f32))
+        del q
     rows.append({"name": "cast_2d", "route": "cuda",
                  "source": "accl_tpu_torch/ops/csrc/compression.cu",
                  "kernel": "accl_cast",
@@ -2398,14 +2570,18 @@ def time_plugin_kernels(R, C, FL, errs, plugin, PL) -> list:
                  "shape": "[131072, 512] fp32 -> bf16 nearest, block_rows "
                           "1024",
                  "GBps": 6 * PLUGIN_N / ms / 1e6,
+                 "share_of_bound": bound / ms,
                  "launches_per_roundtrip": 2,
                  "decompress": {"ms": d_ms, "plain_ms": d_p,
                                 "library_ms": d_lib, "bound_ms": bound,
+                                "share_of_bound": bound / d_ms,
                                 "shape": "[131072, 512] bf16 -> fp32"},
                  "stochastic": {"ms": s_ms, "plain_ms": s_p,
                                 "library_ms": None, "bound_ms": bound,
+                                "share_of_bound": bound / s_ms,
                                 "shape": "[131072, 512] fp32 -> bf16 "
-                                         "stochastic"}})
+                                         "stochastic"},
+                 **fp8})
     cols, br = plugin["tuned"]
     xv, hv = x.view(-1, cols), h.view(-1, cols)
     t_ms, t_p = interleaved(lambda: C._cast_2d(xv, 0, bf, False, br),
@@ -2522,6 +2698,7 @@ def main() -> int:
           "flash_bwd_kernels": {
               f"{dt} in, {mxu} MXU": FL.bwd_kernel_info(D_HEAD, dt, mxu)
               for dt, mxu in FLASH_DTYPES},
+          **plugin_kernel_info(R, C),
           "ptxas": [ln.strip() for log in _build.build_log.values()
                     for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})

@@ -1,5 +1,6 @@
 """The port's bench tools (accl_tpu_torch/bench/timing.py, flash_sweep.py,
-kernel_tune.py and flash_bwd_split.py) on the CPU at tiny shapes, with device="cpu": the
+kernel_tune.py, flash_bwd_split.py, flash_fwd_split.py and
+plugin_split.py) on the CPU at tiny shapes, with device="cpu": the
 harness chains and interleaves, the sweep collapses candidates that
 differ only in options the card ignores into aliases of one timing, and
 the tuning sweeps cover their grids.  No time from here is a device
@@ -13,6 +14,7 @@ from accl_tpu_torch.bench import flash_bwd_split as FBS
 from accl_tpu_torch.bench import flash_fwd_split as FFS
 from accl_tpu_torch.bench import flash_sweep as FS
 from accl_tpu_torch.bench import kernel_tune as KT
+from accl_tpu_torch.bench import plugin_split as PS
 from accl_tpu_torch.bench import timing
 
 
@@ -151,6 +153,70 @@ def test_tune_compress_covers_its_grid_beside_tensor_to():
     assert all(r["GBps"] > 0 for r in res["results"])
     assert "not a device time" in res["device"]
     assert TC._cast_2d.launches == before  # the CPU runs no kernel
+
+
+def test_tune_compress_times_one_launch_for_every_geometry():
+    """The cast kernel streams the flat payload whatever the geometry: the
+    first geometry is timed, the others are its aliases, and best is the
+    timed one."""
+    res = KT.tune_compress("cpu", n=1 << 14, cols=(128, 512),
+                           block_rows=(4, 16), rounds=1, iters=1,
+                           log=lambda m: None)
+    rows = {(r["cols"], r["block_rows"]): r for r in res["results"]}
+    assert "alias_of" not in rows[(128, 4)]
+    assert res["best"] is rows[(128, 4)]
+    for key in ((128, 16), (512, 4), (512, 16)):
+        assert rows[key]["alias_of"] == [128, 4]
+        assert rows[key]["s"] == rows[(128, 4)]["s"]
+    assert "alias_of" not in rows[("Tensor.to", 0)]
+
+
+def test_plugin_split_imports_no_jax():
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import accl_tpu_torch.bench.plugin_split\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'accl_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_plugin_split_parses_its_arguments(monkeypatch):
+    with pytest.raises(SystemExit):
+        PS.main(["--bogus"])
+    with pytest.raises(SystemExit):
+        PS.main(["--iters", "x"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert PS.main(["--tag", "parent", "--out", "p.json", "--iters",
+                    "3"]) == 2
+
+
+def test_plugin_split_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert PS.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_plugin_split_covers_every_lane_with_its_bytes():
+    """The rows the tool times: the four combine lanes at both tile
+    depths, and every cast pair the kernel takes; bytes count each input
+    read once and each output written once."""
+    from accl_tpu_torch.ops import compression as TC
+    from accl_tpu_torch.ops import reduce_ops as TR
+
+    assert {dt for dt, _ in PS.COMBINE_LANES} <= set(TR.KERNEL_DTYPES)
+    pairs = {(s, d, sr) for s, d, sr in PS.CAST_PAIRS}
+    assert pairs == ({(torch.float32, d, False) for d in TC.NEAREST_TARGETS}
+                     | {(s, torch.float32, False) for s in TC.WIDEN_SOURCES}
+                     | {(torch.float32, d, True)
+                        for d in TC.STOCHASTIC_TARGETS})
+    # 64 Mi fp32 -> bf16: 6 bytes an element, 0.1202 ms at 3.35 TB/s
+    assert round(PS.bound_ms(6 * PS.N), 4) == 0.1202
+    assert round(PS.bound_ms(3 * 4 * PS.N), 4) == 0.2404
 
 
 def test_kernel_tune_cli_parses():

@@ -454,6 +454,135 @@ def test_stochastic_cast_kernel_matches_plain_on_card(dtype, block_rows):
     assert torch.equal(TC.decompress_cast(got), got.float())
 
 
+#: stochastic rounding's edge inputs (chip_smoke.py SR_EDGES): NaN, fp32
+#: subnormals, +-FLT_MAX, inf, zeros, the fp8 range thresholds and values
+#: below 2^-24 (the kernel's 64-bit add)
+SR_EDGES = [float("nan"), -float("nan"), 1e-40, -1e-40, 1.4e-45,
+            3.4028235e38, -3.4028235e38, float("inf"), -float("inf"), 0.0,
+            -0.0, 57344.0, 61440.0, 65504.0, 65520.0, 65535.0, 65536.0,
+            -65536.0, 448.0, 464.0, 479.0, 480.0, -480.0, 2.0 ** -14,
+            2.0 ** -15, 2.0 ** -6, 2.0 ** -7, 2.0 ** -16, 2.0 ** -9,
+            2.0 ** -17, 2.0 ** -18, 2.0 ** -24, 2.0 ** -25, 3e-8, 1e-10,
+            -1e-10, 1e-30, 1.0 + 2.0 ** -12]
+
+
+def _same_bits_or_nan(a, b):
+    """Bitwise equal where neither is NaN, NaN in the same places (the
+    widening cast keeps cvt's NaN payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and _same_bits(a[~na], b[~nb])
+
+
+def _edge_input(g, shape):
+    x = torch.randn(shape, generator=g, device="cuda") * 30
+    flat = x.view(-1)
+    flat[:len(SR_EDGES)] = torch.tensor(SR_EDGES, device="cuda")[:flat.numel()]
+    if flat.numel() > 4096:
+        flat[1024:2048] *= 1e-10  # below 2^-24
+        flat[2048:3072] *= 1e-6   # fp8 subnormals
+        flat[3072:4096] *= 1e-40  # fp32 subnormals
+    return x
+
+
+@pytest.mark.parametrize("dtype", list(TC.STOCHASTIC_TARGETS))
+@pytest.mark.parametrize("shape,block_rows", [((64, 512), 16), ((40, 5), 3),
+                                              ((7, 3), 1)])
+def test_stochastic_cast_edges_match_plain_on_card(dtype, shape, block_rows):
+    """The stochastic edges bitwise against the plain version, at the
+    lane's width, at a tile of 15 elements and at tiles of 3; the
+    widening cast after them (NaN where NaN)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = _edge_input(g, shape)
+    got = TC._cast_2d(x, 99, dtype, True, block_rows)
+    want = TC._cast_2d_plain(x, 99, dtype, True, block_rows)
+    back = TC.decompress_cast(got)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert _same_bits_or_nan(back, got.float())
+
+
+@pytest.mark.parametrize("dtype", list(TC.STOCHASTIC_TARGETS))
+def test_stochastic_cast_repeats_for_one_seed_on_card(dtype):
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn(1000, 512, generator=g, device="cuda") * 30
+    a = TC._cast_2d(x, 5, dtype, True, 7)
+    b = TC._cast_2d(x, 5, dtype, True, 7)
+    c = TC._cast_2d(x, 6, dtype, True, 7)
+    torch.cuda.synchronize()
+    assert _same_bits(a, b) and not _same_bits(a, c)
+
+
+@pytest.mark.parametrize("dtype", list(TR.KERNEL_DTYPES))
+def test_combine_kernel_on_unaligned_views_matches_plain_on_card(dtype):
+    """Operands one element off 16-byte alignment take the element path:
+    bitwise the plain version, sum, max and donate."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    rows = 1031
+    bufs = [torch.randn(rows * 128 + 1, generator=g, device="cuda") * 1000
+            for _ in range(2)]
+    a, b = (t.to(dtype)[1:].view(rows, 128) for t in bufs)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    for is_max in (False, True):
+        got = TR._pallas_combine_2d(a, b, is_max)
+        assert _same_bits(got, TR._combine_2d_plain(a, b, is_max))
+    want = a + b
+    assert TR._pallas_combine_2d(a, b, False, 0, True) is a
+    torch.cuda.synchronize()
+    assert _same_bits(a, want)
+
+
+@pytest.mark.parametrize("pair", ["f16", "bf16", "sr_bf16", "sr_e5m2",
+                                  "sr_e4m3fn", "widen_f16", "widen_bf16",
+                                  "widen_e5m2", "widen_e4m3fn"])
+def test_cast_kernel_on_unaligned_views_matches_plain_on_card(pair):
+    """A source one element off 16-byte alignment takes the element path:
+    bitwise the plain version (NaN where NaN for the fp8 widening)."""
+    dts = {"f16": torch.float16, "bf16": torch.bfloat16,
+           "e5m2": torch.float8_e5m2, "e4m3fn": torch.float8_e4m3fn}
+    g = torch.Generator(device="cuda").manual_seed(20)
+    x = _edge_input(g, (129 * 512 + 1,))
+    kind, _, name = pair.rpartition("_")
+    if kind == "widen":
+        src = dts[name]
+        buf = torch.empty(x.numel(), dtype=src, device="cuda")
+        buf.copy_(x.to(src))
+        xu = buf[1:].view(129, 512)
+        got = TC._cast_2d(xu, 0, torch.float32, False, 7)
+        torch.cuda.synchronize()
+        assert _same_bits_or_nan(got, xu.float())
+        if src in (torch.float16, torch.bfloat16):
+            assert _same_bits(got, xu.float())
+        return
+    xu = x[1:].view(129, 512)
+    assert xu.data_ptr() % 16
+    stochastic = kind == "sr"  # else "" (nearest even)
+    got = TC._cast_2d(xu, 3, dts[name], stochastic, 7)
+    want = TC._cast_2d_plain(xu, 3, dts[name], stochastic, 7)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+
+
+def test_streaming_kernels_fit_without_spills_on_card():
+    """Every instantiation of both streaming kernels fits on an SM and
+    keeps no thread state in local memory; the plan gives one CTA per
+    block."""
+    dev = torch.cuda.current_device()
+    for code in TR.KERNEL_DTYPES.values():
+        for is_max in (False, True):
+            for vec in (False, True):
+                info = TR.combine_kernel_info(code, is_max, vec, dev)
+                assert info["ctas_per_sm"] >= 1 and info["local_bytes"] == 0
+    pairs = ([(torch.float32, d, False) for d in TC.NEAREST_TARGETS]
+             + [(s, torch.float32, False) for s in TC.WIDEN_SOURCES]
+             + [(torch.float32, d, True) for d in TC.STOCHASTIC_TARGETS])
+    for src, dst, sr in pairs:
+        for vec in (False, True):
+            info = TC.cast_kernel_info(src, dst, sr, vec, dev)
+            assert info["ctas_per_sm"] >= 1 and info["local_bytes"] == 0
+    assert TR.stream_plan(1 << 24).grid == (1 << 24) // TR.STREAM_THREADS
+    assert TR.stream_plan(1000).grid == 4
+
+
 @pytest.mark.parametrize("dt,mxu", FLASH_DTYPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_skew_kernel_matches_resident_on_card(causal, dt, mxu):
@@ -486,7 +615,8 @@ def test_flash_skew_kernel_matches_resident_on_card(causal, dt, mxu):
 
 def _same_bits(a, b):
     if a.dtype.is_floating_point:
-        iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        iv = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[a.element_size()]
         return torch.equal(a.view(iv), b.view(iv))
     return torch.equal(a, b)
 

@@ -19,7 +19,7 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "models.transformer", "models.decode", "bench",
               "bench.ef_convergence", "bench.timing", "bench.flash_sweep",
               "bench.kernel_tune", "bench.flash_bwd_split",
-              "bench.flash_fwd_split", "utils.device",
+              "bench.flash_fwd_split", "bench.plugin_split", "utils.device",
               "utils.logging", "utils.tree"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
