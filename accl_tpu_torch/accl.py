@@ -14,10 +14,18 @@ or :meth:`ACCL.set_compression`) selects it automatically.  ``fused=``
 (default ``ACCL_FUSED``) puts allreduce, allgather and reduce_scatter on
 the chunked ring lane of ``ops/fused.py``.
 
+Observability (accl_tpu/accl.py:308-337, 1652-1672, 1797-1830): each
+rank registers an always-on flight recorder at initialize, which also
+starts the OpenMetrics exporter when ``ACCL_METRICS_PORT`` is set; every
+call attaches its flight record, metrics signature and (under
+``ACCL_TRACE``) trace span; ``metrics()``, ``dump_metrics()`` and
+``dump_flight_recorder()`` read them back.
+
 Left out of this port, and refused where a call asks for them: kernel
 streams (``stream_flags``).  Persistent plans, the sanitizer, tuning
-tables (and the table route that arms ``fused``), resilience and
-observability are not part of it either.
+tables (and the table route that arms ``fused``), resilience (so no
+abort, shrink, grow or reset fence events reach the flight recorder)
+and tenants (every record's tenant is None) are not part of it either.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from .buffer import BaseBuffer, DummyBuffer
 from .communicator import Communicator, Rank
 from .constants import (
     DATA_TYPE_SIZE,
+    GANG_OPERATIONS,
     DEFAULT_EAGER_RX_BUF_SIZE,
     DEFAULT_EAGER_RX_BUFS,
     DEFAULT_MAX_RENDEZVOUS_SIZE,
@@ -55,6 +64,10 @@ from .constants import (
     TuningKey,
     unknown_tuning_key_error,
 )
+from .observability import flight as _flight
+from .observability import health as _health
+from .observability import metrics as _metrics
+from .observability import trace as _trace
 from .request import Request, RequestQueue
 from .utils.logging import get_logger
 
@@ -81,6 +94,12 @@ class ACCL:
         self._queue = RequestQueue()
         self._communicators: list[Communicator] = []
         self._arith_ids: dict[tuple[DataType, DataType], int] = {}
+        #: arithcfg id -> (uncompressed, compressed) pair: the dtype of a
+        #: call's metrics signature
+        self._arith_pairs: dict[int, tuple[DataType, DataType]] = {}
+        #: always-on per-rank flight recorder, created at initialize;
+        #: None under ACCL_FLIGHT=0
+        self.flight_recorder: Optional[_flight.FlightRecorder] = None
         self._initialized = False
         self.max_eager_size = DEFAULT_EAGER_RX_BUF_SIZE
         self.max_rendezvous_size = DEFAULT_MAX_RENDEZVOUS_SIZE
@@ -134,6 +153,8 @@ class ACCL:
             int8_block_config(block))
         self._arith_ids_ef = {i8_pair: self._device.upload_arithconfig(
             int8_block_config(block, error_feedback=True))}
+        self._arith_pairs = {i: pair for pair, i in (
+            *self._arith_ids.items(), *self._arith_ids_ef.items())}
         self._call_memo.clear()
         if timeout is None:
             timeout = default_timeout()
@@ -152,6 +173,23 @@ class ACCL:
                 self.set_compression(env_compress)
         self._config_call(CfgFunc.enable_pkt)
         self._initialized = True
+        # observability bring-up: the flight recorder (the rank is known
+        # now), with the engine's link rows, stats and gang-assembly
+        # table as its receive-timeout forensics, and the OpenMetrics
+        # endpoint when ACCL_METRICS_PORT is set
+        if _flight.enabled():
+            self.flight_recorder = _flight.register(
+                _flight.FlightRecorder(local_rank))
+            sources = {}
+            for attr, key in (("link_stats", "link_rows"),
+                              ("engine_stats", "engine_stats"),
+                              ("gang_assembly_snapshot", "gang_assembly")):
+                fn = getattr(self._device, attr, None)
+                if callable(fn):
+                    sources[key] = fn
+            if sources:
+                self.flight_recorder.set_forensics_sources(sources)
+        _health.ensure_exporter_from_env()
 
     # ------------------------------------------------------------------
     # properties / config
@@ -632,7 +670,13 @@ class ACCL:
                  run_async: bool, desc: str):
         """Sync inputs, submit, and either return the request or wait,
         sync outputs and check the retcode (reference call_async /
-        call_sync, accl.cpp:1395-1413)."""
+        call_sync, accl.cpp:1395-1413).  ``t_submit`` marks user-call
+        entry, so operand staging is inside the submit→queue window;
+        the flight recorder is on by default, so the no-observer path
+        exists only under ACCL_FLIGHT=0, ACCL_METRICS=0 and no trace."""
+        observe = (self.flight_recorder is not None or _metrics.enabled()
+                   or _trace.enabled())
+        t_submit = _trace.now_ns() if observe else 0
         for buf, count in (*sync_in, *sync_out):
             if not buf.is_dummy and count > buf.length:
                 raise ACCLError(f"{desc}: count {count} exceeds buffer "
@@ -641,6 +685,8 @@ class ACCL:
             if not buf.is_dummy:
                 buf.slice(0, count).sync_to_device()
         req = Request(desc, sync=not run_async)
+        if observe:
+            self._observe_call(call, desc, req, t_submit)
         if sync_out:
             def finish(r: Request) -> None:
                 if r.retcode == 0:
@@ -661,10 +707,97 @@ class ACCL:
                                        and not r.done]
             return req
         if not req.wait(timeout=self.call_timeout_s):
+            # disarm the result sync; the flight record says where the
+            # call wedged
             req.on_complete = None
-            raise ACCLError(f"{desc} timed out waiting for engine completion")
+            raise ACCLError(f"{desc} timed out waiting for engine "
+                            f"completion{req.flight_info()}")
         req.check()
         return req
+
+    def resolve_call_signature(self, call: CCLOCall) -> tuple:
+        """(op, nranks, rank, dtype_name, nbytes) of one descriptor: the
+        metrics signature (accl_tpu/accl.py:1740), nbytes the per-rank
+        payload in the nccl-tests convention."""
+        op = Operation(call.scenario)
+        comm = (self._communicators[call.comm]
+                if call.comm < len(self._communicators) else None)
+        nranks = comm.size if comm else 1
+        rank = comm.local_rank if comm else -1
+        pair = self._arith_pairs.get(call.arithcfg)
+        dtype_name = pair[0].name if pair else "none"
+        # DATA_TYPE_SIZE is in bits (reference constants.hpp:268-272)
+        elem_bytes = (DATA_TYPE_SIZE.get(pair[0], 0) // 8) if pair else 0
+        nbytes = (call.count * elem_bytes
+                  * _metrics.payload_factor(op.name, nranks))
+        return op, nranks, rank, dtype_name, nbytes
+
+    def _observe_call(self, call: CCLOCall, desc: str, req: Request,
+                      t_submit: int) -> None:
+        """Attach the call's observability records to its request: the
+        flight record, the metrics signature (published by
+        Request.complete) and, under tracing, the span with its submit
+        stamp and gang id.  The gang-id key is the engine's FIFO pairing
+        key (scenario, comm, tag), so rank R's Nth instance gets the id
+        of the gang the engine assembles."""
+        op, nranks, rank, dtype_name, nbytes = \
+            self.resolve_call_signature(call)
+        gang = op in GANG_OPERATIONS
+        if self.flight_recorder is not None and _flight.enabled():
+            req.flight = self.flight_recorder.new_record(
+                req.id, op.name, call.comm, call.tag, dtype_name,
+                call.count, nbytes, nranks, gang, t_submit)
+        if _metrics.enabled():
+            req.metric = (_metrics.default_registry(), op.name, dtype_name,
+                          nbytes, nranks, t_submit, None)
+        if _trace.enabled():
+            span = _trace.new_span(op.name, desc, rank, call.count,
+                                   dtype_name, nbytes, nranks)
+            span.t_submit = t_submit
+            if gang:
+                span.gang_id = _trace.collector().gang_id_for(
+                    (int(op), call.comm, call.tag), rank)
+            req.trace = span
+
+    # ------------------------------------------------------------------
+    # observability (accl_tpu/accl.py:1797-1830)
+    # ------------------------------------------------------------------
+    def metrics(self) -> dict:
+        """Snapshot of the process registry every rank publishes into
+        (per-(collective, dtype, size-bucket) calls, latency histograms,
+        algbw and busbw), with the engine's dispatch-lane counters
+        merged under ``engine/`` keys.  Ranks of one world share the
+        registry, so the snapshot aggregates them."""
+        snap = _metrics.default_registry().snapshot()
+        eng = getattr(self._device, "engine_metrics", None)
+        if eng is not None:
+            for k, v in eng.counters().items():
+                snap["counters"][f"engine/{k}"] = v
+        return snap
+
+    def dump_metrics(self, as_json: bool = False) -> str:
+        """Text (default) or JSON rendering of the registry side of
+        :meth:`metrics`."""
+        return _metrics.dump_metrics(as_json=as_json)
+
+    def dump_flight_recorder(self, path: Optional[str] = None,
+                             merged: bool = False) -> dict:
+        """This rank's flight ring (its last N calls with state, lane and
+        stamps); with ``merged=True`` every live rank's ring through
+        ``merge_flight_dumps`` (desync, hang and straggler analysis);
+        with ``path`` the JSON is also written there."""
+        if self.flight_recorder is None and not merged:
+            raise ACCLError(
+                "flight recorder is off (ACCL_FLIGHT=0) or the driver "
+                "is not initialized")
+        doc = (_flight.dump_all() if merged
+               else self.flight_recorder.dump())
+        if path:
+            import json
+
+            with open(path, "w") as f:
+                json.dump(doc, f, indent=1)
+        return doc
 
     def dump_communicator(self, comm_id: int = GLOBAL_COMM) -> str:
         return self.communicator(comm_id).dump()
@@ -681,7 +814,8 @@ class ACCL:
             log.warning("deinit with %d async request(s) still pending",
                         len(pending))
             for r in pending:
-                log.warning("  pending: %s (id %d)", r.description, r.id)
+                log.warning("  pending: %s%s", r.description or "call",
+                            r.flight_info() or f" (id {r.id})")
         self._async_pending.clear()
         self._device.close()
 

@@ -20,14 +20,27 @@ quantized chunks.
 The kernels take a table of per-rank device pointers, so operands that
 are whole buffers of the gang's dtype reach them without a copy.
 
+Observability, as in tpu.py: each request's flight record and span are
+stamped at gang-ready and at dispatch, with the lane that ran it
+(``leader``, ``executor``, ``local``, ``p2p``); the engine's own
+:class:`MetricsRegistry` counts the dispatch lanes; a link twin
+accounts the bytes each gang's schedule moves per rank pair (at the
+compressed width on the wire lanes) and the gang-assembly wait; a
+:class:`Watchdog` over the world's flight recorders names the missing
+ranks of a stuck gang (``gang_assembly_snapshot``).  A launch returns at
+enqueue, so while tracing is on the engine synchronizes the stream after
+a gang's program and only then stamps ``t_device_end`` (and lands the
+ring kernels' device-trace rows); with tracing off it adds no
+synchronize.
+
 Left out of this port: persistent plans and plan rings, batched async
-dispatch, kernel streams, resilience, observability and link accounting
-(the int8 lane's wire-byte accounting with it).  A descriptor that asks
-for one of them is refused with an ACCLError.
+dispatch, kernel streams and resilience.  A descriptor that asks for one
+of them is refused with an ACCLError.
 """
 from __future__ import annotations
 
 import bisect
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -59,11 +72,21 @@ from ..constants import (
 )
 from ..ops import fused as fused_ops
 from ..ops import quantized as q_ops
+from ..observability import flight as _flight
+from ..observability import health as _health
+from ..observability import metrics as _metrics
+from ..observability import trace as _trace
 from ..ops import ring as ring_ops
 from ..request import Request
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 from .base import CCLODevice
+
+#: counter fields of one link row (the reference's LINK_STATS_FIELDS_V3
+#: past its (comm, peer) key, accl_tpu/observability/telemetry.py:103)
+LINK_COUNTER_FIELDS = ("tx_msgs", "tx_bytes", "rx_msgs", "rx_bytes",
+                       "retrans_sent", "nacks_tx", "nacks_rx", "fenced_drops",
+                       "seeks", "seek_wait_ns", "comp_tx_bytes")
 
 #: address quantum: a buffer's handle space is its byte size rounded up
 #: to whole quanta (plus one, so the end address of a slice still
@@ -80,8 +103,11 @@ class CudaBuffer(BaseBuffer):
     """Host numpy array paired with a tensor on the engine's device (the
     FPGABuffer analog: host map + device allocation)."""
 
-    def __init__(self, host: np.ndarray, device: torch.device, address: int):
+    def __init__(self, host: np.ndarray, device: torch.device, address: int,
+                 engine: Optional["CudaEngine"] = None, rank: int = 0):
         super().__init__(host, address)
+        self._engine = engine
+        self._rank = rank
         # own storage, never an alias of the host array (on the CPU
         # torch.from_numpy would alias it and let un-synced host writes
         # leak into "device" state; tpu.py:76-81 copies for the same
@@ -103,6 +129,14 @@ class CudaBuffer(BaseBuffer):
 
     def slice(self, start: int, end: int) -> "BaseBuffer":
         return _CudaBufferSlice(self, start, end)
+
+    def free(self) -> None:
+        """Drop the buffer from its engine (and the gang plans that hold
+        it), so its memory goes with the last reference: what a sweep
+        that makes buffers per call needs."""
+        if self._engine is not None:
+            self._engine.free_buffer(self._rank, self)
+            self._engine = None
 
 
 class _CudaBufferSlice(BaseBuffer):
@@ -196,6 +230,56 @@ def _tree_gather(vs: list, root: int) -> torch.Tensor:
                 acc[j] = acc[j] + acc.pop(j + k)
         k *= 2
     return torch.roll(torch.cat(acc[0]), root * n)
+
+
+def _mark_spans(gang: dict, lane: Optional[str] = None,
+                t_ready: Optional[int] = None,
+                t_dispatch: Optional[int] = None,
+                t_dev0: Optional[int] = None,
+                t_dev1: Optional[int] = None) -> None:
+    """Stamp a gang's member spans with scheduler events (tpu.py:147;
+    a no-op per member whose request has no span)."""
+    for _call, req in gang.values():
+        span = req.trace
+        if span is None:
+            continue
+        if lane is not None:
+            span.lane = lane
+        if t_ready is not None:
+            span.t_gang_ready = t_ready
+        if t_dispatch is not None:
+            span.t_dispatch = t_dispatch
+        if t_dev0 is not None:
+            span.t_device_begin = t_dev0
+        if t_dev1 is not None:
+            span.t_device_end = t_dev1
+
+
+def _observing() -> bool:
+    """Whether the link twin counts: while the metrics registry or the
+    flight recorder, its readers, is on (ACCL_METRICS, ACCL_FLIGHT).  With
+    both off the engine skips it, and the link rows read what was counted
+    before."""
+    return _metrics.enabled() or _flight.enabled()
+
+
+def _mark_flight(gang: dict, state: int, lane: Optional[str] = None,
+                 t: Optional[int] = None) -> None:
+    """Stamp a gang's member flight records with one state transition
+    (tpu.py:170): a few attribute writes per member, while the flight
+    recorder is on."""
+    if not _flight.enabled():
+        return
+    for _call, req in gang.values():
+        rec = req.flight
+        if rec is None:
+            continue
+        if state == _flight.S_DISPATCHED:
+            rec.mark_dispatched(lane, t)
+        else:
+            rec.state = state
+            if state == _flight.S_GANG_READY and t is not None:
+                rec.t_gang_ready = t
 
 
 def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
@@ -339,7 +423,28 @@ class CudaEngine:
         self._shutdown = False
         self._exec_busy = False
         self._inline_busy = False
-        self.stats = {"leader_dispatches": 0, "executor_dispatches": 0}
+        #: leader dispatch for blocking gangs (_dispatch_gang);
+        #: ACCL_LEADER_DISPATCH=0 sends every gang through the executor,
+        #: the A/B lane of the call-rate bench (tpu.py:272-275)
+        self.leader_dispatch = os.environ.get("ACCL_LEADER_DISPATCH",
+                                              "1") != "0"
+        #: the dispatch-lane counters (tpu.py:314); the batch and plan
+        #: counters stay 0 until plans and batched dispatch are ported
+        self.metrics = _metrics.MetricsRegistry()
+        for k in ("leader_dispatches", "executor_dispatches", "batches",
+                  "batched_gangs", "plan_replays", "plan_auto_captures"):
+            self.metrics.inc(k, 0)
+        #: link twin, kept as what a call can count cheaply and
+        #: expanded into per-link rows only when read (link_stats_for):
+        #: gangs dispatched per (op, comm, operand bytes, wire spec,
+        #: root), and the gang-assembly wait per (src, comm, peer) as
+        #: [seeks, seek_wait_ns]
+        self._link_gangs: dict = {}
+        self._link_waits: dict = {}
+        self._link_lock = threading.Lock()
+        #: hang watchdog, armed by start_watchdog once the world's flight
+        #: recorders exist
+        self._watchdog: Optional[_health.Watchdog] = None
         self._log = get_logger("accl_tpu_torch.cuda")
         self._exec_thread = threading.Thread(
             target=self._exec_loop, name="accl-gang-exec", daemon=True)
@@ -355,10 +460,28 @@ class CudaEngine:
         with self._lock:
             addr = self._next_addr[rank]
             self._next_addr[rank] += span
-            buf = CudaBuffer(host, self.device, addr)
+            buf = CudaBuffer(host, self.device, addr, self, rank)
             self._buffers[rank][addr] = buf
             self._bases[rank].append(addr)
         return buf
+
+    def free_buffer(self, rank: int, buf: CudaBuffer) -> None:
+        """Forget one buffer: its address stops resolving, and the cached
+        gang plans that hold it are dropped."""
+        with self._lock:
+            if self._buffers[rank].pop(buf.address, None) is None:
+                return
+            self._bases[rank].remove(buf.address)
+            for sig in [sig for sig, plan in self._gang_plans.items()
+                        if any(b is buf or r is buf
+                               for b, _o, r, _ro in plan["ops"])]:
+                del self._gang_plans[sig]
+
+    @property
+    def stats(self) -> dict:
+        """Dispatch-lane counter snapshot (the engine registry's
+        counters)."""
+        return self.metrics.counters()
 
     def resolve(self, rank: int, addr: int):
         """Map a descriptor address to (buffer, element offset)."""
@@ -418,20 +541,35 @@ class CudaEngine:
         if scenario in (Operation.config, Operation.nop):
             request.complete(0, 0.0)
             return
+        span = request.trace
+        rec = request.flight
         try:
             if call.stream_flags != StreamFlags.NO_STREAM:
                 raise ACCLError("kernel streams are not part of "
                                 "accl_tpu_torch yet")
-            if scenario == Operation.copy:
-                self._exec_copy(rank, call)
+            if scenario in (Operation.copy, Operation.combine):
+                if rec is not None:
+                    rec.mark_dispatched("local", _trace.now_ns())
+                if span is not None:
+                    span.lane = "local"
+                    span.t_dispatch = span.t_device_begin = _trace.now_ns()
+                if scenario == Operation.copy:
+                    self._exec_copy(rank, call)
+                else:
+                    self._exec_combine(rank, call)
+                if span is not None:
+                    span.t_device_end = _trace.now_ns()
                 request.complete(0, 1.0)
-            elif scenario == Operation.combine:
-                self._exec_combine(rank, call)
-                request.complete(0, 1.0)
-            elif scenario == Operation.send:
-                self._submit_send(rank, call, request)
-            elif scenario == Operation.recv:
-                self._submit_recv(rank, call, request)
+            elif scenario in (Operation.send, Operation.recv):
+                if rec is not None:
+                    rec.mark_dispatched("p2p", _trace.now_ns())
+                if span is not None:
+                    span.lane = "p2p"
+                    span.t_dispatch = span.t_device_begin = _trace.now_ns()
+                if scenario == Operation.send:
+                    self._submit_send(rank, call, request)
+                else:
+                    self._submit_recv(rank, call, request)
             else:
                 self._submit_collective(rank, call, request)
         except Exception as e:  # surface as an engine error, not a hang
@@ -525,6 +663,8 @@ class CudaEngine:
                 request.description += f" [{e}]"
                 request.complete(int(ErrorCode.DMA_INTERNAL_ERROR), 0.0)
                 continue
+            if request.trace is not None:  # delivery ends the device window
+                request.trace.t_device_end = _trace.now_ns()
             request.complete(0, 1.0)
 
     # -- collectives ---------------------------------------------------
@@ -532,6 +672,10 @@ class CudaEngine:
                            request: Request) -> None:
         P = len(self._comms[call.comm])
         gkey = ("coll", int(call.scenario), call.comm, call.tag)
+        # gang arrival, for the straggler wait of the link twin
+        observing = _observing()
+        if observing:
+            request.link_arrival_ns = _trace.now_ns()
         ready = None
         with self._lock:
             q = self._gangs.setdefault(gkey, deque())
@@ -550,6 +694,12 @@ class CudaEngine:
                     ready = gang
                     q.remove(gang)
         if ready is not None:
+            t_ready = _trace.now_ns()  # the last member arrived
+            _mark_flight(ready, _flight.S_GANG_READY, t=t_ready)
+            if _trace.enabled():
+                _mark_spans(ready, t_ready=t_ready)
+            if observing:
+                self._account_gang_wait(call.comm, ready, t_ready)
             self._dispatch_gang(int(call.scenario), call.comm, ready, request)
 
     def _dispatch_gang(self, scenario: int, comm_id: int, gang: dict,
@@ -558,8 +708,9 @@ class CudaEngine:
         gang, the last-arriving rank runs it inline — deferred to its
         Request.wait, out of its submission lock — provided the engine
         is idle; otherwise the gang goes to the executor queue.  Either
-        way gangs run one at a time in completion order."""
-        if all(req.sync for _c, req in gang.values()):
+        way gangs run one at a time in completion order.
+        ``leader_dispatch`` False sends every gang to the executor."""
+        if self.leader_dispatch and all(req.sync for _c, req in gang.values()):
             def run_inline() -> None:
                 with self._ready_cv:
                     idle = (not self._ready and not self._exec_busy
@@ -570,7 +721,11 @@ class CudaEngine:
                     self._enqueue_ready(scenario, comm_id, gang)
                     return
                 try:
-                    self.stats["leader_dispatches"] += 1
+                    self.metrics.inc("leader_dispatches")
+                    _mark_flight(gang, _flight.S_DISPATCHED, lane="leader",
+                                 t=_trace.now_ns())
+                    if _trace.enabled():
+                        _mark_spans(gang, lane="leader")
                     self._exec_gang(scenario, comm_id, gang)
                 finally:
                     with self._ready_cv:
@@ -599,7 +754,7 @@ class CudaEngine:
                 scenario, comm_id, gang = self._ready.popleft()
                 self._exec_busy = True
             try:
-                self.stats["executor_dispatches"] += 1
+                self.metrics.inc("executor_dispatches")
                 self._exec_gang(scenario, comm_id, gang)
             finally:
                 with self._ready_cv:
@@ -607,8 +762,24 @@ class CudaEngine:
                     self._ready_cv.notify_all()
 
     def _exec_gang(self, scenario: int, comm_id: int, gang: dict) -> None:
+        """Run one gang and complete its members (tpu.py:1590): the
+        dispatch stamp (the leader lane pre-tags its members, every other
+        gang is the executor's), then, under tracing, the device window."""
         try:
-            dt_ns = self._run_collective(Operation(scenario), comm_id, gang)
+            _mark_flight(gang, _flight.S_DISPATCHED, lane="executor",
+                         t=_trace.now_ns())
+            if _trace.enabled():
+                td = _trace.now_ns()
+                for _c, req in gang.values():
+                    span = req.trace
+                    if span is not None:
+                        if span.lane is None:
+                            span.lane = "executor"
+                        span.t_dispatch = td
+            dt_ns, t0, t1 = self._run_collective(Operation(scenario),
+                                                 comm_id, gang)
+            if _trace.enabled():
+                _mark_spans(gang, t_dev0=t0, t_dev1=t1)
         except Exception as e:
             self._log.debug("gang %s failed: %s", Operation(scenario).name, e)
             for _call, request in gang.values():
@@ -694,6 +865,8 @@ class CudaEngine:
                          Operation.reduce_scatter: in_len // nranks}[op]
                         if ring and not fused and not wire_dtype else 0),
             "dtype": None if dtype is None else torch_dtype(dtype),
+            "itemsize": 0 if dtype is None else np.dtype(dtype).itemsize,
+            "wire_dtype": wire_dtype,
             "ops": ops,
             "ring": ring,
             "program": (None if op == Operation.barrier else
@@ -707,14 +880,24 @@ class CudaEngine:
                 self._gang_plans.popitem(last=False)
         return plan
 
-    def _run_collective(self, op: Operation, comm_id: int, gang: dict) -> int:
+    def _run_collective(self, op: Operation, comm_id: int,
+                        gang: dict) -> tuple:
         """Gather the gang's operands (views of the rank buffers where the
         dtype and length allow), run the program, write each result into
-        its rank's buffer.  Returns the program's host duration in ns: on
-        the card that is the enqueue, not the device time."""
+        its rank's buffer.  Returns (duration ns, device-begin ns,
+        device-end ns).  On the card a launch returns at enqueue: with
+        tracing off the duration is the enqueue; with tracing on the
+        stream is synchronized before the end stamp, so the window holds
+        the device work.  The ring wrappers land their device-trace rows
+        themselves, each after its launch."""
         if op == Operation.barrier:
-            return 0  # gang completion is the synchronization
+            t = time.perf_counter_ns()
+            return 0, t, t  # gang completion is the synchronization
         plan = self._gang_plan(op, comm_id, gang)
+        if _observing():
+            self._account_gang_links(op, comm_id, gang,
+                                     plan["in_len"] * plan["itemsize"],
+                                     plan["wire_dtype"])
         in_len, dtype = plan["in_len"], plan["dtype"]
         xs = []
         for buf, off, _res, _roff in plan["ops"]:
@@ -733,7 +916,10 @@ class CudaEngine:
                                                              ys)):
             if res is not None and (outs is None or y is not outs[r]):
                 res.dev[roff:roff + y.shape[0]].copy_(y)
-        return t1 - t0
+        if _trace.enabled() and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+            t1 = time.perf_counter_ns()
+        return t1 - t0, t0, t1
 
     @staticmethod
     def _direct_outs(plan: dict, xs: list) -> Optional[list]:
@@ -757,7 +943,187 @@ class CudaEngine:
             return None
         return outs
 
+    # -- link twin (tpu.py:764-880) -------------------------------------
+    @staticmethod
+    def _wire_ratio(wire_dtype: str) -> float:
+        """Wire bytes per logical byte of a wire spec ("" = 1.0): the cast
+        lanes halve the payload; the int8 lane packs ~4:1 plus one fp32
+        scale per block."""
+        if not wire_dtype:
+            return 1.0
+        name, block, _ef = _parse_wire_spec(wire_dtype)
+        if name == "int8":
+            return (1.0 + 4.0 / max(block, 1)) / 4.0
+        return 0.5
+
+    def _account_gang_links(self, op, comm_id: int, gang: dict,
+                            nbytes: int, wire_dtype: str = "") -> None:
+        """Count one dispatched gang for the link twin (one dict update;
+        :meth:`_gang_link_rows` turns it into per-link bytes when the
+        rows are read).  A compressed wire also counts its logical and
+        wire bytes in the engine registry (compressed_tx_*)."""
+        P = len(self._comms.get(comm_id, ()))
+        if P < 2 or nbytes <= 0:
+            return
+        ratio = self._wire_ratio(wire_dtype)
+        if ratio < 1.0:
+            name = Operation(op).name
+            # nbytes is in_len x itemsize, which carries the P factor of
+            # the n*P-operand collectives: divide it back out, so logical
+            # = count x payload_factor as the metrics count it
+            per_count = nbytes // (
+                P if name in ("scatter", "reduce_scatter", "alltoall")
+                else 1)
+            logical = int(per_count * _metrics.payload_factor(name, P))
+            self.metrics.inc("compressed_tx_logical_bytes", logical)
+            self.metrics.inc("compressed_tx_bytes", int(logical * ratio))
+        key = (int(op), comm_id, nbytes, wire_dtype,
+               next(iter(gang.values()))[0].root_src_dst)
+        with self._link_lock:
+            self._link_gangs[key] = self._link_gangs.get(key, 0) + 1
+
+    def _gang_link_rows(self, op: int, comm_id: int, nbytes: int,
+                        wire_dtype: str, root_local: int) -> list:
+        """The per-link counters of one gang, as tpu.py accounts them:
+        ring collectives move busbw_factor x nbytes per rank to the right
+        neighbour over P - 1 (allgather, reduce_scatter, alltoall) or
+        2 (P - 1) (allreduce) hops; rooted collectives put the payload on
+        the root's links; a compressed wire adds comp_tx_bytes.  Returns
+        [((src, comm, peer), counts)]."""
+        members = self._comms.get(comm_id, [])
+        P = len(members)
+        name = Operation(op).name
+        ratio = self._wire_ratio(wire_dtype)
+        rows = []
+        if name in ("allreduce", "allgather", "reduce_scatter",
+                    "alltoall"):
+            if name == "allgather":
+                nbytes *= P
+            per_link = int(nbytes * _metrics.busbw_factor(name, P))
+            hops = 2 * (P - 1) if name == "allreduce" else P - 1
+            comp = int(per_link * ratio) if ratio < 1.0 else 0
+            for i, src in enumerate(members):
+                rows.append(((src, comm_id, members[(i + 1) % P]),
+                             {"tx_msgs": hops, "tx_bytes": per_link,
+                              "comp_tx_bytes": comp}))
+                rows.append(((src, comm_id, members[(i - 1) % P]),
+                             {"rx_msgs": hops, "rx_bytes": per_link}))
+        elif name in ("bcast", "scatter", "gather", "reduce"):
+            root = members[root_local] if root_local < P else members[0]
+            to_root = name in ("gather", "reduce")
+            # each root <-> member link carries 1/P of scatter's operand
+            per_link = nbytes // P if name == "scatter" else nbytes
+            comp = int(per_link * ratio) if ratio < 1.0 else 0
+            for m in members:
+                if m == root:
+                    continue
+                a, b = (m, root) if to_root else (root, m)
+                rows.append(((a, comm_id, b), {"tx_msgs": 1,
+                                               "tx_bytes": per_link,
+                                               "comp_tx_bytes": comp}))
+                rows.append(((b, comm_id, a), {"rx_msgs": 1,
+                                               "rx_bytes": per_link}))
+        return rows
+
+    def _account_gang_wait(self, comm_id: int, gang: dict,
+                           t_ready: int) -> None:
+        """Straggler wait: each non-last member's (t_last - t_own) is
+        put on the link to the last-arriving rank, the one it waited
+        for."""
+        known = {r: t for r, (_c, req) in gang.items()
+                 if (t := getattr(req, "link_arrival_ns", None)) is not None}
+        if len(known) < 2:
+            return
+        last_rank = max(known, key=known.__getitem__)
+        t_last = known[last_rank]
+        with self._link_lock:
+            for r, t in known.items():
+                if r != last_rank:
+                    w = self._link_waits.setdefault((r, comm_id, last_rank),
+                                                    [0, 0])
+                    w[0] += 1
+                    w[1] += max(t_last - t, 0)
+
+    def _link_table(self) -> dict:
+        """(src, comm, peer) -> counters: the gangs counted so far,
+        expanded into per-link rows, and the waits."""
+        with self._link_lock:
+            gangs = dict(self._link_gangs)
+            waits = {k: list(v) for k, v in self._link_waits.items()}
+        table: dict = {}
+        for key, n in gangs.items():
+            for link, counts in self._gang_link_rows(*key):
+                row = table.setdefault(link, {})
+                for f, v in counts.items():
+                    row[f] = row.get(f, 0) + n * v
+        for link, (seeks, wait_ns) in waits.items():
+            row = table.setdefault(link, {})
+            row["seeks"] = row.get("seeks", 0) + seeks
+            row["seek_wait_ns"] = row.get("seek_wait_ns", 0) + wait_ns
+        return table
+
+    def link_stats_for(self, rank: int) -> list:
+        """One rank's link rows: {"comm", "peer", *LINK_COUNTER_FIELDS},
+        peers as global ranks."""
+        rows = []
+        for (src, comm, peer), c in sorted(self._link_table().items()):
+            if src != rank:
+                continue
+            row = {"comm": comm, "peer": peer}
+            for f in LINK_COUNTER_FIELDS:
+                row[f] = int(c.get(f, 0))
+            rows.append(row)
+        return rows
+
+    # -- hang diagnosis (tpu.py:1441-1492) -------------------------------
+    def start_watchdog(self, recorders) -> Optional[_health.Watchdog]:
+        """Arm the hang watchdog over the world's flight recorders
+        (``ACCL_WATCHDOG_TIMEOUT`` seconds; 0 disables); a fire report
+        embeds :meth:`gang_assembly_snapshot`."""
+        if self._watchdog is None:
+            self._watchdog = _health.Watchdog(
+                recorders, introspect=self.gang_assembly_snapshot,
+                name="accl-cuda").start()
+        return self._watchdog
+
+    def gang_assembly_snapshot(self) -> list:
+        """Every partial gang still assembling: which ranks arrived,
+        which members are missing, the oldest arrival's age; and every
+        unmatched send or recv of the p2p channels."""
+        now = _trace.now_ns()
+        with self._lock:
+            items = [(k, ([dict(g) for g in q] if k[0] == "coll"
+                          else [(e[0], e[1]) for e in q]))
+                     for k, q in self._gangs.items() if q]
+        out = []
+        for key, gangs in items:
+            if key[0] == "coll":
+                _kind, scenario, comm_id, tag = key
+                members = self._comms.get(comm_id, [])
+                for gang in gangs:
+                    recs = [req.flight for _c, req in gang.values()
+                            if req.flight is not None]
+                    out.append({
+                        "kind": "collective",
+                        "collective": Operation(scenario).name,
+                        "comm": comm_id, "tag": tag,
+                        "arrived": sorted(gang),
+                        "missing": [m for m in members if m not in gang],
+                        "oldest_age_us": round(max(
+                            (r.age_ns(now) for r in recs), default=0)
+                            / 1e3, 1),
+                    })
+            else:
+                _kind, comm_id, src, dst = key
+                for kind, tag in gangs:
+                    out.append({"kind": kind, "comm": comm_id, "src": src,
+                                "dst": dst, "tag": tag})
+        return out
+
     def shutdown(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
         with self._ready_cv:
             self._shutdown = True
             self._ready_cv.notify_all()
@@ -773,6 +1139,51 @@ class CudaDeviceView(CCLODevice):
 
     def start(self, call: CCLOCall, request: Request) -> None:
         self._engine.submit(self._rank, call, request)
+
+    @property
+    def engine_metrics(self) -> _metrics.MetricsRegistry:
+        """The shared engine's registry (ACCL.metrics() merges its
+        dispatch-lane counters under engine/ keys)."""
+        return self._engine.metrics
+
+    def engine_stats(self) -> dict:
+        """Engine stats in the key set of the reference's TPU view
+        (tpu.py:2308).  The plan-ring fields (plans_live,
+        plan_ring_refs, plan_ring_generation, plan_ring_replays,
+        plan_replays, plan_auto_captures) and the batch fields (batches,
+        batched_gangs) read 0 until plans and batched dispatch are
+        ported."""
+        eng = self._engine
+        counters = eng.metrics.counters()
+        with eng._ready_cv:
+            ready_depth = len(eng._ready)
+        link_rows = sum(1 for (src, _c, _p) in eng._link_table()
+                        if src == self._rank)
+        return {
+            "version": 3,
+            "link_rows": link_rows,
+            "compressed_tx_bytes": counters.get("compressed_tx_bytes", 0),
+            "compressed_tx_logical_bytes":
+                counters.get("compressed_tx_logical_bytes", 0),
+            "plans_live": 0,
+            "plan_ring_refs": 0,
+            "plan_ring_generation": 0,
+            "plan_ring_replays": 0,
+            "plan_replays": counters.get("plan_replays", 0),
+            "plan_auto_captures": counters.get("plan_auto_captures", 0),
+            "leader_dispatches": counters.get("leader_dispatches", 0),
+            "executor_dispatches": counters.get("executor_dispatches", 0),
+            "batches": counters.get("batches", 0),
+            "batched_gangs": counters.get("batched_gangs", 0),
+            "ready_depth": ready_depth,
+        }
+
+    def link_stats(self) -> list:
+        """This rank's link rows from the engine's link twin."""
+        return self._engine.link_stats_for(self._rank)
+
+    def gang_assembly_snapshot(self) -> list:
+        return self._engine.gang_assembly_snapshot()
 
     def create_buffer(self, length: int, dtype: np.dtype) -> BaseBuffer:
         return self._engine.create_buffer(self._rank, length, dtype)
@@ -808,8 +1219,17 @@ class CudaWorld:
         self.accls = [ACCL(d) for d in self.devices]
         self._pool = ThreadPoolExecutor(max_workers=nranks)
         ranks = [Rank(ip="127.0.0.1", port=0, session=r) for r in range(nranks)]
+        # an exporter the ranks' bring-up starts is this world's to stop
+        had_exporter = _health.exporter_port() is not None
         for r, a in enumerate(self.accls):
             a.initialize(ranks, r)
+        self._owns_exporter = (not had_exporter
+                               and _health.exporter_port() is not None)
+        # the hang watchdog over the ranks' flight recorders (none under
+        # ACCL_WATCHDOG_TIMEOUT=0 or ACCL_FLIGHT=0)
+        self.engine.start_watchdog(
+            [a.flight_recorder for a in self.accls
+             if a.flight_recorder is not None])
 
     def run(self, fn: Callable, *args, timeout: Optional[float] = 300) -> list:
         futures = [self._pool.submit(self._on_device, fn, self.accls[r], r,
@@ -822,9 +1242,18 @@ class CudaWorld:
             torch.cuda.set_device(self.engine.device)
         return fn(accl, rank, *args)
 
+    def link_stats(self) -> dict:
+        """rank -> that rank's link rows (the engine's link twin)."""
+        return {r: d.link_stats() for r, d in enumerate(self.devices)}
+
     def close(self) -> None:
+        """Stop the watchdog, the executor and, when this world's bring-up
+        started it, the OpenMetrics exporter."""
         self.engine.shutdown()
         self._pool.shutdown(wait=False)
+        if self._owns_exporter:
+            _health.stop_exporter()
+            self._owns_exporter = False
 
     def __enter__(self) -> "CudaWorld":
         return self

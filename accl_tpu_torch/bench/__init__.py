@@ -3,4 +3,9 @@
 the chained CUDA-event harness and the device/host split of launches; ``flash_sweep``, the flash schedule sweep;
 ``kernel_tune``, the flash and compression tuning sweeps; ``ring_split``
 and ``matmul_split``, a tree's ring kernels and matmul kernels timed with
-that split, to set two trees side by side."""
+that split, to set two trees side by side; ``sweep``, busbw against size
+per collective and per wire lane; ``callrate``, the driver's calls a
+second by dispatch lane against the raw rate; ``driver_split``, the
+driver call's microseconds, to set two trees side by side."""
+
+from .sweep import SweepConfig, run_sweep  # noqa: F401

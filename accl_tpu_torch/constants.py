@@ -254,3 +254,17 @@ def env_int(name: str, default: int, minimum: int | None = None) -> int:
     if minimum is not None and val < minimum:
         raise ACCLError(f"{name}={raw!r} must be >= {minimum}")
     return val
+
+
+def env_float(name: str, default: float, minimum: float | None = None) -> float:
+    """Float twin of :func:`env_int` (same clear-error contract)."""
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    try:
+        val = float(raw)
+    except ValueError as e:
+        raise ACCLError(f"{name}={raw!r} is not a number") from e
+    if minimum is not None and val < minimum:
+        raise ACCLError(f"{name}={raw!r} must be >= {minimum}")
+    return val

@@ -11,3 +11,11 @@ from .quantized import (  # noqa: F401
     quantized_ring_reduce_scatter,
 )
 from .reduce_ops import pallas_add, pallas_max, reduce_lane  # noqa: F401
+from .ring import (  # noqa: F401
+    ring_all_gather,
+    ring_all_gather_segmented,
+    ring_all_reduce,
+    ring_all_reduce_segmented,
+    ring_reduce_scatter,
+    ring_reduce_scatter_segmented,
+)

@@ -31,9 +31,10 @@ _f32, _u32, _ll = ctypes.c_float, ctypes.c_uint, ctypes.c_longlong
 SIGNATURES = {
     "ring": {
         "accl_ring_error_string": ([_i32], ctypes.c_char_p),
-        "accl_ring_resident": ([_i32, _i32, _i32], _i32),
+        "accl_ring_resident": ([_i32, _i32, _i32, _i32], _i32),
+        "accl_ring_kernel_info": ([_i32, _i32, _i32, _i32, _vp], _i32),
         "accl_ring_launch": ([_i32, _i32, _vp, _vp, _i32, _i32, _vp, _vp, _vp,
-                              _i32, _vp], _i32),
+                              _vp, _i32, _vp], _i32),
     },
     "fused": {
         "accl_fused_error_string": ([_i32], ctypes.c_char_p),

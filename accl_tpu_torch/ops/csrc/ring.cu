@@ -82,6 +82,19 @@
 // __nanosleep, or both waits of a step behind one barrier, changed
 // nothing.
 //
+// Device-trace stamp mode (the reference's ACCL_DEVICE_TRACE rows,
+// _stamp_row at accl_tpu/ops/ring.py:79-96).  ring_kernel<T, KIND, true>
+// also writes one int32 row per (segment, rank, step) into stamps, laid
+// out [segment][rank][step][STAMP_COLS]: rank, step, the logical phase
+// stamps 3 step + {0, 1, 2}, the tx and rx peers (right and left
+// neighbour), and the tx and rx bytes of one chunk of the segment (its
+// chunk width w times sizeof(T), the reference's padded chunk on a ragged
+// allreduce segment).  The block that plays the segment's first tile
+// writes the row once its step is done.  Segments are numbered over both
+// parts, the whole ones first.  ring_kernel<T, KIND, false> is the
+// kernel without the mode: the flag is a template argument, so its code,
+// registers and launches are those of the kernel before the mode existed.
+//
 // Correctness rules the design keeps:
 //  * all blocks spin on flags other blocks set, so the launch is
 //    cooperative: the runtime refuses a grid that cannot be co-resident
@@ -95,6 +108,7 @@
 #include "ring_sync.cuh"
 
 #define THREADS 256
+#define STAMP_COLS 9
 
 // -- element ops ----------------------------------------------------------
 template <typename T> __device__ __forceinline__ T ldcg(const T* p) { return __ldcg(p); }
@@ -228,10 +242,11 @@ __device__ __forceinline__ int64_t tiles_of(const Geometry& g, int S, int k) {
 // KIND 2: all-gather (x = rank my's chunk, read at chunk index my; out =
 // every chunk).
 // ------------------------------------------------------------------------
-template <typename T, int KIND>
+template <typename T, int KIND, bool STAMP>
 __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& outs,
                                           const Geometry& g, int P, int S, int my, int k,
-                                          int64_t u, int q, T* slots, int* flags) {
+                                          int64_t u, int q, T* slots, int* flags,
+                                          int* stamps) {
   constexpr bool AG = (KIND == 2);
   constexpr int OP = AG ? OP_COPY : (KIND == 1 ? OP_MAX : OP_SUM);
   const int right = (my + 1) % P, left = (my + P - 1) % P;
@@ -298,6 +313,22 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
     if (!last) arrive_release(F(right, h + 1));
     // the landing of hop h is consumed: free its slot for hop h + 2
     if (tile_signals_ack(h, H)) arrive_release(A(left, h));
+    if (STAMP && j0 == 0) {
+      // step q - 1 of the reference's kernel is done: its stamp row
+      const int64_t seg = (second ? g.part[0].nseg : 0) + i;
+      const int st = q - 1;
+      const int nbytes = (int)(p.w * (int64_t)sizeof(T));
+      int* row = stamps + ((seg * P + my) * (P - 1) + st) * STAMP_COLS;
+      row[0] = my;
+      row[1] = st;
+      row[2] = 3 * st;
+      row[3] = 3 * st + 1;
+      row[4] = 3 * st + 2;
+      row[5] = right;
+      row[6] = left;
+      row[7] = nbytes;
+      row[8] = nbytes;
+    }
   }
 }
 
@@ -305,13 +336,15 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
 // The kernel: block b plays rank b / S on stripe b % S and takes its
 // steps in order, tile by tile.
 // ------------------------------------------------------------------------
-template <typename T, int KIND>
+template <typename T, int KIND, bool STAMP>
 __global__ void __launch_bounds__(THREADS, 2)
-ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int S, T* slots, int* flags) {
+ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int S, T* slots, int* flags,
+            int* stamps) {
   const int my = blockIdx.x / S, k = blockIdx.x % S;
   const int64_t U = tiles_of(g, S, k);
   for (int64_t u = 0; u < U; ++u)
-    for (int q = 0; q < P; ++q) ring_step<T, KIND>(xs, outs, g, P, S, my, k, u, q, slots, flags);
+    for (int q = 0; q < P; ++q)
+      ring_step<T, KIND, STAMP>(xs, outs, g, P, S, my, k, u, q, slots, flags, stamps);
   if (threadIdx.x == 0 && U > 0) {
     int* ack = flags + (int64_t)P * S * 2;
     const int64_t f = ((int64_t)my * S + k) * 2;
@@ -324,25 +357,30 @@ ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int S, T* slots, int*
 // ------------------------------------------------------------------------
 enum { DT_F32 = 0, DT_F16 = 1, DT_F64 = 2, DT_I32 = 3, DT_I64 = 4 };
 
-template <typename T>
+template <typename T, bool STAMP>
 static void* kernel_of(int kind) {
   switch (kind) {
-    case 0: return (void*)ring_kernel<T, 0>;
-    case 1: return (void*)ring_kernel<T, 1>;
-    case 2: return (void*)ring_kernel<T, 2>;
+    case 0: return (void*)ring_kernel<T, 0, STAMP>;
+    case 1: return (void*)ring_kernel<T, 1, STAMP>;
+    case 2: return (void*)ring_kernel<T, 2, STAMP>;
   }
   return nullptr;
 }
 
+template <bool STAMP>
 static void* kernel_for(int kind, int dtype) {
   switch (dtype) {
-    case DT_F32: return kernel_of<float>(kind);
-    case DT_F16: return kernel_of<__half>(kind);
-    case DT_F64: return kernel_of<double>(kind);
-    case DT_I32: return kernel_of<int>(kind);
-    case DT_I64: return kernel_of<long long>(kind);
+    case DT_F32: return kernel_of<float, STAMP>(kind);
+    case DT_F16: return kernel_of<__half, STAMP>(kind);
+    case DT_F64: return kernel_of<double, STAMP>(kind);
+    case DT_I32: return kernel_of<int, STAMP>(kind);
+    case DT_I64: return kernel_of<long long, STAMP>(kind);
   }
   return nullptr;
+}
+
+static void* kernel_for(int kind, int dtype, int stamp) {
+  return stamp ? kernel_for<true>(kind, dtype) : kernel_for<false>(kind, dtype);
 }
 
 extern "C" {
@@ -352,12 +390,12 @@ const char* accl_ring_error_string(int code) {
 }
 
 // Blocks of one kernel (kind 0 = reduce-scatter by sum, 1 = by max, 2 =
-// all-gather) that can be resident on the card together, or a negative
-// CUDA error.
-int accl_ring_resident(int kind, int dtype, int device) {
+// all-gather; stamp 1 = the device-trace instantiation) that can be
+// resident on the card together, or a negative CUDA error.
+int accl_ring_resident(int kind, int dtype, int stamp, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return -(int)e;
-  void* fn = kernel_for(kind, dtype);
+  void* fn = kernel_for(kind, dtype, stamp);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -367,23 +405,44 @@ int accl_ring_resident(int kind, int dtype, int device) {
   return sms * per_sm;
 }
 
+// out[0..2]: registers, local (spill) bytes and blocks per SM of one
+// instantiation, as the runtime reports them.
+int accl_ring_kernel_info(int kind, int dtype, int stamp, int device, int* out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  void* fn = kernel_for(kind, dtype, stamp);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = per_sm;
+  return 0;
+}
+
 // One launch of P * S blocks over the geometry geo (GEOMETRY_WORDS
 // int64 words, the layout of struct Geometry).  slots holds P * S * 2 *
-// tw elements; flags P * S * 4 int32, zero on entry and on exit.
+// tw elements; flags P * S * 4 int32, zero on entry and on exit.  A
+// non-null stamps (segments * P * (P - 1) * STAMP_COLS int32) launches
+// the device-trace instantiation, which fills it.
 int accl_ring_launch(int kind, int dtype, const void* const* xs, void* const* outs, int P,
-                     int S, const int64_t* geo, void* slots, int* flags, int device,
-                     void* stream) {
+                     int S, const int64_t* geo, void* slots, int* flags, int* stamps,
+                     int device, void* stream) {
   if (P < 2 || P > MAXP || S < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  void* fn = kernel_for(kind, dtype);
+  void* fn = kernel_for(kind, dtype, stamps != nullptr);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   PtrTable xt;
   OutTable ot;
   for (int r = 0; r < P; ++r) { xt.p[r] = xs[r]; ot.p[r] = outs[r]; }
   Geometry g;
   memcpy(&g, geo, sizeof(Geometry));
-  void* args[] = {&xt, &ot, &g, &P, &S, &slots, &flags};
+  void* args[] = {&xt, &ot, &g, &P, &S, &slots, &flags, &stamps};
   e = cudaLaunchCooperativeKernel(fn, dim3(P * S), dim3(THREADS), args, 0,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

@@ -37,8 +37,14 @@ with ``torch.matmul`` in float32, which on the card is a full fp32
 product only while ``torch.backends.cuda.matmul.allow_tf32`` is False
 (PyTorch's default); the kernels never use TF32.
 
+Device tracing: with ``ACCL_DEVICE_TRACE`` set the chunked lanes and the
+chunked ``fused_matmul_allreduce`` record one stamp row per (step,
+chunk) pipeline slot and rank, computed on the host as in the reference
+(``_fused_stamp_rows``, accl_tpu/ops/fused.py:110; no kernel takes
+part), on the overlapped logical clock.
+
 Not ported here: ``fused_expert_ffn`` (it comes with the MoE model
-layer) and the device-trace stamp rows (with observability).
+layer).
 """
 from __future__ import annotations
 
@@ -50,9 +56,10 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..constants import ACCLError
+from ..observability.trace import record_device_steps
 from . import _build
 from . import quantized as q_ops
-from .ring import _fold, _ptrs, ring_all_gather
+from .ring import _fold, _ptrs, device_trace_enabled, ring_all_gather
 
 #: default pipeline depth of the fused lane — chunks per ring step
 DEFAULT_FUSED_CHUNKS = 4
@@ -92,6 +99,45 @@ def _pad_flat(x: torch.Tensor, length: int) -> torch.Tensor:
     if x.shape[0] == length:
         return x
     return torch.cat([x, x.new_zeros((length - x.shape[0],) + x.shape[1:])])
+
+
+def _fused_stamp_rows(P: int, C: int, idx: int, chunk_bytes: int,
+                      slot0: int = 0) -> torch.Tensor:
+    """Rank ``idx``'s stamp rows, one per (step, chunk) pipeline slot, in
+    DEVICE_TRACE_FIELDS order, on the overlapped clock: xfer(i) = [2i,
+    2i + 2], reduce(i) = [2i + 2, 2i + 4], so slot i + 1's hop covers
+    slot i's fold.  With C == 1 nothing pipelines, and the rows carry the
+    ring's sequential 3-phase clock."""
+    steps = (P - 1) * C
+    slots = slot0 + torch.arange(steps, dtype=torch.int32)
+    my = torch.full((steps,), idx, dtype=torch.int32)
+    nbytes = torch.full((steps,), chunk_bytes, dtype=torch.int32)
+    if C == 1:
+        send, wait, phase = 3 * slots, 3 * slots + 1, 3 * slots + 2
+    else:
+        send, wait, phase = 2 * slots, 2 * slots + 2, 2 * slots + 4
+    return torch.stack([my, slots, send, wait, phase, (my + 1) % P,
+                        (my + P - 1) % P, nbytes, nbytes], dim=1)
+
+
+def _wire_hop_bytes(m: int, block: int) -> int:
+    """Per-hop wire bytes of one int8 sub-chunk: the int8 payload and one
+    fp32 scale per block (quantize_blockwise pads m to whole blocks)."""
+    rows = -(-m // block)
+    return rows * block + rows * 4
+
+
+def _trace_fused(collective: str, P: int, C: int, hop_bytes: int,
+                 phases: int = 1) -> None:
+    """With the gate on, record each rank's rows of a chunked lane of
+    ``phases`` ring phases (2 for the allreduce)."""
+    if not device_trace_enabled():
+        return
+    span = (P - 1) * C
+    for r in range(P):
+        record_device_steps(collective, torch.cat([
+            _fused_stamp_rows(P, C, r, hop_bytes, slot0=k * span)
+            for k in range(phases)]))
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +184,9 @@ def _deq_gathered(per_chunk, m: int) -> torch.Tensor:
 
 def chunked_ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
                                 chunks: Optional[int] = None,
-                                wire: Optional[tuple] = None) -> list:
+                                wire: Optional[tuple] = None,
+                                collective: str = "fused_reduce_scatter"
+                                ) -> list:
     """Per rank flat [P * n] -> that rank's reduced [n], as C per-chunk
     ring chains.  ``wire=(block, error_feedback)`` rides the int8 wire
     with per-hop requantization inside the loop."""
@@ -158,15 +206,18 @@ def chunked_ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
         block, ef = wire
         views = [x.to(torch.float32).reshape(P, C, m) for x in xs]
         per_chunk = _rs_chains_q(views, C, block, ef)
+        _trace_fused(collective, P, C, _wire_hop_bytes(m, block))
         return [torch.cat([q_ops.dequantize_blockwise(*chunk[r], m)
                            for chunk in per_chunk]) for r in range(P)]
     views = [x.reshape(P, C, m) for x in xs]
+    _trace_fused(collective, P, C, m * xs[0].element_size())
     return [torch.cat(row) for row in _rs_chains_fp(views, op, P, C)]
 
 
 def chunked_ring_all_gather(xs: Sequence[torch.Tensor],
                             chunks: Optional[int] = None,
-                            wire: Optional[tuple] = None) -> list:
+                            wire: Optional[tuple] = None,
+                            collective: str = "fused_all_gather") -> list:
     """Per rank flat [n] -> [P * n] (rank-major), as C per-chunk relay
     chains.  On the int8 lane each contribution is quantized once and
     relayed in wire form."""
@@ -181,14 +232,17 @@ def chunked_ring_all_gather(xs: Sequence[torch.Tensor],
         rows = [x.to(torch.float32).reshape(C, m) for x in xs]
         per_chunk = [[q_ops.quantize_blockwise(v, block)[:2] for v in col]
                      for col in zip(*rows)]
+        _trace_fused(collective, P, C, _wire_hop_bytes(m, block))
         return [_deq_gathered(per_chunk, m)] * P
     out = _ag_chains([list(x.reshape(C, m)) for x in xs]).reshape(-1)
+    _trace_fused(collective, P, C, m * xs[0].element_size())
     return [out] * P
 
 
 def chunked_ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
                             chunks: Optional[int] = None,
-                            wire: Optional[tuple] = None) -> list:
+                            wire: Optional[tuple] = None,
+                            collective: str = "fused_allreduce") -> list:
     """Per rank flat [N] -> [N] allreduced: chunked reduce-scatter
     feeding chunked all-gather, padded internally to a P*C multiple; on
     the int8 lane the wire-form carry crosses the seam without a
@@ -209,9 +263,11 @@ def chunked_ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
         out = _deq_gathered(_rs_chains_q(views, C, block, ef), m)[:N]
         if xs[0].is_floating_point():
             out = out.to(xs[0].dtype)
+        _trace_fused(collective, P, C, _wire_hop_bytes(m, block), phases=2)
         return [out] * P
     views = [_pad_flat(x, padN).reshape(P, C, m) for x in xs]
     parts = _rs_chains_fp(views, op, P, C)
+    _trace_fused(collective, P, C, m * xs[0].element_size(), phases=2)
     return [_ag_chains(parts).reshape(-1)[:N]] * P
 
 
@@ -449,6 +505,7 @@ def fused_matmul_allreduce(xs: Sequence[torch.Tensor],
         accs = [[dot(xv[r][(r - 2 - s) % P, c], ws[r]) + landed[r][c]
                  for c in range(C)] for r in range(P)]
     out = _ag_chains(accs).reshape(padM, N)[:M]
+    _trace_fused("fused_matmul_allreduce", P, C, mrows * N * 4, phases=2)
     return [out] * P
 
 

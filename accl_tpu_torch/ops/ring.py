@@ -13,17 +13,90 @@ over the same hops with the same chunk indexing.  A wrapper runs the
 plain version only when it is given CPU tensors; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its kernel launches
 in its ``launches`` attribute.
+
+Device tracing (accl_tpu/ops/ring.py:56-96): with ``ACCL_DEVICE_TRACE``
+set (read once, at the first ring call), every ring collective yields
+one stamp row per (segment, rank, step) in the order of
+``observability.trace.DEVICE_TRACE_FIELDS``, grouped as the reference's
+segmented drivers land theirs: one record per segment and rank (the
+reference's one per ``pallas_call`` and shard) under ``"reduce_scatter"``
+or ``"all_gather"``.  On the card the kernels write the rows into a
+buffer allocated for that launch only (the ``ring_kernel<T, KIND,
+true>`` instantiation); the wrapper synchronizes the stream after the
+launch and lands the rows in the collector before it returns, as the
+reference's drivers block on each ``pallas_call``'s rows.  The plain
+versions record the same rows, computed from the schedule
+(:func:`stamp_rows`), at once.
+With the gate on, the segmented all-gather and reduce-scatter cut their
+launch into the reference's segments, so each segment has its rows.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import threading
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..observability.trace import DEVICE_TRACE_FIELDS, record_device_steps
 from . import _build
+
+#: stamp-row width of the device-trace rows (STAMP_COLS in csrc/ring.cu)
+DEVICE_TRACE_COLS = len(DEVICE_TRACE_FIELDS)
+
+#: ACCL_DEVICE_TRACE, read once at the first ring call (None = not read)
+_DEVICE_TRACE: Optional[bool] = None
+
+
+def device_trace_enabled() -> bool:
+    """The ``ACCL_DEVICE_TRACE`` gate, cached at its first reading."""
+    global _DEVICE_TRACE
+    if _DEVICE_TRACE is None:
+        _DEVICE_TRACE = os.environ.get(
+            "ACCL_DEVICE_TRACE", "0") not in ("", "0")
+    return bool(_DEVICE_TRACE)
+
+
+def _reset_device_trace_cache() -> None:
+    """Test hook: the next ring call re-reads the env."""
+    global _DEVICE_TRACE
+    _DEVICE_TRACE = None
+
+
+def stamp_rows(P: int, chunk_bytes: int) -> torch.Tensor:
+    """The [P, P - 1, DEVICE_TRACE_COLS] int32 stamp rows of one segment,
+    computed from the schedule (the reference's ``_stamp_row``): rank r's
+    step s reads r, s, 3s, 3s + 1, 3s + 2, its right and left
+    neighbours, and the chunk's bytes sent and received."""
+    my = torch.arange(P).view(P, 1).expand(P, P - 1)
+    st = torch.arange(P - 1).view(1, P - 1).expand(P, P - 1)
+    nb = torch.full((P, P - 1), chunk_bytes)
+    return torch.stack([my, st, 3 * st, 3 * st + 1, 3 * st + 2,
+                        (my + 1) % P, (my + P - 1) % P, nb, nb],
+                       dim=-1).to(torch.int32)
+
+
+#: the collector's name of each launch kind
+_TRACE_NAME = {"rs": "reduce_scatter", "ag": "all_gather"}
+
+
+def _record_rows(kind: str, rows) -> None:
+    """Land [segments, P, P - 1, cols] rows: one record per segment and
+    rank."""
+    for seg in rows:
+        for rank_rows in seg:
+            record_device_steps(_TRACE_NAME[kind], rank_rows)
+
+
+def _trace_plain(kind: str, P: int, widths, elem: int) -> None:
+    """With the gate on, record the rows a plain run of segments of these
+    chunk widths stands for."""
+    if P > 1 and device_trace_enabled():
+        _record_rows(kind, [stamp_rows(P, w * elem) for w in widths if w])
+
+
 
 # ---------------------------------------------------------------------------
 # Flow-control window algebra (twin of accl_tpu/ops/ring.py:132-148, and
@@ -238,10 +311,11 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(kind: int, dtype_code: int, device: int) -> int:
+def _resident(kind: int, dtype_code: int, device: int,
+              stamp: bool = False) -> int:
     """Blocks of one kernel that fit on the card together (cached)."""
     lib = _build.load("ring")
-    got = lib.accl_ring_resident(kind, dtype_code, device)
+    got = lib.accl_ring_resident(kind, dtype_code, int(stamp), device)
     if got < 0:
         _raise_on(lib, -got, "accl_ring_resident")
     return got
@@ -267,20 +341,38 @@ def _scratch_for(dev: torch.device, stream, nbytes: int, nflags: int):
         return cur
 
 
+def kernel_info(kind: int, dtype: torch.dtype, stamp: bool,
+                device: int = 0) -> dict:
+    """Registers, local (spill) bytes and blocks per SM of one
+    ``ring_kernel`` instantiation (kind 0 reduce-scatter by sum, 1 by
+    max, 2 all-gather; ``stamp`` the device-trace one)."""
+    lib = _build.load("ring")
+    out = (ctypes.c_int * 3)()
+    _raise_on(lib, lib.accl_ring_kernel_info(kind, KERNEL_DTYPES[dtype],
+                                             int(stamp), device, out),
+              "accl_ring_kernel_info")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
+
+
 @functools.lru_cache(maxsize=256)
 def _plan(parts: tuple, P: int, elem: int, k: int, code: int, device: int,
-          aligned: bool):
+          aligned: bool, stamp: bool = False):
     """(stripes, geometry words, slot bytes) of one launch (cached: a
     driver repeats the same few shapes)."""
-    tw, ntiles, S = tiling(parts, P, elem, _resident(k, code, device))
+    tw, ntiles, S = tiling(parts, P, elem, _resident(k, code, device, stamp))
     return S, _geometry(parts, tw, ntiles, aligned, 16 // elem), \
         P * S * 2 * tw * elem
 
 
-def _launch(kind: str, xs, outs, parts, op: str = "sum") -> None:
+def _launch(kind: str, xs, outs, parts, op: str = "sum",
+            land: bool = True) -> None:
     """One launch of csrc/ring.cu over ``parts``: kind "rs" (rank r's
     result at chunk r of the result layout) or "ag" (rank r's operand at
-    chunk r of the operand layout).  Counts it on its wrapper."""
+    chunk r of the operand layout).  Counts it on its wrapper.  With the
+    device-trace gate on, launches the stamp instantiation into a buffer
+    of its own and, after the stream has run it, lands the rows in the
+    collector; ``land=False`` drops them unsynchronized, for timing the
+    instantiation alone."""
     dev, dt = xs[0].device, xs[0].dtype
     P, elem = len(xs), xs[0].element_size()
     code = KERNEL_DTYPES[dt]
@@ -289,17 +381,31 @@ def _launch(kind: str, xs, outs, parts, op: str = "sum") -> None:
     op_ = [t.data_ptr() for t in outs]
     aligned = all(a % 16 == 0 for a in xp + op_)
     device = dev.index or 0
-    S, geo, nbytes = _plan(tuple(parts), P, elem, k, code, device, aligned)
+    stamp = device_trace_enabled()
+    S, geo, nbytes = _plan(tuple(parts), P, elem, k, code, device, aligned,
+                           stamp)
     stream = torch.cuda.current_stream(dev)
     slots, flags = _scratch_for(dev, stream, nbytes, P * S * 4)
+    stamps = None
+    if stamp:
+        nseg = sum(p.nseg for p in parts)
+        stamps = torch.empty(nseg * P * (P - 1) * DEVICE_TRACE_COLS,
+                             dtype=torch.int32, device=dev)
     lib = _build.load("ring")
     rc = lib.accl_ring_launch(
         k, code, (ctypes.c_void_p * P)(*xp), (ctypes.c_void_p * P)(*op_), P,
-        S, geo, slots.data_ptr(), flags.data_ptr(), device,
+        S, geo, slots.data_ptr(), flags.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), device,
         stream.cuda_stream)
     wrapper = ring_all_gather if kind == "ag" else ring_reduce_scatter
     _raise_on(lib, rc, wrapper.__name__)
     wrapper.launches += 1
+    if stamps is not None:
+        wrapper.launches_stamp += 1
+        if land:
+            stream.synchronize()
+            _record_rows(kind, stamps.view(-1, P, P - 1,
+                                           DEVICE_TRACE_COLS).cpu())
 
 
 def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
@@ -326,6 +432,7 @@ def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
                 raise ValueError("ring_reduce_scatter: outputs must be "
                                  f"contiguous [{n}]")
     if xs[0].device.type == "cpu":
+        _trace_plain("rs", P, [n], xs[0].element_size())
         return ring_reduce_scatter_plain(xs, op, out)
     if out is None:
         out = [torch.empty(n, dtype=xs[0].dtype, device=xs[0].device)
@@ -339,6 +446,8 @@ def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
 
 
 ring_reduce_scatter.launches = 0
+#: the launches of the device-trace instantiation, within ``launches``
+ring_reduce_scatter.launches_stamp = 0
 
 
 def ring_all_gather(xs: Sequence[torch.Tensor],
@@ -360,6 +469,7 @@ def ring_all_gather(xs: Sequence[torch.Tensor],
                 raise ValueError(f"ring_all_gather: outputs must be [{P}, "
                                  f"{n}] with strides (row, 1)")
     if xs[0].device.type == "cpu":
+        _trace_plain("ag", P, [n], xs[0].element_size())
         return ring_all_gather_plain(xs, out)
     if out is None:
         out = [torch.empty((P, n), dtype=xs[0].dtype, device=xs[0].device)
@@ -373,6 +483,7 @@ def ring_all_gather(xs: Sequence[torch.Tensor],
 
 
 ring_all_gather.launches = 0
+ring_all_gather.launches_stamp = 0
 
 
 def _phases(plain: bool):
@@ -460,6 +571,8 @@ def _segments_plain(xs, op, seg_elems):
     while off < N:
         s = min(seg, N - off)
         padded = -(-s // P) * P
+        for kind in ("rs", "ag"):
+            _trace_plain(kind, P, [padded // P], xs[0].element_size())
         if padded == s:
             ring_all_reduce([x[off:off + s] for x in xs], op,
                             out=[o[off:off + s] for o in outs], plain=True)
@@ -473,6 +586,25 @@ def _segments_plain(xs, op, seg_elems):
                 o[off:off + s] = r[:s]
         off += s
     return outs
+
+
+def segment_parts(n: int, seg_elems: int, row: int, kind: str):
+    """The reference's segments of a flat all-gather or reduce-scatter
+    (accl_tpu/ops/ring.py:486-528): whole segments of min(seg_elems, n)
+    columns, then the rest; ``row`` is the stride of the [P, n] side (the
+    result of the all-gather, the operand of the reduce-scatter)."""
+    seg = min(seg_elems, n)
+    nfull, rem = divmod(n, seg)
+    ag = kind == "ag"
+    parts = []
+    if nfull:
+        parts.append(Part(nfull, seg, 0, seg, 0 if ag else row, 0, seg,
+                          row if ag else 0))
+    if rem:
+        off = nfull * seg
+        parts.append(Part(1, rem, off, 0, 0 if ag else row, off, 0,
+                          row if ag else 0))
+    return parts
 
 
 def _into(out, results):
@@ -524,8 +656,13 @@ def ring_all_gather_segmented(xs: Sequence[torch.Tensor],
         return _into(out, [xs[0].clone()])
     if out is None:
         out = [x.new_empty(P * n) for x in xs]
-    if not plain:
+    trace = device_trace_enabled()
+    if not plain and not trace:
         ring_all_gather(xs, out=[o.view(P, n) for o in out])
+        return list(out)
+    if not plain and xs[0].device.type == "cuda":
+        if n:
+            _launch("ag", xs, out, segment_parts(n, seg_elems, n, "ag"))
         return list(out)
     seg = min(seg_elems, n)
     off = 0
@@ -533,6 +670,7 @@ def ring_all_gather_segmented(xs: Sequence[torch.Tensor],
         s = min(seg, n - off)
         ring_all_gather_plain([x[off:off + s] for x in xs],
                               out=[o.view(P, n)[:, off:off + s] for o in out])
+        _trace_plain("ag", P, [s], xs[0].element_size())
         off += s
     return list(out)
 
@@ -553,13 +691,19 @@ def ring_reduce_scatter_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
         return _into(out, [xs[0].clone()])
     if out is None:
         out = [x.new_empty(n) for x in xs]
-    if not plain:
+    trace = device_trace_enabled()
+    if not plain and not trace:
         return ring_reduce_scatter([x.view(P, n) for x in xs], op, out=out)
+    if not plain and xs[0].device.type == "cuda":
+        if n:
+            _launch("rs", xs, out, segment_parts(n, seg_elems, n, "rs"), op)
+        return list(out)
     seg = min(seg_elems, n)
     off = 0
     while off < n:
         s = min(seg, n - off)
         ring_reduce_scatter_plain([x.view(P, n)[:, off:off + s] for x in xs],
                                   op, out=[o[off:off + s] for o in out])
+        _trace_plain("rs", P, [s], xs[0].element_size())
         off += s
     return list(out)

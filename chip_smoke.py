@@ -162,6 +162,31 @@ Phases, each fatal on failure:
      64 MiB per rank
      the busbw of the fused and int8 lanes beside the lossless ring's.
 
+  6. observability on the driver (phase observed_path): the allreduce at
+     4 and 256 MiB per rank with the flight recorder and metrics on (the
+     defaults) and off (as under ACCL_METRICS=0 ACCL_FLIGHT=0), s per
+     call for each, in alternating rounds of bench/driver_split.py's
+     measure; with ACCL_TRACE on, the spans' mean
+     submit -> queue -> gang_ready -> dispatch -> device_begin ->
+     device_end -> complete split of a 4 MiB call (the engine syncs the
+     stream before device_end); the registry's call and byte counts held
+     to the calls made; each rank's flight dump read back by
+     merge_flight_dumps;
+  7. the ring kernels' device-trace stamp mode (phase device_trace): the
+     driver's allreduce at 4 and 256 MiB with ACCL_DEVICE_TRACE on, the
+     rows ring_kernel<T, KIND, true> wrote (landed by the ring wrapper
+     after each launch) bitwise equal to the plain composition's, the
+     results bitwise the gate-off results; the segmented allreduce's
+     device ms with the gate off and on, both instantiations' registers;
+     the stamp kernels per launch in the kernels line, their results
+     held to the plain versions';
+  8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
+     run_compression_sweep's allreduce at 2^24 elements, one JSON line a
+     row (host-staged calls, not the resident driver numbers);
+  9. bench/callrate.py (phase callrate) at 1024 elements and at 2^20 (the
+     4 MiB ring lane): calls a second per lane and each lane's ratio to
+     raw.
+
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 = False):
 the plain versions and yardsticks multiply in full fp32, as the kernels
 do.  It prints one JSON line per measurement, a {"kernels": [...]}
@@ -2645,6 +2670,388 @@ def time_plugin_kernels(R, C, FL, errs, plugin, PL) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 6-9: observability on the driver, the ring's device-trace stamp
+# mode, the sweep and the call rate
+# ---------------------------------------------------------------------------
+#: MiB per rank of the observed-path and device-trace phases
+OBS_MIB = (4, 256)
+#: a span's stages in order; the split of a call is the time between
+#: consecutive ones
+SPAN_STAGES = ("submit", "queue", "gang_ready", "dispatch", "device_begin",
+               "device_end", "complete")
+#: the sweep's widths: (collectives, count exponents).  allreduce and
+#: bcast to 2^26 elements (256 MiB per rank), reduce_scatter to 2^23 (its
+#: per-rank payload, count x P, is then 256 MiB), the collectives whose
+#: result grows by P to 2^24, the rest to 2^22; one untimed warm-up and
+#: one timed call a size, and two sizes a collective (the smallest and
+#: the widest), so the warm widest rows fit the phase's time
+SWEEP_WIDTHS = ((("allreduce", "bcast"), (10, 26)),
+                (("reduce_scatter",), (10, 23)),
+                (("allgather", "gather", "alltoall"), (10, 24)),
+                (("sendrecv", "scatter", "reduce"), (10, 22)))
+#: call-rate counts: below ACCL_RING_THRESHOLD, and the 4 MiB ring lane
+CALLRATE_COUNTS = (1024, 1 << 20)
+
+
+def observed_path(world, mp) -> dict:
+    """Phase 6: the driver's resident allreduce with the observability
+    defaults on (flight recorder and metrics) and off (as under
+    ACCL_METRICS=0 ACCL_FLIGHT=0: no recorder, no metrics), timed by
+    bench/driver_split.py's ``measure`` in alternating rounds; the spans'
+    split of a 4 MiB call; the registry's counts against the calls made;
+    one flight dump read back by merge_flight_dumps."""
+    import tempfile
+
+    from accl_tpu_torch.bench import driver_split as DS
+    from accl_tpu_torch.observability import flight as OF
+    from accl_tpu_torch.observability import metrics as OM
+    from accl_tpu_torch.observability import trace as OT
+
+    if any(a.flight_recorder is None for a in world.accls) \
+            or not OM.enabled():
+        fail("observed_path: the observability defaults are not on")
+    out = {}
+    ds = DS.measure("observed_path", rounds=10, world=world,
+                    counts=tuple(mib * MIB // 4 for mib in OBS_MIB))
+    for mib in OBS_MIB:
+        on, off = (next(r for r in ds if r["mib_per_rank"] == mib
+                        and r["lane"] == lane)
+                   for lane in ("defaults", "observability_off"))
+        row = {"phase": "observed_path", "mib_per_rank": mib, "ranks": P,
+               "iters": on["iters"],
+               "s_per_call_defaults_on": on["us_per_call"] / 1e6,
+               "s_per_call_defaults_off": off["us_per_call"] / 1e6,
+               "samples_on_us": on["rounds_us"],
+               "samples_off_us": off["rounds_us"],
+               "on_minus_off_us": on["us_per_call"] - off["us_per_call"]}
+        emit(row)
+        out[mib] = row
+    if any(a.flight_recorder is None for a in world.accls) \
+            or not (OM.enabled() and OF.enabled()):
+        fail("observed_path: the defaults were not restored")
+    # the spans' split and the registry, at 4 MiB per rank
+    mib, calls = OBS_MIB[0], 40
+    call = mp["per_size"][mib][2]
+    reg = OM.default_registry()
+    world.run(call)
+    torch.cuda.synchronize()
+    reg.reset()
+    col = OT.enable()
+    col.clear()
+    try:
+        for _ in range(calls):
+            world.run(call)
+        torch.cuda.synchronize()
+        spans = [sp for sp in col.spans() if sp.name == "allreduce"]
+    finally:
+        OT.disable()
+        col.clear()
+    if len(spans) != calls * P:
+        fail(f"observed_path: {len(spans)} spans for {calls * P} calls")
+    split = {}
+    for a, b in zip(SPAN_STAGES, SPAN_STAGES[1:]):
+        d = [getattr(sp, "t_" + b) - getattr(sp, "t_" + a) for sp in spans]
+        if min(d) < 0:
+            fail(f"observed_path: span stage {b} before {a}")
+        split[f"{a}->{b}"] = statistics.mean(d) / 1e3
+    lanes = {}
+    for sp in spans:
+        lanes[sp.lane] = lanes.get(sp.lane, 0) + 1
+    snap = reg.snapshot()
+    rows = [c for c in snap["calls"].values()
+            if c["collective"] == "allreduce"]
+    want_bytes = calls * P * mp["per_size"][mib][0][0].length * 4
+    if len(rows) != 1 or rows[0]["calls"] != calls * P \
+            or rows[0]["bytes"] != want_bytes or rows[0]["errors"]:
+        fail(f"observed_path: the registry's allreduce rows {rows} do not "
+             f"count {calls * P} calls of {want_bytes} bytes")
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for a in world.accls:
+            paths.append(os.path.join(d, f"flight{a.rank}.json"))
+            a.dump_flight_recorder(path=paths[-1])
+        merged = OF.merge_flight_dumps(paths)
+    if merged["nranks"] != P or not merged["analysis"]["ok"]:
+        fail(f"observed_path: merge_flight_dumps read back "
+             f"{merged['nranks']} ranks, analysis {merged['analysis']}")
+    row = {"phase": "observed_path_spans", "mib_per_rank": mib, "ranks": P,
+           "calls": calls, "mean_us_per_stage": split,
+           "submit_to_complete_us": sum(split.values()), "lanes": lanes,
+           "registry": {k: rows[0][k] for k in ("calls", "bytes", "errors",
+                                                "size_bucket")},
+           "registry_latency_us": rows[0]["latency_us"],
+           "flight_dump": {"nranks": merged["nranks"],
+                           "records": sum(len(r["records"])
+                                          for r in merged["ranks"]),
+                           "analysis_ok": merged["analysis"]["ok"]}}
+    emit(row)
+    out["spans"] = row
+    return out
+
+
+def _records(col):
+    counts = {}
+    for r in col.device_records():
+        key = (r["collective"], tuple(map(tuple, r["rows"])))
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def device_trace(world, mp, ring) -> dict:
+    """Phase 7: ACCL_DEVICE_TRACE.  The driver's allreduce at 4 and 256
+    MiB per rank with the gate on: the stamp rows the kernels wrote, as
+    the engine lands them, against the rows the plain composition records
+    (bitwise, as multisets of per-(segment, rank) records), the results
+    bitwise equal to the gate-off results; every stamp launch counted.
+    Then the device ms of the segmented allreduce's two launches with
+    the gate off and on (the stamp rows left on the card unlanded, so
+    the window holds the kernels alone), and both instantiations'
+    registers."""
+    from accl_tpu_torch.observability import trace as OT
+
+    col = OT.collector()
+
+    def gate(on):
+        ring._DEVICE_TRACE = on
+        col.clear()
+
+    launches = {"ring_reduce_scatter": 0, "ring_all_gather": 0}
+    try:
+        for mib in OBS_MIB:
+            sends, recvs, call, _ = mp["per_size"][mib]
+            gate(False)
+            world.run(call)
+            torch.cuda.synchronize()
+            off = [r.dev.clone() for r in recvs]
+            gate(True)
+            ring.ring_all_reduce_segmented([b.dev for b in sends], "sum",
+                                           plain=True)
+            plain = _records(col)
+            col.clear()
+            ring.ring_reduce_scatter.launches_stamp = 0
+            ring.ring_all_gather.launches_stamp = 0
+            world.run(call)
+            torch.cuda.synchronize()
+            got = _records(col)
+            n = {"ring_reduce_scatter": ring.ring_reduce_scatter
+                 .launches_stamp, "ring_all_gather": ring.ring_all_gather
+                 .launches_stamp}
+            for k in launches:
+                launches[k] += n[k]
+            if got != plain:
+                fail(f"device_trace {mib} MiB: the kernels' stamp rows "
+                     f"({sum(got.values())} records) differ from the plain "
+                     f"version's ({sum(plain.values())})")
+            for r in range(P):
+                if not same_bits(recvs[r].dev, off[r]):
+                    fail(f"device_trace {mib} MiB rank {r}: the result with "
+                         f"the gate on is not bitwise the gate-off result")
+            emit({"phase": "device_trace", "mib_per_rank": mib, "ranks": P,
+                  "records": sum(got.values()),
+                  "rows": sum(len(k[1]) * v for k, v in got.items()),
+                  "stamp_launches": n, "rows_equal_plain": True,
+                  "bitwise_equal_gate_off": True})
+            del off
+        if min(launches.values()) < 1:
+            fail(f"device_trace: a stamp instantiation never launched "
+                 f"{launches}")
+        # device ms of both instantiations
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        times = {}
+        for mib in OBS_MIB:
+            count = mib * MIB // 4
+            xs = [rand((count,), torch.float32, gen) for _ in range(P)]
+            outs = [torch.empty_like(x) for x in xs]
+            parts = ring.allreduce_parts(count, P, ring.DEFAULT_SEG_ELEMS)
+
+            def ar_call():
+                # the segmented allreduce's two launches, the stamp rows
+                # left on the card, so the stream is never synchronized
+                ring._launch("rs", xs, outs, parts, "sum", land=False)
+                ring._launch("ag", outs, outs, parts, land=False)
+
+            t = {}
+            for on in (False, True, True, False):
+                gate(on)
+                t.setdefault(on, []).append(split_ms(ar_call, 3, 3))
+            times[mib] = {("stamp" if on else "plain_kernel"): {
+                "device_ms": [v["device_ms"] for v in vs],
+                "host_enqueue_ms": [v["host_enqueue_ms"] for v in vs]}
+                for on, vs in t.items()}
+            del xs, outs
+            torch.cuda.empty_cache()
+    finally:
+        gate(False)
+    info = {f"kind{k}_{'stamp' if st else 'off'}":
+            ring.kernel_info(k, torch.float32, st)
+            for k in (0, 1, 2) for st in (False, True)}
+    emit({"phase": "device_trace_time", "ranks": P,
+          "allreduce_kernels_ms": times, "kernel_info": info})
+    return {"launches": launches, "times": times, "info": info}
+
+
+def time_stamp_kernels(ring, launches, info) -> list:
+    """Phase 7's rows of the kernels line: each stamp instantiation at the
+    main path's one-segment shape (P=8 x [8, 32768] fp32).  First one
+    call of the public wrapper with the gate on: its results against the
+    plain version's (max abs err, which must be 0) and its landed rows
+    against ``stamp_rows``, bitwise.  Then CUDA events: ``ms`` the
+    instantiation per launch, its rows left on the card; ``landed_ms``
+    the wrapper per call, with its synchronize and the rows' landing;
+    beside its plain version (the plain kernel composition and the stamp
+    rows computed from the schedule) and the unstamped rows' library
+    yardstick; bound = its bytes (the unstamped kernel's and its rows')
+    over 3.35 TB/s."""
+    from accl_tpu_torch.observability import trace as OT
+
+    col = OT.collector()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    n = ring.DEFAULT_SEG_ELEMS // P
+    xs = [rand((P, n), torch.float32, gen) for _ in range(P)]
+    outs = [torch.empty(n, device="cuda") for _ in range(P)]
+    stacked = torch.stack(xs)
+    ag_in = [rand((n,), torch.float32, gen) for _ in range(P)]
+    ag_out = [torch.empty(P, n, device="cuda") for _ in range(P)]
+    # the wrappers' one part over the whole [P, n] (rows n apart)
+    rs_part = [ring.Part(1, n, 0, 0, n, 0, 0, 0)]
+    ag_part = [ring.Part(1, n, 0, 0, 0, 0, 0, n)]
+    counts0 = (ring.ring_reduce_scatter.launches,
+               ring.ring_all_gather.launches,
+               ring.ring_reduce_scatter.launches_stamp,
+               ring.ring_all_gather.launches_stamp)
+    rows = []
+    ring._DEVICE_TRACE = True
+    try:
+        for name, call, launch, plain, got_of, lib, lib_call, kind in (
+                ("ring_reduce_scatter",
+                 lambda: ring.ring_reduce_scatter(xs, out=outs),
+                 lambda: ring._launch("rs", xs, outs, rs_part, land=False),
+                 lambda: ring.ring_reduce_scatter_plain(xs),
+                 lambda: outs,
+                 lambda: torch.sum(stacked, dim=0),
+                 "torch.sum(stack, dim=0): every rank's chunk", 0),
+                ("ring_all_gather",
+                 lambda: ring.ring_all_gather(ag_in, out=ag_out),
+                 lambda: ring._launch("ag", ag_in, ag_out, ag_part,
+                                      land=False),
+                 lambda: ring.ring_all_gather_plain(ag_in),
+                 lambda: ag_out,
+                 lambda: [torch.cat(ag_in, out=ag_out[r].view(-1))
+                          for r in range(P)],
+                 f"torch.cat(blocks, out=gather[r]) for each of the {P} "
+                 f"ranks", 2)):
+            col.clear()
+            call()
+            got = _records(col)
+            coll = "reduce_scatter" if kind == 0 else "all_gather"
+            want = {(coll, tuple(map(tuple, rr.tolist()))): 1
+                    for rr in ring.stamp_rows(P, n * 4)}
+            if got != want:
+                fail(f"{name} stamp rows at one segment differ from "
+                     f"stamp_rows")
+            ref = plain()
+            err = max(max_err(g, w) for g, w in zip(got_of(), ref))
+            if err != 0.0 or not all(same_bits(g, w)
+                                     for g, w in zip(got_of(), ref)):
+                fail(f"{name} stamp instantiation: not bitwise its plain "
+                     f"version (max abs err {err})")
+            del ref
+            col.clear()
+            ms = [cuda_ms(launch, 50)]
+            pl = [cuda_ms(lambda: (plain(), ring.stamp_rows(P, n * 4)), 20)]
+            landed = [cuda_ms(call, 50)]
+            pl.append(cuda_ms(lambda: (plain(), ring.stamp_rows(P, n * 4)),
+                              20))
+            landed.append(cuda_ms(call, 50))
+            ms.append(cuda_ms(launch, 50))
+            col.clear()
+            # operands read once, results and stamp rows written once
+            nbytes = (P * P * n + P * n) * 4 + P * (P - 1) * 9 * 4
+            rows.append({
+                "name": f"{name}_stamp", "route": "cuda",
+                "source": "accl_tpu_torch/ops/csrc/ring.cu",
+                "replaces": ("accl_tpu/ops/ring.py:274" if kind == 0
+                             else "accl_tpu/ops/ring.py:151"),
+                "launches": launches[name], "max_abs_err": err,
+                "ms": statistics.median(ms),
+                "landed_ms": statistics.median(landed),
+                "plain_ms": statistics.median(pl),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": cuda_ms(lib, 50),
+                "library_call": lib_call, "checked": True,
+                "shape": f"P={P} x [{P},{n}] fp32 per launch, "
+                         f"ACCL_DEVICE_TRACE rows",
+                "kernel_info": {"stamp": info[f"kind{kind}_stamp"],
+                                "off": info[f"kind{kind}_off"]}})
+    finally:
+        ring._DEVICE_TRACE = False
+        col.clear()
+    (ring.ring_reduce_scatter.launches, ring.ring_all_gather.launches,
+     ring.ring_reduce_scatter.launches_stamp,
+     ring.ring_all_gather.launches_stamp) = counts0
+    for row in rows:
+        emit({"phase": "kernel_time", **row})
+    return rows
+
+
+def sweep_phase(world) -> dict:
+    """Phase 8: bench/sweep.py's rows at SWEEP_WIDTHS on the 8-rank world
+    (host-staged calls: each row includes the copies between host and
+    card, so it is no resident driver number), and the compression lanes'
+    allreduce at 2^24 elements."""
+    from accl_tpu_torch.bench import sweep as SW
+
+    t0 = time.perf_counter()
+    n = 0
+    for colls, pows in SWEEP_WIDTHS:
+        rows = SW.run_sweep(world, SW.SweepConfig(
+            collectives=colls, count_pows=pows, repetitions=1))
+        for row in sorted(rows, key=lambda r: (colls.index(r["collective"]),
+                                               r["count"])):
+            if not (row["duration_us"] > 0
+                    and np.isfinite(row["busbw_GBps"])):
+                fail(f"sweep row {row}")
+            emit({"phase": "sweep", "ranks": P, **row})
+            n += 1
+    for row in SW.run_compression_sweep(world, collectives=("allreduce",),
+                                        count_pows=(24,), repetitions=1):
+        # lossy lanes: the bound P (2 5 sqrt(P) / 127) of
+        # tests/test_quantized.py on N(0, 1) operands
+        bound = 1e-4 if row["lane"] == "lossless" else \
+            P * 2 * 5 * P ** 0.5 / 127
+        if not (row["duration_us"] > 0 and row["max_abs_err"] <= bound):
+            fail(f"compression sweep row {row}")
+        emit({"phase": "sweep_compression", "ranks": P, **row})
+        n += 1
+    out = {"rows": n, "seconds": time.perf_counter() - t0}
+    emit({"phase": "sweep_done", **out})
+    return out
+
+
+def callrate_phase() -> dict:
+    """Phase 9: bench/callrate.py's lanes on CudaWorld(8) at
+    CALLRATE_COUNTS elements, calls a second and the ratio to raw."""
+    from accl_tpu_torch.bench import callrate as CR
+
+    out = {}
+    for count in CALLRATE_COUNTS:
+        res = CR.run(nranks=P, count=count, iters=80, device="cuda",
+                     rounds=2)
+        lanes = res["lanes"]
+        if min(v["calls_per_s"] for v in lanes.values()) <= 0:
+            fail(f"callrate count {count}: {lanes}")
+        raw_us = lanes["raw_shardmap"]["latency_us"]
+        emit({"phase": "callrate", "ranks": P, "count": count,
+              "mib_per_rank": count * 4 / MIB, "ring_lane": res["ring_lane"],
+              "lanes": lanes,
+              "host_overhead_us_vs_raw": {k: v["latency_us"] - raw_us
+                                          for k, v in lanes.items()},
+              "round_latencies_us": res["round_latencies_us"]})
+        out[count] = res
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="4,16,64,256",
@@ -2761,6 +3168,11 @@ def main() -> int:
                   "launches": list(launched),
                   "kernel_s_est": kern_s, "kernel_share_est": kern_s / s})
         time_lanes(world, lanes["lanes"], lanes["set_ef"])
+        observed_path(world, mp)
+        dtr = device_trace(world, mp, ring)
+        rows += time_stamp_kernels(ring, dtr["launches"], dtr["info"])
+        sweep_phase(world)
+        callrate_phase()
     finally:
         world.close()
     emit({"kernels": rows})

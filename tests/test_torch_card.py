@@ -719,3 +719,123 @@ def test_driver_ring_lane_one_launch_per_phase_on_card():
                 tring.ring_all_gather.launches - before[1]) == (1, 1)
         for r in range(P):
             assert torch.equal(bufs[r].dev, want[r])
+
+
+# ---------------------------------------------------------------------------
+# observability on the card: the ring's device-trace stamp mode and the
+# driver's spans
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def _devtrace(monkeypatch):
+    """The ACCL_DEVICE_TRACE gate on, a clean collector; reset after."""
+    from accl_tpu_torch.observability import trace as obs_trace
+
+    def set_gate(on):
+        if on:
+            monkeypatch.setenv("ACCL_DEVICE_TRACE", "1")
+        else:
+            monkeypatch.delenv("ACCL_DEVICE_TRACE", raising=False)
+        tring._reset_device_trace_cache()
+        obs_trace.collector().clear()
+        return obs_trace.collector()
+
+    yield set_gate
+    tring._reset_device_trace_cache()
+    obs_trace.collector().clear()
+
+
+def _trace_records(col):
+    from collections import Counter
+
+    return Counter((r["collective"], tuple(map(tuple, r["rows"])))
+                   for r in col.device_records())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.int64])
+@pytest.mark.parametrize("case", ["allreduce", "allgather", "reduce_scatter"])
+@pytest.mark.parametrize("N,seg", [(8 * 3 * 4096 + 13, 8 * 4096), (5, 16),
+                                   (8 * 37 + 5, 16)])
+def test_stamp_rows_match_plain_on_card(_devtrace, dtype, case, N, seg):
+    """The stamp instantiation's rows, landed after the launch, equal the
+    plain version's rows for every (segment, rank); the results are
+    bitwise those of the gate-off kernels."""
+    P = 8
+    g = torch.Generator(device="cuda").manual_seed(12)
+    n = N * (P if case == "reduce_scatter" else 1)
+    xs = [(torch.randn(n, generator=g, device="cuda") * 100).to(dtype)
+          for _ in range(P)]
+    fn = {"allreduce": lambda **k: tring.ring_all_reduce_segmented(
+              xs, "sum", seg, **k),
+          "allgather": lambda **k: tring.ring_all_gather_segmented(
+              xs, seg, **k),
+          "reduce_scatter": lambda **k: tring.ring_reduce_scatter_segmented(
+              xs, "sum", seg, **k)}[case]
+    _devtrace(False)
+    off = fn()
+    torch.cuda.synchronize()
+    col = _devtrace(True)
+    fn(plain=True)
+    plain_rows = _trace_records(col)
+    col.clear()
+    on = fn()
+    assert _trace_records(col) == plain_rows
+    for a, b in zip(on, off):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("kind", ["all_gather", "reduce_scatter"])
+def test_direct_wrapper_lands_its_rows_on_card(_devtrace, kind):
+    """A caller of the bare wrappers (the TP path, parallel.collectives)
+    gets its rows in the collector when the call returns: one record
+    per rank, the schedule's rows."""
+    P, n = 8, 4096
+    g = torch.Generator(device="cuda").manual_seed(13)
+    col = _devtrace(True)
+    if kind == "all_gather":
+        tring.ring_all_gather([torch.randn(n, generator=g, device="cuda")
+                               for _ in range(P)])
+    else:
+        tring.ring_reduce_scatter([torch.randn(P, n, generator=g,
+                                               device="cuda")
+                                   for _ in range(P)])
+    want = {(kind, tuple(map(tuple, rows.tolist()))): 1
+            for rows in tring.stamp_rows(P, n * 4)}
+    assert _trace_records(col) == want
+
+
+def test_stamp_instantiations_fit_without_spills_on_card():
+    for kind in (0, 1, 2):
+        off = tring.kernel_info(kind, torch.float32, False)
+        on = tring.kernel_info(kind, torch.float32, True)
+        assert off["local_bytes"] == on["local_bytes"] == 0
+        assert min(off["blocks_per_sm"], on["blocks_per_sm"]) >= 2
+
+
+def test_driver_spans_in_order_at_4mib_on_card():
+    """Tracing on: every stage of an 8-rank 4 MiB allreduce is stamped in
+    order, and the device window closes after the stream's sync."""
+    from accl_tpu_torch import CudaWorld
+    from accl_tpu_torch.observability import trace as obs_trace
+
+    P, N = 8, (4 << 20) // 4
+    col = obs_trace.enable()
+    col.clear()
+    try:
+        with CudaWorld(P) as world:
+            bufs = [world.accls[r].create_buffer(N, np.float32)
+                    for r in range(P)]
+            outs = [world.accls[r].create_buffer(N, np.float32)
+                    for r in range(P)]
+            for _ in range(3):
+                world.run(lambda a, r: a.allreduce(
+                    bufs[r], outs[r], N, from_fpga=True, to_fpga=True))
+        spans = [s for s in col.spans() if s.name == "allreduce"]
+    finally:
+        obs_trace.disable()
+        col.clear()
+    assert len(spans) == 3 * P
+    for s in spans:
+        assert s.t_submit <= s.t_queue <= s.t_gang_ready <= s.t_dispatch
+        assert s.t_dispatch <= s.t_device_begin < s.t_device_end
+        assert s.t_device_end <= s.t_complete
+        assert s.nbytes == N * 4 and s.lane in ("leader", "executor")

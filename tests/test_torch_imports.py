@@ -19,8 +19,11 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "models.transformer", "models.decode", "bench",
               "bench.ef_convergence", "bench.timing", "bench.flash_sweep",
               "bench.kernel_tune", "bench.flash_bwd_split",
-              "bench.flash_fwd_split", "bench.plugin_split", "utils.device",
-              "utils.logging", "utils.tree"]
+              "bench.flash_fwd_split", "bench.plugin_split", "bench.sweep",
+              "bench.callrate", "bench.driver_split", "observability", "observability.metrics",
+              "observability.trace", "observability.flight",
+              "observability.health", "utils.device", "utils.logging",
+              "utils.tree"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 
