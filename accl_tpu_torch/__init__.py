@@ -12,13 +12,17 @@ kernels (``accl_tpu_torch.ops.fused``), and the model layer
 prefill, decode and generation, and its dp x tp train step) with
 hand-written CUDA flash-attention forward and backward kernels
 (``accl_tpu_torch.ops.flash``), over the parallelism strategies of
-``accl_tpu_torch.parallel``.  It imports torch, numpy and the standard
-library only.
+``accl_tpu_torch.parallel``; persistent collective plans
+(``ACCL.capture_plan``, ``accl_tpu_torch.plans``), batched gang dispatch
+and the collective sanitizer (``accl_tpu_torch.analysis``,
+``ACCL_SANITIZE``).  It imports torch, numpy and the standard library
+only.
 
     world = CudaWorld(8)            # on the card; CudaWorld(8, "cpu") for CPU
     world.run(fn)                   # fn(accl, rank) on one thread per rank
 """
 
+from . import analysis, plans  # noqa: F401
 from .accl import ACCL, GLOBAL_COMM  # noqa: F401
 from .arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig  # noqa: F401
 from .backends.cuda import CudaWorld  # noqa: F401

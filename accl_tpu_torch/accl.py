@@ -21,11 +21,19 @@ call attaches its flight record, metrics signature and (under
 ``ACCL_TRACE``) trace span; ``metrics()``, ``dump_metrics()`` and
 ``dump_flight_recorder()`` read them back.
 
+Persistent plans (accl_tpu/accl.py:697-870; plans.py): ``capture_plan``
+records a function's calls, validates them with the sanitizer's
+checkers and arms them on the engine's plan ring; ``ACCL_PLAN_AUTO``
+arms a one-step ring after N identical resident sync gang calls.  The
+collective sanitizer (``ACCL_SANITIZE``, analysis/sanitizer.py) checks
+each call before dispatch.  Each lane costs ``_execute`` one falsy read
+when off.
+
 Left out of this port, and refused where a call asks for them: kernel
-streams (``stream_flags``).  Persistent plans, the sanitizer, tuning
-tables (and the table route that arms ``fused``), resilience (so no
-abort, shrink, grow or reset fence events reach the flight recorder)
-and tenants (every record's tenant is None) are not part of it either.
+streams (``stream_flags``).  Tuning tables (and the table route that
+arms ``fused``), resilience (so no abort, shrink, grow or reset fence
+events reach the flight recorder, and no plan is fenced by one) and
+tenants (every record's tenant is None) are not part of it either.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from . import plans as _plans
+from .analysis import sanitizer as _san
 from .arithconfig import (
     COMPRESS_OFF_TOKENS,
     DEFAULT_ARITH_CONFIG,
@@ -58,6 +68,7 @@ from .constants import (
     CfgFunc,
     CompressionFlags,
     DataType,
+    ErrorCode,
     Operation,
     ReduceFunction,
     StreamFlags,
@@ -124,6 +135,23 @@ class ACCL:
         #: (ACCL_FUSED, read once here)
         self._fused_default = os.environ.get("ACCL_FUSED", "0") \
             not in ("", "0")
+        #: the sanitizer's per-comm gang instance counters (its
+        #: cross-rank fingerprint exchange pairs on them)
+        self._sanitize_seq: dict = {}
+        #: persistent plans (plans.py): weak refs to live plans (a fence
+        #: invalidates them), the recorder capture_plan installs while
+        #: the captured function runs, and the per-(domain, member-set)
+        #: capture counters pooled validation pairs on
+        self._plans: list = []
+        self._plan_recorder = None
+        self._plan_group_seq: dict = {}
+        #: ACCL_PLAN_AUTO state (armed at initialize): the streak
+        #: threshold, call id -> (call, adopted ring), and the streak
+        #: (None = the auto lane is off)
+        self._plan_auto = 0
+        self._auto_rings: Optional[dict] = None
+        self._auto_last = None
+        self._auto_streak = 0
 
     # ------------------------------------------------------------------
     # bring-up (reference accl.cpp:1082-1130)
@@ -173,6 +201,10 @@ class ACCL:
                 self.set_compression(env_compress)
         self._config_call(CfgFunc.enable_pkt)
         self._initialized = True
+        # plan auto-capture (ACCL_PLAN_AUTO=N; honors ACCL_PLAN=0), read
+        # here so worlds made after an env change see it
+        self._plan_auto = _plans.auto_threshold()
+        self._auto_rings = {} if self._plan_auto else None
         # observability bring-up: the flight recorder (the rank is known
         # now), with the engine's link rows, stats and gang-assembly
         # table as its receive-timeout forensics, and the OpenMetrics
@@ -303,6 +335,88 @@ class ACCL:
         if key not in TUNING_KEY_NAMES:
             raise unknown_tuning_key_error(key)
         self._device.set_tuning(key, value)
+
+    # ------------------------------------------------------------------
+    # persistent collective plans (plans.py; accl_tpu/accl.py:697-870)
+    # ------------------------------------------------------------------
+    def capture_plan(self, fn, *args, validate: bool = True,
+                     timeout_s: Optional[float] = None):
+        """Capture ``fn(self, *args)``'s collective calls into a
+        persistent plan: recorded once (the calls still execute, so the
+        capture iteration's results are real), validated once (the
+        sanitizer's checker suite; an error finding fails the capture
+        naming it), armed once on the engine's plan ring, then replayed
+        with ``plan.replay()``.  Every gang/p2p peer of the program must
+        capture it too.  Under ``ACCL_PLAN=0`` returns an eager plan whose
+        replay re-runs ``fn`` through the per-call path."""
+        if not _plans.enabled():
+            fn(self, *args)  # the capture iteration still executes
+            return _plans.EagerPlan(self, fn, args)
+        if self._plan_recorder is not None:
+            raise ACCLError("capture_plan: a capture is already in "
+                            "progress on this driver (no nesting)")
+        recorder = _plans.PlanRecorder(self)
+        self._plan_recorder = recorder
+        try:
+            fn(self, *args)
+        finally:
+            self._plan_recorder = None
+        return _plans.build_plan(self, recorder, validate=validate,
+                                 timeout_s=timeout_s)
+
+    def _invalidate_plans(self, comm_id: Optional[int],
+                          reason: str) -> None:
+        """Fence live plans touching ``comm_id`` (None = all): a replay
+        after it raises (or, on the auto lane, re-captures), never runs
+        the fenced program.  Resilience's abort, reset and membership
+        changes call it."""
+        live = []
+        for ref in self._plans:
+            p = ref()
+            if p is None:
+                continue
+            live.append(ref)
+            if comm_id is None or comm_id in p.comms:
+                p._invalidate(reason)
+        self._plans = live
+        if self._auto_rings:
+            self._auto_rings.clear()
+        self._auto_last = None
+        self._auto_streak = 0
+
+    def _replay_auto(self, entry, desc: str) -> Optional[Request]:
+        """Route one auto-captured call through its plan ring; returns a
+        completed Request, or None when the ring was fenced (the caller
+        goes on to the eager path, which re-captures)."""
+        call, ring = entry
+        rec = None
+        if self.flight_recorder is not None and _flight.enabled():
+            rec = self.flight_recorder.new_record(
+                next(_plans._replay_ids), "plan_replay", call.comm,
+                call.tag, "plan", call.count, 0, self.comm.size, True,
+                _trace.now_ns())
+            rec.mark_dispatched("plan", _trace.now_ns())
+        try:
+            self._device.plan_replay(ring, run_async=False,
+                                     timeout_s=self.call_timeout_s)
+        except ACCLError as e:
+            code = int(getattr(e, "code", 0))
+            if rec is not None:
+                rec.finish(code or int(ErrorCode.DMA_INTERNAL_ERROR),
+                           _trace.now_ns())
+            self._auto_rings.pop(id(call), None)
+            if code & int(ErrorCode.COMM_ABORTED) \
+                    or "invalidated" in str(e):
+                return None
+            raise
+        if rec is not None:
+            rec.finish(0, _trace.now_ns())
+        if _metrics.enabled():
+            _metrics.default_registry().inc("plans/replays")
+        req = Request(desc, sync=True)
+        req.complete(0, 0.0)
+        self._last_request = req
+        return req
 
     def get_duration(self, request: Optional[Request] = None) -> float:
         """Duration in ns of a completed call (reference accl.cpp:1387)."""
@@ -673,7 +787,20 @@ class ACCL:
         call_sync, accl.cpp:1395-1413).  ``t_submit`` marks user-call
         entry, so operand staging is inside the submit→queue window;
         the flight recorder is on by default, so the no-observer path
-        exists only under ACCL_FLIGHT=0, ACCL_METRICS=0 and no trace."""
+        exists only under ACCL_FLIGHT=0, ACCL_METRICS=0 and no trace.
+        The plan and sanitizer lanes sit where accl_tpu/accl.py:1625-1740
+        has them, each one falsy read when off."""
+        # plan auto-replay (ACCL_PLAN_AUTO): a call whose gang agreed to
+        # arm a one-step ring replays through it.  The identity check is
+        # sound because _build memoizes: a steady loop passes the SAME
+        # CCLOCall object every step
+        if self._auto_rings is not None and not run_async:
+            entry = self._auto_rings.get(id(call))
+            if entry is not None and entry[0] is call \
+                    and self._plan_recorder is None and not _san.active():
+                replayed = self._replay_auto(entry, desc)
+                if replayed is not None:
+                    return replayed
         observe = (self.flight_recorder is not None or _metrics.enabled()
                    or _trace.enabled())
         t_submit = _trace.now_ns() if observe else 0
@@ -687,6 +814,30 @@ class ACCL:
         req = Request(desc, sync=not run_async)
         if observe:
             self._observe_call(call, desc, req, t_submit)
+        # the sanitizer lane: checks the call (and, in-process, its
+        # gang's fingerprints) before dispatch, raising instead of
+        # hanging; a shadow CaptureSession records it
+        if _san.active():
+            _san.on_call(self, call, desc, req, run_async)
+        # plan capture in progress: record the descriptor and its
+        # staging; the call still executes below
+        if self._plan_recorder is not None:
+            self._plan_recorder.on_call(call, sync_in, sync_out,
+                                        run_async, desc, req)
+        # plan auto-capture intent: after N identical resident sync gang
+        # calls, mark intent; the engine arms a ring only when EVERY
+        # member of the same gang instance carries it
+        if self._auto_rings is not None and not run_async \
+                and not sync_in and not sync_out \
+                and self._plan_recorder is None and not _san.active() \
+                and call.scenario in GANG_OPERATIONS:
+            if call is self._auto_last:
+                self._auto_streak += 1
+                if self._auto_streak >= self._plan_auto:
+                    req.plan_intent = True
+            else:
+                self._auto_last = call
+                self._auto_streak = 1
         if sync_out:
             def finish(r: Request) -> None:
                 if r.retcode == 0:
@@ -713,6 +864,10 @@ class ACCL:
             raise ACCLError(f"{desc} timed out waiting for engine "
                             f"completion{req.flight_info()}")
         req.check()
+        # auto-capture adoption: the engine published a ring on this
+        # request (every gang member carried intent)
+        if self._auto_rings is not None and req.plan_ring is not None:
+            self._auto_rings[id(call)] = (call, req.plan_ring)
         return req
 
     def resolve_call_signature(self, call: CCLOCall) -> tuple:

@@ -41,5 +41,15 @@ class CCLODevice(ABC):
     def set_tuning(self, key: int, value: int) -> None:
         """Write one runtime tuning register (constants.TuningKey)."""
 
+    def sanitizer_domain(self):
+        """Identity of the in-process world this device's ranks share,
+        or None (accl_tpu/backends/base.py:104).  The collective sanitizer
+        (``ACCL_SANITIZE=1``, analysis/sanitizer.py) keys its cross-rank
+        call-fingerprint exchange on it, and ``capture_plan`` pools its
+        cross-rank validation on it: every rank of one gang must return
+        the same hashable value within one process.  None applies
+        single-rank checks only."""
+        return None
+
     def close(self) -> None:
         """Tear down the backend."""

@@ -33,9 +33,21 @@ a gang's program and only then stamps ``t_device_end`` (and lands the
 ring kernels' device-trace rows); with tracing off it adds no
 synchronize.
 
-Left out of this port: persistent plans and plan rings, batched async
-dispatch, kernel streams and resilience.  A descriptor that asks for one
-of them is refused with an ACCLError.
+Persistent plans (plans.py, tpu.py:187-1428): ``arm_plan`` pairs the
+ranks' captured descriptor streams into one :class:`PlanRing` of pinned
+slots (gang programs with their operand and result views, pre-paired
+p2p moves, local ops); a replay is a generation bump whose last-arriving
+rank runs every slot inline, on the card's current stream, under the
+engine's one-program-at-a-time claim.  An operand that is a copy (a
+widened dtype, a padded bcast placeholder) is rebuilt on every replay.
+Batched dispatch (tpu.py:1534-1675): the executor extends a popped
+gang with up to ``_BATCH_CAP`` - 1 queued gangs of the same program and
+no read-after-write on a (rank, address), and runs them back to back
+under one claim (no fusion into one program, as JAX compiles them);
+ring-lane gangs and ``profile_sync`` never batch.
+
+Left out of this port: kernel streams and resilience.  A descriptor that
+asks for a stream is refused with an ACCLError.
 """
 from __future__ import annotations
 
@@ -45,7 +57,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -133,7 +145,8 @@ class CudaBuffer(BaseBuffer):
     def free(self) -> None:
         """Drop the buffer from its engine (and the gang plans that hold
         it), so its memory goes with the last reference: what a sweep
-        that makes buffers per call needs."""
+        that makes buffers per call needs.  A plan ring that holds it
+        keeps it until the plan is closed."""
         if self._engine is not None:
             self._engine.free_buffer(self._rank, self)
             self._engine = None
@@ -392,6 +405,43 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
     return body
 
 
+class PlanRing:
+    """Fixed-slot submission/completion ring for one armed persistent
+    plan (plans.py; tpu.py:187).
+
+    Every descriptor of the captured program is pre-resolved at arm
+    time into a *slot* — a pinned gang program with its operand and
+    result views, a pre-paired p2p move, or a local op — so a replay is
+    a sequence-counter bump: the rank's ``gen``-th replay joins
+    generation ``gen``; the LAST member to arrive runs every slot inline
+    while the others wait on the completion side of the ring.
+
+    ``invalid`` is the epoch fence: a fence poisons the ring and wakes
+    every waiter — a replay can raise on a fenced plan but never
+    silently run it."""
+
+    __slots__ = ("slots", "members", "nmembers", "comm_gens", "cv",
+                 "rank_gen", "gen_count", "done_gen", "invalid",
+                 "replays", "refs")
+
+    def __init__(self, slots: list, members: frozenset, comm_gens: dict):
+        self.slots = slots
+        self.members = members
+        self.nmembers = len(members)
+        #: per-rank plan handles sharing this ring (release_ring drops
+        #: the pinned state only when the LAST holder releases)
+        self.refs = 0
+        #: comm id -> the engine's fence generation at arm time; any bump
+        #: makes the ring unreplayable
+        self.comm_gens = comm_gens
+        self.cv = threading.Condition()
+        self.rank_gen: dict = {}    # rank -> replays this rank issued
+        self.gen_count: dict = {}   # generation -> arrivals so far
+        self.done_gen = 0           # completed replay generations
+        self.invalid: Optional[str] = None
+        self.replays = 0
+
+
 class CudaEngine:
     """World-level gang scheduler and collective executor over one
     device (``cuda`` by default; tests pass ``cpu``)."""
@@ -428,8 +478,19 @@ class CudaEngine:
         #: the A/B lane of the call-rate bench (tpu.py:272-275)
         self.leader_dispatch = os.environ.get("ACCL_LEADER_DISPATCH",
                                               "1") != "0"
-        #: the dispatch-lane counters (tpu.py:314); the batch and plan
-        #: counters stay 0 until plans and batched dispatch are ported
+        #: exact perf-counter mode (ACCL_PROFILE_SYNC=1, tpu.py:269): the
+        #: stream is synchronized before each gang's end stamp, so a
+        #: call's duration is its device time, and no gang batches
+        self.profile_sync = os.environ.get("ACCL_PROFILE_SYNC", "0") == "1"
+        #: persistent-plan rings (pinned, outside the _gang_plans LRU),
+        #: the arm board pairing concurrent per-rank arms into one ring,
+        #: and the per-comm fence generation each ring snapshots at arm
+        #: (resilience bumps it; until then it stays 0)
+        self._plan_rings: list = []
+        self._plan_board: list = []
+        self._plan_cv = threading.Condition()
+        self._comm_gen: dict = {}
+        #: the dispatch-lane, batch and plan counters (tpu.py:314)
         self.metrics = _metrics.MetricsRegistry()
         for k in ("leader_dispatches", "executor_dispatches", "batches",
                   "batched_gangs", "plan_replays", "plan_auto_captures"):
@@ -700,6 +761,12 @@ class CudaEngine:
                 _mark_spans(ready, t_ready=t_ready)
             if observing:
                 self._account_gang_wait(call.comm, ready, t_ready)
+            # plan auto-capture (ACCL_PLAN_AUTO): arm a one-slot ring
+            # when EVERY member of this instance declared intent, so all
+            # ranks switch to replay on the same future instance
+            # (tpu.py:688-692)
+            if all(r_.plan_intent for _c, r_ in ready.values()):
+                self._arm_auto_ring(int(call.scenario), call.comm, ready)
             self._dispatch_gang(int(call.scenario), call.comm, ready, request)
 
     def _dispatch_gang(self, scenario: int, comm_id: int, gang: dict,
@@ -730,8 +797,9 @@ class CudaEngine:
                 finally:
                     with self._ready_cv:
                         self._inline_busy = False
-                        if self._ready or self._shutdown:
-                            self._ready_cv.notify()
+                        # wakes the executor, and a plan-replay leader
+                        # parked on the one-program-at-a-time claim
+                        self._ready_cv.notify_all()
 
             leader_req.pre_wait = run_inline
             return
@@ -744,7 +812,8 @@ class CudaEngine:
 
     def _exec_loop(self) -> None:
         """The executor thread (tpu.py:1494); parks while an inline
-        dispatch runs."""
+        dispatch or a plan replay runs.  A popped gang takes compatible
+        queued gangs with it into one batch (_extend_batch)."""
         while True:
             with self._ready_cv:
                 while not (self._ready and not self._inline_busy):
@@ -754,12 +823,72 @@ class CudaEngine:
                 scenario, comm_id, gang = self._ready.popleft()
                 self._exec_busy = True
             try:
-                self.metrics.inc("executor_dispatches")
-                self._exec_gang(scenario, comm_id, gang)
+                items = self._extend_batch(scenario, comm_id, gang)
+                if items is None:
+                    self.metrics.inc("executor_dispatches")
+                    self._exec_gang(scenario, comm_id, gang)
+                else:
+                    self.metrics.inc("batches")
+                    self.metrics.inc("batched_gangs", len(items))
+                    self._exec_gang_batch(items)
+            except Exception as e:  # a gang plan that cannot be built
+                self._log.error("executor gang dispatch failed: %s", e)
+                for _call, request in gang.values():
+                    if not request.done:
+                        request.description += f" [{e}]"
+                        request.complete(int(ErrorCode.DMA_INTERNAL_ERROR),
+                                         0.0)
             finally:
                 with self._ready_cv:
                     self._exec_busy = False
                     self._ready_cv.notify_all()
+
+    #: most gangs one batch runs under one claim of the dispatch slot
+    #: (tpu.py:1534)
+    _BATCH_CAP = 8
+
+    def _extend_batch(self, scenario: int, comm_id: int, gang: dict):
+        """Extend ``gang`` with queued gangs of the same program and no
+        read-after-write hazard (a candidate reading a (rank, address)
+        an earlier member writes ends the batch), JAX's rules
+        (tpu.py:1536-1588), so the same gangs are eligible in both
+        packages.  Only the executor pops, so peeking then popping is
+        race-free.  Returns [(op, comm, gang, plan)] when a batch of two
+        or more formed, else None."""
+        op = Operation(scenario)
+        if op == Operation.barrier or self.profile_sync:
+            # profile_sync: each call's duration must be its own device
+            # time, never a share of a batch's
+            return None
+        with self._ready_cv:
+            if not self._ready:
+                return None
+        plan = self._gang_plan(op, comm_id, gang)
+        if plan["ring"]:
+            # the ring lane always dispatches alone (tpu.py:1562-1570)
+            return None
+        items = [(op, comm_id, gang, plan)]
+        res_addrs = set(plan["res_addrs"])
+        while len(items) < self._BATCH_CAP:
+            with self._ready_cv:
+                if not self._ready:
+                    break
+                nscen, ncomm, ngang = self._ready[0]
+            nop = Operation(nscen)
+            if nop == Operation.barrier:
+                break
+            try:
+                nplan = self._gang_plan(nop, ncomm, ngang)
+            except Exception:  # the candidate's own turn reports it
+                break
+            if (nplan["fn_key"] != plan["fn_key"]
+                    or nplan["opnd_addrs"] & res_addrs):
+                break
+            with self._ready_cv:
+                popped = self._ready.popleft()
+            items.append((nop, ncomm, popped[2], nplan))
+            res_addrs |= nplan["res_addrs"]
+        return items if len(items) > 1 else None
 
     def _exec_gang(self, scenario: int, comm_id: int, gang: dict) -> None:
         """Run one gang and complete its members (tpu.py:1590): the
@@ -788,6 +917,55 @@ class CudaEngine:
             return
         for _call, request in gang.values():
             request.complete(0, float(dt_ns))
+
+    def _exec_gang_batch(self, items: list) -> None:
+        """Run K same-program, RAW-independent gangs back to back under
+        the executor's one claim of the dispatch slot (tpu.py:1616): one
+        flight/span stamp with lane ``batched``, one device window, and
+        each call's duration the batch's time / K.  If a member fails,
+        the members that ran before it complete as they are and the
+        rest fail."""
+        t0 = time.perf_counter_ns()
+        ran = 0
+        try:
+            tf = _trace.now_ns()
+            for _op, _c, gang, _plan in items:
+                _mark_flight(gang, _flight.S_DISPATCHED, lane="batched",
+                             t=tf)
+            if _trace.enabled():
+                td = _trace.now_ns()
+                for _op, _c, gang, _plan in items:
+                    _mark_spans(gang, lane="batched", t_dispatch=td)
+            t0 = time.perf_counter_ns()
+            for op, comm_id, gang, plan in items:
+                self._run_plan(op, comm_id, gang, plan)
+                ran += 1
+            t1 = self._end_stamp()
+            if _trace.enabled():
+                for _op, _c, gang, _plan in items:
+                    _mark_spans(gang, t_dev0=t0, t_dev1=t1)
+            err = None
+        except Exception as e:
+            self._log.debug("batched gang failed: %s", e)
+            t1 = time.perf_counter_ns()
+            err = e
+        per_call = float(t1 - t0) / max(ran, 1)
+        for i, (_op, _c, gang, _plan) in enumerate(items):
+            for _call, request in gang.values():
+                if i < ran:
+                    request.complete(0, per_call)
+                else:
+                    request.description += f" [{err}]"
+                    request.complete(int(ErrorCode.DMA_INTERNAL_ERROR), 0.0)
+
+    def _end_stamp(self) -> int:
+        """The device-end stamp: on the card a launch returns at enqueue,
+        so under tracing or ``profile_sync`` the stream is synchronized
+        first; otherwise the stamp is the enqueue's end."""
+        if (self.profile_sync or _trace.enabled()) \
+                and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return time.perf_counter_ns()
 
     def _gang_plan(self, op: Operation, comm_id: int, gang: dict) -> dict:
         """Resolve one gang signature into an execution plan (buffers,
@@ -873,6 +1051,17 @@ class CudaEngine:
                         _collective_program(op, nranks, in_len, root,
                                             any_call.function, wire_dtype,
                                             ring, fused)),
+            # batching (tpu.py:1817-1826): gangs of one fn_key run the
+            # same program; the address sets, keyed by (rank, address)
+            # because every rank's allocator mints the same numbers,
+            # drive the read-after-write guard
+            "fn_key": (tuple(members), op, nranks, in_len, root,
+                       any_call.function, wire_dtype, str(dtype), ring,
+                       fused),
+            "opnd_addrs": frozenset((g, b.address) for g, (b, _o, _r, _ro)
+                                    in zip(members, ops) if b is not None),
+            "res_addrs": frozenset((g, r.address) for g, (_b, _o, r, _ro)
+                                   in zip(members, ops) if r is not None),
         }
         with self._lock:
             self._gang_plans[sig] = plan
@@ -882,33 +1071,37 @@ class CudaEngine:
 
     def _run_collective(self, op: Operation, comm_id: int,
                         gang: dict) -> tuple:
-        """Gather the gang's operands (views of the rank buffers where the
-        dtype and length allow), run the program, write each result into
-        its rank's buffer.  Returns (duration ns, device-begin ns,
-        device-end ns).  On the card a launch returns at enqueue: with
-        tracing off the duration is the enqueue; with tracing on the
-        stream is synchronized before the end stamp, so the window holds
-        the device work.  The ring wrappers land their device-trace rows
+        """Run one gang's program (:meth:`_run_plan`).  Returns (duration
+        ns, device-begin ns, device-end ns).  On the card a launch
+        returns at enqueue: with tracing and ``profile_sync`` off the
+        duration is the enqueue; with either on the stream is
+        synchronized before the end stamp, so the window holds the
+        device work.  The ring wrappers land their device-trace rows
         themselves, each after its launch."""
         if op == Operation.barrier:
             t = time.perf_counter_ns()
             return 0, t, t  # gang completion is the synchronization
         plan = self._gang_plan(op, comm_id, gang)
+        t0, t1 = self._run_plan(op, comm_id, gang, plan)
+        if self.profile_sync or _trace.enabled():
+            t1 = self._end_stamp()
+        return t1 - t0, t0, t1
+
+    def _run_plan(self, op: Operation, comm_id: int, gang: dict,
+                  plan: dict, xs: Optional[list] = None,
+                  outs: Optional[list] = None) -> tuple:
+        """Gather the gang's operands (views of the rank buffers where the
+        dtype and length allow), run the program, write each result into
+        its rank's buffer; (program start ns, program end ns).  A plan
+        slot passes its operands ``xs`` and result views ``outs`` (None:
+        the results are copied) already resolved."""
         if _observing():
             self._account_gang_links(op, comm_id, gang,
                                      plan["in_len"] * plan["itemsize"],
                                      plan["wire_dtype"])
-        in_len, dtype = plan["in_len"], plan["dtype"]
-        xs = []
-        for buf, off, _res, _roff in plan["ops"]:
-            shard = buf.dev[off:off + in_len]
-            if shard.dtype != dtype:
-                shard = shard.to(dtype)
-            if shard.shape[0] < in_len:  # placeholder short buffer (bcast)
-                pad = shard.new_zeros(in_len - shard.shape[0])
-                shard = torch.cat([shard, pad])
-            xs.append(shard)
-        outs = self._direct_outs(plan, xs)
+        if xs is None:
+            xs = [self._operand(plan, r) for r in range(len(plan["ops"]))]
+            outs = self._direct_outs(plan, xs)
         t0 = time.perf_counter_ns()
         ys = plan["program"](xs, outs)
         t1 = time.perf_counter_ns()
@@ -916,10 +1109,22 @@ class CudaEngine:
                                                              ys)):
             if res is not None and (outs is None or y is not outs[r]):
                 res.dev[roff:roff + y.shape[0]].copy_(y)
-        if _trace.enabled() and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-            t1 = time.perf_counter_ns()
-        return t1 - t0, t0, t1
+        return t0, t1
+
+    @staticmethod
+    def _operand(plan: dict, r: int) -> torch.Tensor:
+        """Rank ``r``'s operand: a view of its buffer, or a copy widened
+        to the datapath dtype or padded to the operand length (a short
+        bcast placeholder)."""
+        buf, off, _res, _roff = plan["ops"][r]
+        in_len = plan["in_len"]
+        shard = buf.dev[off:off + in_len]
+        if shard.dtype != plan["dtype"]:
+            shard = shard.to(plan["dtype"])
+        if shard.shape[0] < in_len:
+            pad = shard.new_zeros(in_len - shard.shape[0])
+            shard = torch.cat([shard, pad])
+        return shard
 
     @staticmethod
     def _direct_outs(plan: dict, xs: list) -> Optional[list]:
@@ -1075,6 +1280,409 @@ class CudaEngine:
             rows.append(row)
         return rows
 
+    # -- persistent-plan rings (tpu.py:989-1428) -----------------------
+    def arm_plan(self, rank: int, calls: Sequence[CCLOCall],
+                 expected: frozenset, timeout_s: float) -> PlanRing:
+        """Arm one rank's captured descriptor stream.  Ranks arming
+        concurrently (every member of ``expected``) rendezvous on the arm
+        board; the LAST arrival lowers the whole group into one
+        :class:`PlanRing`.  A rank that waits out ``timeout_s`` raises
+        naming the ranks that never armed."""
+        with self._plan_cv:
+            group = None
+            for g in self._plan_board:
+                # join only a group with the IDENTICAL member union, so
+                # two concurrent captures that share ranks never fuse
+                if rank not in g["arrived"] and not g["building"] \
+                        and g["expected"] == set(expected):
+                    group = g
+                    break
+            if group is None:
+                group = {"arrived": {}, "expected": set(expected),
+                         "ring": None, "error": None, "building": False}
+                self._plan_board.append(group)
+            group["arrived"][rank] = list(calls)
+            complete = set(group["arrived"]) >= group["expected"]
+            if complete:
+                group["building"] = True
+        if complete:
+            ring = err = None
+            try:
+                ring = self._build_ring(group["arrived"], group["expected"])
+            except Exception as e:  # every armer sees the same failure
+                err = e
+            with self._plan_cv:
+                group["ring"], group["error"] = ring, err
+                if group in self._plan_board:
+                    self._plan_board.remove(group)
+                if ring is not None:
+                    self._plan_rings.append(ring)
+                self._plan_cv.notify_all()
+            if err is not None:
+                raise err if isinstance(err, ACCLError) else ACCLError(
+                    f"plan arm failed: {err}")
+            with ring.cv:
+                ring.refs += 1  # this rank's plan handle
+            return ring
+        deadline = time.monotonic() + timeout_s
+        with self._plan_cv:
+            while group["ring"] is None and group["error"] is None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0 or not self._plan_cv.wait(remaining):
+                    if group["ring"] is not None \
+                            or group["error"] is not None:
+                        break
+                    if group["building"]:
+                        # the build always publishes a ring or an error
+                        deadline = time.monotonic() + timeout_s
+                        continue
+                    missing = sorted(set(group["expected"])
+                                     - set(group["arrived"]))
+                    err = ACCLError(
+                        f"plan arm timed out after {timeout_s:.1f}s "
+                        f"waiting for rank(s) {missing} to capture the "
+                        f"same plan — capture_plan is collective over "
+                        f"every gang/p2p peer of the captured program")
+                    # poison and retire the group, so a late arm opens a
+                    # fresh one instead of completing this rank's
+                    group["error"] = err
+                    if group in self._plan_board:
+                        self._plan_board.remove(group)
+                    self._plan_cv.notify_all()
+                    raise err
+            if group["error"] is not None:
+                e = group["error"]
+                raise e if isinstance(e, ACCLError) else ACCLError(
+                    f"plan arm failed: {e}")
+            ring = group["ring"]
+        # refs outside the board lock: release_ring takes ring.cv, then
+        # _plan_cv
+        with ring.cv:
+            ring.refs += 1
+        return ring
+
+    def _build_ring(self, lists: dict, expected: set) -> PlanRing:
+        """Lower a complete arm group into ring slots: merge the per-rank
+        call streams into one serializable schedule (the gang pairing the
+        scheduler would do per call, done once), resolving every operand
+        (tpu.py:1084)."""
+        ranks = sorted(lists)
+        comm_gens: dict = {}
+
+        def note_comm(comm_id: int) -> list:
+            members = self._comms.get(comm_id)
+            if members is None:
+                raise ACCLError(f"plan arm: unknown communicator {comm_id}")
+            comm_gens.setdefault(comm_id, self._comm_gen.get(comm_id, 0))
+            return members
+
+        heads = {r: 0 for r in ranks}
+        total = sum(len(v) for v in lists.values())
+        made = 0
+        slots: list = []
+        pending: dict = {}  # (comm, src, dst) -> deque of sends
+        while made < total:
+            progressed = False
+            for r in ranks:
+                i = heads[r]
+                if i >= len(lists[r]):
+                    continue
+                call = lists[r][i]
+                op = Operation(call.scenario)
+                if call.stream_flags:
+                    raise ACCLError("plan arm: stream-operand calls are not "
+                                    "replayable — keep stream traffic eager")
+                if op in (Operation.config, Operation.nop):
+                    pass
+                elif op in (Operation.copy, Operation.combine):
+                    slots.append({"kind": "local", "rank": r, "call": call})
+                elif op == Operation.send:
+                    dst = note_comm(call.comm)[call.root_src_dst]
+                    pending.setdefault((call.comm, r, dst),
+                                       deque()).append((r, call))
+                elif op == Operation.recv:
+                    src = note_comm(call.comm)[call.root_src_dst]
+                    q = pending.get((call.comm, src, r))
+                    if not q:
+                        continue  # sender not reached yet
+                    s_rank, s_call = q.popleft()
+                    slots.append(self._p2p_slot(s_rank, s_call, r, call))
+                else:  # gang collective
+                    members = note_comm(call.comm)
+                    ready = True
+                    for m in members:
+                        if m not in lists:
+                            raise ACCLError(
+                                f"plan arm: comm {call.comm} member {m} "
+                                f"never captured this plan — every member "
+                                f"must capture_plan the same program")
+                        j = heads[m]
+                        if j >= len(lists[m]) or \
+                                (lists[m][j].scenario, lists[m][j].comm,
+                                 lists[m][j].tag) != (call.scenario,
+                                                      call.comm, call.tag):
+                            ready = False
+                            break
+                    if not ready:
+                        continue
+                    gang = {m: (lists[m][heads[m]], None) for m in members}
+                    slots.append(self._gang_slot(op, call.comm, gang))
+                    for m in members:
+                        heads[m] += 1
+                    made += len(members)
+                    progressed = True
+                    continue
+                heads[r] += 1
+                made += 1
+                progressed = True
+            if not progressed:
+                raise ACCLError(
+                    "plan arm: captured steps do not form a serializable "
+                    "schedule (cross-rank call order diverges, or a recv "
+                    "waits on a send outside the plan) — record the "
+                    "program with analysis.record_program and check it")
+        leftover = sum(len(q) for q in pending.values())
+        if leftover:
+            raise ACCLError(
+                f"plan arm: {leftover} send(s) have no matching recv "
+                f"inside the plan — p2p must pair within the captured "
+                f"program")
+        return PlanRing(slots, frozenset(expected), comm_gens)
+
+    def _gang_slot(self, op: Operation, comm_id: int, gang: dict) -> dict:
+        """One gang's slot: its plan, the operands that are views of the
+        rank buffers (None where the operand is a copy, rebuilt on every
+        replay so it reads the buffer as it is then) and the result views
+        the ring drivers may write into (``_direct_outs``, decided once:
+        a rebuilt copy is fresh memory, so the alias check holds)."""
+        if op == Operation.barrier:  # the replay rendezvous is the barrier
+            return {"kind": "gang", "op": op, "comm": comm_id, "gang": gang,
+                    "plan": None}
+        plan = self._gang_plan(op, comm_id, gang)
+        views = []
+        for buf, off, _res, _roff in plan["ops"]:
+            v = buf.dev[off:off + plan["in_len"]]
+            views.append(v if v.dtype == plan["dtype"]
+                         and v.shape[0] == plan["in_len"] else None)
+        xs = [v if v is not None else self._operand(plan, r)
+              for r, v in enumerate(views)]
+        return {"kind": "gang", "op": op, "comm": comm_id, "gang": gang,
+                "plan": plan, "views": views,
+                "outs": self._direct_outs(plan, xs)}
+
+    def _p2p_slot(self, s_rank: int, s_call: CCLOCall, d_rank: int,
+                  d_call: CCLOCall) -> dict:
+        """A pre-paired send/recv, moved as the eager lane moves it: the
+        sender's wire roundtrip on its payload, the receiver's on its
+        count of it, then a copy into the receive buffer (the PACK_SEQ
+        tag discipline checked once, here)."""
+        if d_call.tag != TAG_ANY and d_call.tag != s_call.tag:
+            raise ACCLError(
+                f"plan arm: recv tag {d_call.tag} does not match the oldest "
+                f"pending send tag {s_call.tag} on route {s_rank}->{d_rank} "
+                f"(the PACK_SEQ sequence discipline)")
+        sbuf, soff = self.resolve(s_rank, s_call.addr_0)
+        dbuf, doff = self.resolve(d_rank, d_call.addr_2)
+        if sbuf is None or dbuf is None:
+            raise ACCLError("plan arm: p2p operand does not resolve to a "
+                            "registered device buffer")
+
+        def wire(call):
+            return (self.wire_dtype_for(call.arithcfg)
+                    if call.compression_flags
+                    & CompressionFlags.ETH_COMPRESSED else "")
+
+        return {"kind": "p2p", "src": sbuf, "soff": soff,
+                "n_send": s_call.count, "send_wire": wire(s_call),
+                "dst": dbuf, "doff": doff, "n_recv": d_call.count,
+                "recv_wire": wire(d_call)}
+
+    def ring_replay(self, rank: int, ring: PlanRing, run_async: bool = False,
+                    timeout_s: float = 60.0) -> int:
+        """The replay hot path: bump this rank's sequence counter; the
+        generation's LAST arrival executes every slot inline, everyone
+        else rides the completion side.  Returns the generation (the
+        async ticket's token)."""
+        with ring.cv:
+            if ring.invalid is not None:
+                raise ACCLError(
+                    f"plan replay: plan invalidated ({ring.invalid})",
+                    int(ErrorCode.COMM_ABORTED))
+            g = ring.rank_gen.get(rank, 0) + 1
+            ring.rank_gen[rank] = g
+            n = ring.gen_count.get(g, 0) + 1
+            last = n == ring.nmembers
+            if last:
+                ring.gen_count.pop(g, None)
+            else:
+                ring.gen_count[g] = n
+        if last:
+            self._ring_execute(ring, g, timeout_s)
+            return g
+        if run_async:
+            return g
+        if not self.ring_wait(ring, g, timeout_s):
+            raise ACCLError(
+                f"plan replay: generation {g} never completed within "
+                f"{timeout_s:.0f}s (a member rank stopped replaying?)")
+        return g
+
+    def ring_wait(self, ring: PlanRing, gen: int,
+                  timeout_s: float = 60.0) -> bool:
+        """Completion side of the ring: block until generation ``gen``
+        finished.  False on timeout; raises when the ring was fenced."""
+        deadline = time.monotonic() + timeout_s
+        with ring.cv:
+            while ring.done_gen < gen:
+                if ring.invalid is not None:
+                    raise ACCLError(
+                        f"plan replay: plan invalidated ({ring.invalid})",
+                        int(ErrorCode.COMM_ABORTED))
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                ring.cv.wait(remaining)
+        return True
+
+    def _ring_execute(self, ring: PlanRing, gen: int,
+                      timeout_s: float) -> None:
+        # generation order: an async pump can trigger gen g while g - 1
+        # runs on another thread, and the slots rebind no buffers but
+        # write them, so executions land in order
+        deadline = time.monotonic() + timeout_s
+        with ring.cv:
+            while ring.done_gen < gen - 1 and ring.invalid is None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise ACCLError(
+                        f"plan replay: generation {gen - 1} never "
+                        f"completed within {timeout_s:.0f}s")
+                ring.cv.wait(remaining)
+            if ring.invalid is not None:
+                raise ACCLError(
+                    f"plan replay: plan invalidated ({ring.invalid})",
+                    int(ErrorCode.COMM_ABORTED))
+        # epoch fence: the comm generations must still match the armed
+        # snapshot (tpu.py:1284-1296)
+        for comm_id, gen0 in ring.comm_gens.items():
+            if self._comm_gen.get(comm_id, 0) != gen0:
+                self._invalidate_ring(
+                    ring, f"communicator {comm_id} fenced since arm")
+                raise ACCLError(
+                    f"plan replay: communicator {comm_id} was fenced "
+                    f"(epoch bump) since the plan was armed — re-capture "
+                    f"on the recovered communicator",
+                    int(ErrorCode.COMM_ABORTED))
+        # claim the engine's one-program-at-a-time slot, as the leader
+        # and executor lanes do
+        with self._ready_cv:
+            while (self._ready or self._exec_busy
+                   or self._inline_busy) and not self._shutdown:
+                self._ready_cv.wait(0.05)
+            if self._shutdown:
+                raise ACCLError("plan replay: engine shut down while "
+                                "waiting for the dispatch slot")
+            self._inline_busy = True
+        try:
+            self.metrics.inc("plan_replays")
+            for slot in ring.slots:
+                self._exec_slot(slot)
+            if _trace.enabled():
+                self._end_stamp()
+        except Exception as e:
+            self._invalidate_ring(ring, f"replay execution failed: {e}")
+            if isinstance(e, ACCLError):
+                raise
+            raise ACCLError(f"plan replay failed: {e}") from e
+        finally:
+            with self._ready_cv:
+                self._inline_busy = False
+                self._ready_cv.notify_all()
+        with ring.cv:
+            ring.done_gen = gen
+            ring.replays += 1
+            ring.cv.notify_all()
+
+    def _exec_slot(self, slot: dict) -> None:
+        kind = slot["kind"]
+        if kind == "gang":
+            plan = slot["plan"]
+            if plan is None:  # barrier
+                return
+            xs = [v if v is not None else self._operand(plan, r)
+                  for r, v in enumerate(slot["views"])]
+            self._run_plan(slot["op"], slot["comm"], slot["gang"], plan,
+                           xs, slot["outs"])
+        elif kind == "local":
+            call = slot["call"]
+            if call.scenario == Operation.copy:
+                self._exec_copy(slot["rank"], call)
+            else:
+                self._exec_combine(slot["rank"], call)
+        else:  # p2p
+            src, dst = slot["src"], slot["dst"]
+            data = src.dev[slot["soff"]:slot["soff"] + slot["n_send"]]
+            if src is dst:
+                data = data.clone()  # the eager send's captured payload
+            data = _wire_roundtrip(data, slot["send_wire"])[:slot["n_recv"]]
+            data = _wire_roundtrip(data, slot["recv_wire"])
+            dst.dev[slot["doff"]:slot["doff"] + data.shape[0]].copy_(data)
+
+    def _invalidate_ring(self, ring: PlanRing, reason: str) -> None:
+        with ring.cv:
+            if ring.invalid is None:
+                ring.invalid = reason
+            ring.cv.notify_all()
+
+    def invalidate_rings(self, comm_id: Optional[int], reason: str) -> None:
+        """Fence every armed ring touching ``comm_id`` (None = all), wake
+        their waiters and evict them — the driver's fencing contract,
+        and what resilience calls on abort and rebuild."""
+        with self._plan_cv:
+            keep = []
+            for ring in self._plan_rings:
+                if comm_id is None or comm_id in ring.comm_gens:
+                    self._invalidate_ring(ring, reason)
+                else:
+                    keep.append(ring)
+            self._plan_rings = keep
+
+    def release_ring(self, ring: PlanRing) -> None:
+        """Drop one rank's handle on a ring (its plan was closed or
+        collected); when the LAST holder releases, the ring is fenced,
+        evicted and its pinned slots dropped."""
+        with ring.cv:
+            ring.refs -= 1
+            if ring.refs > 0:
+                return
+        self._invalidate_ring(ring, "plan released")
+        with self._plan_cv:
+            if ring in self._plan_rings:
+                self._plan_rings.remove(ring)
+        ring.slots = []
+
+    def _arm_auto_ring(self, scenario: int, comm_id: int,
+                       gang: dict) -> None:
+        """ACCL_PLAN_AUTO: every member of this gang instance carried plan
+        intent — arm a one-slot ring from the gang's descriptors and
+        publish it on each member's request (the driver adopts it after
+        completion, so every rank switches on the SAME instance).  A
+        failure leaves the gang on its eager path, where the same plan
+        error then fails it (tpu.py:1401)."""
+        try:
+            gang2 = {g: (c, None) for g, (c, _r) in gang.items()}
+            ring = PlanRing(
+                [self._gang_slot(Operation(scenario), comm_id, gang2)],
+                frozenset(self._comms[comm_id]),
+                {comm_id: self._comm_gen.get(comm_id, 0)})
+            with self._plan_cv:
+                self._plan_rings.append(ring)
+            for _c, req in gang.values():
+                req.plan_ring = ring
+            self.metrics.inc("plan_auto_captures")
+        except Exception as e:
+            self._log.warning("plan auto-capture failed: %s", e)
+
     # -- hang diagnosis (tpu.py:1441-1492) -------------------------------
     def start_watchdog(self, recorders) -> Optional[_health.Watchdog]:
         """Arm the hang watchdog over the world's flight recorders
@@ -1121,6 +1729,9 @@ class CudaEngine:
         return out
 
     def shutdown(self) -> None:
+        # a replay after close raises at once instead of waiting out its
+        # generation
+        self.invalidate_rings(None, "engine shut down")
         if self._watchdog is not None:
             self._watchdog.stop()
             self._watchdog = None
@@ -1140,6 +1751,34 @@ class CudaDeviceView(CCLODevice):
     def start(self, call: CCLOCall, request: Request) -> None:
         self._engine.submit(self._rank, call, request)
 
+    def sanitizer_domain(self):
+        """Every rank of a CudaWorld shares one in-process engine, so its
+        identity is the sanitizer's exchange domain and the pool of
+        ``capture_plan``'s cross-rank validation (tpu.py:2295)."""
+        return ("cuda", id(self._engine))
+
+    # -- persistent plans: the engine's shared ring (tpu.py:2428-2450)
+    def arm_plan(self, calls, expected, timeout_s: float) -> PlanRing:
+        return self._engine.arm_plan(self._rank, calls, expected, timeout_s)
+
+    def plan_replay(self, ring: PlanRing, run_async: bool = False,
+                    timeout_s: float = 60.0) -> int:
+        return self._engine.ring_replay(self._rank, ring, run_async,
+                                        timeout_s)
+
+    def plan_wait(self, ring: PlanRing, token: int, timeout_s: float) -> bool:
+        return self._engine.ring_wait(ring, token, timeout_s)
+
+    def invalidate_plans(self, comm_id: int = -1) -> None:
+        """Fence the engine's rings on ``comm_id`` (-1: every ring)."""
+        self._engine.invalidate_rings(
+            None if comm_id < 0 else comm_id,
+            "invalidated by the driver")
+
+    def plan_release(self, ring: PlanRing) -> None:
+        """Release a dead plan's ring (the plan's finalizer)."""
+        self._engine.release_ring(ring)
+
     @property
     def engine_metrics(self) -> _metrics.MetricsRegistry:
         """The shared engine's registry (ACCL.metrics() merges its
@@ -1148,15 +1787,20 @@ class CudaDeviceView(CCLODevice):
 
     def engine_stats(self) -> dict:
         """Engine stats in the key set of the reference's TPU view
-        (tpu.py:2308).  The plan-ring fields (plans_live,
-        plan_ring_refs, plan_ring_generation, plan_ring_replays,
-        plan_replays, plan_auto_captures) and the batch fields (batches,
-        batched_gangs) read 0 until plans and batched dispatch are
-        ported."""
+        (tpu.py:2308-2345): the live plan rings (``plans_live``), the
+        handles pinning them (``plan_ring_refs``), the highest comm fence
+        generation, their replays, and the dispatch-lane, batch and plan
+        counters."""
         eng = self._engine
         counters = eng.metrics.counters()
+        with eng._plan_cv:
+            rings = [r for r in eng._plan_rings if r.invalid is None]
+            plan_ring_refs = sum(r.refs for r in rings)
+            ring_replays = sum(r.replays for r in rings)
         with eng._ready_cv:
             ready_depth = len(eng._ready)
+        with eng._lock:
+            gen = max(eng._comm_gen.values(), default=0)
         link_rows = sum(1 for (src, _c, _p) in eng._link_table()
                         if src == self._rank)
         return {
@@ -1165,10 +1809,10 @@ class CudaDeviceView(CCLODevice):
             "compressed_tx_bytes": counters.get("compressed_tx_bytes", 0),
             "compressed_tx_logical_bytes":
                 counters.get("compressed_tx_logical_bytes", 0),
-            "plans_live": 0,
-            "plan_ring_refs": 0,
-            "plan_ring_generation": 0,
-            "plan_ring_replays": 0,
+            "plans_live": len(rings),
+            "plan_ring_refs": plan_ring_refs,
+            "plan_ring_generation": gen,
+            "plan_ring_replays": ring_replays,
             "plan_replays": counters.get("plan_replays", 0),
             "plan_auto_captures": counters.get("plan_auto_captures", 0),
             "leader_dispatches": counters.get("leader_dispatches", 0),

@@ -13,18 +13,21 @@ Port of ``accl_tpu/bench/callrate.py``.  Lanes:
   (``CudaEngine.leader_dispatch = False``, the ``ACCL_LEADER_DISPATCH=0``
   lane): every gang goes through the executor thread;
 - async: resident calls with ``run_async`` and at most 8 outstanding,
-  every request waited and checked.  The port has no batched dispatch
-  yet, so the executor runs these gangs one at a time: this is not the
-  reference's async lane, whose executor fuses queued gangs;
+  every request waited and checked.  The executor batches queued gangs
+  of one program (up to 8, back to back under one claim of the
+  dispatch slot); ring-lane gangs dispatch alone.  Its ``dispatch`` row
+  carries the engine's ``batches`` and ``batched_gangs``;
+- plan_sync / plan_async: the same resident call captured once per rank
+  into a persistent plan (``ACCL.capture_plan``, plans.py) and replayed,
+  blocking or with at most 8 tickets outstanding;
 - raw: the program the engine runs for this gang (the same
   ``_collective_program``: the torch sum below ``ACCL_RING_THRESHOLD``,
   the ring kernels at or above it), called in a loop over the same rank
   tensors with one synchronize at the end.  Its key keeps the
   reference's name, ``raw_shardmap``.
 
-The plan lanes (``plan_sync``, ``plan_async``) replay a captured
-persistent plan, which the port has no ``capture_plan`` for yet
-(ROADMAP Queue 1 item 2), so their keys are absent.
+Every lane synchronizes the card before its clock stops, so each times
+the same device work as raw.
 
 Methodology as in the reference: the lanes are measured interleaved in
 rounds, each lane's best round is kept, and ratios are taken within a
@@ -44,6 +47,8 @@ LANES = (("staged", "driver_staged"),
          ("resident", "driver_sync_resident"),
          ("resident_exec", "driver_sync_executor_path"),
          ("async", "driver_async"),
+         ("plan_sync", "driver_plan_sync"),
+         ("plan_async", "driver_plan_async"),
          ("raw", "raw_shardmap"))
 
 
@@ -54,6 +59,7 @@ def run(nranks: int = 4, count: int = 1024, iters: int = 300,
 
     from ..backends.cuda import CudaWorld, _collective_program
     from ..constants import Operation, ReduceFunction
+    from .. import plans as _plans
     from ..observability import metrics as _metrics
     from .sweep import claim_platform
 
@@ -117,6 +123,42 @@ def run(nranks: int = 4, count: int = 1024, iters: int = 300,
             sync()
             return time.perf_counter() - t0
 
+        # the plan lanes: every rank captures the same one-call program
+        # (capture is collective over the world), then replays it
+        plans: dict = {}
+
+        def plan_capture(accl, rank):
+            s, r = bufs[rank]
+            plans[rank] = accl.capture_plan(
+                lambda a: a.allreduce(s, r, count, ReduceFunction.SUM,
+                                      from_fpga=True, to_fpga=True))
+
+        w.run(plan_capture)
+
+        def plan_sync(accl, rank):
+            plan = plans[rank]
+            t0 = time.perf_counter()
+            for _ in range(si):
+                plan.replay()
+            sync()
+            return time.perf_counter() - t0
+
+        def plan_async(accl, rank):
+            plan = plans[rank]
+            window: list = []
+            t0 = time.perf_counter()
+            for _ in range(si):
+                window.append(plan.replay(run_async=True))
+                if len(window) >= 8:
+                    head = window.pop(0)
+                    head.wait()
+                    head.check()
+            for ticket in window:
+                ticket.wait()
+                ticket.check()
+            sync()
+            return time.perf_counter() - t0
+
         # raw: the engine's own program for this gang, without the driver
         ring = count * 4 >= w.engine.ring_threshold_bytes and nranks > 1
         prog = _collective_program(Operation.allreduce, nranks, count, 0,
@@ -163,6 +205,12 @@ def run(nranks: int = 4, count: int = 1024, iters: int = 300,
             s0 = snap()
             times["async"].append(max(w.run(resident_async)))
             lane_stats["async"] = delta(s0, snap())
+            s0 = snap()
+            times["plan_sync"].append(max(w.run(plan_sync)))
+            lane_stats["plan_sync"] = delta(s0, snap())
+            s0 = snap()
+            times["plan_async"].append(max(w.run(plan_async)))
+            lane_stats["plan_async"] = delta(s0, snap())
 
         best = {lane: min(ts) for lane, ts in times.items()}
 
@@ -201,6 +249,12 @@ def run(nranks: int = 4, count: int = 1024, iters: int = 300,
     out["resident_vs_async_x"] = round(round_ratio("resident", "async"), 2)
     out["leader_vs_executor_x"] = round(
         round_ratio("resident", "resident_exec"), 2)
+    out["plan_sync_overhead_x"] = round(round_ratio("plan_sync", "raw"), 2)
+    out["plan_async_overhead_x"] = round(
+        round_ratio("plan_async", "raw"), 2)
+    out["plan_vs_resident_x"] = round(
+        round_ratio("plan_sync", "resident"), 2)
+    out["plan_enabled"] = bool(_plans.enabled())
 
     reg = _metrics.default_registry()
     for label, lane in out["lanes"].items():

@@ -150,6 +150,13 @@ class ErrorCode(enum.IntFlag):
     RANK_FAILED = 1 << 28
 
 
+#: Driver-internal retcode stamped on a flight record when the collective
+#: sanitizer (analysis/sanitizer.py, ACCL_SANITIZE=1) aborts a call before
+#: dispatch: the record leaves the watchdog's in-flight scan without
+#: claiming engine success (accl_tpu/constants.py:187)
+SANITIZER_ABORT_ERROR = 1 << 30
+
+
 class TuningKey(enum.IntEnum):
     """Runtime tuning-register keys (reference flat-tree thresholds,
     ccl_offload_control.h:86-90, plus the ring crossover)."""
@@ -230,6 +237,8 @@ def error_code_to_str(code: int) -> str:
     if code == 0:
         return "COLLECTIVE_OP_SUCCESS"
     names = [e.name for e in ErrorCode if e.value and code & e.value]
+    if code & SANITIZER_ABORT_ERROR:
+        names.append("SANITIZER_ABORT_ERROR")
     return " | ".join(names) if names else f"UNKNOWN_ERROR({code:#x})"
 
 

@@ -37,6 +37,14 @@ class Request:
     """Handle for one in-flight call."""
 
     _ids = itertools.count()
+    #: plan auto-capture handshake (plans.py, ACCL_PLAN_AUTO;
+    #: accl_tpu/request.py:53-57): class-level defaults, so the per-call
+    #: path writes nothing — the driver sets an instance ``plan_intent``
+    #: only on streak calls, and the engine publishes the armed ring as
+    #: an instance ``plan_ring`` only on the gang instance where every
+    #: member agreed
+    plan_intent = False
+    plan_ring = None
 
     def __init__(self, description: str = "", sync: bool = False):
         self.id = next(Request._ids)

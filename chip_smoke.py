@@ -70,7 +70,7 @@ Phases, each fatal on failure:
      - flash_fwd_resident_skew at the serving path's per-rank shape in
        the three flash dtype pairs: bitwise equal to flash_fwd_resident,
        and within FLASH_BOUND of its plain version;
-  4. the main path, in six parts, each driven with every launch count
+  4. the main path, in seven parts, each driven with every launch count
      set to 0 just before it and read just after:
      a. the driver: CudaWorld(8) on the card, ACCL calls on 8 rank
         threads — fp32 SUM allreduce at 4, 16, 64 and 256 MiB per rank,
@@ -141,6 +141,20 @@ Phases, each fatal on failure:
         before it is timed (outside the counted parts).
         The combine kernel, the cast kernel (in the lanes and in the
         tuning grid) and the skew kernel must each launch;
+     g. persistent plans, batched dispatch and the sanitizer on the same
+        CudaWorld(8) (phase plan_path): an allreduce at 1024 elements
+        (below the threshold) and at 2^20 fp32 per rank (4 MiB, the ring
+        lane), a reduce-scatter and an all-gather at 4 MiB, each run
+        eagerly, captured (capture_plan, validate=True) and replayed 20
+        times on new operands from a torch.Generator: every replay
+        bitwise the eager call on the same operands and the plain
+        version, with the eager call's launches (1 per ring phase), and
+        engine_stats counting the replays and live plans; a window of 64
+        async allreduces at 1024 elements per rank must form batches
+        (run again behind a parked executor if the free-running window
+        formed none), bitwise the same window under profile_sync (one
+        gang at a time); under the sanitizer a mismatched gang must
+        raise on all 8 ranks within 5 s;
   5. times with CUDA events after warm-up (median of 5 runs): each kernel
      per launch, at the shape the main path launches it most, beside its
      plain version, a library yardstick and its bound (bytes read once +
@@ -184,8 +198,9 @@ Phases, each fatal on failure:
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
   9. bench/callrate.py (phase callrate) at 1024 elements and at 2^20 (the
-     4 MiB ring lane): calls a second per lane and each lane's ratio to
-     raw.
+     4 MiB ring lane): calls a second per lane (the plan_sync and
+     plan_async replay lanes among them) and each lane's ratio to raw,
+     with the async lane's batches and batched gangs.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 = False):
 the plain versions and yardsticks multiply in full fp32, as the kernels
@@ -2995,6 +3010,220 @@ def time_stamp_kernels(ring, launches, info) -> list:
     return rows
 
 
+#: the plan phase's collectives: (kind, elements per rank of the operand)
+PLAN_CASES = (("allreduce", 1024), ("allreduce", 1 << 20),
+              ("reduce_scatter", 1 << 20), ("allgather", 1 << 20))
+PLAN_REPLAYS = 20
+#: the async window of the batching check: calls per rank, elements each
+BATCH_WINDOW = (64, 1024)
+
+
+def plan_path(world, ring, F) -> dict:
+    """Phase 4g: persistent plans, batched dispatch and the sanitizer on
+    the 8-rank world, driven with every launch count set to 0 just
+    before it and read just after.  Each case runs eagerly, is captured
+    with validate=True, then replayed PLAN_REPLAYS times on new operands
+    from a torch.Generator; every replay is held bitwise to an eager call
+    on the same operands and to the plain version (the ring's plain
+    composition on the ring lane, the rank-axis sum below it), and must
+    make the eager call's launches.  A window of async allreduces must
+    form batches whose results equal the same window under profile_sync
+    (no batching), bitwise; a mismatched gang under the sanitizer must
+    raise on every rank within 5 s."""
+    from accl_tpu_torch import ACCLError
+    from accl_tpu_torch.analysis import sanitizer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    eng = world.engine
+    reset_counts(ring, F)
+    per_case = []
+    plans_kept = []
+    stats0 = world.devices[0].engine_stats()
+    for kind, n in PLAN_CASES:
+        m = n // P
+        out_len = {"allreduce": n, "allgather": n * P,
+                   "reduce_scatter": m}[kind]
+        cnt = m if kind == "reduce_scatter" else n
+        sends = [world.accls[r].create_buffer(n, np.float32)
+                 for r in range(P)]
+        outs = [world.accls[r].create_buffer(out_len, np.float32)
+                for r in range(P)]
+        eager = [world.accls[r].create_buffer(out_len, np.float32)
+                 for r in range(P)]
+        ring_lane = n * 4 >= eng.ring_threshold_bytes
+
+        def call(a, rank, res, kind=kind, cnt=cnt, sends=sends):
+            getattr(a, kind)(sends[rank], res[rank], cnt, from_fpga=True,
+                             to_fpga=True)
+
+        def launches():
+            return (ring.ring_reduce_scatter.launches,
+                    ring.ring_all_gather.launches)
+
+        fill(sends, gen)
+        before = launches()
+        world.run(lambda a, r: call(a, r, eager))
+        eager_launches = tuple(b - a for a, b in zip(before, launches()))
+        t0 = time.perf_counter()
+        plans = world.run(lambda a, r: a.capture_plan(
+            lambda a2: call(a2, r, outs), validate=True))
+        capture_s = time.perf_counter() - t0
+        plans_kept.append(plans)
+        replay_launches = set()
+        for _ in range(PLAN_REPLAYS):
+            fill(sends, gen)
+            before = launches()
+            world.run(lambda a, r: plans[r].replay())
+            replay_launches.add(tuple(b - a for a, b in
+                                      zip(before, launches())))
+            world.run(lambda a, r: call(a, r, eager))
+            torch.cuda.synchronize()
+            xs = [b.dev for b in sends]
+            if not ring_lane:
+                want = [torch.stack(xs).sum(0)] * P
+            elif kind == "allreduce":
+                want = ring.ring_all_reduce_segmented(xs, "sum", plain=True)
+            elif kind == "allgather":
+                want = ring.ring_all_gather_segmented(xs, plain=True)
+            else:
+                want = ring.ring_reduce_scatter_segmented(xs, "sum",
+                                                          plain=True)
+            for r in range(P):
+                got = outs[r].dev
+                if not torch.equal(got, eager[r].dev):
+                    fail(f"plan {kind} {n}: rank {r}'s replay is not bitwise "
+                         f"the eager call (max abs err "
+                         f"{max_err(got, eager[r].dev)})")
+                if not torch.equal(got, want[r]):
+                    fail(f"plan {kind} {n}: rank {r}'s replay is not bitwise "
+                         f"the plain version")
+                if not torch.isfinite(got).all():
+                    fail(f"plan {kind} {n}: non-finite output")
+            del want
+        if replay_launches != {eager_launches}:
+            fail(f"plan {kind} {n}: replays launched {replay_launches}, the "
+                 f"eager call {eager_launches}")
+        if ring_lane and eager_launches != {
+                "allreduce": (1, 1), "allgather": (0, 1),
+                "reduce_scatter": (1, 0)}[kind]:
+            fail(f"plan {kind} {n}: {eager_launches} launches a call")
+        row = {"kind": kind, "count": n, "mib_per_rank": n * 4 / MIB,
+               "ring_lane": ring_lane, "replays": PLAN_REPLAYS,
+               "launches_per_replay": {"ring_reduce_scatter":
+                                       eager_launches[0],
+                                       "ring_all_gather": eager_launches[1]},
+               "capture_s": capture_s, "bitwise_eager": True,
+               "bitwise_plain": True}
+        emit({"phase": "plan_path", **row})
+        per_case.append(row)
+    stats = world.devices[0].engine_stats()
+    replays = stats["plan_replays"] - stats0["plan_replays"]
+    if replays != PLAN_REPLAYS * len(PLAN_CASES) \
+            or stats["plans_live"] - stats0["plans_live"] != len(PLAN_CASES):
+        fail(f"plan engine stats: {stats}")
+
+    # -- batched dispatch: an async window, against profile_sync ----------
+    K, bn = BATCH_WINDOW
+    src = [world.accls[r].create_buffer(K * bn, np.float32)
+           for r in range(P)]
+    fill(src, gen)
+    batch = {}
+    for mode in ("window", "held", "single"):
+        if mode == "held" and batch["window"]["batches"] > 0:
+            continue  # the free-running window batched by itself
+        eng.profile_sync = mode == "single"
+        dst = [world.accls[r].create_buffer(K * bn, np.float32)
+               for r in range(P)]
+        s0 = dict(eng.stats)
+
+        def post(a, r, dst=dst):
+            return [a.allreduce(src[r].slice(i * bn, (i + 1) * bn),
+                                dst[r].slice(i * bn, (i + 1) * bn), bn,
+                                from_fpga=True, to_fpga=True, run_async=True)
+                    for i in range(K)]
+
+        if mode == "held":
+            # the executor parked on a claimed slot while the window
+            # queues, as behind a long-running gang
+            with eng._ready_cv:
+                eng._inline_busy = True
+            try:
+                reqs = world.run(post)
+            finally:
+                with eng._ready_cv:
+                    eng._inline_busy = False
+                    eng._ready_cv.notify_all()
+        else:
+            reqs = world.run(post)
+        for rs in reqs:
+            for q in rs:
+                if not q.wait(60):
+                    fail(f"batch window ({mode}): a call never completed")
+                q.check()
+        torch.cuda.synchronize()
+        s1 = dict(eng.stats)
+        batch[mode] = {"batches": s1["batches"] - s0["batches"],
+                       "batched_gangs": s1["batched_gangs"]
+                       - s0["batched_gangs"],
+                       "executor_dispatches": s1["executor_dispatches"]
+                       - s0["executor_dispatches"],
+                       "out": [d.dev.clone() for d in dst]}
+    eng.profile_sync = False
+    formed = "window" if batch["window"]["batches"] > 0 else "held"
+    if batch[formed]["batches"] <= 0 or batch["single"]["batches"] != 0:
+        fail(f"batching: {({k: v['batches'] for k, v in batch.items()})}")
+    for mode in ("window", formed):
+        for a, b in zip(batch[mode]["out"], batch["single"]["out"]):
+            if not torch.equal(a, b):
+                fail(f"batched window ({mode}) not bitwise the single "
+                     f"dispatch")
+    emit({"phase": "plan_batching", "calls_per_rank": K, "count": bn,
+          "formed_in": formed,
+          **{mode: {k: v for k, v in row.items() if k != "out"}
+             for mode, row in batch.items()}})
+
+    # -- the sanitizer: a mismatched gang raises on every rank ------------
+    sanitizer._reset_exchange()
+    sanitizer.set_enabled(True)
+    try:
+        probe = [(world.accls[r].create_buffer(1024, np.float32),
+                  world.accls[r].create_buffer(1024, np.float32))
+                 for r in range(P)]
+
+        def mismatched(a, r):
+            s, d = probe[r]
+            try:
+                a.allreduce(s, d, 512 if r == 0 else 1024, from_fpga=True,
+                            to_fpga=True)
+            except ACCLError as e:
+                return "call mismatch" in str(e)
+            return False
+
+        t0 = time.perf_counter()
+        raised = world.run(mismatched, timeout=5)
+        san_s = time.perf_counter() - t0
+    finally:
+        sanitizer.set_enabled(False)
+        sanitizer._reset_exchange()
+    if not all(raised) or san_s >= 5:
+        fail(f"sanitizer: raised on {sum(raised)} of {P} ranks in {san_s} s")
+    if eng.gang_assembly_snapshot():
+        fail("sanitizer: a refused gang was left assembling")
+    counts = read_counts(ring, F)
+    out = {"launches": counts, "cases": per_case,
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "plan_sanitizer", "raised_on_ranks": sum(raised),
+          "seconds": san_s})
+    emit({"phase": "plan_path_done", "launches": counts,
+          "engine_stats": world.devices[0].engine_stats(),
+          "seconds": out["seconds"]})
+    for plans in plans_kept:
+        for plan in plans:
+            plan.close()
+    return out
+
+
 def sweep_phase(world) -> dict:
     """Phase 8: bench/sweep.py's rows at SWEEP_WIDTHS on the 8-rank world
     (host-staged calls: each row includes the copies between host and
@@ -3042,8 +3271,12 @@ def callrate_phase() -> dict:
         if min(v["calls_per_s"] for v in lanes.values()) <= 0:
             fail(f"callrate count {count}: {lanes}")
         raw_us = lanes["raw_shardmap"]["latency_us"]
+        batched = lanes["driver_async"]["dispatch"]
         emit({"phase": "callrate", "ranks": P, "count": count,
               "mib_per_rank": count * 4 / MIB, "ring_lane": res["ring_lane"],
+              "async_batches": batched["batches"],
+              "async_batched_gangs": batched["batched_gangs"],
+              "plan_vs_resident_x": res["plan_vs_resident_x"],
               "lanes": lanes,
               "host_overhead_us_vs_raw": {k: v["latency_us"] - raw_us
                                           for k, v in lanes.items()},
@@ -3124,10 +3357,12 @@ def main() -> int:
         serve = serving_path(ring, F, FL, M, T_)
         train = train_path(ring, F, FL, M, S, TE, T_)
         plugin = plugin_path(ring, F, FL, R, C, PL)
-        # the main path's launches: the sum over its six parts
+        plan = plan_path(world, ring, F)
+        # the main path's launches: the sum over its seven parts
         launches = {k: mp["launches"][k] + tp["launches"][k]
                     + lanes["launches"][k] + serve["launches"][k]
                     + train["launches"][k] + plugin["launches"][k]
+                    + plan["launches"][k]
                     for k in mp["launches"]}
         launches.update({k: serve["launches"][k] + train["launches"][k]
                          + plugin["launches"][k] for k in FLASH_KERNELS})

@@ -141,9 +141,20 @@ def test_callrate_lanes_on_the_cpu(count):
         assert lane["calls_per_s"] > 0 and lane["latency_us"] > 0
         assert lane["overhead_vs_raw_x"] > 0
     assert out["ring_lane"] is (count * 4 >= 4 << 20)
-    # the plan lanes wait for persistent plans
-    assert not [k for k in out if k.startswith("plan")]
-    assert not [k for k in out["lanes"] if "plan" in k]
+    # the plan lanes replay a captured plan, under the JAX keys
+    for key in ("plan_sync_overhead_x", "plan_async_overhead_x",
+                "plan_vs_resident_x"):
+        assert out[key] > 0
+    assert out["plan_enabled"] is True
+    for label in ("driver_plan_sync", "driver_plan_async"):
+        d = out["lanes"][label]["dispatch"]
+        assert d["plan_replays"] > 0
+        assert d["leader_dispatches"] == d["executor_dispatches"] == 0
+    # the async lane's batches: never on the ring lane
+    d = out["lanes"]["driver_async"]["dispatch"]
+    if out["ring_lane"]:
+        assert d["batches"] == 0
+    assert d["batched_gangs"] >= 2 * d["batches"]
     d = out["lanes"]["driver_sync_executor_path"]["dispatch"]
     assert d["leader_dispatches"] == 0 and d["executor_dispatches"] > 0
     d = out["lanes"]["driver_sync_resident"]["dispatch"]

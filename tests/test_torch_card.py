@@ -839,3 +839,193 @@ def test_driver_spans_in_order_at_4mib_on_card():
         assert s.t_dispatch <= s.t_device_begin < s.t_device_end
         assert s.t_device_end <= s.t_complete
         assert s.nbytes == N * 4 and s.lane in ("leader", "executor")
+
+
+# ---------------------------------------------------------------------------
+# persistent plans, batched dispatch and the sanitizer on the card
+# ---------------------------------------------------------------------------
+def _plan_case(world, kind, N, g):
+    """Per-rank operand and result buffers of one collective (N elements
+    per rank of operand), and its driver call."""
+    P = world.nranks
+    m = N // P
+    out_len = {"allreduce": N, "allgather": N * P, "reduce_scatter": m,
+               "small": N}[kind]
+    sends = [world.accls[r].create_buffer(N, np.float32) for r in range(P)]
+    outs = [world.accls[r].create_buffer(out_len, np.float32)
+            for r in range(P)]
+    eager = [world.accls[r].create_buffer(out_len, np.float32)
+             for r in range(P)]
+
+    def call(a, r, res):
+        kw = {"from_fpga": True, "to_fpga": True}
+        if kind in ("allreduce", "small"):
+            a.allreduce(sends[r], res[r], N, **kw)
+        elif kind == "allgather":
+            a.allgather(sends[r], res[r], N, **kw)
+        else:
+            a.reduce_scatter(sends[r], res[r], m, **kw)
+
+    def refill():
+        for b in sends:
+            b.dev.copy_(torch.randn(N, generator=g, device="cuda"))
+
+    return sends, outs, eager, call, refill
+
+
+@pytest.mark.parametrize("kind", ["allreduce", "reduce_scatter", "allgather",
+                                  "small"])
+def test_plan_replays_bitwise_with_the_eager_launches_on_card(kind):
+    """A captured collective replayed on new operands: bitwise the eager
+    call on the same operands and the plain composition, with the eager
+    call's launches (one per ring phase; none below the threshold)."""
+    from accl_tpu_torch import CudaWorld
+
+    P = 8
+    N = 64 * 1024 + 8 * 7 if kind != "small" else 1024
+    g = torch.Generator(device="cuda").manual_seed(5)
+    with CudaWorld(P) as world:
+        if kind != "small":
+            world.engine.ring_threshold_bytes = 0
+        sends, outs, eager, call, refill = _plan_case(world, kind, N, g)
+        refill()
+        plans = world.run(lambda a, r: a.capture_plan(
+            lambda a2: call(a2, r, outs)))
+        expect = {"allreduce": (1, 1), "reduce_scatter": (1, 0),
+                  "allgather": (0, 1), "small": (0, 0)}[kind]
+        for _ in range(3):
+            refill()
+            before = (tring.ring_reduce_scatter.launches,
+                      tring.ring_all_gather.launches)
+            world.run(lambda a, r: plans[r].replay())
+            assert (tring.ring_reduce_scatter.launches - before[0],
+                    tring.ring_all_gather.launches - before[1]) == expect
+            world.run(lambda a, r: call(a, r, eager))
+            torch.cuda.synchronize()
+            xs = [b.dev for b in sends]
+            if kind in ("allreduce", "small"):
+                want = (tring.ring_all_reduce_segmented(xs, "sum", plain=True)
+                        if kind == "allreduce"
+                        else [torch.stack(xs).sum(0)] * P)
+            elif kind == "allgather":
+                want = tring.ring_all_gather_segmented(xs, plain=True)
+            else:
+                want = tring.ring_reduce_scatter_segmented(xs, "sum",
+                                                           plain=True)
+            for r in range(P):
+                assert torch.equal(outs[r].dev, eager[r].dev)
+                assert torch.equal(outs[r].dev, want[r])
+        stats = world.devices[0].engine_stats()
+        assert stats["plans_live"] == 1 and stats["plan_replays"] == 3
+
+
+def test_plan_rebuilds_copied_operands_on_card():
+    """The widened fp16 operand and the short bcast root are copies: a
+    replay reads them as they are then, as the eager calls do."""
+    from accl_tpu_torch import CudaWorld
+
+    P, N, root = 4, 4096, 1
+    g = torch.Generator(device="cuda").manual_seed(6)
+    with CudaWorld(P) as world:
+        world.engine.ring_threshold_bytes = 0
+        h = [world.accls[r].create_buffer(N, np.float16) for r in range(P)]
+        res = [world.accls[r].create_buffer(N, np.float32) for r in range(P)]
+        ref = [world.accls[r].create_buffer(N, np.float32) for r in range(P)]
+        b = [world.accls[r].create_buffer(N // 2 if r == root else N,
+                                          np.float32) for r in range(P)]
+
+        def body(a, r, out):
+            kw = {"from_fpga": True, "to_fpga": True}
+            a.allreduce(h[r], out[r], N, **kw)
+            a.bcast(b[r], N, root=root, **kw)
+
+        def refill():
+            for x in h:
+                x.dev.copy_(torch.randn(N, generator=g, device="cuda"))
+            b[root].dev.copy_(torch.randn(N // 2, generator=g, device="cuda"))
+
+        refill()
+        plans = world.run(lambda a, r: a.capture_plan(
+            lambda a2: body(a2, r, res)))
+        for _ in range(2):
+            refill()
+            world.run(lambda a, r: plans[r].replay())
+            got = [x.dev.clone() for x in res]
+            bc = [x.dev.clone() for x in b]
+            world.run(lambda a, r: body(a, r, ref))
+            torch.cuda.synchronize()
+            for r in range(P):
+                assert torch.equal(got[r], ref[r].dev)
+                assert torch.equal(bc[r], b[r].dev)
+            assert torch.equal(bc[0][:N // 2], b[root].dev)
+            assert not bc[0][N // 2:].any()
+
+
+def test_async_window_batches_bitwise_on_card():
+    """A window of async allreduces queued behind a busy executor runs in
+    batches; its results equal the same window under profile_sync (one
+    gang at a time), bitwise."""
+    from accl_tpu_torch import CudaWorld
+
+    P, n, K = 8, 1024, 32
+    g = torch.Generator(device="cuda").manual_seed(8)
+    with CudaWorld(P) as world:
+        src = [world.accls[r].create_buffer(n * K, np.float32)
+               for r in range(P)]
+        for x in src:
+            x.dev.copy_(torch.randn(n * K, generator=g, device="cuda"))
+        outs = {}
+        for mode in ("batched", "single"):
+            world.engine.profile_sync = mode == "single"
+            dst = [world.accls[r].create_buffer(n * K, np.float32)
+                   for r in range(P)]
+            before = dict(world.engine.stats)
+            with world.engine._ready_cv:
+                world.engine._inline_busy = True
+            try:
+                reqs = world.run(lambda a, r: [a.allreduce(
+                    src[r].slice(i * n, (i + 1) * n),
+                    dst[r].slice(i * n, (i + 1) * n), n, from_fpga=True,
+                    to_fpga=True, run_async=True) for i in range(K)])
+            finally:
+                with world.engine._ready_cv:
+                    world.engine._inline_busy = False
+                    world.engine._ready_cv.notify_all()
+            for rs in reqs:
+                for q in rs:
+                    assert q.wait(60)
+                    q.check()
+            torch.cuda.synchronize()
+            after = dict(world.engine.stats)
+            outs[mode] = ([d.dev.clone() for d in dst],
+                          after["batches"] - before["batches"])
+        world.engine.profile_sync = False
+    assert outs["batched"][1] > 0 and outs["single"][1] == 0
+    for a, b in zip(outs["batched"][0], outs["single"][0]):
+        assert torch.equal(a, b)
+
+
+def test_sanitizer_mismatch_raises_on_every_rank_on_card():
+    import time
+
+    from accl_tpu_torch import ACCLError, CudaWorld
+    from accl_tpu_torch.analysis import sanitizer
+
+    sanitizer._reset_exchange()
+    sanitizer.set_enabled(True)
+    try:
+        with CudaWorld(8) as world:
+            def fn(a, r):
+                s = a.create_buffer(1024, np.float32)
+                d = a.create_buffer(1024, np.float32)
+                with pytest.raises(ACCLError, match="call mismatch"):
+                    a.allreduce(s, d, 512 if r == 0 else 1024,
+                                from_fpga=True, to_fpga=True)
+                return True
+
+            t0 = time.perf_counter()
+            assert all(world.run(fn, timeout=5))
+            assert time.perf_counter() - t0 < 5
+    finally:
+        sanitizer.set_enabled(False)
+        sanitizer._reset_exchange()

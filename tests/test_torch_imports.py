@@ -23,7 +23,9 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "bench.callrate", "bench.driver_split", "observability", "observability.metrics",
               "observability.trace", "observability.flight",
               "observability.health", "utils.device", "utils.logging",
-              "utils.tree"]
+              "utils.tree", "plans", "analysis", "analysis.findings",
+              "analysis.program", "analysis.checks", "analysis.sanitizer",
+              "analysis.record"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 

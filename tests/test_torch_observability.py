@@ -388,7 +388,7 @@ def test_engine_stats_has_the_reference_key_set():
                            "batches", "batched_gangs"}
     assert (after["leader_dispatches"] + after["executor_dispatches"]) \
         == before["leader_dispatches"] + before["executor_dispatches"] + 1
-    # plans and batched dispatch are not ported: their fields read 0
+    # a fresh world has armed no plan ring and formed no batch
     for k in ("plans_live", "plan_ring_refs", "plan_ring_generation",
               "plan_ring_replays", "batches", "batched_gangs"):
         assert stats[k] == 0

@@ -1,5 +1,6 @@
 """The public names of accl_tpu and of its ops, parallel, models,
-observability and bench subpackages, against accl_tpu_torch's.
+observability, bench, analysis and plans subpackages, against
+accl_tpu_torch's.
 
 Every public name of the JAX package is in the port under the same name,
 under the name ``RENAMED`` gives it, or in ``MISSING`` with the ROADMAP.md
@@ -18,7 +19,7 @@ ROADMAP = (pathlib.Path(__file__).resolve().parents[1]
            / "ROADMAP.md").read_text()
 
 SUBPACKAGES = ("", ".ops", ".parallel", ".models", ".observability",
-               ".bench")
+               ".bench", ".analysis", ".plans")
 
 #: (subpackage, JAX name) -> the port's name for it
 RENAMED = {
@@ -95,3 +96,14 @@ def test_renamed_ring_entries_are_the_ring_module_functions():
                  "ring_all_gather_segmented", "ring_reduce_scatter_segmented",
                  "ring_all_reduce_segmented"):
         assert getattr(ops, name) is getattr(ring, name)
+
+
+def test_analysis_exports_every_reference_export():
+    """accl_tpu.analysis exports lazily (PEP 562 ``__all__``), so its
+    names are compared through ``__all__`` and resolved one by one."""
+    jax_all = importlib.import_module("accl_tpu.analysis").__all__
+    port = importlib.import_module("accl_tpu_torch.analysis")
+    assert list(port.__all__) == list(jax_all)
+    for name in jax_all:
+        obj = getattr(port, name)
+        assert obj.__module__.startswith("accl_tpu_torch.analysis."), name
