@@ -47,5 +47,7 @@ from .state import (  # noqa: F401
     load_world_state,
     model_params_from_jax,
     model_params_to_numpy,
+    moe_params_from_jax,
+    moe_params_to_numpy,
     tp_weight_shards,
 )

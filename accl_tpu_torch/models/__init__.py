@@ -1,8 +1,11 @@
 """The model family on PyTorch: the transformer LM's forward, loss and
-train step, and its serving path (KV-cache prefill, decode, generation),
-tensor-parallel over rank lists.  Port of ``accl_tpu/models`` (MoE and
-its decode path come in a later slice)."""
+train step (tensor-, data- and sequence-parallel over rank lists), its
+serving path (KV-cache prefill, decode, generation), and the
+Mixture-of-Experts family (``moe``: forward, loss and the expert-parallel
+train step; ``moe_decode``: its serving path).  Port of
+``accl_tpu/models``."""
 
+from . import moe, moe_decode  # noqa: F401
 from .decode import decode_step, generate, init_kv_cache, prefill  # noqa: F401
 from .transformer import (  # noqa: F401
     ModelConfig,

@@ -21,7 +21,16 @@ members: each member's local ``(loss_sum, count)`` is backpropagated in
 turn, and autograd's accumulation into the shared leaves sums the
 replicated gradients over the members, the role JAX's replication-aware
 transpose plays; the tp-sharded leaves keep per-shard gradients.  The SGD
-update is applied in place.  Sequence parallelism comes in a later slice.
+update is applied in place.
+
+Sequence parallelism (``sp`` > 1) splits the sequence into ``sp``
+members' shards for attention only: ``forward`` takes the global tokens
+in the schedule's layout (natural for ``sp_schedule="contiguous"``,
+permuted by ``parallel.ring_attention.zigzag_indices`` for "zigzag"),
+holds the residual stream once, and for each tp rank's heads runs
+``ring_attention`` over the shards of its q/k/v.  The token-wise layers
+compute the same rows the members would.  ``loss_fn`` takes each shard's
+last label from the next shard, as the JAX package's sp arm does.
 """
 from __future__ import annotations
 
@@ -37,7 +46,9 @@ from ..constants import ACCLError
 from ..ops.flash import flash_attention
 from ..ops.fused import fused_chunks, fused_matmul_allreduce
 from ..parallel.collectives import all_reduce
-from ..parallel.ring_attention import _dense_attention, expand_gqa_kv
+from ..parallel.ring_attention import (_dense_attention, expand_gqa_kv,
+                                       ring_attention, zigzag_indices,
+                                       zigzag_indices_inverse)
 from ..utils.device import resolve_device
 from ..utils.tree import tree_leaves, tree_map
 
@@ -45,8 +56,7 @@ from ..utils.tree import tree_leaves, tree_map
 @dataclass(frozen=True)
 class ModelConfig:
     """The JAX package's ModelConfig, with the same fields, defaults and
-    validation.  ``sp_schedule`` matters only to the slice that ports
-    sequence parallelism."""
+    validation."""
 
     vocab: int = 256
     d_model: int = 128
@@ -207,10 +217,14 @@ def _rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
-def _global_positions(Tl: int, device) -> torch.Tensor:
-    """Token positions of the local sequence: without sequence
-    parallelism, 0..Tl-1."""
-    return torch.arange(Tl, device=device)
+def _global_positions(T: int, cfg: ModelConfig, sp: int,
+                      device) -> torch.Tensor:
+    """Global positions of T tokens in the schedule's layout: 0..T-1, or
+    under zigzag sequence parallelism the zigzag permutation (member idx
+    holds chunk idx and its mirror chunk 2P-1-idx)."""
+    if sp > 1 and cfg.sp_schedule == "zigzag":
+        return zigzag_indices(T, sp).to(device)
+    return torch.arange(T, device=device)
 
 
 def block_qkv(h, blk, cfg: ModelConfig, positions):
@@ -291,18 +305,37 @@ def _local_attention(q, k, v, cfg: ModelConfig):
     return _dense_attention(q, k, v, causal=True, window=cfg.attn_window)
 
 
-def _no_sp(sp: int) -> None:
-    if sp > 1:
-        raise ACCLError("sequence parallelism needs ring_attention "
-                        "(accl_tpu/parallel/ring_attention.py), which is "
-                        "not part of accl_tpu_torch yet")
+def _sp_attention(q, k, v, cfg: ModelConfig, sp: int):
+    """One rank's causal attention over its heads with the sequence split
+    into ``sp`` members' shards: ring attention over the shards (the
+    schedule and window of ``cfg``), the outputs put back in sequence."""
+    outs = ring_attention(q.chunk(sp, dim=1), k.chunk(sp, dim=1),
+                          v.chunk(sp, dim=1), causal=True,
+                          schedule=cfg.sp_schedule, window=cfg.attn_window)
+    return torch.cat(outs, dim=1)
 
 
-def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool):
+def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool, sp: int = 1):
     """One transformer block on the residual stream [B, T, D]."""
     h = _rmsnorm(x, blk["ln1"])
     qs, ks, vs = block_qkv(h, blk, cfg, rope_pos)
-    attn = [_local_attention(q, k, v, cfg) for q, k, v in zip(qs, ks, vs)]
+    if sp > 1:
+        if cfg.attn_window is not None and cfg.sp_schedule != \
+                "contiguous":
+            raise ValueError(
+                "attn_window under sequence parallelism requires "
+                "the contiguous schedule (the zigzag layout's "
+                "split chunks break the one-neighbor-hop bound)")
+        if cfg.attn == "flash":
+            raise ValueError(
+                "attn='flash' is the single-shard attention kernel; "
+                "with sequence parallelism the ring layer owns the "
+                "attention schedule — use attn='dense' when sp is on")
+        attn = [_sp_attention(q, k, v, cfg, sp)
+                for q, k, v in zip(qs, ks, vs)]
+    else:
+        attn = [_local_attention(q, k, v, cfg)
+                for q, k, v in zip(qs, ks, vs)]
     x = block_attn_out(x, attn, blk, cfg, fused=fused)
     return block_mlp(x, blk, cfg, fused=fused)
 
@@ -315,23 +348,31 @@ def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
     combines (the fused lane; no effect at tp = 1).  With ``cfg.remat``
     each block is recomputed on the backward pass
     (``torch.utils.checkpoint``, ``jax.checkpoint``'s role): only the
-    block inputs stay live across layers.  ``sp`` > 1 needs ring
-    attention, not ported yet."""
-    _no_sp(sp)
-    if cfg.sp_schedule == "zigzag":
+    block inputs stay live across layers.  ``sp`` > 1 splits the
+    sequence over that many members for ring attention (``cfg.attn``
+    "dense"; the ring runs the flash kernels per hop on the card): the
+    tokens and logits are in the schedule's layout."""
+    if cfg.sp_schedule == "zigzag" and sp <= 1:
+        # the zigzag layout means something only under sequence
+        # parallelism; without it the causal mask would read the permuted
+        # sequence as natural order
         raise ValueError("sp_schedule='zigzag' requires an sp axis "
                          "(tokens are in zigzag order)")
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
+    T = tokens.shape[1]
+    if T % sp:
+        raise ValueError(f"sequence length {T} does not split over {sp} "
+                         f"sp members")
     x = embed[tokens].to(cfg.tdtype)
-    rope_pos = (_global_positions(tokens.shape[1], embed.device)
-                if cfg.rope else None)
+    rope_pos = (_global_positions(T, cfg, sp, embed.device) if cfg.rope
+                else None)
     for blk in params["blocks"]:
         if cfg.remat:
-            x = checkpoint(_block, x, blk, cfg, rope_pos, fused,
+            x = checkpoint(_block, x, blk, cfg, rope_pos, fused, sp,
                            use_reentrant=False)
         else:
-            x = _block(x, blk, cfg, rope_pos, fused)
+            x = _block(x, blk, cfg, rope_pos, fused, sp)
     x = _rmsnorm(x, params["ln_f"])
     return _mm(x, embed.to(cfg.tdtype).t())
 
@@ -340,15 +381,23 @@ def loss_fn(params, tokens, cfg: ModelConfig, fused: bool = False,
             sp: int = 1):
     """Next-token cross entropy on [B, T] tokens: the last position has no
     label and is masked.  Returns (sum_loss, count), float32 scalars local
-    to the caller (the sum-and-count discipline).  ``sp`` > 1 needs ring
-    attention, not ported yet."""
-    _no_sp(sp)
-    logits = forward(params, tokens, cfg, fused=fused).float()
+    to the caller (the sum-and-count discipline).  With ``sp`` > 1 the
+    tokens are in the schedule's layout and each member's shard takes its
+    last label from the shard holding its global successor."""
+    logits = forward(params, tokens, cfg, fused=fused, sp=sp).float()
     tokens = torch.as_tensor(tokens, device=logits.device).long()
-    B, Tl = tokens.shape
+    B, T = tokens.shape
+    zigzag = sp > 1 and cfg.sp_schedule == "zigzag"
+    if zigzag:
+        # labels in natural order, then permuted into the zigzag layout:
+        # each chunk's last label is its global successor's token
+        tokens = tokens[:, zigzag_indices_inverse(T, sp).to(tokens.device)]
     labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
-    valid = torch.ones((B, Tl), dtype=torch.bool, device=logits.device)
+    valid = torch.ones((B, T), dtype=torch.bool, device=logits.device)
     valid[:, -1] = False
+    if zigzag:
+        perm = zigzag_indices(T, sp).to(tokens.device)
+        labels, valid = labels[:, perm], valid[:, perm]
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
@@ -407,16 +456,17 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
     """The train step over ``mesh`` (a ``parallel.mesh.RankMesh``), plain
     SGD at ``lr``.  Returns ``(step_fn, (param_specs, token_spec))`` with
     ``step_fn(params, tokens) -> (params, mean_loss)``: the token batch
-    [B, T] split over the ``dp`` members (B divisible by dp), each
-    member's ``loss_fn`` over the tp rank lists, the mean gradient as
-    ``_mean_grads`` forms it, and the update applied to ``params`` in
-    place.  ``params`` must be split over the mesh's tp extent
-    (``shard_params``) and live on its device.  ``token_spec`` names the
-    axes the token dimensions split over, as ``P(dp, sp)``.
+    [B, T] split over the ``dp`` members (B divisible by dp) and, along
+    the sequence, over the ``sp`` members (the tokens in the schedule's
+    layout), each dp member's ``loss_fn`` over its sp shards and the tp
+    rank lists, the mean gradient as ``_mean_grads`` forms it, and the
+    update applied to ``params`` in place.  ``params`` must be split over
+    the mesh's tp extent (``shard_params``) and live on its device.
+    ``token_spec`` names the axes the token dimensions split over, as
+    ``P(dp, sp)``.
 
-    Axes not in the mesh are dropped.  An sp extent above 1 needs ring
-    attention (raises); ``optimizer`` (optax) raises; ``check_vma`` is
-    accepted and changes nothing."""
+    Axes not in the mesh are dropped.  ``optimizer`` (optax) raises;
+    ``check_vma`` is accepted and changes nothing."""
     if optimizer is not None:
         raise ACCLError("make_train_step(optimizer=...): the optax optimizer "
                         "path is not part of accl_tpu_torch (the card has no "
@@ -431,7 +481,7 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
                          "on wrong labels without the zigzag ring")
     n_dp = shape[dp] if dp else 1
     n_tp = shape[tp] if tp else 1
-    _no_sp(shape[sp] if sp else 1)
+    n_sp = shape[sp] if sp else 1
 
     def step_fn(params, tokens):
         if tp_size(params) != n_tp:
@@ -448,7 +498,8 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
         b = B // n_dp
         closures = [
             (lambda p, t=tokens[d * b:(d + 1) * b]:
-             loss_fn(p, t, cfg, fused=fused)) for d in range(n_dp)]
+             loss_fn(p, t, cfg, fused=fused, sp=n_sp))
+            for d in range(n_dp)]
         return sum_count_device_step(closures, params, lr)
 
     return step_fn, (param_specs(cfg), (dp, sp))

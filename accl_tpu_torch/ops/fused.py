@@ -43,8 +43,14 @@ chunk) pipeline slot and rank, computed on the host as in the reference
 (``_fused_stamp_rows``, accl_tpu/ops/fused.py:110; no kernel takes
 part), on the overlapped logical clock.
 
-Not ported here: ``fused_expert_ffn`` (it comes with the MoE model
-layer).
+4. ``fused_expert_ffn`` — reduce-scatter-into-MoE-dispatch: the routed
+   expert FFN with the capacity dimension cut into chunks, each chunk's
+   dispatch all-to-all, expert FFN and return all-to-all in turn, bitwise
+   equal to ``parallel.strategies.expert_dispatch`` -> FFN ->
+   ``expert_combine`` wherever the FFN computes each row on its own.  The
+   expert products are ``torch.matmul``, as the JAX package leaves them
+   to XLA; with ``ACCL_DEVICE_TRACE`` it records a stamp row per (step,
+   chunk) pipeline slot and member, as the chunked lanes do.
 """
 from __future__ import annotations
 
@@ -55,7 +61,6 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ..constants import ACCLError
 from ..observability.trace import record_device_steps
 from . import _build
 from . import quantized as q_ops
@@ -612,7 +617,44 @@ def fused_matmul_allreduce_pallas(xs: Sequence[torch.Tensor],
     return [g.view(M, ws[0].shape[1]) for g in gathered]
 
 
-def fused_expert_ffn(*args, **kwargs):
-    """Not ported yet: it comes with the MoE model layer."""
-    raise ACCLError("fused_expert_ffn is not part of accl_tpu_torch yet "
-                    "(it comes with the MoE model layer)")
+def fused_expert_ffn(xs: Sequence[torch.Tensor],
+                     expert_idxs: Sequence[torch.Tensor], ffn,
+                     capacity: int = 0, chunks: Optional[int] = None) -> list:
+    """Route each member's tokens to their expert and run the expert FFN
+    with the capacity dimension split into C chunks: chunk c's dispatch
+    all-to-all, the FFN on it, and its return all-to-all.  Same slotting
+    and capacity as ``parallel.strategies.expert_dispatch`` /
+    ``expert_combine`` (tokens over capacity come back as zeros).
+
+    ``xs[r]`` [N, D] and ``expert_idxs[r]`` [N] in [0, P): member r's
+    tokens and their experts (one expert per member).  ``ffn``: member
+    r's expert as ``ffn[r]`` ([T, D] -> [T, D] row-wise), or one callable
+    for all.  Returns one [N, D] per member."""
+    from ..parallel.collectives import all_to_all
+    from ..parallel.strategies import _expert_buckets, _expert_unbucket
+
+    P = len(xs)
+    N, D = xs[0].shape
+    ffns = list(ffn) if isinstance(ffn, (list, tuple)) else [ffn] * P
+    if len(expert_idxs) != P or len(ffns) != P:
+        raise ValueError(f"fused_expert_ffn: one expert index tensor and "
+                         f"one ffn per member ({P} members, "
+                         f"{len(expert_idxs)} index tensors, {len(ffns)} "
+                         f"ffns)")
+    cap = capacity or -(-N // P)
+    C = _pick_chunks(cap, chunks)
+    ck = cap // C
+    buckets, infos = _expert_buckets(xs, expert_idxs, cap)
+    back_parts = [[] for _ in range(P)]
+    for c in range(C):
+        recv = all_to_all([b[:, c * ck:(c + 1) * ck] for b in buckets],
+                          split_axis=0, concat_axis=0, tiled=False)
+        ys = [f(r.reshape(P * ck, D)).reshape(P, ck, D)
+              for f, r in zip(ffns, recv)]
+        back = all_to_all(ys, split_axis=0, concat_axis=0, tiled=False)
+        for parts, y in zip(back_parts, back):
+            parts.append(y)
+    _trace_fused("fused_expert_ffn", P, C,
+                 ck * D * xs[0].element_size())
+    return _expert_unbucket([torch.cat(parts, dim=1) for parts in back_parts],
+                            infos)

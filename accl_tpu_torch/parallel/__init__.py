@@ -1,7 +1,7 @@
 """The SPMD layer over rank lists: meshes of rank slots on one card, the
-functional collectives, the parallelism strategies, and the dense
-attention reference.  Port of ``accl_tpu/parallel`` (the
-sequence-parallel attention schedules are not ported yet)."""
+functional collectives, the parallelism strategies, and the
+sequence-parallel attention schedules (ring, zigzag, windowed and
+Ulysses) with their dense reference.  Port of ``accl_tpu/parallel``."""
 
 from .collectives import (  # noqa: F401
     all_gather,
@@ -21,7 +21,11 @@ from .collectives import (  # noqa: F401
     send_recv,
 )
 from .mesh import MeshConfig, RankMesh, make_mesh  # noqa: F401
-from .ring_attention import expand_gqa_kv  # noqa: F401
+from .ring_attention import (  # noqa: F401
+    expand_gqa_kv,
+    ring_attention,
+    ulysses_attention,
+)
 from .strategies import (  # noqa: F401
     column_parallel,
     expert_combine,

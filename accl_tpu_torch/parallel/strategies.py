@@ -188,16 +188,14 @@ def pipeline_apply(stage_fn: Callable, params: Sequence,
 # ---------------------------------------------------------------------------
 # expert parallel (MoE)
 # ---------------------------------------------------------------------------
-def expert_dispatch(xs: Sequence[torch.Tensor],
-                    expert_idxs: Sequence[torch.Tensor],
-                    capacity: int = 0) -> tuple:
-    """Route each member's tokens to the member hosting their expert via
-    all-to-all (one expert per member).  xs[r] [N, D], expert_idxs[r] [N]
-    in [0, P).  Returns (expert inputs [P cap, D] per member, combine info
-    per member); tokens over capacity combine to zero."""
+def _expert_buckets(xs: Sequence[torch.Tensor],
+                    expert_idxs: Sequence[torch.Tensor], cap: int) -> tuple:
+    """Slot each member's tokens into per-expert buckets [P, cap, D]: a
+    token's slot is its rank among the earlier tokens of its expert
+    (one-hot cumsum), tokens over capacity are left out.  Returns (buckets
+    per member, combine info ``(idx, slot, keep, cap)`` per member)."""
     P = len(xs)
-    N, D = xs[0].shape
-    cap = capacity or -(-N // P)
+    D = xs[0].shape[-1]
     buckets, infos = [], []
     for x, idx in zip(xs, expert_idxs):
         idx = idx.long()
@@ -210,8 +208,32 @@ def expert_dispatch(xs: Sequence[torch.Tensor],
                      torch.where(keep[:, None], x, 0.0), accumulate=True)
         buckets.append(b)
         infos.append((idx, slot, keep, cap))
+    return buckets, infos
+
+
+def _expert_unbucket(backs: Sequence[torch.Tensor], infos: Sequence) -> list:
+    """Inverse of :func:`_expert_buckets`: each member's returned buckets
+    [P, cap, D] gathered back into token order, tokens over capacity as
+    zeros."""
+    out = []
+    for b, (idx, slot, keep, cap) in zip(backs, infos):
+        gathered = b[idx, slot.clamp(0, cap - 1)]
+        out.append(torch.where(keep[:, None], gathered, 0.0))
+    return out
+
+
+def expert_dispatch(xs: Sequence[torch.Tensor],
+                    expert_idxs: Sequence[torch.Tensor],
+                    capacity: int = 0) -> tuple:
+    """Route each member's tokens to the member hosting their expert via
+    all-to-all (one expert per member).  xs[r] [N, D], expert_idxs[r] [N]
+    in [0, P).  Returns (expert inputs [P cap, D] per member, combine info
+    per member); tokens over capacity combine to zero."""
+    P = len(xs)
+    N, D = xs[0].shape
+    buckets, infos = _expert_buckets(xs, expert_idxs, capacity or -(-N // P))
     recv = all_to_all(buckets, split_axis=0, concat_axis=0, tiled=False)
-    return [r.reshape(P * cap, D) for r in recv], infos
+    return [r.reshape(-1, D) for r in recv], infos
 
 
 def expert_combine(ys: Sequence[torch.Tensor], infos: Sequence) -> list:
@@ -223,8 +245,4 @@ def expert_combine(ys: Sequence[torch.Tensor], infos: Sequence) -> list:
     D = ys[0].shape[-1]
     back = all_to_all([y.reshape(P, cap, D) for y in ys], split_axis=0,
                       concat_axis=0, tiled=False)
-    out = []
-    for b, (idx, slot, keep, _cap) in zip(back, infos):
-        gathered = b[idx, slot.clamp(0, cap - 1)]
-        out.append(torch.where(keep[:, None], gathered, 0.0))
-    return out
+    return _expert_unbucket(back, infos)

@@ -19,6 +19,9 @@ take, the way ``P("tp", None)`` shards it in the JAX package's model
 :func:`model_params_from_jax` carries the JAX package's model parameters
 (its pytree, as numpy arrays) into the port's layout, split over the
 tensor-parallel ranks; :func:`model_params_to_numpy` takes them back.
+:func:`moe_params_from_jax` and :func:`moe_params_to_numpy` do the same
+for the MoE family's pytree, the expert banks split over the
+expert-parallel members.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from .constants import TuningKey
+from .models.moe import shard_params as moe_shard_params
 from .models.transformer import shard_params
 from .utils.device import resolve_device
 
@@ -100,6 +104,36 @@ def model_params_to_numpy(params: dict, cfg) -> dict:
     """The port's parameters, split over any rank count, back in the JAX
     pytree's layout as numpy arrays."""
     full = shard_params(params, cfg, 1)
+
+    def conv(leaf):
+        t = leaf[0] if isinstance(leaf, list) else leaf
+        return t.detach().cpu().numpy()
+
+    return {"embed": conv(full["embed"]), "ln_f": conv(full["ln_f"]),
+            "blocks": [{k: conv(v) for k, v in blk.items()}
+                       for blk in full["blocks"]]}
+
+
+def moe_params_from_jax(params: dict, cfg, ep: int = 1,
+                        device="cuda") -> dict:
+    """The JAX package's MoE parameter pytree (numpy arrays) as the port's
+    MoE parameters on ``device``: the expert banks split over ``ep``
+    members, the other leaves once."""
+    dev = resolve_device(device, "moe_params_from_jax")
+
+    def conv(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    full = {"embed": conv(params["embed"]), "ln_f": conv(params["ln_f"]),
+            "blocks": [{k: conv(v) for k, v in blk.items()}
+                       for blk in params["blocks"]]}
+    return moe_shard_params(full, cfg, ep)
+
+
+def moe_params_to_numpy(params: dict, cfg) -> dict:
+    """The port's MoE parameters, split over any ep count, back in the JAX
+    pytree's layout as numpy arrays."""
+    full = moe_shard_params(params, cfg, 1)
 
     def conv(leaf):
         t = leaf[0] if isinstance(leaf, list) else leaf

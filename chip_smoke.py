@@ -37,14 +37,20 @@ Phases, each fatal on failure:
        bf16-rounded operands, which must fall outside the spread, and on
        TF32, printed beside;
      - the flash-attention kernels (flash_fwd_resident, flash_fwd_grid)
-       at the serving path's per-rank shapes, a windowed, two
-       cross-length, two ragged calls and one at head size 64, in f32
-       with f32 and bf16 MXU dtypes and in bf16: out and lse within
+       at the serving path's per-rank shapes, at one sp member's hop
+       shapes of sp_path (SP_HOP_CALLS: the contiguous ring's causal and
+       unmasked hops at 4096, zigzag's half-chunk pairs at 2048, the
+       windowed local block and the sp = 1 references over 32768 tokens,
+       causal and windowed; f32 and bf16), a windowed, two cross-length,
+       two ragged calls and one at head size 64, in f32 with f32 and
+       bf16 MXU dtypes and in bf16: out and lse within
        FLASH_BOUND of the plain version and bitwise equal over two
        launches, and a bf16-operand control outside the f32 bound;
      - the flash backward kernels (flash_bwd_dq, flash_bwd_dkv) at the
        training path's per-rank shape (q and dO [8, 4096, 128], K/V
        [2, 4096, 128], causal) with the lse cotangent zero and nonzero,
+       at one member's hop shapes of sp_train (q [16, 2048, 128], K/V
+       [4, 2048, 128], causal and unmasked, the lse cotangent nonzero),
        and at a windowed, a cross-length and a ragged call with halved
        blocks, in f32 with f32 and bf16 MXU dtypes and in bf16: dq, dk
        and dv within BWD_BOUND of the plain version and bitwise equal
@@ -70,8 +76,9 @@ Phases, each fatal on failure:
      - flash_fwd_resident_skew at the serving path's per-rank shape in
        the three flash dtype pairs: bitwise equal to flash_fwd_resident,
        and within FLASH_BOUND of its plain version;
-  4. the main path, in seven parts, each driven with every launch count
-     set to 0 just before it and read just after:
+  4. the main path, in eleven parts, each driven with every launch count
+     set to 0 just before it and read just after (parts h-k run first,
+     before part a's driver holds its rank buffers):
      a. the driver: CudaWorld(8) on the card, ACCL calls on 8 rank
         threads — fp32 SUM allreduce at 4, 16, 64 and 256 MiB per rank,
         MAX allreduce, allgather and reduce-scatter at 64 MiB per rank,
@@ -155,6 +162,39 @@ Phases, each fatal on failure:
         formed none), bitwise the same window under profile_sync (one
         gang at a time); under the sanitizer a mismatched gang must
         raise on all 8 ranks within 5 s;
+     h. sequence parallelism, serving side (phase sp_path): forward at
+        sp = 8 over 1 x 32768 tokens (4096 a member) at Llama-3-8B width,
+        4 layers, attn="dense" (the ring owns attention and runs the flash
+        kernels per hop), fp32 and bf16, contiguous and zigzag schedules,
+        and a windowed fp32 forward at Mistral-7B's sliding window 4096;
+        each held within SP_BOUND to the sp = 1 flash forward of the same
+        tokens and weights (zigzag un-permuted, in row chunks), its flash
+        launches equal to the schedule's (contiguous 8 a layer, the live
+        members of a hop stacked into one launch; zigzag 9; windowed one
+        grid launch); prints s per forward (first and warm), tokens/s and
+        each run's peak memory;
+     i. sequence parallelism, training (phase sp_train): make_train_step
+        on make_mesh(sp=4, tp=2), the same width, 1 x 8192 tokens, 2 SGD
+        steps at TRAIN_LR, each held to the same step on make_mesh(tp=2)
+        (sp = 1, flash) from the same weights (loss within
+        TRAIN_LOSS_BOUND, each leaf's gradient within TRAIN_GRAD_BOUND);
+        the backward kernels take the merges' live lse cotangent; each
+        flash kernel launches 32 times a step;
+     j. Ulysses (phase ulysses): ulysses_attention over 8 members, q [1,
+        4096, 32, 128] and K/V [1, 4096, 8, 128] a member, fp32 and bf16,
+        bitwise one flash_attention over the 32768 tokens, one grid
+        launch each;
+     k. the MoE family (phase moe_path) at Switch-Base-8 width (4
+        layers), 8 x 2048 tokens on make_mesh(ep=8): the ep forward held
+        to the dense run-every-expert forward at a drop-free capacity,
+        the fused forward within MOE_BOUND of the unfused one at capacity
+        factor 1.25 (cuBLAS picks its kernel by the row count; the same
+        forward with the last block's expert banks rounded to bf16 must
+        fall outside the bound) and the fused lane's routing bitwise, 3 train steps
+        (losses finite and falling), one step held
+        to the dense full-batch step, and ep prefill plus 16
+        teacher-forced decode steps held to the dense forward; prints s
+        per forward and per step;
   5. times with CUDA events after warm-up (median of 5 runs): each kernel
      per launch, at the shape the main path launches it most, beside its
      plain version, a library yardstick and its bound (bytes read once +
@@ -202,6 +242,14 @@ Phases, each fatal on failure:
      plan_async replay lanes among them) and each lane's ratio to raw,
      with the async lane's batches and batched gangs.
 
+The card-only tests run beside it with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py
+
+(--noconftest: tests/conftest.py imports JAX); among them a stacked ring
+hop bitwise against per-member launches, the card's flash ring against
+its plain version with gradients, and the MoE fused lane bitwise.
+
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 = False):
 the plain versions and yardsticks multiply in full fp32, as the kernels
 do.  It prints one JSON line per measurement, a {"kernels": [...]}
@@ -209,6 +257,7 @@ line, the card's name and power limit, and last {"ok": true, "device":
 {...}}.  Without CUDA it exits 2 and prints no result.
 """
 import argparse
+import importlib
 import itertools
 import json
 import os
@@ -1331,17 +1380,36 @@ def flash_cfg(FL, N, Nk, T, Tk, dt, mxu, kernel, causal, window=None,
                                 window) + (N // Nk,)
 
 
+#: one sp member's flash launches on the sp paths at Llama-3-8B width (32
+#: q heads over 8 K/V heads a member; the kernel as the path resolves it):
+#: the contiguous ring's hops at T_local = 4096 (hop 0 causal, the later
+#: hops unmasked), zigzag's half-chunk pairs at 2048 (the diagonal causal,
+#: the others unmasked), the windowed ring's local block, and the sp = 1
+#: references over 32768 tokens (causal; windowed).  A stacked hop's
+#: launch is bitwise its members' own launches (the card test of stacked
+#: hops), so one member's launch stands for the hop
+SP_HOP_CALLS = (("hop_diag", 32, 8, 4096, 4096, True, None),
+                ("hop_past", 32, 8, 4096, 4096, False, None),
+                ("hop_half_diag", 32, 8, 2048, 2048, True, None),
+                ("hop_half_past", 32, 8, 2048, 2048, False, None),
+                ("hop_window_local", 32, 8, 4096, 4096, True, 4096),
+                ("sp1_causal", 32, 8, 32768, 32768, True, None),
+                ("sp1_window", 32, 8, 32768, 32768, True, 4096))
+
+
 def check_flash_kernels(FL) -> dict:
     """Phase 3c: flash_fwd_resident and flash_fwd_grid against their plain
     versions at the model path's per-rank shapes (resident: q [8, 4096,
     128], k/v [2, 4096, 128]; grid: q [4, 8192, 128], k/v [1, 8192, 128]),
-    a windowed grid call, non-causal cross-length calls, a ragged call
-    (T = 1200: the resolver's blocks halve to 16, the kernel's last 64-row
-    tile is partial) and a call at head size 64, in float32 with float32
-    and bfloat16 MXU dtypes and in bfloat16.  out and lse within
-    FLASH_BOUND of the plain version and bitwise equal over two launches;
-    a control (the plain version with bf16-rounded operands against the
-    float32 one) must fall outside the float32 bound."""
+    at one sp member's hop shapes (SP_HOP_CALLS, in the sp paths' float32
+    and bfloat16), a windowed grid call, non-causal cross-length calls, a
+    ragged call (T = 1200: the resolver's blocks halve to 16, the kernel's
+    last 64-row tile is partial) and a call at head size 64, in float32
+    with float32 and bfloat16 MXU dtypes and in bfloat16.  out and lse
+    within FLASH_BOUND of the plain version and bitwise equal over two
+    launches; a control (the plain version with bf16-rounded operands
+    against the float32 one, at the model and hop shapes) must fall
+    outside the float32 bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     errs = {"flash_fwd_resident": 0.0, "flash_fwd_grid": 0.0}
     readings, controls_ = [], {}
@@ -1361,14 +1429,16 @@ def check_flash_kernels(FL) -> dict:
               FLASH_DTYPES[:1], D_HEAD),
              ("head_64", 8, 2, 2048, 2048, True, None, "resident",
               FLASH_DTYPES, 64))
+    calls += tuple((*hop, "auto", FLASH_DTYPES[::2], D_HEAD)
+                   for hop in SP_HOP_CALLS)
     for tag, N, Nk, T, Tk, causal, window, kernel, dtypes, D in calls:
-        name = f"flash_fwd_{kernel}"
-        fn, plain = getattr(FL, name), getattr(FL, name + "_plain")
         for dt, mxu in dtypes:
             q = rand((N, T, D), dt, gen)
             k, v = rand((Nk, Tk, D), dt, gen), rand((Nk, Tk, D), dt, gen)
             cfg = flash_cfg(FL, N, Nk, T, Tk, dt, mxu, kernel, causal, window,
                             D)
+            name = f"flash_fwd_{cfg[5]}"
+            fn, plain = getattr(FL, name), getattr(FL, name + "_plain")
             out, lse = fn(q, k, v, cfg)
             again, again_lse = fn(q, k, v, cfg)
             torch.cuda.synchronize()
@@ -1393,7 +1463,8 @@ def check_flash_kernels(FL) -> dict:
                      f"{e_lse}, bound {bound}, finite {finite}, repeat "
                      f"{repeat})")
             errs[name] = max(errs[name], e_out)
-            if tag.startswith("model") and mxu == torch.float32:
+            if tag.startswith(("model", "hop", "sp1")) and \
+                    mxu == torch.float32:
                 ctl_cfg = flash_cfg(FL, N, Nk, T, Tk, dt, torch.bfloat16,
                                     kernel, causal, window)
                 c_out, c_lse = plain(q, k, v, ctl_cfg)
@@ -1478,7 +1549,9 @@ def bwd_operands(FL, N, Nk, T, Tk, dt, mxu, causal, window, g_lse, gen):
 def check_flash_bwd_kernels(FL) -> dict:
     """Phase 3d: flash_bwd_dq and flash_bwd_dkv against their plain
     versions at the training path's per-rank shape (FLASH_TRAIN, causal,
-    GQA group 4) with the lse cotangent zero and nonzero, a windowed call,
+    GQA group 4) with the lse cotangent zero and nonzero, at one sp
+    member's hop shapes of sp_train (causal and unmasked, the lse
+    cotangent nonzero), a windowed call,
     a non-causal cross-length call and a ragged call (T = 1200: the
     resolver's blocks halve to 16, the kernels' last 64-row tile is
     partial), in float32 with float32 and bfloat16 MXU dtypes and in
@@ -1491,6 +1564,13 @@ def check_flash_bwd_kernels(FL) -> dict:
     N, Nk, T = FLASH_TRAIN
     calls = [("train", N, Nk, T, T, True, None, g, FLASH_DTYPES)
              for g in (False, True)]
+    # one sp member's hops in sp_train (sp 4 x tp 2 over 8192 tokens: 16
+    # q heads over 4 K/V heads a tp rank, T_local 2048), the lse cotangent
+    # live as the merges give it: the diagonal hop and an unmasked one
+    calls += [("hop_diag", 16, 4, 2048, 2048, True, None, True,
+               FLASH_DTYPES[::2]),
+              ("hop_past", 16, 4, 2048, 2048, False, None, True,
+               FLASH_DTYPES[::2])]
     calls += [("window_1000", 4, 1, 2048, 2048, True, 1000, True,
                FLASH_DTYPES[::2]),
               ("cross_length", 8, 2, 1024, 1536, False, None, True,
@@ -1539,7 +1619,8 @@ def check_flash_bwd_kernels(FL) -> dict:
             errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"],
                                         max_err(dk, want_dk),
                                         max_err(dv, want_dv))
-            if tag == "train" and mxu == torch.float32:
+            if tag in ("train", "hop_diag", "hop_past") and \
+                    mxu == torch.float32:
                 ctl_cfg = cfg[:4] + (torch.bfloat16,) + cfg[5:]
                 c_dq = FL.flash_bwd_dq_plain(*ops, ctl_cfg)
                 c_dk, c_dv = FL.flash_bwd_dkv_plain(*ops, ctl_cfg)
@@ -1760,6 +1841,29 @@ TRAIN_GRAD_BOUND = 1e-3
 REMAT_BOUND = 1e-6
 
 
+def update_diffs(params, other, p0, T_) -> list:
+    """Per leaf (d, floor, ||Delta||): d = ||Delta - Delta'|| / ||Delta||,
+    Delta = p0 - p after one step and Delta' = p0 - other after the step
+    it is held to, both exact fp32 differences of nearby values; floor =
+    2 ||ulp(p0) / 2|| / ||Delta||.  Squares are summed in float64 over
+    chunks, so no float64 copy of a 2 GB leaf is made."""
+    out = []
+    for a, b, z in zip(T_.tree_leaves(params), T_.tree_leaves(other),
+                       T_.tree_leaves(p0)):
+        a, b, z = a.reshape(-1), b.reshape(-1), z.reshape(-1)
+        sums = np.zeros(3)
+        for i in range(0, z.numel(), 1 << 26):
+            za, aa, bb = (t[i:i + (1 << 26)] for t in (z, a, b))
+            ulp = torch.nextafter(za, torch.full_like(za, np.inf)) - za
+            sums += [float(((za - aa).double() ** 2).sum()),
+                     float(((aa - bb).double() ** 2).sum()),
+                     float(((ulp / 2).double() ** 2).sum())]
+        nd, diff, half_ulp = np.sqrt(sums)
+        out.append((diff / max(nd, 1e-300), 2 * half_ulp / max(nd, 1e-300),
+                    nd))
+    return out
+
+
 def train_path(ring, F, FL, M, S, TE, T_) -> dict:
     """Phase 4e: the model's training path at Llama-3-8B width (LLAMA3_8B,
     4 layers), make_train_step on make_mesh(dp=2, tp=4), fp32, 1 x 4096
@@ -1804,35 +1908,13 @@ def train_path(ring, F, FL, M, S, TE, T_) -> dict:
     peak_step = (torch.cuda.max_memory_allocated() - held) / 1e9
     losses = [float(loss)]
 
-    def compare(p_other):
-        """Per leaf (d, floor, ||Delta||): d = ||Delta - Delta'|| /
-        ||Delta||, Delta = p0 - p after the flash step and Delta' the
-        other step's, both exact fp32 differences of nearby values; floor
-        = 2 ||ulp(p0) / 2|| / ||Delta||.  Squares are summed in float64
-        over chunks, so no float64 copy of a 2 GB leaf is made."""
-        out = []
-        for a, b, z in zip(T_.tree_leaves(params), T_.tree_leaves(p_other),
-                           T_.tree_leaves(p0)):
-            a, b, z = a.reshape(-1), b.reshape(-1), z.reshape(-1)
-            sums = np.zeros(3)
-            for i in range(0, z.numel(), 1 << 26):
-                za, aa, bb = (t[i:i + (1 << 26)] for t in (z, a, b))
-                ulp = torch.nextafter(za, torch.full_like(za, np.inf)) - za
-                sums += [float(((za - aa).double() ** 2).sum()),
-                         float(((aa - bb).double() ** 2).sum()),
-                         float(((ulp / 2).double() ** 2).sum())]
-            nd, diff, half_ulp = np.sqrt(sums)
-            out.append((diff / max(nd, 1e-300), 2 * half_ulp / max(nd, 1e-300),
-                        nd))
-        return out
-
     # -- the same step with attn="dense" and remat -----------------------
     dense_cfg = M.ModelConfig(**{**LLAMA3_8B, "attn": "dense",
                                  "remat": True})
     other = T_.tree_map(torch.clone, p0)
     dstep = stepper(dense_cfg)
     other, dloss = run("step_1_dense_remat", lambda: dstep(other, tokens))
-    dense_cmp = compare(other)
+    dense_cmp = update_diffs(params, other, p0, T_)
     loss_err = abs(float(dloss) - losses[0]) / abs(losses[0])
     worst = max(d - (TRAIN_GRAD_BOUND + f) for d, f, _n in dense_cmp)
     if loss_err > TRAIN_LOSS_BOUND or worst > 0:
@@ -1847,7 +1929,7 @@ def train_path(ring, F, FL, M, S, TE, T_) -> dict:
     other = T_.tree_map(torch.clone, p0)
     rstep = stepper(remat_cfg)
     other, rloss = run("step_1_remat", lambda: rstep(other, tokens))
-    remat_cmp = compare(other)
+    remat_cmp = update_diffs(params, other, p0, T_)
     remat_loss_err = abs(float(rloss) - losses[0]) / abs(losses[0])
     if remat_loss_err > REMAT_BOUND or \
             max(d for d, _f, _n in remat_cmp) > REMAT_BOUND:
@@ -1915,6 +1997,502 @@ def train_path(ring, F, FL, M, S, TE, T_) -> dict:
     del params, p0
     torch.cuda.empty_cache()
     return {"launches": total, "per_step": per_step}
+
+
+#: sequence parallelism on the serving side: SP members over SP_TOKENS
+#: global tokens (4096 a member) at Llama-3-8B width, and a sliding window
+#: of Mistral-7B's 4096 (mistralai/Mistral-7B-v0.1 config.json
+#: sliding_window)
+SP = 8
+SP_TOKENS = 32768
+SP_WINDOW = 4096
+#: max |logits - the sp = 1 flash forward's| of each sp forward, per
+#: dtype, at Llama-3-8B width cut to 4 layers, set from the first card
+#: run's readings (NVIDIA H100 80GB HBM3, 700 W): the ring folds the same
+#: flash tiles by lse at shard edges, in other orders.  float32: readings
+#: 6.2e-5 to 7.7e-5, the bound LOGIT_BOUND's; bfloat16 (the weights and
+#: activations in bf16, the lse carry in fp32, each hop's output rounded
+#: to bf16 before the merge): readings 0.133 and 0.141, the bound below
+#: the bf16 forward's own distance from the fp32 one (0.27 at 2 x 4096
+#: tokens, phase serving_path)
+SP_BOUND = {torch.float32: 4e-4, torch.bfloat16: 0.25}
+#: the sp train step: make_mesh(sp=4, tp=2) on 1 x SP_TRAIN_TOKENS
+SP_TRAIN_MESH = {"sp": 4, "tp": 2}
+SP_TRAIN_TOKENS = 8192
+SP_TRAIN_STEPS = 2
+#: Ulysses: q [1, 4096, 32, 128] and K/V [1, 4096, 8, 128] a member
+ULYSSES_SHAPE = (SP, 4096, 32, 8, 128)
+
+
+def sp_path(ring, F, FL, M, RA, T_) -> dict:
+    """Phase sp_path: forward at sp = SP over 1 x SP_TOKENS tokens at
+    Llama-3-8B width (4 layers, attn="dense": the ring owns attention and
+    runs the flash kernels per hop), fp32 and bf16 (weights cast), the
+    contiguous and the zigzag schedule, and a windowed forward
+    (attn_window=SP_WINDOW, fp32), each held within SP_BOUND to the sp = 1
+    flash forward of the same tokens and weights (zigzag un-permuted,
+    compared in row chunks), each with its flash launches counted against
+    the schedule's: contiguous SP per layer (hop s stacks the SP - s live
+    members), zigzag SP + 1, windowed one grid launch."""
+    cfg = M.ModelConfig(**{**LLAMA3_8B, "attn": "dense"})
+    ref_cfg = M.ModelConfig(**LLAMA3_8B)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    torch.cuda.empty_cache()
+    p32 = M.init_params(gen, cfg, tp=1)
+    tokens = torch.randint(0, cfg.vocab, (1, SP_TOKENS), generator=gen,
+                           device="cuda")
+    perm = RA.zigzag_indices(SP_TOKENS, SP).cuda()
+    L = cfg.n_layers
+    peak = [0]  # the largest run's peak: weights, held logits, forward
+    want = {"contiguous": {"flash_fwd_resident": SP * L},
+            "zigzag": {"flash_fwd_resident": (SP + 1) * L},
+            "window": {"flash_fwd_grid": L}}
+    total, runs = {}, {}
+
+    def run(name, fn):
+        reset_counts(ring, F, FL)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = read_counts(ring, F, FL)
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+        runs[name] = {"s": secs, "tokens_per_s": SP_TOKENS / secs,
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "held_gb": held / 1e9,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        return out
+
+    def err_vs(lg, ref, rows=None):
+        """max |lg - ref[:, rows]| over row chunks (rows: the zigzag
+        permutation, lg in its layout)."""
+        e = 0.0
+        for i in range(0, SP_TOKENS, 4096):
+            r = ref[:, i:i + 4096] if rows is None else ref[:, rows[i:i + 4096]]
+            e = max(e, float((lg[:, i:i + 4096].float() - r.float()).abs().max()))
+        return e
+
+    def launches_ok(name, expect):
+        got = {k: v for k, v in runs[name]["launches"].items()
+               if k.startswith("flash_")}
+        if got != expect:
+            fail(f"{name}: flash launches {got}, the schedule's {expect}")
+
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        w = p32 if dt == torch.float32 else T_.tree_map(
+            lambda t: t.to(torch.bfloat16), p32)
+        tag = "fp32" if dt == torch.float32 else "bf16"
+        c = cfg if dt == torch.float32 else M.ModelConfig(
+            **{**LLAMA3_8B, "attn": "dense", "dtype": "bfloat16"})
+        rc = ref_cfg if dt == torch.float32 else M.ModelConfig(
+            **{**LLAMA3_8B, "dtype": "bfloat16"})
+        ref = run(f"sp1_flash_{tag}", lambda: M.forward(w, tokens, rc))
+        if tuple(ref.shape) != (1, SP_TOKENS, cfg.vocab) or \
+                not torch.isfinite(ref).all():
+            fail(f"sp1_flash_{tag}: logits {tuple(ref.shape)} not finite")
+        launches_ok(f"sp1_flash_{tag}", {"flash_fwd_grid": L})
+        for sched in ("contiguous", "zigzag"):
+            name = f"sp{SP}_{sched}_{tag}"
+            cs = M.ModelConfig(**{**vars(c), "sp_schedule": sched})
+            tok = tokens if sched == "contiguous" else tokens[:, perm]
+            lg = run(name, lambda: M.forward(w, tok, cs, sp=SP))
+            if tuple(lg.shape) != tuple(ref.shape) or \
+                    not torch.isfinite(lg).all():
+                fail(f"{name}: logits {tuple(lg.shape)} not finite")
+            e = err_vs(lg, ref, None if sched == "contiguous" else perm)
+            runs[name]["max_abs_err_vs_sp1"] = e
+            cases.append((name, e, SP_BOUND[dt]))
+            launches_ok(name, want[sched])
+            del lg
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+        # s per forward, warm: sp = 1 and both schedules, in turns
+        for name, fn in (
+                (f"sp1_flash_{tag}", lambda: M.forward(w, tokens, rc)),
+                (f"sp{SP}_contiguous_{tag}",
+                 lambda: M.forward(w, tokens, c, sp=SP)),
+                (f"sp{SP}_zigzag_{tag}", lambda: M.forward(
+                    w, tokens[:, perm],
+                    M.ModelConfig(**{**vars(c), "sp_schedule": "zigzag"}),
+                    sp=SP))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            runs[name]["warm_s"] = time.perf_counter() - t
+            del out
+            torch.cuda.empty_cache()
+        if dt == torch.bfloat16:
+            del w
+    # -- windowed (Mistral-7B's sliding window), fp32 ---------------------
+    wc = M.ModelConfig(**{**LLAMA3_8B, "attn": "dense",
+                          "attn_window": SP_WINDOW})
+    wref_cfg = M.ModelConfig(**{**LLAMA3_8B, "attn_window": SP_WINDOW})
+    ref = run("sp1_flash_window_fp32", lambda: M.forward(p32, tokens,
+                                                         wref_cfg))
+    launches_ok("sp1_flash_window_fp32", {"flash_fwd_grid": L})
+    lg = run(f"sp{SP}_window_fp32", lambda: M.forward(p32, tokens, wc,
+                                                      sp=SP))
+    if not torch.isfinite(lg).all():
+        fail("the windowed sp forward: logits not finite")
+    e = err_vs(lg, ref)
+    runs[f"sp{SP}_window_fp32"]["max_abs_err_vs_sp1"] = e
+    cases.append((f"sp{SP}_window_fp32", e, SP_BOUND[torch.float32]))
+    launches_ok(f"sp{SP}_window_fp32", want["window"])
+    del lg, ref, p32
+    torch.cuda.empty_cache()
+    for name, e, bound in cases:
+        if e > bound:
+            fail(f"{name}: logits off the sp = 1 flash forward by {e} "
+                 f"(bound {bound})")
+    emit({"phase": "sp_path", "ok": True, "config": LLAMA3_8B,
+          "reduced": "n_layers 32 -> 4", "sp": SP, "tokens": SP_TOKENS,
+          "window": SP_WINDOW, "bounds": {str(k): v for k, v in
+                                          SP_BOUND.items()},
+          "runs": runs, "launches": total,
+          "launches_per_layer": {"contiguous": SP, "zigzag": SP + 1,
+                                 "window": 1},
+          "forward_peak_mem_gb": peak[0] / 1e9})
+    return {"launches": total}
+
+
+def sp_train(ring, F, FL, M, S, T_) -> dict:
+    """Phase sp_train: make_train_step on make_mesh(sp=4, tp=2) at
+    Llama-3-8B width (4 layers, attn="dense", the ring's flash hops and
+    their backward with the lse cotangent of the merges), fp32, 1 x
+    SP_TRAIN_TOKENS tokens, SP_TRAIN_STEPS SGD steps at TRAIN_LR, each held
+    to the same step on make_mesh(tp=2) (sp = 1, attn="flash") from the
+    same weights: loss within TRAIN_LOSS_BOUND, each leaf's gradient within
+    TRAIN_GRAD_BOUND plus the update's rounding floor.  Every flash kernel
+    launches 4 hops x tp x layers a step."""
+    cfg = M.ModelConfig(**{**LLAMA3_8B, "attn": "dense"})
+    ref_cfg = M.ModelConfig(**LLAMA3_8B)
+    mesh = S.make_mesh(**SP_TRAIN_MESH)
+    ref_mesh = S.make_mesh(tp=SP_TRAIN_MESH["tp"])
+    sp, tp = mesh.shape["sp"], mesh.shape["tp"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prev = M.init_params(gen, cfg, tp=tp)
+    tokens = torch.randint(0, cfg.vocab, (1, SP_TRAIN_TOKENS),
+                           generator=gen, device="cuda")
+    step = M.make_train_step(mesh, cfg, lr=TRAIN_LR)[0]
+    ref_step = M.make_train_step(ref_mesh, ref_cfg, lr=TRAIN_LR)[0]
+    total, runs, held = {}, {}, []
+
+    def run(name, fn):
+        reset_counts(ring, F, FL)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = read_counts(ring, F, FL)
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+        runs[name] = {"s": secs, "launches": {k: v for k, v in
+                                              counts.items() if v}}
+        return out
+
+    per = cfg.n_layers * tp * sp
+    losses = []
+    for i in range(1, SP_TRAIN_STEPS + 1):
+        params = T_.tree_map(torch.clone, prev)
+        params, loss = run(f"step_{i}", lambda: step(params, tokens))
+        other = T_.tree_map(torch.clone, prev)
+        other, rloss = run(f"step_{i}_sp1_flash",
+                           lambda: ref_step(other, tokens))
+        cmp = update_diffs(params, other, prev, T_)
+        loss_err = abs(float(loss) - float(rloss)) / abs(float(rloss))
+        held.append({"loss": float(loss), "sp1_loss": float(rloss),
+                     "loss_rel_err": loss_err,
+                     "grad_rel_l2_max": max(d for d, _f, _n in cmp),
+                     "rounding_floor_max": max(f for _d, f, _n in cmp)})
+        if loss_err > TRAIN_LOSS_BOUND or \
+                max(d - (TRAIN_GRAD_BOUND + f) for d, f, _n in cmp) > 0:
+            fail(f"sp step {i} off the sp = 1 flash step: loss {loss_err} "
+                 f"(bound {TRAIN_LOSS_BOUND}), per-leaf gradient "
+                 f"{[(d, TRAIN_GRAD_BOUND + f) for d, f, _n in cmp]}")
+        got = {k: runs[f"step_{i}"]["launches"].get(k, 0) for k in
+               ("flash_fwd_resident", "flash_bwd_dq", "flash_bwd_dkv")}
+        if got != dict.fromkeys(got, per) or \
+                runs[f"step_{i}"]["launches"].get("flash_fwd_grid"):
+            fail(f"sp step {i} must launch each flash kernel {per} times "
+                 f"(hops x tp x layers): {runs[f'step_{i}']['launches']}")
+        losses.append(float(loss))
+        del other, prev
+        prev = params
+        torch.cuda.empty_cache()
+    if not all(np.isfinite(v) for v in losses):
+        fail(f"sp training: losses {losses} not finite")
+    emit({"phase": "sp_train", "ok": True, "config": LLAMA3_8B,
+          "reduced": "n_layers 32 -> 4", "mesh": mesh.shape,
+          "tokens_per_step": SP_TRAIN_TOKENS, "lr": TRAIN_LR,
+          "losses": losses, "held_to_sp1_flash": held,
+          "bounds": {"loss": TRAIN_LOSS_BOUND, "grad": TRAIN_GRAD_BOUND},
+          "s_per_step": [runs[f"step_{i}"]["s"] for i in
+                         range(1, SP_TRAIN_STEPS + 1)],
+          "sp1_s_per_step": [runs[f"step_{i}_sp1_flash"]["s"] for i in
+                             range(1, SP_TRAIN_STEPS + 1)],
+          "launches_per_step": per, "runs": runs, "launches": total,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del prev
+    torch.cuda.empty_cache()
+    return {"launches": total}
+
+
+def ulysses_phase(ring, F, FL, RA) -> dict:
+    """Phase ulysses: ulysses_attention over SP members, q [1, 4096, 32,
+    128] and K/V [1, 4096, 8, 128] a member (GQA, G % SP = 0), fp32 and
+    bf16, held bitwise to one flash_attention over the 32768 tokens (each
+    member's heads are rows of the same kernel at the same lengths and
+    group, stacked along the batch axis): one grid launch each."""
+    P_, Tl, H, G, D = ULYSSES_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    total, runs = {}, {}
+
+    def run(name, fn):
+        reset_counts(ring, F, FL)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[name] = {"s": time.perf_counter() - t}
+        counts = read_counts(ring, F, FL)
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+        runs[name]["launches"] = {k: v for k, v in counts.items() if v}
+        return out
+
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dt == torch.float32 else "bf16"
+        q = rand((1, P_ * Tl, H, D), dt, gen)
+        k, v = rand((1, P_ * Tl, G, D), dt, gen), rand((1, P_ * Tl, G, D),
+                                                         dt, gen)
+        out = run(f"ulysses_{tag}", lambda: RA.ulysses_attention(
+            list(q.chunk(P_, 1)), list(k.chunk(P_, 1)), list(v.chunk(P_, 1)),
+            causal=True))
+        ref = run(f"flash_{tag}", lambda: FL.flash_attention(
+            q, k, v, causal=True, mxu_dtype=dt))
+        got = torch.cat(out, dim=1)
+        runs[f"ulysses_{tag}"]["bitwise"] = torch.equal(got, ref)
+        runs[f"ulysses_{tag}"]["max_abs_err"] = max_err(got, ref)
+        if not torch.equal(got, ref):
+            fail(f"ulysses {tag}: not bitwise equal to one flash_attention "
+                 f"(max abs err {max_err(got, ref)})")
+        for name in (f"ulysses_{tag}", f"flash_{tag}"):
+            if runs[name]["launches"] != {"flash_fwd_grid": 1}:
+                fail(f"{name}: launches {runs[name]['launches']}, one "
+                     f"grid launch expected")
+        del q, k, v, out, ref, got
+    torch.cuda.empty_cache()
+    emit({"phase": "ulysses", "ok": True, "members": P_,
+          "per_member": {"q": [1, Tl, H, D], "kv": [1, Tl, G, D]},
+          "runs": runs, "launches": total})
+    return {"launches": total}
+
+
+#: Switch-Base-8 at full width (google/switch-base-8 config.json: d_model
+#: 768, d_ff 3072, 12 heads of d_kv 64, 8 experts, vocabulary 32128; top-1
+#: routing at capacity factor 1.25), depth cut to 4 layers
+SWITCH_BASE_8 = dict(vocab=32128, d_model=768, n_layers=4, n_heads=12,
+                     d_head=64, d_ff=3072, n_experts=8,
+                     capacity_factor=1.25, dtype="float32")
+MOE_TOKENS = (8, 2048)
+MOE_STEPS = 3
+#: prompt and teacher-forced decode steps of the MoE serving check
+MOE_DECODE = (256, 16)
+#: max |logits - the dense forward's| of the ep forward and of decode,
+#: and |fused - unfused| of the ep forward, fp32 at Switch-Base-8 width
+#: (|logits| ~ 0.5): the expert products run on other row counts, and
+#: cuBLAS picks its GEMM kernel, and so its order of summation over K, by
+#: the row count (the fused lane's chunk of P ck rows against the whole
+#: capacity's P cap).  Card readings (NVIDIA H100 80GB HBM3, 700 W): ep
+#: against dense 3.8e-6, fused against unfused 3.9e-6, decode 4.3e-6; the
+#: bound is 10 times the largest and must fail the control (the fused
+#: forward with the last block's expert banks rounded to bf16 against the
+#: unfused one)
+MOE_BOUND = 4e-5
+
+
+def bf16_experts(params):
+    """``params`` with the last block's expert banks rounded to bfloat16
+    and kept in float32: the control a bound on float32 expert products
+    must fail.  Only the last block's, so that every router sees the
+    inputs it saw and routes each token as before: the control moves the
+    logits by the products' precision alone, not by a token changing
+    expert."""
+    *rest, last = params["blocks"]
+    return {**params, "blocks": rest + [
+        {**last, **{w: [x.bfloat16().float() for x in last[w]]
+                    for w in ("we1", "we2")}}]}
+
+
+def moe_path(ring, F, FL, MM, MD, S, T_) -> dict:
+    """Phase moe_path: the MoE model at Switch-Base-8 width (4 layers),
+    fp32, 8 x 2048 tokens on make_mesh(ep=8) (one expert a member, 2048
+    tokens a member).  The ep forward is held to the dense
+    run-every-expert forward at a drop-free capacity (capacity factor 8,
+    as the JAX tests compare them) within MOE_BOUND; at the published
+    capacity factor 1.25 the fused forward (fused_expert_ffn) within
+    MOE_BOUND of the unfused one (cuBLAS rounds the chunk's products
+    otherwise) while the control with the last block's expert banks
+    rounded to bf16 falls outside it, and the fused lane's routing bitwise dispatch -> FFN ->
+    combine with a row-wise expert; MOE_STEPS train steps at TRAIN_LR on
+    the ep mesh at 1.25, losses finite and falling; one drop-free ep step held to the
+    dense full-batch step over the same 8 data members (make_mesh(dp=8),
+    the aux per member as each ep member's) within TRAIN_LOSS_BOUND and
+    TRAIN_GRAD_BOUND; ep decode (8 requests, MOE_DECODE prompt and steps)
+    held to the dense forward within MOE_BOUND."""
+    cfg = MM.MoEConfig(**SWITCH_BASE_8)
+    free = MM.MoEConfig(**{**SWITCH_BASE_8,
+                           "capacity_factor": float(cfg.n_experts)})
+    E = cfg.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p0 = MM.init_params(gen, cfg, ep=E)
+    tokens = torch.randint(0, cfg.vocab, MOE_TOKENS, generator=gen,
+                           device="cuda")
+    total, runs = {}, {}
+
+    def run(name, fn):
+        reset_counts(ring, F, FL)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[name] = {"s": time.perf_counter() - t}
+        for key, val in read_counts(ring, F, FL).items():
+            total[key] = total.get(key, 0) + val
+        return out
+
+    dense, _aux = run("forward_dense", lambda: MM.forward(p0, tokens, free))
+    ep_lg, ep_aux = run("forward_ep", lambda: MM.forward(p0, tokens, free,
+                                                         ep=E))
+    e_ep = max_err(ep_lg, dense)
+    if not torch.isfinite(ep_lg).all() or e_ep > MOE_BOUND:
+        fail(f"the ep forward is off the dense one by {e_ep} (bound "
+             f"{MOE_BOUND}) or not finite")
+    del ep_lg
+    a, _ = run("forward_ep_cf1.25", lambda: MM.forward(p0, tokens, cfg,
+                                                       ep=E))
+    b, _ = run("forward_ep_cf1.25_fused", lambda: MM.forward(
+        p0, tokens, cfg, ep=E, fused=True))
+    e_fused = max_err(a, b)
+    if e_fused > MOE_BOUND:
+        fail(f"the fused ep forward is off the unfused one by {e_fused} "
+             f"(bound {MOE_BOUND})")
+    del b
+    c, _ = MM.forward(bf16_experts(p0), tokens, cfg, ep=E, fused=True)
+    e_control = max_err(a, c)
+    if not e_control > MOE_BOUND:
+        fail(f"MOE_BOUND {MOE_BOUND} does not catch bf16 expert banks: "
+             f"{e_control}")
+    dropped_rows = int(((a - dense).abs().amax(-1) > MOE_BOUND).sum())
+    del a, c
+    # the fused lane's routing at the model's shapes (2048 tokens of 768 a
+    # member, capacity 320 in 4 chunks of 80), bitwise dispatch -> FFN ->
+    # combine with an expert FFN that computes each row alone
+    xs = [rand((MOE_TOKENS[1], cfg.d_model), torch.float32, gen)
+          for _ in range(E)]
+    idxs = [torch.randint(0, E, (MOE_TOKENS[1],), generator=gen,
+                          device="cuda") for _ in range(E)]
+    cap = int(np.ceil(MOE_TOKENS[1] * cfg.capacity_factor / E))
+    ffns = [lambda t, r=r: torch.nn.functional.gelu(
+        t, approximate="tanh") * (r + 1) for r in range(E)]
+    got = F.fused_expert_ffn(xs, idxs, ffns, capacity=cap)
+    inp, info = S.expert_dispatch(xs, idxs, capacity=cap)
+    routed = S.expert_combine([f(t) for f, t in zip(ffns, inp)], info)
+    routing_bitwise = all(torch.equal(x, y) for x, y in zip(got, routed))
+    if not routing_bitwise:
+        fail("fused_expert_ffn's routing is not bitwise dispatch -> FFN -> "
+             "combine")
+    del xs, idxs, got, inp, info, routed
+    # -- one drop-free step against the dense full-batch step -------------
+    ep_mesh, dp_mesh = S.make_mesh(ep=E), S.make_mesh(dp=E)
+    p_ep = T_.tree_map(torch.clone, p0)
+    p_ep, l_ep = run("step_ep_dropfree", lambda: MM.make_train_step(
+        ep_mesh, free, lr=TRAIN_LR)[0](p_ep, tokens))
+    p_d = MM.shard_params(T_.tree_map(torch.clone, p0), cfg, 1)
+    p_d, l_d = run("step_dense_full_batch", lambda: MM.make_train_step(
+        dp_mesh, free, lr=TRAIN_LR)[0](p_d, tokens))
+    cmp = update_diffs(MM.shard_params(p_ep, cfg, 1), p_d,
+                       MM.shard_params(p0, cfg, 1), T_)
+    loss_err = abs(float(l_ep) - float(l_d)) / abs(float(l_d))
+    if loss_err > TRAIN_LOSS_BOUND or \
+            max(d - (TRAIN_GRAD_BOUND + f) for d, f, _n in cmp) > 0:
+        fail(f"the ep step is off the dense full-batch step: loss "
+             f"{loss_err}, per-leaf gradient "
+             f"{[(d, TRAIN_GRAD_BOUND + f) for d, f, _n in cmp]}")
+    del p_ep, p_d
+    # -- training at the published capacity ------------------------------
+    step = MM.make_train_step(ep_mesh, cfg, lr=TRAIN_LR)[0]
+    params = T_.tree_map(torch.clone, p0)
+    losses = []
+    for i in range(1, MOE_STEPS + 1):
+        params, loss = run(f"step_{i}", lambda: step(params, tokens))
+        losses.append(float(loss))
+    if not all(np.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"MoE training: losses {losses} not finite or not falling")
+    del params
+    # -- expert-parallel decode, teacher-forced ---------------------------
+    Tp, n_dec = MOE_DECODE
+    B = MOE_TOKENS[0]
+    seq = tokens[:, :Tp + n_dec]
+    cache = MD.init_kv_cache(cfg, B, Tp + n_dec)
+    lg_pre, _a, cache = run("prefill_ep", lambda: MD.prefill(
+        p0, seq[:, :Tp], cache, cfg, ep=E))
+    steps, step_s = [], []
+    for t in range(n_dec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = MD.decode_step(p0, seq[:, Tp + t], cache, cfg, ep=E)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        steps.append(lg)
+    want, _ = run("forward_dense_decode_ref", lambda: MM.forward(
+        p0, seq, cfg))
+    e_pre = max_err(lg_pre, want[:, :Tp])
+    e_dec = max(max_err(lg, want[:, Tp + t]) for t, lg in enumerate(steps))
+    if e_pre > MOE_BOUND or e_dec > MOE_BOUND:
+        fail(f"MoE ep prefill/decode off the dense forward: {e_pre}, "
+             f"{e_dec} (bound {MOE_BOUND})")
+    emit({"phase": "moe_path", "ok": True, "config": SWITCH_BASE_8,
+          "reduced": "12 encoder + 12 decoder layers -> 4 decoder-only "
+                     "layers", "mesh": {"ep": E}, "tokens": list(MOE_TOKENS),
+          "forward_ep_max_abs_err_vs_dense": e_ep,
+          "fused_max_abs_err_vs_unfused": e_fused,
+          "bf16_expert_control": e_control,
+          "fused_routing_bitwise": routing_bitwise,
+          "rows_off_dense_at_cf1.25": dropped_rows,
+          "aux_per_member": [float(x) for x in ep_aux],
+          "held_step": {"loss_rel_err": loss_err,
+                        "grad_rel_l2_max": max(d for d, _f, _n in cmp),
+                        "rounding_floor_max": max(f for _d, f, _n in cmp)},
+          "losses": losses, "lr": TRAIN_LR,
+          "s_per_forward": {k: runs[k]["s"] for k in (
+              "forward_dense", "forward_ep", "forward_ep_cf1.25",
+              "forward_ep_cf1.25_fused")},
+          "s_per_step": [runs[f"step_{i}"]["s"] for i in
+                         range(1, MOE_STEPS + 1)],
+          "tokens_per_s": MOE_TOKENS[0] * MOE_TOKENS[1] / statistics.median(
+              runs[f"step_{i}"]["s"] for i in range(1, MOE_STEPS + 1)),
+          "decode": {"prefill_s": runs["prefill_ep"]["s"],
+                     "ms_per_step": statistics.median(step_s) * 1e3,
+                     "max_abs_err": {"prefill": e_pre, "decode": e_dec}},
+          "bound": MOE_BOUND, "launches": total,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del p0, dense, want, steps, cache
+    torch.cuda.empty_cache()
+    return {"launches": total}
 
 
 def attention_bound(N, T, Tk, causal, dt) -> tuple:
@@ -3304,6 +3882,8 @@ def main() -> int:
     from accl_tpu_torch.arithconfig import CompressionPolicy
     from accl_tpu_torch.ops import _build
     from accl_tpu_torch import models as M
+    from accl_tpu_torch.models import moe as MM
+    from accl_tpu_torch.models import moe_decode as MD
     from accl_tpu_torch import parallel as S
     from accl_tpu_torch.bench import ef_convergence as TE
     from accl_tpu_torch.utils import tree as T_
@@ -3313,6 +3893,7 @@ def main() -> int:
     from accl_tpu_torch.ops import quantized as q_ops
     from accl_tpu_torch.ops import reduce_ops as R
     from accl_tpu_torch.ops import ring
+    RA = importlib.import_module("accl_tpu_torch.parallel.ring_attention")
     PL = {"combine_2d": R._pallas_combine_2d, "cast_2d": C._cast_2d}
 
     card = card_line()
@@ -3348,6 +3929,12 @@ def main() -> int:
     errs.update(check_flash_bwd_kernels(FL))
     errs.update(check_plugin_kernels(R, C))
     errs.update(check_skew_kernel(FL))
+    # the sequence-parallel and MoE parts run before the driver's world
+    # holds its rank buffers: the sp forwards hold two 16.8 GB logit tensors
+    sp = sp_path(ring, F, FL, M, RA, T_)
+    spt = sp_train(ring, F, FL, M, S, T_)
+    uly = ulysses_phase(ring, F, FL, RA)
+    moe = moe_path(ring, F, FL, MM, MD, S, T_)
     mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
@@ -3358,14 +3945,13 @@ def main() -> int:
         train = train_path(ring, F, FL, M, S, TE, T_)
         plugin = plugin_path(ring, F, FL, R, C, PL)
         plan = plan_path(world, ring, F)
-        # the main path's launches: the sum over its seven parts
-        launches = {k: mp["launches"][k] + tp["launches"][k]
-                    + lanes["launches"][k] + serve["launches"][k]
-                    + train["launches"][k] + plugin["launches"][k]
-                    + plan["launches"][k]
+        # the main path's launches: the sum over its parts
+        parts = (mp, tp, lanes, serve, train, sp, spt, uly, moe, plugin,
+                 plan)
+        launches = {k: sum(part["launches"].get(k, 0) for part in parts)
                     for k in mp["launches"]}
-        launches.update({k: serve["launches"][k] + train["launches"][k]
-                         + plugin["launches"][k] for k in FLASH_KERNELS})
+        launches.update({k: sum(part["launches"].get(k, 0) for part in (
+            serve, train, sp, spt, uly, moe, plugin)) for k in FLASH_KERNELS})
         launches.update({k: plugin["launches"][k] for k in PL})
         if args.no_timing:
             emit({"phase": "main_path_done", "launches": launches})

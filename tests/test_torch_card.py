@@ -1029,3 +1029,100 @@ def test_sanitizer_mismatch_raises_on_every_rank_on_card():
     finally:
         sanitizer.set_enabled(False)
         sanitizer._reset_exchange()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_ring_hop_is_bitwise_per_member_launches_on_card(dtype,
+                                                                 causal):
+    # one hop of the ring: the live members stacked along the batch axis
+    # into one launch give each member's rows bit for bit as a launch for
+    # that member alone (the packed kernels treat every (batch, head) row
+    # on its own; the schedule depends on the lengths and head size only)
+    import importlib
+
+    RA = importlib.import_module("accl_tpu_torch.parallel.ring_attention")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    members = [tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                     for shape in ((1, 1024, 8, 128), (1, 1024, 2, 128),
+                                   (1, 1024, 2, 128)))
+               for _ in range(3)]
+    before = TFL.flash_fwd_resident.launches
+    parts = RA._flash_hop(members, causal, dtype, None)
+    assert TFL.flash_fwd_resident.launches == before + 1
+    for (q, k, v), (out, lse) in zip(members, parts):
+        o1, l1 = TFL.flash_attention_lse(q, k, v, causal=causal,
+                                         mxu_dtype=dtype)
+        assert torch.equal(out, o1) and torch.equal(lse, l1)
+
+
+@pytest.mark.parametrize("schedule,window,causal", [
+    ("contiguous", None, False), ("contiguous", None, True),
+    ("zigzag", None, True), ("contiguous", 700, True)])
+def test_ring_attention_on_card_matches_plain_and_trains(schedule, window,
+                                                         causal):
+    # the flash ring on the card (stacked hops, lse merges, the backward
+    # kernels fed the merges' live lse cotangent) against the same ring on
+    # the CPU through the kernels' plain versions: out and gradients
+    from accl_tpu_torch.parallel import ring_attention
+
+    P, Tl, H, G, D = 4, 1024, 8, 2, 128
+    g = torch.Generator().manual_seed(17)
+    base = [torch.randn((1, P * Tl, h, D), generator=g) for h in (H, G, G)]
+    kw = dict(causal=causal, impl="flash", schedule=schedule, window=window)
+
+    def run(dev):
+        ts = [t.to(dev).requires_grad_(True) for t in base]
+        out = ring_attention(*(list(t.chunk(P, dim=1)) for t in ts), **kw)
+        loss = sum((o.double() ** 2).sum() for o in out)
+        return (torch.cat(out, dim=1).detach().cpu(),
+                [d.cpu() for d in torch.autograd.grad(loss, ts)])
+
+    out, grads = run("cuda")
+    want, wgrads = run("cpu")
+    assert float((out - want).abs().max()) <= 1e-5
+    for a, b in zip(grads, wgrads):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+def test_moe_fused_lane_on_card():
+    # the fused lane's routing is dispatch -> FFN -> combine bit for bit
+    # with an expert that computes each row alone; with the expert's
+    # matmuls the model's fused forward is within the fp32 bound of the
+    # unfused one (cuBLAS picks its kernel, and so its order of summation,
+    # by the row count: a chunk's P ck rows against the capacity's P cap),
+    # a bound the same forward must fail with the last block's expert banks
+    # rounded to bf16 (the routers see what they saw: only the products'
+    # precision moves the logits)
+    from accl_tpu_torch.models import moe as TM
+    from accl_tpu_torch.parallel import expert_combine, expert_dispatch
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    P, N, D = 8, 512, 256
+    xs = [torch.randn((N, D), generator=g, device="cuda") for _ in range(P)]
+    idxs = [torch.randint(0, P, (N,), generator=g, device="cuda")
+            for _ in range(P)]
+    ffns = [lambda t, r=r: torch.nn.functional.gelu(t) * (r + 1)
+            for r in range(P)]
+    for cap, chunks in ((80, 4), (64, 2), (0, 3)):
+        got = TF.fused_expert_ffn(xs, idxs, ffns, capacity=cap,
+                                  chunks=chunks)
+        inp, info = expert_dispatch(xs, idxs, capacity=cap)
+        want = expert_combine([f(t) for f, t in zip(ffns, inp)], info)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    cfg = TM.MoEConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                       d_head=64, d_ff=1024, n_experts=8)
+    params = TM.init_params(np.random.default_rng(5), cfg, ep=8)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (8, 256))).cuda()
+    a, _ = TM.forward(params, tokens, cfg, ep=8)
+    b, _ = TM.forward(params, tokens, cfg, ep=8, fused=True)
+    bound = 4e-5
+    assert float((a - b).abs().max()) <= bound
+    *rest, last = params["blocks"]
+    rounded = {**params, "blocks": rest + [
+        {**last, **{w: [x.bfloat16().float() for x in last[w]]
+                    for w in ("we1", "we2")}}]}
+    c, _ = TM.forward(rounded, tokens, cfg, ep=8, fused=True)
+    assert float((a - c).abs().max()) > bound

@@ -24,6 +24,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as PS
 
+import accl_tpu.backends.tpu as jtpu
 import accl_tpu.ops.fused as jfused
 import accl_tpu.ops.ring as jring
 from accl_tpu.observability import trace as jtrace
@@ -57,7 +58,10 @@ def _limit():
 @pytest.fixture
 def gate(monkeypatch):
     """Set the gate on both packages and clear both collectors; restore
-    the cached gates afterwards."""
+    the cached gates afterwards.  The JAX package reads the gate when it
+    compiles a collective and keys ``TpuWorld``'s compiled programs
+    without it, so the programs an earlier test of this process compiled
+    with the gate off are dropped as well."""
     def set_gate(on: bool):
         if on:
             monkeypatch.setenv("ACCL_DEVICE_TRACE", "1")
@@ -65,12 +69,14 @@ def gate(monkeypatch):
             monkeypatch.delenv("ACCL_DEVICE_TRACE", raising=False)
         jring._reset_device_trace_cache()
         tring._reset_device_trace_cache()
+        jtpu._collective_fn.cache_clear()
         jtrace.collector().clear()
         obs_trace.collector().clear()
 
     yield set_gate
     jring._reset_device_trace_cache()
     tring._reset_device_trace_cache()
+    jtpu._collective_fn.cache_clear()
     jtrace.collector().clear()
     obs_trace.collector().clear()
 

@@ -27,7 +27,7 @@ from jax.sharding import PartitionSpec as Pspec
 
 import accl_tpu.ops.fused as JF
 from accl_tpu.models.transformer import ModelConfig, param_specs
-from accl_tpu_torch import ACCLError, tp_weight_shards
+from accl_tpu_torch import tp_weight_shards
 from accl_tpu_torch.ops import fused as TF
 from accl_tpu_torch.ops import ring as tring
 
@@ -245,8 +245,10 @@ def test_fused_wrappers_refuse_bad_operands():
                          torch.ones(8, 2, device="meta"))
     with pytest.raises(ValueError, match="divide"):
         TF.fused_matmul_allreduce_pallas([torch.ones(6, 8)] * NR, w)
-    with pytest.raises(ACCLError, match="fused_expert_ffn"):
-        TF.fused_expert_ffn(None, None, None)
+    with pytest.raises(ValueError, match="per member"):
+        TF.fused_expert_ffn([torch.ones(4, 8)] * NR,
+                            [torch.zeros(4, dtype=torch.long)] * 2,
+                            lambda t: t)
 
 
 def test_cpu_tensors_take_plain_versions_without_launch():

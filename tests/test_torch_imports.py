@@ -16,7 +16,8 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "ops.reduce_ops", "ops.compression", "ops._build", "parallel",
               "parallel.collectives", "parallel.mesh",
               "parallel.ring_attention", "parallel.strategies", "models",
-              "models.transformer", "models.decode", "bench",
+              "models.transformer", "models.decode", "models.moe",
+              "models.moe_decode", "bench",
               "bench.ef_convergence", "bench.timing", "bench.flash_sweep",
               "bench.kernel_tune", "bench.flash_bwd_split",
               "bench.flash_fwd_split", "bench.plugin_split", "bench.sweep",

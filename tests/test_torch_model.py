@@ -23,8 +23,7 @@ from jax.sharding import PartitionSpec as Pspec
 import accl_tpu.models.decode as JD
 import accl_tpu.models.transformer as JT
 from accl_tpu.parallel.mesh import make_mesh as jax_make_mesh
-from accl_tpu_torch import ACCLError, model_params_from_jax, \
-    model_params_to_numpy
+from accl_tpu_torch import model_params_from_jax, model_params_to_numpy
 from accl_tpu_torch.models import decode as TD
 from accl_tpu_torch.models import transformer as TT
 
@@ -254,10 +253,22 @@ def test_config_validation_and_unported_axes_match_jax():
         with pytest.raises(ValueError) as te:
             TT.ModelConfig(**kw)
         assert str(je.value) == str(te.value)
-    _, tcfg = _cfgs()
-    params = TT.init_params(np.random.default_rng(0), tcfg, device="cpu")
-    with pytest.raises(ACCLError, match="ring_attention"):
-        TT.forward(params, torch.from_numpy(_tokens()), tcfg, sp=2)
+    # sp = 2 (ring attention over two sequence shards) against the JAX
+    # package's forward under shard_map on the sp axis
+    jcfg, tcfg = _cfgs()
+    jparams = _jax_params(jcfg)
+    params = _port_params(jparams, tcfg, 1)
+    jfwd = jax.jit(jax.shard_map(
+        lambda p, t: JT.forward(p, t, jcfg, sp_axis="sp"),
+        mesh=jax_make_mesh(sp=2), in_specs=(Pspec(), Pspec(None, "sp")),
+        out_specs=Pspec(None, "sp")))
+    want = np.asarray(jfwd(jparams, jnp.asarray(_tokens())))
+    got = TT.forward(params, torch.from_numpy(_tokens()), tcfg, sp=2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
     zig = TT.ModelConfig(**BASE, sp_schedule="zigzag")
-    with pytest.raises(ValueError, match="zigzag"):
+    with pytest.raises(ValueError) as te:
         TT.forward(params, torch.from_numpy(_tokens()), zig)
+    with pytest.raises(ValueError) as je:
+        JT.forward(jparams, jnp.asarray(_tokens()),
+                   JT.ModelConfig(**BASE, sp_schedule="zigzag"))
+    assert str(te.value) == str(je.value)

@@ -8,6 +8,8 @@ float32, so every sum is exact and the comparisons are bitwise.  The
 dense attention reference is compared at rtol = atol = 1e-6 (float32,
 different summation orders).
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +24,9 @@ from accl_tpu.parallel.ring_attention import expand_gqa_kv as j_expand
 from accl_tpu_torch import ACCLError
 from accl_tpu_torch.parallel import collectives as TC
 from accl_tpu_torch.parallel import mesh as TM
-from accl_tpu_torch.parallel import ring_attention as TRA
+
+# the module: the package exports its function under the same name
+TRA = importlib.import_module("accl_tpu_torch.parallel.ring_attention")
 
 NR = 4
 
@@ -147,8 +151,13 @@ def test_dense_attention_and_gqa_expansion_match_jax(causal, window, groups):
 
 
 def test_sequence_parallel_attention_raises():
-    x = torch.zeros(1, 8, 2, 4)
-    with pytest.raises(ACCLError, match="ring_attention"):
-        TRA.ring_attention(x, x, x)
-    with pytest.raises(ACCLError, match="ulysses_attention"):
-        TRA.ulysses_attention(x, x, x)
+    # the schedules are ported (tests/test_torch_ring_attention.py holds
+    # them to the JAX package); what they refuse, they refuse with the
+    # JAX package's errors
+    x = [torch.zeros(1, 8, 2, 4)] * 2
+    with pytest.raises(ValueError, match="unknown ring_attention schedule"):
+        TRA.ring_attention(x, x, x, schedule="spiral")
+    with pytest.raises(ValueError, match="zigzag schedule only makes"):
+        TRA.ring_attention(x, x, x, causal=False, schedule="zigzag")
+    with pytest.raises(ValueError, match="heads 2 not divisible by sp=4"):
+        TRA.ulysses_attention(x * 2, x * 2, x * 2)

@@ -38,8 +38,6 @@ MISSING = {
     ("", "RecoveryPolicy"): 8,
     ("", "RecoverySupervisor"): 8,
     ("", "RetryPolicy"): 8,
-    (".parallel", "ring_attention"): 3,
-    (".parallel", "ulysses_attention"): 3,
     (".observability", "Baseline"): 6,
     (".observability", "Sentinel"): 6,
     (".observability", "TelemetrySampler"): 6,

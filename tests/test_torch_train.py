@@ -220,8 +220,11 @@ def test_training_errors_match_jax():
     mesh = make_mesh(dp=2, device="cpu")
     with pytest.raises(ACCLError, match="optax"):
         TT.make_train_step(mesh, tcfg, optimizer=object())
-    with pytest.raises(ACCLError, match="ring_attention"):
-        TT.make_train_step(make_mesh(dp=2, sp=2, device="cpu"), tcfg)
+    # an sp axis trains now (tests/test_torch_sp_model.py holds it to JAX);
+    # the sequence must split over its members
+    sp_step, (_s, sp_spec) = TT.make_train_step(
+        make_mesh(dp=2, sp=2, device="cpu"), tcfg)
+    assert sp_spec == ("dp", "sp")
     zig = dataclasses.replace(tcfg, sp_schedule="zigzag")
     with pytest.raises(ValueError) as te:
         TT.make_train_step(mesh, zig)
@@ -231,8 +234,10 @@ def test_training_errors_match_jax():
     assert str(te.value) == str(je.value)
     params = TT.init_params(np.random.default_rng(0), tcfg, device="cpu")
     tokens = torch.zeros((3, 8), dtype=torch.long)
-    with pytest.raises(ACCLError, match="ring_attention"):
-        TT.loss_fn(params, tokens, tcfg, sp=2)
+    with pytest.raises(ValueError, match="does not split over 3 sp"):
+        TT.loss_fn(params, tokens, tcfg, sp=3)
+    _p, sp_loss = sp_step(params, tokens[:2])
+    assert np.isfinite(float(sp_loss))
     step, _ = TT.make_train_step(mesh, tcfg, check_vma=True)
     with pytest.raises(ValueError, match="does not split"):
         step(params, tokens)
