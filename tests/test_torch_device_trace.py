@@ -104,7 +104,11 @@ def _smap(mesh, fn):
 def _jax_run(body, x):
     mesh = _mesh()
     xs = jax.device_put(x, NamedSharding(mesh, PS("dp", None)))
-    return np.asarray(jax.jit(_smap(mesh, body))(xs))
+    out = np.asarray(jax.jit(_smap(mesh, body))(xs))
+    # the stamp rows land through debug callbacks, which can run after the
+    # result is ready
+    jax.effects_barrier()
+    return out
 
 
 X64 = np.stack([np.arange(64, dtype=np.float32) + r for r in range(NR)])
@@ -219,6 +223,7 @@ def test_driver_ring_lane_records_match_reference(gate):
     with CudaWorld(NR, device="cpu") as cw:
         cw.engine.ring_threshold_bytes = 0
         got = cw.run(body(ReduceFunction.SUM), timeout=120)
+    jax.effects_barrier()
     for g, w_ in zip(got, want):
         for a, b in zip(g, w_):
             np.testing.assert_array_equal(a, b)

@@ -246,7 +246,10 @@ def test_fused_expert_ffn_trace_rows_match_jax(monkeypatch):
                 xb[0], ab[0], lambda t: t * 2.0, "ep", chunks=2)[None],
             mesh=jax_make_mesh(ep=EP), in_specs=(Pspec("ep"),) * 2,
             out_specs=Pspec("ep"), check_vma=False))
-        f(jnp.asarray(xs), jnp.asarray(assign))
+        # wait for the result, then for the stamp rows' debug callbacks,
+        # which can land after the result is ready
+        jax.block_until_ready(f(jnp.asarray(xs), jnp.asarray(assign)))
+        jax.effects_barrier()
         tfused.fused_expert_ffn([torch.from_numpy(x) for x in xs],
                                 [torch.from_numpy(a) for a in assign],
                                 lambda t: t * 2.0, chunks=2)
