@@ -33,8 +33,8 @@ SIGNATURES = {
         "accl_ring_error_string": ([_i32], ctypes.c_char_p),
         "accl_ring_resident": ([_i32, _i32, _i32, _i32], _i32),
         "accl_ring_kernel_info": ([_i32, _i32, _i32, _i32, _vp], _i32),
-        "accl_ring_launch": ([_i32, _i32, _vp, _vp, _i32, _i32, _vp, _vp, _vp,
-                              _vp, _i32, _vp], _i32),
+        "accl_ring_launch": ([_i32, _i32, _vp, _vp, _i32, _i32, _i32, _vp, _vp,
+                              _vp, _vp, _i32, _vp], _i32),
     },
     "fused": {
         "accl_fused_error_string": ([_i32], ctypes.c_char_p),

@@ -95,6 +95,20 @@
 // kernel without the mode: the flag is a template argument, so its code,
 // registers and launches are those of the kernel before the mode existed.
 //
+// Self-ring mode (the reference's ring_size argument,
+// accl_tpu/ops/ring.py:151-175 and :274-294).  On a one-member axis the
+// Pallas kernels run a ring of V virtual ranks on one chip, each hop a
+// DMA from the chip to itself through the same slots, semaphores and ACK
+// windows.  Here a launch takes P ranks and a ring length V; the mode is
+// P = 1: one rank, its own right and left neighbour, takes the V - 1 hops
+// of each tile through its own landing slots and flags, each hop
+// published and waited for as between two ranks.  Chunk indices run
+// mod V and neighbours mod P, so at P = V the kernel is the one above.
+// With my = 0 the reduce-scatter folds x[0] + (x[1] + (... + x[V-1])),
+// the Pallas body's order, and the all-gather writes its operand into
+// all V rows of the result.  The stamp rows are the reference's: V - 1
+// per segment, rank and both peers 0.
+//
 // Correctness rules the design keeps:
 //  * all blocks spin on flags other blocks set, so the launch is
 //    cooperative: the runtime refuses a grid that cannot be co-resident
@@ -244,13 +258,13 @@ __device__ __forceinline__ int64_t tiles_of(const Geometry& g, int S, int k) {
 // ------------------------------------------------------------------------
 template <typename T, int KIND, bool STAMP>
 __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& outs,
-                                          const Geometry& g, int P, int S, int my, int k,
-                                          int64_t u, int q, T* slots, int* flags,
+                                          const Geometry& g, int P, int V, int S, int my,
+                                          int k, int64_t u, int q, T* slots, int* flags,
                                           int* stamps) {
   constexpr bool AG = (KIND == 2);
   constexpr int OP = AG ? OP_COPY : (KIND == 1 ? OP_MAX : OP_SUM);
   const int right = (my + 1) % P, left = (my + P - 1) % P;
-  const int64_t H = tiles_of(g, S, k) * (P - 1);
+  const int64_t H = tiles_of(g, S, k) * (V - 1);
   int* filled = flags;
   int* ack = flags + (int64_t)P * S * 2;
   auto F = [&](int r, int64_t hop) { return filled + ((int64_t)r * S + k) * 2 + (hop & 1); };
@@ -275,7 +289,7 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
     const int64_t end = p.lim - c * p.w - j0;
     return end < 0 ? (int64_t)0 : (end < width ? end : width);
   };
-  const int64_t h0 = u * (P - 1);
+  const int64_t h0 = u * (V - 1);
 
   if (q == 0) {
     // hop h0: the local chunk (all-gather) or x[my-1] (reduce-scatter)
@@ -285,7 +299,7 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
       pass<T, OP_COPY>(X(my), false, true, nullptr, own == X(my) ? nullptr : own,
                        SL(right, h0), cnt(my), vec, ack0, (int)(h0 / 2), nullptr, 0);
     } else {
-      const int c = pmod(my - 1, P);
+      const int c = pmod(my - 1, V);
       pass<T, OP_COPY>(X(c), false, true, nullptr, SL(right, h0), nullptr, cnt(c), vec, ack0,
                        (int)(h0 / 2), nullptr, 0);
     }
@@ -294,17 +308,17 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
     return;
   }
   const int64_t h = h0 + q - 1;  // the hop consumed at this step
-  const bool last = (q == P - 1);
+  const bool last = (q == V - 1);
   // the landing of hop h, then (unless last) the ack that frees the
   // right neighbour's slot for hop h + 1
   const int* ackn = !last && tile_waits_ack(h + 1, H) ? A(my, h + 1) : nullptr;
   T* fwd = last ? nullptr : SL(right, h + 1);
   if (AG) {
-    const int c = pmod(my - q, P);
+    const int c = pmod(my - q, V);
     pass<T, OP_COPY>(SL(my, h), true, false, nullptr, O(c), fwd, cnt(c), vec, F(my, h),
                      (int)(h / 2 + 1), ackn, (int)((h + 1) / 2));
   } else {
-    const int c = pmod(my - 1 - q, P);
+    const int c = pmod(my - 1 - q, V);
     pass<T, OP>(X(c), false, true, SL(my, h), last ? O(my) : fwd, nullptr, cnt(c), vec,
                 F(my, h), (int)(h / 2 + 1), ackn, (int)((h + 1) / 2));
   }
@@ -318,7 +332,7 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
       const int64_t seg = (second ? g.part[0].nseg : 0) + i;
       const int st = q - 1;
       const int nbytes = (int)(p.w * (int64_t)sizeof(T));
-      int* row = stamps + ((seg * P + my) * (P - 1) + st) * STAMP_COLS;
+      int* row = stamps + ((seg * P + my) * (V - 1) + st) * STAMP_COLS;
       row[0] = my;
       row[1] = st;
       row[2] = 3 * st;
@@ -334,17 +348,18 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
 
 // ------------------------------------------------------------------------
 // The kernel: block b plays rank b / S on stripe b % S and takes its
-// steps in order, tile by tile.
+// steps in order, tile by tile.  P ranks play a ring of V = P; in the
+// self-ring mode one rank (P = 1) plays a ring of V.
 // ------------------------------------------------------------------------
 template <typename T, int KIND, bool STAMP>
 __global__ void __launch_bounds__(THREADS, 2)
-ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int S, T* slots, int* flags,
-            int* stamps) {
+ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int V, int S, T* slots,
+            int* flags, int* stamps) {
   const int my = blockIdx.x / S, k = blockIdx.x % S;
   const int64_t U = tiles_of(g, S, k);
   for (int64_t u = 0; u < U; ++u)
-    for (int q = 0; q < P; ++q)
-      ring_step<T, KIND, STAMP>(xs, outs, g, P, S, my, k, u, q, slots, flags, stamps);
+    for (int q = 0; q < V; ++q)
+      ring_step<T, KIND, STAMP>(xs, outs, g, P, V, S, my, k, u, q, slots, flags, stamps);
   if (threadIdx.x == 0 && U > 0) {
     int* ack = flags + (int64_t)P * S * 2;
     const int64_t f = ((int64_t)my * S + k) * 2;
@@ -425,14 +440,16 @@ int accl_ring_kernel_info(int kind, int dtype, int stamp, int device, int* out) 
 }
 
 // One launch of P * S blocks over the geometry geo (GEOMETRY_WORDS
-// int64 words, the layout of struct Geometry).  slots holds P * S * 2 *
-// tw elements; flags P * S * 4 int32, zero on entry and on exit.  A
-// non-null stamps (segments * P * (P - 1) * STAMP_COLS int32) launches
-// the device-trace instantiation, which fills it.
+// int64 words, the layout of struct Geometry), for a ring of V hops per
+// tile: V = P, or the self-ring mode's P = 1 and any V >= 2.  slots
+// holds P * S * 2 * tw elements; flags P * S * 4 int32, zero on entry
+// and on exit.  A non-null stamps (segments * P * (V - 1) * STAMP_COLS
+// int32) launches the device-trace instantiation, which fills it.
 int accl_ring_launch(int kind, int dtype, const void* const* xs, void* const* outs, int P,
-                     int S, const int64_t* geo, void* slots, int* flags, int* stamps,
+                     int V, int S, const int64_t* geo, void* slots, int* flags, int* stamps,
                      int device, void* stream) {
-  if (P < 2 || P > MAXP || S < 1) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P > MAXP || V < 2 || (V != P && P != 1) || S < 1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   void* fn = kernel_for(kind, dtype, stamps != nullptr);
@@ -442,7 +459,7 @@ int accl_ring_launch(int kind, int dtype, const void* const* xs, void* const* ou
   for (int r = 0; r < P; ++r) { xt.p[r] = xs[r]; ot.p[r] = outs[r]; }
   Geometry g;
   memcpy(&g, geo, sizeof(Geometry));
-  void* args[] = {&xt, &ot, &g, &P, &S, &slots, &flags, &stamps};
+  void* args[] = {&xt, &ot, &g, &P, &V, &S, &slots, &flags, &stamps};
   e = cudaLaunchCooperativeKernel(fn, dim3(P * S), dim3(THREADS), args, 0,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

@@ -28,7 +28,28 @@ reference's drivers block on each ``pallas_call``'s rows.  The plain
 versions record the same rows, computed from the schedule
 (:func:`stamp_rows`), at once.
 With the gate on, the segmented all-gather and reduce-scatter cut their
-launch into the reference's segments, so each segment has its rows.
+launch into the reference's segments, so each segment has its rows.  The
+rows' landing synchronizes the stream, so a launch with the gate on
+cannot be captured in a CUDA graph: it raises there.
+
+Self-ring mode (``ring_size``, accl_tpu/ops/ring.py:151-175, 274-294,
+398-424): on a one-member axis the reference runs its kernels as a ring
+of V virtual ranks on one chip, every hop a real DMA to the chip itself
+with the semaphore handshakes and the ACK window.  Here a one-member
+operand list with ``ring_size=V`` does the same: the all-gather of [n]
+gives [V, n] (the operand in every row), the reduce-scatter of [V, n]
+gives x[0] + (x[1] + (... + x[V - 1])) (or the max, in that order), the
+allreduce of [V n] is one then the other.  The kernel runs it as one
+rank whose right and left neighbour is itself (``ring_kernel`` with
+P = 1 and a ring length V): each of the V - 1 hops of a tile goes
+through that rank's own landing slots and flags, as in the reference,
+and the fold order is the reference's with my = 0 by construction.  The
+other form, V ranks whose operand pointers all name the one input,
+would need every rank's chunks rotated by its index to fold in that
+order (which the kernel's pointer-and-stride geometry cannot express
+without a rotated copy of the input) and V distinct results where the
+reference has one.  The stamp rows are the reference's: V - 1 per call,
+rank and both peers 0.
 """
 from __future__ import annotations
 
@@ -65,14 +86,17 @@ def _reset_device_trace_cache() -> None:
     _DEVICE_TRACE = None
 
 
-def stamp_rows(P: int, chunk_bytes: int) -> torch.Tensor:
-    """The [P, P - 1, DEVICE_TRACE_COLS] int32 stamp rows of one segment,
-    computed from the schedule (the reference's ``_stamp_row``): rank r's
-    step s reads r, s, 3s, 3s + 1, 3s + 2, its right and left
-    neighbours, and the chunk's bytes sent and received."""
-    my = torch.arange(P).view(P, 1).expand(P, P - 1)
-    st = torch.arange(P - 1).view(1, P - 1).expand(P, P - 1)
-    nb = torch.full((P, P - 1), chunk_bytes)
+def stamp_rows(P: int, chunk_bytes: int,
+               V: Optional[int] = None) -> torch.Tensor:
+    """The [P, V - 1, DEVICE_TRACE_COLS] int32 stamp rows of one segment
+    of a ring of V = P hops (or of the self-ring, P = 1), computed from
+    the schedule (the reference's ``_stamp_row``): rank r's step s reads
+    r, s, 3s, 3s + 1, 3s + 2, its right and left neighbours, and the
+    chunk's bytes sent and received."""
+    V = P if V is None else V
+    my = torch.arange(P).view(P, 1).expand(P, V - 1)
+    st = torch.arange(V - 1).view(1, V - 1).expand(P, V - 1)
+    nb = torch.full((P, V - 1), chunk_bytes)
     return torch.stack([my, st, 3 * st, 3 * st + 1, 3 * st + 2,
                         (my + 1) % P, (my + P - 1) % P, nb, nb],
                        dim=-1).to(torch.int32)
@@ -83,18 +107,21 @@ _TRACE_NAME = {"rs": "reduce_scatter", "ag": "all_gather"}
 
 
 def _record_rows(kind: str, rows) -> None:
-    """Land [segments, P, P - 1, cols] rows: one record per segment and
+    """Land [segments, P, V - 1, cols] rows: one record per segment and
     rank."""
     for seg in rows:
         for rank_rows in seg:
             record_device_steps(_TRACE_NAME[kind], rank_rows)
 
 
-def _trace_plain(kind: str, P: int, widths, elem: int) -> None:
+def _trace_plain(kind: str, P: int, widths, elem: int,
+                 V: Optional[int] = None) -> None:
     """With the gate on, record the rows a plain run of segments of these
-    chunk widths stands for."""
-    if P > 1 and device_trace_enabled():
-        _record_rows(kind, [stamp_rows(P, w * elem) for w in widths if w])
+    chunk widths stands for (a ring of V hops, V = P by default)."""
+    V = P if V is None else V
+    if V > 1 and device_trace_enabled():
+        _record_rows(kind, [stamp_rows(P, w * elem, V)
+                            for w in widths if w])
 
 
 
@@ -142,20 +169,37 @@ def _fold(op: str):
     return torch.maximum if op == "max" else torch.add
 
 
+def _ring_len(P: int, ring_size: Optional[int]) -> int:
+    """The ring's length: P ranks, or the self-ring's ``ring_size``
+    virtual ranks on a one-member list (accl_tpu/ops/ring.py:171-175)."""
+    if ring_size is None:
+        return P
+    if ring_size != P and P != 1:
+        raise ValueError("ring_size override requires a 1-member axis "
+                         f"(self-ring mode); got P={P}, "
+                         f"ring_size={ring_size}")
+    if ring_size < 1:
+        raise ValueError(f"ring_size must be >= 1, got {ring_size}")
+    return ring_size
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 def ring_reduce_scatter_plain(xs: Sequence[torch.Tensor], op: str = "sum",
-                              out: Optional[Sequence[torch.Tensor]] = None):
-    """Per rank [P, n] -> that rank's reduced [n], hop by hop: acc starts
-    as chunk (my - 1); at step s the accumulator arrives from the left and
-    acc = x[(my - 2 - s) % P] + arrival."""
+                              out: Optional[Sequence[torch.Tensor]] = None,
+                              ring_size: Optional[int] = None):
+    """Per rank [V, n] -> that rank's reduced [n], hop by hop over a ring
+    of V = P ranks (or the self-ring of ``ring_size`` on one rank): acc
+    starts as chunk (my - 1); at step s the accumulator arrives from the
+    left and acc = x[(my - 2 - s) % V] + arrival."""
     fold = _fold(op)
     P = len(xs)
-    acc = [xs[r][(r - 1) % P].clone() for r in range(P)]
-    for step in range(P - 1):
+    V = _ring_len(P, ring_size)
+    acc = [xs[r][(r - 1) % V].clone() for r in range(P)]
+    for step in range(V - 1):
         landing = [acc[(r - 1) % P] for r in range(P)]
-        acc = [fold(xs[r][(r - 2 - step) % P], landing[r]) for r in range(P)]
+        acc = [fold(xs[r][(r - 2 - step) % V], landing[r]) for r in range(P)]
     if out is None:
         return acc
     for o, a in zip(out, acc):
@@ -164,21 +208,24 @@ def ring_reduce_scatter_plain(xs: Sequence[torch.Tensor], op: str = "sum",
 
 
 def ring_all_gather_plain(xs: Sequence[torch.Tensor],
-                          out: Optional[Sequence[torch.Tensor]] = None):
-    """Per rank [n] -> [P, n], hop by hop: the local block goes to
+                          out: Optional[Sequence[torch.Tensor]] = None,
+                          ring_size: Optional[int] = None):
+    """Per rank [n] -> [V, n], hop by hop over a ring of V = P ranks (or
+    the self-ring of ``ring_size`` on one rank): the local block goes to
     out[my]; at step s the newest chunk arrives from the left and is
-    placed at out[(my - s - 1) % P]."""
+    placed at out[(my - s - 1) % V]."""
     P = len(xs)
+    V = _ring_len(P, ring_size)
     if out is None:
-        out = [x.new_empty((P,) + tuple(x.shape)) for x in xs]
+        out = [x.new_empty((V,) + tuple(x.shape)) for x in xs]
     comm = []
     for r in range(P):
         out[r][r].copy_(xs[r])
         comm.append(xs[r].clone())
-    for step in range(P - 1):
+    for step in range(V - 1):
         comm = [comm[(r - 1) % P] for r in range(P)]
         for r in range(P):
-            out[r][(r - step - 1) % P].copy_(comm[r])
+            out[r][(r - step - 1) % V].copy_(comm[r])
     return list(out)
 
 
@@ -365,16 +412,19 @@ def _plan(parts: tuple, P: int, elem: int, k: int, code: int, device: int,
 
 
 def _launch(kind: str, xs, outs, parts, op: str = "sum",
-            land: bool = True) -> None:
+            land: bool = True, V: Optional[int] = None) -> None:
     """One launch of csrc/ring.cu over ``parts``: kind "rs" (rank r's
     result at chunk r of the result layout) or "ag" (rank r's operand at
-    chunk r of the operand layout).  Counts it on its wrapper.  With the
-    device-trace gate on, launches the stamp instantiation into a buffer
-    of its own and, after the stream has run it, lands the rows in the
-    collector; ``land=False`` drops them unsynchronized, for timing the
+    chunk r of the operand layout), over a ring of V = P hops a tile, or
+    the self-ring of one rank and V hops.  Counts it on its wrapper.
+    With the device-trace gate on, launches the stamp instantiation into
+    a buffer of its own and, after the stream has run it, lands the rows
+    in the collector (which a CUDA graph capture cannot hold: it raises
+    there); ``land=False`` drops them unsynchronized, for timing the
     instantiation alone."""
     dev, dt = xs[0].device, xs[0].dtype
     P, elem = len(xs), xs[0].element_size()
+    V = P if V is None else V
     code = KERNEL_DTYPES[dt]
     k = 2 if kind == "ag" else int(op == "max")
     xp = [t.data_ptr() for t in xs]
@@ -385,40 +435,51 @@ def _launch(kind: str, xs, outs, parts, op: str = "sum",
     S, geo, nbytes = _plan(tuple(parts), P, elem, k, code, device, aligned,
                            stamp)
     stream = torch.cuda.current_stream(dev)
+    if stamp and land and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "ring kernels: ACCL_DEVICE_TRACE lands its stamp rows after "
+            "a synchronize, which a CUDA graph capture cannot hold; unset "
+            "it to capture")
     slots, flags = _scratch_for(dev, stream, nbytes, P * S * 4)
     stamps = None
     if stamp:
         nseg = sum(p.nseg for p in parts)
-        stamps = torch.empty(nseg * P * (P - 1) * DEVICE_TRACE_COLS,
+        stamps = torch.empty(nseg * P * (V - 1) * DEVICE_TRACE_COLS,
                              dtype=torch.int32, device=dev)
     lib = _build.load("ring")
     rc = lib.accl_ring_launch(
         k, code, (ctypes.c_void_p * P)(*xp), (ctypes.c_void_p * P)(*op_), P,
-        S, geo, slots.data_ptr(), flags.data_ptr(),
+        V, S, geo, slots.data_ptr(), flags.data_ptr(),
         None if stamps is None else stamps.data_ptr(), device,
         stream.cuda_stream)
     wrapper = ring_all_gather if kind == "ag" else ring_reduce_scatter
     _raise_on(lib, rc, wrapper.__name__)
     wrapper.launches += 1
+    if V != P:
+        wrapper.launches_self += 1
     if stamps is not None:
         wrapper.launches_stamp += 1
         if land:
             stream.synchronize()
-            _record_rows(kind, stamps.view(-1, P, P - 1,
+            _record_rows(kind, stamps.view(-1, P, V - 1,
                                            DEVICE_TRACE_COLS).cpu())
 
 
 def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
-                        out: Optional[Sequence[torch.Tensor]] = None):
+                        out: Optional[Sequence[torch.Tensor]] = None,
+                        ring_size: Optional[int] = None):
     """Ring reduce-scatter: rank r's [P, n] operand (rows may be strided,
-    columns contiguous) -> rank r's reduced chunk r, [n].  SUM or MAX."""
+    columns contiguous) -> rank r's reduced chunk r, [n].  SUM or MAX.
+    With ``ring_size=V`` on one rank (the self-ring mode): [V, n] -> [n],
+    x[0] + (x[1] + (... + x[V - 1]))."""
     _check(xs, out, "ring_reduce_scatter")
     _fold(op)
     P = len(xs)
+    V = _ring_len(P, ring_size)
     shape = tuple(xs[0].shape)
-    if len(shape) != 2 or shape[0] != P:
-        raise ValueError(f"ring_reduce_scatter: operands must be [P={P}, n], "
-                         f"got {shape}")
+    if len(shape) != 2 or shape[0] != V:
+        raise ValueError(f"ring_reduce_scatter: operands must be "
+                         f"[{'P' if V == P else 'V'}={V}, n], got {shape}")
     n = shape[1]
     row = xs[0].stride(0)
     strides = (row, 1)
@@ -432,30 +493,36 @@ def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
                 raise ValueError("ring_reduce_scatter: outputs must be "
                                  f"contiguous [{n}]")
     if xs[0].device.type == "cpu":
-        _trace_plain("rs", P, [n], xs[0].element_size())
-        return ring_reduce_scatter_plain(xs, op, out)
+        _trace_plain("rs", P, [n], xs[0].element_size(), V)
+        return ring_reduce_scatter_plain(xs, op, out, ring_size)
     if out is None:
         out = [torch.empty(n, dtype=xs[0].dtype, device=xs[0].device)
                for _ in range(P)]
-    if P == 1:
+    if V == 1:
         out[0].copy_(xs[0][0])
         return list(out)
     if n:
-        _launch("rs", xs, out, [Part(1, n, 0, 0, row, 0, 0, 0)], op)
+        _launch("rs", xs, out, [Part(1, n, 0, 0, row, 0, 0, 0)], op, V=V)
     return list(out)
 
 
 ring_reduce_scatter.launches = 0
 #: the launches of the device-trace instantiation, within ``launches``
 ring_reduce_scatter.launches_stamp = 0
+#: the launches in the self-ring mode, within ``launches``
+ring_reduce_scatter.launches_self = 0
 
 
 def ring_all_gather(xs: Sequence[torch.Tensor],
-                    out: Optional[Sequence[torch.Tensor]] = None):
+                    out: Optional[Sequence[torch.Tensor]] = None,
+                    ring_size: Optional[int] = None):
     """Ring all-gather: rank r's contiguous [n] -> [P, n] on every rank
-    (output rows may be strided, columns contiguous)."""
+    (output rows may be strided, columns contiguous).  With
+    ``ring_size=V`` on one rank (the self-ring mode): [n] -> [V, n], the
+    operand in every row."""
     _check(xs, out, "ring_all_gather")
     P = len(xs)
+    V = _ring_len(P, ring_size)
     n = xs[0].shape[0]
     for x in xs:
         if tuple(x.shape) != (n,) or not x.is_contiguous():
@@ -465,48 +532,54 @@ def ring_all_gather(xs: Sequence[torch.Tensor],
     if out is not None:
         row = out[0].stride(0)
         for o in out:
-            if tuple(o.shape) != (P, n) or o.stride() != (row, 1):
-                raise ValueError(f"ring_all_gather: outputs must be [{P}, "
+            if tuple(o.shape) != (V, n) or o.stride() != (row, 1):
+                raise ValueError(f"ring_all_gather: outputs must be [{V}, "
                                  f"{n}] with strides (row, 1)")
     if xs[0].device.type == "cpu":
-        _trace_plain("ag", P, [n], xs[0].element_size())
-        return ring_all_gather_plain(xs, out)
+        _trace_plain("ag", P, [n], xs[0].element_size(), V)
+        return ring_all_gather_plain(xs, out, ring_size)
     if out is None:
-        out = [torch.empty((P, n), dtype=xs[0].dtype, device=xs[0].device)
+        out = [torch.empty((V, n), dtype=xs[0].dtype, device=xs[0].device)
                for _ in range(P)]
-    if P == 1:
+    if V == 1:
         out[0][0].copy_(xs[0])
         return list(out)
     if n:
-        _launch("ag", xs, out, [Part(1, n, 0, 0, 0, 0, 0, row)])
+        _launch("ag", xs, out, [Part(1, n, 0, 0, 0, 0, 0, row)], V=V)
     return list(out)
 
 
 ring_all_gather.launches = 0
 ring_all_gather.launches_stamp = 0
+ring_all_gather.launches_self = 0
 
 
-def _phases(plain: bool):
+def _phases(plain: bool, ring_size: Optional[int] = None):
     """(reduce-scatter, all-gather): the kernel wrappers, or with
     ``plain=True`` the plain versions on any device (how chip_smoke.py
-    composes the reference result on the card)."""
-    if plain:
-        return ring_reduce_scatter_plain, ring_all_gather_plain
-    return ring_reduce_scatter, ring_all_gather
+    composes the reference result on the card); each called with
+    ``ring_size``."""
+    rs, ag = ((ring_reduce_scatter_plain, ring_all_gather_plain) if plain
+              else (ring_reduce_scatter, ring_all_gather))
+    return (functools.partial(rs, ring_size=ring_size),
+            functools.partial(ag, ring_size=ring_size))
 
 
 def ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
                     out: Optional[Sequence[torch.Tensor]] = None,
-                    plain: bool = False):
+                    plain: bool = False, ring_size: Optional[int] = None):
     """Ring allreduce = ring reduce-scatter then ring all-gather.
-    Per rank [P * n] -> the same shape, reduced."""
+    Per rank [P * n] -> the same shape, reduced.  With ``ring_size=V`` on
+    one rank (the self-ring mode): [V * n] -> the V chunks' fold, tiled V
+    times."""
     P = len(xs)
-    if P == 1:
+    V = _ring_len(P, ring_size)
+    if V == 1:
         return [xs[0].clone()] if out is None else [out[0].copy_(xs[0])]
-    rs, ag = _phases(plain)
-    n = xs[0].shape[0] // P
-    mine = rs([x.view(P, n) for x in xs], op)
-    gathered = ag(mine, None if out is None else [o.view(P, n) for o in out])
+    rs, ag = _phases(plain, ring_size)
+    n = xs[0].shape[0] // V
+    mine = rs([x.view(V, n) for x in xs], op)
+    gathered = ag(mine, None if out is None else [o.view(V, n) for o in out])
     return [g.reshape(-1) for g in gathered]
 
 
