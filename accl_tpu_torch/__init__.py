@@ -22,7 +22,7 @@ only.
     world.run(fn)                   # fn(accl, rank) on one thread per rank
 """
 
-from . import analysis, plans  # noqa: F401
+from . import analysis, optim, plans  # noqa: F401
 from .accl import ACCL, GLOBAL_COMM  # noqa: F401
 from .arithconfig import DEFAULT_ARITH_CONFIG, ArithConfig  # noqa: F401
 from .backends.cuda import CudaWorld  # noqa: F401
@@ -44,6 +44,8 @@ from .constants import (  # noqa: F401
 )
 from .request import Request  # noqa: F401
 from .state import (  # noqa: F401
+    adamw_state_from_optax,
+    adamw_state_to_numpy,
     load_world_state,
     model_params_from_jax,
     model_params_to_numpy,

@@ -21,7 +21,8 @@ members: each member's local ``(loss_sum, count)`` is backpropagated in
 turn, and autograd's accumulation into the shared leaves sums the
 replicated gradients over the members, the role JAX's replication-aware
 transpose plays; the tp-sharded leaves keep per-shard gradients.  The SGD
-update is applied in place.
+update, or an optimizer's (``accl_tpu_torch.optim.adamw``, the JAX
+package's optax path), is applied in place.
 
 Sequence parallelism (``sp`` > 1) splits the sequence into ``sp``
 members' shards for attention only: ``forward`` takes the global tokens
@@ -35,16 +36,16 @@ last label from the next shard, as the JAX package's sp arm does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..constants import ACCLError
 from ..ops.flash import flash_attention
 from ..ops.fused import fused_chunks, fused_matmul_allreduce
+from ..optim import apply_updates
 from ..parallel.collectives import all_reduce
 from ..parallel.ring_attention import (_dense_attention, expand_gqa_kv,
                                        ring_attention, zigzag_indices,
@@ -449,28 +450,69 @@ def sum_count_device_step(loss_closures: Sequence[Callable], params,
     return params, mean_loss
 
 
+def _param_structure(tree):
+    """The dict/list nesting of a tree, its leaves None."""
+    if isinstance(tree, dict):
+        return {k: _param_structure(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), [_param_structure(v) for v in tree])
+    return None
+
+
+def opt_state_specs(optimizer, params, specs) -> Any:
+    """The optimizer state's specs, as the JAX package derives them: the
+    state of ``optimizer.init`` on shape-only (meta) copies of
+    ``params``, every node in the parameters' structure replaced by
+    ``specs`` (the moments follow the parameters' tp split) and every
+    other leaf None (replicated, as the step count)."""
+    want = _param_structure(params)
+    state = optimizer.init(tree_map(
+        lambda t: torch.empty_like(t, device="meta"), params))
+
+    def walk(node):
+        if _param_structure(node) == want:
+            return specs
+        if hasattr(node, "_fields"):
+            return type(node)(*(walk(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return None
+
+    return walk(state)
+
+
 def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
                     dp: Optional[str] = "dp", tp: Optional[str] = "tp",
                     sp: Optional[str] = "sp", optimizer=None, params=None,
                     check_vma: Optional[bool] = None, fused: bool = False):
-    """The train step over ``mesh`` (a ``parallel.mesh.RankMesh``), plain
-    SGD at ``lr``.  Returns ``(step_fn, (param_specs, token_spec))`` with
-    ``step_fn(params, tokens) -> (params, mean_loss)``: the token batch
-    [B, T] split over the ``dp`` members (B divisible by dp) and, along
-    the sequence, over the ``sp`` members (the tokens in the schedule's
-    layout), each dp member's ``loss_fn`` over its sp shards and the tp
-    rank lists, the mean gradient as ``_mean_grads`` forms it, and the
-    update applied to ``params`` in place.  ``params`` must be split over
-    the mesh's tp extent (``shard_params``) and live on its device.
-    ``token_spec`` names the axes the token dimensions split over, as
-    ``P(dp, sp)``.
+    """The train step over ``mesh`` (a ``parallel.mesh.RankMesh``).
 
-    Axes not in the mesh are dropped.  ``optimizer`` (optax) raises;
-    ``check_vma`` is accepted and changes nothing."""
-    if optimizer is not None:
-        raise ACCLError("make_train_step(optimizer=...): the optax optimizer "
-                        "path is not part of accl_tpu_torch (the card has no "
-                        "optax); plain SGD only")
+    Default (``optimizer=None``): plain SGD at ``lr``.  Returns
+    ``(step_fn, (param_specs, token_spec))`` with ``step_fn(params,
+    tokens) -> (params, mean_loss)``: the token batch [B, T] split over
+    the ``dp`` members (B divisible by dp) and, along the sequence, over
+    the ``sp`` members (the tokens in the schedule's layout), each dp
+    member's ``loss_fn`` over its sp shards and the tp rank lists, the
+    mean gradient as ``_mean_grads`` forms it, and the update applied to
+    ``params`` in place.  ``params`` must be split over the mesh's tp
+    extent (``shard_params``) and live on its device.  ``token_spec``
+    names the axes the token dimensions split over, as ``P(dp, sp)``.
+
+    With an ``optimizer`` (``accl_tpu_torch.optim.adamw``, or any object
+    with its ``init(params)`` and ``update(grads, state, params)``; it
+    must be parameter-local, as in the JAX package) ``params`` is
+    required, to derive the state's specs (``opt_state_specs``: the
+    moments split as the parameters they mirror, the count replicated).
+    Returns ``(step_fn, (param_specs, opt_state_specs, token_spec),
+    init_opt)`` with ``step_fn(params, opt_state, tokens) -> (params,
+    opt_state, mean_loss)`` over the same members and mean gradient, the
+    parameters and the state's moments updated in place, and
+    ``init_opt(params)`` a fresh state on the parameters' device.
+
+    Axes not in the mesh are dropped.  ``check_vma`` is accepted and
+    changes nothing."""
     shape = mesh.shape
     dp = dp if dp in shape else None
     tp = tp if tp in shape else None
@@ -482,8 +524,9 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
     n_dp = shape[dp] if dp else 1
     n_tp = shape[tp] if tp else 1
     n_sp = shape[sp] if sp else 1
+    specs = param_specs(cfg)
 
-    def step_fn(params, tokens):
+    def closures(params, tokens):
         if tp_size(params) != n_tp:
             raise ValueError(f"params are split over {tp_size(params)} tp "
                              f"ranks, the mesh has {n_tp}")
@@ -496,10 +539,27 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
             raise ValueError(f"batch {B} does not split over {n_dp} dp "
                              f"members")
         b = B // n_dp
-        closures = [
-            (lambda p, t=tokens[d * b:(d + 1) * b]:
-             loss_fn(p, t, cfg, fused=fused, sp=n_sp))
-            for d in range(n_dp)]
-        return sum_count_device_step(closures, params, lr)
+        return [(lambda p, t=tokens[d * b:(d + 1) * b]:
+                 loss_fn(p, t, cfg, fused=fused, sp=n_sp))
+                for d in range(n_dp)]
 
-    return step_fn, (param_specs(cfg), (dp, sp))
+    if optimizer is None:
+        def step_fn(params, tokens):
+            return sum_count_device_step(closures(params, tokens), params,
+                                         lr)
+
+        return step_fn, (specs, (dp, sp))
+
+    if params is None:
+        raise ValueError("optimizer path needs `params` (a host or "
+                         "sharded pytree) to derive optimizer-state "
+                         "PartitionSpecs")
+    state_specs = opt_state_specs(optimizer, params, specs)
+
+    def opt_step_fn(params, opt_state, tokens):
+        g_mean, mean_loss = _mean_grads(closures(params, tokens), params)
+        updates, opt_state = optimizer.update(g_mean, opt_state, params)
+        apply_updates(params, updates)
+        return params, opt_state, mean_loss
+
+    return opt_step_fn, (specs, state_specs, (dp, sp)), optimizer.init

@@ -21,7 +21,10 @@ take, the way ``P("tp", None)`` shards it in the JAX package's model
 tensor-parallel ranks; :func:`model_params_to_numpy` takes them back.
 :func:`moe_params_from_jax` and :func:`moe_params_to_numpy` do the same
 for the MoE family's pytree, the expert banks split over the
-expert-parallel members.
+expert-parallel members.  :func:`adamw_state_from_optax` carries an
+``optax.adamw`` state of the JAX model into the port's ``optim.AdamWState``
+(the moments split as the parameters), and :func:`adamw_state_to_numpy`
+takes it back, so both packages can start from the same mid-run state.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from .constants import TuningKey
 from .models.moe import shard_params as moe_shard_params
 from .models.transformer import shard_params
+from .optim import AdamWState
 from .utils.device import resolve_device
 
 
@@ -142,3 +146,44 @@ def moe_params_to_numpy(params: dict, cfg) -> dict:
     return {"embed": conv(full["embed"]), "ln_f": conv(full["ln_f"]),
             "blocks": [{k: conv(v) for k, v in blk.items()}
                        for blk in full["blocks"]]}
+
+
+def _adam_node(opt_state):
+    """The node of an optax state that carries ``count``, ``mu`` and
+    ``nu`` (``ScaleByAdamState``, the first link of ``optax.adamw``'s
+    chain)."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (list, tuple)):
+        for node in opt_state:
+            found = _adam_node(node)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state_from_optax(opt_state, cfg, tp: int = 1,
+                           device="cuda") -> AdamWState:
+    """An ``optax.adamw`` state of the JAX model (its ``ScaleByAdamState``
+    anywhere in the chain's tuple; arrays or numpy) as the port's
+    ``AdamWState`` on ``device``: the moments in the port's parameter
+    layout, split over ``tp`` ranks, the count an int32 scalar."""
+    dev = resolve_device(device, "adamw_state_from_optax")
+    node = _adam_node(opt_state)
+    if node is None:
+        raise ValueError("adamw_state_from_optax: no state with count, mu "
+                         "and nu in the optimizer state")
+    return AdamWState(
+        count=torch.tensor(int(np.asarray(node.count)), dtype=torch.int32,
+                           device=dev),
+        mu=model_params_from_jax(node.mu, cfg, tp, dev),
+        nu=model_params_from_jax(node.nu, cfg, tp, dev))
+
+
+def adamw_state_to_numpy(state: AdamWState, cfg) -> dict:
+    """The port's ``AdamWState``, split over any rank count, as numpy:
+    ``{"count": int, "mu": tree, "nu": tree}``, the moments in the JAX
+    pytree's layout."""
+    return {"count": int(state.count),
+            "mu": model_params_to_numpy(state.mu, cfg),
+            "nu": model_params_to_numpy(state.nu, cfg)}

@@ -11,7 +11,7 @@ import torch
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "accl_tpu_torch"
 SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
-              "request", "state", "backends.base", "backends.cuda",
+              "request", "state", "optim", "backends.base", "backends.cuda",
               "ops.ring", "ops.quantized", "ops.fused", "ops.flash",
               "ops.reduce_ops", "ops.compression", "ops._build", "parallel",
               "parallel.collectives", "parallel.mesh",
@@ -21,7 +21,8 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "bench.ef_convergence", "bench.timing", "bench.flash_sweep",
               "bench.kernel_tune", "bench.flash_bwd_split",
               "bench.flash_fwd_split", "bench.plugin_split", "bench.sweep",
-              "bench.callrate", "bench.driver_split", "observability", "observability.metrics",
+              "bench.callrate", "bench.driver_split", "bench.selfring",
+              "observability", "observability.metrics",
               "observability.trace", "observability.flight",
               "observability.health", "utils.device", "utils.logging",
               "utils.tree", "plans", "analysis", "analysis.findings",

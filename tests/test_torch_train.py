@@ -34,7 +34,7 @@ from jax.sharding import NamedSharding
 
 import accl_tpu.models.transformer as JT
 from accl_tpu.parallel.mesh import make_mesh as jax_make_mesh
-from accl_tpu_torch import ACCLError, model_params_from_jax, \
+from accl_tpu_torch import model_params_from_jax, \
     model_params_to_numpy
 from accl_tpu_torch.models import transformer as TT
 from accl_tpu_torch.ops import flash as TFL
@@ -218,8 +218,14 @@ def test_bf16_flash_remat_training_smoke():
 def test_training_errors_match_jax():
     jcfg, tcfg = _cfgs()
     mesh = make_mesh(dp=2, device="cpu")
-    with pytest.raises(ACCLError, match="optax"):
+    # the optimizer path needs params, as JAX's (tests/test_torch_optim.py
+    # holds the path itself to JAX's optax step)
+    with pytest.raises(ValueError) as te:
         TT.make_train_step(mesh, tcfg, optimizer=object())
+    with pytest.raises(ValueError) as je:
+        JT.make_train_step(jax_make_mesh(dp=2), jcfg, optimizer=object())
+    assert str(te.value) == str(je.value)
+    assert "optimizer path needs `params`" in str(te.value)
     # an sp axis trains now (tests/test_torch_sp_model.py holds it to JAX);
     # the sequence must split over its members
     sp_step, (_s, sp_spec) = TT.make_train_step(
