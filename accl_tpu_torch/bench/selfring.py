@@ -9,8 +9,10 @@ float32 (2 MiB), every hop through the kernel's landing slots and flag
 handshake.  Correctness comes first, against the closed forms, before
 any number is reported: the all-gather is its operand tiled V times,
 bitwise; the reduce-scatter is the fold x[0] + (x[1] + (... + x[V - 1])),
-bitwise, and within 1e-3 relative of the float64 sum (the reference's
-check); the allreduce is that fold tiled V times, bitwise.  Then
+bitwise, and within the fp32 summation bound (V - 1) 2^-24 sum_c |x[c]|
+of the float64 sum (the reference holds it to 1e-3 relative, which an
+element whose sum cancels to near 0 breaks: 2e-2 on the card's data);
+the allreduce is that fold tiled V times, bitwise.  Then
 
 - ``ring_selfring_ag_gbps``: (V - 1) chunks over the all-gather's time;
 - ``ring_selfring_ar_gbps``: 2 (V - 1) chunks over the allreduce's time,
@@ -82,9 +84,11 @@ def selfring_stage(device="cuda", ring_size: int = V, rows: int = ROWS,
     (rs,) = ring.ring_reduce_scatter([xs], ring_size=ring_size)
     _require(torch.equal(rs, fold_closed_form(xs)),
              "the reduce-scatter is not the fold of its chunks")
-    want = xs.double().sum(0)
-    rel = float(((rs.double() - want).abs() / (want.abs() + 1e-6)).max())
-    _require(rel < 1e-3, f"the reduce-scatter is {rel} off the sum")
+    over = (rs.double() - xs.double().sum(0)).abs() - (
+        (ring_size - 1) * 2.0 ** -24 * xs.double().abs().sum(0))
+    _require(float(over.max()) <= 0,
+             "the reduce-scatter is off the float64 sum by more than the "
+             "fp32 summation bound")
     (ar,) = ring.ring_all_reduce([arx], ring_size=ring_size)
     _require(torch.equal(ar.view(ring_size, n), fold_closed_form(
         arx.view(ring_size, n)).expand(ring_size, n)),

@@ -6,7 +6,13 @@ train step; ``moe_decode``: its serving path).  Port of
 ``accl_tpu/models``."""
 
 from . import moe, moe_decode  # noqa: F401
-from .decode import decode_step, generate, init_kv_cache, prefill  # noqa: F401
+from .decode import (  # noqa: F401
+    DecodeGraph,
+    decode_step,
+    generate,
+    init_kv_cache,
+    prefill,
+)
 from .transformer import (  # noqa: F401
     ModelConfig,
     forward,

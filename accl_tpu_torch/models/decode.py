@@ -3,8 +3,14 @@ generation.
 
 Port of ``accl_tpu/models/decode.py``.  ``prefill`` runs the prompt once
 and banks each layer's K/V; ``decode_step`` extends the cache one token;
-``generate`` is prefill then an eager loop of decode steps (the JAX
-package compiles it as one program; CUDA graphs come later).  The cache
+``generate`` is prefill then the decode steps.  The JAX package compiles
+``generate`` as one program (prefill, then a ``lax.scan`` of steps); its
+counterpart here is ``DecodeGraph``: one decode step made static (the
+position a device int tensor, the cache written with ``index_copy_`` at
+it, the token a buffer the step overwrites with its choice), captured
+in a ``torch.cuda.CUDAGraph`` after a warm-up step and replayed once per
+new token.  On the CPU the same static step runs eagerly; ``graph=False``
+keeps the eager loop of ``decode_step`` with a Python position.  The cache
 holds the grouped K/V layout, [B, L, G_r, Dh] per tensor-parallel rank
 (each rank banks its own K/V heads), and attention against it is the
 dense grouped softmax of ``_grouped_cached_attention``, as in the JAX
@@ -20,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import ring as ring_ops
 from ..utils.device import resolve_device
 from .transformer import (
     ModelConfig,
@@ -53,10 +60,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
                        for _ in range(cfg.n_layers)]}
 
 
-def _grouped_cached_attention(q, kc, vc, pos: int, window=None):
+def _grouped_cached_attention(q, kc, vc, pos, window=None):
     """One query block against the cache without K/V expansion.  q [B,
-    Tq, H, Dh]; kc/vc [B, L, G, Dh]; ``pos`` is the absolute position of
-    q's first row, and row i attends slots [0, pos + i] (the trailing
+    Tq, H, Dh]; kc/vc [B, L, G, Dh]; ``pos`` (an int, or a 0-dim device
+    int tensor, as JAX's traced position) is the absolute position of q's
+    first row, and row i attends slots [0, pos + i] (the trailing
     ``window`` of them)."""
     B, Tq, H, Dh = q.shape
     L, G = kc.shape[1], kc.shape[2]
@@ -74,38 +82,60 @@ def _grouped_cached_attention(q, kc, vc, pos: int, window=None):
     return out.reshape(B, Tq, H, Dh)
 
 
-def prefill(params, tokens, cache: dict, cfg: ModelConfig,
-            fused: bool = False):
-    """Run tokens [B, Tp] once, filling the cache from its position ->
-    (logits [B, Tp, vocab], cache with pos + Tp).  A non-zero starting
-    position appends after the cached context and attends to all of it."""
+def _cached_forward(params, tokens, layers, pos0, cfg: ModelConfig,
+                    fused: bool):
+    """The blocks over tokens [B, Tp] from position ``pos0``, banking
+    their K/V in the cache ``layers`` in place -> logits [B, Tp, vocab].
+    An int ``pos0`` writes slots [pos0, pos0 + Tp) by slicing; a 0-dim
+    device int tensor (the static step's) writes them with
+    ``index_copy_`` at ``pos0 + arange(Tp)``: the same values, with no
+    host read of the position."""
     embed = params["embed"]
-    tokens = torch.as_tensor(tokens, device=embed.device)
-    B, Tp = tokens.shape
-    pos0 = int(cache["pos"])
-    L = cache["layers"][0]["k"][0].shape[1]
-    if Tp > L:
-        raise ValueError(f"prompt length {Tp} exceeds cache capacity {L}")
-    if pos0 + Tp > L:
-        raise ValueError(f"prefill past cache capacity: pos {pos0} "
-                         f"+ {Tp} > {L}")
+    Tp = tokens.shape[1]
     dt = cfg.tdtype
     x = embed[tokens].to(dt)
-    positions = (pos0 + torch.arange(Tp, device=embed.device)
-                 if cfg.rope else None)
-    for blk, layer in zip(params["blocks"], cache["layers"]):
+    offsets = pos0 + torch.arange(Tp, device=embed.device)
+    static = isinstance(pos0, torch.Tensor)
+    for blk, layer in zip(params["blocks"], layers):
         h = _rmsnorm(x, blk["ln1"])
-        qs, ks, vs = block_qkv(h, blk, cfg, positions)
+        qs, ks, vs = block_qkv(h, blk, cfg, offsets if cfg.rope else None)
         attn = []
         for q, k, v, kc, vc in zip(qs, ks, vs, layer["k"], layer["v"]):
-            kc[:, pos0:pos0 + Tp] = k.to(dt)
-            vc[:, pos0:pos0 + Tp] = v.to(dt)
+            if static:
+                kc.index_copy_(1, offsets, k.to(dt))
+                vc.index_copy_(1, offsets, v.to(dt))
+            else:
+                kc[:, pos0:pos0 + Tp] = k.to(dt)
+                vc[:, pos0:pos0 + Tp] = v.to(dt)
             attn.append(_grouped_cached_attention(
                 q, kc, vc, pos0, window=cfg.attn_window).to(dt))
         x = block_attn_out(x, attn, blk, cfg, fused=fused)
         x = block_mlp(x, blk, cfg, fused=fused)
     x = _rmsnorm(x, params["ln_f"])
-    logits = _mm(x, embed.to(dt).t())
+    return _mm(x, embed.to(dt).t())
+
+
+def prefill(params, tokens, cache: dict, cfg: ModelConfig,
+            fused: bool = False):
+    """Run tokens [B, Tp] once, filling the cache from its position ->
+    (logits [B, Tp, vocab], cache with pos + Tp).  A non-zero starting
+    position appends after the cached context and attends to all of it.
+    The position may be a 0-dim device int tensor; the caller then owns
+    the capacity budget, as under jit in the JAX package."""
+    embed = params["embed"]
+    tokens = torch.as_tensor(tokens, device=embed.device)
+    Tp = tokens.shape[1]
+    pos0 = cache["pos"]
+    L = cache["layers"][0]["k"][0].shape[1]
+    if Tp > L:
+        raise ValueError(f"prompt length {Tp} exceeds cache capacity {L}")
+    if not isinstance(pos0, torch.Tensor):
+        pos0 = int(pos0)
+        if pos0 + Tp > L:
+            raise ValueError(f"prefill past cache capacity: pos {pos0} "
+                             f"+ {Tp} > {L}")
+    logits = _cached_forward(params, tokens, cache["layers"], pos0, cfg,
+                             fused)
     return logits, {"pos": pos0 + Tp, "layers": cache["layers"]}
 
 
@@ -137,14 +167,124 @@ def _select(lg, generator, temperature: float, top_k):
     return torch.argmax(lg - torch.log(-torch.log(u)), dim=-1)
 
 
+class DecodeGraph:
+    """One decode step made static, for replay as a CUDA graph.
+
+    ``cache`` is a filled cache (``prefill``'s); its tensors are written in
+    place and its position moves to the device, as a 0-dim int64 tensor
+    that each step advances in place.  ``token`` [B] is the first token to
+    decode; ``self.token`` is the step's input buffer, and each step
+    overwrites it with the token ``_select`` chose, so steps chain with
+    no host work between them.  ``self.logits`` [B, vocab] holds the last
+    step's logits.
+
+    ``step()`` runs the step eagerly (any device).  ``capture()`` (a CUDA
+    device) runs the step once as a warm-up on a side stream, so that
+    every first-call allocation (the ring and fused wrappers' scratch,
+    cuBLAS workspaces) is made outside the capture, restores the
+    position, the token and the generator state the warm-up consumed,
+    and captures one step into ``self.graph`` on that stream; ``replay()``
+    then runs it.  The warm-up's cache write is rewritten by the first
+    replay with the same values.  A capture that fails raises: nothing
+    falls back to eager steps.  Kernel wrappers count their launches only
+    at capture, so a replayed step's launches are the captured step's,
+    ``replays`` times.  Sampling with a generator needs
+    ``CUDAGraph.register_generator_state`` (recent PyTorch) and raises
+    without it; greedy decoding needs nothing."""
+
+    def __init__(self, params, cache: dict, cfg: ModelConfig, token,
+                 fused: bool = False, temperature: float = 0.0,
+                 top_k: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+        self.params, self.cfg, self.fused = params, cfg, fused
+        self.temperature, self.top_k, self.generator = (temperature, top_k,
+                                                        generator)
+        dev = params["embed"].device
+        self.cache = {"pos": torch.tensor(int(cache["pos"]),
+                                          dtype=torch.int64, device=dev),
+                      "layers": cache["layers"]}
+        self.token = torch.as_tensor(token, device=dev).to(
+            torch.int64).clone()
+        self.logits: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        #: the capture's stream, kept while the graph lives: the ring and
+        #: fused wrappers key their scratch by stream, and the graph holds
+        #: the scratch of this one
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.replays = 0
+
+    def _step(self) -> torch.Tensor:
+        lg = _cached_forward(self.params, self.token[:, None],
+                             self.cache["layers"], self.cache["pos"],
+                             self.cfg, self.fused)[:, 0]
+        self.cache["pos"].add_(1)
+        self.token.copy_(_select(lg, self.generator, self.temperature,
+                                 self.top_k))
+        return lg
+
+    def step(self) -> torch.Tensor:
+        """One eager step: advances the position and the token."""
+        self.logits = self._step()
+        return self.logits
+
+    def capture(self) -> "DecodeGraph":
+        """Warm up, then capture one step (see the class docstring)."""
+        dev = self.token.device
+        if ring_ops.device_trace_enabled():
+            raise RuntimeError(
+                "DecodeGraph.capture: ACCL_DEVICE_TRACE records stamp rows "
+                "on the host per call, which replays of a captured step "
+                "would not; unset it, or decode with graph=False")
+        if dev.type != "cuda":
+            raise ValueError(f"DecodeGraph.capture: CUDA graphs need a CUDA "
+                             f"device, the parameters are on {dev}")
+        graph = torch.cuda.CUDAGraph()
+        if self.temperature != 0.0:
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "DecodeGraph.capture: sampling needs "
+                    "CUDAGraph.register_generator_state, which this "
+                    "PyTorch lacks; decode greedily or with graph=False")
+            graph.register_generator_state(self.generator)
+        pos, token = self.cache["pos"].clone(), self.token.clone()
+        gen_state = (self.generator.get_state()
+                     if self.generator is not None else None)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step()
+            self.cache["pos"].copy_(pos)
+            self.token.copy_(token)
+        side.synchronize()
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+        with torch.cuda.graph(graph, stream=side):
+            self.logits = self._step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph, self.stream = graph, side
+        return self
+
+    def replay(self) -> torch.Tensor:
+        """One replayed step: advances the position and the token."""
+        self.graph.replay()
+        self.replays += 1
+        return self.logits
+
+
 def generate(params, prompt, cfg: ModelConfig, max_new: int,
              temperature: float = 0.0, top_k: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
-             fused: bool = False):
+             fused: bool = False, graph: Optional[bool] = None):
     """prompt [B, Tp] -> generated [B, max_new] (int64), on the device the
     parameters live on; the cache holds exactly Tp + max_new positions.
     Greedy at ``temperature=0``; otherwise sampled from ``generator`` (a
-    ``torch.Generator`` on that device; seeded 0 when None)."""
+    ``torch.Generator`` on that device; seeded 0 when None).
+
+    After the prefill, the max_new - 1 decode steps run as ``DecodeGraph``
+    steps: on a CUDA device (``graph`` None or True) one captured step
+    replayed max_new - 1 times, on the CPU (``graph`` None) the static
+    step eagerly.  ``graph=False`` runs the eager loop of ``decode_step``
+    instead; ``graph=True`` on the CPU raises."""
     if top_k is not None and not 1 <= top_k <= cfg.vocab:
         raise ValueError(
             f"top_k must be in [1, vocab={cfg.vocab}], got {top_k}")
@@ -154,13 +294,27 @@ def generate(params, prompt, cfg: ModelConfig, max_new: int,
     if temperature != 0.0 and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     cache = init_kv_cache(cfg, B, Tp + max_new, tp_size(params), device=dev)
+    if graph and dev.type != "cuda":
+        raise ValueError(f"generate(graph=True): CUDA graphs need a CUDA "
+                         f"device, the parameters are on {dev}")
     logits, cache = prefill(params, prompt, cache, cfg, fused=fused)
-    toks = []
-    if max_new > 0:
-        toks.append(_select(logits[:, -1], generator, temperature, top_k))
-    for _ in range(max_new - 1):
-        lg, cache = decode_step(params, toks[-1], cache, cfg, fused=fused)
-        toks.append(_select(lg, generator, temperature, top_k))
-    if not toks:
+    if max_new == 0:
         return torch.empty((B, 0), dtype=torch.int64, device=dev)
+    toks = [_select(logits[:, -1], generator, temperature, top_k)]
+    if graph is False:
+        for _ in range(max_new - 1):
+            lg, cache = decode_step(params, toks[-1], cache, cfg,
+                                    fused=fused)
+            toks.append(_select(lg, generator, temperature, top_k))
+        return torch.stack(toks, dim=1)
+    if max_new > 1:
+        stepper = DecodeGraph(params, cache, cfg, toks[0], fused=fused,
+                              temperature=temperature, top_k=top_k,
+                              generator=generator)
+        if dev.type == "cuda":
+            stepper.capture()
+        advance = stepper.step if stepper.graph is None else stepper.replay
+        for _ in range(max_new - 1):
+            advance()
+            toks.append(stepper.token.clone())
     return torch.stack(toks, dim=1)

@@ -76,9 +76,9 @@ Phases, each fatal on failure:
      - flash_fwd_resident_skew at the serving path's per-rank shape in
        the three flash dtype pairs: bitwise equal to flash_fwd_resident,
        and within FLASH_BOUND of its plain version;
-  4. the main path, in eleven parts, each driven with every launch count
-     set to 0 just before it and read just after (parts h-k run first,
-     before part a's driver holds its rank buffers):
+  4. the main path, in twelve parts, each driven with every launch count
+     set to 0 just before it and read just after (parts l and h-k run
+     first, before part a's driver holds its rank buffers):
      a. the driver: CudaWorld(8) on the card, ACCL calls on 8 rank
         threads — fp32 SUM allreduce at 4, 16, 64 and 256 MiB per rank,
         MAX allreduce, allgather and reduce-scatter at 64 MiB per rank,
@@ -119,8 +119,18 @@ Phases, each fatal on failure:
         forward, warm, printed beside the fp32 forward's); generate
         for 4 requests of 128-token prompts and 32 new tokens, greedy,
         held to forward's argmax; teacher-forced prefill and decode held
-        to forward's logits.  Prints first-call seconds, launches,
-        prefill tokens/s, ms per decode step and peak memory;
+        to forward's logits.  The graph arm (serving_graph_arm): generate
+        with its decode step captured in one CUDA graph and replayed (the
+        card's default) against the eager loop (graph=False), unfused and
+        fused=True, tokens equal; ms per decode step replayed and eager
+        over GRAPH_STEPS teacher-forced steps, logits bitwise (else held
+        within LOGIT_BOUND beside a control that must exceed it); and
+        fused_matmul_allreduce_pallas at the decode step's MLP-down shape
+        captured and replayed 31 times, bitwise its eager launches (the
+        model's fused lane multiplies with torch.matmul, as the JAX
+        package's, so its graph holds no hand kernel).  Prints first-call
+        seconds, launches, prefill tokens/s, ms per decode step and peak
+        memory;
      e. the model's training path at the same width and depth, fp32:
         make_train_step on make_mesh(dp=2, tp=4) (8 rank slots), 1 x 4096
         tokens per dp member, 3 SGD steps at TRAIN_LR on a repeated
@@ -133,7 +143,14 @@ Phases, each fatal on failure:
         same step with remat (within REMAT_BOUND), and to one step
         synced by sync_gradients(compress="int8", error_feedback=True)
         over the dp list (the loss after it within TRACK_TOL of the
-        fp32 run's).  Prints seconds per step, tokens/s and peak memory;
+        fp32 run's).  Prints seconds per step, tokens/s and peak memory.
+        The AdamW arm (phase train_adamw): the same mesh, width, depth
+        and tokens with optimizer=adamw(ADAMW_LR), 3 steps, losses
+        falling, each flash kernel 32 launches a step; the first step
+        held to the single-device AdamW step (loss within
+        TRAIN_LOSS_BOUND, moments within ADAMW_MOMENT_BOUND, updates
+        within ADAMW_UPDATE_BOUND, relative L2 per leaf); prints s per
+        step and its peak memory beside the SGD step's;
      f. the plugin lanes, as bench.py and the tuning tools run
         them, in four parts: the reduce lane (pallas_add with donate on
         [524288, 128] fp32, block_rows 512 and 2048, chained, beside
@@ -195,6 +212,13 @@ Phases, each fatal on failure:
         to the dense full-batch step, and ep prefill plus 16
         teacher-forced decode steps held to the dense forward; prints s
         per forward and per step;
+     l. the ring kernels' self-ring mode (phase selfring, first): at the
+        bench's shapes (V = 8, chunks of 4096 x 128 fp32) the
+        reduce-scatter by sum and max, the all-gather and the allreduce
+        bitwise their plain versions and the closed forms, then
+        bench/selfring.py's stage (correctness first, then
+        ring_selfring_ag_gbps and ring_selfring_ar_gbps), both kernels
+        launched in the self-ring mode only;
   5. times with CUDA events after warm-up (median of 5 runs): each kernel
      per launch, at the shape the main path launches it most, beside its
      plain version, a library yardstick and its bound (bytes read once +
@@ -206,7 +230,9 @@ Phases, each fatal on failure:
      the cast kernel also at phase 4f's tuned geometry, its fp8 widening
      and stochastic lanes and the bf16 combine beside, each with GB/s and
      its share of the byte bound; the skew beside
-     flash_fwd_resident and SDPA); the
+     flash_fwd_resident and SDPA; the self-ring all-gather and
+     reduce-scatter at the bench's shapes beside x.expand(V, n).clone()
+     and torch.sum(x, 0)); the
      driver's allreduce algbw / busbw per size; the ring and matmul
      kernels (with each matmul shape's launch plan) also with the stream
      held behind torch.cuda._sleep until every launch is enqueued
@@ -1772,6 +1798,8 @@ def serving_path(ring, F, FL, M, T_) -> dict:
     if tuple(generated.shape) != (B, new) or int(generated.min()) < 0 or \
             int(generated.max()) >= cfg.vocab:
         fail(f"generate: tokens {tuple(generated.shape)} out of range")
+    graph_arm = serving_graph_arm(ring, F, M, p8, cfg, prompt, generated,
+                                  new, run, runs, gen)
 
     def serve_prefill():
         cache = M.init_kv_cache(cfg, B, Tp + cont.shape[1], tp=P)
@@ -1810,6 +1838,7 @@ def serving_path(ring, F, FL, M, T_) -> dict:
           "ms_per_decode_step": ms_step,
           "generate_s": runs["generate"]["first_call_s"],
           "teacher_forced_max_abs_err": {"prefill": e_pre, "decode": e_dec},
+          "graph": graph_arm,
           "greedy_tokens_checked": int(decided.sum()),
           "weights_gb": sum(t.numel() * 4 for t in (
               p1["embed"], *(w for blk in p1["blocks"] for leaf in
@@ -1821,6 +1850,146 @@ def serving_path(ring, F, FL, M, T_) -> dict:
     del p1, p8, want, lg_seq, steps, cache
     torch.cuda.empty_cache()
     return {"launches": total, "per_forward": per_forward}
+
+
+#: decode steps of the graph arm's teacher-forced comparison
+GRAPH_STEPS = 8
+
+
+def serving_graph_arm(ring, F, M, p8, cfg, prompt, generated, new, run,
+                      runs, gen) -> dict:
+    """Phase 4d's graph arm: ``generate`` with its decode step captured in
+    one CUDA graph and replayed (the default on the card; ``generated``
+    is its output) against the eager loop (graph=False), greedy, and the
+    same with fused=True: tokens equal.  Then ms per decode step,
+    replayed and eager, unfused and fused, over GRAPH_STEPS
+    teacher-forced steps, whose logits must be bitwise the eager ones;
+    if they are not (cuBLAS may pick another GEMM under capture), the arm
+    says so and holds them within LOGIT_BOUND, with a control (the last
+    block's w2 rounded to bf16, eagerly) that must fall outside it.  The
+    model's fused lane multiplies with torch.matmul (use_pallas=False, as
+    the JAX package's), so no hand kernel runs in the decode graph; the
+    arm also captures fused_matmul_allreduce_pallas (the fused matmul
+    reduce-scatter kernel, then the ring all-gather kernel) at the decode
+    step's MLP-down shape, 8 rows (the 4 requests padded to the ring
+    size), replays it new - 1 times and holds the last replay bitwise to
+    the eager launches on the same operands.  Kernel wrappers count at
+    capture only: replayed launches are the captured ones times the
+    replays."""
+    B, Tp = prompt.shape
+    out = {}
+    eager = run("generate_eager", lambda: M.generate(p8, prompt, cfg, new,
+                                                     graph=False))
+    if not torch.equal(generated, eager):
+        fail("generate: the replayed graph's greedy tokens differ from the "
+             "eager loop's")
+    fused_graph = run("generate_fused", lambda: M.generate(
+        p8, prompt, cfg, new, fused=True))
+    fused_eager = run("generate_fused_eager", lambda: M.generate(
+        p8, prompt, cfg, new, fused=True, graph=False))
+    if not torch.equal(fused_graph, fused_eager):
+        fail("generate(fused=True): the replayed graph's greedy tokens "
+             "differ from the eager loop's")
+    out["tokens_equal"] = {"unfused": True, "fused": True,
+                           "fused_vs_unfused": bool(torch.equal(
+                               fused_graph, generated))}
+    for name in ("generate", "generate_fused"):
+        out[f"{name}_s"] = runs[name]["first_call_s"]
+        out[f"{name}_eager_s"] = runs[f"{name}_eager"]["first_call_s"]
+    cont = torch.randint(0, cfg.vocab, (B, GRAPH_STEPS), generator=gen,
+                         device="cuda")
+
+    def teacher(fused, graph, params=p8):
+        cache = M.init_kv_cache(cfg, B, Tp + GRAPH_STEPS, tp=P)
+        _, cache = M.prefill(params, prompt, cache, cfg, fused=fused)
+        stepper = None
+        if graph:
+            stepper = M.DecodeGraph(params, cache, cfg, cont[:, 0],
+                                    fused=fused).capture()
+        times, logits = [], []
+        for t in range(GRAPH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if graph:
+                stepper.token.copy_(cont[:, t])
+                lg = stepper.replay()
+            else:
+                lg, cache = M.decode_step(params, cont[:, t], cache, cfg,
+                                          fused=fused)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            logits.append(lg.clone())
+        return statistics.median(times) * 1e3, torch.stack(logits)
+
+    for fused in (False, True):
+        key = "fused" if fused else "unfused"
+        ms_graph, lg_graph = teacher(fused, True)
+        ms_eager, lg_eager = teacher(fused, False)
+        res = {"ms_per_decode_step_replayed": ms_graph,
+               "ms_per_decode_step_eager": ms_eager,
+               "logits_bitwise": bool(torch.equal(lg_graph, lg_eager))}
+        if not res["logits_bitwise"]:
+            err = float((lg_graph - lg_eager).abs().max())
+            blk = p8["blocks"][-1]
+            ctl = {**p8, "blocks": p8["blocks"][:-1] + [{
+                **blk, "w2": [w.to(torch.bfloat16).float()
+                              for w in blk["w2"]]}]}
+            _ms, lg_ctl = teacher(fused, False, ctl)
+            ctl_err = float((lg_ctl - lg_eager).abs().max())
+            res.update({"note": "cuBLAS ran other GEMM kernels under "
+                                "capture: logits held within LOGIT_BOUND",
+                        "max_abs_err": err, "bound": LOGIT_BOUND,
+                        "control_max_abs_err": ctl_err})
+            if err > LOGIT_BOUND or ctl_err <= LOGIT_BOUND:
+                fail(f"decode graph ({key}): logits {err} off the eager "
+                     f"step's (bound {LOGIT_BOUND}; control {ctl_err} must "
+                     f"exceed it)")
+        out[key] = res
+        emit({"phase": "serving_graph", "lane": key, **res})
+
+    # the hand kernels in a replayed graph, at the decode step's MLP-down
+    # shape (the model's fused lane itself runs none)
+    K, N = cfg.d_ff // P, cfg.d_model
+    xs = [torch.randn(P, K, generator=gen, device="cuda") for _ in range(P)]
+    ws = [w.contiguous() for w in p8["blocks"][0]["w2"]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        F.fused_matmul_allreduce_pallas(xs, ws)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph, stream=side):
+            res = F.fused_matmul_allreduce_pallas(xs, ws)[0]
+        torch.cuda.current_stream().wait_stream(side)
+        return res
+
+    captured_out = run("graph_tp_capture", capture)
+    captured = runs["graph_tp_capture"]["launches"]
+    replays = new - 1
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        graph.replay()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / replays
+    want = F.fused_matmul_allreduce_pallas(xs, ws)[0]
+    if not torch.equal(captured_out, want):
+        fail("fused_matmul_allreduce_pallas replayed in a CUDA graph is not "
+             "bitwise its eager launches")
+    if captured["fused_matmul_reduce_scatter"] != 1 or \
+            captured["ring_all_gather"] != 1:
+        fail(f"the captured TP contraction must hold one fused and one "
+             f"all-gather launch: {captured}")
+    out["tp_kernels_in_graph"] = {
+        "shape": f"P={P} x [{P}, {K}] @ [{K}, {N}] fp32",
+        "captured_launches": {k: v for k, v in captured.items() if v},
+        "replays": replays,
+        "replayed_launches": {k: v * replays for k, v in captured.items()
+                              if v},
+        "ms_per_replay": replay_ms, "bitwise_eager": True}
+    del xs, ws, graph, captured_out, want, side
+    return out
 
 
 #: the training path's learning rate: large enough that each leaf's
@@ -1996,7 +2165,260 @@ def train_path(ring, F, FL, M, S, TE, T_) -> dict:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     del params, p0
     torch.cuda.empty_cache()
+    return {"launches": total, "per_step": per_step,
+            "first_step_peak_gb_above_held": peak_step,
+            "s_per_step": step_s}
+
+
+#: the AdamW path's learning rate and its bounds against the
+#: single-device AdamW step (fp32 flash both): the moments are the
+#: gradient's, held per leaf by relative L2 as TRAIN_GRAD_BOUND holds
+#: gradients (nu: its square, twice the relative error); each leaf's
+#: update by relative L2 (an AdamW update is lr times about +-1 per
+#: element, so a gradient element whose sign the other summation order
+#: flips moves it by 2 lr)
+ADAMW_LR = 1e-4
+ADAMW_MOMENT_BOUND = {"mu": TRAIN_GRAD_BOUND, "nu": 2 * TRAIN_GRAD_BOUND}
+ADAMW_UPDATE_BOUND = 5e-2
+
+
+def leaf_norms(a_tree, b_tree, T_) -> list:
+    """Per leaf (||a - b||, ||b||, ||ulp(b) / 2||), squares summed in
+    float64 over chunks (no float64 copy of a 2 GB leaf)."""
+    out = []
+    for a, b in zip(T_.tree_leaves(a_tree), T_.tree_leaves(b_tree)):
+        a, b = a.reshape(-1), b.reshape(-1)
+        sums = np.zeros(3)
+        for i in range(0, b.numel(), 1 << 26):
+            aa, bb = a[i:i + (1 << 26)], b[i:i + (1 << 26)]
+            ulp = torch.nextafter(bb, torch.full_like(bb, np.inf)) - bb
+            sums += [float(((aa - bb).double() ** 2).sum()),
+                     float((bb.double() ** 2).sum()),
+                     float(((ulp / 2).double() ** 2).sum())]
+        out.append(tuple(np.sqrt(sums)))
+    return out
+
+
+def train_adamw(ring, F, FL, M, S, T_, OPT, sgd) -> dict:
+    """Phase 4e's AdamW arm (phase train_adamw): make_train_step with
+    optimizer=adamw(ADAMW_LR) on make_mesh(dp=2, tp=4) at the training
+    path's width, depth and tokens, TRAIN_STEPS steps, each run with every
+    launch count set to 0 just before and read just after.  The first step
+    is held to the port's single-device AdamW step (make_mesh() with no
+    axes, tp = 1, the whole batch on one member) from the same weights:
+    loss within TRAIN_LOSS_BOUND, each leaf's moments within
+    ADAMW_MOMENT_BOUND and its update within ADAMW_UPDATE_BOUND (plus the
+    fp32 rounding floor of update_diffs).  The losses must be finite and
+    fall; each flash kernel launches layers x dp x tp times a step.
+    Prints s per step, tokens/s and the step's peak memory beside the SGD
+    step's (``sgd``, train_path's)."""
+    cfg = M.ModelConfig(**LLAMA3_8B)
+    mesh = S.make_mesh(dp=2, tp=4)
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    torch.cuda.empty_cache()
+    p0 = M.init_params(gen, cfg, tp=tp)
+    tokens = torch.randint(0, cfg.vocab, (dp, 4096), generator=gen,
+                           device="cuda")
+    n_tok = tokens.numel()
+    total, runs = {}, {}
+
+    def run(name, fn):
+        reset_counts(ring, F, FL)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = read_counts(ring, F, FL)
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+        runs[name] = {"s": secs, "launches": counts}
+        return out
+
+    # -- the single-device AdamW step, the reference ----------------------
+    shared = {id(t) for t in T_.tree_leaves(p0)}
+    ref = T_.tree_map(lambda t: t.clone() if id(t) in shared else t,
+                      M.shard_params(p0, cfg, 1))
+    ref_step, _specs, ref_init = M.make_train_step(
+        S.make_mesh(), cfg, optimizer=OPT.adamw(ADAMW_LR), params=ref)
+    ref_state = ref_init(ref)
+    ref, ref_state, ref_loss = run("single_device_step_1", lambda: ref_step(
+        ref, ref_state, tokens))
+    ref = M.shard_params(ref, cfg, tp)
+    ref_state = ref_state._replace(mu=M.shard_params(ref_state.mu, cfg, tp),
+                                   nu=M.shard_params(ref_state.nu, cfg, tp))
+    # each leaf's reference update ||p' - p0|| and the fp32 rounding floor
+    # of an update, 2 ||ulp(p0) / 2|| / ||p' - p0||, before p0 is stepped
+    ref_upd = [(d, 2 * u / max(d, 1e-300))
+               for d, _n, u in leaf_norms(ref, p0, T_)]
+    torch.cuda.empty_cache()
+
+    # -- the dp x tp AdamW run, in place on p0 ----------------------------
+    params = p0
+    step, (_ps, st_specs, tok_spec), init_opt = M.make_train_step(
+        mesh, cfg, optimizer=OPT.adamw(ADAMW_LR), params=params)
+    state = init_opt(params)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, loss = run("step_1", lambda: step(params, state, tokens))
+    peak_step = (torch.cuda.max_memory_allocated() - held) / 1e9
+    losses = [float(loss)]
+    loss_err = abs(losses[0] - float(ref_loss)) / abs(float(ref_loss))
+    upd = [(d / max(nd, 1e-300), floor) for (d, _n, _u), (nd, floor) in
+           zip(leaf_norms(params, ref, T_), ref_upd)]
+    moments = {k: [d / max(n, 1e-300) for d, n, _u in leaf_norms(
+        getattr(state, k), getattr(ref_state, k), T_)] for k in ("mu", "nu")}
+    worst_upd = max(d - (ADAMW_UPDATE_BOUND + f) for d, f in upd)
+    if loss_err > TRAIN_LOSS_BOUND or worst_upd > 0 or any(
+            max(v) > ADAMW_MOMENT_BOUND[k] for k, v in moments.items()):
+        fail(f"the dp x tp AdamW step is off the single-device one: loss "
+             f"{loss_err} (bound {TRAIN_LOSS_BOUND}), updates "
+             f"{[d for d, _f in upd]} (bound {ADAMW_UPDATE_BOUND}), "
+             f"moments {moments} (bounds {ADAMW_MOMENT_BOUND})")
+    if int(state.count) != 1:
+        fail(f"AdamW count {int(state.count)} after one step")
+    del ref, ref_state
+    torch.cuda.empty_cache()
+    for i in range(2, TRAIN_STEPS + 1):
+        params, state, loss = run(f"step_{i}", lambda: step(params, state,
+                                                            tokens))
+        losses.append(float(loss))
+    if not all(np.isfinite(v) for v in losses) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"AdamW training: losses {losses} not finite or not falling")
+    want = cfg.n_layers * dp * tp
+    per_step = {k: runs["step_1"]["launches"][k] for k in
+                ("flash_fwd_resident", "flash_bwd_dq", "flash_bwd_dkv")}
+    for i in range(1, TRAIN_STEPS + 1):
+        got = {k: runs[f"step_{i}"]["launches"][k] for k in per_step}
+        if got != dict.fromkeys(per_step, want):
+            fail(f"AdamW step {i} must launch each flash kernel {want} "
+                 f"times (layers x dp x tp): {got}")
+    step_s = [runs[f"step_{i}"]["s"] for i in range(1, TRAIN_STEPS + 1)]
+    emit({"phase": "train_adamw", "ok": True, "config": LLAMA3_8B,
+          "reduced": "n_layers 32 -> 4", "mesh": mesh.shape,
+          "optimizer": dict(OPT.adamw(ADAMW_LR)._asdict()),
+          "tokens_per_step": n_tok, "losses": losses,
+          "single_device_loss": float(ref_loss), "loss_rel_err": loss_err,
+          "update_rel_l2_max": max(d for d, _f in upd),
+          "rounding_floor_max": max(f for _d, f in upd),
+          "update_bound": ADAMW_UPDATE_BOUND,
+          "update_per_leaf": [d for d, _f in upd],
+          "moment_rel_l2_max": {k: max(v) for k, v in moments.items()},
+          "moment_bounds": ADAMW_MOMENT_BOUND,
+          "s_per_step": step_s,
+          "tokens_per_s": n_tok / statistics.median(step_s[1:]),
+          "sgd_s_per_step": sgd["s_per_step"],
+          "launches_per_step": per_step, "runs": runs, "launches": total,
+          "first_step_peak_gb_above_held": peak_step,
+          "sgd_first_step_peak_gb_above_held":
+              sgd["first_step_peak_gb_above_held"],
+          "held_gb": held / 1e9,
+          "opt_state_specs_count": st_specs.count,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del params, state, p0
+    torch.cuda.empty_cache()
     return {"launches": total, "per_step": per_step}
+
+
+def selfring_phase(ring, SR) -> dict:
+    """Phase 4l (selfring): the ring kernels' self-ring mode.  First each
+    self-ring call at the bench's shapes against its plain version and
+    the closed forms, bitwise (not counted): the reduce-scatter by sum and
+    by max, the all-gather, the allreduce.  Then the bench entry
+    (bench/selfring.py ``selfring_stage``: its own closed-form checks,
+    then the GB/s of the all-gather and the allreduce) with the ring
+    counts set to 0 just before and read just after; both kernels must
+    launch, all of them in the self-ring mode."""
+    V, n = SR.V, SR.ROWS * SR.COLS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = rand((V, n), torch.float32, gen)
+    for op in ("sum", "max"):
+        (got,) = ring.ring_reduce_scatter([x], op, ring_size=V)
+        (plain,) = ring.ring_reduce_scatter_plain([x], op, ring_size=V)
+        if not (same_bits(got, plain)
+                and same_bits(got, SR.fold_closed_form(x, op))):
+            fail(f"self-ring reduce-scatter ({op}, V={V}): not bitwise its "
+                 f"plain version and the fold x[0] + (x[1] + ...)")
+    row0 = x[0].contiguous()
+    (ag,) = ring.ring_all_gather([row0], ring_size=V)
+    (ag_plain,) = ring.ring_all_gather_plain([row0], ring_size=V)
+    if not (same_bits(ag, ag_plain) and same_bits(ag, row0.expand(V, n))):
+        fail("self-ring all-gather: not bitwise its plain version and the "
+             "operand tiled V times")
+    (ar,) = ring.ring_all_reduce([x.reshape(-1)], ring_size=V)
+    (ar_plain,) = ring.ring_all_reduce([x.reshape(-1)], plain=True,
+                                       ring_size=V)
+    if not same_bits(ar, ar_plain):
+        fail("self-ring allreduce: not bitwise its plain composition")
+    del x, ag, ag_plain, ar, ar_plain
+    counters = (ring.ring_reduce_scatter, ring.ring_all_gather)
+    for fn in counters:
+        fn.launches = fn.launches_self = 0
+    t0 = time.perf_counter()
+    res = SR.selfring_stage()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    self_launches = {fn.__name__: fn.launches_self for fn in counters}
+    if launches != self_launches or 0 in launches.values():
+        fail(f"the self-ring stage must launch both ring kernels, in the "
+             f"self-ring mode only: {launches}, {self_launches}")
+    emit({"phase": "selfring", "ok": True, "s": secs, **res,
+          "launches": launches, "max_abs_err": 0.0})
+    return {"launches": launches, "res": res}
+
+
+def time_selfring_kernels(ring, SR, launches) -> list:
+    """Phase 5 rows of the self-ring mode at the bench's shapes: ms per
+    launch (CUDA events, kernel, plain, plain, kernel), the plain
+    version's, the library call's (x.expand(V, n).clone() for the
+    all-gather, torch.sum(x, 0) for the reduce-scatter) and the byte
+    bound: each operand read once and each result written once over
+    3.35 TB/s.  The timing launches are not main-path launches."""
+    V, n = SR.V, SR.ROWS * SR.COLS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x = rand((V, n), torch.float32, gen)
+    row0 = x[0].contiguous()
+    ag_out, rs_out = [torch.empty(V, n, device="cuda")], \
+        [torch.empty(n, device="cuda")]
+    counts0 = {fn: (fn.launches, fn.launches_self) for fn in (
+        ring.ring_reduce_scatter, ring.ring_all_gather)}
+    calls = {
+        "ring_all_gather_selfring": (
+            lambda: ring.ring_all_gather([row0], out=ag_out, ring_size=V),
+            lambda: ring.ring_all_gather_plain([row0], ring_size=V),
+            lambda: row0.expand(V, n).clone(), "x.expand(V, n).clone()",
+            (1 + V) * n * 4, "accl_tpu/ops/ring.py:151"),
+        "ring_reduce_scatter_selfring": (
+            lambda: ring.ring_reduce_scatter([x], out=rs_out, ring_size=V),
+            lambda: ring.ring_reduce_scatter_plain([x], ring_size=V),
+            lambda: torch.sum(x, 0), "torch.sum(x, 0)",
+            (V + 1) * n * 4, "accl_tpu/ops/ring.py:274")}
+    rows = []
+    for name, (kern, plain, lib, lib_call, nbytes, src) in calls.items():
+        ms = [cuda_ms(kern, 50)]
+        plain_ms = [cuda_ms(plain, 20), cuda_ms(plain, 20)]
+        ms.append(cuda_ms(kern, 50))
+        split = split_ms(kern, 50)
+        base = name.replace("_selfring", "")
+        row = {"name": name, "route": "cuda",
+               "source": "accl_tpu_torch/ops/csrc/ring.cu",
+               "replaces": src, "launches": launches[base],
+               "max_abs_err": 0.0, "ms": statistics.median(ms),
+               "device_ms": split["device_ms"],
+               "host_enqueue_ms": split["host_enqueue_ms"],
+               "plain_ms": statistics.median(plain_ms),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library_ms": cuda_ms(lib, 50),
+               "library_call": lib_call, "checked": True,
+               "shape": f"ring_size={V}, chunk [{n}] fp32 "
+                        f"({SR.ROWS} x {SR.COLS})"}
+        emit({"phase": "kernel_time", **row})
+        rows.append(row)
+    for fn, (a, b) in counts0.items():
+        fn.launches, fn.launches_self = a, b
+    return rows
 
 
 #: sequence parallelism on the serving side: SP members over SP_TOKENS
@@ -3886,6 +4308,8 @@ def main() -> int:
     from accl_tpu_torch.models import moe_decode as MD
     from accl_tpu_torch import parallel as S
     from accl_tpu_torch.bench import ef_convergence as TE
+    from accl_tpu_torch.bench import selfring as SR
+    from accl_tpu_torch import optim as OPT
     from accl_tpu_torch.utils import tree as T_
     from accl_tpu_torch.ops import flash as FL
     from accl_tpu_torch.ops import fused as F
@@ -3929,6 +4353,7 @@ def main() -> int:
     errs.update(check_flash_bwd_kernels(FL))
     errs.update(check_plugin_kernels(R, C))
     errs.update(check_skew_kernel(FL))
+    selfring = selfring_phase(ring, SR)
     # the sequence-parallel and MoE parts run before the driver's world
     # holds its rank buffers: the sp forwards hold two 16.8 GB logit tensors
     sp = sp_path(ring, F, FL, M, RA, T_)
@@ -3943,15 +4368,18 @@ def main() -> int:
                              CompressionPolicy)
         serve = serving_path(ring, F, FL, M, T_)
         train = train_path(ring, F, FL, M, S, TE, T_)
+        adamw = train_adamw(ring, F, FL, M, S, T_, OPT, train)
         plugin = plugin_path(ring, F, FL, R, C, PL)
         plan = plan_path(world, ring, F)
-        # the main path's launches: the sum over its parts
-        parts = (mp, tp, lanes, serve, train, sp, spt, uly, moe, plugin,
-                 plan)
+        # the main path's launches: the sum over its parts (the self-ring
+        # launches have rows of their own)
+        parts = (mp, tp, lanes, serve, train, adamw, sp, spt, uly, moe,
+                 plugin, plan)
         launches = {k: sum(part["launches"].get(k, 0) for part in parts)
                     for k in mp["launches"]}
         launches.update({k: sum(part["launches"].get(k, 0) for part in (
-            serve, train, sp, spt, uly, moe, plugin)) for k in FLASH_KERNELS})
+            serve, train, adamw, sp, spt, uly, moe, plugin))
+            for k in FLASH_KERNELS})
         launches.update({k: plugin["launches"][k] for k in PL})
         if args.no_timing:
             emit({"phase": "main_path_done", "launches": launches})
@@ -3964,6 +4392,7 @@ def main() -> int:
                                    tp["per_call_mlp_down"])
         rows += time_flash_kernels(FL, errs, launches, serve["per_forward"])
         rows += time_flash_bwd_kernels(FL, errs, launches, train["per_step"])
+        rows += time_selfring_kernels(ring, SR, selfring["launches"])
         rows += time_plugin_kernels(R, C, FL, errs, {**plugin,
                                                      "launches": launches},
                                     PL)

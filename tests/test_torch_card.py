@@ -1126,3 +1126,185 @@ def test_moe_fused_lane_on_card():
                     for w in ("we1", "we2")}}]}
     c, _ = TM.forward(rounded, tokens, cfg, ep=8, fused=True)
     assert float((a - c).abs().max()) > bound
+
+
+# ---------------------------------------------------------------------------
+# the ring kernels' self-ring mode, CUDA graphs, the AdamW step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", list(tring.KERNEL_DTYPES))
+@pytest.mark.parametrize("V", [2, 3, 8])
+@pytest.mark.parametrize("n", [1, 4099, 4096 * 128])
+def test_selfring_kernels_match_plain_on_card(dtype, V, n):
+    """ring_kernel with one rank and a ring of V hops: the reduce-scatter
+    (sum and max), all-gather and allreduce bitwise their plain
+    versions, each one launch counted in ``launches_self``."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = (torch.randn(V, n, generator=g, device="cuda") * 100).to(dtype)
+    before = (tring.ring_reduce_scatter.launches_self,
+              tring.ring_all_gather.launches_self)
+    for op in ("sum", "max"):
+        (got,) = tring.ring_reduce_scatter([x], op, ring_size=V)
+        (want,) = tring.ring_reduce_scatter_plain([x], op, ring_size=V)
+        assert _same_bits(got, want), op
+    (ag,) = tring.ring_all_gather([x[0].contiguous()], ring_size=V)
+    assert _same_bits(ag, x[0].expand(V, n))
+    flat = x.reshape(-1)
+    (ar,) = tring.ring_all_reduce([flat], ring_size=V)
+    (ar_plain,) = tring.ring_all_reduce([flat], plain=True, ring_size=V)
+    assert _same_bits(ar, ar_plain)
+    torch.cuda.synchronize()
+    assert (tring.ring_reduce_scatter.launches_self - before[0],
+            tring.ring_all_gather.launches_self - before[1]) == (3, 2)
+
+
+def test_selfring_stamp_rows_match_the_schedule_on_card(_devtrace):
+    """The self-ring allreduce's stamp rows: one record per launch, V - 1
+    rows with rank and both peers 0 (``stamp_rows(1, bytes, V)``, the
+    rows the CPU path records and tests/test_torch_selfring.py holds to
+    the JAX package's)."""
+    V, n = 8, 4099
+    g = torch.Generator(device="cuda").manual_seed(32)
+    x = torch.randn(V * n, generator=g, device="cuda")
+    col = _devtrace(True)
+    tring.ring_all_reduce([x], ring_size=V)
+    rows = tuple(map(tuple, tring.stamp_rows(1, n * 4, V)[0].tolist()))
+    assert _trace_records(col) == {("reduce_scatter", rows): 1,
+                                   ("all_gather", rows): 1}
+
+
+def test_ring_capture_with_device_trace_raises_on_card(_devtrace):
+    """A stamp launch synchronizes to land its rows, which a capture
+    cannot hold: the wrapper raises instead of skipping the rows."""
+    xs = [torch.randn(4096, device="cuda") for _ in range(8)]
+    tring.ring_all_gather(xs)  # scratch allocated outside the capture
+    _devtrace(True)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="ACCL_DEVICE_TRACE"):
+        with torch.cuda.graph(graph):
+            tring.ring_all_gather(xs)
+
+
+def _capture(fn):
+    """Warm ``fn`` up on a side stream, then capture it there."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, out
+
+
+def test_hand_kernels_replay_in_a_cuda_graph_on_card():
+    """fused_matmul_allreduce_pallas (the fused matmul reduce-scatter
+    kernel, then the ring all-gather kernel) and a self-ring allreduce,
+    captured after a warm-up and replayed on new operands: every replay
+    bitwise the eager launches on the same operands; the wrappers count
+    only the captured launches."""
+    P, M, K, N, V = 8, 8, 224, 512, 8
+    g = torch.Generator(device="cuda").manual_seed(33)
+    xs = [torch.randn(M, K, generator=g, device="cuda") for _ in range(P)]
+    ws = [torch.randn(K, N, generator=g, device="cuda") for _ in range(P)]
+    sr = torch.randn(V * 4096, generator=g, device="cuda")
+
+    def fn():
+        return (TF.fused_matmul_allreduce_pallas(xs, ws)[0],
+                tring.ring_all_reduce([sr], ring_size=V)[0])
+
+    graph, out = _capture(fn)
+    counts = (TF.fused_matmul_reduce_scatter.launches,
+              tring.ring_all_gather.launches,
+              tring.ring_reduce_scatter.launches)
+    for _ in range(3):
+        for t in xs + ws + [sr]:
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        got = [o.clone() for o in out]
+        want = fn()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (TF.fused_matmul_reduce_scatter.launches,
+            tring.ring_all_gather.launches,
+            tring.ring_reduce_scatter.launches) == (
+        counts[0] + 3, counts[1] + 6, counts[2] + 3)
+
+
+GRAPH_CFG = dict(vocab=96, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                 d_head=32, d_ff=128, mlp="swiglu", rope=True)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_generate_graph_matches_the_eager_loop_on_card(fused):
+    """generate as one captured decode step replayed, against the eager
+    loop: greedy tokens equal, and teacher-forced replayed logits bitwise
+    the eager decode_step's."""
+    from accl_tpu_torch.models import decode as TD
+
+    cfg = TT.ModelConfig(**GRAPH_CFG)
+    params = TT.init_params(np.random.default_rng(5), cfg, tp=2)
+    params = {**params, "embed": params["embed"] * 40}
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, size=(2, 12))).cuda()
+    eager = TD.generate(params, prompt, cfg, 8, fused=fused, graph=False)
+    graphed = TD.generate(params, prompt, cfg, 8, fused=fused)
+    assert torch.equal(graphed, eager)
+    cont = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, size=(2, 6))).cuda()
+    logits = {}
+    for mode in ("eager", "graph"):
+        cache = TD.init_kv_cache(cfg, 2, 18, tp=2)
+        _, cache = TD.prefill(params, prompt, cache, cfg, fused=fused)
+        out = []
+        if mode == "eager":
+            for t in range(6):
+                lg, cache = TD.decode_step(params, cont[:, t], cache, cfg,
+                                           fused=fused)
+                out.append(lg)
+        else:
+            stepper = TD.DecodeGraph(params, cache, cfg, cont[:, 0],
+                                     fused=fused).capture()
+            for t in range(6):
+                stepper.token.copy_(cont[:, t])
+                out.append(stepper.replay().clone())
+            assert stepper.replays == 6
+            assert int(stepper.cache["pos"]) == 18
+        logits[mode] = torch.stack(out)
+    assert torch.equal(logits["graph"], logits["eager"])
+
+
+def test_adamw_train_step_on_card_matches_cpu():
+    """Two AdamW steps (dp 2 x tp 2, flash) on the card against the CPU:
+    loss within rtol 1e-5, parameters within rtol 1e-4 / atol 1e-5 (an
+    AdamW update is about lr a parameter whatever its gradient, so the
+    bound is set by lr 1e-3), moments within rtol 1e-3 / atol 1e-9."""
+    from accl_tpu_torch import optim
+    from accl_tpu_torch.parallel import make_mesh
+
+    cfg = TT.ModelConfig(**GRAPH_CFG, attn="flash")
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab, size=(2, 96))
+    results = []
+    for dev in ("cpu", "cuda"):
+        params = TT.init_params(np.random.default_rng(5), cfg, tp=2,
+                                device=dev)
+        step, (_s, st_specs, _t), init_opt = TT.make_train_step(
+            make_mesh(dp=2, tp=2, device=dev), cfg,
+            optimizer=optim.adamw(1e-3), params=params)
+        state = init_opt(params)
+        losses = []
+        for _ in range(2):
+            params, state, loss = step(params, state,
+                                       torch.from_numpy(tokens))
+            losses.append(float(loss))
+        assert losses[1] < losses[0]
+        results.append((params, state, losses))
+    (cp, cs, cl), (gp, gs, gl) = results
+    assert abs(gl[0] - cl[0]) <= 1e-5 * abs(cl[0])
+    assert int(gs.count) == int(cs.count) == 2
+    for a, b in zip(TT.tree_leaves(gp), TT.tree_leaves(cp)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    for a, b in zip(TT.tree_leaves(gs.mu) + TT.tree_leaves(gs.nu),
+                    TT.tree_leaves(cs.mu) + TT.tree_leaves(cs.nu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-9)
