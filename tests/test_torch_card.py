@@ -1308,3 +1308,25 @@ def test_adamw_train_step_on_card_matches_cpu():
     for a, b in zip(TT.tree_leaves(gs.mu) + TT.tree_leaves(gs.nu),
                     TT.tree_leaves(cs.mu) + TT.tree_leaves(cs.nu)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-9)
+
+
+def test_sampled_generate_graph_on_card():
+    """Sampling in the replayed graph: the generator is registered with
+    the graph, so a seeded run repeats, and it draws as the eager loop
+    does from the same seed."""
+    from accl_tpu_torch.models import decode as TD
+
+    cfg = TT.ModelConfig(**GRAPH_CFG)
+    params = TT.init_params(np.random.default_rng(5), cfg, tp=2)
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, size=(2, 12))).cuda()
+
+    def sample(graph):
+        g = torch.Generator(device="cuda").manual_seed(17)
+        return TD.generate(params, prompt, cfg, 8, temperature=0.8,
+                           top_k=10, generator=g, graph=graph)
+
+    a, b = sample(None), sample(None)
+    assert torch.equal(a, b)
+    assert int(a.min()) >= 0 and int(a.max()) < cfg.vocab
+    assert torch.equal(a, sample(False))
