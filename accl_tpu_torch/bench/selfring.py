@@ -18,17 +18,13 @@ the allreduce is that fold tiled V times, bitwise.  Then
 - ``ring_selfring_ar_gbps``: 2 (V - 1) chunks over the allreduce's time,
 
 the reference's byte counts, timed with ``bench.timing.events_ms``.  An
-error propagates: nothing is recorded in its place.  ``device="cpu"``
-runs the plain versions and times on the host clock, for the tests
-only: no number from it is a device time.
+error propagates: nothing is recorded in its place.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
-import time
 
 import torch
 
@@ -36,17 +32,6 @@ from .timing import events_ms
 
 V = 8
 ROWS, COLS = 4096, 128
-
-
-def _host_ms(fn, iters: int, runs: int = 3) -> float:
-    fn()
-    times = []
-    for _ in range(runs):
-        t = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        times.append((time.perf_counter() - t) * 1e3 / iters)
-    return statistics.median(times)
 
 
 def _require(ok: bool, what: str) -> None:
@@ -104,8 +89,7 @@ def selfring_stage(device="cuda", ring_size: int = V, rows: int = ROWS,
     def ar_call():
         ring.ring_all_reduce([arx], out=ar_out, ring_size=ring_size)
 
-    timer = events_ms if dev.type == "cuda" else _host_ms
-    ag_ms, ar_ms = timer(ag_call, iters), timer(ar_call, iters)
+    ag_ms, ar_ms = events_ms(ag_call, iters), events_ms(ar_call, iters)
     chunk = n * x.element_size()
     return {"ring_compiled_selfring_ok": True,
             "ring_selfring_ag_gbps": (ring_size - 1) * chunk / ag_ms / 1e6,

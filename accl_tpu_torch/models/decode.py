@@ -10,7 +10,8 @@ position a device int tensor, the cache written with ``index_copy_`` at
 it, the token a buffer the step overwrites with its choice), captured
 in a ``torch.cuda.CUDAGraph`` after a warm-up step and replayed once per
 new token.  On the CPU the same static step runs eagerly; ``graph=False``
-keeps the eager loop of ``decode_step`` with a Python position.  The cache
+keeps the eager loop of ``decode_step`` with a Python position.  Either
+way the cache is written with ``index_copy_`` at the position.  The cache
 holds the grouped K/V layout, [B, L, G_r, Dh] per tensor-parallel rank
 (each rank banks its own K/V heads), and attention against it is the
 dense grouped softmax of ``_grouped_cached_attention``, as in the JAX
@@ -26,7 +27,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import ring as ring_ops
 from ..utils.device import resolve_device
 from .transformer import (
     ModelConfig,
@@ -84,29 +84,22 @@ def _grouped_cached_attention(q, kc, vc, pos, window=None):
 
 def _cached_forward(params, tokens, layers, pos0, cfg: ModelConfig,
                     fused: bool):
-    """The blocks over tokens [B, Tp] from position ``pos0``, banking
-    their K/V in the cache ``layers`` in place -> logits [B, Tp, vocab].
-    An int ``pos0`` writes slots [pos0, pos0 + Tp) by slicing; a 0-dim
-    device int tensor (the static step's) writes them with
-    ``index_copy_`` at ``pos0 + arange(Tp)``: the same values, with no
-    host read of the position."""
+    """The blocks over tokens [B, Tp] from position ``pos0`` (an int, or
+    the static step's 0-dim device int tensor), banking their K/V in the
+    cache ``layers`` in place with ``index_copy_`` at ``pos0 +
+    arange(Tp)`` -> logits [B, Tp, vocab]."""
     embed = params["embed"]
     Tp = tokens.shape[1]
     dt = cfg.tdtype
     x = embed[tokens].to(dt)
     offsets = pos0 + torch.arange(Tp, device=embed.device)
-    static = isinstance(pos0, torch.Tensor)
     for blk, layer in zip(params["blocks"], layers):
         h = _rmsnorm(x, blk["ln1"])
         qs, ks, vs = block_qkv(h, blk, cfg, offsets if cfg.rope else None)
         attn = []
         for q, k, v, kc, vc in zip(qs, ks, vs, layer["k"], layer["v"]):
-            if static:
-                kc.index_copy_(1, offsets, k.to(dt))
-                vc.index_copy_(1, offsets, v.to(dt))
-            else:
-                kc[:, pos0:pos0 + Tp] = k.to(dt)
-                vc[:, pos0:pos0 + Tp] = v.to(dt)
+            kc.index_copy_(1, offsets, k.to(dt))
+            vc.index_copy_(1, offsets, v.to(dt))
             attn.append(_grouped_cached_attention(
                 q, kc, vc, pos0, window=cfg.attn_window).to(dt))
         x = block_attn_out(x, attn, blk, cfg, fused=fused)
@@ -180,15 +173,17 @@ class DecodeGraph:
 
     ``step()`` runs the step eagerly (any device).  ``capture()`` (a CUDA
     device) runs the step once as a warm-up on a side stream, so that
-    every first-call allocation (the ring and fused wrappers' scratch,
-    cuBLAS workspaces) is made outside the capture, restores the
-    position, the token and the generator state the warm-up consumed,
-    and captures one step into ``self.graph`` on that stream; ``replay()``
-    then runs it.  The warm-up's cache write is rewritten by the first
-    replay with the same values.  A capture that fails raises: nothing
-    falls back to eager steps.  Kernel wrappers count their launches only
-    at capture, so a replayed step's launches are the captured step's,
-    ``replays`` times.  Sampling with a generator needs
+    first-call work (kernel builds, cached plans, cuBLAS workspaces) is
+    done outside the capture, restores the position, the token and the
+    generator state the warm-up consumed, and captures one step into
+    ``self.graph`` on that stream; ``replay()`` then runs it.  The
+    warm-up's cache write is rewritten by the first replay with the same
+    values.  A capture that fails raises: nothing falls back to eager
+    steps.  With ``ACCL_DEVICE_TRACE`` set, a ring kernel launched in the
+    step raises at capture (its stamp rows land after a synchronize).
+    Kernel wrappers count their launches only at capture, so a replayed
+    step's launches are the captured step's, ``replays`` times.
+    Sampling with a generator needs
     ``CUDAGraph.register_generator_state`` (recent PyTorch) and raises
     without it; greedy decoding needs nothing."""
 
@@ -207,10 +202,6 @@ class DecodeGraph:
             torch.int64).clone()
         self.logits: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        #: the capture's stream, kept while the graph lives: the ring and
-        #: fused wrappers key their scratch by stream, and the graph holds
-        #: the scratch of this one
-        self.stream: Optional[torch.cuda.Stream] = None
         self.replays = 0
 
     def _step(self) -> torch.Tensor:
@@ -230,11 +221,6 @@ class DecodeGraph:
     def capture(self) -> "DecodeGraph":
         """Warm up, then capture one step (see the class docstring)."""
         dev = self.token.device
-        if ring_ops.device_trace_enabled():
-            raise RuntimeError(
-                "DecodeGraph.capture: ACCL_DEVICE_TRACE records stamp rows "
-                "on the host per call, which replays of a captured step "
-                "would not; unset it, or decode with graph=False")
         if dev.type != "cuda":
             raise ValueError(f"DecodeGraph.capture: CUDA graphs need a CUDA "
                              f"device, the parameters are on {dev}")
@@ -261,7 +247,7 @@ class DecodeGraph:
         with torch.cuda.graph(graph, stream=side):
             self.logits = self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph, self.stream = graph, side
+        self.graph = graph
         return self
 
     def replay(self) -> torch.Tensor:
@@ -274,17 +260,16 @@ class DecodeGraph:
 def generate(params, prompt, cfg: ModelConfig, max_new: int,
              temperature: float = 0.0, top_k: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
-             fused: bool = False, graph: Optional[bool] = None):
+             fused: bool = False, graph: bool = True):
     """prompt [B, Tp] -> generated [B, max_new] (int64), on the device the
     parameters live on; the cache holds exactly Tp + max_new positions.
     Greedy at ``temperature=0``; otherwise sampled from ``generator`` (a
     ``torch.Generator`` on that device; seeded 0 when None).
 
     After the prefill, the max_new - 1 decode steps run as ``DecodeGraph``
-    steps: on a CUDA device (``graph`` None or True) one captured step
-    replayed max_new - 1 times, on the CPU (``graph`` None) the static
-    step eagerly.  ``graph=False`` runs the eager loop of ``decode_step``
-    instead; ``graph=True`` on the CPU raises."""
+    steps: on a CUDA device one captured step replayed max_new - 1
+    times, on the CPU the static step eagerly.  ``graph=False`` runs the
+    eager loop of ``decode_step`` instead."""
     if top_k is not None and not 1 <= top_k <= cfg.vocab:
         raise ValueError(
             f"top_k must be in [1, vocab={cfg.vocab}], got {top_k}")
@@ -294,14 +279,11 @@ def generate(params, prompt, cfg: ModelConfig, max_new: int,
     if temperature != 0.0 and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     cache = init_kv_cache(cfg, B, Tp + max_new, tp_size(params), device=dev)
-    if graph and dev.type != "cuda":
-        raise ValueError(f"generate(graph=True): CUDA graphs need a CUDA "
-                         f"device, the parameters are on {dev}")
     logits, cache = prefill(params, prompt, cache, cfg, fused=fused)
     if max_new == 0:
         return torch.empty((B, 0), dtype=torch.int64, device=dev)
     toks = [_select(logits[:, -1], generator, temperature, top_k)]
-    if graph is False:
+    if not graph:
         for _ in range(max_new - 1):
             lg, cache = decode_step(params, toks[-1], cache, cfg,
                                     fused=fused)

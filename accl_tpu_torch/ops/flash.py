@@ -812,11 +812,13 @@ def _launch_bwd(fn_name, outs, q2, kp, vp, do, l2, dvec, cfg):
     if fn_name == "accl_flash_bwd_dkv":
         plan, items, tiles = _plan_on(dev, N, Nk, T, Tk, causal, window,
                                       mxu)
+        # both held until the launch: under a capture each is a new tensor
         ws = (_scratch_for(dev, stream, "ws", plan.slots * 2 * BWD_TILE * D)
-              .data_ptr() if plan.slots else None)
+              if plan.slots else None)
         counters = _scratch_for(dev, stream, "counters",
                                 max(1, len(plan.tiles)))
-        args += [items.data_ptr(), tiles.data_ptr(), ws,
+        args += [items.data_ptr(), tiles.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
                  counters.data_ptr(), len(plan.items)]
     args += [N, Nk, T, Tk, D, KERNEL_DTYPES[dt], int(causal), window or 0,
              int(mxu == torch.bfloat16)]

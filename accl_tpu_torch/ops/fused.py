@@ -409,15 +409,23 @@ _scratch: dict = {}
 
 
 def _scratch_for(dev: torch.device, stream, name: str, numel: int):
+    """One launch's scratch on the current stream.  Under a CUDA graph
+    capture it is made anew, in the graph's private pool, which holds it
+    for the graph's life: a cached tensor is replaced, and freed, by a
+    larger launch on a stream of the same handle, and the stream pool
+    hands handles out again."""
+    def make():
+        if name == "ws":
+            return torch.empty(numel, dtype=torch.float32, device=dev)
+        return torch.zeros(numel, dtype=torch.int32, device=dev)
+
+    if torch.cuda.is_current_stream_capturing():
+        return make()
     key = (dev.index, stream.cuda_stream, name)
     with _scratch_lock:
         cur = _scratch.get(key)
         if cur is None or cur.numel() < numel:
-            if name == "ws":
-                cur = torch.empty(numel, dtype=torch.float32, device=dev)
-            else:
-                cur = torch.zeros(numel, dtype=torch.int32, device=dev)
-            _scratch[key] = cur
+            cur = _scratch[key] = make()
         return cur
 
 
@@ -457,18 +465,19 @@ def pallas_matmul(x: torch.Tensor, w: torch.Tensor,
     device = dev.index or 0
     plan = _plan(m, n, k, device)
     stream = torch.cuda.current_stream(dev)
-    ws = counters = None
+    # held until the launch: under a capture each is a new tensor
+    scratch = (None, None)
     if plan.split > 1:
-        ws = _scratch_for(dev, stream, "ws", plan.split * m * n).data_ptr()
-        counters = _scratch_for(dev, stream, "counters",
-                                _cdiv(m, plan.bm) * _cdiv(n, TILE_N)
-                                ).data_ptr()
+        scratch = (_scratch_for(dev, stream, "ws", plan.split * m * n),
+                   _scratch_for(dev, stream, "counters",
+                                _cdiv(m, plan.bm) * _cdiv(n, TILE_N)))
     lib = _build.load("fused")
     rc = lib.accl_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
                          KERNEL_DTYPES[x.dtype], plan.bm, plan.split,
                          plan.k_per_split,
                          int(_vec((x, w, out), k, n, x.element_size())),
-                         ws, counters, device, stream.cuda_stream)
+                         *(None if t is None else t.data_ptr()
+                           for t in scratch), device, stream.cuda_stream)
     _raise_on(lib, rc, "pallas_matmul")
     pallas_matmul.launches += 1
     return out

@@ -374,8 +374,15 @@ _scratch: dict = {}
 
 
 def _scratch_for(dev: torch.device, stream, nbytes: int, nflags: int):
-    """The slots and flags of one launch, kept per device and stream and
-    reused in stream order; the kernels leave the flags at zero."""
+    """The slots and flags of one launch on the current stream, kept per
+    device and stream and reused in stream order; the kernels leave the
+    flags at zero.  Under a CUDA graph capture they are made anew, in the
+    graph's private pool, which holds them for the graph's life: a cached
+    buffer is replaced, and freed, by a larger launch on a stream of the
+    same handle, and the stream pool hands handles out again."""
+    if torch.cuda.is_current_stream_capturing():
+        return [torch.empty(nbytes, dtype=torch.uint8, device=dev),
+                torch.zeros(nflags, dtype=torch.int32, device=dev)]
     key = (dev.index, stream.cuda_stream)
     with _scratch_lock:
         cur = _scratch.get(key)

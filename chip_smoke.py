@@ -2375,9 +2375,11 @@ def selfring_phase(ring, SR) -> dict:
     V, n = SR.V, SR.ROWS * SR.COLS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     x = rand((V, n), torch.float32, gen)
+    errs = {}
     for op in ("sum", "max"):
         (got,) = ring.ring_reduce_scatter([x], op, ring_size=V)
         (plain,) = ring.ring_reduce_scatter_plain([x], op, ring_size=V)
+        errs[f"reduce_scatter_{op}"] = max_err(got, plain)
         if not (same_bits(got, plain)
                 and same_bits(got, SR.fold_closed_form(x, op))):
             fail(f"self-ring reduce-scatter ({op}, V={V}): not bitwise its "
@@ -2385,12 +2387,14 @@ def selfring_phase(ring, SR) -> dict:
     row0 = x[0].contiguous()
     (ag,) = ring.ring_all_gather([row0], ring_size=V)
     (ag_plain,) = ring.ring_all_gather_plain([row0], ring_size=V)
+    errs["all_gather"] = max_err(ag, ag_plain)
     if not (same_bits(ag, ag_plain) and same_bits(ag, row0.expand(V, n))):
         fail("self-ring all-gather: not bitwise its plain version and the "
              "operand tiled V times")
     (ar,) = ring.ring_all_reduce([x.reshape(-1)], ring_size=V)
     (ar_plain,) = ring.ring_all_reduce([x.reshape(-1)], plain=True,
                                        ring_size=V)
+    errs["all_reduce"] = max_err(ar, ar_plain)
     if not same_bits(ar, ar_plain):
         fail("self-ring allreduce: not bitwise its plain composition")
     del x, ag, ag_plain, ar, ar_plain
@@ -2407,7 +2411,7 @@ def selfring_phase(ring, SR) -> dict:
         fail(f"the self-ring stage must launch both ring kernels, in the "
              f"self-ring mode only: {launches}, {self_launches}")
     emit({"phase": "selfring", "ok": True, "s": secs, **res,
-          "launches": launches, "max_abs_err": 0.0})
+          "launches": launches, "max_abs_err": errs})
     return {"launches": launches, "res": res}
 
 
@@ -2417,7 +2421,8 @@ def time_selfring_kernels(ring, SR, launches) -> list:
     version's, the library call's (x.expand(V, n).clone() for the
     all-gather, torch.sum(x, 0) for the reduce-scatter) and the byte
     bound: each operand read once and each result written once over
-    3.35 TB/s.  The timing launches are not main-path launches."""
+    3.35 TB/s, and max |kernel - plain| on these inputs.  The timing
+    launches are not main-path launches."""
     V, n = SR.V, SR.ROWS * SR.COLS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     x = rand((V, n), torch.float32, gen)
@@ -2439,6 +2444,7 @@ def time_selfring_kernels(ring, SR, launches) -> list:
             (V + 1) * n * 4, "accl_tpu/ops/ring.py:274")}
     rows = []
     for name, (kern, plain, lib, lib_call, nbytes, src) in calls.items():
+        err = max_err(kern()[0], plain()[0])
         ms = [cuda_ms(kern, 50)]
         plain_ms = [cuda_ms(plain, 20), cuda_ms(plain, 20)]
         ms.append(cuda_ms(kern, 50))
@@ -2447,7 +2453,7 @@ def time_selfring_kernels(ring, SR, launches) -> list:
         row = {"name": name, "route": "cuda",
                "source": "accl_tpu_torch/ops/csrc/ring.cu",
                "replaces": src, "launches": launches[base],
-               "max_abs_err": 0.0, "ms": statistics.median(ms),
+               "max_abs_err": err, "ms": statistics.median(ms),
                "device_ms": split["device_ms"],
                "host_enqueue_ms": split["host_enqueue_ms"],
                "plain_ms": statistics.median(plain_ms),

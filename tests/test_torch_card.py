@@ -1232,6 +1232,47 @@ def test_hand_kernels_replay_in_a_cuda_graph_on_card():
         counts[0] + 3, counts[1] + 6, counts[2] + 3)
 
 
+def test_captured_scratch_outlives_a_recycled_stream_on_card():
+    """A captured graph's ring and fused kernels keep scratch of their
+    own.  After the capture (whose side stream is dropped), larger eager
+    launches on every stream of the pool, the capture's handle among
+    them, replace and free the wrappers' cached scratch, and new tensors
+    full of -1 take the freed memory; the replays stay bitwise the eager
+    launches on the same operands."""
+    P, M, K, N, V = 8, 8, 224, 512, 8
+    g = torch.Generator(device="cuda").manual_seed(34)
+    xs = [torch.randn(M, K, generator=g, device="cuda") for _ in range(P)]
+    ws = [torch.randn(K, N, generator=g, device="cuda") for _ in range(P)]
+    sr = torch.randn(V * 4096, generator=g, device="cuda")
+
+    def fn():
+        return (TF.fused_matmul_allreduce_pallas(xs, ws)[0],
+                tring.ring_all_reduce([sr], ring_size=V)[0])
+
+    graph, out = _capture(fn)
+    big = [torch.randn(1 << 22, generator=g, device="cuda")
+           for _ in range(P)]
+    big_xs = [torch.randn(P, 64, K, generator=g, device="cuda")
+              for _ in range(P)]
+    for _ in range(80):
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            tring.ring_all_gather(big)
+            TF.fused_matmul_reduce_scatter(big_xs, ws)
+        s.synchronize()
+    junk = [torch.full((1 << k,), -1, dtype=torch.int32, device="cuda")
+            for k in range(7, 24) for _ in range(4)]
+    for _ in range(3):
+        for t in xs + ws + [sr]:
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        got = [o.clone() for o in out]
+        want = fn()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(bool((j == -1).all()) for j in junk)
+
+
 GRAPH_CFG = dict(vocab=96, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                  d_head=32, d_ff=128, mlp="swiglu", rope=True)
 
@@ -1273,6 +1314,24 @@ def test_generate_graph_matches_the_eager_loop_on_card(fused):
             assert int(stepper.cache["pos"]) == 18
         logits[mode] = torch.stack(out)
     assert torch.equal(logits["graph"], logits["eager"])
+
+
+def test_generate_graph_under_device_trace_on_card(_devtrace):
+    """generate captures its decode step with ACCL_DEVICE_TRACE set: the
+    step launches no ring kernel (the model's lanes multiply with
+    torch.matmul), so nothing in it stamps; tokens equal the eager
+    loop's, unfused and fused."""
+    from accl_tpu_torch.models import decode as TD
+
+    cfg = TT.ModelConfig(**GRAPH_CFG)
+    params = TT.init_params(np.random.default_rng(5), cfg, tp=2)
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, size=(2, 12))).cuda()
+    _devtrace(True)
+    for fused in (False, True):
+        graphed = TD.generate(params, prompt, cfg, 6, fused=fused)
+        eager = TD.generate(params, prompt, cfg, 6, fused=fused, graph=False)
+        assert torch.equal(graphed, eager)
 
 
 def test_adamw_train_step_on_card_matches_cpu():

@@ -22,6 +22,7 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "bench.kernel_tune", "bench.flash_bwd_split",
               "bench.flash_fwd_split", "bench.plugin_split", "bench.sweep",
               "bench.callrate", "bench.driver_split", "bench.selfring",
+              "bench.serving",
               "observability", "observability.metrics",
               "observability.trace", "observability.flight",
               "observability.health", "utils.device", "utils.logging",

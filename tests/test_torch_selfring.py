@@ -357,13 +357,28 @@ def test_selfring_tiling_uses_one_rank():
 # ---------------------------------------------------------------------------
 # the bench entry (twin of bench.py's _selfring_stage)
 # ---------------------------------------------------------------------------
-def test_selfring_bench_stage_checks_then_reports():
+def _fake_events_ms(monkeypatch, selfring, ms: float = 0.5):
+    """The stage times with CUDA events only: here a stand-in that runs
+    each call once and reports ``ms``."""
+    calls = []
+
+    def timed(fn, iters):
+        fn()
+        calls.append(iters)
+        return ms
+
+    monkeypatch.setattr(selfring, "events_ms", timed)
+    return calls
+
+
+def test_selfring_bench_stage_checks_then_reports(monkeypatch):
     from accl_tpu_torch.bench import selfring
 
+    calls = _fake_events_ms(monkeypatch, selfring)
     res = selfring.selfring_stage(device="cpu", rows=4, cols=16, iters=2)
+    assert calls == [2, 2]
     assert res["ring_compiled_selfring_ok"] is True
-    assert res["ring_selfring_ag_gbps"] > 0
-    assert res["ring_selfring_ar_gbps"] > 0
+    assert res["ag_ms"] == res["ar_ms"] == 0.5
     assert res["chunk_bytes"] == 4 * 16 * 4
     # the byte counts are the reference's: (V - 1) and 2 (V - 1) chunks
     assert res["ring_selfring_ag_gbps"] == pytest.approx(
@@ -379,8 +394,10 @@ def test_selfring_bench_stage_raises_on_a_wrong_fold(monkeypatch):
         return [xs[0].sum(0)]
 
     monkeypatch.setattr(tring, "ring_reduce_scatter", summed)
+    calls = _fake_events_ms(monkeypatch, selfring)
     with pytest.raises(RuntimeError, match="fold"):
         selfring.selfring_stage(device="cpu", rows=4, cols=16, iters=1)
+    assert calls == []  # nothing timed before the checks pass
 
 
 def test_fold_closed_form_matches_pallas():
