@@ -14,12 +14,16 @@ or :meth:`ACCL.set_compression`) selects it automatically.  ``fused=``
 (default ``ACCL_FUSED``) puts allreduce, allgather and reduce_scatter on
 the chunked ring lane of ``ops/fused.py``.
 
-Observability (accl_tpu/accl.py:308-337, 1652-1672, 1797-1830): each
+Observability (accl_tpu/accl.py:308-342, 1652-1672, 1765-1830): each
 rank registers an always-on flight recorder at initialize, which also
-starts the OpenMetrics exporter when ``ACCL_METRICS_PORT`` is set; every
+starts the OpenMetrics exporter when ``ACCL_METRICS_PORT`` is set, the
+regression sentinel when ``ACCL_SENTINEL`` is set and the per-tenant SLO
+tracker when ``ACCL_SLO`` is set (unset, neither is constructed); every
 call attaches its flight record, metrics signature and (under
-``ACCL_TRACE``) trace span; ``metrics()``, ``dump_metrics()`` and
-``dump_flight_recorder()`` read them back.
+``ACCL_TRACE``) trace span, each carrying the tenant label of the
+issuing communicator (``create_communicator(tenant=)``, ``set_tenant``);
+``metrics()``, ``dump_metrics()`` and ``dump_flight_recorder()`` read
+them back.
 
 Persistent plans (accl_tpu/accl.py:697-870; plans.py): ``capture_plan``
 records a function's calls, validates them with the sanitizer's
@@ -31,13 +35,14 @@ when off.
 
 Left out of this port, and refused where a call asks for them: kernel
 streams (``stream_flags``).  Tuning tables (and the table route that
-arms ``fused``), resilience (so no abort, shrink, grow or reset fence
-events reach the flight recorder, and no plan is fenced by one) and
-tenants (every record's tenant is None) are not part of it either.
+arms ``fused``) and resilience (so no abort, shrink, grow or reset fence
+events reach the flight recorder, and no plan is fenced by one) are not
+part of it either.
 """
 from __future__ import annotations
 
 import os
+import re
 from collections import OrderedDict
 from typing import Optional, Sequence
 
@@ -78,11 +83,16 @@ from .constants import (
 from .observability import flight as _flight
 from .observability import health as _health
 from .observability import metrics as _metrics
+from .observability import sentinel as _sentinel
+from .observability import slo as _slo
 from .observability import trace as _trace
 from .request import Request, RequestQueue
 from .utils.logging import get_logger
 
 GLOBAL_COMM = 0  # id of the world communicator
+
+#: a tenant name: it becomes a metric label value and a trace track name
+_TENANT_NAME = re.compile(r"[A-Za-z0-9_.\-]{1,64}")
 
 
 def default_timeout() -> int:
@@ -222,6 +232,8 @@ class ACCL:
             if sources:
                 self.flight_recorder.set_forensics_sources(sources)
         _health.ensure_exporter_from_env()
+        _sentinel.ensure_sentinel_from_env()
+        _slo.ensure_slo_from_env()
 
     # ------------------------------------------------------------------
     # properties / config
@@ -265,10 +277,16 @@ class ACCL:
             raise ACCLError(f"no arithmetic config for dtype pair {pair}") \
                 from None
 
-    def create_communicator(self, indices: Sequence[int]) -> int:
+    def create_communicator(self, indices: Sequence[int],
+                            tenant: Optional[str] = None) -> int:
         """Sub-communicator from global-rank indices; returns its id
         (reference accl.cpp:971-978).  Every member creates its
-        sub-communicators in the same order, so ids align across ranks."""
+        sub-communicators in the same order, so ids align across ranks.
+
+        ``tenant`` labels the communicator's traffic for the per-tenant
+        observability plane: flight records, ``tenant/<name>`` metric
+        families, trace tracks and ``link_matrix(tenant=...)`` slices
+        key off it.  The engine never sees it."""
         size = self.comm.size
         bad = [i for i in indices if not 0 <= i < size]
         if bad:
@@ -278,7 +296,33 @@ class ACCL:
         sub = self.comm.split(indices, new_id)
         self._device.upload_communicator(sub)
         self._communicators.append(sub)
+        if tenant is not None:
+            self.set_tenant(new_id, tenant)
         return new_id
+
+    def set_tenant(self, comm_id: int, tenant: Optional[str]) -> None:
+        """Label (or with ``None`` unlabel) a communicator's traffic
+        with a tenant name (accl_tpu/accl.py:445-462).  Names are bounded
+        and shell-safe (``[A-Za-z0-9_.-]{1,64}``) because they become
+        metric label values and trace track names; the registry's
+        ACCL_METRICS_MAX_SERIES guard bounds how many distinct names can
+        mint series."""
+        comm = self.communicator(comm_id)
+        if tenant is not None and (
+                not isinstance(tenant, str)
+                or not _TENANT_NAME.fullmatch(tenant)):
+            raise ACCLError(
+                f"set_tenant: invalid tenant name {tenant!r} — "
+                f"need 1-64 chars of [A-Za-z0-9_.-] (it becomes a "
+                f"metric label and trace track name)")
+        comm.tenant = tenant
+
+    def tenant_comm_ids(self, tenant: str) -> list:
+        """Ids of this rank's communicators labelled ``tenant``: the
+        slice ``link_matrix(tenant=...)`` folds over (a tenant's traffic
+        is the union of its communicators' link rows)."""
+        return [c.id for c in self._communicators
+                if not c.is_placeholder and c.tenant == tenant]
 
     def reserve_communicator(self) -> int:
         """Burn one communicator id with a placeholder slot, so a group
@@ -898,17 +942,22 @@ class ACCL:
         op, nranks, rank, dtype_name, nbytes = \
             self.resolve_call_signature(call)
         gang = op in GANG_OPERATIONS
+        # the issuing communicator's tenant: one attribute read (the
+        # class-level None when unlabelled)
+        tenant = (self._communicators[call.comm].tenant
+                  if call.comm < len(self._communicators) else None)
         if self.flight_recorder is not None and _flight.enabled():
             req.flight = self.flight_recorder.new_record(
                 req.id, op.name, call.comm, call.tag, dtype_name,
-                call.count, nbytes, nranks, gang, t_submit)
+                call.count, nbytes, nranks, gang, t_submit, tenant)
         if _metrics.enabled():
             req.metric = (_metrics.default_registry(), op.name, dtype_name,
-                          nbytes, nranks, t_submit, None)
+                          nbytes, nranks, t_submit, tenant)
         if _trace.enabled():
             span = _trace.new_span(op.name, desc, rank, call.count,
                                    dtype_name, nbytes, nranks)
             span.t_submit = t_submit
+            span.tenant = tenant
             if gang:
                 span.gang_id = _trace.collector().gang_id_for(
                     (int(op), call.comm, call.tag), rank)

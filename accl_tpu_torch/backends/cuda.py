@@ -27,7 +27,10 @@ stamped at gang-ready and at dispatch, with the lane that ran it
 accounts the bytes each gang's schedule moves per rank pair (at the
 compressed width on the wire lanes) and the gang-assembly wait; a
 :class:`Watchdog` over the world's flight recorders names the missing
-ranks of a stuck gang (``gang_assembly_snapshot``).  A launch returns at
+ranks of a stuck gang (``gang_assembly_snapshot``); under
+``ACCL_TELEMETRY_INTERVAL_MS`` a :class:`TelemetrySampler` publishes the
+engine stats and link rows, and ``CudaWorld.link_matrix`` folds the rows
+into the P x P matrix of a communicator or a tenant.  A launch returns at
 enqueue, so while tracing is on the engine synchronizes the stream after
 a gang's program and only then stamps ``t_device_end`` (and lands the
 ring kernels' device-trace rows); with tracing off it adds no
@@ -87,18 +90,14 @@ from ..ops import quantized as q_ops
 from ..observability import flight as _flight
 from ..observability import health as _health
 from ..observability import metrics as _metrics
+from ..observability import telemetry as _telemetry
 from ..observability import trace as _trace
+from ..observability.telemetry import LINK_COUNTER_FIELDS
 from ..ops import ring as ring_ops
 from ..request import Request
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 from .base import CCLODevice
-
-#: counter fields of one link row (the reference's LINK_STATS_FIELDS_V3
-#: past its (comm, peer) key, accl_tpu/observability/telemetry.py:103)
-LINK_COUNTER_FIELDS = ("tx_msgs", "tx_bytes", "rx_msgs", "rx_bytes",
-                       "retrans_sent", "nacks_tx", "nacks_rx", "fenced_drops",
-                       "seeks", "seek_wait_ns", "comp_tx_bytes")
 
 #: address quantum: a buffer's handle space is its byte size rounded up
 #: to whole quanta (plus one, so the end address of a slice still
@@ -1874,6 +1873,13 @@ class CudaWorld:
         self.engine.start_watchdog(
             [a.flight_recorder for a in self.accls
              if a.flight_recorder is not None])
+        # the telemetry sampler (none under ACCL_TELEMETRY_INTERVAL_MS=0,
+        # the default): the shared engine is one stats source, so rank
+        # 0's view is polled alone; every rank's link rows are
+        self.telemetry = _telemetry.sampler_from_env(
+            [self.devices[0].engine_stats], name="accl-cuda",
+            link_sources=[(r, d.link_stats)
+                          for r, d in enumerate(self.devices)])
 
     def run(self, fn: Callable, *args, timeout: Optional[float] = 300) -> list:
         futures = [self._pool.submit(self._on_device, fn, self.accls[r], r,
@@ -1890,9 +1896,30 @@ class CudaWorld:
         """rank -> that rank's link rows (the engine's link twin)."""
         return {r: d.link_stats() for r, d in enumerate(self.devices)}
 
+    def link_matrix(self, comm: int = 0,
+                    tenant: Optional[str] = None) -> dict:
+        """The world's P x P link traffic matrix of one communicator
+        (telemetry.link_matrix).  ``tenant`` slices by tenant label
+        instead: the union of every communicator the drivers label with
+        it (tpu.py:2524-2541)."""
+        if tenant is not None:
+            comms = set()
+            for a in self.accls:
+                comms.update(a.tenant_comm_ids(tenant))
+            doc = _telemetry.link_matrix(self.link_stats(),
+                                         nranks=self.nranks, comms=comms)
+            doc["tenant"] = tenant
+            return doc
+        return _telemetry.link_matrix(self.link_stats(), nranks=self.nranks,
+                                      comm=comm)
+
     def close(self) -> None:
-        """Stop the watchdog, the executor and, when this world's bring-up
-        started it, the OpenMetrics exporter."""
+        """Stop the telemetry sampler, the watchdog, the executor and,
+        when this world's bring-up started it, the OpenMetrics
+        exporter."""
+        if self.telemetry is not None:
+            self.telemetry.stop()
+            self.telemetry = None
         self.engine.shutdown()
         self._pool.shutdown(wait=False)
         if self._owns_exporter:

@@ -8,10 +8,9 @@ test/host/xrt/src/bench.cpp:25-61).  It drives any world that has
 (``create_buffer_like``), as the reference does: a row's time includes
 the copies between host and card, so the sweep's large rows are not the
 resident driver numbers and are never compared with them.  Buffers are
-freed after each call.
-
-``run_fused_overlap_sweep`` needs the reference's ``attribution``
-module, which the port does not have yet, and raises.
+freed after each call.  ``run_fused_overlap_sweep`` sets the fused lane
+against the sequential schedule and reads each cell's exposed-wire
+fraction with ``observability.attribution.overlap``.
 """
 from __future__ import annotations
 
@@ -278,13 +277,189 @@ def run_compression_sweep(world, collectives=("allreduce",
     return rows
 
 
-def run_fused_overlap_sweep(*args, **kwargs):
-    """The reference's fused-overlap A/B (accl_tpu/bench/sweep.py:429)
-    reads its exposed-wire fraction from ``observability.attribution``,
-    which the port does not have yet (ROADMAP Queue 1 item 6)."""
-    raise NotImplementedError(
-        "run_fused_overlap_sweep needs observability.attribution, which "
-        "accl_tpu_torch does not have yet (ROADMAP Queue 1 item 6)")
+# ---------------------------------------------------------------------------
+# fused-overlap A/B lane: exposed wire against compute cover per cell
+# ---------------------------------------------------------------------------
+
+#: wire lanes the fused A/B measures: lossless fp32 and the int8
+#: block-scaled lane fused into the chunk loop
+FUSED_WIRE_LANES = ("fp32", "int8")
+
+#: the CSV columns of run_fused_overlap_sweep
+FUSED_FIELDS = ("wire", "collective", "count", "bytes", "mode",
+                "duration_us", "busbw_GBps", "exposed_wire_fraction")
+
+
+def _flight_marks() -> dict:
+    """Per-recorder flight-ring seq watermark: records landed after this
+    mark belong to the current cell."""
+    from ..observability import flight as _flight
+
+    return {id(r): (r, max((rec.seq for rec in r.records()), default=-1))
+            for r in _flight.recorders()}
+
+
+def _dumps_since(marks: dict) -> list:
+    """Each marked recorder's dump, cut to the records landed since its
+    mark."""
+    docs = []
+    for rec, mark in marks.values():
+        d = rec.dump()
+        d["records"] = [r for r in d["records"] if r["seq"] > mark]
+        docs.append(d)
+    return docs
+
+
+def _exposed_since(marks: dict) -> Optional[float]:
+    """The ``attribution.overlap`` exposed-wire fraction (exposed_us /
+    wire_us summed over collectives) of the flight records landed since
+    ``marks``, against the trace collector's current compute cover (host
+    ``window:`` spans and device stamp slices).  None when nothing
+    completed."""
+    from ..observability import attribution as _attr
+    from ..observability import flight as _flight
+    from ..observability import trace as _trace
+
+    docs = _dumps_since(marks)
+    if not docs:
+        return None
+    try:
+        rep = _attr.overlap(_flight.merge_flight_dumps(docs),
+                            trace_doc=_trace.collector().to_perfetto())
+    except (ACCLError, ValueError, KeyError):
+        return None
+    wire = sum(c["wire_us"] for c in rep["collectives"].values())
+    exposed = sum(c["exposed_us"] for c in rep["collectives"].values())
+    return round(exposed / wire, 4) if wire > 0 else None
+
+
+def run_fused_overlap_sweep(world, collectives=("allreduce",
+                                                "reduce_scatter"),
+                            count_pows=range(14, 17),
+                            repetitions: int = 3, mm_dim: int = 256,
+                            mm_loops: int = 2,
+                            writer: Optional[io.TextIOBase] = None,
+                            log=None) -> list:
+    """A/B the fused compute/communication lane against the sequential
+    schedule, per (wire lane, collective, size) cell
+    (accl_tpu/bench/sweep.py:429).
+
+    Both arms run the SAME matmul workload and the SAME collective:
+
+    - ``sequential`` — compute first, then issue the collective
+      synchronously: zero cover, the wire is fully exposed;
+    - ``fused`` — dispatch the chunked fused collective async
+      (``fused=True, run_async=True``), run the matmul while it drains,
+      then wait.
+
+    The compute is a chain of ``mm_loops`` ``torch.matmul`` products of
+    an [mm_dim, mm_dim] fp32 matrix on the world's device, followed by a
+    synchronize inside the rank's ``window:mxu`` span, so the span holds
+    the products and not their enqueue.  Columns per row: best-of-reps
+    step time (the slowest rank's), busbw of the collective payload, and
+    the measured ``attribution.overlap`` exposed-wire fraction over the
+    cell's timed reps.  Sizes default to 64-256 KiB fp32 payloads.
+    Tracing is turned on for the sweep and left on, as in the
+    reference."""
+    from ..observability import trace as _trace
+
+    if not _trace.enabled():
+        _trace.enable()
+    P = world.nranks
+    device = world.engine.device
+    dtype = np.dtype(np.float32)
+    rows: list = []
+    csv_writer = None
+    if writer is not None:
+        csv_writer = csv.DictWriter(writer, fieldnames=list(FUSED_FIELDS))
+        csv_writer.writeheader()
+
+    def body_factory(coll, count, cd, mode):
+        fused = mode == "fused"
+
+        def compute(rank):
+            # the fixed per-rank matmul chain both arms pay alike
+            with _trace.traced_window("mxu", rank=rank):
+                a = torch.full((mm_dim, mm_dim), (rank + 1) / mm_dim,
+                               dtype=torch.float32, device=device)
+                for _ in range(mm_loops):
+                    a = torch.matmul(a, a) * (1.0 / mm_dim)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+
+        def body(accl, rank):
+            made = []
+
+            def mk(factory, *a):
+                buf = factory(*a)
+                made.append(buf)
+                return buf
+
+            data = np.full(count * (P if coll == "reduce_scatter" else 1),
+                           rank + 1, dtype)
+            try:
+                src = mk(accl.create_buffer_like, data)
+                dst = mk(accl.create_buffer, count, dtype)
+
+                def issue(run_async):
+                    fn = (accl.allreduce if coll == "allreduce"
+                          else accl.reduce_scatter)
+                    return fn(src, dst, count, ReduceFunction.SUM,
+                              compress_dtype=cd, run_async=run_async,
+                              fused=fused)
+
+                t0 = time.perf_counter()
+                if mode == "sequential":
+                    compute(rank)
+                    issue(run_async=False)
+                else:
+                    req = issue(run_async=True)
+                    compute(rank)
+                    req.wait(60)
+                return time.perf_counter() - t0
+            finally:
+                for buf in made:
+                    buf.free()
+
+        return body
+
+    for coll in collectives:
+        for pw in count_pows:
+            count = 1 << pw
+            for wire in FUSED_WIRE_LANES:
+                cd = DataType.int8 if wire == "int8" else None
+                for mode in ("sequential", "fused"):
+                    body = body_factory(coll, count, cd, mode)
+                    world.run(body)  # warm-up
+                    # isolate the cell's cover windows and flight records
+                    _trace.collector().clear()
+                    marks = _flight_marks()
+                    dur = min(max(world.run(body))
+                              for _ in range(repetitions))
+                    exposed = _exposed_since(marks)
+                    nbytes = count * _payload_factor(coll, P) \
+                        * dtype.itemsize
+                    algbw = nbytes / dur / 1e9 if dur > 0 else 0.0
+                    row = {
+                        "wire": wire,
+                        "collective": coll,
+                        "count": count,
+                        "bytes": nbytes,
+                        "mode": mode,
+                        "duration_us": round(dur * 1e6, 2),
+                        "busbw_GBps": round(
+                            algbw * _busbw_factor(coll, P), 4),
+                        "exposed_wire_fraction": exposed,
+                    }
+                    rows.append(row)
+                    if csv_writer:
+                        csv_writer.writerow(row)
+                    if log:
+                        ex = "-" if exposed is None else f"{exposed:.3f}"
+                        log(f"  {wire:>5} {coll:<14} {count:>8} elems "
+                            f"{mode:>10} {row['duration_us']:>10.1f} us"
+                            f"  exposed {ex}")
+    return rows
 
 
 def _run_once(world, coll: str, count: int, dtype, root: int,

@@ -29,6 +29,13 @@ class Communicator:
     #: that every rank's next communicator lands at the same id
     is_placeholder = False
 
+    #: tenant label for per-tenant observability (accl_tpu/communicator.py:
+    #: 50-55): a class attribute, so an unlabelled communicator answers
+    #: None at no per-instance cost; set by ACCL.create_communicator
+    #: (tenant=...) or ACCL.set_tenant.  The engine never sees it, only
+    #: the flight records, the metrics and the trace do.
+    tenant = None
+
     def __init__(self, ranks: Sequence[Rank], local_rank: int, comm_id: int = 0):
         if not 0 <= local_rank < len(ranks):
             raise ValueError(f"local_rank {local_rank} out of range for "
@@ -68,12 +75,16 @@ class Communicator:
         if self._local_rank not in indices:
             raise ValueError("local rank must be part of the new communicator")
         new_ranks = [self._ranks[i] for i in indices]
-        return Communicator(new_ranks, list(indices).index(self._local_rank),
-                            comm_id)
+        sub = Communicator(new_ranks, list(indices).index(self._local_rank),
+                           comm_id)
+        if self.tenant is not None:
+            sub.tenant = self.tenant
+        return sub
 
     def dump(self) -> str:
+        ten = f" tenant={self.tenant}" if self.tenant is not None else ""
         lines = [f"communicator {self._id}: size={self.size} "
-                 f"local_rank={self._local_rank}"]
+                 f"local_rank={self._local_rank}{ten}"]
         for i, r in enumerate(self._ranks):
             tag = " (local)" if i == self._local_rank else ""
             lines.append(f"  rank {i}: {r.ip}:{r.port} session={r.session} "
@@ -81,5 +92,6 @@ class Communicator:
         return "\n".join(lines)
 
     def __repr__(self) -> str:
+        ten = f", tenant={self.tenant!r}" if self.tenant is not None else ""
         return (f"Communicator(id={self._id}, size={self.size}, "
-                f"local_rank={self._local_rank})")
+                f"local_rank={self._local_rank}{ten})")

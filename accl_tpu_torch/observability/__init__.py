@@ -1,15 +1,17 @@
 """End-to-end observability of the port: per-call trace spans (Perfetto
 export), the metrics registry the driver, the gang engine and the bench
-harnesses publish into, the always-on flight recorder, and the hang
-watchdog with its health/OpenMetrics surface.
+harnesses publish into, the always-on flight recorder, the hang watchdog
+with its health/OpenMetrics surface, and the performance observatory:
+cross-rank critical-path attribution, the engine telemetry sampler with
+its link matrix, the regression sentinel and the per-tenant SLO tracker.
 
-Port of ``accl_tpu/observability``: ``metrics``, ``trace``, ``flight``
-and ``health`` whole, exporting what the reference package exports from
-them.  The reference's ``attribution``, ``sentinel``, ``telemetry`` and
-``slo`` modules are not ported yet, so ``attribute``,
-``estimate_clock_skew``, ``Baseline``, ``Sentinel``,
-``ENGINE_STATS_FIELDS_V1`` and ``TelemetrySampler`` are absent here."""
+Port of ``accl_tpu/observability``, whole, exporting what the reference
+package exports."""
 
+from .attribution import (  # noqa: F401
+    attribute,
+    estimate_clock_skew,
+)
 from .flight import (  # noqa: F401
     FlightRecord,
     FlightRecorder,
@@ -38,6 +40,14 @@ from .metrics import (  # noqa: F401
     payload_factor,
     size_bucket,
     validate_openmetrics,
+)
+from .sentinel import (  # noqa: F401
+    Baseline,
+    Sentinel,
+)
+from .telemetry import (  # noqa: F401
+    ENGINE_STATS_FIELDS_V1,
+    TelemetrySampler,
 )
 from .trace import (  # noqa: F401
     TraceCollector,

@@ -19,10 +19,10 @@ recorder (flight.py) and the metrics registry (metrics.py):
   ``ACCL_METRICS_PORT`` (stdlib ``http.server`` thread): ``/metrics``
   serves :meth:`MetricsRegistry.to_openmetrics`, ``/healthz`` a JSON
   health summary, ``/flight`` the merged flight dump — the scrape
-  surface a production serving fleet points Prometheus at.  The
-  reference's ``/retunes`` and ``/slo`` endpoints come with the online
-  tuner and the SLO tracker, which the port does not have yet; until
-  then those paths answer 404.
+  surface a production serving fleet points Prometheus at, and
+  ``/slo`` the per-tenant SLO report (slo.py).  The reference's
+  ``/retunes`` endpoint comes with the online tuner, which the port
+  does not have yet; until then that path answers 404.
 
 Port of ``accl_tpu/observability/health.py``.
 
@@ -332,8 +332,9 @@ OPENMETRICS_CONTENT_TYPE = (
 
 
 class MetricsExporter:
-    """Serves /metrics (OpenMetrics), /healthz (JSON) and /flight
-    (merged flight dump) from a daemon thread."""
+    """Serves /metrics (OpenMetrics), /healthz (JSON), /flight (merged
+    flight dump) and /slo (per-tenant SLO report) from a daemon
+    thread."""
 
     def __init__(self, port: int, registry: Optional[MetricsRegistry] = None,
                  host: str = "127.0.0.1"):
@@ -353,6 +354,26 @@ class MetricsExporter:
                         ctype = "application/json"
                     elif self.path.startswith("/flight"):
                         body = json.dumps(_flight.dump_all()).encode()
+                        ctype = "application/json"
+                    elif self.path.startswith("/slo"):
+                        # the live per-tenant SLO report.  A scrape IS
+                        # an evaluation sweep (check() then doc()), so a
+                        # pull-only deployment — no ACCL_SLO_INTERVAL_MS
+                        # thread — still gets fresh verdicts at its
+                        # scrape cadence.  Empty versioned doc when no
+                        # tracker is armed.
+                        from . import slo as _slo
+
+                        tr = _slo.tracker()
+                        if tr is not None:
+                            tr.check()
+                            doc = tr.doc()
+                        else:
+                            doc = {"format": _slo.SLO_REPORT_FORMAT,
+                                   "version": _slo.SLO_REPORT_VERSION,
+                                   "checks": 0, "specs": [],
+                                   "tenants": {}, "findings_total": 0}
+                        body = json.dumps(doc).encode()
                         ctype = "application/json"
                     else:
                         self.send_error(404)

@@ -385,12 +385,14 @@ def new_span(name: str, desc: str = "", rank: int = -1, count: int = 0,
 # marked windows
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
-def traced_window(label: str) -> Iterator[None]:
-    """Mark a host window in the trace (a ``window:<label>`` span on the
-    host pseudo-rank).  The reference's ``xla_logdir`` profiler capture
-    of the same window waits for the port's utils/profiling (the torch
-    profiler), which is not ported yet."""
-    span = new_span(f"window:{label}")
+def traced_window(label: str, rank: int = -1) -> Iterator[None]:
+    """Mark a host window in the trace: a ``window:<label>`` span on the
+    host pseudo-rank, or on ``rank``'s track (the overlap accountant
+    intersects a rank's wire intervals with that rank's windows).  The
+    reference's ``xla_logdir`` profiler capture of the same window waits
+    for the port's utils/profiling (the torch profiler), which is not
+    ported yet."""
+    span = new_span(f"window:{label}", rank=rank)
     if span is not None:
         span.t_submit = span.t_queue = span.t_dispatch = now_ns()
         span.lane = "window"

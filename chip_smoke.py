@@ -260,6 +260,23 @@ Phases, each fatal on failure:
      device ms with the gate off and on, both instantiations' registers;
      the stamp kernels per launch in the kernels line, their results
      held to the plain versions';
+  7b. the rest of observability (phase observatory) on the same world:
+     tenant communicators "train" (64 MiB per rank x6, ring lane) and
+     "serve" (64 KiB x40, a decode step's TP allreduce at 4 requests x
+     hidden 4096), results bitwise; a TelemetrySampler at 100 ms, the
+     train slice of link_matrix exactly the ring's bytes and the slices
+     summing to the matrix over both tenants; Baseline.from_snapshot of
+     the clean window and an SLO spec at 3 x each tenant's clean p99, then
+     rank 2 sleeping 5 ms before each of 40 serve calls: serve burns,
+     train stays ok, the sentinel finds drift, accl_health reads slow,
+     /slo (ACCL_METRICS_PORT=0) reports both tenants, attribute names
+     rank 2 (share > 0.9, coverage 0.95-1.05), slowest_link points at it;
+     device_overlap of the 64 MiB allreduce's stamp rows, sequential
+     (>= 0.95 exposed) against fused=True (lower); run_fused_overlap_sweep
+     at its defaults and at 2^24 elements; µs per call at 4 MiB and 1024
+     elements with the sampler, sentinel, SLO tracker and tenant labels
+     on against off, in alternating rounds.  Its ring launches join the
+     kernels line;
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -4058,6 +4075,525 @@ def time_stamp_kernels(ring, launches, info) -> list:
     return rows
 
 
+#: the observatory's two tenants, each a communicator over the 8 ranks:
+#: (elements per rank, calls in the clean window).  "train" is a dp
+#: gradient bucket, a fp32 SUM allreduce of 64 MiB per rank on the ring
+#: lane; "serve" the TP allreduce of a decode step at 4 requests x
+#: Llama-3-8B's hidden 4096 (16,384 fp32, 64 KiB), below the threshold
+OBS_TENANTS = {"train": (64 * MIB // 4, 6), "serve": (4 * 4096, 40)}
+#: serve calls before the clean window (out of its histograms)
+OBS_WARM_CALLS = 160
+#: the straggler: rank 2 sleeps 5 ms before each of 40 more serve calls
+OBS_LATE_RANK, OBS_LATE_S, OBS_LATE_CALLS = 2, 0.005, 40
+#: SLO sweeps over the straggled calls (fast window: the tracker's 4)
+OBS_SLO_SWEEPS = 4
+#: the serve and train p99 ceilings: this many times the clean window's
+OBS_P99_X = 3.0
+#: the sampler's period
+OBS_SAMPLE_S = 0.1
+#: µs-per-call arms: (elements per rank, calls per rank a round)
+OBS_OVERHEAD = ((1 << 20, 50), (1024, 200))
+OBS_OVERHEAD_ROUNDS = 8
+#: the fused-overlap sweep's extra size and the matmul chain's probe
+OBS_SWEEP_POW = 24
+OBS_MM_PROBE = 4096
+#: the observability knobs this phase sets, restored at its end
+OBS_ENV = ("ACCL_SLO", "ACCL_SLO_INTERVAL_MS", "ACCL_SENTINEL",
+           "ACCL_SENTINEL_INTERVAL_MS", "ACCL_METRICS_PORT")
+
+
+def _ring_counts(ring) -> dict:
+    rs, ag = ring.ring_reduce_scatter, ring.ring_all_gather
+    return {"ring_reduce_scatter": rs.launches - rs.launches_stamp,
+            "ring_all_gather": ag.launches - ag.launches_stamp,
+            "ring_reduce_scatter_stamp": rs.launches_stamp,
+            "ring_all_gather_stamp": ag.launches_stamp}
+
+
+def _p99(snap, tenant, OM, OS) -> float:
+    """The p99 µs of a tenant's calls in a registry snapshot (the
+    histogram estimate the sentinel and the SLO tracker read)."""
+    (doc,) = [c for c in snap["tenant_calls"].values()
+              if c["tenant"] == tenant]
+    hist = [doc["hist_us"][f"le_{ub}"] for ub in OM.LATENCY_BUCKETS_US]
+    hist.append(doc["hist_us"]["inf"])
+    return OS.quantile_us(hist, 0.99)
+
+
+def observatory(world, ring, F) -> dict:
+    """Phase 7b: the rest of observability on the main path's 8-rank
+    world (telemetry, sentinel, SLO tracker, attribution, tenants), in
+    five steps, each fatal:
+    1. two tenant communicators, "train" (64 MiB per rank, ring lane, x6)
+       and "serve" (64 KiB, x40), every result bitwise its plain fold and
+       within rtol 1e-5 of float64;
+    2. a TelemetrySampler at 100 ms on the world's sources over the
+       train traffic (serve's clean window follows 160 warm-up calls);
+       the train slice of ``link_matrix`` holds exactly the ring's bytes
+       (rank r to r + 1: 2 (P - 1) / P x 64 MiB x 6), the two slices sum
+       to the matrix over both tenants' communicators, and the sampler
+       publishes engine/* and link/* families;
+    3. Baseline.from_snapshot of the clean window, an SLO spec with
+       serve and train p99 ceilings of 3 x their clean p99 (the
+       tracker counts a call bad when its histogram bucket's upper
+       bound is above the ceiling), the sentinel and tracker armed from the
+       environment; rank 2 then sleeps 5 ms before each of 40 serve
+       calls: serve reaches fast_burn or exhausted while train stays ok,
+       the sentinel finds drift and accl_health reads slow (once the
+       degraded minute an earlier phase's failed calls leave has
+       lapsed: slow never masks a stronger verdict), /slo on an
+       exporter at ACCL_METRICS_PORT=0 reports both tenants, attribute
+       over the straggled window's flight records names rank 2 with share
+       > 0.9 and phase coverage in 0.95-1.05, and slowest_link of the
+       serve slice's seek_wait_ns points at rank 2;
+    4. under ACCL_TRACE and ACCL_DEVICE_TRACE the 64 MiB train allreduce
+       sequential (ring kernels' stamp rows) and fused=True (the chunked
+       lane's overlapped host rows), each bitwise its plain version:
+       device_overlap's exposed fraction >= 0.95 sequential, lower fused;
+       then (the device-trace gate off) run_fused_overlap_sweep at its
+       defaults and at 2^24 elements (one timed repetition) with a
+       matmul chain sized to take about as long as that allreduce;
+    5. µs per driver call at 4 MiB and 1024 elements in alternating
+       rounds: sampler, sentinel and SLO threads (100 ms) and a tenant
+       communicator (arm on) against none of them and comm 0 (arm off).
+    Its ring launches are counted from 0 at its start; everything it
+    started is stopped, and the knobs restored, at its end."""
+    import gc
+    import tempfile
+    import urllib.request
+
+    from accl_tpu_torch import ReduceFunction
+    from accl_tpu_torch.bench import sweep as SW
+    from accl_tpu_torch.observability import attribution as OA
+    from accl_tpu_torch.observability import health as OH
+    from accl_tpu_torch.observability import metrics as OM
+    from accl_tpu_torch.observability import sentinel as OS
+    from accl_tpu_torch.observability import slo as OSLO
+    from accl_tpu_torch.observability import telemetry as OTL
+    from accl_tpu_torch.observability import trace as OT
+
+    t_phase = time.perf_counter()
+    dev = world.engine.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # closed worlds' recorders must not join this world's flight marks
+    gc.collect()
+    env0 = {k: os.environ.get(k) for k in OBS_ENV}
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+        fn.launches = fn.launches_stamp = 0
+    reg = OM.default_registry()
+    reg.reset()
+    col = OT.collector()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    out = {}
+    sampler = None
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # -- 1. two tenants -----------------------------------------------
+        ids_all = world.run(lambda a, r: tuple(
+            a.create_communicator(list(range(P)), tenant=t)
+            for t in OBS_TENANTS))
+        if len(set(ids_all)) != 1:
+            fail(f"observatory: tenant ids differ across ranks {ids_all}")
+        ids = dict(zip(OBS_TENANTS, ids_all[0]))
+        bufs = {}
+        for t, (count, _calls) in OBS_TENANTS.items():
+            sends = [world.accls[r].create_buffer(count, np.float32)
+                     for r in range(P)]
+            recvs = [world.accls[r].create_buffer(count, np.float32)
+                     for r in range(P)]
+            for b in sends:
+                b.dev.copy_(torch.randn(count, generator=gen, device=dev))
+            bufs[t] = (sends, recvs)
+
+        def traffic(tenant, calls, late=False, fused=False):
+            sends, recvs = bufs[tenant]
+            count, cid = OBS_TENANTS[tenant][0], ids[tenant]
+
+            def body(accl, rank):
+                for _ in range(calls):
+                    if late and rank == OBS_LATE_RANK:
+                        time.sleep(OBS_LATE_S)
+                    accl.allreduce(sends[rank], recvs[rank], count,
+                                   ReduceFunction.SUM, comm_id=cid,
+                                   from_fpga=True, to_fpga=True,
+                                   fused=fused)
+
+            world.run(body)
+            sync()
+
+        def hold(tenant, fused=False):
+            """Each rank's result bitwise its plain fold (the ring's
+            composition on the ring lane, the chunked lane's fold on the
+            fused lane, the engine's stacked sum below the threshold) and
+            within rtol 1e-5 of the float64 sum."""
+            sends, recvs = bufs[tenant]
+            xs = [b.dev for b in sends]
+            if fused:
+                want = F.chunked_ring_all_reduce(xs, "sum")
+            elif OBS_TENANTS[tenant][0] * 4 >= world.engine \
+                    .ring_threshold_bytes:
+                want = ring.ring_all_reduce_segmented(xs, "sum", plain=True)
+            else:
+                want = [torch.stack(xs).sum(0)] * P
+            ref = torch.stack([x.double() for x in xs]).sum(0)
+            for r in range(P):
+                got = recvs[r].dev
+                if not same_bits(got, want[r]):
+                    fail(f"observatory {tenant} rank {r}"
+                         f"{' fused' if fused else ''}: not bitwise the "
+                         f"plain fold (max abs err "
+                         f"{max_err(got, want[r])})")
+                if not torch.allclose(got.double(), ref, rtol=1e-5,
+                                      atol=1e-5):
+                    fail(f"observatory {tenant} rank {r}: off the float64 "
+                         f"sum")
+            del want, ref
+
+        # -- 2. telemetry, over the clean window ---------------------------
+        def new_sampler():
+            return OTL.TelemetrySampler(
+                [world.devices[0].engine_stats], registry=reg,
+                interval_s=OBS_SAMPLE_S, name="observatory",
+                link_sources=[(r, d.link_stats)
+                              for r, d in enumerate(world.devices)]).start()
+
+        # serve's first windows on its fresh communicator have the long
+        # tail of a cold path, and a sampler poll holds the interpreter
+        # while it folds the link rows: the warm-up runs before the clean
+        # window, out of the histograms the baseline and the SLO ceilings
+        # are read from, and the sampler watches the train traffic only,
+        # so the serve windows, clean and straggled, run alike
+        traffic("serve", OBS_WARM_CALLS)
+        reg.reset()
+        sampler = new_sampler()
+        t0 = time.perf_counter()
+        traffic("train", OBS_TENANTS["train"][1])
+        clean_s = {"train": time.perf_counter() - t0}
+        sampler.stop()
+        sampler.sample()  # the window's last poll, on this thread
+        hold("train")
+        # a full collection of the long-lived heap stalls every rank at
+        # once, 8 of the window's observations: each serve window starts
+        # from a fresh collection, so none falls inside it
+        gc.collect()
+        t0 = time.perf_counter()
+        traffic("serve", OBS_TENANTS["serve"][1])
+        clean_s["serve"] = time.perf_counter() - t0
+        hold("serve")
+        counters = reg.counters()
+        gauges = reg.snapshot()["gauges"]
+        if sampler.samples < 2 or not any(k.startswith("link/tx_bytes/r")
+                                          for k in counters) \
+                or "engine/link_rows" not in gauges \
+                or "engine/leader_dispatches" not in counters:
+            fail(f"observatory: the sampler ({sampler.samples} samples) "
+                 f"did not publish engine/* and link/* families: "
+                 f"{sorted(counters)[:8]} {sorted(gauges)[:8]}")
+        if sampler.last_link_matrix != world.link_matrix():
+            fail("observatory: the sampler's last matrix is not the "
+                 "world's comm-0 matrix")
+        count, calls = OBS_TENANTS["train"]
+        per_link = calls * (count * 4 * 2 * (P - 1) // P)
+        tx = world.link_matrix(tenant="train")["fields"]["tx_bytes"]
+        want_tx = [[per_link if d == (s + 1) % P else 0 for d in range(P)]
+                   for s in range(P)]
+        if tx != want_tx:
+            fail(f"observatory: the train slice's tx_bytes {tx} are not "
+                 f"the ring's {per_link} bytes to the right neighbour")
+        emit({"phase": "observatory_tenants", "ranks": P,
+              "tenants": {t: {"comm": ids[t], "elements": c, "calls": k}
+                          for t, (c, k) in OBS_TENANTS.items()},
+              "clean_window_s": clean_s, "bitwise": True,
+              "train_tx_bytes_per_link": per_link,
+              "sampler_samples": sampler.samples,
+              "engine_families": sorted(k for k in {**counters, **gauges}
+                                        if k.startswith("engine/")),
+              "link_families": len([k for k in counters
+                                    if k.startswith("link/")])})
+        sampler = None
+
+        # -- 3. baseline, then a straggler ---------------------------------
+        snap = reg.snapshot()
+        base = OS.Baseline.from_snapshot(snap)
+        p99 = {t: _p99(snap, t, OM, OS) for t in OBS_TENANTS}
+        spec_path = os.path.join(tmp.name, "slo.json")
+        with open(spec_path, "w") as f:
+            json.dump({"format": OSLO.SLO_SPEC_FORMAT,
+                       "version": OSLO.SLO_SPEC_VERSION,
+                       "slos": [{"tenant": t, "collective": "allreduce",
+                                 "p99_us": OBS_P99_X * p99[t]}
+                                for t in OBS_TENANTS]}, f)
+        os.environ.update({
+            "ACCL_SLO": spec_path, "ACCL_SLO_INTERVAL_MS": "0",
+            "ACCL_SENTINEL": base.save(os.path.join(tmp.name, "base.json")),
+            "ACCL_SENTINEL_INTERVAL_MS": "60000", "ACCL_METRICS_PORT": "0"})
+        sen = OS.ensure_sentinel_from_env()
+        tracker = OSLO.ensure_slo_from_env()
+        if sen is None or tracker is None:
+            fail("observatory: ACCL_SENTINEL / ACCL_SLO armed nothing")
+        tracker.check()  # the clean window: one sweep
+        clean = {o["tenant"]: o["verdict"] for o in tracker.objectives}
+        if sen.check():
+            fail(f"observatory: the sentinel finds drift in its own "
+                 f"baseline window {sen.findings}")
+        mine = [a.flight_recorder for a in world.accls]
+        marks = {k: v for k, v in SW._flight_marks().items()
+                 if v[0] in mine}
+        gc.collect()
+        t0 = time.perf_counter()
+        for _ in range(OBS_SLO_SWEEPS):
+            traffic("serve", OBS_LATE_CALLS // OBS_SLO_SWEEPS, late=True)
+            tracker.check()
+        late_s = time.perf_counter() - t0
+        hold("serve")
+        verdicts = {o["tenant"]: o for o in tracker.objectives}
+        # slow never masks a stronger verdict, and an earlier phase's
+        # failed calls (plan_path's sanitizer drill) hold the world at
+        # degraded for DEGRADED_WINDOW_NS after the last of them: the
+        # health read waits for that window to lapse, and the watchdog
+        # rescans before the sentinel's check publishes its verdict
+        last_err = max(a.flight_recorder.last_error_ns for a in world.accls)
+        health_wait_s = max(0.0, (last_err + OH.DEGRADED_WINDOW_NS
+                                  - OT.now_ns()) / 1e9) if last_err else 0.0
+        time.sleep(health_wait_s)
+        if world.engine._watchdog is not None:
+            world.engine._watchdog.check()
+        findings = sen.check()
+        health = reg.snapshot()["gauges"].get("accl_health")
+        if verdicts["serve"]["verdict"] not in ("fast_burn", "exhausted") \
+                or verdicts["train"]["verdict"] != "ok":
+            fail(f"observatory: SLO verdicts {verdicts} (serve must burn, "
+                 f"train stay ok)")
+        if not findings or health != OH.HEALTH_SLOW:
+            fail(f"observatory: sentinel findings {findings}, accl_health "
+                 f"{health} (want drift and slow)")
+        exporter = OH.ensure_exporter_from_env()
+        if exporter is None:
+            fail("observatory: ACCL_METRICS_PORT=0 started no exporter")
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{exporter.port}/slo",
+                    timeout=10) as resp:
+                slo_doc = json.loads(resp.read())
+        finally:
+            OH.stop_exporter()
+        if set(slo_doc.get("tenants", {})) != set(OBS_TENANTS) \
+                or slo_doc["format"] != OSLO.SLO_REPORT_FORMAT:
+            fail(f"observatory: /slo answered {slo_doc}")
+        report = OA.attribute(SW._dumps_since(marks))
+        rows = list(report["collectives"].values())
+        dom = rows[0]["dominant_straggler"] if len(rows) == 1 else None
+        if dom is None or dom["rank"] != OBS_LATE_RANK \
+                or dom["share"] <= 0.9 \
+                or rows[0]["episodes"] != OBS_LATE_CALLS \
+                or not all(0.95 <= r["phase_coverage"] <= 1.05
+                           for r in rows):
+            fail(f"observatory: attribution {report['collectives']} does "
+                 f"not name rank {OBS_LATE_RANK} (share > 0.9, coverage "
+                 f"0.95-1.05)")
+        m = world.link_matrix(tenant="serve")
+        slow = OTL.slowest_link(m, "seek_wait_ns")
+        if slow is None or slow[1] != OBS_LATE_RANK:
+            fail(f"observatory: slowest serve link {slow}, not toward rank "
+                 f"{OBS_LATE_RANK}")
+        both = OTL.link_matrix(world.link_stats(), nranks=P,
+                               comms=set(ids.values()))
+        parts = [world.link_matrix(tenant=t)["fields"] for t in OBS_TENANTS]
+        for fld, cells in both["fields"].items():
+            if cells != [[sum(p[fld][s][d] for p in parts)
+                          for d in range(P)] for s in range(P)]:
+                fail(f"observatory: the tenant slices' {fld} do not sum to "
+                     f"the matrix over both tenants' communicators")
+        emit({"phase": "observatory_straggler", "ranks": P,
+              "late_rank": OBS_LATE_RANK, "late_ms": OBS_LATE_S * 1e3,
+              "late_calls": OBS_LATE_CALLS, "late_window_s": late_s,
+              "clean_p99_us": p99,
+              "clean_hist_us": {c["tenant"]: {k: v for k, v in
+                                              c["hist_us"].items() if v}
+                                for c in snap["tenant_calls"].values()},
+              "p99_ceiling_us": {t: OBS_P99_X * v for t, v in p99.items()},
+              "clean_verdicts": clean,
+              "slo": {t: {k: o[k] for k in ("verdict", "burn_fast",
+                                             "burn_slow", "budget_remaining",
+                                             "calls_fast", "bad_fast",
+                                             "p99_fast_us")}
+                      for t, o in verdicts.items()},
+              "sentinel_findings": [{k: f[k] for k in (
+                  "size_bucket", "axis", "live", "baseline", "ratio")}
+                  for f in findings],
+              "accl_health": health, "health_wait_s": health_wait_s,
+              "slo_endpoint_checks": slo_doc["checks"],
+              "attribution": {k: rows[0][k] for k in (
+                  "collective", "size_bucket", "episodes", "span_us",
+                  "phases_us", "phase_coverage", "dominant_straggler")},
+              "clock_skew_ns": report["clock_skew_ns"],
+              "slowest_link": list(slow),
+              "seek_wait_ms_to_late_rank": [
+                  m["fields"]["seek_wait_ns"][s][OBS_LATE_RANK] / 1e6
+                  for s in range(P)]})
+        OS.stop_sentinel()
+        OSLO.stop_slo()
+        OH.note_slow(reg, False)
+
+        # -- 4. device overlap and the fused-overlap sweep -----------------
+        OT.enable()
+        col.clear()
+        ring._DEVICE_TRACE = True
+        try:
+            traffic("train", 1)
+            hold("train")
+            traffic("train", 1, fused=True)
+            doc = col.to_perfetto()
+        finally:
+            ring._DEVICE_TRACE = False
+        hold("train", fused=True)
+        dov = OA.device_overlap(doc)["collectives"]
+        seq = min(dov[c]["exposed_fraction"]
+                  for c in ("reduce_scatter", "all_gather"))
+        fused = dov.get("fused_allreduce", {}).get("exposed_fraction")
+        if seq < 0.95 or fused is None or not fused < seq:
+            fail(f"observatory: device_overlap {dov} (sequential >= 0.95, "
+                 f"fused lower)")
+        emit({"phase": "observatory_device_overlap", "ranks": P,
+              "mib_per_rank": OBS_TENANTS["train"][0] * 4 / MIB,
+              "collectives": dov, "sequential_exposed": seq,
+              "fused_exposed": fused})
+        col.clear()
+        # the sweep's matmul chain, sized to the 2^24 allreduce: the
+        # allreduce host-staged as the sweep calls it, and the chain at a
+        # probe dimension on the 8 rank threads, scaled by the cube root
+        SW._run_once(world, "allreduce", 1 << OBS_SWEEP_POW, np.float32, 0)
+        t_ar = SW._run_once(world, "allreduce", 1 << OBS_SWEEP_POW,
+                            np.float32, 0)
+
+        def chain(d):
+            def body(accl, rank):
+                a = torch.full((d, d), (rank + 1) / d, device=dev)
+                for _ in range(2):
+                    a = torch.matmul(a, a) * (1.0 / d)
+                sync()
+            world.run(body)
+            t = time.perf_counter()
+            world.run(body)
+            return time.perf_counter() - t
+
+        t_probe = chain(OBS_MM_PROBE)
+        mm_dim = int(min(max(round(OBS_MM_PROBE * (t_ar / t_probe)
+                                   ** (1 / 3) / 256) * 256, 256), 12288))
+        t_mm = chain(mm_dim)
+        col.clear()
+        sweep_rows = SW.run_fused_overlap_sweep(world)
+        sweep_rows += SW.run_fused_overlap_sweep(
+            world, collectives=("allreduce",), count_pows=(OBS_SWEEP_POW,),
+            repetitions=1, mm_dim=mm_dim)
+        OT.disable()
+        col.clear()
+        for row in sweep_rows:
+            ex = row["exposed_wire_fraction"]
+            if not (row["duration_us"] > 0 and ex is not None
+                    and 0.0 <= ex <= 1.0):
+                fail(f"observatory: fused-overlap row {row}")
+            emit({"phase": "observatory_fused_sweep", "ranks": P, **row,
+                  **({"mm_dim": mm_dim} if row["count"]
+                     == 1 << OBS_SWEEP_POW else {})})
+        emit({"phase": "observatory_mm_dim", "mm_dim": mm_dim,
+              "allreduce_2_24_staged_s": t_ar,
+              f"chain_{OBS_MM_PROBE}_s": t_probe, "chain_s": t_mm})
+
+        # -- 5. the cost of it all, per driver call -------------------------
+        # a fresh registry: the armed sentinel and tracker sweep it every
+        # 100 ms, and re-armed each round they would log the straggled
+        # window's findings again
+        reg.reset()
+        os.environ.update({"ACCL_SLO_INTERVAL_MS": "100",
+                           "ACCL_SENTINEL_INTERVAL_MS": "100"})
+
+        def arm(on):
+            nonlocal sampler
+            if not on:
+                if sampler is not None:
+                    sampler.stop()
+                    sampler = None
+                OS.stop_sentinel()
+                OSLO.stop_slo()
+                return
+            if sampler is None:
+                sampler = new_sampler()
+            if OS.ensure_sentinel_from_env() is None \
+                    or OSLO.ensure_slo_from_env() is None:
+                fail("observatory: the overhead arm armed nothing")
+
+        over = {}
+        for count, iters in OBS_OVERHEAD:
+            pair = [(world.accls[r].create_buffer(count, np.float32),
+                     world.accls[r].create_buffer(count, np.float32))
+                    for r in range(P)]
+            for s, _o in pair:
+                s.dev.normal_(generator=gen)
+
+            def calls(accl, rank, cid):
+                s, o = pair[rank]
+                for _ in range(iters):
+                    accl.allreduce(s, o, count, ReduceFunction.SUM,
+                                   comm_id=cid, from_fpga=True, to_fpga=True)
+
+            us = {"on": [], "off": []}
+            for cid in (0, ids["serve"]):
+                world.run(calls, cid)
+            sync()
+            for i in range(OBS_OVERHEAD_ROUNDS):
+                for lane in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                    arm(lane == "on")
+                    cid = ids["serve"] if lane == "on" else 0
+                    t = time.perf_counter()
+                    world.run(calls, cid)
+                    sync()
+                    us[lane].append((time.perf_counter() - t) / iters * 1e6)
+            arm(False)
+            row = {"phase": "observatory_overhead", "ranks": P,
+                   "count": count, "mib_per_rank": count * 4 / MIB,
+                   "iters": iters,
+                   "us_per_call_on": statistics.median(us["on"]),
+                   "us_per_call_off": statistics.median(us["off"]),
+                   "rounds_us_on": us["on"], "rounds_us_off": us["off"],
+                   "spread_us_on": max(us["on"]) - min(us["on"]),
+                   "spread_us_off": max(us["off"]) - min(us["off"])}
+            row["on_minus_off_us"] = row["us_per_call_on"] \
+                - row["us_per_call_off"]
+            emit(row)
+            over[count] = row
+            del pair
+        out = {"overhead": over, "sweep": sweep_rows, "mm_dim": mm_dim}
+    finally:
+        if sampler is not None:
+            sampler.stop()
+        OS.stop_sentinel()
+        OSLO.stop_slo()
+        OH.stop_exporter()
+        OH.note_slow(reg, False)
+        ring._DEVICE_TRACE = False
+        OT.disable()
+        col.clear()
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+    out["launches"] = _ring_counts(ring)
+    out["seconds"] = time.perf_counter() - t_phase
+    if min(out["launches"].values()) < 1:
+        fail(f"observatory: a ring instantiation never launched "
+             f"{out['launches']}")
+    emit({"phase": "observatory_done", "seconds": out["seconds"],
+          "launches": out["launches"], "mm_dim": out["mm_dim"]})
+    return out
+
+
 #: the plan phase's collectives: (kind, elements per rank of the operand)
 PLAN_CASES = (("allreduce", 1024), ("allreduce", 1 << 20),
               ("reduce_scatter", 1 << 20), ("allgather", 1 << 20))
@@ -4469,6 +5005,9 @@ def main() -> int:
         observed_path(world, mp)
         dtr = device_trace(world, mp, ring)
         rows += time_stamp_kernels(ring, dtr["launches"], dtr["info"])
+        obs = observatory(world, ring, F)
+        for row in rows:
+            row["launches"] += obs["launches"].get(row["name"], 0)
         sweep_phase(world)
         callrate_phase()
     finally:

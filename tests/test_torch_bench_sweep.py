@@ -15,10 +15,12 @@ import torch
 from accl_tpu.backends.tpu import TpuWorld
 from accl_tpu.bench import sweep as jsweep
 from accl_tpu.observability import metrics as jmetrics
-from accl_tpu_torch import ACCLError, CudaWorld
+from accl_tpu.observability import trace as jtrace
+from accl_tpu_torch import ACCLError, CudaWorld, DataType, ReduceFunction
 from accl_tpu_torch.bench import callrate
 from accl_tpu_torch.bench import sweep as tsweep
 from accl_tpu_torch.observability import metrics as obs_metrics
+from accl_tpu_torch.observability import trace as obs_trace
 
 NR = 4
 TEST_LIMIT_S = 240
@@ -107,8 +109,65 @@ def test_compression_sweep_rows_match_reference(worlds):
 
 
 def test_fused_overlap_sweep_waits_for_attribution(worlds):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tsweep.run_fused_overlap_sweep(worlds[1])
+    """The fused-overlap A/B, now that the port has attribution: on
+    CudaWorld(2, cpu) at 2^10-2^11 elements its CSV columns and row keys
+    are the JAX sweep's (run on TpuWorld(4) at one cell per wire lane
+    and mode), the exposed fraction lies in [0, 1] and is 1 on the
+    sequential arm, and the fused lane's results on the sweep's operands
+    are bitwise the unfused lane's."""
+    tw = worlds[0]
+    jbuf, tbuf = io.StringIO(), io.StringIO()
+    try:
+        want = jsweep.run_fused_overlap_sweep(
+            tw, collectives=("allreduce",), count_pows=(10,),
+            repetitions=1, mm_dim=32, writer=jbuf)
+        with CudaWorld(2, device="cpu") as cw:
+            got = tsweep.run_fused_overlap_sweep(
+                cw, count_pows=(10, 11), repetitions=2, mm_dim=32,
+                writer=tbuf)
+            lanes = {}
+            for coll in ("allreduce", "reduce_scatter"):
+                for cd in (None, DataType.int8):
+                    for count in (1 << 10, 1 << 11):
+                        lanes[(coll, cd, count)] = cw.run(
+                            _fused_and_unfused(coll, cd, count, 2))
+    finally:
+        jtrace.disable()
+        obs_trace.disable()
+        obs_trace.collector().clear()
+    assert tbuf.getvalue().splitlines()[0] == jbuf.getvalue().splitlines()[0]
+    assert [list(r) for r in got[:1]] == [list(r) for r in want[:1]]
+    key = ("wire", "collective", "count", "bytes", "mode")
+    assert [tuple(r[k] for k in key) for r in got[:4]] == \
+        [tuple(r[k] for k in key) for r in want]
+    assert len(got) == 2 * 2 * 2 * 2
+    for r in got:
+        assert r["duration_us"] > 0
+        assert 0.0 <= r["exposed_wire_fraction"] <= 1.0
+        if r["mode"] == "sequential":
+            assert r["exposed_wire_fraction"] == 1.0
+    for cell, per_rank in lanes.items():
+        for unfused, fused in per_rank:
+            np.testing.assert_array_equal(fused, unfused, err_msg=str(cell))
+
+
+def _fused_and_unfused(coll, cd, count, P):
+    """A body that runs the sweep's call on its operands (rank + 1
+    everywhere) unfused and fused, and returns both results."""
+    def body(accl, rank):
+        out = []
+        data = np.full(count * (P if coll == "reduce_scatter" else 1),
+                       rank + 1, np.float32)
+        for fused in (False, True):
+            src = accl.create_buffer_like(data)
+            dst = accl.create_buffer(count, np.float32)
+            fn = (accl.allreduce if coll == "allreduce"
+                  else accl.reduce_scatter)
+            fn(src, dst, count, ReduceFunction.SUM, compress_dtype=cd,
+               fused=fused)
+            out.append(dst.host.copy())
+        return out
+    return body
 
 
 def test_platform_claim_never_falls_back():

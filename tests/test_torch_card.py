@@ -841,6 +841,88 @@ def test_driver_spans_in_order_at_4mib_on_card():
         assert s.nbytes == N * 4 and s.lane in ("leader", "executor")
 
 
+def test_tenant_link_matrix_on_card():
+    """Two tenants on CudaWorld(4) on the card, the ring lane on both
+    (threshold 0): each tenant's slice holds exactly its ring bytes,
+    rank r to rank r + 1, bitwise results, and the two slices sum to the
+    matrix over both tenants' communicators."""
+    from accl_tpu_torch import CudaWorld
+    from accl_tpu_torch.observability import telemetry as obs_tel
+
+    P, calls = 4, {"train": ((1 << 20) + 4 * 7, 2), "serve": (4096, 3)}
+    with CudaWorld(P) as world:
+        world.engine.ring_threshold_bytes = 0
+        g = torch.Generator(device="cuda").manual_seed(14)
+        bufs = {t: ([world.accls[r].create_buffer(N, np.float32)
+                     for r in range(P)],
+                    [world.accls[r].create_buffer(N, np.float32)
+                     for r in range(P)]) for t, (N, _k) in calls.items()}
+        for sends, _outs in bufs.values():
+            for b in sends:
+                b.dev.copy_(torch.randn(b.length, generator=g,
+                                        device="cuda"))
+
+        def body(a, r):
+            ids = {t: a.create_communicator(list(range(P)), tenant=t)
+                   for t in calls}
+            for t, (N, k) in calls.items():
+                for _ in range(k):
+                    a.allreduce(bufs[t][0][r], bufs[t][1][r], N,
+                                comm_id=ids[t], from_fpga=True,
+                                to_fpga=True)
+            return ids
+
+        ids = world.run(body)[0]
+        torch.cuda.synchronize()
+        for t, (sends, outs) in bufs.items():
+            want = tring.ring_all_reduce_segmented(
+                [b.dev for b in sends], "sum", plain=True)
+            for r in range(P):
+                assert torch.equal(outs[r].dev, want[r])
+        slices = {t: world.link_matrix(tenant=t) for t in calls}
+        both = obs_tel.link_matrix(world.link_stats(), nranks=P,
+                                   comms=set(ids.values()))
+    for t, (N, k) in calls.items():
+        per_link = k * (N * 4 * 2 * (P - 1) // P)
+        tx = slices[t]["fields"]["tx_bytes"]
+        for r in range(P):
+            for d in range(P):
+                assert tx[r][d] == (per_link if d == (r + 1) % P else 0)
+    for f, cells in both["fields"].items():
+        assert cells == [[slices["train"]["fields"][f][r][d]
+                          + slices["serve"]["fields"][f][r][d]
+                          for d in range(P)] for r in range(P)], f
+
+
+def test_device_overlap_over_stamp_rows_on_card(_devtrace):
+    """The ring kernels' landed stamp rows of a sequential allreduce read
+    as fully exposed; the fused lane's overlapped rows, as less."""
+    from accl_tpu_torch import CudaWorld
+    from accl_tpu_torch.observability import attribution as obs_attr
+    from accl_tpu_torch.observability import trace as obs_trace
+
+    P, N = 4, (1 << 20)
+    col = _devtrace(True)
+    obs_trace.enable()
+    try:
+        with CudaWorld(P) as world:
+            world.engine.ring_threshold_bytes = 0
+            bufs = [world.accls[r].create_buffer(N, np.float32)
+                    for r in range(P)]
+            for fused in (False, True):
+                world.run(lambda a, r: a.allreduce(
+                    bufs[r], bufs[r], N, from_fpga=True, to_fpga=True,
+                    fused=fused))
+            torch.cuda.synchronize()
+        rep = obs_attr.device_overlap(col.to_perfetto())["collectives"]
+    finally:
+        obs_trace.disable()
+    for coll in ("reduce_scatter", "all_gather"):
+        assert rep[coll]["exposed_fraction"] == 1.0
+        assert rep[coll]["ranks"] == P
+    assert rep["fused_allreduce"]["exposed_fraction"] < 1.0
+
+
 # ---------------------------------------------------------------------------
 # persistent plans, batched dispatch and the sanitizer on the card
 # ---------------------------------------------------------------------------

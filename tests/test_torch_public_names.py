@@ -38,12 +38,6 @@ MISSING = {
     ("", "RecoveryPolicy"): 8,
     ("", "RecoverySupervisor"): 8,
     ("", "RetryPolicy"): 8,
-    (".observability", "Baseline"): 6,
-    (".observability", "Sentinel"): 6,
-    (".observability", "TelemetrySampler"): 6,
-    (".observability", "ENGINE_STATS_FIELDS_V1"): 6,
-    (".observability", "attribute"): 6,
-    (".observability", "estimate_clock_skew"): 6,
 }
 
 
