@@ -15,8 +15,11 @@ hand-written CUDA flash-attention forward and backward kernels
 ``accl_tpu_torch.parallel``; persistent collective plans
 (``ACCL.capture_plan``, ``accl_tpu_torch.plans``), batched gang dispatch
 and the collective sanitizer (``accl_tpu_torch.analysis``,
-``ACCL_SANITIZE``).  It imports torch, numpy and the standard library
-only.
+``ACCL_SANITIZE``); fault tolerance (``accl_tpu_torch.resilience``:
+abort, shrink, grow, reset and the recovery supervisor, on ``CudaWorld``
+and on the native emulator's ``EmuWorld``, ``backends/emu.py``, which
+adds retransmission, seeded chaos and live joins).  It imports torch,
+numpy, ctypes and the standard library only.
 
     world = CudaWorld(8)            # on the card; CudaWorld(8, "cpu") for CPU
     world.run(fn)                   # fn(accl, rank) on one thread per rank
@@ -43,6 +46,13 @@ from .constants import (  # noqa: F401
     TuningKey,
 )
 from .request import Request  # noqa: F401
+from .resilience import (  # noqa: F401
+    ChaosPlan,
+    MembershipBoard,
+    RecoveryPolicy,
+    RecoverySupervisor,
+    RetryPolicy,
+)
 from .state import (  # noqa: F401
     adamw_state_from_optax,
     adamw_state_to_numpy,

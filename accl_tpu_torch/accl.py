@@ -33,11 +33,18 @@ collective sanitizer (``ACCL_SANITIZE``, analysis/sanitizer.py) checks
 each call before dispatch.  Each lane costs ``_execute`` one falsy read
 when off.
 
+Resilience (accl_tpu/accl.py:594-691, 858-904; resilience/): ``abort``
+fences a communicator (new calls on it fail fast, its pending requests
+complete with ``COMM_ABORTED``), ``shrink_communicator`` and
+``grow_communicator`` mint the recovered communicator,
+``reset_errors`` clears the fences after a classified fault, and
+``supervise`` (or ``ACCL_SUPERVISE=1`` at ``initialize``) arms the
+recovery supervisor.  Each marks its fence event in the flight recorder
+and fences the plans it touches.
+
 Left out of this port, and refused where a call asks for them: kernel
 streams (``stream_flags``).  Tuning tables (and the table route that
-arms ``fused``) and resilience (so no abort, shrink, grow or reset fence
-events reach the flight recorder, and no plan is fenced by one) are not
-part of it either.
+arms ``fused``) are not part of it either.
 """
 from __future__ import annotations
 
@@ -162,6 +169,14 @@ class ACCL:
         self._auto_rings: Optional[dict] = None
         self._auto_last = None
         self._auto_streak = 0
+        #: communicators this driver aborted: calls on them fail fast;
+        #: reset_errors clears them
+        self._aborted_comms: set = set()
+        #: the dead slots a joiner padded its id space with (elastic
+        #: join): calls on them fail fast
+        self._placeholder_comms: set = set()
+        #: the recovery supervisor (supervise(), ACCL_SUPERVISE=1)
+        self.supervisor = None
 
     # ------------------------------------------------------------------
     # bring-up (reference accl.cpp:1082-1130)
@@ -234,6 +249,10 @@ class ACCL:
         _health.ensure_exporter_from_env()
         _sentinel.ensure_sentinel_from_env()
         _slo.ensure_slo_from_env()
+        # ACCL_SUPERVISE=1 arms the recovery supervisor, which runs at
+        # loop level: the per-call path holds none of it
+        if os.environ.get("ACCL_SUPERVISE", "0") == "1":
+            self.supervisor = self.supervise()
 
     # ------------------------------------------------------------------
     # properties / config
@@ -462,6 +481,116 @@ class ACCL:
         self._last_request = req
         return req
 
+    # ------------------------------------------------------------------
+    # resilience (resilience/; accl_tpu/accl.py:594-691, 858-904)
+    # ------------------------------------------------------------------
+    def abort(self, comm_id: int = GLOBAL_COMM, error: int = 0) -> None:
+        """Abort a communicator (the ULFM revoke): every pending request
+        on it fails fast with ``COMM_ABORTED`` (OR ``error``, e.g.
+        ``RANK_FAILED``), on every rank where the backend has a control
+        plane; later calls on it fail at submit; its plans are fenced.
+        Recover with :meth:`shrink_communicator` (a dead peer),
+        :meth:`grow_communicator` or :meth:`reset_errors` (a transient
+        fault)."""
+        self.communicator(comm_id)  # raises the naming error on bad ids
+        err = int(error) | int(ErrorCode.COMM_ABORTED)
+        self._aborted_comms.add(comm_id)
+        _flight.mark_event(self.flight_recorder, "abort", comm_id, err)
+        self._invalidate_plans(comm_id, "communicator aborted")
+        if not self._device.abort_comm(comm_id, err):
+            # the backend cannot abort: fail this comm's pending async
+            # requests here so their waiters wake (a request with no
+            # flight record has no known comm, and fails too)
+            for ref in self._async_pending:
+                r = ref()
+                if r is not None and not r.done and \
+                        (r.flight is None or r.flight.comm == comm_id):
+                    r.complete(err)
+
+    def shrink_communicator(self, comm_id: int = GLOBAL_COMM,
+                            window_s: float = 1.0) -> int:
+        """ULFM shrink: agree on the live ranks of ``comm_id`` and mint a
+        communicator without the dead; returns its id.  Collective over
+        the survivors, in create order."""
+        from .resilience.membership import shrink as _shrink
+
+        new_id = _shrink(self, comm_id, window_s)
+        _flight.mark_event(self.flight_recorder, "shrink", comm_id)
+        self._fence_membership(comm_id, "communicator shrunk")
+        if _metrics.enabled():
+            _metrics.default_registry().inc("membership/shrinks")
+        return new_id
+
+    def grow_communicator(self, new_ranks, comm_id: int = GLOBAL_COMM,
+                          window_s: float = 1.0) -> int:
+        """Elastic grow: mint a communicator over the live members of
+        ``comm_id`` plus ``new_ranks`` (:class:`Rank` rows of joining
+        ranks); returns its id.  Collective over the survivors, in create
+        order; each joiner adopts the same table through
+        :func:`~accl_tpu_torch.resilience.elastic.join_grown_world`."""
+        from .resilience.elastic import grow as _grow
+
+        new_id = _grow(self, new_ranks, comm_id, window_s)
+        _flight.mark_event(self.flight_recorder, "grow", comm_id)
+        self._fence_membership(comm_id, "communicator grown")
+        return new_id
+
+    def _fence_membership(self, comm_id: int, reason: str) -> None:
+        """A membership change retires the captured world: fence the
+        driver's plans and the engine's on ``comm_id``."""
+        self._invalidate_plans(comm_id, reason)
+        inv = getattr(self._device, "invalidate_plans", None)
+        if inv is not None:
+            inv(comm_id)
+
+    def supervise(self, policy=None, board=None, registry=None):
+        """Arm and return this rank's recovery supervisor
+        (:class:`~accl_tpu_torch.resilience.RecoverySupervisor`; policy
+        from ``ACCL_RECOVERY``, ``ACCL_JOIN_WAIT_S`` and
+        ``ACCL_RECOVERY_MAX_ROUNDS`` unless given)."""
+        from .resilience.supervisor import RecoverySupervisor
+
+        self.supervisor = RecoverySupervisor(self, policy=policy,
+                                             board=board, registry=registry)
+        return self.supervisor
+
+    def _install_communicator(self, comm: Communicator) -> int:
+        """Append and upload a communicator built from explicit rows (the
+        grow and join paths); its id must be this rank's next slot."""
+        if comm.id != len(self._communicators):
+            raise ACCLError(
+                f"_install_communicator: comm id {comm.id} is not the "
+                f"next slot ({len(self._communicators)}) on this rank — "
+                f"the group's create/grow order has diverged")
+        self._device.upload_communicator(comm)
+        self._communicators.append(comm)
+        return comm.id
+
+    def _pad_communicators(self, count: int) -> None:
+        """Pad the comm-id space with placeholder slots up to ``count``
+        (the driver half of an elastic join)."""
+        while len(self._communicators) < count:
+            cid = len(self._communicators)
+            self._communicators.append(Communicator.placeholder(cid))
+            self._placeholder_comms.add(cid)
+
+    def reset_errors(self) -> None:
+        """Recover from a classified transient fault: resynchronize the
+        engine's sequence state, drain its transient state and clear the
+        abort fences.  Collective: every rank of a quiesced world calls
+        it.  Every plan is fenced (a world-state discontinuity)."""
+        self._aborted_comms.clear()
+        _flight.mark_event(self.flight_recorder, "reset_errors", -1)
+        self._invalidate_plans(None, "reset_errors")
+        self._device.reset_errors()
+
+    def resilience_stats(self) -> dict:
+        """The engine's recovery counters (retransmitted segments, NACKs
+        sent and received, epoch-fenced drops), or {} on a backend
+        without a retransmission lane."""
+        fn = getattr(self._device, "resilience_stats", None)
+        return fn() if fn is not None else {}
+
     def get_duration(self, request: Optional[Request] = None) -> float:
         """Duration in ns of a completed call (reference accl.cpp:1387)."""
         req = request or self._last_request
@@ -475,8 +604,17 @@ class ACCL:
     # ------------------------------------------------------------------
     # buffers
     # ------------------------------------------------------------------
-    def create_buffer(self, length: int, dtype=np.float32) -> BaseBuffer:
-        """A paired host + device buffer of ``length`` elements."""
+    def create_buffer(self, length: int, dtype=np.float32,
+                      host_only: bool = False) -> BaseBuffer:
+        """A paired host + device buffer of ``length`` elements; with
+        ``host_only`` its residence is the engine's host region where the
+        backend has one (the native emulator), else a plain buffer."""
+        if host_only:
+            try:
+                return self._device.create_buffer(length, np.dtype(dtype),
+                                                  host_only=True)
+            except TypeError:
+                pass  # no host region: a plain buffer below
         return self._device.create_buffer(length, np.dtype(dtype))
 
     def create_buffer_like(self, data: np.ndarray) -> BaseBuffer:
@@ -833,7 +971,15 @@ class ACCL:
         the flight recorder is on by default, so the no-observer path
         exists only under ACCL_FLIGHT=0, ACCL_METRICS=0 and no trace.
         The plan and sanitizer lanes sit where accl_tpu/accl.py:1625-1740
-        has them, each one falsy read when off."""
+        has them, each one falsy read when off, as are the abort and
+        placeholder fences (accl_tpu/accl.py:1585-1596)."""
+        if self._aborted_comms and call.comm in self._aborted_comms:
+            raise ACCLError(
+                f"{desc}: communicator {call.comm} is aborted "
+                f"(COMM_ABORTED) — shrink_communicator() or "
+                f"reset_errors() to recover", int(ErrorCode.COMM_ABORTED))
+        if self._placeholder_comms and call.comm in self._placeholder_comms:
+            self.communicator(call.comm)  # raises the naming ACCLError
         # plan auto-replay (ACCL_PLAN_AUTO): a call whose gang agreed to
         # arm a one-step ring replays through it.  The identity check is
         # sound because _build memoizes: a steady loop passes the SAME

@@ -45,6 +45,16 @@ class ArithConfig:
     def compression_ratio(self) -> int:
         return 1 << self.elem_ratio_log
 
+    def to_words(self) -> list[int]:
+        """The config as the native engine takes it (reference
+        common.cpp:50-73): the widths, ratio and lanes, then the block
+        and error-feedback words (accl_tpu/arithconfig.py:53-72)."""
+        return [self.uncompressed_elem_bits, self.compressed_elem_bits,
+                self.elem_ratio_log, self.compressor_tdest,
+                self.decompressor_tdest, int(self.arith_is_compressed),
+                len(self.arith_tdest), *self.arith_tdest, self.block,
+                int(self.error_feedback)]
+
 
 #: reduction lane ids, one per (dtype, function)
 ARITH_LANE = {

@@ -49,8 +49,18 @@ no read-after-write on a (rank, address), and runs them back to back
 under one claim (no fusion into one program, as JAX compiles them);
 ring-lane gangs and ``profile_sync`` never batch.
 
-Left out of this port: kernel streams and resilience.  A descriptor that
-asks for a stream is refused with an ACCLError.
+Resilience (tpu.py:883-987): ``abort_comm`` marks a communicator
+aborted (later submits, plan arms and replays on it are refused), bumps
+its fence generation, fences its plan rings and completes its partial
+gangs and pending receives with the abort bits; complete gangs already
+queued run to the end.  ``rebuild_gang_tables`` does the same drain for
+a grow, ``export_join_state`` and ``comm_count`` answer a joiner, and
+``reset_comm_errors`` clears the fences.  With
+``ACCL_WATCHDOG_ACTION=abort`` the watchdog aborts a hung communicator
+from a rank that arrived at its gang (``CudaWorld._watchdog_abort``).
+
+Left out of this port: kernel streams.  A descriptor that asks for a
+stream is refused with an ACCLError.
 """
 from __future__ import annotations
 
@@ -484,11 +494,13 @@ class CudaEngine:
         #: persistent-plan rings (pinned, outside the _gang_plans LRU),
         #: the arm board pairing concurrent per-rank arms into one ring,
         #: and the per-comm fence generation each ring snapshots at arm
-        #: (resilience bumps it; until then it stays 0)
+        #: (abort_comm and rebuild_gang_tables bump it)
         self._plan_rings: list = []
         self._plan_board: list = []
         self._plan_cv = threading.Condition()
         self._comm_gen: dict = {}
+        #: aborted communicator -> the abort bits its calls complete with
+        self._aborted_comms: dict = {}
         #: the dispatch-lane, batch and plan counters (tpu.py:314)
         self.metrics = _metrics.MetricsRegistry()
         for k in ("leader_dispatches", "executor_dispatches", "batches",
@@ -601,6 +613,13 @@ class CudaEngine:
         if scenario in (Operation.config, Operation.nop):
             request.complete(0, 0.0)
             return
+        # abort fence: a call on an aborted comm completes at once
+        # instead of assembling a gang that can never run
+        if self._aborted_comms:
+            err = self._aborted_comms.get(call.comm)
+            if err is not None:
+                request.complete(err, 0.0)
+                return
         span = request.trace
         rec = request.flight
         try:
@@ -1372,6 +1391,11 @@ class CudaEngine:
             members = self._comms.get(comm_id)
             if members is None:
                 raise ACCLError(f"plan arm: unknown communicator {comm_id}")
+            if comm_id in self._aborted_comms:
+                raise ACCLError(
+                    f"plan arm: communicator {comm_id} is aborted — "
+                    f"recover first, then capture",
+                    int(ErrorCode.COMM_ABORTED))
             comm_gens.setdefault(comm_id, self._comm_gen.get(comm_id, 0))
             return members
 
@@ -1562,15 +1586,16 @@ class CudaEngine:
                     f"plan replay: plan invalidated ({ring.invalid})",
                     int(ErrorCode.COMM_ABORTED))
         # epoch fence: the comm generations must still match the armed
-        # snapshot (tpu.py:1284-1296)
+        # snapshot, and no comm may be aborted (tpu.py:1284-1296)
         for comm_id, gen0 in ring.comm_gens.items():
-            if self._comm_gen.get(comm_id, 0) != gen0:
+            if self._comm_gen.get(comm_id, 0) != gen0 \
+                    or comm_id in self._aborted_comms:
                 self._invalidate_ring(
                     ring, f"communicator {comm_id} fenced since arm")
                 raise ACCLError(
                     f"plan replay: communicator {comm_id} was fenced "
-                    f"(epoch bump) since the plan was armed — re-capture "
-                    f"on the recovered communicator",
+                    f"(abort/epoch bump) since the plan was armed — "
+                    f"re-capture on the recovered communicator",
                     int(ErrorCode.COMM_ABORTED))
         # claim the engine's one-program-at-a-time slot, as the leader
         # and executor lanes do
@@ -1682,15 +1707,94 @@ class CudaEngine:
         except Exception as e:
             self._log.warning("plan auto-capture failed: %s", e)
 
+    # -- resilience (tpu.py:883-987) -------------------------------------
+    def _drain_comm(self, comm_id: int) -> tuple:
+        """Under the lock: pop every partial gang and p2p entry of
+        ``comm_id`` and its cached gang plans, bump its fence generation.
+        Returns (entries evicted, requests to complete)."""
+        self._comm_gen[comm_id] = self._comm_gen.get(comm_id, 0) + 1
+        evicted, drained = 0, []
+        for key in [k for k in self._gangs
+                    if (k[0] == "coll" and k[2] == comm_id)
+                    or (k[0] == "p2p" and k[1] == comm_id)]:
+            for entry in self._gangs.pop(key):
+                evicted += 1
+                if key[0] == "coll":  # rank -> (call, request)
+                    drained.extend(req for _c, req in entry.values())
+                elif entry[0] == "recv":  # ("recv", tag, (rank, call, req))
+                    drained.append(entry[2][2])
+        for sig in [sig for sig in self._gang_plans if sig[1] == comm_id]:
+            del self._gang_plans[sig]
+            evicted += 1
+        return evicted, drained
+
+    def abort_comm(self, comm_id: int, err_bits: int) -> bool:
+        """Abort ``comm_id``: later submits on it complete with
+        ``err_bits``, its rings are fenced, and its partial gangs and
+        pending receives complete with ``err_bits`` now, so every blocked
+        waiter wakes.  A gang that is complete runs to the end (it has
+        every member); a partial one never launched anything."""
+        with self._lock:
+            self._aborted_comms[comm_id] = err_bits
+            _n, drained = self._drain_comm(comm_id)
+        self.invalidate_rings(comm_id, "communicator aborted")
+        for req in drained:
+            if not req.done:
+                req.complete(err_bits, 0.0)
+        return True
+
+    def comm_count(self) -> int:
+        """Comm slots the engine knows: a joiner pads its driver's table
+        to this before the grown comm is uploaded."""
+        with self._lock:
+            return (max(self._comms) + 1) if self._comms else 0
+
+    def export_join_state(self, comm_id: int = 0) -> dict:
+        """The sponsor's state for an in-process joiner: the comm-slot
+        count, the abort fences and the members of ``comm_id`` (the
+        engine is the control plane, so the wire exchange of the native
+        emulator collapses to this dict)."""
+        with self._lock:
+            return {"comm_count": (max(self._comms) + 1) if self._comms
+                    else 0,
+                    "aborted": dict(self._aborted_comms),
+                    "members": list(self._comms.get(comm_id, []))}
+
+    def rebuild_gang_tables(self, comm_id: int) -> int:
+        """Drop every partial gang, pending receive and cached gang plan
+        of ``comm_id`` (the grow path: a successor must assemble against
+        a clean table) and fence its rings; returns how many entries went.
+        Their requests complete with the comm's abort bits
+        (``COMM_ABORTED`` when it was never aborted)."""
+        with self._lock:
+            err = self._aborted_comms.get(comm_id,
+                                          int(ErrorCode.COMM_ABORTED))
+            evicted, drained = self._drain_comm(comm_id)
+        self.invalidate_rings(comm_id, "gang tables rebuilt (grow)")
+        for req in drained:
+            if not req.done:
+                req.complete(err, 0.0)
+        return evicted
+
+    def reset_comm_errors(self) -> None:
+        """Clear the abort fences (the driver's reset_errors) and fence
+        every ring: a healed world re-captures."""
+        with self._lock:
+            self._aborted_comms.clear()
+        self.invalidate_rings(None, "reset_errors")
+
     # -- hang diagnosis (tpu.py:1441-1492) -------------------------------
-    def start_watchdog(self, recorders) -> Optional[_health.Watchdog]:
+    def start_watchdog(self, recorders, abort_hook=None
+                       ) -> Optional[_health.Watchdog]:
         """Arm the hang watchdog over the world's flight recorders
         (``ACCL_WATCHDOG_TIMEOUT`` seconds; 0 disables); a fire report
-        embeds :meth:`gang_assembly_snapshot`."""
+        embeds :meth:`gang_assembly_snapshot`, and under
+        ``ACCL_WATCHDOG_ACTION=abort`` ``abort_hook(comm, report)`` aborts
+        the hung communicator."""
         if self._watchdog is None:
             self._watchdog = _health.Watchdog(
                 recorders, introspect=self.gang_assembly_snapshot,
-                name="accl-cuda").start()
+                name="accl-cuda", abort_hook=abort_hook).start()
         return self._watchdog
 
     def gang_assembly_snapshot(self) -> list:
@@ -1777,6 +1881,28 @@ class CudaDeviceView(CCLODevice):
     def plan_release(self, ring: PlanRing) -> None:
         """Release a dead plan's ring (the plan's finalizer)."""
         self._engine.release_ring(ring)
+
+    # -- resilience: the ranks share one engine, so one abort covers the
+    # world with no propagation (tpu.py:2440-2477)
+    def abort_comm(self, comm_id: int, err_bits: int) -> bool:
+        return self._engine.abort_comm(comm_id, err_bits)
+
+    def join_sync(self, sponsor_session: int, timeout_s: float = 10.0) -> int:
+        """In-process join: the engine is the control plane, so the
+        sponsor cannot be deaf and epochs are already shared (0)."""
+        return 0
+
+    def comm_count(self) -> int:
+        return self._engine.comm_count()
+
+    def export_join_state(self, comm_id: int = 0) -> dict:
+        return self._engine.export_join_state(comm_id)
+
+    def rebuild_gang_tables(self, comm_id: int) -> int:
+        return self._engine.rebuild_gang_tables(comm_id)
+
+    def reset_errors(self) -> None:
+        self._engine.reset_comm_errors()
 
     @property
     def engine_metrics(self) -> _metrics.MetricsRegistry:
@@ -1872,7 +1998,8 @@ class CudaWorld:
         # ACCL_WATCHDOG_TIMEOUT=0 or ACCL_FLIGHT=0)
         self.engine.start_watchdog(
             [a.flight_recorder for a in self.accls
-             if a.flight_recorder is not None])
+             if a.flight_recorder is not None],
+            abort_hook=self._watchdog_abort)
         # the telemetry sampler (none under ACCL_TELEMETRY_INTERVAL_MS=0,
         # the default): the shared engine is one stats source, so rank
         # 0's view is polled alone; every rank's link rows are
@@ -1891,6 +2018,20 @@ class CudaWorld:
         if self.engine.device.type == "cuda":
             torch.cuda.set_device(self.engine.device)
         return fn(accl, rank, *args)
+
+    def _watchdog_abort(self, comm_id: int, report: dict) -> None:
+        """The ``ACCL_WATCHDOG_ACTION=abort`` hook (accl_tpu/backends/
+        emu.py:1030-1049): abort the hung comm with RANK_FAILED from a
+        rank that arrived at its stuck gang."""
+        hangs = report.get("analysis", {}).get("hangs", [])
+        arrived = next((h["arrived"] for h in hangs
+                        if h.get("comm") == comm_id), [])
+        for r in list(arrived) or list(range(self.nranks)):
+            try:
+                self.accls[r].abort(comm_id, error=int(ErrorCode.RANK_FAILED))
+                return
+            except Exception:  # noqa: BLE001 — try the next arrived rank
+                continue
 
     def link_stats(self) -> dict:
         """rank -> that rank's link rows (the engine's link twin)."""

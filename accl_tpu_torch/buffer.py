@@ -1,7 +1,8 @@
 """Buffer hierarchy: paired host/device storage with sync and slicing
 (reference driver/xrt/include/accl/buffer.hpp:32-226).  The port's own
-copy of ``accl_tpu/buffer.py:27-142``; the device-backed buffer lives in
-backends/cuda.py."""
+copy of ``accl_tpu/buffer.py:27-211``: the card's buffer lives in
+backends/cuda.py, the native emulator's here (:class:`EmuBuffer`,
+:class:`EmuBufferP2P`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -98,3 +99,53 @@ class DummyBuffer(BaseBuffer):
 
     def slice(self, start: int, end: int) -> "DummyBuffer":
         return self
+
+
+class EmuBuffer(BaseBuffer):
+    """A host numpy array mirrored into one rank's memory of the native
+    emulator (backends/emu.py).  The syncs copy bytes across ctypes, as
+    the reference SimBuffer's memory reads and writes do (simbuffer.hpp)."""
+
+    def __init__(self, host: np.ndarray, device, address: int,
+                 owner: bool = True, host_only: bool = False):
+        super().__init__(host, address)
+        self._device = device
+        self._owner = owner
+        self._host_only = host_only
+
+    @property
+    def is_host_only(self) -> bool:
+        return self._host_only
+
+    def sync_to_device(self) -> None:
+        self._device.write_mem(self._address, self._host.tobytes())
+
+    def sync_from_device(self) -> None:
+        raw = self._device.read_mem(self._address, self.size)
+        self._host[:] = np.frombuffer(raw, dtype=self._host.dtype)
+
+    def slice(self, start: int, end: int) -> "EmuBuffer":
+        return type(self)(self._host[start:end], self._device,
+                          self._address + start * self._host.itemsize,
+                          owner=False, host_only=self._host_only)
+
+    def free(self) -> None:
+        if self._owner:
+            self._device.free_mem(self._address)
+
+
+class EmuBufferP2P(EmuBuffer):
+    """A peer-addressable emulator buffer (reference FPGABufferP2P): the
+    host array is a view of the engine's memory itself, so the syncs do
+    nothing, and an in-process peer's rendezvous write lands in it
+    without the wire."""
+
+    def sync_to_device(self) -> None:
+        pass
+
+    def sync_from_device(self) -> None:
+        pass
+
+    def free(self) -> None:
+        if self._owner:
+            self._device.free_mem_p2p(self._address)

@@ -69,6 +69,15 @@ class Communicator:
     def size(self) -> int:
         return len(self._ranks)
 
+    def to_words(self) -> list[int]:
+        """The table as the native engine takes it: [size, local_rank,
+        then per rank ip (u32), port, session, max_segment_size]
+        (accl_tpu/communicator.py:95-106)."""
+        words = [self.size, self.local_rank]
+        for r in self._ranks:
+            words += [_ip_encode(r.ip), r.port, r.session, r.max_segment_size]
+        return words
+
     def split(self, indices: Sequence[int], comm_id: int) -> "Communicator":
         """Sub-communicator over a subset of ranks that holds the local
         rank (reference accl.cpp:971-978)."""
@@ -95,3 +104,14 @@ class Communicator:
         ten = f", tenant={self.tenant!r}" if self.tenant is not None else ""
         return (f"Communicator(id={self._id}, size={self.size}, "
                 f"local_rank={self._local_rank}{ten})")
+
+
+def _ip_encode(ip: str) -> int:
+    """Dotted quad to u32 (reference common.cpp:75-90); 0 if malformed."""
+    parts = ip.split(".")
+    if len(parts) != 4:
+        return 0
+    val = 0
+    for p in parts:
+        val = (val << 8) | (int(p) & 0xFF)
+    return val

@@ -175,11 +175,21 @@ class TuningKey(enum.IntEnum):
 
 TUNING_KEY_NAMES = {int(k): k.name for k in TuningKey}
 
+#: the keys the native emulator engine implements (engine.hpp TuningKey
+#: 0..5): it has no ring crossover and rejects RING_THRESHOLD_BYTES
+EMU_TUNING_KEYS = frozenset(
+    int(k) for k in TuningKey if k != TuningKey.RING_THRESHOLD_BYTES)
 
-def unknown_tuning_key_error(key: int) -> "ACCLError":
-    names = ", ".join(f"{k}={v}" for k, v in sorted(TUNING_KEY_NAMES.items()))
-    return ACCLError(f"set_tuning: unknown tuning key {key!r} — known keys: "
-                     f"{names}")
+
+def unknown_tuning_key_error(key: int, known=None,
+                             backend: str = "") -> "ACCLError":
+    """The rejection of a tuning key: names the key and the known keys
+    (``known``, default every key; ``backend`` names the one refusing)."""
+    known = TUNING_KEY_NAMES if known is None else known
+    names = ", ".join(f"{k}={TUNING_KEY_NAMES[k]}" for k in sorted(known))
+    where = f" for the {backend} backend" if backend else ""
+    return ACCLError(f"set_tuning: unknown tuning key {key!r}{where} — "
+                     f"known keys: {names}")
 
 
 class OperationStatus(enum.IntEnum):

@@ -321,6 +321,13 @@ class CollectivePlan:
                 f"plan replay: plan invalidated ({self._invalid}) — "
                 f"re-capture the plan on the recovered communicator",
                 int(ErrorCode.COMM_ABORTED))
+        if accl._aborted_comms and (self.comms & accl._aborted_comms):
+            self._invalidate("communicator aborted")
+            raise ACCLError(
+                f"plan replay: communicator(s) "
+                f"{sorted(self.comms & accl._aborted_comms)} aborted "
+                f"(COMM_ABORTED) — shrink/reset and re-capture",
+                int(ErrorCode.COMM_ABORTED))
         for buf, count in self._staged_in:
             buf.slice(0, count).sync_to_device()
         rec = None

@@ -14,7 +14,7 @@ import os
 import threading
 from typing import Callable, Optional
 
-from .constants import ACCLError, OperationStatus, error_code_to_str
+from .constants import ACCLError, ErrorCode, OperationStatus, error_code_to_str
 from .observability import flight as _flight
 from .observability import trace as _trace
 
@@ -151,6 +151,12 @@ class Request:
     @property
     def done(self) -> bool:
         return self._done.is_set()
+
+    @property
+    def aborted(self) -> bool:
+        """True when a communicator abort finalized this call
+        (COMM_ABORTED in its retcode, accl_tpu/request.py:206-213)."""
+        return self.done and bool(self.retcode & int(ErrorCode.COMM_ABORTED))
 
     def __repr__(self) -> str:
         return (f"Request(id={self.id}, {self.description!r}, "

@@ -277,6 +277,26 @@ Phases, each fatal on failure:
      elements with the sampler, sentinel, SLO tracker and tenant labels
      on against off, in alternating rounds.  Its ring launches join the
      kernels line;
+  7c. resilience on the card (phase resilience_path), on a fresh
+     CudaWorld(8) at 64 MiB per rank: a comm of ranks 0-6 (P = 7) runs an
+     allreduce and a reduce-scatter of 16,777,216 elements through the
+     ring kernels, bitwise their plain composition and within the fp32
+     summation bound (P - 1) 2^-24 sum|x| of float64; a partial gang and
+     a pending receive drained by rebuild_gang_tables, then by
+     abort(RANK_FAILED) (the ms from the abort to the last woken
+     waiter); the captured plan's replay raises and launches nothing;
+     rank 7 joins and the survivors grow the comm to P = 8, whose
+     allreduce launches both kernels bitwise (the ms from the abort to
+     its completion); reset_errors, a 4 MiB allreduce on comm 0, and an
+     allreduce on the comm shrink_communicator(0) mints; the device ms
+     of the P = 7 and P = 8 rings.  Its launches join the kernels line;
+  7d. the native emulator (phase emu_world): native/libacclemu.so built
+     on this machine beside the nvcc builds, EmuWorld(4) against
+     CudaWorld(4) on the card at 1 and 8 MiB per rank (allreduce,
+     allgather, reduce_scatter; int32 and the fp32 gather bitwise, each
+     fp32 sum within (P - 1) 2^-24 sum|x| of float64); CudaWorld's ring
+     launches at
+     8 MiB join the kernels line;
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -4594,6 +4614,454 @@ def observatory(world, ring, F) -> dict:
     return out
 
 
+#: the resilience phase's payload per rank: the main path's large
+#: allreduce, 64 MiB of fp32 (a count 7 does not divide), and the 4 MiB
+#: allreduce on comm 0 after reset_errors
+RES_N = 16_777_216
+RES_SMALL = 1 << 20
+
+
+def sum_ref_bound(xs, P_):
+    """float64 sum over the ranks' operands and the fp32 summation bound
+    (P - 1) 2^-24 sum_r |x_r| that every fold order stays within."""
+    ref = absum = None
+    for x in xs:
+        xd = x.double()
+        ref = xd.clone() if ref is None else ref.add_(xd)
+        absum = xd.abs() if absum is None else absum.add_(xd.abs())
+    return ref, absum.mul_((P_ - 1) * 2.0 ** -24)
+
+
+def _launched(ring, before) -> tuple:
+    return (ring.ring_reduce_scatter.launches - before[0],
+            ring.ring_all_gather.launches - before[1])
+
+
+def _counts(ring) -> tuple:
+    return ring.ring_reduce_scatter.launches, ring.ring_all_gather.launches
+
+
+def resilience_path(ring, CudaWorld) -> dict:
+    """Phase 7c: resilience on the card, on a fresh CudaWorld(8) at the
+    main path's 64 MiB per rank, each step fatal:
+    1. ranks 0-6 make comm 1 (P = 7): an allreduce and a reduce-scatter
+       of RES_N elements (7 does not divide it) on the ring lane, bitwise
+       the plain ring composition and within the fp32 summation bound of
+       float64; a plan of the allreduce captured;
+    2. rank 1's allreduce on comm 1 alone (a partial gang) and rank 2's
+       receive nobody sends: export_join_state(1), then
+       rebuild_gang_tables(1) drains them (both wake aborted); the same
+       pair again, then rank 0 aborts comm 1 with RANK_FAILED: both wake
+       aborted, the abort-to-last-wake ms printed;
+    3. every rank's plan replay raises COMM_ABORTED and the ring kernels
+       launch nothing;
+    4. rank 7 joins (join_sync, _pad_communicators), ranks 0-6 grow comm
+       1 into comm 2 (P = 8), whose RES_N allreduce launches both ring
+       kernels, bitwise its plain version: the abort-to-recovered-
+       allreduce ms printed;
+    5. reset_errors on every rank, a 4 MiB allreduce on comm 0, then
+       shrink_communicator(0) (every rank alive: CudaWorld has no
+       liveness plane) and a RES_N allreduce on the shrunk comm, bitwise;
+    6. the launch counts of 1-5, set to 0 just before and read just
+       after, which join rows 1 and 2 of the kernels line.
+    The device ms of the P = 7 and P = 8 rings at RES_N come after, by
+    split_ms, outside the counts."""
+    import threading
+
+    from accl_tpu_torch import ACCLError, ReduceFunction
+    from accl_tpu_torch.communicator import Communicator, Rank
+    from accl_tpu_torch.constants import ErrorCode
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    aborted = int(ErrorCode.COMM_ABORTED)
+    members = list(range(P - 1))
+    joiner = P - 1
+    barrier = threading.Barrier(P, timeout=60)
+    out = {}
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+        fn.launches = fn.launches_stamp = 0
+    with CudaWorld(P) as world:
+        accls = world.accls
+
+        def bufs(ranks, n):
+            return {r: accls[r].create_buffer(n, np.float32) for r in ranks}
+
+        def check(what, outs, want, ranks):
+            for r in ranks:
+                if not torch.equal(outs[r].dev, want[r]):
+                    fail(f"resilience: {what}: rank {r} is not bitwise the "
+                         f"plain ring (max abs err "
+                         f"{max_err(outs[r].dev, want[r])})")
+                if not torch.isfinite(outs[r].dev).all():
+                    fail(f"resilience: {what}: non-finite output")
+
+        # -- 1. the ring of 7 --------------------------------------------
+        ids = world.run(lambda a, r: a.create_communicator(members)
+                        if r in members else None)
+        if ids[:-1] != [1] * (P - 1):
+            fail(f"resilience: comm ids {ids}")
+        sends, ar_out = bufs(members, RES_N), bufs(members, RES_N)
+        rs_cnt = RES_N // (P - 1)
+        rs_out = bufs(members, rs_cnt)
+        fill(sends.values(), gen)
+        xs = [sends[r].dev for r in members]
+
+        def ar7(a, r):
+            a.allreduce(sends[r], ar_out[r], RES_N, comm_id=1,
+                        from_fpga=True, to_fpga=True)
+
+        before = _counts(ring)
+        world.run(lambda a, r: ar7(a, r) if r in members else None)
+        torch.cuda.synchronize()
+        ar7_launches = _launched(ring, before)
+        check("P = 7 allreduce", ar_out,
+              ring.ring_all_reduce_segmented(xs, "sum", plain=True), members)
+        ref, bound = sum_ref_bound(xs, P - 1)
+        for r in members:
+            if not within_bound(ar_out[r].dev, ref, bound):
+                fail(f"resilience: P = 7 allreduce rank {r} outside the "
+                     f"fp32 summation bound (max abs err "
+                     f"{max_err(ar_out[r].dev, ref)})")
+        before = _counts(ring)
+        world.run(lambda a, r: a.reduce_scatter(
+            sends[r], rs_out[r], rs_cnt, ReduceFunction.SUM, comm_id=1,
+            from_fpga=True, to_fpga=True) if r in members else None)
+        torch.cuda.synchronize()
+        rs7_launches = _launched(ring, before)
+        head = [x[:rs_cnt * (P - 1)] for x in xs]
+        want_rs = ring.ring_reduce_scatter_segmented(head, "sum", plain=True)
+        check("P = 7 reduce-scatter", rs_out, want_rs, members)
+        rs_err = 0.0
+        for r in members:
+            lo = r * rs_cnt
+            if not within_bound(rs_out[r].dev, ref[lo:lo + rs_cnt],
+                                bound[lo:lo + rs_cnt]):
+                fail(f"resilience: P = 7 reduce-scatter rank {r} outside "
+                     f"the fp32 summation bound")
+            rs_err = max(rs_err, max_err(rs_out[r].dev, ref[lo:lo + rs_cnt]))
+        ar_err = max(max_err(ar_out[r].dev, ref) for r in members)
+        del ref, bound, want_rs
+        if ar7_launches != (1, 1) or rs7_launches != (1, 0):
+            fail(f"resilience: P = 7 launches {ar7_launches} (allreduce), "
+                 f"{rs7_launches} (reduce-scatter)")
+        plans = world.run(lambda a, r: a.capture_plan(
+            lambda a2: ar7(a2, r), validate=True, timeout_s=60)
+            if r in members else None)
+        torch.cuda.synchronize()
+        # the grown comm's operands exist before the failure, as an
+        # application's buffers would
+        g_send, g_out = bufs(range(P), RES_N), bufs(range(P), RES_N)
+        fill(g_send.values(), gen)
+        torch.cuda.synchronize()
+
+        # -- 2. partial gang and pending receive: rebuild, then abort -----
+        st = world.devices[0].export_join_state(1)
+        if st["comm_count"] != 2 or st["members"] != members:
+            fail(f"resilience: export_join_state(1) = {st}")
+        rbuf = accls[2].create_buffer(1024, np.float32)
+
+        def strand(a, r):
+            if r == 1:
+                return a.allreduce(sends[1], ar_out[1], RES_N, comm_id=1,
+                                   from_fpga=True, to_fpga=True,
+                                   run_async=True)
+            if r == 2:
+                return a.recv(rbuf, 1024, 0, tag=77, comm_id=1,
+                              run_async=True, to_fpga=True)
+            return None
+
+        before = _counts(ring)
+        reqs = world.run(strand)
+        evicted = world.devices[0].rebuild_gang_tables(1)
+        for r in (1, 2):
+            if not reqs[r].wait(30) or not reqs[r].aborted:
+                fail(f"resilience: rank {r}'s request did not wake aborted "
+                     f"after rebuild_gang_tables")
+        if evicted < 2:
+            fail(f"resilience: rebuild_gang_tables(1) evicted {evicted}")
+        ready = threading.Barrier(3, timeout=60)
+
+        def abort_round(a, r):
+            if r in (1, 2):
+                req = strand(a, r)
+                ready.wait()
+                ok = req.wait(30)
+                return time.perf_counter(), ok and req.aborted, req.retcode
+            if r == 0:
+                ready.wait()
+                time.sleep(0.05)  # both waiters are parked in wait()
+                t = time.perf_counter()
+                a.abort(1, error=int(ErrorCode.RANK_FAILED))
+                return t
+            return None
+
+        woke = world.run(abort_round)
+        t_abort = woke[0]
+        for r in (1, 2):
+            if not woke[r][1] or not woke[r][2] & int(ErrorCode.RANK_FAILED):
+                fail(f"resilience: rank {r} did not wake aborted with "
+                     f"RANK_FAILED (retcode {woke[r][2]:#x})")
+        wake_ms = (max(woke[1][0], woke[2][0]) - t_abort) * 1e3
+
+        # -- 3. the fenced plan ------------------------------------------
+        def replay(a, r):
+            if r not in members:
+                return True
+            try:
+                plans[r].replay()
+            except ACCLError as e:
+                return bool(e.code & aborted)
+            return False
+
+        if not all(world.run(replay)):
+            fail("resilience: a plan replay after the abort did not raise "
+                 "COMM_ABORTED")
+        if _launched(ring, before) != (0, 0):
+            fail(f"resilience: the fenced replays and stranded calls "
+                 f"launched {_launched(ring, before)}")
+
+        # -- 4. join and grow to P = 8 -----------------------------------
+        new_row = Rank(ip="127.0.0.1", port=0, session=joiner)
+
+        def join_grow(a, r):
+            if r == joiner:
+                if a.device.join_sync(0) != 0:
+                    fail("resilience: join_sync")
+                a._pad_communicators(a.device.comm_count())
+            barrier.wait()
+            if r != joiner:
+                gid = a.grow_communicator([new_row], comm_id=1,
+                                          window_s=0.1)
+            else:
+                rows = [Rank(ip="127.0.0.1", port=0, session=i)
+                        for i in members] + [new_row]
+                gid = a._install_communicator(
+                    Communicator(rows, joiner, comm_id=2))
+            a.allreduce(g_send[r], g_out[r], RES_N, comm_id=gid,
+                        from_fpga=True, to_fpga=True)
+            return gid
+
+        before = _counts(ring)
+        gids = world.run(join_grow)
+        torch.cuda.synchronize()
+        recover_ms = (time.perf_counter() - t_abort) * 1e3
+        grow_launches = _launched(ring, before)
+        if gids != [2] * P or grow_launches != (1, 1):
+            fail(f"resilience: grown comm ids {gids}, launches "
+                 f"{grow_launches}")
+        xs8 = [g_send[r].dev for r in range(P)]
+        check("grown P = 8 allreduce", g_out,
+              ring.ring_all_reduce_segmented(xs8, "sum", plain=True),
+              range(P))
+
+        # -- 5. reset_errors, comm 0, shrink -----------------------------
+        world.run(lambda a, r: a.reset_errors())
+        small_s, small_o = bufs(range(P), RES_SMALL), bufs(range(P),
+                                                           RES_SMALL)
+        fill(small_s.values(), gen)
+        before = _counts(ring)
+        world.run(lambda a, r: a.allreduce(small_s[r], small_o[r], RES_SMALL,
+                                           from_fpga=True, to_fpga=True))
+        torch.cuda.synchronize()
+        reset_launches = _launched(ring, before)
+        check("4 MiB allreduce after reset_errors", small_o,
+              ring.ring_all_reduce_segmented([small_s[r].dev
+                                              for r in range(P)], "sum",
+                                             plain=True), range(P))
+        fill(g_send.values(), gen)
+        before = _counts(ring)
+
+        def shrink(a, r):
+            sid = a.shrink_communicator(0, window_s=0.1)
+            a.allreduce(g_send[r], g_out[r], RES_N, comm_id=sid,
+                        from_fpga=True, to_fpga=True)
+            return sid, a.communicator(sid).size
+
+        sids = world.run(shrink)
+        torch.cuda.synchronize()
+        shrink_launches = _launched(ring, before)
+        if sids != [(3, P)] * P or reset_launches != (1, 1) \
+                or shrink_launches != (1, 1):
+            fail(f"resilience: shrunk comms {sids}, launches "
+                 f"{reset_launches} (reset) {shrink_launches} (shrink)")
+        check("shrunk comm allreduce", g_out,
+              ring.ring_all_reduce_segmented(xs8, "sum", plain=True),
+              range(P))
+        out["launches"] = {"ring_reduce_scatter":
+                           ring.ring_reduce_scatter.launches,
+                           "ring_all_gather": ring.ring_all_gather.launches}
+        # -- the rings of 7 and 8 on the card (outside the counts) -------
+        ms7 = split_ms(lambda: ring.ring_all_reduce_segmented(
+            xs, "sum", out=[ar_out[r].dev for r in members]), iters=5)
+        ms8 = split_ms(lambda: ring.ring_all_reduce_segmented(
+            xs8, "sum", out=[g_out[r].dev for r in range(P)]), iters=5)
+        del plans
+    out.update(abort_wake_ms=wake_ms, abort_to_recovered_ms=recover_ms,
+               p7_device_ms=ms7["device_ms"], p8_device_ms=ms8["device_ms"],
+               seconds=time.perf_counter() - t_phase)
+    emit({"phase": "resilience_path", "ranks": P, "count": RES_N,
+          "mib_per_rank": RES_N * 4 / MIB, "card": card_line(),
+          "p7_allreduce_launches": list(ar7_launches),
+          "p7_reduce_scatter_launches": list(rs7_launches),
+          "p7_allreduce_max_abs_err_vs_f64": ar_err,
+          "p7_reduce_scatter_max_abs_err_vs_f64": rs_err,
+          "rebuild_evicted": evicted, "abort_wake_ms": wake_ms,
+          "abort_to_recovered_allreduce_ms": recover_ms,
+          "grown_allreduce_launches": list(grow_launches),
+          "after_reset_launches": list(reset_launches),
+          "shrunk_allreduce_launches": list(shrink_launches),
+          "p7_ring_device_ms": ms7["device_ms"],
+          "p7_ring_host_enqueue_ms": ms7["host_enqueue_ms"],
+          "p8_ring_device_ms": ms8["device_ms"],
+          "p8_ring_host_enqueue_ms": ms8["host_enqueue_ms"],
+          "launches": out["launches"], "seconds": out["seconds"]})
+    return out
+
+
+#: the emulator phase: ranks, and MiB per rank of each collective
+EMU_RANKS = 4
+EMU_MIB = (1, 8)
+
+
+def native_build_thread():
+    """Build (or find fresh) native/libacclemu.so on a thread of its own,
+    beside the kernels' nvcc builds; emu_world joins it and fails on its
+    error."""
+    import threading
+
+    from accl_tpu_torch.backends import emu as EMU
+
+    state = {"error": None, "seconds": None}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            EMU.load_lib()
+        except Exception as e:  # noqa: BLE001 — emu_world fails on it
+            state["error"] = e
+        state["seconds"] = time.perf_counter() - t
+
+    th = threading.Thread(target=run, name="native-build", daemon=True)
+    th.start()
+    state["thread"] = th
+    return state
+
+
+def emu_world(ring, CudaWorld, native) -> dict:
+    """Phase 7d: the port's EmuWorld(4) on the native engine (built from
+    native/ on this machine) against CudaWorld(4) on the card: allreduce,
+    allgather and reduce_scatter at 1 and 8 MiB per rank, int32 and fp32
+    SUM, from one numpy seed.  int32 results and the fp32 all-gather are
+    bitwise; fp32 sums differ by fold order: each is held within
+    (P - 1) 2^-24 sum_r |x_r| of float64, so the two within twice that of
+    each other.  At 8 MiB the
+    card's world launches the ring kernels (the counts join rows 1 and 2).
+    A failed build or load fails the run."""
+    from accl_tpu_torch import ReduceFunction
+    from accl_tpu_torch.backends import emu as EMU
+
+    t_phase = time.perf_counter()
+    native["thread"].join(timeout=600)
+    if native["thread"].is_alive() or native["error"] is not None:
+        fail(f"emu_world: the native engine did not build or load: "
+             f"{native['error']}")
+    Pe = EMU_RANKS
+    rng = np.random.default_rng(SEED + 17)
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+        fn.launches = fn.launches_stamp = 0
+    cases = []
+
+    def program(kind, n, dtype, data):
+        def fn(accl, rank):
+            src = accl.create_buffer_like(data[rank])
+            out_n = {"allreduce": n, "allgather": n * Pe,
+                     "reduce_scatter": n // Pe}[kind]
+            dst = accl.create_buffer(out_n, dtype)
+            if kind == "allreduce":
+                accl.allreduce(src, dst, n, ReduceFunction.SUM)
+            elif kind == "allgather":
+                accl.allgather(src, dst, n)
+            else:
+                accl.reduce_scatter(src, dst, n // Pe, ReduceFunction.SUM)
+            res = dst.host.copy()
+            for b in (src, dst):
+                b.free()
+            return res
+        return fn
+
+    with EMU.EmuWorld(Pe, devmem_bytes=256 << 20,
+                      max_rendezvous_size=64 << 20) as ew, \
+            CudaWorld(Pe) as cw:
+        for dtype in (np.int32, np.float32):
+            for mib in EMU_MIB:
+                n = mib * MIB // 4
+                if dtype == np.int32:
+                    data = [rng.integers(-1 << 20, 1 << 20, n,
+                                         dtype=np.int32) for _ in range(Pe)]
+                else:
+                    data = [rng.standard_normal(n).astype(np.float32)
+                            for _ in range(Pe)]
+                absum = np.sum([np.abs(x.astype(np.float64)) for x in data],
+                               axis=0)
+                ref = np.sum([x.astype(np.float64) for x in data], axis=0)
+                bound = (Pe - 1) * 2.0 ** -24 * absum
+                for kind in ("allreduce", "allgather", "reduce_scatter"):
+                    t = time.perf_counter()
+                    emu = ew.run(program(kind, n, dtype, data), timeout=120)
+                    emu_s = time.perf_counter() - t
+                    before = _counts(ring)
+                    t = time.perf_counter()
+                    card = cw.run(program(kind, n, dtype, data), timeout=120)
+                    card_s = time.perf_counter() - t
+                    launched = _launched(ring, before)
+                    want_launch = {"allreduce": (1, 1), "allgather": (0, 1),
+                                   "reduce_scatter": (1, 0)}[kind]
+                    if mib * MIB >= cw.engine.ring_threshold_bytes \
+                            and launched != want_launch:
+                        fail(f"emu_world: CudaWorld's {kind} at {mib} MiB "
+                             f"launched {launched}")
+                    err = 0.0
+                    for r in range(Pe):
+                        e, c = emu[r], card[r]
+                        if dtype == np.int32 or kind == "allgather":
+                            if e.tobytes() != c.tobytes():
+                                fail(f"emu_world: {kind} {dtype.__name__} "
+                                     f"{mib} MiB rank {r}: the emulator is "
+                                     f"not bitwise CudaWorld")
+                            continue
+                        lo = r * (n // Pe) if kind == "reduce_scatter" else 0
+                        hi = lo + e.shape[0]
+                        b = bound[lo:hi]
+                        for who, got in (("the emulator", e), ("the card", c)):
+                            if not (np.abs(got - ref[lo:hi]) <= b).all():
+                                fail(f"emu_world: {kind} float32 {mib} MiB "
+                                     f"rank {r}: {who}'s sum is outside (P - "
+                                     f"1) 2^-24 sum|x| of float64")
+                        # two folds, each within the bound of the exact
+                        # sum, are within twice it of each other
+                        d = np.abs(e.astype(np.float64) - c)
+                        if not (d <= 2 * b).all():
+                            fail(f"emu_world: {kind} float32 {mib} MiB rank "
+                                 f"{r}: the two sums differ by more than 2 "
+                                 f"(P - 1) 2^-24 sum|x| (max abs diff "
+                                 f"{d.max()})")
+                        err = max(err, float(d.max()))
+                    cases.append({"kind": kind, "dtype": dtype.__name__,
+                                  "mib_per_rank": mib,
+                                  "max_abs_diff": err, "emu_s": emu_s,
+                                  "card_s": card_s,
+                                  "card_launches": list(launched)})
+    out = {"launches": {"ring_reduce_scatter":
+                        ring.ring_reduce_scatter.launches,
+                        "ring_all_gather": ring.ring_all_gather.launches},
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "emu_world", "ranks": Pe, "native_lib": EMU.lib_path(),
+          "native_build_s": native["seconds"], "cases": cases,
+          "launches": out["launches"], "seconds": out["seconds"]})
+    return out
+
+
 #: the plan phase's collectives: (kind, elements per rank of the operand)
 PLAN_CASES = (("allreduce", 1024), ("allreduce", 1 << 20),
               ("reduce_scatter", 1 << 20), ("allgather", 1 << 20))
@@ -4908,6 +5376,7 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
+    native = native_build_thread()  # beside nvcc; emu_world joins it
     _build.build_all()
     tc_ops = tensor_core_ops(_build._target("fused"))
     if tc_ops:
@@ -5006,8 +5475,11 @@ def main() -> int:
         dtr = device_trace(world, mp, ring)
         rows += time_stamp_kernels(ring, dtr["launches"], dtr["info"])
         obs = observatory(world, ring, F)
+        res = resilience_path(ring, CudaWorld)
+        emu = emu_world(ring, CudaWorld, native)
         for row in rows:
-            row["launches"] += obs["launches"].get(row["name"], 0)
+            row["launches"] += sum(part["launches"].get(row["name"], 0)
+                                   for part in (obs, res, emu))
         sweep_phase(world)
         callrate_phase()
     finally:

@@ -1471,3 +1471,123 @@ def test_sampled_generate_graph_on_card():
     assert torch.equal(a, b)
     assert int(a.min()) >= 0 and int(a.max()) < cfg.vocab
     assert torch.equal(a, sample(False))
+
+
+# ---------------------------------------------------------------------------
+# resilience on the card: the ring lane on communicators recovery mints,
+# and the native emulator against the card's world
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("W", [7, 8])
+def test_abort_grow_then_ring_lane_on_card(W):
+    """CudaWorld(W) on the card: ranks 0..W-2 run a ragged ring allreduce
+    on their comm (P = W - 1), bitwise the plain composition, and capture
+    it; rank 0 aborts the comm, every replay raises and the kernels
+    launch nothing; rank W-1 joins and the survivors grow the comm to
+    P = W, whose ring allreduce launches both kernels once, bitwise."""
+    from accl_tpu_torch import ACCLError, CudaWorld
+    from accl_tpu_torch.communicator import Communicator, Rank
+    from accl_tpu_torch.constants import ErrorCode
+
+    N = 3 * (1 << 18) + 5  # several segments and a ragged tail
+    members = list(range(W - 1))
+    row = Rank(ip="127.0.0.1", port=0, session=W - 1)
+
+    def counts():
+        return (tring.ring_reduce_scatter.launches,
+                tring.ring_all_gather.launches)
+
+    with CudaWorld(W) as world:
+        world.engine.ring_threshold_bytes = 0
+        g = torch.Generator(device="cuda").manual_seed(W)
+        send = [world.accls[r].create_buffer(N, np.float32) for r in range(W)]
+        recv = [world.accls[r].create_buffer(N, np.float32) for r in range(W)]
+        for b in send:
+            b.dev.copy_(torch.randn(N, generator=g, device="cuda"))
+        xs = [b.dev.clone() for b in send]
+
+        def call(a, r, comm):
+            a.allreduce(send[r], recv[r], N, comm_id=comm, from_fpga=True,
+                        to_fpga=True)
+
+        def ring_of_members(a, r):
+            if r not in members:
+                return None
+            assert a.create_communicator(members) == 1
+            call(a, r, 1)
+            return a.capture_plan(lambda a2: call(a2, r, 1), timeout_s=30)
+
+        plans = world.run(ring_of_members, timeout=30)
+        torch.cuda.synchronize()
+        want = tring.ring_all_reduce_segmented(xs[:W - 1], "sum", plain=True)
+        for r in members:
+            assert torch.equal(recv[r].dev, want[r])
+        world.accls[0].abort(1, error=int(ErrorCode.RANK_FAILED))
+        before = counts()
+        for r in members:
+            with pytest.raises(ACCLError):
+                plans[r].replay()
+        assert counts() == before
+
+        def join(a, r):
+            if r == W - 1:
+                assert a.device.join_sync(0) == 0
+                a._pad_communicators(a.device.comm_count())
+
+        def grow(a, r):
+            if r in members:
+                gid = a.grow_communicator([row], comm_id=1, window_s=0.1)
+            else:
+                rows = [Rank(ip="127.0.0.1", port=0, session=i)
+                        for i in members] + [row]
+                gid = a._install_communicator(
+                    Communicator(rows, W - 1, comm_id=2))
+            call(a, r, gid)
+            return gid
+
+        world.run(join, timeout=30)
+        before = counts()
+        assert world.run(grow, timeout=30) == [2] * W
+        torch.cuda.synchronize()
+        assert (counts()[0] - before[0], counts()[1] - before[1]) == (1, 1)
+        want = tring.ring_all_reduce_segmented(xs, "sum", plain=True)
+        for r in range(W):
+            assert torch.equal(recv[r].dev, want[r])
+
+
+def test_emu_world_matches_cuda_world_on_card():
+    """EmuWorld(4) on the native engine against CudaWorld(4) on the card
+    at 8 MiB per rank (the ring lane): int32 bitwise; fp32 folds in
+    another order, each within (P - 1) 2^-24 sum|x| of float64."""
+    from accl_tpu_torch import CudaWorld, ReduceFunction
+    from accl_tpu_torch.backends.emu import EmuWorld
+
+    P, n = 4, (8 << 20) // 4
+    rng = np.random.default_rng(3)
+    ints = [rng.integers(-1 << 20, 1 << 20, n, dtype=np.int32)
+            for _ in range(P)]
+    flts = [rng.standard_normal(n).astype(np.float32) for _ in range(P)]
+
+    def prog(data):
+        def fn(a, r):
+            s = a.create_buffer_like(data[r])
+            o = a.create_buffer(n, data[r].dtype)
+            a.allreduce(s, o, n, ReduceFunction.SUM)
+            return o.host.copy()
+        return fn
+
+    with EmuWorld(P, devmem_bytes=128 << 20,
+                  max_rendezvous_size=64 << 20) as ew:
+        emu_i, emu_f = ew.run(prog(ints), timeout=30), ew.run(prog(flts),
+                                                             timeout=30)
+    with CudaWorld(P) as cw:
+        before = tring.ring_reduce_scatter.launches
+        card_i, card_f = cw.run(prog(ints), timeout=30), cw.run(prog(flts),
+                                                              timeout=30)
+        assert tring.ring_reduce_scatter.launches - before == 2
+    ref = np.sum([x.astype(np.float64) for x in flts], axis=0)
+    bound = (P - 1) * 2.0 ** -24 * np.sum(
+        [np.abs(x.astype(np.float64)) for x in flts], axis=0)
+    for r in range(P):
+        np.testing.assert_array_equal(emu_i[r], card_i[r])
+        assert (np.abs(emu_f[r] - ref) <= bound).all()
+        assert (np.abs(card_f[r] - ref) <= bound).all()

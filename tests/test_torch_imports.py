@@ -28,7 +28,10 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "observability.health", "utils.device", "utils.logging",
               "utils.tree", "plans", "analysis", "analysis.findings",
               "analysis.program", "analysis.checks", "analysis.sanitizer",
-              "analysis.record"]
+              "analysis.record", "backends.emu", "resilience",
+              "resilience.retry", "resilience.chaos",
+              "resilience.membership", "resilience.elastic",
+              "resilience.supervisor"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 

@@ -8,10 +8,12 @@ where the port's plain ring folds in the Pallas kernels' order, so every
 result — eager, captured and replayed — is held bitwise: the port's
 replays to the port's eager calls, and the port to the JAX package.
 
-The abort, shrink and reset drills of tests/test_plans.py run on
-EmuWorld and resilience, which the port does not have yet; the fences
-they reach are driven here directly (``ACCL._invalidate_plans``,
-``device.invalidate_plans``, a bump of the engine's comm generation).
+The fences the abort, shrink and reset drills of tests/test_plans.py
+reach are driven here directly (``ACCL._invalidate_plans``,
+``device.invalidate_plans``, a bump of the engine's comm generation);
+the drills themselves, through ``abort``, ``shrink_communicator``,
+``grow_communicator`` and ``reset_errors``, are in
+tests/test_torch_resilience.py.
 """
 import gc
 import os

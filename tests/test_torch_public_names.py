@@ -33,11 +33,6 @@ MISSING = {
     ("", "ACCLCommand"): 11,
     ("", "ACCLData"): 11,
     ("", "DeviceCollectives"): 11,
-    ("", "ChaosPlan"): 8,
-    ("", "MembershipBoard"): 8,
-    ("", "RecoveryPolicy"): 8,
-    ("", "RecoverySupervisor"): 8,
-    ("", "RetryPolicy"): 8,
 }
 
 
