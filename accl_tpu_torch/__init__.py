@@ -18,7 +18,11 @@ and the collective sanitizer (``accl_tpu_torch.analysis``,
 ``ACCL_SANITIZE``); fault tolerance (``accl_tpu_torch.resilience``:
 abort, shrink, grow, reset and the recovery supervisor, on ``CudaWorld``
 and on the native emulator's ``EmuWorld``, ``backends/emu.py``, which
-adds retransmission, seeded chaos and live joins).  It imports torch,
+adds retransmission, seeded chaos and live joins); kernel streams and
+the device-side caller API (``ACCLCommand``, ``ACCLData``,
+``DeviceCollectives``); offline tuning (``accl_tpu_torch.tuning``: the
+fabric model, the hierarchical composer, the autotuner and its selection
+table, armed by ``ACCL_TUNE_TABLE``).  It imports torch,
 numpy, ctypes and the standard library only.
 
     world = CudaWorld(8)            # on the card; CudaWorld(8, "cpu") for CPU
@@ -45,6 +49,7 @@ from .constants import (  # noqa: F401
     StreamFlags,
     TuningKey,
 )
+from .device_api import ACCLCommand, ACCLData, DeviceCollectives  # noqa: F401
 from .request import Request  # noqa: F401
 from .resilience import (  # noqa: F401
     ChaosPlan,

@@ -42,9 +42,23 @@ complete with ``COMM_ABORTED``), ``shrink_communicator`` and
 recovery supervisor.  Each marks its fence event in the flight recorder
 and fences the plans it touches.
 
-Left out of this port, and refused where a call asks for them: kernel
-streams (``stream_flags``).  Tuning tables (and the table route that
-arms ``fused``) are not part of it either.
+Kernel streams (accl_tpu/accl.py:1021-1091, 1218-1262): ``stream_put``,
+``copy_to_stream``, ``copy_from_stream`` and ``reduce(stream_flags=)``
+take an operand from the rank's kernel input queue (``OP0_STREAM``, fed
+by ``device.push_krnl``) or deliver the result into kernel stream
+``stream_id`` (``RES_STREAM``, read by ``device.pop_stream``); stream ids
+below 9 are reserved.  The session calls (``open_port``, ``open_con``,
+``close_con``) reach the backend's session handler and are no-ops on a
+connectionless backend; ``create_buffer_p2p`` takes the backend's
+peer-addressable buffer where there is one.
+
+Tuning (accl_tpu/accl.py:271-300, 767-830, 1595-1611;
+``accl_tpu_torch.tuning``): ``initialize`` arms the selection table that
+``ACCL_TUNE_TABLE`` names (``ACCL_TUNE=0`` disarms it), whose learned
+crossovers are written over the static registers; ``_execute`` consults
+it once per descriptor signature, arms ``fused`` on the descriptor of a
+cell the fused lane won, and routes a cell the hierarchical lane won
+through a memoized :class:`~accl_tpu_torch.tuning.compose.HierarchicalComm`.
 """
 from __future__ import annotations
 
@@ -81,6 +95,7 @@ from .constants import (
     CompressionFlags,
     DataType,
     ErrorCode,
+    HostFlags,
     Operation,
     ReduceFunction,
     StreamFlags,
@@ -177,6 +192,15 @@ class ACCL:
         self._placeholder_comms: set = set()
         #: the recovery supervisor (supervise(), ACCL_SUPERVISE=1)
         self.supervisor = None
+        #: the selection policy (tuning/autotune.py), armed at initialize
+        #: from ACCL_TUNE_TABLE; None costs _execute one falsy read
+        self._tune_policy = None
+        #: the hierarchical route's composers, one per (comm, axis
+        #: split), minted by the first call a table routes there (False
+        #: marks a trivial fabric); the guard keeps the composer's own
+        #: calls on the flat path
+        self._hier_comms: dict = {}
+        self._in_hier = False
 
     # ------------------------------------------------------------------
     # bring-up (reference accl.cpp:1082-1130)
@@ -216,7 +240,16 @@ class ACCL:
             egr_rx_buf_size if max_eager_size is None else max_eager_size)
         self.set_max_rendezvous_msg_size(max_rendezvous_size)
         self.apply_static_tuning()
-        # an explicit ACCL_COMPRESS=0 disarms; unset leaves it disarmed
+        # the learned selection policy (ACCL_TUNE_TABLE, ACCL_TUNE=0
+        # disarms): its crossovers go over the static registers; both
+        # knobs unset, the static writes above stand bit for bit
+        from .tuning import autotune as _autotune
+
+        self._tune_policy = _autotune.policy_from_env()
+        if self._tune_policy is not None:
+            self._tune_policy.install(self)
+        # an explicit ACCL_COMPRESS wins over a table-armed policy, and
+        # ACCL_COMPRESS=0 disarms it; unset leaves what the table armed
         raw_compress = os.environ.get("ACCL_COMPRESS", "").strip().lower()
         if raw_compress in COMPRESS_OFF_TOKENS:
             self.set_compression(None)
@@ -344,12 +377,17 @@ class ACCL:
                 if not c.is_placeholder and c.tenant == tenant]
 
     def reserve_communicator(self) -> int:
-        """Burn one communicator id with a placeholder slot, so a group
-        this rank is not a member of gets the same id on its members (the
-        engine's communicator table is shared by the world)."""
+        """Burn one communicator id, so a group this rank is not a member
+        of gets the same id on its members (accl_tpu/accl.py:470-487).  On
+        a world-shared comm table (``CudaWorld``) the pad is a driver-side
+        placeholder: the members' upload covers the world.  Per-rank
+        engine tables (``EmuWorld``) also get an inert self-only
+        communicator, so the engine's id space stays aligned."""
         cid = len(self._communicators)
-        self._communicators.append(Communicator.placeholder(cid))
-        return cid
+        if getattr(self._device, "comm_table_is_shared", False):
+            self._pad_communicators(cid + 1)
+            return cid
+        return self.create_communicator([self.rank])
 
     def set_max_eager_msg_size(self, nbytes: int) -> None:
         self._config_call(CfgFunc.set_max_eager_msg_size, value=nbytes)
@@ -446,6 +484,81 @@ class ACCL:
             self._auto_rings.clear()
         self._auto_last = None
         self._auto_streak = 0
+        # the policy memo keys on (scenario, arithcfg, count, comm): after
+        # a membership change one comm id can mean another size, so the
+        # cached decisions go; the composers memoize an axis split of
+        # the fenced epoch and go with them
+        if self._tune_policy is not None:
+            self._tune_policy._memo.clear()
+        self._drop_hier_comms()
+
+    def _drop_hier_comms(self) -> None:
+        """Retire the hierarchical route's composers: their scratch is
+        freed; the sub-comm ids stay burned, and a later routed call mints
+        new ones in gang order on every rank alike."""
+        if not self._hier_comms:
+            return
+        for h in self._hier_comms.values():
+            if h:
+                try:
+                    h.close()
+                except ACCLError:
+                    pass
+        self._hier_comms.clear()
+
+    def _route_hier(self, call: CCLOCall, sync_in: list, sync_out: list,
+                    run_async: bool, desc: str):
+        """Serve one call through the composer its table cell picked
+        (accl_tpu/accl.py:767-830).  Returns the last staged call's
+        Request, or None when the call does not qualify — async, device-
+        resident, on a sub-communicator, streamed, compressed, fused,
+        under a plan capture or the sanitizer, or not an allreduce,
+        reduce-scatter or all-gather — and rides the flat path.  The first
+        qualifying call per (comm, axis split) mints the composer; every
+        rank reaches that call in gang order, so the sub-comm ids align."""
+        if (run_async or call.comm != GLOBAL_COMM
+                or not sync_in or not sync_out
+                or call.compression_flags != CompressionFlags.NO_COMPRESSION
+                or call.stream_flags != StreamFlags.NO_STREAM
+                or call.host_flags != HostFlags.NO_HOST
+                or call.fused
+                or self._plan_recorder is not None or _san.active()):
+            return None
+        op = Operation(call.scenario)
+        if op.name not in ("allreduce", "reduce_scatter", "allgather"):
+            return None
+        table = self._tune_policy.table
+        meta = table.world or {}
+        key = (call.comm, tuple(meta.get("shape") or ()),
+               tuple(meta.get("axis_order") or ()))
+        h = self._hier_comms.get(key)
+        if h is None:
+            from .tuning.autotune import fabric_of_table
+            from .tuning.compose import HierarchicalComm
+
+            fabric = fabric_of_table(table, self.size)
+            if fabric.trivial:
+                # nothing to compose across: the miss is remembered
+                self._hier_comms[key] = False
+                return None
+            h = HierarchicalComm(self, fabric)
+            self._hier_comms[key] = h
+        elif h is False:
+            return None
+        sendbuf, recvbuf = sync_in[0][0], sync_out[0][0]
+        self._in_hier = True
+        try:
+            if op is Operation.allreduce:
+                h.allreduce(sendbuf, recvbuf, call.count,
+                            ReduceFunction(call.function))
+            elif op is Operation.reduce_scatter:
+                h.reduce_scatter(sendbuf, recvbuf, call.count,
+                                 ReduceFunction(call.function))
+            else:
+                h.allgather(sendbuf, recvbuf, call.count)
+        finally:
+            self._in_hier = False
+        return self._last_request
 
     def _replay_auto(self, entry, desc: str) -> Optional[Request]:
         """Route one auto-captured call through its plan ring; returns a
@@ -591,6 +704,40 @@ class ACCL:
         fn = getattr(self._device, "resilience_stats", None)
         return fn() if fn is not None else {}
 
+    # ------------------------------------------------------------------
+    # session lifecycle (reference open_port/open_con/close_con,
+    # accl.hpp:1069-1083; accl_tpu/accl.py:909-949)
+    # ------------------------------------------------------------------
+    def open_port(self) -> None:
+        """Verify the inbound endpoint is live.  Connectionless backends
+        (the in-process worlds, the card) succeed as no-ops, as in the
+        reference, where only the TCP design ships the session handler."""
+        fn = getattr(self._device, "open_port", None)
+        if fn is not None and fn() != 0:
+            raise ACCLError("open_port failed: transport not listening")
+
+    def open_con(self, comm_id: int = GLOBAL_COMM) -> None:
+        """Open sessions to every peer of a communicator, so a connection
+        failure is a setup error of its own instead of a mid-collective
+        hang."""
+        fn = getattr(self._device, "open_con", None)
+        if fn is None:
+            return  # connectionless backend
+        rc = fn(comm_id)
+        if rc > 0:
+            raise ACCLError(
+                f"open_con failed: no session to peer {rc - 1} "
+                f"(comm {comm_id})")
+        if rc < 0:
+            raise ACCLError(f"open_con: unknown communicator {comm_id}")
+
+    def close_con(self, comm_id: int = GLOBAL_COMM) -> None:
+        """Tear down the sessions of a communicator; a later call
+        reconnects lazily on session transports."""
+        fn = getattr(self._device, "close_con", None)
+        if fn is not None and fn(comm_id) < 0:
+            raise ACCLError(f"close_con: unknown communicator {comm_id}")
+
     def get_duration(self, request: Optional[Request] = None) -> float:
         """Duration in ns of a completed call (reference accl.cpp:1387)."""
         req = request or self._last_request
@@ -623,6 +770,17 @@ class ACCL:
         buf.host[:] = data.reshape(-1)
         return buf
 
+    def create_buffer_p2p(self, length: int, dtype=np.float32) -> BaseBuffer:
+        """A buffer peer engines address without host staging (reference
+        FPGABufferP2P, fpgabufferp2p.hpp): the backend's p2p variant
+        where it has one (the native emulator), else a plain device
+        buffer — every buffer of a CudaWorld already lies in the one
+        card's memory, which every rank addresses."""
+        make = getattr(self._device, "create_buffer_p2p", None)
+        if make is not None:
+            return make(length, np.dtype(dtype))
+        return self._device.create_buffer(length, np.dtype(dtype))
+
     # ------------------------------------------------------------------
     # collectives — each mirrors one reference entry point in accl.cpp
     # ------------------------------------------------------------------
@@ -648,6 +806,21 @@ class ACCL:
         return self._execute(call, [], [] if to_fpga else [(dstbuf, count)],
                              run_async, f"recv(src={src})")
 
+    def stream_put(self, srcbuf: BaseBuffer, count: int, dst: int,
+                   stream_id: int, comm_id: int = GLOBAL_COMM,
+                   from_fpga: bool = False, run_async: bool = False):
+        """Send into a remote kernel stream: the payload lands in stream
+        ``stream_id`` on the destination instead of a buffer (reference
+        accl.cpp:191-250)."""
+        if stream_id < 9:
+            raise ACCLError("stream ids < 9 are reserved")  # accl.cpp:197
+        call = self._build(Operation.send, count, comm_id, root_src_dst=dst,
+                           tag=stream_id, op0=srcbuf,
+                           stream_flags=StreamFlags.RES_STREAM)
+        return self._execute(call, [] if from_fpga else [(srcbuf, count)], [],
+                             run_async,
+                             f"stream_put(dst={dst}, strm={stream_id})")
+
     def copy(self, srcbuf: BaseBuffer, dstbuf: BaseBuffer, count: int,
              from_fpga: bool = False, to_fpga: bool = False,
              run_async: bool = False):
@@ -657,6 +830,27 @@ class ACCL:
         return self._execute(call, [] if from_fpga else [(srcbuf, count)],
                              [] if to_fpga else [(dstbuf, count)],
                              run_async, "copy")
+
+    def copy_to_stream(self, srcbuf: BaseBuffer, count: int,
+                       stream_id: int = 9, from_fpga: bool = False,
+                       run_async: bool = False):
+        """Copy a buffer into local kernel stream ``stream_id`` (reference
+        copy_to_stream: a copy with RES_STREAM)."""
+        if stream_id < 9:
+            raise ACCLError("stream ids < 9 are reserved")  # accl.cpp:197
+        call = self._build(Operation.copy, count, GLOBAL_COMM, op0=srcbuf,
+                           tag=stream_id, stream_flags=StreamFlags.RES_STREAM)
+        return self._execute(call, [] if from_fpga else [(srcbuf, count)], [],
+                             run_async, f"copy_to_stream({stream_id})")
+
+    def copy_from_stream(self, dstbuf: BaseBuffer, count: int,
+                         to_fpga: bool = False, run_async: bool = False):
+        """Copy the local kernel input stream's next operand into a buffer
+        (reference copy_from_stream: a copy with OP0_STREAM)."""
+        call = self._build(Operation.copy, count, GLOBAL_COMM, res=dstbuf,
+                           stream_flags=StreamFlags.OP0_STREAM)
+        return self._execute(call, [], [] if to_fpga else [(dstbuf, count)],
+                             run_async, "copy_from_stream")
 
     def combine(self, count: int, function: ReduceFunction, op0: BaseBuffer,
                 op1: BaseBuffer, res: BaseBuffer, from_fpga: bool = False,
@@ -742,19 +936,34 @@ class ACCL:
                comm_id: int = GLOBAL_COMM, from_fpga: bool = False,
                to_fpga: bool = False, compress_dtype: Optional[DataType] = None,
                stream_flags: StreamFlags = StreamFlags.NO_STREAM,
-               run_async: bool = False):
-        """Rooted reduction (reference accl.cpp:627-794)."""
+               stream_id: int = 9, run_async: bool = False):
+        """Rooted reduction (reference accl.cpp:627-794).  The mem<->stream
+        variants (reference test.cpp:813-910) come by ``stream_flags``:
+        OP0_STREAM takes the operand from the rank's kernel input queue
+        (``sendbuf`` may be None; feed it with ``device.push_krnl``),
+        RES_STREAM delivers the root's result into its kernel stream
+        ``stream_id`` (``recvbuf`` may be None; read it with
+        ``device.pop_stream``)."""
         is_root = self.communicator(comm_id).local_rank == root
+        op_stream = bool(stream_flags & StreamFlags.OP0_STREAM)
+        res_stream = bool(stream_flags & StreamFlags.RES_STREAM)
+        if res_stream and stream_id < 9:
+            raise ACCLError("stream ids < 9 are reserved")  # accl.cpp:197
         call = self._build(Operation.reduce, count, comm_id, root_src_dst=root,
-                           function=int(function), op0=sendbuf,
-                           res=recvbuf if is_root else None,
+                           function=int(function),
+                           tag=stream_id if res_stream else TAG_ANY,
+                           op0=None if op_stream else sendbuf,
+                           res=recvbuf if (is_root and not res_stream)
+                           else None,
                            stream_flags=stream_flags,
                            compress_dtype=compress_dtype,
-                           res_dtype=(recvbuf.data_type if recvbuf is not None
-                                      else None))
-        sync_out = [(recvbuf, count)] if (is_root and not to_fpga) else []
-        return self._execute(call, [] if from_fpga else [(sendbuf, count)],
-                             sync_out, run_async,
+                           res_dtype=(recvbuf.data_type
+                                      if (recvbuf is not None
+                                          and not res_stream) else None))
+        sync_in = [] if (from_fpga or op_stream) else [(sendbuf, count)]
+        sync_out = ([(recvbuf, count)]
+                    if (is_root and not to_fpga and not res_stream) else [])
+        return self._execute(call, sync_in, sync_out, run_async,
                              f"reduce(root={root},{function.name})")
 
     def allreduce(self, sendbuf: BaseBuffer, recvbuf: BaseBuffer, count: int,
@@ -831,9 +1040,6 @@ class ACCL:
         if (comm_id < 0 or comm_id >= len(self._communicators)) and \
                 (self._communicators or comm_id != GLOBAL_COMM):
             self.communicator(comm_id)  # raises the naming ACCLError
-        if stream_flags != StreamFlags.NO_STREAM:
-            raise ACCLError("kernel streams (stream_flags) are not part of "
-                            "accl_tpu_torch yet")
 
         def _bkey(b):
             return None if b is None else (b.address, b.data_type,
@@ -843,8 +1049,8 @@ class ACCL:
         # two calls that differ only in fused never share a descriptor
         fused = self._fused_default if fused is None else bool(fused)
         memo_key = (scenario, count, comm_id, root_src_dst, function, tag,
-                    _bkey(op0), _bkey(op1), _bkey(res), compress_dtype,
-                    op0_dtype, res_dtype, fused)
+                    _bkey(op0), _bkey(op1), _bkey(res), stream_flags,
+                    compress_dtype, op0_dtype, res_dtype, fused)
         cached = self._call_memo.get(memo_key)
         if cached is not None:
             self._call_memo.move_to_end(memo_key)
@@ -943,11 +1149,21 @@ class ACCL:
                 compression = (CompressionFlags.ETH_COMPRESSED
                                | flag_operands(compress_dtype))
 
+        # host-resident operand markers (reference prepare_call sets
+        # OP0/OP1/RES_HOST from Buffer::is_host_only, accl.cpp:1259-1283)
+        host_flags = HostFlags.NO_HOST
+        if not op0.is_dummy and op0.is_host_only:
+            host_flags |= HostFlags.OP0_HOST
+        if not op1.is_dummy and op1.is_host_only:
+            host_flags |= HostFlags.OP1_HOST
+        if not res.is_dummy and res.is_host_only:
+            host_flags |= HostFlags.RES_HOST
         call = CCLOCall(scenario=scenario, count=count, comm=comm_id,
                         root_src_dst=root_src_dst, function=function, tag=tag,
                         arithcfg=arithcfg, compression_flags=compression,
-                        stream_flags=stream_flags, addr_0=op0.address,
-                        addr_1=op1.address, addr_2=res.address, fused=fused)
+                        stream_flags=stream_flags, host_flags=host_flags,
+                        addr_0=op0.address, addr_1=op1.address,
+                        addr_2=res.address, fused=fused)
         self._call_memo[memo_key] = call
         while len(self._call_memo) > self._call_memo_cap:
             self._call_memo.popitem(last=False)
@@ -980,6 +1196,20 @@ class ACCL:
                 f"reset_errors() to recover", int(ErrorCode.COMM_ABORTED))
         if self._placeholder_comms and call.comm in self._placeholder_comms:
             self.communicator(call.comm)  # raises the naming ACCLError
+        # the selection policy: one memoized probe per descriptor
+        # signature (the crossovers were written into the registers at
+        # install).  A cell won by "fused" arms the memoized descriptor
+        # once; a cell won by "hierarchical" routes through a composer,
+        # whose own calls re-enter here on the flat path
+        if self._tune_policy is not None:
+            alg = self._tune_policy.on_call(self, call)
+            if alg == "fused" and not call.fused:
+                call.fused = True
+            elif alg == "hierarchical" and not self._in_hier:
+                routed = self._route_hier(call, sync_in, sync_out,
+                                          run_async, desc)
+                if routed is not None:
+                    return routed
         # plan auto-replay (ACCL_PLAN_AUTO): a call whose gang agreed to
         # arm a one-step ring replays through it.  The identity check is
         # sound because _build memoizes: a steady loop passes the SAME
@@ -1151,6 +1381,10 @@ class ACCL:
 
     def dump_communicator(self, comm_id: int = GLOBAL_COMM) -> str:
         return self.communicator(comm_id).dump()
+
+    def dump_rx_buffers(self) -> str:
+        dump = getattr(self._device, "dump_rx_buffers", None)
+        return dump() if dump else "<backend has no rx buffer table>"
 
     def deinit(self) -> None:
         """Tear down the backend; async requests still in flight are

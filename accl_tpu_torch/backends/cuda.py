@@ -59,8 +59,20 @@ a grow, ``export_join_state`` and ``comm_count`` answer a joiner, and
 ``ACCL_WATCHDOG_ACTION=abort`` the watchdog aborts a hung communicator
 from a rank that arrived at its gang (``CudaWorld._watchdog_abort``).
 
-Left out of this port: kernel streams.  A descriptor that asks for a
-stream is refused with an ACCLError.
+Kernel streams (tpu.py:353-357, 493-660, 1740-1995): each rank has an
+operand queue (``push_krnl`` puts the operand on the device as a tensor)
+and output streams keyed (rank, stream id), fed through one delivery
+point, ``_push_stream``; ``pop_stream`` returns the message's bytes.  An
+``OP0_STREAM`` collective reserves its operand in the submitting rank's
+own thread, so two stream calls issued back to back on one rank pair
+with their operands in call order; a short operand completes with
+``SEGMENTER_EXPECTED_BTT_ERROR``.  Stream gangs run through the same gang
+plans, ring drivers and kernels as buffer gangs, never batch, and have
+no plan slot.  On the card the joins are explicit: a pushed operand
+carries the event of its host-to-device copy, which the launching stream
+waits on; a delivered result carries the event recorded after its
+program, which ``pop_stream`` synchronizes before it copies the result
+back.  A stream call under CUDA graph capture raises.
 """
 from __future__ import annotations
 
@@ -517,6 +529,12 @@ class CudaEngine:
         #: hang watchdog, armed by start_watchdog once the world's flight
         #: recorders exist
         self._watchdog: Optional[_health.Watchdog] = None
+        #: kernel streams: (rank, stream id) -> deque of (tensor, event),
+        #: and each rank's operand queue (OP0_STREAM sources) of (tensor,
+        #: numpy dtype, event); the event is None off the card
+        self._streams: dict = {}
+        self._stream_cv = threading.Condition()
+        self._krnl_in: list = [deque() for _ in range(nranks)]
         self._log = get_logger("accl_tpu_torch.cuda")
         self._exec_thread = threading.Thread(
             target=self._exec_loop, name="accl-gang-exec", daemon=True)
@@ -623,9 +641,8 @@ class CudaEngine:
         span = request.trace
         rec = request.flight
         try:
-            if call.stream_flags != StreamFlags.NO_STREAM:
-                raise ACCLError("kernel streams are not part of "
-                                "accl_tpu_torch yet")
+            if call.stream_flags:
+                self._refuse_capture("a stream call")
             if scenario in (Operation.copy, Operation.combine):
                 if rec is not None:
                     rec.mark_dispatched("local", _trace.now_ns())
@@ -657,10 +674,29 @@ class CudaEngine:
 
     # -- local ops -----------------------------------------------------
     def _exec_copy(self, rank: int, call: CCLOCall) -> None:
+        """A local copy; its stream variants (reference copy_to_stream /
+        copy_from_stream, tpu.py:491-512) take the operand from the
+        rank's kernel queue (OP0) or deliver into its kernel stream
+        ``tag`` (RES)."""
         n = call.count
-        src, soff = self.resolve(rank, call.addr_0)
+        if call.stream_flags & StreamFlags.OP0_STREAM:
+            q_in = self._krnl_in[rank]
+            item = q_in.popleft() if q_in else None
+            if item is None or item[0].shape[0] < n:
+                raise ACCLError(
+                    f"stream operand {0 if item is None else item[0].shape[0]}"
+                    f" elems < required {n}")
+            vals = self._joined(item)[:n]
+            src = None
+        else:
+            src, soff = self.resolve(rank, call.addr_0)
+            vals = src.dev[soff:soff + n]
+        if call.stream_flags & StreamFlags.RES_STREAM:
+            # the message is the buffer's contents now, not a view of it
+            self._push_stream(rank, call.tag,
+                              vals if src is None else vals.clone())
+            return
         dst, doff = self.resolve(rank, call.addr_2)
-        vals = src.dev[soff:soff + n]
         if src is dst:
             vals = vals.clone()  # overlapping ranges of one buffer
         dst.dev[doff:doff + n].copy_(vals)  # casts to the RES dtype
@@ -680,13 +716,22 @@ class CudaEngine:
 
     # -- point-to-point ------------------------------------------------
     def _submit_send(self, rank: int, call: CCLOCall, request: Request) -> None:
-        src, soff = self.resolve(rank, call.addr_0)
+        n = call.count
         # buffered eager semantics: the payload is captured now, the
         # sender completes, delivery happens when the matching recv comes
-        data = src.dev[soff:soff + call.count].clone()
+        if call.stream_flags & StreamFlags.OP0_STREAM:
+            data = self._joined(self._krnl_in[rank].popleft())[:n]
+        else:
+            src, soff = self.resolve(rank, call.addr_0)
+            data = src.dev[soff:soff + n].clone()
         if call.compression_flags & CompressionFlags.ETH_COMPRESSED:
             data = _wire_roundtrip(data, self.wire_dtype_for(call.arithcfg))
         dst_rank = self._comms[call.comm][call.root_src_dst]
+        if call.stream_flags & StreamFlags.RES_STREAM:
+            # stream_put: the payload lands in the destination's stream
+            self._push_stream(dst_rank, call.tag, data)
+            request.complete(0, 1.0)
+            return
         # the channel key carries no tag: tags are matched at seek time,
         # so a TAG_ANY recv pairs with any pending send
         gkey = ("p2p", call.comm, rank, dst_rank)
@@ -737,7 +782,12 @@ class CudaEngine:
                 if call.compression_flags & CompressionFlags.ETH_COMPRESSED:
                     moved = _wire_roundtrip(moved,
                                             self.wire_dtype_for(call.arithcfg))
-                dst.dev[doff:doff + moved.shape[0]].copy_(moved)
+                if call.stream_flags & StreamFlags.RES_STREAM:
+                    if dst is not None and moved.dtype != dst.dev.dtype:
+                        moved = moved.to(dst.dev.dtype)  # the RES dtype
+                    self._push_stream(rank, call.tag, moved)
+                else:
+                    dst.dev[doff:doff + moved.shape[0]].copy_(moved)
             except Exception as e:
                 request.description += f" [{e}]"
                 request.complete(int(ErrorCode.DMA_INTERNAL_ERROR), 0.0)
@@ -750,6 +800,28 @@ class CudaEngine:
     def _submit_collective(self, rank: int, call: CCLOCall,
                            request: Request) -> None:
         P = len(self._comms[call.comm])
+        # an OP0_STREAM operand is reserved here, in the submitting rank's
+        # own thread (tpu.py:634-660): popping it when the gang runs, on
+        # an arbitrary member's thread, would let a later local stream op
+        # of this rank take it first
+        if call.stream_flags & StreamFlags.OP0_STREAM:
+            in_len = call.count * (
+                P if Operation(call.scenario) in (
+                    Operation.scatter, Operation.reduce_scatter,
+                    Operation.alltoall) else 1)
+            q_in = self._krnl_in[rank]
+            item = q_in.popleft() if q_in else None
+            if item is None or item[0].shape[0] < in_len:
+                # a short operand would be truncated or padded silently,
+                # corrupting the result with retcode 0
+                request.description += (
+                    f" [stream operand "
+                    f"{0 if item is None else item[0].shape[0]}"
+                    f" elems < required {in_len}]")
+                request.complete(
+                    int(ErrorCode.SEGMENTER_EXPECTED_BTT_ERROR), 0.0)
+                return
+            request.krnl_operand = item
         gkey = ("coll", int(call.scenario), call.comm, call.tag)
         # gang arrival, for the straggler wait of the link twin
         observing = _observing()
@@ -882,8 +954,9 @@ class CudaEngine:
             if not self._ready:
                 return None
         plan = self._gang_plan(op, comm_id, gang)
-        if plan["ring"]:
-            # the ring lane always dispatches alone (tpu.py:1562-1570)
+        if plan["ring"] or plan["streams"]:
+            # the ring lane always dispatches alone (tpu.py:1562-1570); a
+            # stream operand has no address for the read-after-write guard
             return None
         items = [(op, comm_id, gang, plan)]
         res_addrs = set(plan["res_addrs"])
@@ -899,7 +972,7 @@ class CudaEngine:
                 nplan = self._gang_plan(nop, ncomm, ngang)
             except Exception:  # the candidate's own turn reports it
                 break
-            if (nplan["fn_key"] != plan["fn_key"]
+            if (nplan["fn_key"] != plan["fn_key"] or nplan["streams"]
                     or nplan["opnd_addrs"] & res_addrs):
                 break
             with self._ready_cv:
@@ -992,9 +1065,12 @@ class CudaEngine:
         once.  The threshold is in the signature, so changing it
         re-plans."""
         members = self._comms[comm_id]
+        # stream_flags is in the signature: a stream gang addresses no
+        # buffer (all zero), and must not reuse a buffer gang's plan
         sig = (int(op), comm_id, self.ring_threshold_bytes, tuple(
             (g, c.addr_0, c.addr_2, c.count, c.root_src_dst, c.function,
-             c.compression_flags, c.arithcfg, c.tag, c.fused)
+             c.compression_flags, c.arithcfg, c.stream_flags, c.tag,
+             c.fused)
             for g, c in ((m, gang[m][0]) for m in members)))
         with self._lock:
             plan = self._gang_plans.get(sig)
@@ -1025,21 +1101,42 @@ class CudaEngine:
                 if b is not None and (dtype is None or b.host.dtype.itemsize
                                       > np.dtype(dtype).itemsize):
                     dtype = b.host.dtype
+        if dtype is None:
+            # a stream->stream collective addresses no buffer: the dtype
+            # comes from the reserved operands (tpu.py:1747-1759)
+            for g in members:
+                item = getattr(gang[g][1], "krnl_operand", None)
+                if item is not None:
+                    dtype = item[1]
+                    break
         if dtype is None and op != Operation.barrier:
-            raise ACCLError("collective addresses no buffer: cannot derive "
-                            "the datapath dtype")
+            raise ACCLError(
+                "collective addresses no buffer and no stream operand "
+                "was reserved — cannot derive the datapath dtype")
         ops = []
+        streams = []
         for li, g in enumerate(members):
             call = gang[g][0]
+            op0_stream = bool(call.stream_flags & StreamFlags.OP0_STREAM)
+            res_stream = bool(call.stream_flags & StreamFlags.RES_STREAM)
             # operand: op0 for contributors; a bcast non-root contributes
-            # its result buffer as a placeholder
-            buf, off = self.resolve(g, call.addr_0)
-            if buf is None:
-                buf, off = self.resolve(g, call.addr_2)
+            # its result buffer as a placeholder; an OP0_STREAM member's
+            # comes from its reservation when the gang runs
+            if op0_stream:
+                buf, off = None, 0
+            else:
+                buf, off = self.resolve(g, call.addr_0)
+                if buf is None:
+                    buf, off = self.resolve(g, call.addr_2)
             write_out = not (op in (Operation.reduce, Operation.gather)
                              and li != root)
             res, roff = self.resolve(g, call.addr_2)
-            ops.append((buf, off, res if write_out else None, roff))
+            # a RES_STREAM member's result goes to its kernel stream, never
+            # to a buffer view
+            ops.append((buf, off, res if write_out and not res_stream
+                        else None, roff))
+            streams.append((op0_stream,
+                            call.tag if res_stream and write_out else None))
         ring = (op in (Operation.allreduce, Operation.allgather,
                        Operation.reduce_scatter)
                 and nranks > 1
@@ -1053,6 +1150,11 @@ class CudaEngine:
                  and nranks > 1)
         plan = {
             "op": op,
+            "members": tuple(members),
+            # per member (operand from the queue, result stream id or
+            # None); empty when no member streams
+            "streams": (tuple(streams) if any(a or t is not None
+                                               for a, t in streams) else ()),
             "in_len": in_len,
             # the lossless ring lane writes straight into the result
             # buffers: no wire roundtrip runs after it
@@ -1117,26 +1219,44 @@ class CudaEngine:
             self._account_gang_links(op, comm_id, gang,
                                      plan["in_len"] * plan["itemsize"],
                                      plan["wire_dtype"])
+        streams = plan["streams"]
         if xs is None:
-            xs = [self._operand(plan, r) for r in range(len(plan["ops"]))]
+            xs = [self._operand(plan, r, gang)
+                  for r in range(len(plan["ops"]))]
             outs = self._direct_outs(plan, xs)
         t0 = time.perf_counter_ns()
         ys = plan["program"](xs, outs)
         t1 = time.perf_counter_ns()
         for r, ((_buf, _off, res, roff), y) in enumerate(zip(plan["ops"],
                                                              ys)):
-            if res is not None and (outs is None or y is not outs[r]):
+            if streams and streams[r][1] is not None:
+                self._push_stream(plan["members"][r], streams[r][1],
+                                  self._owned(y, xs))
+            elif res is not None and (outs is None or y is not outs[r]):
                 res.dev[roff:roff + y.shape[0]].copy_(y)
         return t0, t1
 
     @staticmethod
-    def _operand(plan: dict, r: int) -> torch.Tensor:
-        """Rank ``r``'s operand: a view of its buffer, or a copy widened
-        to the datapath dtype or padded to the operand length (a short
-        bcast placeholder)."""
+    def _owned(y: torch.Tensor, xs: list) -> torch.Tensor:
+        """``y`` as a kernel stream's message: a copy when it may alias
+        memory a later call writes (a view, or an operand itself)."""
+        if y._base is None and not any(y is x for x in xs):
+            return y
+        return y.clone()
+
+    def _operand(self, plan: dict, r: int,
+                 gang: Optional[dict] = None) -> torch.Tensor:
+        """Rank ``r``'s operand: a view of its buffer (or, for an
+        OP0_STREAM member, of its reserved queue operand), or a copy
+        widened to the datapath dtype or padded to the operand length (a
+        short bcast placeholder)."""
         buf, off, _res, _roff = plan["ops"][r]
         in_len = plan["in_len"]
-        shard = buf.dev[off:off + in_len]
+        if buf is None:
+            item = gang[plan["members"][r]][1].krnl_operand
+            shard = self._joined(item)[:in_len]
+        else:
+            shard = buf.dev[off:off + in_len]
         if shard.dtype != plan["dtype"]:
             shard = shard.to(plan["dtype"])
         if shard.shape[0] < in_len:
@@ -1357,7 +1477,7 @@ class CudaEngine:
                     missing = sorted(set(group["expected"])
                                      - set(group["arrived"]))
                     err = ACCLError(
-                        f"plan arm timed out after {timeout_s:.1f}s "
+                        f"plan arm timed out after {timeout_s:.0f}s "
                         f"waiting for rank(s) {missing} to capture the "
                         f"same plan — capture_plan is collective over "
                         f"every gang/p2p peer of the captured program")
@@ -1693,6 +1813,8 @@ class CudaEngine:
         completion, so every rank switches on the SAME instance).  A
         failure leaves the gang on its eager path, where the same plan
         error then fails it (tpu.py:1401)."""
+        if any(c.stream_flags for c, _r in gang.values()):
+            return  # stream operands are not replayable (tpu.py:1121)
         try:
             gang2 = {g: (c, None) for g, (c, _r) in gang.items()}
             ring = PlanRing(
@@ -1706,6 +1828,70 @@ class CudaEngine:
             self.metrics.inc("plan_auto_captures")
         except Exception as e:
             self._log.warning("plan auto-capture failed: %s", e)
+
+    # -- kernel streams (tpu.py:1968-1995) -------------------------------
+    def _refuse_capture(self, what: str) -> None:
+        """A queue pop or push cannot be a node of a CUDA graph: under
+        capture a stream call raises, as a plan arm refuses stream
+        traffic."""
+        if self.device.type == "cuda" \
+                and torch.cuda.is_current_stream_capturing():
+            raise ACCLError(f"{what} under CUDA graph capture: kernel "
+                            f"streams are not capturable — keep stream "
+                            f"traffic eager")
+
+    def _event(self):
+        """An event recorded on the current stream (None off the card):
+        what a consumer on another stream waits for."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _joined(self, item) -> torch.Tensor:
+        """A queue operand, with the current stream made to wait for its
+        host-to-device copy."""
+        t, ev = item[0], item[-1]
+        if ev is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ev)
+            t.record_stream(stream)
+        return t
+
+    def push_krnl(self, rank: int, data: np.ndarray) -> None:
+        """Queue one operand for the rank's next OP0_STREAM call, on the
+        device as a tensor."""
+        self._refuse_capture("push_krnl")
+        # a copy: the operand is what the array holds now
+        arr = np.array(data).reshape(-1)
+        t = torch.from_numpy(arr).to(self.device)
+        self._krnl_in[rank].append((t, arr.dtype, self._event()))
+
+    def _push_stream(self, rank: int, strm: int, data: torch.Tensor) -> None:
+        """Deliver ``data`` into (rank, strm)'s kernel stream and wake the
+        waiters: the one delivery point of every RES_STREAM path (local
+        copy, stream_put, receive landing, gang results).  The message
+        carries the event recorded after the work that made it."""
+        ev = self._event()
+        with self._stream_cv:
+            self._streams.setdefault((rank, strm), deque()).append(
+                (data, ev))
+            self._stream_cv.notify_all()
+
+    def pop_stream(self, rank: int, strm: int,
+                   timeout_s: float) -> Optional[np.ndarray]:
+        """The next message of (rank, strm) as a host array, once the
+        device work that made it is done; None on timeout."""
+        key = (rank, strm)
+        with self._stream_cv:
+            if not self._stream_cv.wait_for(lambda: self._streams.get(key),
+                                            timeout=timeout_s):
+                return None
+            data, ev = self._streams[key].popleft()
+        if ev is not None:
+            ev.synchronize()
+        return data.cpu().numpy()
 
     # -- resilience (tpu.py:883-987) -------------------------------------
     def _drain_comm(self, comm_id: int) -> tuple:
@@ -1847,6 +2033,10 @@ class CudaEngine:
 class CudaDeviceView(CCLODevice):
     """One rank's handle on the shared CudaEngine."""
 
+    #: every rank uploads to the one engine's communicator table
+    #: (tpu.py:2285): a rank outside a group burns its id driver-side
+    comm_table_is_shared = True
+
     def __init__(self, engine: CudaEngine, rank: int):
         self._engine = engine
         self._rank = rank
@@ -1957,6 +2147,14 @@ class CudaDeviceView(CCLODevice):
     def create_buffer(self, length: int, dtype: np.dtype) -> BaseBuffer:
         return self._engine.create_buffer(self._rank, length, dtype)
 
+    def push_krnl(self, data: np.ndarray) -> None:
+        self._engine.push_krnl(self._rank, data)
+
+    def pop_stream(self, strm: int, nbytes: int,
+                   timeout_s: float = 10.0) -> Optional[bytes]:
+        arr = self._engine.pop_stream(self._rank, strm, timeout_s)
+        return None if arr is None else arr.tobytes()[:nbytes]
+
     def setup_rx_buffers(self, n_bufs: int, buf_size: int) -> None:
         pass  # no rx pool: the engine moves payloads within device memory
 
@@ -1981,6 +2179,9 @@ class CudaWorld:
     rank.  ``device`` defaults to the card; without CUDA that raises."""
 
     def __init__(self, nranks: int, device="cuda"):
+        from ..tuning.autotune import refuse_online_tuner
+
+        refuse_online_tuner("CudaWorld")
         dev = resolve_device(device, "CudaWorld")
         self.nranks = nranks
         self.engine = CudaEngine(nranks, dev)

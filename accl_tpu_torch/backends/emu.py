@@ -805,6 +805,9 @@ class EmuWorld:
                  mtu: int = 256, reorder_window: int = 8,
                  retry_max: Optional[int] = None,
                  retry_base_us: Optional[int] = None, chaos=None):
+        from ..tuning.autotune import refuse_online_tuner
+
+        refuse_online_tuner("EmuWorld")
         self._lib = load_lib()
         self.nranks = nranks
         self._n_egr_rx_bufs = n_egr_rx_bufs

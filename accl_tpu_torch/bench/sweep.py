@@ -93,6 +93,17 @@ _busbw_factor = _metrics.busbw_factor
 _payload_factor = _metrics.payload_factor
 
 
+def _resolve_dtype(name) -> np.dtype:
+    """The host dtype of a sweep (accl_tpu/bench/sweep.py:125).  Host
+    buffers are numpy arrays, and numpy has no bfloat16, which the JAX
+    package takes from ml_dtypes: that name raises here."""
+    try:
+        return np.dtype(name)
+    except TypeError as e:
+        raise ACCLError(f"sweep: dtype {name!r} has no numpy host "
+                        f"representation") from e
+
+
 def run_sweep(world, config: SweepConfig = SweepConfig(),
               writer: Optional[io.TextIOBase] = None) -> list:
     """Run the sweep: per collective and size one untimed warm-up call,
@@ -112,7 +123,7 @@ def run_sweep(world, config: SweepConfig = SweepConfig(),
         if at_start:
             csv_writer.writeheader()
     P = world.nranks
-    dtype = np.dtype(config.dtype)
+    dtype = _resolve_dtype(config.dtype)
     for coll in config.collectives:
         for pw in config.count_pows:
             count = 1 << pw

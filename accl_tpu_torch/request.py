@@ -45,6 +45,10 @@ class Request:
     #: member agreed
     plan_intent = False
     plan_ring = None
+    #: the OP0_STREAM operand a collective reserved at submit, in the
+    #: submitting rank's thread (backends/cuda.py); a class default, so
+    #: other calls write nothing
+    krnl_operand = None
 
     def __init__(self, description: str = "", sync: bool = False):
         self.id = next(Request._ids)

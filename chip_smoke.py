@@ -297,6 +297,31 @@ Phases, each fatal on failure:
      fp32 sum within (P - 1) 2^-24 sum|x| of float64); CudaWorld's ring
      launches at
      8 MiB join the kernels line;
+  7e. the device API and kernel streams (phase device_api), on a fresh
+     CudaWorld(8) at 64 MiB fp32 per rank: each rank pushes its operand
+     (ACCLData.push) and issues ACCLCommand.start_call(allreduce,
+     OP0_STREAM | RES_STREAM, tag 9), pulling the result: bitwise the
+     buffer-sourced allreduce, within (P - 1) 2^-24 sum|x| of float64,
+     both ring kernels launched once; the same for reduce_scatter and
+     allgather; vadd_put (push x + 1, stream_put to the next rank, pull);
+     a kernel-issued allreduce by raw device addresses; copy_to_stream /
+     copy_from_stream round trips and the rooted reduce with OP0_STREAM
+     and with RES_STREAM, bitwise the buffer-sourced reduce;
+     DeviceCollectives over 8 member tensors against the torch ops; then
+     events ms of the 64 MiB allreduce stream-sourced (push, call, pull),
+     host-staged and resident, the push's and the pull's ms, and the
+     device ms of the stream-sourced and the resident call by split_ms.
+     Its ring launches join the kernels line;
+  7f. offline tuning (phase tuning): tune through the CLI's tune_sizes
+     on a fresh CudaWorld(8), allreduce / reduce_scatter / allgather at
+     1, 4, 16 and 64 MiB payload, over the cuda lanes, best of 3; each
+     cell's winner and busbw; compare's never-slower check against
+     static; the table armed through ACCL_TUNE_TABLE on a fresh world,
+     each cell served there bitwise the same call with the served lane
+     forced directly on a second world with the same registers; the 64
+     MiB allreduce cell hot-swapped to the hierarchical lane, its routed
+     int32 allreduce bitwise flat and its fp32 one within the bound.  Its
+     ring launches join the kernels line;
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -5062,6 +5087,543 @@ def emu_world(ring, CudaWorld, native) -> dict:
     return out
 
 
+#: the device-API phase: elements per rank (64 MiB of fp32)
+DAPI_N = 16_777_216
+
+
+def _pushed_call(accl, rank, kind, n, data, flags, tag=9):
+    """Rank ``rank`` issues one raw descriptor by the device API: push its
+    operand (OP0_STREAM), start the call, finalize; the result is left in
+    kernel stream ``tag`` (RES_STREAM)."""
+    from accl_tpu_torch import Operation
+    from accl_tpu_torch.constants import DataType
+    from accl_tpu_torch.device_api import ACCLCommand, ACCLData
+
+    if data is not None:
+        ACCLData(accl.device).push(data[rank])
+    cmd = ACCLCommand(accl.device,
+                      arithcfg=accl._arith_ids[(DataType.float32,
+                                                DataType.float32)])
+    cmd.start_call(Operation[kind], n, function=0, tag=tag,
+                   stream_flags=flags)
+    return cmd.finalize_call()
+
+
+def device_api_phase(ring, CudaWorld) -> dict:
+    """Phase 7e: the device API and kernel streams on a fresh
+    CudaWorld(8) at DAPI_N fp32 per rank (64 MiB), each step fatal:
+    a. every rank ACCLData.push-es its operand and issues
+       ACCLCommand.start_call(allreduce, OP0_STREAM | RES_STREAM, tag 9);
+       ACCLData.pull reads the result: bitwise the buffer-sourced
+       allreduce of the same data and within (P - 1) 2^-24 sum|x| of
+       float64; both ring kernels launch once;
+    b. the same for reduce_scatter (rank r's 8 MiB chunk) and allgather
+       (512 MiB a rank), bitwise their buffer-sourced results;
+    c. vadd_put (examples/device_vadd_put.py): push x + 1, stream_put to
+       the next rank, pull: bitwise the previous rank's x + 1;
+    d. a kernel-issued allreduce by raw device addresses
+       (ACCLCommand.allreduce), bitwise a;
+    e. copy_to_stream and copy_from_stream round trips, and the rooted
+       reduce with OP0_STREAM, then with RES_STREAM (stream 11), bitwise
+       the buffer-sourced reduce;
+    f. DeviceCollectives over 8 member tensors on the card against the
+       same collectives written out with torch ops.
+    The launch counts of a-e (set to 0 just before, read just after) join
+    rows 1 and 2.  Then, outside the counts: events ms of the 64 MiB
+    allreduce stream-sourced (push, call, pull), host-staged from buffers,
+    and resident; the push's and the pull's ms; and the device ms of the
+    stream-sourced and the resident call by split_ms."""
+    import threading
+
+    from accl_tpu_torch import DataType, ReduceFunction, StreamFlags
+    from accl_tpu_torch.device_api import ACCLCommand, ACCLData, \
+        DeviceCollectives
+
+    t_phase = time.perf_counter()
+    n = DAPI_N
+    both = StreamFlags.OP0_STREAM | StreamFlags.RES_STREAM
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    xs = [rand((n,), torch.float32, gen) for _ in range(P)]
+    host = [x.cpu().numpy() for x in xs]
+    ref, bound = sum_ref_bound(xs, P)
+    out = {"checks": {}}
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+        fn.launches = fn.launches_stamp = 0
+
+    def bitwise(what, got, want):
+        if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+            fail(f"device_api: {what}: not bitwise the buffer-sourced "
+                 f"result (max abs err "
+                 f"{float(np.abs(got - want).max())})")
+
+    with CudaWorld(P) as world:
+        accls = world.accls
+        send = {r: accls[r].create_buffer(n, np.float32) for r in range(P)}
+        for r in range(P):
+            send[r].dev.copy_(xs[r])
+            send[r].host[:] = host[r]
+
+        def buffered(kind):
+            def fn(a, r):
+                cnt = n // P if kind == "reduce_scatter" else n
+                o = a.create_buffer(
+                    n * P if kind == "allgather" else cnt, np.float32)
+                getattr(a, kind)(send[r], o, cnt, *(
+                    () if kind == "allgather" else (ReduceFunction.SUM,)),
+                    from_fpga=True, to_fpga=True)
+                torch.cuda.synchronize()
+                res = o.dev.cpu().numpy()
+                o.free()
+                return res
+            return fn
+
+        # -- a, b: stream-sourced collectives ----------------------------
+        for kind in ("allreduce", "reduce_scatter", "allgather"):
+            cnt = n // P if kind == "reduce_scatter" else n
+            out_n = n * P if kind == "allgather" else cnt
+            want = world.run(buffered(kind), timeout=300)
+            before = _counts(ring)
+            t = time.perf_counter()
+            got = world.run(lambda a, r: (
+                _pushed_call(a, r, kind, cnt, host, both),
+                ACCLData(a.device).pull(out_n, np.float32, 9,
+                                        timeout=120))[1], timeout=300)
+            s = time.perf_counter() - t
+            launched = _launched(ring, before)
+            want_l = {"allreduce": (1, 1), "reduce_scatter": (1, 0),
+                      "allgather": (0, 1)}[kind]
+            if launched != want_l:
+                fail(f"device_api: stream-sourced {kind} launched "
+                     f"{launched}, want {want_l}")
+            for r in range(P):
+                bitwise(f"stream {kind} rank {r}", got[r], want[r])
+            err = None
+            if kind != "allgather":
+                lo = [r * cnt if kind == "reduce_scatter" else 0
+                      for r in range(P)]
+                err = 0.0
+                for r in range(P):
+                    g = torch.from_numpy(got[r]).cuda()
+                    if not within_bound(g, ref[lo[r]:lo[r] + cnt],
+                                        bound[lo[r]:lo[r] + cnt]):
+                        fail(f"device_api: stream {kind} rank {r} outside "
+                             f"(P - 1) 2^-24 sum|x| of float64")
+                    err = max(err, max_err(g, ref[lo[r]:lo[r] + cnt]))
+            out["checks"][f"stream_{kind}"] = {
+                "launches": list(launched), "s": s,
+                "max_abs_err_vs_f64": err}
+            del want, got
+        ar_want = world.run(buffered("allreduce"), timeout=300)
+
+        # -- c: vadd_put --------------------------------------------------
+        def vadd_put(a, r):
+            d = ACCLData(a.device)
+            d.push(host[r] + np.float32(1.0))
+            ACCLCommand(a.device).stream_put(n, stream_id=9,
+                                             dst=(r + 1) % P)
+            return d.pull(n, np.float32, 9, timeout=120)
+
+        before = _counts(ring)
+        for r, got in enumerate(world.run(vadd_put, timeout=300)):
+            bitwise(f"vadd_put rank {r}", got,
+                    host[(r - 1) % P] + np.float32(1.0))
+        if _launched(ring, before) != (0, 0):
+            fail("device_api: vadd_put launched a ring kernel")
+
+        # -- d: kernel-issued allreduce by raw addresses --------------------
+        dst = {r: accls[r].create_buffer(n, np.float32) for r in range(P)}
+        before = _counts(ring)
+        world.run(lambda a, r: ACCLCommand(
+            a.device, arithcfg=a._arith_ids[(DataType.float32,
+                                             DataType.float32)]).allreduce(
+            n, int(ReduceFunction.SUM), send[r].address, dst[r].address),
+            timeout=300)
+        torch.cuda.synchronize()
+        raw_launched = _launched(ring, before)
+        if raw_launched != (1, 1):
+            fail(f"device_api: kernel-issued allreduce launched "
+                 f"{raw_launched}")
+        for r in range(P):
+            bitwise(f"kernel-issued allreduce rank {r}",
+                    dst[r].dev.cpu().numpy(), ar_want[r])
+
+        # -- e: copy_to/from_stream, reduce with stream operands ----------
+        root = 3
+
+        def streams_and_reduce(a, r):
+            a.copy_to_stream(send[r], n, stream_id=10, from_fpga=True)
+            raw = a.device.pop_stream(10, n * 4, 120)
+            a.device.push_krnl(np.frombuffer(raw, np.float32))
+            back = a.create_buffer(n, np.float32)
+            a.copy_from_stream(back, n, to_fpga=True)
+            torch.cuda.synchronize()
+            if not torch.equal(back.dev, xs[r]):
+                fail(f"device_api: copy_to/from_stream rank {r} round "
+                     f"trip differs")
+            back.free()
+            rb = a.create_buffer(n, np.float32)
+            a.reduce(send[r], rb, n, root, from_fpga=True, to_fpga=True)
+            torch.cuda.synchronize()
+            flat = rb.dev.cpu().numpy()
+            a.device.push_krnl(host[r])
+            a.reduce(None, rb, n, root, stream_flags=StreamFlags.OP0_STREAM,
+                     to_fpga=True)
+            torch.cuda.synchronize()
+            from_stream = rb.dev.cpu().numpy()
+            a.reduce(send[r], None, n, root, from_fpga=True,
+                     stream_flags=StreamFlags.RES_STREAM, stream_id=11)
+            to_stream = (np.frombuffer(a.device.pop_stream(11, n * 4, 120),
+                                       np.float32) if r == root else None)
+            rb.free()
+            return flat, from_stream, to_stream
+
+        before = _counts(ring)
+        res = world.run(streams_and_reduce, timeout=300)
+        if _launched(ring, before) != (0, 0):
+            fail("device_api: the copies and rooted reduces launched a ring "
+                 "kernel")
+        flat, from_stream, to_stream = res[root]
+        bitwise("reduce OP0_STREAM", from_stream, flat)
+        bitwise("reduce RES_STREAM", to_stream, flat)
+        out["launches"] = {"ring_reduce_scatter":
+                           ring.ring_reduce_scatter.launches,
+                           "ring_all_gather": ring.ring_all_gather.launches}
+
+        # -- f: DeviceCollectives over member tensors -----------------------
+        dc = DeviceCollectives()
+        small = [x[:1 << 20].reshape(P, -1) for x in xs]
+        total = small[0]
+        for x in small[1:]:
+            total = total + x
+        checks = {
+            "allreduce": (dc.allreduce(small), [total] * P),
+            "reduce": (dc.reduce(small, 2), [total] * P),
+            "allgather": (dc.allgather(small), [torch.cat(small)] * P),
+            "reduce_scatter": (dc.reduce_scatter(small),
+                               [total[r:r + 1] for r in range(P)]),
+            "alltoall": (dc.alltoall(small),
+                         [torch.cat([x[r:r + 1] for x in small])
+                          for r in range(P)]),
+            "bcast": (dc.bcast(small, 5), [small[5]] * P),
+            "scatter": (dc.scatter(small, 1), [small[1][r] for r in range(P)]),
+            "gather": (dc.gather(small, 6), [torch.stack(small)] * P),
+            "send_recv": (dc.send_recv(small, 2, 7),
+                          [small[2] if r == 7 else torch.zeros_like(small[r])
+                           for r in range(P)]),
+        }
+        for name, (got, want) in checks.items():
+            if len(got) != P or not all(torch.equal(g, w)
+                                        for g, w in zip(got, want)):
+                fail(f"device_api: DeviceCollectives.{name} differs from "
+                     f"the torch ops")
+        if int(dc.barrier(small)[0]) != P:
+            fail("device_api: DeviceCollectives.barrier")
+
+        # -- times (outside the counts) -------------------------------------
+        recv = {r: accls[r].create_buffer(n, np.float32) for r in range(P)}
+
+        def stream_cycle(a, r):
+            _pushed_call(a, r, "allreduce", n, host, both)
+            ACCLData(a.device).pull(n, np.float32, 9, timeout=120)
+
+        def staged(a, r):
+            a.allreduce(send[r], recv[r], n)
+
+        def resident(a, r):
+            a.allreduce(send[r], recv[r], n, from_fpga=True, to_fpga=True)
+
+        times = {
+            "stream_push_call_pull_events_ms": cuda_ms(
+                lambda: world.run(stream_cycle, timeout=300), 1, runs=3),
+            "buffer_staged_events_ms": cuda_ms(
+                lambda: world.run(staged, timeout=300), 1, runs=3),
+            "buffer_resident_events_ms": cuda_ms(
+                lambda: world.run(resident, timeout=300), 1, runs=3),
+        }
+        barrier = threading.Barrier(P, timeout=60)
+
+        def push_pull(a, r):
+            d = ACCLData(a.device)
+            barrier.wait()
+            t0 = time.perf_counter()
+            d.push(host[r])
+            barrier.wait()
+            t1 = time.perf_counter()
+            _pushed_call(a, r, "allreduce", n, None, both)
+            torch.cuda.synchronize()
+            barrier.wait()
+            t2 = time.perf_counter()
+            d.pull(n, np.float32, 9, timeout=120)
+            barrier.wait()
+            return t1 - t0, time.perf_counter() - t2
+
+        pp = world.run(push_pull, timeout=300)
+        times["push_ms"] = max(p[0] for p in pp) * 1e3
+        times["pull_ms"] = max(p[1] for p in pp) * 1e3
+        # device ms: the stream-sourced call (operands pushed before the
+        # window, results popped after) beside the resident buffer call
+        pending = 8  # split_ms's calls: warm-up, guess, 3 runs, retries
+        world.run(lambda a, r: [ACCLData(a.device).push(host[r])
+                                for _ in range(pending)], timeout=300)
+        torch.cuda.synchronize()
+        calls = [0]
+
+        def stream_call():
+            calls[0] += 1
+            world.run(lambda a, r: _pushed_call(a, r, "allreduce", n, None,
+                                                both), timeout=300)
+
+        dev_stream = split_ms(stream_call, 1, runs=3)
+        if calls[0] > pending:
+            fail(f"device_api: split_ms made {calls[0]} stream calls, "
+                 f"{pending} operands pushed")
+        def drain(a, r):
+            for _ in range(calls[0]):
+                ACCLData(a.device).pull(n, np.float32, 9, timeout=120)
+            for _ in range(pending - calls[0]):
+                a.copy_from_stream(recv[r], n, to_fpga=True)
+
+        world.run(drain, timeout=300)
+        dev_res = split_ms(lambda: world.run(resident, timeout=300), 1,
+                           runs=3)
+        times.update(stream_device_ms=dev_stream["device_ms"],
+                     stream_host_enqueue_ms=dev_stream["host_enqueue_ms"],
+                     resident_device_ms=dev_res["device_ms"],
+                     resident_host_enqueue_ms=dev_res["host_enqueue_ms"])
+    out.update(times=times, seconds=time.perf_counter() - t_phase)
+    emit({"phase": "device_api", "ranks": P, "count": n,
+          "mib_per_rank": n * 4 / MIB, "card": card_line(),
+          "checks": out["checks"],
+          "kernel_issued_allreduce_launches": list(raw_launched),
+          "launches": out["launches"], **times, "seconds": out["seconds"]})
+    return out
+
+
+#: the tuning phase: payload MiB of each cell (the table's bytes)
+TUNE_MIB = (1, 4, 16, 64)
+TUNE_COLLS = ("allreduce", "reduce_scatter", "allgather")
+
+
+def tuning_phase(ring, CudaWorld) -> dict:
+    """Phase 7f: offline tuning on the card.  tune (through the CLI's
+    tune_sizes) on a fresh CudaWorld(8) over TUNE_COLLS at TUNE_MIB
+    payload MiB, over the cuda lanes (static, flat, ring, hierarchical,
+    fused, compress_int8, compress_fp16), best of 3; each cell's winner
+    and busbw; compare's never-slower verification against static (its
+    prune leaves no cell below 1/1.05).  The table is armed through
+    ACCL_TUNE_TABLE on a fresh world, and each cell is served there
+    (host-staged, as the tuner measured it): bitwise the same call on a
+    second world with the same registers and the served lane forced
+    directly (fused=True, compress_dtype, HierarchicalComm; the register
+    lanes by apply_algorithm).  Then, with compression disarmed on both
+    worlds, the 64 MiB allreduce cell is hot-swapped to the hierarchical
+    lane: the routed composition on int32 data bitwise the flat
+    allreduce, on fp32 within (P - 1) 2^-24 sum|x| of float64.  Every part's ring launches
+    (set to 0 before the phase, read after) join rows 1 and 2."""
+    import tempfile
+
+    from accl_tpu_torch import DataType, Operation, ReduceFunction
+    from accl_tpu_torch.constants import TuningKey
+    from accl_tpu_torch.observability import metrics as OM
+    from accl_tpu_torch.tuning import HierarchicalComm, SelectionTable, \
+        TuneConfig, autotune
+    from accl_tpu_torch.tuning import cli as TC
+
+    t_phase = time.perf_counter()
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+        fn.launches = fn.launches_stamp = 0
+    cfg = TuneConfig(collectives=TUNE_COLLS, dtype="float32",
+                     repetitions=3)
+    with CudaWorld(P) as world:
+        t = time.perf_counter()
+        table = TC.tune_sizes(world, cfg, list(TUNE_MIB), log=None)
+        tune_s = time.perf_counter() - t
+        t = time.perf_counter()
+        rows = autotune.compare(world, table, cfg)
+        compare_s = time.perf_counter() - t
+    for key, e in sorted(table.entries.items()):
+        coll, _dt, bucket, _n = key.split("|")
+        emit({"phase": "tuning_cell", "collective": coll, "bucket": bucket,
+              "bytes": e["bytes"], "winner": e["algorithm"],
+              "busbw_GBps": e["busbw_GBps"],
+              "static_busbw_GBps": e["static_busbw_GBps"],
+              "pruned_from": e.get("pruned_from")})
+    slow = [r for r in rows if r["ratio"] < 1.0 / 1.05]
+    for r in rows:
+        emit({"phase": "tuning_compare", **r})
+    if not rows or slow:
+        fail(f"tuning: compare left {len(slow)} cells slower than static "
+             f"(of {len(rows)})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "table.json")
+        table.save(path)
+        loaded = SelectionTable.load(path)
+        if loaded.entries != table.entries:
+            fail("tuning: the saved table does not read back")
+        os.environ["ACCL_TUNE_TABLE"] = path
+        try:
+            served_world = CudaWorld(P)
+        finally:
+            del os.environ["ACCL_TUNE_TABLE"]
+    served = []
+    try:
+        with CudaWorld(P) as forced_world:
+            A, B = served_world, forced_world
+            policy = A.accls[0]._tune_policy
+            if policy is None:
+                fail("tuning: ACCL_TUNE_TABLE armed no policy")
+            thr = A.engine.ring_threshold_bytes
+            comp = A.accls[0].compression_policy
+            for a in B.accls:
+                a.set_tuning(int(TuningKey.RING_THRESHOLD_BYTES), thr)
+                a.set_compression(comp)
+            fabric = autotune.fabric_of_table(policy.table, P)
+            hier = [HierarchicalComm(a, fabric) for a in B.accls]
+            rng = np.random.default_rng(SEED + 19)
+
+            def program(coll, count, data, lane, accl_side):
+                def fn(a, r):
+                    made = []
+
+                    def mk(factory, *args):
+                        made.append(factory(*args))
+                        return made[-1]
+
+                    n_in = count * (P if coll == "reduce_scatter" else 1)
+                    n_out = count * (P if coll == "allgather" else 1)
+                    s = mk(a.create_buffer_like, data[r][:n_in])
+                    o = mk(a.create_buffer, n_out, data[r].dtype)
+                    kw = {}
+                    if accl_side == "forced":
+                        if lane == "fused":
+                            kw["fused"] = True
+                        elif lane in autotune.COMPRESSION_ALGS:
+                            kw["compress_dtype"] = \
+                                autotune._compress_dtype_of(lane)
+                    if accl_side == "forced" and lane == "hierarchical":
+                        h = hier[r]
+                        if coll == "allgather":
+                            h.allgather(s, o, count)
+                        else:
+                            getattr(h, coll)(s, o, count,
+                                             ReduceFunction.SUM)
+                    elif coll == "allgather":
+                        a.allgather(s, o, count, **kw)
+                    else:
+                        getattr(a, coll)(s, o, count, ReduceFunction.SUM,
+                                         **kw)
+                    res = o.host.copy()
+                    for b in made:
+                        b.free()
+                    return res
+                return fn
+
+            lane_of = {DataType.int8: "compress_int8",
+                       DataType.float16: "compress_fp16"}
+
+            def served_lane(coll, count, table_lane):
+                """The lane A dispatches a cell by: the fused descriptor;
+                else the compression the armed policy selects (B has the
+                same policy); else the composer; else the installed ring
+                threshold (a flat win above it is served by the ring, as
+                in the JAX package)."""
+                if table_lane == "fused":
+                    return "fused"
+                sel = comp.select(Operation[coll], count, 0,
+                                  DataType.float32) if comp else None
+                if sel is not None:
+                    return lane_of[sel]
+                if table_lane == "hierarchical":
+                    return "hierarchical"
+                in_len = count * (P if coll == "reduce_scatter" else 1)
+                return "ring" if in_len * 4 >= thr else "flat"
+
+            for key, e in sorted(policy.table.entries.items()):
+                coll, _dt, bucket, _n = key.split("|")
+                count = e["bytes"] // (OM.payload_factor(coll, P) * 4)
+                lane = served_lane(coll, count, e["algorithm"])
+                n_in = count * (P if coll == "reduce_scatter" else 1)
+                data = [rng.standard_normal(n_in, dtype=np.float32)
+                        for _ in range(P)]
+                before = _counts(ring)
+                got = A.run(program(coll, count, data, lane, "served"),
+                            timeout=300)
+                launched = _launched(ring, before)
+                if lane in ("ring", "flat"):
+                    autotune.apply_algorithm(B, lane)
+                want = B.run(program(coll, count, data, lane, "forced"),
+                             timeout=300)
+                for a in B.accls:
+                    a.set_tuning(int(TuningKey.RING_THRESHOLD_BYTES), thr)
+                for r in range(P):
+                    if got[r].tobytes() != want[r].tobytes():
+                        fail(f"tuning: served {coll} {bucket} ({lane}) rank "
+                             f"{r} is not bitwise the lane forced directly")
+                served.append({"collective": coll, "bucket": bucket,
+                               "table_lane": e["algorithm"],
+                               "served_lane": lane,
+                               "served_launches": list(launched)})
+
+            # -- the hierarchical route on the card ------------------------
+            n = 64 * MIB // 4
+            key = autotune.cell_key("allreduce", "float32",
+                                    OM.size_bucket(n * 4), P)
+            for a in A.accls:
+                a._tune_policy.hot_swap(a, key, {
+                    "algorithm": "hierarchical", "busbw_GBps": 0.0,
+                    "static_busbw_GBps": 0.0, "bytes": n * 4})
+            # the composer's staged calls would ride the compression policy
+            # the swap re-installs (as in the JAX package): this check
+            # holds the route alone to the fp32 bound, uncompressed
+            for a in (*A.accls, *B.accls):
+                a.set_compression(None)
+            ints = [rng.integers(-1 << 20, 1 << 20, n, dtype=np.int32)
+                    for _ in range(P)]
+            flts = [rng.standard_normal(n, dtype=np.float32)
+                    for _ in range(P)]
+            hier_routed = {}
+            for name, data in (("int32", ints), ("float32", flts)):
+                before = _counts(ring)
+                got = A.run(program("allreduce", n, data, "hierarchical",
+                                    "served"), timeout=300)
+                hier_routed[name] = list(_launched(ring, before))
+                want = B.run(program("allreduce", n, data, "flat",
+                                     "forced"), timeout=300)
+                if name == "int32":
+                    for r in range(P):
+                        if got[r].tobytes() != want[r].tobytes():
+                            fail(f"tuning: the hierarchical route's int32 "
+                                 f"allreduce rank {r} is not bitwise flat")
+                else:
+                    ref = np.sum([x.astype(np.float64) for x in data], 0)
+                    bnd = (P - 1) * 2.0 ** -24 * np.sum(
+                        [np.abs(x.astype(np.float64)) for x in data], 0)
+                    for r in range(P):
+                        if not (np.abs(got[r] - ref) <= bnd).all():
+                            fail(f"tuning: the hierarchical route's fp32 "
+                                 f"allreduce rank {r} is outside (P - 1) "
+                                 f"2^-24 sum|x| of float64")
+            if not any(h for h in A.accls[0]._hier_comms.values()):
+                fail("tuning: the hierarchical cell was not routed through "
+                     "a composer")
+    finally:
+        served_world.close()
+    out = {"launches": {"ring_reduce_scatter":
+                        ring.ring_reduce_scatter.launches,
+                        "ring_all_gather": ring.ring_all_gather.launches},
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "tuning", "ranks": P, "card": card_line(),
+          "cells": len(table.entries),
+          "winners": {k: e["algorithm"] for k, e in
+                      sorted(table.entries.items())},
+          "ring_threshold_installed": thr, "served": served,
+          "hier_route_launches": hier_routed,
+          "tune_s": tune_s, "compare_s": compare_s,
+          "launches": out["launches"], "seconds": out["seconds"]})
+    return out
+
+
 #: the plan phase's collectives: (kind, elements per rank of the operand)
 PLAN_CASES = (("allreduce", 1024), ("allreduce", 1 << 20),
               ("reduce_scatter", 1 << 20), ("allgather", 1 << 20))
@@ -5477,9 +6039,11 @@ def main() -> int:
         obs = observatory(world, ring, F)
         res = resilience_path(ring, CudaWorld)
         emu = emu_world(ring, CudaWorld, native)
+        dapi = device_api_phase(ring, CudaWorld)
+        tun = tuning_phase(ring, CudaWorld)
         for row in rows:
             row["launches"] += sum(part["launches"].get(row["name"], 0)
-                                   for part in (obs, res, emu))
+                                   for part in (obs, res, emu, dapi, tun))
         sweep_phase(world)
         callrate_phase()
     finally:

@@ -1591,3 +1591,112 @@ def test_emu_world_matches_cuda_world_on_card():
         np.testing.assert_array_equal(emu_i[r], card_i[r])
         assert (np.abs(emu_f[r] - ref) <= bound).all()
         assert (np.abs(card_f[r] - ref) <= bound).all()
+
+
+def _stream_allreduce(a, r, data, n, before_call=None, pull_on=None):
+    """Rank r's stream->stream allreduce by the device API: push, call,
+    pull (stream 9).  ``before_call`` runs between the push and the call;
+    ``pull_on`` is the stream the pull runs on."""
+    import contextlib
+
+    from accl_tpu_torch import Operation, StreamFlags
+    from accl_tpu_torch.constants import DataType
+    from accl_tpu_torch.device_api import ACCLCommand, ACCLData
+
+    f32 = a._arith_ids[(DataType.float32, DataType.float32)]
+    d = ACCLData(a.device)
+    d.push(data[r])
+    if before_call is not None:
+        before_call()
+    cmd = ACCLCommand(a.device, arithcfg=f32)
+    cmd.start_call(Operation.allreduce, n, function=0, tag=9,
+                   stream_flags=StreamFlags.OP0_STREAM
+                   | StreamFlags.RES_STREAM)
+    cmd.finalize_call()
+    with (torch.cuda.stream(pull_on) if pull_on is not None
+          else contextlib.nullcontext()):
+        return d.pull(n, np.float32, 9, timeout=60)
+
+
+def test_stream_allreduce_64mib_is_the_buffer_ring_on_card():
+    """CudaWorld(8) at 64 MiB fp32 per rank: the stream-sourced allreduce
+    (ACCLData.push, ACCLCommand.start_call with OP0_STREAM | RES_STREAM,
+    pull) launches both ring kernels once and is bitwise the
+    buffer-sourced allreduce of the same data."""
+    from accl_tpu_torch import CudaWorld, ReduceFunction
+
+    P, n = 8, (64 << 20) // 4
+    rng = np.random.default_rng(17)
+    data = [rng.standard_normal(n).astype(np.float32) for _ in range(P)]
+
+    def buffered(a, r):
+        s = a.create_buffer_like(data[r])
+        o = a.create_buffer(n, np.float32)
+        a.allreduce(s, o, n, ReduceFunction.SUM)
+        return o.host.copy()
+
+    with CudaWorld(P) as world:
+        want = world.run(buffered, timeout=120)
+        before = (tring.ring_reduce_scatter.launches,
+                  tring.ring_all_gather.launches)
+        got = world.run(lambda a, r: _stream_allreduce(a, r, data, n),
+                        timeout=120)
+        assert (tring.ring_reduce_scatter.launches - before[0],
+                tring.ring_all_gather.launches - before[1]) == (1, 1)
+    for r in range(P):
+        assert got[r].tobytes() == want[r].tobytes()
+
+
+def test_pop_stream_waits_for_the_ring_on_card():
+    """The join of the stream paths: after every rank pushed its operand,
+    the card's default stream is held busy, so the ring kernels of the
+    stream allreduce start late; each rank pulls its result at once on a
+    side stream, which does not wait for the default one.  pop_stream
+    synchronizes the delivery's event first, so the bytes are the
+    finished result, not what the memory held before the kernels ran."""
+    import threading
+
+    from accl_tpu_torch import CudaWorld, ReduceFunction
+
+    P, n = 8, (16 << 20) // 4
+    rng = np.random.default_rng(18)
+    data = [rng.standard_normal(n).astype(np.float32) for _ in range(P)]
+    side = torch.cuda.Stream()
+    pushed = threading.Barrier(P, timeout=60)
+
+    def buffered(a, r):
+        s = a.create_buffer_like(data[r])
+        o = a.create_buffer(n, np.float32)
+        a.allreduce(s, o, n, ReduceFunction.SUM)
+        return o.host.copy()
+
+    def hold():
+        if pushed.wait() == 0:
+            torch.cuda._sleep(500_000_000)  # ~0.3 s at the card's clock
+        pushed.wait()
+
+    with CudaWorld(P) as world:
+        want = world.run(buffered, timeout=120)
+        got = world.run(lambda a, r: _stream_allreduce(
+            a, r, data, n, before_call=hold, pull_on=side), timeout=120)
+    for r in range(P):
+        assert got[r].tobytes() == want[r].tobytes()
+
+
+def test_stream_call_under_graph_capture_raises_on_card():
+    """A stream call under CUDA graph capture raises (plans refuse stream
+    traffic); nothing is popped from the operand queue."""
+    from accl_tpu_torch import ACCLError, CudaWorld
+
+    with CudaWorld(1) as world:
+        a = world.accls[0]
+        src = a.create_buffer_like(np.arange(64, dtype=np.float32))
+        dst = a.create_buffer(64, np.float32)
+        a.device.push_krnl(np.ones(64, np.float32))
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with pytest.raises(ACCLError, match="graph capture"):
+            with torch.cuda.graph(g):
+                a.copy_to_stream(src, 64, stream_id=9, from_fpga=True)
+        a.copy_from_stream(dst, 64)
+        np.testing.assert_array_equal(dst.host, np.ones(64, np.float32))

@@ -396,11 +396,17 @@ def test_training_step_loop_end_to_end(worlds, lane):
 
 
 def test_left_out_lanes_raise(worlds):
-    _, cw = worlds
-    accl = cw.accls[0]
-    x = accl.create_buffer_like(_data(N, 0, 16))
-    with pytest.raises(ACCLError, match="stream"):
-        accl.send(x, N, 1, stream_flags=StreamFlags.OP0_STREAM)
+    """Kernel streams are part of the port now: a send from the kernel
+    stream with no operand queued fails on both worlds with the same
+    error (the reference engine pops an empty queue, tpu.py:539-540)."""
+    msgs = []
+    for w, err in zip(worlds, (JACCLError, ACCLError)):
+        accl = w.accls[0]
+        x = accl.create_buffer_like(_data(N, 0, 16))
+        with pytest.raises(err, match="pop from an empty deque") as e:
+            accl.send(x, N, 1, stream_flags=StreamFlags.OP0_STREAM)
+        msgs.append(str(e.value).split(" [flight:")[0])
+    assert msgs[0] == msgs[1]
 
 
 def _torch_inputs(inputs, i=0):

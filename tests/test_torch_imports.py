@@ -31,7 +31,9 @@ SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
               "analysis.record", "backends.emu", "resilience",
               "resilience.retry", "resilience.chaos",
               "resilience.membership", "resilience.elastic",
-              "resilience.supervisor"]
+              "resilience.supervisor", "device_api", "utils.topology",
+              "tuning", "tuning.topology", "tuning.compose",
+              "tuning.autotune", "tuning.cli"]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 

@@ -1,5 +1,5 @@
 """The public names of accl_tpu and of its ops, parallel, models,
-observability, bench, analysis and plans subpackages, against
+observability, bench, analysis, plans and tuning subpackages, against
 accl_tpu_torch's.
 
 Every public name of the JAX package is in the port under the same name,
@@ -19,7 +19,7 @@ ROADMAP = (pathlib.Path(__file__).resolve().parents[1]
            / "ROADMAP.md").read_text()
 
 SUBPACKAGES = ("", ".ops", ".parallel", ".models", ".observability",
-               ".bench", ".analysis", ".plans")
+               ".bench", ".analysis", ".plans", ".tuning")
 
 #: (subpackage, JAX name) -> the port's name for it
 RENAMED = {
@@ -30,9 +30,12 @@ RENAMED = {
 
 #: (subpackage, JAX name) -> the Queue 1 item of ROADMAP.md that ports it
 MISSING = {
-    ("", "ACCLCommand"): 11,
-    ("", "ACCLData"): 11,
-    ("", "DeviceCollectives"): 11,
+    (".tuning", "OnlineTuner"): 9,
+    (".tuning", "RetuneHistory"): 9,
+    (".tuning", "ensure_online_tuner_from_env"): 9,
+    (".tuning", "online_enabled"): 9,
+    (".tuning", "online_tuner"): 9,
+    (".tuning", "stop_online_tuner"): 9,
 }
 
 
