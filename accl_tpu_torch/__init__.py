@@ -20,9 +20,13 @@ abort, shrink, grow, reset and the recovery supervisor, on ``CudaWorld``
 and on the native emulator's ``EmuWorld``, ``backends/emu.py``, which
 adds retransmission, seeded chaos and live joins); kernel streams and
 the device-side caller API (``ACCLCommand``, ``ACCLData``,
-``DeviceCollectives``); offline tuning (``accl_tpu_torch.tuning``: the
-fabric model, the hierarchical composer, the autotuner and its selection
-table, armed by ``ACCL_TUNE_TABLE``).  It imports torch,
+``DeviceCollectives``); tuning (``accl_tpu_torch.tuning``: the fabric
+model, the hierarchical composer, the autotuner and its selection table,
+armed by ``ACCL_TUNE_TABLE``, and the online tuner, armed by
+``ACCL_TUNE_ONLINE``); the utilities (``accl_tpu_torch.utils``: timing,
+profiling, checkpoints, bring-up, the wire codec) and the command-line
+tools (``accl_tpu_torch.scripts``: ``perf_doctor``, ``retune_smoke``,
+``accl_lint``, ``slo_soak``, ``graft_entry``).  It imports torch,
 numpy, ctypes and the standard library only.
 
     world = CudaWorld(8)            # on the card; CudaWorld(8, "cpu") for CPU

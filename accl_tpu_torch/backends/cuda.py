@@ -2179,11 +2179,9 @@ class CudaWorld:
     rank.  ``device`` defaults to the card; without CUDA that raises."""
 
     def __init__(self, nranks: int, device="cuda"):
-        from ..tuning.autotune import refuse_online_tuner
-
-        refuse_online_tuner("CudaWorld")
         dev = resolve_device(device, "CudaWorld")
         self.nranks = nranks
+        self.online_tuner = None
         self.engine = CudaEngine(nranks, dev)
         self.devices = [CudaDeviceView(self.engine, r) for r in range(nranks)]
         self.accls = [ACCL(d) for d in self.devices]
@@ -2208,6 +2206,12 @@ class CudaWorld:
             [self.devices[0].engine_stats], name="accl-cuda",
             link_sources=[(r, d.link_stats)
                           for r, d in enumerate(self.devices)])
+        # the online tuner (ACCL_TUNE_ONLINE=1, tuning/online.py), as the
+        # JAX package's TpuWorld arms it: unset constructs nothing and
+        # dispatch stays bit-identical
+        from ..tuning import online as _online
+
+        self.online_tuner = _online.ensure_online_tuner_from_env(self)
 
     def run(self, fn: Callable, *args, timeout: Optional[float] = 300) -> list:
         futures = [self._pool.submit(self._on_device, fn, self.accls[r], r,
@@ -2256,9 +2260,14 @@ class CudaWorld:
                                       comm=comm)
 
     def close(self) -> None:
-        """Stop the telemetry sampler, the watchdog, the executor and,
-        when this world's bring-up started it, the OpenMetrics
-        exporter."""
+        """Stop the online tuner, the telemetry sampler, the watchdog,
+        the executor and, when this world's bring-up started it, the
+        OpenMetrics exporter.  The tuner's loop thread stops first, so
+        no A/B runs into the engine's shutdown fence."""
+        if self.online_tuner is not None:
+            from ..tuning import online as _online
+
+            _online.stop_world_tuner(self)
         if self.telemetry is not None:
             self.telemetry.stop()
             self.telemetry = None

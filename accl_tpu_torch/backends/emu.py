@@ -307,16 +307,6 @@ class EmuDevice(CCLODevice):
         if span is not None:
             span.lane = "emu"
             span.t_dispatch = span.t_device_begin = _trace.now_ns()
-        with self._lifecycle:
-            world = self._w
-            if world is None:
-                request.complete(int(ErrorCode.COMM_ABORTED
-                                     | ErrorCode.RANK_FAILED), 0.0)
-                return
-            call_id = self._lib.accl_start_call(world, self._rank,
-                                                _words(call.to_words()))
-            t = threading.Thread(target=lambda: waiter(), daemon=True)
-            self._waiters.add(t)
 
         def waiter():
             try:
@@ -339,7 +329,19 @@ class EmuDevice(CCLODevice):
             finally:
                 self._waiters.discard(threading.current_thread())
 
-        t.start()
+        with self._lifecycle:
+            world = self._w
+            if world is None:
+                request.complete(int(ErrorCode.COMM_ABORTED
+                                     | ErrorCode.RANK_FAILED), 0.0)
+                return
+            call_id = self._lib.accl_start_call(world, self._rank,
+                                                _words(call.to_words()))
+            # started under the lock, so close() never finds a waiter it
+            # cannot join yet
+            t = threading.Thread(target=waiter, daemon=True)
+            self._waiters.add(t)
+            t.start()
 
     # -- device memory ---------------------------------------------------
     def alloc_mem(self, nbytes: int, alignment: int = 64) -> int:
@@ -805,15 +807,13 @@ class EmuWorld:
                  mtu: int = 256, reorder_window: int = 8,
                  retry_max: Optional[int] = None,
                  retry_base_us: Optional[int] = None, chaos=None):
-        from ..tuning.autotune import refuse_online_tuner
-
-        refuse_online_tuner("EmuWorld")
         self._lib = load_lib()
         self.nranks = nranks
         self._n_egr_rx_bufs = n_egr_rx_bufs
         self._egr_rx_buf_size = egr_rx_buf_size
         self.telemetry = None
         self.watchdog = None
+        self.online_tuner = None
         self.joiners: list = []
         if transport == "dgram":
             self._handle = self._lib.accl_world_create_dgram(
@@ -870,6 +870,11 @@ class EmuWorld:
             [d.engine_stats for d in self.devices], name="accl-emu",
             link_sources=[(r, d.link_stats)
                           for r, d in enumerate(self.devices)])
+        # the online tuner (ACCL_TUNE_ONLINE=1, tuning/online.py): unset
+        # constructs nothing and dispatch stays bit-identical
+        from ..tuning import online as _online
+
+        self.online_tuner = _online.ensure_online_tuner_from_env(self)
 
     def start_watchdog(self, **kwargs) -> _health.Watchdog:
         """Re-arm the watchdog with explicit settings (tests shorten
@@ -984,6 +989,11 @@ class EmuWorld:
     def close(self) -> None:
         if self.watchdog is not None:
             self.watchdog.stop()
+        if self.online_tuner is not None:
+            from ..tuning import online as _online
+
+            # before the engines die: no A/B on a dying world
+            _online.stop_world_tuner(self)
         if self.telemetry is not None:
             self.telemetry.stop()  # no poll of a dying world
             self.telemetry = None

@@ -19,10 +19,10 @@ recorder (flight.py) and the metrics registry (metrics.py):
   ``ACCL_METRICS_PORT`` (stdlib ``http.server`` thread): ``/metrics``
   serves :meth:`MetricsRegistry.to_openmetrics`, ``/healthz`` a JSON
   health summary, ``/flight`` the merged flight dump — the scrape
-  surface a production serving fleet points Prometheus at, and
-  ``/slo`` the per-tenant SLO report (slo.py).  The reference's
-  ``/retunes`` endpoint comes with the online tuner, which the port
-  does not have yet; until then that path answers 404.
+  surface a production serving fleet points Prometheus at,
+  ``/retunes`` the online tuner's retune history
+  (``tuning/online.py`` ``history_doc``: an empty versioned document
+  when no tuner ran), and ``/slo`` the per-tenant SLO report (slo.py).
 
 Port of ``accl_tpu/observability/health.py``.
 
@@ -333,8 +333,8 @@ OPENMETRICS_CONTENT_TYPE = (
 
 class MetricsExporter:
     """Serves /metrics (OpenMetrics), /healthz (JSON), /flight (merged
-    flight dump) and /slo (per-tenant SLO report) from a daemon
-    thread."""
+    flight dump), /retunes (online-tuner history) and /slo (per-tenant
+    SLO report) from a daemon thread."""
 
     def __init__(self, port: int, registry: Optional[MetricsRegistry] = None,
                  host: str = "127.0.0.1"):
@@ -354,6 +354,14 @@ class MetricsExporter:
                         ctype = "application/json"
                     elif self.path.startswith("/flight"):
                         body = json.dumps(_flight.dump_all()).encode()
+                        ctype = "application/json"
+                    elif self.path.startswith("/retunes"):
+                        # the online tuner's bounded retune-history
+                        # ring (empty doc when no tuner ran)
+                        from ..tuning import online as _online
+
+                        body = json.dumps(
+                            _online.history_doc()).encode()
                         ctype = "application/json"
                     elif self.path.startswith("/slo"):
                         # the live per-tenant SLO report.  A scrape IS

@@ -385,19 +385,29 @@ def new_span(name: str, desc: str = "", rank: int = -1, count: int = 0,
 # marked windows
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
-def traced_window(label: str, rank: int = -1) -> Iterator[None]:
+def traced_window(label: str, rank: int = -1,
+                  xla_logdir: Optional[str] = None) -> Iterator[None]:
     """Mark a host window in the trace: a ``window:<label>`` span on the
     host pseudo-rank, or on ``rank``'s track (the overlap accountant
-    intersects a rank's wire intervals with that rank's windows).  The
-    reference's ``xla_logdir`` profiler capture of the same window waits
-    for the port's utils/profiling (the torch profiler), which is not
-    ported yet."""
+    intersects a rank's wire intervals with that rank's windows).  With
+    ``xla_logdir`` (or the ``ACCL_XLA_TRACE`` env var) also capture the
+    window through utils/profiling.xla_trace, the reference's names: the
+    file it writes there is a ``torch.profiler`` Chrome trace (host
+    activity, and the card's kernels where one is present), not an XLA
+    capture, and covers the same marked region as the span."""
+    logdir = xla_logdir or os.environ.get("ACCL_XLA_TRACE", "")
     span = new_span(f"window:{label}", rank=rank)
     if span is not None:
         span.t_submit = span.t_queue = span.t_dispatch = now_ns()
         span.lane = "window"
     try:
-        yield
+        if logdir:
+            from ..utils.profiling import xla_trace
+
+            with xla_trace(logdir):
+                yield
+        else:
+            yield
     finally:
         if span is not None:
             span.t_device_begin = span.t_submit

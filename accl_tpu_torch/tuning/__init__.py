@@ -22,10 +22,14 @@ Port of the offline half of ``accl_tpu/tuning`` (HiCCL, arxiv
   ``ACCL_TUNE=0`` restores the static thresholds bit for bit.
 - :mod:`~accl_tpu_torch.tuning.cli` — the command line that writes a
   table (``python -m accl_tpu_torch.tuning.cli``).
-
-The online tuner of the JAX package (``tuning/online.py``,
-``ACCL_TUNE_ONLINE``) is not part of this port yet: a world refuses
-``ACCL_TUNE_ONLINE`` instead of ignoring it.
+- :mod:`~accl_tpu_torch.tuning.online` — the live control plane:
+  :class:`OnlineTuner` subscribes to sentinel findings and link-matrix
+  re-scores, re-measures ONE cell (or re-demotes one axis) with the
+  interleaved best-of A/B, and hot-swaps the live policy only when the
+  challenger wins — never-slower, fenced like abort, every episode in
+  the exported retune-history ring (``/retunes``).  ``ACCL_TUNE_ONLINE=1``
+  arms it on ``EmuWorld`` and ``CudaWorld``; unset is bit-identical to
+  the static/table dispatch.
 """
 from .autotune import (  # noqa: F401
     SelectionPolicy,
@@ -35,4 +39,12 @@ from .autotune import (  # noqa: F401
     tune,
 )
 from .compose import HierarchicalComm  # noqa: F401
+from .online import (  # noqa: F401
+    OnlineTuner,
+    RetuneHistory,
+    ensure_online_tuner_from_env,
+    online_enabled,
+    online_tuner,
+    stop_online_tuner,
+)
 from .topology import Fabric  # noqa: F401

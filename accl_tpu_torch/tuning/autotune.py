@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import time
 from dataclasses import dataclass, field
 from typing import Iterable, Optional
@@ -81,8 +82,6 @@ def _compress_dtype_of(alg: str):
 
 ENV_TABLE = "ACCL_TUNE_TABLE"
 ENV_TUNE = "ACCL_TUNE"
-#: the JAX package's online-tuner knob (accl_tpu/tuning/online.py:96)
-ENV_ONLINE = "ACCL_TUNE_ONLINE"
 
 _HUGE = 0x7FFFFFFF
 
@@ -92,6 +91,20 @@ _HUGE = 0x7FFFFFFF
 #: fraction).  2% sits inside best-of-reps measurement noise, so the
 #: tie-break never overrules a real bandwidth win.
 OVERLAP_TIE_BAND = 0.02
+
+_BUCKET_UNITS = {"B": 1, "KiB": 1 << 10, "MiB": 1 << 20,
+                 "GiB": 1 << 30, "TiB": 1 << 40}
+_BUCKET_RE = re.compile(r"<=(\d+)(B|KiB|MiB|GiB|TiB)$")
+
+
+def bucket_bytes(bucket: str) -> int:
+    """Invert :func:`metrics.size_bucket`: the bucket label's
+    upper-bound payload in bytes — the representative size a targeted
+    online re-measure probes.  0 for the degenerate ``0B`` bucket (and
+    anything unparseable: the caller skips those cells)."""
+    m = _BUCKET_RE.match(bucket)
+    return int(m.group(1)) * _BUCKET_UNITS[m.group(2)] if m else 0
+
 
 @dataclass
 class TuneConfig:
@@ -500,20 +513,8 @@ def measure(world, config: TuneConfig = TuneConfig(),
                         continue
 
                     def run(coll=coll, count=count):
-                        if alg == "hierarchical":
-                            return _run_once_hier(world, hier, coll,
-                                                  count, dtype,
-                                                  config.root)
-                        if alg in COMPRESSION_ALGS:
-                            return _sweep._run_once(
-                                world, coll, count, dtype, config.root,
-                                compress=_compress_dtype_of(alg))
-                        if alg == "fused":
-                            return _sweep._run_once(world, coll, count,
-                                                    dtype, config.root,
-                                                    fused=True)
-                        return _sweep._run_once(world, coll, count,
-                                                dtype, config.root)
+                        return run_cell_lane(world, alg, coll, count,
+                                             dtype, config.root, hier)
 
                     run()  # untimed warmup (kernel builds, path setup)
                     marks = _overlap_marks()
@@ -698,22 +699,8 @@ def compare(world, table: SelectionTable,
         bwf = _sweep._busbw_factor(coll, P)
 
         def run_lane(lane):
-            if lane == "hierarchical":
-                apply_algorithm(world, "static")
-                return _run_once_hier(world, hier, coll, count, dtype,
-                                      config.root)
-            if lane in COMPRESSION_ALGS:
-                apply_algorithm(world, "static")
-                return _sweep._run_once(world, coll, count, dtype,
-                                        config.root,
-                                        compress=_compress_dtype_of(lane))
-            if lane == "fused":
-                apply_algorithm(world, "static")
-                return _sweep._run_once(world, coll, count, dtype,
-                                        config.root, fused=True)
-            apply_algorithm(world, lane)
-            return _sweep._run_once(world, coll, count, dtype,
-                                    config.root)
+            return run_cell_lane(world, lane, coll, count, dtype,
+                                 config.root, hier)
 
         def to_bw(dur):
             return round(nbytes / dur / 1e9 * bwf, 4) if dur > 0 else 0.0
@@ -769,6 +756,107 @@ def compare(world, table: SelectionTable,
     return out
 
 
+# ---------------------------------------------------------------------------
+# single-cell measurement (the online tuner's unit of work)
+# ---------------------------------------------------------------------------
+
+def run_cell_lane(world, alg: str, coll: str, count: int, dtype,
+                  root: int = 0, hier: Optional[list] = None) -> float:
+    """One timed rep of one lane on one cell: the one lane dispatch that
+    ``tune``, ``compare`` and the online tuner all measure through."""
+    if alg == "hierarchical":
+        apply_algorithm(world, "static")
+        return _run_once_hier(world, hier, coll, count, dtype, root)
+    if alg in COMPRESSION_ALGS:
+        apply_algorithm(world, "static")
+        return _sweep._run_once(world, coll, count, dtype, root,
+                                compress=_compress_dtype_of(alg))
+    if alg == "fused":
+        apply_algorithm(world, "static")
+        return _sweep._run_once(world, coll, count, dtype, root,
+                                fused=True)
+    apply_algorithm(world, alg)
+    return _sweep._run_once(world, coll, count, dtype, root)
+
+
+def cell_candidates(world, coll: str, count: int,
+                    dtype_name: str = "float32", *,
+                    repetitions: int = 2, root: int = 0,
+                    hier: Optional[list] = None,
+                    exclude: tuple = ()) -> list:
+    """Quick best-of sweep of every covering lane on ONE cell — the
+    online tuner's challenger shortlist (a targeted hypothesis, never
+    a full sweep).  Returns ``[(algorithm, busbw_GBps)]`` fastest
+    first; registers are restored to static."""
+    P = world.nranks
+    dtype = _sweep._resolve_dtype(dtype_name)
+    nbytes = count * _sweep._payload_factor(coll, P) * dtype.itemsize
+    bwf = _sweep._busbw_factor(coll, P)
+    static_regs = world.accls[0].static_tuning()
+    backend = backend_of(world)
+    out = []
+    try:
+        for alg in algorithms_for(world, dtype_name):
+            if alg in exclude:
+                continue
+            if alg == "hierarchical" and hier is None:
+                continue
+            if not lane_covers(backend, alg, coll, nranks=P,
+                               nbytes=nbytes, static_regs=static_regs):
+                continue
+            run_cell_lane(world, alg, coll, count, dtype, root, hier)
+            dur = min(run_cell_lane(world, alg, coll, count, dtype,
+                                    root, hier)
+                      for _ in range(repetitions))
+            bw = round(nbytes / dur / 1e9 * bwf, 4) if dur > 0 else 0.0
+            out.append((alg, bw))
+    finally:
+        apply_algorithm(world, "static")
+    return sorted(out, key=lambda t: -t[1])
+
+
+def ab_cell(world, incumbent: str, challenger: str, coll: str,
+            count: int, dtype_name: str = "float32", *,
+            repetitions: int = 3, retries: int = 2, root: int = 0,
+            hier: Optional[list] = None) -> tuple:
+    """The interleaved best-of A/B on ONE cell: warm both lanes,
+    interleave rep pairs in the same session so box drift hits both
+    alike, symmetric best-of across retry rounds (retrying cannot bias
+    the ratio toward either side).  Returns ``(incumbent_busbw,
+    challenger_busbw)`` in GB/s; registers end restored to static."""
+    P = world.nranks
+    dtype = _sweep._resolve_dtype(dtype_name)
+    nbytes = count * _sweep._payload_factor(coll, P) * dtype.itemsize
+    bwf = _sweep._busbw_factor(coll, P)
+
+    def to_bw(dur):
+        return round(nbytes / dur / 1e9 * bwf, 4) if dur > 0 else 0.0
+
+    def pair():
+        run_cell_lane(world, incumbent, coll, count, dtype, root, hier)
+        run_cell_lane(world, challenger, coll, count, dtype, root, hier)
+        di, dc = [], []
+        for _ in range(repetitions):
+            di.append(run_cell_lane(world, incumbent, coll, count,
+                                    dtype, root, hier))
+            dc.append(run_cell_lane(world, challenger, coll, count,
+                                    dtype, root, hier))
+        return to_bw(min(di)), to_bw(min(dc))
+
+    try:
+        inc_bw, ch_bw = pair()
+        attempts = retries
+        while ch_bw <= inc_bw and attempts > 0:
+            attempts -= 1
+            i2, c2 = pair()
+            inc_bw = max(inc_bw, i2)
+            ch_bw = max(ch_bw, c2)
+    finally:
+        apply_algorithm(world, "static")
+    return inc_bw, ch_bw
+
+
+# ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 # the driver-facing policy
 # ---------------------------------------------------------------------------
@@ -946,16 +1034,3 @@ def policy_from_env() -> Optional[SelectionPolicy]:
         return None
     return SelectionPolicy(SelectionTable.load(path))
 
-
-def refuse_online_tuner(world: str) -> None:
-    """Where the JAX worlds arm the online tuner
-    (accl_tpu/backends/emu.py:1016, tpu.py:2512), a world of this port
-    refuses ``ACCL_TUNE_ONLINE`` set to anything but empty or 0: the
-    online tuner is not ported, and a knob ignored in silence would read
-    as a tuned run."""
-    raw = os.environ.get(ENV_ONLINE, "").strip()
-    if raw not in ("", "0"):
-        raise ACCLError(
-            f"{world}: {ENV_ONLINE}={raw!r} arms the online tuner, which is "
-            f"not part of accl_tpu_torch yet (ROADMAP.md Queue 1 item 9); "
-            f"unset it or set it to 0")

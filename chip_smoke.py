@@ -267,7 +267,8 @@ Phases, each fatal on failure:
      train slice of link_matrix exactly the ring's bytes and the slices
      summing to the matrix over both tenants; Baseline.from_snapshot of
      the clean window and an SLO spec at 3 x each tenant's clean p99, then
-     rank 2 sleeping 5 ms before each of 40 serve calls: serve burns,
+     rank 2 sleeping before each of 40 serve calls (5 ms, or the largest
+     bucket bound at or below the serve ceiling where longer): serve burns,
      train stays ok, the sentinel finds drift, accl_health reads slow,
      /slo (ACCL_METRICS_PORT=0) reports both tenants, attribute names
      rank 2 (share > 0.9, coverage 0.95-1.05), slowest_link points at it;
@@ -322,6 +323,39 @@ Phases, each fatal on failure:
      MiB allreduce cell hot-swapped to the hierarchical lane, its routed
      int32 allreduce bitwise flat and its fp32 one within the bound.  Its
      ring launches join the kernels line;
+  7g. the online tuner (phase online_tuning), ACCL_FABRIC=8 (one axis):
+     ACCL_TUNE_ONLINE=1 makes a fresh CudaWorld(8) build the tuner and
+     start its loop, close() stops it (with a 50 ms loop on an idle
+     world), and unset builds none; then the cuda drill of
+     accl_tpu_torch/scripts/retune_smoke.py on 4 MiB fp32 allreduces
+     (host-staged, rank 2 sleeping 3 x the warm p50 before each call,
+     ONLINE_CALLS calls a p50) with
+     the world's own tuner at an hour's loop interval: the sentinel fires,
+     step() closes episodes with decisions in DECISIONS (each A/B's busbw
+     pair printed), an install clears the hysteresis, the p50 after the
+     decisions is within ONLINE_HYSTERESIS of the degraded p50; then a
+     scripted episode installs compress_fp16 on the 16 MiB cell every run
+     (a plan captured before it raises on replay, a re-capture replays
+     bitwise, its p50 within 1.5 x the p50 before it), and every installed
+     cell's served allreduce is bitwise its lane forced on a second world;
+     /retunes from the exporter equals history_doc() and passes
+     perf_doctor --ci --retunes.  Its ring launches join the kernels line;
+  7h. utils (phase utils): traced_window("allreduce", xla_logdir=) around
+     a 64 MiB allreduce on a fresh CudaWorld(8), run right after the
+     build as the process's first torch.profiler session, writes a trace
+     with >= 2 ring_kernel device events (the window's seconds with and
+     without the capture); the 4-layer serving model's parameters through
+     save_pytree / load_pytree on the card, bitwise; time_fn of the main
+     world's 64 MiB allreduce beside its launches' device ms (5a); the
+     same traced_window late in the process, where the profiler can drop
+     the kernels' device records: each ring launch is in the trace or
+     counted by xla_trace's warning;
+  7i. the graft entry (phase graft_entry): accl_tpu_torch/scripts/
+     graft_entry.py's entry() forward on the card and dryrun_multichip(8)
+     (dp 2 x tp 2 x sp 2 step through the flash forward and backward
+     kernels, the MoE step, a pipeline, zigzag and windowed sp attention,
+     the driver collectives on CudaWorld(8) through the ring kernels),
+     losses finite; its ring and flash launches join the kernels line;
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -4128,7 +4162,9 @@ def time_stamp_kernels(ring, launches, info) -> list:
 OBS_TENANTS = {"train": (64 * MIB // 4, 6), "serve": (4 * 4096, 40)}
 #: serve calls before the clean window (out of its histograms)
 OBS_WARM_CALLS = 160
-#: the straggler: rank 2 sleeps 5 ms before each of 40 more serve calls
+#: the straggler: rank 2 sleeps at least 5 ms before each of 40 more
+#: serve calls (longer where a bucket bound below the serve ceiling is:
+#: ``_late_sleep_s``)
 OBS_LATE_RANK, OBS_LATE_S, OBS_LATE_CALLS = 2, 0.005, 40
 #: SLO sweeps over the straggled calls (fast window: the tracker's 4)
 OBS_SLO_SWEEPS = 4
@@ -4165,6 +4201,18 @@ def _p99(snap, tenant, OM, OS) -> float:
     return OS.quantile_us(hist, 0.99)
 
 
+def _late_sleep_s(ceiling_us: float, OM) -> float:
+    """The straggler's sleep: at least OBS_LATE_S, and at least the
+    largest latency bucket bound at or below the serve ceiling.  The
+    tracker counts a call bad when its bucket's upper bound exceeds the
+    ceiling; a waiting rank's call that lasts past that bound lands in the
+    next bucket, whose bound does, however long the clean window's tail
+    made the ceiling (a clean p99 above 16384 / 3 µs puts a 5 ms straggle
+    in a bucket counted good)."""
+    bounds = [ub for ub in OM.LATENCY_BUCKETS_US if ub <= ceiling_us]
+    return max(OBS_LATE_S, bounds[-1] * 1e-6 if bounds else 0.0)
+
+
 def observatory(world, ring, F) -> dict:
     """Phase 7b: the rest of observability on the main path's 8-rank
     world (telemetry, sentinel, SLO tracker, attribution, tenants), in
@@ -4182,8 +4230,9 @@ def observatory(world, ring, F) -> dict:
        serve and train p99 ceilings of 3 x their clean p99 (the
        tracker counts a call bad when its histogram bucket's upper
        bound is above the ceiling), the sentinel and tracker armed from the
-       environment; rank 2 then sleeps 5 ms before each of 40 serve
-       calls: serve reaches fast_burn or exhausted while train stays ok,
+       environment; rank 2 then sleeps before each of 40 serve calls
+       (5 ms, or the largest bucket bound at or below the serve
+       ceiling where that is longer): serve reaches fast_burn or exhausted while train stays ok,
        the sentinel finds drift and accl_health reads slow (once the
        degraded minute an earlier phase's failed calls leave has
        lapsed: slow never masks a stronger verdict), /slo on an
@@ -4254,14 +4303,14 @@ def observatory(world, ring, F) -> dict:
                 b.dev.copy_(torch.randn(count, generator=gen, device=dev))
             bufs[t] = (sends, recvs)
 
-        def traffic(tenant, calls, late=False, fused=False):
+        def traffic(tenant, calls, late=0.0, fused=False):
             sends, recvs = bufs[tenant]
             count, cid = OBS_TENANTS[tenant][0], ids[tenant]
 
             def body(accl, rank):
                 for _ in range(calls):
                     if late and rank == OBS_LATE_RANK:
-                        time.sleep(OBS_LATE_S)
+                        time.sleep(late)
                     accl.allreduce(sends[rank], recvs[rank], count,
                                    ReduceFunction.SUM, comm_id=cid,
                                    from_fpga=True, to_fpga=True,
@@ -4388,10 +4437,12 @@ def observatory(world, ring, F) -> dict:
         mine = [a.flight_recorder for a in world.accls]
         marks = {k: v for k, v in SW._flight_marks().items()
                  if v[0] in mine}
+        late_sleep_s = _late_sleep_s(OBS_P99_X * p99["serve"], OM)
         gc.collect()
         t0 = time.perf_counter()
         for _ in range(OBS_SLO_SWEEPS):
-            traffic("serve", OBS_LATE_CALLS // OBS_SLO_SWEEPS, late=True)
+            traffic("serve", OBS_LATE_CALLS // OBS_SLO_SWEEPS,
+                    late=late_sleep_s)
             tracker.check()
         late_s = time.perf_counter() - t0
         hold("serve")
@@ -4454,7 +4505,7 @@ def observatory(world, ring, F) -> dict:
                 fail(f"observatory: the tenant slices' {fld} do not sum to "
                      f"the matrix over both tenants' communicators")
         emit({"phase": "observatory_straggler", "ranks": P,
-              "late_rank": OBS_LATE_RANK, "late_ms": OBS_LATE_S * 1e3,
+              "late_rank": OBS_LATE_RANK, "late_ms": late_sleep_s * 1e3,
               "late_calls": OBS_LATE_CALLS, "late_window_s": late_s,
               "clean_p99_us": p99,
               "clean_hist_us": {c["tenant"]: {k: v for k, v in
@@ -5404,6 +5455,28 @@ TUNE_MIB = (1, 4, 16, 64)
 TUNE_COLLS = ("allreduce", "reduce_scatter", "allgather")
 
 
+def served_lane(accl, coll, count, table_lane, thr) -> str:
+    """The lane a driver with an armed selection policy dispatches a
+    float32 cell by: the fused descriptor; else the compression the armed
+    policy selects; else the composer; else the installed ring threshold
+    ``thr`` (a flat win above it is served by the ring, as in the JAX
+    package)."""
+    from accl_tpu_torch import DataType, Operation
+
+    if table_lane == "fused":
+        return "fused"
+    comp = accl.compression_policy
+    sel = comp.select(Operation[coll], count, 0, DataType.float32) \
+        if comp else None
+    if sel is not None:
+        return {DataType.int8: "compress_int8",
+                DataType.float16: "compress_fp16"}[sel]
+    if table_lane == "hierarchical":
+        return "hierarchical"
+    in_len = count * (P if coll == "reduce_scatter" else 1)
+    return "ring" if in_len * 4 >= thr else "flat"
+
+
 def tuning_phase(ring, CudaWorld) -> dict:
     """Phase 7f: offline tuning on the card.  tune (through the CLI's
     tune_sizes) on a fresh CudaWorld(8) over TUNE_COLLS at TUNE_MIB
@@ -5422,7 +5495,7 @@ def tuning_phase(ring, CudaWorld) -> dict:
     (set to 0 before the phase, read after) join rows 1 and 2."""
     import tempfile
 
-    from accl_tpu_torch import DataType, Operation, ReduceFunction
+    from accl_tpu_torch import ReduceFunction
     from accl_tpu_torch.constants import TuningKey
     from accl_tpu_torch.observability import metrics as OM
     from accl_tpu_torch.tuning import HierarchicalComm, SelectionTable, \
@@ -5519,30 +5592,11 @@ def tuning_phase(ring, CudaWorld) -> dict:
                     return res
                 return fn
 
-            lane_of = {DataType.int8: "compress_int8",
-                       DataType.float16: "compress_fp16"}
-
-            def served_lane(coll, count, table_lane):
-                """The lane A dispatches a cell by: the fused descriptor;
-                else the compression the armed policy selects (B has the
-                same policy); else the composer; else the installed ring
-                threshold (a flat win above it is served by the ring, as
-                in the JAX package)."""
-                if table_lane == "fused":
-                    return "fused"
-                sel = comp.select(Operation[coll], count, 0,
-                                  DataType.float32) if comp else None
-                if sel is not None:
-                    return lane_of[sel]
-                if table_lane == "hierarchical":
-                    return "hierarchical"
-                in_len = count * (P if coll == "reduce_scatter" else 1)
-                return "ring" if in_len * 4 >= thr else "flat"
-
             for key, e in sorted(policy.table.entries.items()):
                 coll, _dt, bucket, _n = key.split("|")
                 count = e["bytes"] // (OM.payload_factor(coll, P) * 4)
-                lane = served_lane(coll, count, e["algorithm"])
+                lane = served_lane(A.accls[0], coll, count, e["algorithm"],
+                                   thr)
                 n_in = count * (P if coll == "reduce_scatter" else 1)
                 data = [rng.standard_normal(n_in, dtype=np.float32)
                         for _ in range(P)]
@@ -5621,6 +5675,569 @@ def tuning_phase(ring, CudaWorld) -> dict:
           "hier_route_launches": hier_routed,
           "tune_s": tune_s, "compare_s": compare_s,
           "launches": out["launches"], "seconds": out["seconds"]})
+    return out
+
+
+#: the online tuner's drill on the card: elements per rank of its fp32
+#: allreduce (4 MiB, the static ring threshold: the ring lane)
+ONLINE_COUNT = 1 << 20
+#: the online phase's A/B margin (the tuner's default hysteresis)
+ONLINE_HYSTERESIS = 1.05
+#: calls behind each of the drill's p50s (warm, degraded, after): with 16
+#: the after/degraded ratio of an unchanged dispatch spread 0.98-1.07 on
+#: the card, past the hysteresis it is held to (PERF.md section 6)
+ONLINE_CALLS = 48
+
+
+def _tuner_threads() -> list:
+    import threading
+
+    return [t for t in threading.enumerate()
+            if t.name == "accl-online-tuner"]
+
+
+#: the scripted episode of the online phase: its cell (16 MiB fp32
+#: allreduce, above the static ring threshold: the ring lane) and the lane
+#: the script makes win
+SCRIPTED_BUCKET = "<=16MiB"
+SCRIPTED_LANE = "compress_fp16"
+
+
+def scripted_install(ring, world, tuner) -> dict:
+    """Phase 7g's install that happens on every run.  The drill's A/B
+    times host-staged calls, whose lanes tie on one card, so an install
+    there is a coin flip (PERF.md section 7).  Here the shortlist and
+    the A/B are scripted (SCRIPTED_LANE at twice the incumbent's busbw),
+    and the rest is the tuner's own path on the drill's world: a finding
+    on the SCRIPTED_BUCKET cell, step(), the install and its fence on
+    every rank.  A plan captured before the install raises on replay
+    and launches no ring kernel; one captured after it replays bitwise
+    its eager call; the cell's p50 (rank 2 still sleeping) over
+    ONLINE_CALLS // 3 calls before and after the install, the after p50
+    within the drill's never-slower bound (1.5 x)."""
+    from accl_tpu_torch import ACCLError, ReduceFunction
+    from accl_tpu_torch.bench import sweep as _sweep
+    from accl_tpu_torch.tuning import autotune, online
+
+    count = autotune.bucket_bytes(SCRIPTED_BUCKET) // 4
+    f32 = np.dtype(np.float32)
+    n = ONLINE_CALLS // 3
+    rng = np.random.default_rng(SEED + 37)
+    data = [rng.standard_normal(count, dtype=np.float32) for _ in range(P)]
+    bufs, plans = {}, {}
+
+    def capture(a, r):
+        s = a.create_buffer_like(data[r])
+        o = a.create_buffer(count, np.float32)
+        bufs[r] = (s, o)
+        plans[r] = a.capture_plan(
+            lambda acc: acc.allreduce(s, o, count, ReduceFunction.SUM),
+            timeout_s=120)
+        return o.host.copy()
+
+    def p50_us():
+        return statistics.median(
+            _sweep._run_once(world, "allreduce", count, f32, 0)
+            for _ in range(n)) * 1e6
+
+    world.run(capture, timeout=300)
+    p50_before = p50_us()
+    real = (online.cell_candidates, online.ab_cell)
+    online.cell_candidates = lambda *a, **k: [(SCRIPTED_LANE, 2.0)]
+    online.ab_cell = lambda *a, **k: (1.0, 2.0)
+    try:
+        tuner.on_findings([{
+            "collective": "allreduce", "dtype": "float32",
+            "size_bucket": SCRIPTED_BUCKET, "axis": "p50_us", "ratio": 2.0,
+            "kind": "latency", "live": 2 * p50_before, "baseline": p50_before,
+            "threshold": 1.5, "baseline_source": "chip_smoke scripted"}])
+        ep = tuner.step()
+    finally:
+        online.cell_candidates, online.ab_cell = real
+    if ep is None or ep["decision"] != "installed":
+        fail(f"online_tuning: the scripted episode did not install: {ep}")
+    before = _counts(ring)
+
+    def stale(a, r):
+        try:
+            plans[r].replay()
+        except ACCLError:
+            return True
+        return False
+
+    if not all(world.run(stale, timeout=300)) or _counts(ring) != before:
+        fail("online_tuning: a plan captured before the install replayed "
+             f"(ring launches {_launched(ring, before)})")
+    eager = world.run(capture, timeout=300)
+
+    def replay(a, r):
+        plans[r].replay()
+        return bufs[r][1].host.copy()
+
+    for r, (e, g) in enumerate(zip(eager, world.run(replay, timeout=300))):
+        if e.tobytes() != g.tobytes():
+            fail(f"online_tuning: rank {r}'s plan re-captured after the "
+                 f"install is not bitwise its eager call")
+    for s_, o in bufs.values():
+        s_.free()
+        o.free()
+    p50_after = p50_us()
+    if p50_after > 1.5 * p50_before:
+        fail(f"online_tuning: the scripted install's p50 {p50_after:.0f} "
+             f"us is more than 1.5 x the {p50_before:.0f} us before it")
+    return {"episode": ep["seq"], "cell": ep["cell"],
+            "lane": SCRIPTED_LANE, "p50_before_us": p50_before,
+            "p50_after_us": p50_after, "stale_replay_raised": True,
+            "recaptured_bitwise": True}
+
+
+def online_tuning_phase(ring, CudaWorld) -> dict:
+    """Phase 7g: the online tuner on the card, with ACCL_FABRIC=8 (one
+    axis: no composed lane).  (a) ACCL_TUNE_ONLINE=1 makes a fresh
+    CudaWorld(8) build the tuner and start its loop, and close() stops
+    it (also with a 50 ms interval on an idle world); unset, no tuner is
+    built.  (b) The cuda drill of accl_tpu_torch/scripts/retune_smoke.py
+    on 4 MiB fp32 allreduces (rank 2 sleeping before each call; each p50
+    over ONLINE_CALLS calls), with the world's own tuner at a loop
+    interval of an hour, so only the drill steps it: the sentinel fires
+    and step() closes episodes whose decisions are in DECISIONS; an
+    installed challenger beat its incumbent by ONLINE_HYSTERESIS in the
+    A/B; the p50 after the decisions is within ONLINE_HYSTERESIS of the
+    degraded p50 (when nothing installed, the dispatch is unchanged and
+    this guards only against noise).  Then scripted_install's episode
+    installs SCRIPTED_LANE on the SCRIPTED_BUCKET cell (its fenced
+    replay, re-capture and p50 checked there), and each installed cell's
+    allreduce is bitwise its served lane (served_lane; the scripted
+    cell's must be SCRIPTED_LANE) forced directly on a second world.  (c) /retunes from start_exporter on a free port equals
+    history_doc(), and perf_doctor --ci --retunes exits 0 on it.  The
+    ring launches of the phase (set to 0 before it, read after) join
+    rows 1 and 2 and must be above 0."""
+    import tempfile
+    import urllib.request
+
+    from accl_tpu_torch import ReduceFunction
+    from accl_tpu_torch.observability import health as OH
+    from accl_tpu_torch.observability import metrics as OM
+    from accl_tpu_torch.observability import sentinel as OS
+    from accl_tpu_torch.observability import slo as OSLO
+    from accl_tpu_torch.scripts import retune_smoke as RS
+    from accl_tpu_torch.tuning import autotune, online
+
+    t_phase = time.perf_counter()
+    OS.stop_sentinel()
+    OSLO.stop_slo()
+    env = {"ACCL_TUNE_ONLINE": "1", "ACCL_FABRIC": str(P),
+           "ACCL_TUNE_ONLINE_REPS": "2",
+           "ACCL_TUNE_ONLINE_HYSTERESIS": str(ONLINE_HYSTERESIS),
+           "ACCL_TUNE_ONLINE_INTERVAL_MS": "50"}
+    saved = {k: os.environ.get(k) for k in env}
+    saved_registry = OM._default
+    os.environ.update(env)
+    try:
+        # (a) the env gate, with a short loop interval on an idle world
+        w = CudaWorld(P)
+        armed = w.online_tuner is not None \
+            and online.online_tuner() is w.online_tuner \
+            and len(_tuner_threads()) == 1
+        time.sleep(0.3)  # a few idle loop turns
+        t = time.perf_counter()
+        w.close()
+        close_s = time.perf_counter() - t
+        if not armed or online.online_tuner() is not None \
+                or _tuner_threads() or close_s > 10:
+            fail(f"online_tuning: ACCL_TUNE_ONLINE=1 armed {armed}, close() "
+                 f"took {close_s:.2f} s and left "
+                 f"{len(_tuner_threads())} loop thread(s)")
+        del os.environ["ACCL_TUNE_ONLINE"]
+        with CudaWorld(P) as w:
+            if w.online_tuner is not None or online.online_tuner() is not None:
+                fail("online_tuning: a world built a tuner with "
+                     "ACCL_TUNE_ONLINE unset")
+
+        # (b) the drill, on the world's own tuner
+        OM._default = OM.MetricsRegistry()  # the drill's calls alone
+        os.environ["ACCL_TUNE_ONLINE"] = "1"
+        os.environ["ACCL_TUNE_ONLINE_INTERVAL_MS"] = "3600000"
+        for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+            fn.launches = fn.launches_stamp = 0
+        world = CudaWorld(P)
+        forced = None
+        try:
+            tuner = world.online_tuner
+            lines = []
+            t = time.perf_counter()
+            try:
+                out = RS.drill(world, "cuda", count=ONLINE_COUNT,
+                               warm=ONLINE_CALLS, degraded=ONLINE_CALLS,
+                               seed=SEED,
+                               hysteresis=ONLINE_HYSTERESIS,
+                               registry=OM._default, tuner=tuner,
+                               log=lines.append)
+            except RS.DrillFailed as e:
+                fail(f"online_tuning: drill: {e} ({lines})")
+            drill_s = time.perf_counter() - t
+            drill_launches = [ring.ring_reduce_scatter.launches,
+                              ring.ring_all_gather.launches]
+            episodes = out["episodes"]
+            for ep in episodes:
+                emit({"phase": "online_episode", "seq": ep["seq"],
+                      "cell": ep.get("cell"), "decision": ep["decision"],
+                      "reason": ep.get("reason"),
+                      "shortlist": (ep.get("hypothesis") or {}).get(
+                          "shortlist"),
+                      "ab": ep.get("ab"), "card": card_line()})
+            installed = [ep for ep in episodes
+                         if ep["decision"] == "installed"]
+            for ep in installed:
+                ab = ep["ab"]
+                if ab["challenger_busbw_GBps"] < \
+                        ab["incumbent_busbw_GBps"] * ONLINE_HYSTERESIS:
+                    fail(f"online_tuning: episode {ep['seq']} installed "
+                         f"without clearing the hysteresis: {ab}")
+            if out["p50_post_us"] > out["p50_degraded_us"] * \
+                    ONLINE_HYSTERESIS:
+                fail(f"online_tuning: p50 after the decisions "
+                     f"{out['p50_post_us']:.0f} us is more than "
+                     f"{ONLINE_HYSTERESIS} x the degraded "
+                     f"{out['p50_degraded_us']:.0f} us")
+
+            # an install on every run, its fence and its p50
+            scripted = scripted_install(ring, world, tuner)
+            emit({"phase": "online_scripted_episode", **scripted,
+                  "card": card_line()})
+
+            # an installed cell, served, is bitwise its served lane forced
+            # directly (a flat win at the static ring threshold is served
+            # by the ring, as in the JAX package: served_lane)
+            del os.environ["ACCL_TUNE_ONLINE"]
+            forced = CudaWorld(P)
+            rng = np.random.default_rng(SEED + 23)
+            served = []
+            thr = world.engine.ring_threshold_bytes
+            for cell, entry in sorted(tuner.table.entries.items()):
+                count = entry["bytes"] // 4
+                data = [rng.standard_normal(count, dtype=np.float32)
+                        for _ in range(P)]
+                lane = served_lane(world.accls[0], "allreduce",
+                                   count, entry["algorithm"], thr)
+                kw = {}
+                if lane == "fused":
+                    kw["fused"] = True
+                elif lane in autotune.COMPRESSION_ALGS:
+                    kw["compress_dtype"] = autotune._compress_dtype_of(lane)
+                autotune.apply_algorithm(
+                    forced, lane if lane in ("flat", "ring") else "static")
+
+                def program(extra, count=count, data=data):
+                    def fn(a, r):
+                        s = a.create_buffer_like(data[r])
+                        o = a.create_buffer(count, np.float32)
+                        a.allreduce(s, o, count, ReduceFunction.SUM,
+                                    **extra)
+                        res = o.host.copy()
+                        s.free()
+                        o.free()
+                        return res
+                    return fn
+
+                got = world.run(program({}), timeout=300)
+                want = forced.run(program(kw), timeout=300)
+                autotune.apply_algorithm(forced, "static")
+                for r in range(P):
+                    if got[r].tobytes() != want[r].tobytes():
+                        fail(f"online_tuning: cell {cell} (table lane "
+                             f"{entry['algorithm']}) served by {lane}: "
+                             f"rank {r} is not bitwise {lane} forced "
+                             f"directly")
+                served.append({"cell": cell,
+                               "table_lane": entry["algorithm"],
+                               "served_lane": lane})
+            if not any(x["cell"] == scripted["cell"]
+                       and x["served_lane"] == SCRIPTED_LANE
+                       for x in served):
+                fail(f"online_tuning: the scripted install is not served "
+                     f"by {SCRIPTED_LANE}: {served}")
+
+            # (c) /retunes through the exporter and perf_doctor --ci
+            exporter = OH.start_exporter(0)
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{exporter.port}/retunes",
+                        timeout=30) as resp:
+                    doc = json.loads(resp.read())
+            finally:
+                OH.stop_exporter()
+            if doc != json.loads(json.dumps(online.history_doc())) \
+                    or len(doc["episodes"]) != len(episodes) + 1:
+                fail("online_tuning: /retunes is not history_doc()")
+            with tempfile.TemporaryDirectory() as tmp:
+                hist = os.path.join(tmp, "retune_history.json")
+                snap = os.path.join(tmp, "retune_metrics.json")
+                with open(hist, "w") as f:
+                    json.dump(doc, f)
+                with open(snap, "w") as f:
+                    json.dump(OM._default.snapshot(), f)
+                try:
+                    RS.doctor(hist, snap, os.path.join(tmp, "report.json"),
+                              log=lambda *_: None)
+                except RS.DrillFailed as e:
+                    fail(f"online_tuning: {e}")
+        finally:
+            world.close()
+            if forced is not None:
+                forced.close()
+        if online.online_tuner() is not None or _tuner_threads():
+            fail("online_tuning: close() left the tuner running")
+    finally:
+        OM._default = saved_registry
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = {"ring_reduce_scatter": ring.ring_reduce_scatter.launches
+                - ring.ring_reduce_scatter.launches_stamp,
+                "ring_all_gather": ring.ring_all_gather.launches
+                - ring.ring_all_gather.launches_stamp}
+    if min(drill_launches) < 1:
+        fail(f"online_tuning: the drill launched the ring kernels "
+             f"{drill_launches} times")
+    out_doc = {"launches": launches,
+               "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "online_tuning", "ranks": P, "card": card_line(),
+          "close_s_idle_50ms_loop": close_s,
+          "p50_warm_us": out["p50_warm_us"],
+          "p50_degraded_us": out["p50_degraded_us"],
+          "p50_post_us": out["p50_post_us"],
+          "drift": out["summary"]["drift"],
+          "episodes": len(episodes),
+          "decisions": [ep["decision"] for ep in episodes],
+          "ab_busbw_GBps": [
+              [ep["ab"]["incumbent_busbw_GBps"],
+               ep["ab"]["challenger_busbw_GBps"]]
+              for ep in episodes if ep.get("ab")],
+          "installed_served_bitwise": served,
+          "retune_counters": out["summary"]["retune_counters"],
+          "drill_ring_launches": drill_launches,
+          "drill_s": drill_s, "launches": launches,
+          "seconds": out_doc["seconds"]})
+    return out_doc
+
+
+def _trace_kernels(logdir) -> list:
+    """The names of the device kernel events of the Chrome traces in
+    ``logdir``."""
+    names = []
+    for name in os.listdir(logdir):
+        with open(os.path.join(logdir, name)) as f:
+            doc = json.load(f)
+        names += [e.get("name", "") for e in doc.get("traceEvents", [])
+                  if e.get("cat") == "kernel"]
+    return names
+
+
+def traced_window_phase(ring, CudaWorld, ReduceFunction) -> dict:
+    """Phase 7h, its first part, run right after the build (the first
+    torch.profiler session of the process: on the card machine a later
+    session in a long process can lose the records of its last kernels,
+    PERF.md section 7): traced_window("allreduce", xla_logdir=) around one
+    64 MiB allreduce on a fresh CudaWorld(8) writes a torch.profiler trace
+    with at least two ring_kernel device events, after one untimed
+    capture that pays the profiler's start-up; the window's seconds with
+    and without the capture, 3 of each, alternating.  Its ring launches
+    join rows 1 and 2."""
+    import tempfile
+
+    from accl_tpu_torch.observability.trace import traced_window
+
+    t_phase = time.perf_counter()
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+        fn.launches = fn.launches_stamp = 0
+    count = 64 * MIB // 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    with CudaWorld(P) as world, tempfile.TemporaryDirectory() as tmp:
+        sends = [world.accls[r].create_buffer(count, np.float32)
+                 for r in range(P)]
+        recvs = [world.accls[r].create_buffer(count, np.float32)
+                 for r in range(P)]
+        fill(sends, gen)
+
+        def call(accl, rank):
+            accl.allreduce(sends[rank], recvs[rank], count,
+                           function=ReduceFunction.SUM, from_fpga=True,
+                           to_fpga=True)
+
+        launched = []
+
+        def window(logdir):
+            before = _counts(ring)
+            t = time.perf_counter()
+            with traced_window("allreduce", xla_logdir=logdir):
+                world.run(call)
+                torch.cuda.synchronize()
+            took = time.perf_counter() - t
+            launched.append(_launched(ring, before))
+            return took
+
+        world.run(call)
+        torch.cuda.synchronize()
+        first_capture_s = window(os.path.join(tmp, "warm"))  # profiler init
+        off, on = [], []
+        for i in range(3):
+            off.append(window(None))
+            on.append(window(os.path.join(tmp, f"t{i}")))
+        names = [_trace_kernels(os.path.join(tmp, d))
+                 for d in ("warm", "t0", "t1", "t2")]
+        kernels = [sum("ring_kernel" in n for n in k) for k in names]
+        if min(kernels) < 2:
+            fail(f"utils: the traced_window traces hold {kernels} "
+                 f"ring_kernel device events (want >= 2 each); ring "
+                 f"launches per window {launched}; kernel events "
+                 f"{[len(k) for k in names]}")
+        for b in sends + recvs:
+            b.free()
+    launches = {"ring_reduce_scatter": ring.ring_reduce_scatter.launches,
+                "ring_all_gather": ring.ring_all_gather.launches}
+    return {"launches": launches,
+            "seconds": time.perf_counter() - t_phase,
+            "trace_ring_kernel_events": kernels,
+            "first_capture_s": first_capture_s,
+            "window_s_without_capture": off,
+            "window_s_with_capture": on,
+            "window_s_median": [statistics.median(off),
+                                statistics.median(on)]}
+
+
+def utils_phase(world, mp, ring, M, ar_device, trace) -> dict:
+    """Phase 7h: utils on the card.  The traced_window part (``trace``,
+    traced_window_phase, run after the build) is emitted here.  The
+    4-layer serving model's parameters (LLAMA3_8B, TP=8, from a seed)
+    through save_pytree / load_pytree and back on the card, bitwise;
+    time_fn on the main world's 64 MiB allreduce beside the device ms of
+    its two launches (phase 5a, split_ms); late_traced_window."""
+    import tempfile
+
+    from accl_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+    from accl_tpu_torch.utils.profiling import time_fn
+    from accl_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+        fn.launches = fn.launches_stamp = 0
+    mib = 64
+    _s, recvs, call, _l = mp["per_size"][mib]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = M.ModelConfig(**LLAMA3_8B)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+        params = M.init_params(gen, cfg, tp=P)
+        torch.cuda.synchronize()
+        path = os.path.join(tmp, "serving")
+        t = time.perf_counter()
+        save_pytree(path, params)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = load_pytree(path, params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        ckpt_bytes = os.path.getsize(path + ".npz")
+        for a, b in zip(tree_leaves(params), tree_leaves(back)):
+            if b.device != a.device or not same_bits(a, b):
+                fail("utils: a checkpointed serving parameter did not come "
+                     "back bitwise on its device")
+        n_leaves = len(tree_leaves(params))
+        del params, back
+
+    ms = time_fn(lambda: (world.run(call), recvs[0].dev)[1], iters=5,
+                 warmup=1) * 1e3
+    late = late_traced_window(world, ring, call)
+    launches = {k: v + trace["launches"][k] for k, v in (
+        ("ring_reduce_scatter", ring.ring_reduce_scatter.launches),
+        ("ring_all_gather", ring.ring_all_gather.launches))}
+    out = {"launches": launches,
+           "seconds": time.perf_counter() - t_phase + trace["seconds"]}
+    emit({"phase": "utils", "card": card_line(),
+          **{k: v for k, v in trace.items()
+             if k not in ("launches", "seconds")},
+          "trace_s": trace["seconds"],
+          "checkpoint_leaves": n_leaves, "checkpoint_bytes": ckpt_bytes,
+          "save_s": save_s, "load_s": load_s,
+          "time_fn_ms_64MiB_allreduce": ms,
+          "split_ms_device_ms_64MiB": ar_device.get(mib),
+          **late, "launches": launches, "seconds": out["seconds"]})
+    return out
+
+
+def late_traced_window(world, ring, call) -> dict:
+    """The utils phase's traced_window late in the process, where
+    torch.profiler on the card can drop the device records of the
+    window's kernels (PERF.md section 7): every ring launch of the
+    window is either a ring_kernel device event of the trace or counted
+    in xla_trace's warning of launches with no device record.  Its
+    launches join the phase's."""
+    import tempfile
+    import warnings
+
+    from accl_tpu_torch.observability.trace import traced_window
+
+    before = _counts(ring)
+    with tempfile.TemporaryDirectory() as tmp, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with traced_window("allreduce", xla_logdir=tmp):
+            world.run(call)
+            torch.cuda.synchronize()
+        kernels = sum("ring_kernel" in n for n in _trace_kernels(tmp))
+    launched = sum(_launched(ring, before))
+    reported = [int(m.group(1)) for w in caught for m in [re.match(
+        r"xla_trace: (\d+) of \d+ kernel launches", str(w.message))] if m]
+    if launched < 2 or kernels + sum(reported) < launched:
+        fail(f"utils: a late traced_window lost ring kernel records "
+             f"without a warning: {launched} ring launches, {kernels} in "
+             f"the trace, {reported} reported missing")
+    return {"late_trace_ring_launches": launched,
+            "late_trace_ring_kernel_events": kernels,
+            "late_trace_missing_reported": sum(reported)}
+
+
+def graft_phase(ring, FL) -> dict:
+    """Phase 7i: accl_tpu_torch/scripts/graft_entry.py on the card:
+    entry()'s forward (finite logits of the expected shape) and
+    dryrun_multichip(8) (dp 2 x tp 2 x sp 2 train step with finite loss,
+    the MoE step, a pipeline, zigzag and windowed sp ring attention
+    against dense, the driver collectives on CudaWorld(8) with the ring
+    threshold at 0).  Its ring and flash launches (set to 0 before the
+    phase, read after) must each be above 0 and join rows 1-2 and
+    8a-11."""
+    from accl_tpu_torch.scripts import graft_entry as G
+
+    t_phase = time.perf_counter()
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather):
+        fn.launches = fn.launches_stamp = 0
+    for name in FLASH_KERNELS:
+        getattr(FL, name).launches = 0
+    fn, args = G.entry()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    if logits.device.type != "cuda" or tuple(logits.shape) != (2, 64, 128) \
+            or not torch.isfinite(logits).all():
+        fail(f"graft_entry: entry() forward gave {tuple(logits.shape)} on "
+             f"{logits.device}")
+    losses = G.dryrun_multichip(P)
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"graft_entry: dryrun_multichip losses {losses}")
+    launches = {"ring_reduce_scatter": ring.ring_reduce_scatter.launches,
+                "ring_all_gather": ring.ring_all_gather.launches,
+                **{name: getattr(FL, name).launches
+                   for name in FLASH_KERNELS}}
+    fwd = launches["flash_fwd_resident"] + launches["flash_fwd_grid"]
+    if min(launches["ring_reduce_scatter"], launches["ring_all_gather"],
+           fwd, launches["flash_bwd_dq"], launches["flash_bwd_dkv"]) < 1:
+        fail(f"graft_entry: a kernel of the dry run never launched: "
+             f"{launches}")
+    out = {"launches": launches, "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "graft_entry", "card": card_line(), **losses,
+          "entry_logits_shape": list(logits.shape),
+          "launches": launches, "seconds": out["seconds"]})
     return out
 
 
@@ -5962,6 +6579,8 @@ def main() -> int:
           "ptxas": [ln.strip() for log in _build.build_log.values()
                     for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})
+    # the first torch.profiler session of the process (PERF.md section 7)
+    trace = traced_window_phase(ring, CudaWorld, ReduceFunction)
     errs = check_kernels(ring)
     errs.update(check_fused_kernels(F))
     errs.update(check_flash_kernels(FL))
@@ -6041,9 +6660,13 @@ def main() -> int:
         emu = emu_world(ring, CudaWorld, native)
         dapi = device_api_phase(ring, CudaWorld)
         tun = tuning_phase(ring, CudaWorld)
+        onl = online_tuning_phase(ring, CudaWorld)
+        utl = utils_phase(world, mp, ring, M, ar_device, trace)
+        gft = graft_phase(ring, FL)
         for row in rows:
             row["launches"] += sum(part["launches"].get(row["name"], 0)
-                                   for part in (obs, res, emu, dapi, tun))
+                                   for part in (obs, res, emu, dapi, tun,
+                                                onl, utl, gft))
         sweep_phase(world)
         callrate_phase()
     finally:

@@ -1700,3 +1700,48 @@ def test_stream_call_under_graph_capture_raises_on_card():
                 a.copy_to_stream(src, 64, stream_id=9, from_fpga=True)
         a.copy_from_stream(dst, 64)
         np.testing.assert_array_equal(dst.host, np.ones(64, np.float32))
+
+
+def test_online_episode_with_the_ring_lane_on_card(monkeypatch):
+    """One online-tuner episode on CudaWorld(8) at a 1 MiB allreduce
+    cell (below the static ring threshold, so the ring lane is a
+    challenger): the shortlist holds the ring lane, the episode closes
+    with a measured decision, and the ring kernels launched."""
+    from accl_tpu_torch import CudaWorld
+    from accl_tpu_torch.observability import metrics as OM
+    from accl_tpu_torch.tuning.online import DECISIONS, OnlineTuner
+
+    monkeypatch.setenv("ACCL_FABRIC", "8")
+    before = tring.ring_reduce_scatter.launches
+    with CudaWorld(8) as w:
+        tuner = OnlineTuner(w, registry=OM.MetricsRegistry(),
+                            repetitions=2)
+        tuner.on_findings([{
+            "collective": "allreduce", "dtype": "float32",
+            "size_bucket": "<=1MiB", "axis": "p50_us", "ratio": 2.0,
+            "kind": "latency", "live": 2.0, "baseline": 1.0}])
+        ep = tuner.step()
+    assert ep["decision"] in DECISIONS and ep["decision"] != "error", ep
+    lanes = [c["algorithm"] for c in ep["hypothesis"]["shortlist"]]
+    assert "ring" in lanes and "hierarchical" not in lanes, lanes
+    assert tring.ring_reduce_scatter.launches > before
+
+
+def test_traced_window_trace_holds_ring_kernels_on_card(tmp_path):
+    """traced_window(xla_logdir=) captures the card's kernels: a segmented
+    allreduce's two ring launches are device events of the trace."""
+    import json
+
+    from accl_tpu_torch.observability.trace import traced_window
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xs = [torch.randn(8 * 4096, generator=g, device="cuda")
+          for _ in range(8)]
+    with traced_window("ring", xla_logdir=str(tmp_path)):
+        tring.ring_all_reduce_segmented(xs, "sum")
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"
+              and "ring_kernel" in e.get("name", "")]
+    assert len(events) >= 2

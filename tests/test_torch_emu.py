@@ -16,6 +16,7 @@ passes a timeout of 30 s or less.
 """
 import socket
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -471,6 +472,71 @@ def test_same_inputs_bitwise_with_the_reference_emulator(kind, count):
                          timeout=T)
     for r in range(NRANKS):
         assert jax_out[r].tobytes() == port_out[r].tobytes(), (kind, r)
+
+
+def test_close_while_a_call_starts_joins_its_waiter(monkeypatch):
+    """close() on one thread while a rank starts a call on another: the
+    waiter thread is started under the device's lifecycle lock, so the
+    close's null-the-handle step waits for it and the join never meets a
+    registered waiter that has not started (the reference starts it after
+    releasing the lock, accl_tpu/backends/emu.py:357-383, where the join
+    can raise "cannot join thread before it is started").  The engine is
+    a stand-in, so the interleaving is forced, not left to load."""
+    from accl_tpu_torch.backends import emu as temu
+
+    released = threading.Event()
+
+    class Lib:
+        """start()'s two entries; every other entry answers 0."""
+
+        def accl_start_call(self, world, rank, words):
+            return 1
+
+        def accl_wait_call(self, world, rank, call_id, timeout_ms, ret,
+                           dur):
+            released.wait(10)
+            return 1
+
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    class Call:
+        def to_words(self):
+            return [0] * 16
+
+    done = []
+
+    class Req:
+        trace = flight = None
+        description = "allreduce"
+
+        def complete(self, ret, dur):
+            done.append(ret)
+
+        def flight_info(self):
+            return ""
+
+    entered = threading.Event()
+    plain = threading.Thread
+
+    class SlowStart(plain):
+        def start(self):
+            if getattr(self._target, "__name__", "") == "waiter":
+                entered.set()
+                time.sleep(0.1)
+            super().start()
+
+    dev = temu.EmuDevice(1, 0, Lib())
+    monkeypatch.setattr(temu.threading, "Thread", SlowStart)
+    caller = plain(target=dev.start, args=(Call(), Req()), daemon=True)
+    caller.start()
+    assert entered.wait(10)
+    with dev._lifecycle:  # _teardown: null the handle, then join
+        dev._w = None
+    released.set()
+    assert temu._join_waiters([dev]) == 0
+    caller.join(10)
+    assert done == [0] and not dev._waiters
 
 
 # ---------------------------------------------------------------------------

@@ -493,14 +493,16 @@ def test_metrics_exporter_endpoints():
         fl = json.loads(urllib.request.urlopen(
             base + "/flight", timeout=10).read())
         assert "ranks" in fl and "analysis" in fl
-        # with no SLO tracker armed /slo serves the empty report; the
-        # online tuner's endpoint is not ported
+        # with no SLO tracker armed /slo serves the empty report, and with
+        # no online tuner /retunes the empty retune history
         slo = json.loads(urllib.request.urlopen(
             base + "/slo", timeout=10).read())
         assert slo["tenants"] == {} and slo["checks"] == 0
-        for path in ("/nope", "/retunes"):
-            with pytest.raises(urllib.error.HTTPError):
-                urllib.request.urlopen(base + path, timeout=10)
+        retunes = json.loads(urllib.request.urlopen(
+            base + "/retunes", timeout=10).read())
+        assert retunes["episodes"] == [] and retunes["total"] == 0
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(base + "/nope", timeout=10)
     finally:
         exp.close()
 

@@ -10,30 +10,15 @@ import pytest
 import torch
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "accl_tpu_torch"
-SUBMODULES = ["accl", "arithconfig", "buffer", "communicator", "constants",
-              "request", "state", "optim", "backends.base", "backends.cuda",
-              "ops.ring", "ops.quantized", "ops.fused", "ops.flash",
-              "ops.reduce_ops", "ops.compression", "ops._build", "parallel",
-              "parallel.collectives", "parallel.mesh",
-              "parallel.ring_attention", "parallel.strategies", "models",
-              "models.transformer", "models.decode", "models.moe",
-              "models.moe_decode", "bench",
-              "bench.ef_convergence", "bench.timing", "bench.flash_sweep",
-              "bench.kernel_tune", "bench.flash_bwd_split",
-              "bench.flash_fwd_split", "bench.plugin_split", "bench.sweep",
-              "bench.callrate", "bench.driver_split", "bench.selfring",
-              "bench.serving",
-              "observability", "observability.metrics",
-              "observability.trace", "observability.flight",
-              "observability.health", "utils.device", "utils.logging",
-              "utils.tree", "plans", "analysis", "analysis.findings",
-              "analysis.program", "analysis.checks", "analysis.sanitizer",
-              "analysis.record", "backends.emu", "resilience",
-              "resilience.retry", "resilience.chaos",
-              "resilience.membership", "resilience.elastic",
-              "resilience.supervisor", "device_api", "utils.topology",
-              "tuning", "tuning.topology", "tuning.compose",
-              "tuning.autotune", "tuning.cli"]
+
+
+def _module_name(path: pathlib.Path) -> str:
+    parts = path.relative_to(PKG).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+#: every module of the package: a new one is imported without an edit here
+SUBMODULES = sorted(n for n in map(_module_name, PKG.rglob("*.py")) if n)
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "accl_tpu")
 
 

@@ -1,6 +1,6 @@
 """The public names of accl_tpu and of its ops, parallel, models,
-observability, bench, analysis, plans and tuning subpackages, against
-accl_tpu_torch's.
+observability, bench, analysis, plans, tuning, backends, utils and
+resilience subpackages, against accl_tpu_torch's.
 
 Every public name of the JAX package is in the port under the same name,
 under the name ``RENAMED`` gives it, or in ``MISSING`` with the ROADMAP.md
@@ -19,7 +19,8 @@ ROADMAP = (pathlib.Path(__file__).resolve().parents[1]
            / "ROADMAP.md").read_text()
 
 SUBPACKAGES = ("", ".ops", ".parallel", ".models", ".observability",
-               ".bench", ".analysis", ".plans", ".tuning")
+               ".bench", ".analysis", ".plans", ".tuning", ".backends",
+               ".utils", ".resilience")
 
 #: (subpackage, JAX name) -> the port's name for it
 RENAMED = {
@@ -29,14 +30,7 @@ RENAMED = {
 }
 
 #: (subpackage, JAX name) -> the Queue 1 item of ROADMAP.md that ports it
-MISSING = {
-    (".tuning", "OnlineTuner"): 9,
-    (".tuning", "RetuneHistory"): 9,
-    (".tuning", "ensure_online_tuner_from_env"): 9,
-    (".tuning", "online_enabled"): 9,
-    (".tuning", "online_tuner"): 9,
-    (".tuning", "stop_online_tuner"): 9,
-}
+MISSING: dict = {}
 
 
 def public_names(module) -> set:

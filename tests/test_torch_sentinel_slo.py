@@ -312,15 +312,16 @@ def test_exporter_slo_endpoint(tmp_path, monkeypatch):
         thealth.stop_exporter()
         tslo.stop_slo()
     # with no tracker armed the endpoint serves the empty document, and
-    # /retunes still waits for the online tuner
+    # /retunes the empty retune history (no tuner armed)
     try:
         exp = thealth.start_exporter(port=0, registry=reg)
         doc = _get_json(exp.port, "/slo")
         assert doc == {"format": jslo.SLO_REPORT_FORMAT,
                        "version": jslo.SLO_REPORT_VERSION, "checks": 0,
                        "specs": [], "tenants": {}, "findings_total": 0}
-        with pytest.raises(urllib.error.HTTPError, match="404"):
-            _get_json(exp.port, "/retunes")
+        assert _get_json(exp.port, "/retunes") == {
+            "format": "accl-retune-history", "version": 1, "episodes": [],
+            "dropped": 0, "total": 0}
     finally:
         thealth.stop_exporter()
 

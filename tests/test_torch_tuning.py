@@ -873,12 +873,25 @@ def test_cli_cuda_backend_needs_the_card(tmp_path, monkeypatch):
 @KINDS
 @pytest.mark.parametrize("value", ["1", "yes"])
 def test_online_tuner_knob_is_refused(kind, value, monkeypatch):
+    """No longer refused: the online tuner is ported, so a value other
+    than empty or 0 arms it at bring-up (tuning/online.py), and close()
+    stops it; empty and 0 build no tuner."""
+    from accl_tpu_torch.tuning import online
+
     monkeypatch.setenv("ACCL_TUNE_ONLINE", value)
-    with pytest.raises(ACCLError, match="Queue 1 item 9"):
-        _world(kind, 2)
+    monkeypatch.setenv("ACCL_TUNE_ONLINE_INTERVAL_MS", "3600000")
+    w = _world(kind, 2)
+    try:
+        assert w.online_tuner is not None
+        assert online.online_tuner() is w.online_tuner
+    finally:
+        w.close()
+    assert online.online_tuner() is None
     for off in ("0", ""):
         monkeypatch.setenv("ACCL_TUNE_ONLINE", off)
-        _world(kind, 2).close()
+        w = _world(kind, 2)
+        assert w.online_tuner is None
+        w.close()
 
 
 def test_tuning_register_twin_on_the_cpu_world():
