@@ -1,5 +1,5 @@
-"""CUDA backend: one card holds every rank, each rank's buffers are
-tensors in its memory.
+"""CUDA backend: each rank's buffers are tensors on its device, every
+rank on one card or, with ``devices=``, each on a card of its own.
 
 Port of ``accl_tpu/backends/tpu.py``.  Each rank holds a normal
 :class:`~accl_tpu_torch.accl.ACCL` handle and submits call descriptors; a
@@ -19,6 +19,24 @@ quantized chunks.
 
 The kernels take a table of per-rank device pointers, so operands that
 are whole buffers of the gang's dtype reach them without a copy.
+
+Ranks on several cards (``CudaWorld(P, devices=[...])``, the twin of
+``TpuWorld(P, devices=)``, tpu.py:231-241 and :2484): rank r's buffers,
+operand queue, results and events live on ``devices[r]``, one card may
+hold several ranks, and every pair of cards must have peer access (the
+world raises naming a pair without it; nothing is staged through the
+host).  The ring lane runs the kernels' cross-card mode (one launch per
+card, ops/ring.py).  The torch-op lanes keep their arithmetic and fold
+order: an operand that meets another rank's crosses to that rank's card
+by one explicit copy, and each rank's result lands on its own card,
+through :meth:`CudaEngine._move`, the one point where a tensor goes from
+one rank to another (``peer_moves`` counts them).  The reductions, the
+gathers and the fused and int8 lanes gather the operands on one hub
+rank's card (the root, else the comm's first member) and send each rank
+its result from there; a broadcast moves along its binomial tree; an
+alltoall moves each block straight to its receiver; a send moves its
+payload once, to the receiver.  With ``devices`` left out the engine
+takes the one-card path, with no move at all.
 
 Observability, as in tpu.py: each request's flight record and span are
 stamped at gang-ready and at dispatch, with the lane that ran it
@@ -117,7 +135,7 @@ from ..observability import trace as _trace
 from ..observability.telemetry import LINK_COUNTER_FIELDS
 from ..ops import ring as ring_ops
 from ..request import Request
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, resolve_devices
 from ..utils.logging import get_logger
 from .base import CCLODevice
 
@@ -235,16 +253,20 @@ def _wire_roundtrip(x: torch.Tensor, wire_dtype: str) -> torch.Tensor:
     return x
 
 
-def _tree_bcast(vs: list, root: int) -> list:
+def _tree_bcast(vs: list, root: int,
+                place: Optional[Callable] = None) -> list:
     """Binomial-tree broadcast (the schedule of tpu.py:2038): log2(P)
-    rounds of doubling senders; each rank receives the payload once."""
+    rounds of doubling senders; each rank receives the payload once, by
+    ``place(t, src, dst)`` when the ranks sit on several cards."""
     P = len(vs)
     vs = list(vs)
     k = 1
     while k < P:
         for j in range(k):
             if j + k < P:
-                vs[(root + j + k) % P] = vs[(root + j) % P]
+                src, dst = (root + j) % P, (root + j + k) % P
+                vs[dst] = vs[src] if place is None else place(vs[src], src,
+                                                               dst)
         k *= 2
     return vs
 
@@ -318,14 +340,20 @@ def _mark_flight(gang: dict, state: int, lane: Optional[str] = None,
 
 def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
                         func: int, wire_dtype: str, ring: bool,
-                        fused: bool) -> Callable:
+                        fused: bool, place: Optional[Callable] = None
+                        ) -> Callable:
     """The program that takes the place of the JAX engine's
     ``_collective_fn`` (tpu.py:2100): a function from the gang's per-rank
     operands ([in_len] each, rank order) to the per-rank results, in the
     same lane order — the fused lane when the descriptor asks for it, the
     quantized ring for the int8 wire spec on the ring lane, the ring
     drivers at or above the threshold, plain torch ops over the rank axis
-    below it."""
+    below it.
+
+    ``place(t, src, dst)`` (local ranks) is given when the gang's ranks
+    sit on several cards: every torch-op lane then moves each operand it
+    combines, and each result it hands out, through it (module
+    docstring), and computes exactly what it computes on one card."""
     n = in_len // nranks if op in (Operation.scatter, Operation.reduce_scatter,
                                    Operation.alltoall) else in_len
     is_max = func == int(ReduceFunction.MAX)
@@ -378,17 +406,33 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
             outs = fused_ops.chunked_ring_reduce_scatter(vs, red)
         return [quant(o) for o in outs]
 
+    # ranks on several cards (``place`` given): the same arithmetic, with
+    # every crossing made explicit; the hub is the rank whose card combines
+    hub = root if op in (Operation.reduce, Operation.gather,
+                         Operation.scatter) else 0
+
+    def move(t, src: int, dst: int):
+        return t if place is None or src == dst else place(t, src, dst)
+
+    def gather(vs: list, to: int) -> list:
+        return vs if place is None else [move(v, r, to)
+                                         for r, v in enumerate(vs)]
+
+    def scatter(ys: list, frm: int) -> list:
+        return ys if place is None else [move(y, frm, r)
+                                         for r, y in enumerate(ys)]
+
     def body(vs: list, outs: Optional[list] = None) -> list:
         """``outs``: per-rank result views the ring drivers may write
         into directly (lossless ring lane only, see ``_direct_outs``)."""
         if fused:
-            return fused_body(vs)
+            return scatter(fused_body(gather(vs, hub)), hub)
         if q_ring:
             dt = vs[0].dtype
-            return [o.to(dt) for o in
-                    q_ring_body([v.to(torch.float32) for v in vs])]
+            return scatter([o.to(dt) for o in q_ring_body(
+                [v.to(torch.float32) for v in gather(vs, hub)])], hub)
         vs = [quant(v) for v in vs]
-        if ring:
+        if ring:  # across cards the kernels' cross-card mode moves each hop
             if op == Operation.allreduce:
                 outs = ring_ops.ring_all_reduce_segmented(vs, red, out=outs)
             elif op == Operation.allgather:
@@ -397,27 +441,32 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
                 outs = ring_ops.ring_reduce_scatter_segmented(vs, red,
                                                               out=outs)
         elif op in (Operation.allreduce, Operation.reduce):
-            total = reduce_all(vs)
-            outs = [total] * nranks
+            total = reduce_all(gather(vs, hub))
+            outs = ([total] * nranks if op == Operation.reduce
+                    else scatter([total] * nranks, hub))
         elif op == Operation.bcast:
-            outs = _tree_bcast(vs, root)
+            outs = _tree_bcast(vs, root, place)
         elif op == Operation.gather:
-            outs = [_tree_gather(vs, root)] * nranks
+            outs = [_tree_gather(gather(vs, hub), root)] * nranks
         elif op == Operation.allgather:
-            outs = [torch.cat(vs)] * nranks
+            outs = scatter([torch.cat(gather(vs, hub))] * nranks, hub)
         elif op == Operation.scatter:
-            # only the root's operand matters: mask the rest to zero and
-            # reduce-scatter, as the JAX lowering does
-            masked = [v if r == root else torch.zeros_like(v)
-                      for r, v in enumerate(vs)]
+            # only the root's operand matters: mask the rest to zero (made
+            # on the root's card) and reduce-scatter, as the JAX lowering
+            # does
+            masked = [vs[root] if r == root else torch.zeros_like(vs[root])
+                      for r in range(nranks)]
             total = torch.stack(masked).sum(0)
-            outs = [total[r * n:(r + 1) * n] for r in range(nranks)]
+            outs = scatter([total[r * n:(r + 1) * n]
+                            for r in range(nranks)], hub)
         elif op == Operation.reduce_scatter:
             # SUM: reduce then slice; MAX: reduce fully, keep own chunk
-            total = reduce_all(vs)
-            outs = [total[r * n:(r + 1) * n] for r in range(nranks)]
+            total = reduce_all(gather(vs, hub))
+            outs = scatter([total[r * n:(r + 1) * n]
+                            for r in range(nranks)], hub)
         elif op == Operation.alltoall:
-            outs = [torch.cat([v[r * n:(r + 1) * n] for v in vs])
+            outs = [torch.cat([move(v[r * n:(r + 1) * n], s_, r)
+                               for s_, v in enumerate(vs)])
                     for r in range(nranks)]
         else:
             raise ACCLError(f"collective {op.name} not lowered")
@@ -465,13 +514,26 @@ class PlanRing:
 
 class CudaEngine:
     """World-level gang scheduler and collective executor over one
-    device (``cuda`` by default; tests pass ``cpu``)."""
+    device (``cuda`` by default; tests pass ``cpu``), or with ``devices``
+    over one device per rank (``devices[r]``; ``device`` is then rank 0's,
+    for the callers that read one)."""
 
     _GANG_PLANS_CAP = 256
 
-    def __init__(self, nranks: int, device="cuda"):
+    def __init__(self, nranks: int, device="cuda", devices=None):
         self.nranks = nranks
+        #: each rank's device (None: every rank on ``device``, the
+        #: one-card path)
+        self.rank_devices: Optional[list] = None
+        if devices is not None:
+            self.rank_devices = resolve_devices(devices, nranks,
+                                                "CudaEngine")
+            self._check_peers()
+            device = self.rank_devices[0]
         self.device = torch.device(device)
+        #: tensors moved from one rank to another (``_move``)
+        self.peer_moves = 0
+        self._move_lock = threading.Lock()
         self._lock = threading.Lock()
         #: payloads at or above this many bytes ride the ring kernels
         self.ring_threshold_bytes = env_int("ACCL_RING_THRESHOLD", 4 << 20,
@@ -541,6 +603,47 @@ class CudaEngine:
         self._exec_thread.start()
 
     # ------------------------------------------------------------------
+    # ranks on several cards
+    # ------------------------------------------------------------------
+    def _check_peers(self) -> None:
+        """Every pair of the ranks' cards must have peer access
+        (``cudaDeviceCanAccessPeer``): raise naming the first pair that
+        has none."""
+        cards = sorted({d.index for d in self.rank_devices
+                        if d.type == "cuda"})
+        for a in cards:
+            for b in cards:
+                if a != b and not torch.cuda.can_device_access_peer(a, b):
+                    raise ACCLError(
+                        f"CudaEngine: cuda:{a} has no peer access to "
+                        f"cuda:{b} (cudaDeviceCanAccessPeer): ranks on these "
+                        f"cards cannot share a world")
+
+    def device_of(self, rank: int) -> torch.device:
+        """Rank ``rank``'s device."""
+        return self.device if self.rank_devices is None \
+            else self.rank_devices[rank]
+
+    def cards(self) -> list:
+        """The distinct devices of the world's ranks, in rank order."""
+        if self.rank_devices is None:
+            return [self.device]
+        return list(dict.fromkeys(self.rank_devices))
+
+    def _move(self, t: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        """The one point where a tensor goes from rank ``src`` to rank
+        ``dst`` (world ranks) on a world of several cards: one explicit
+        copy onto ``dst``'s device when the two ranks' devices differ (a
+        peer copy, which PyTorch orders after both cards' current
+        streams), the tensor itself when they share one.  Counted in
+        ``peer_moves`` either way, so a test on the CPU can count what
+        each lane moves."""
+        with self._move_lock:
+            self.peer_moves += 1
+        dev = self.rank_devices[dst]
+        return t if t.device == dev else t.to(dev)
+
+    # ------------------------------------------------------------------
     # buffers
     # ------------------------------------------------------------------
     def create_buffer(self, rank: int, length: int, dtype) -> CudaBuffer:
@@ -550,7 +653,7 @@ class CudaEngine:
         with self._lock:
             addr = self._next_addr[rank]
             self._next_addr[rank] += span
-            buf = CudaBuffer(host, self.device, addr, self, rank)
+            buf = CudaBuffer(host, self.device_of(rank), addr, self, rank)
             self._buffers[rank][addr] = buf
             self._bases[rank].append(addr)
         return buf
@@ -729,6 +832,8 @@ class CudaEngine:
         dst_rank = self._comms[call.comm][call.root_src_dst]
         if call.stream_flags & StreamFlags.RES_STREAM:
             # stream_put: the payload lands in the destination's stream
+            if self.rank_devices is not None:
+                data = self._move(data, rank, dst_rank)
             self._push_stream(dst_rank, call.tag, data)
             request.complete(0, 1.0)
             return
@@ -779,6 +884,8 @@ class CudaEngine:
             try:
                 dst, doff = self.resolve(rank, call.addr_2)
                 moved = data[:call.count]
+                if self.rank_devices is not None:
+                    moved = self._move(moved, gkey[2], rank)
                 if call.compression_flags & CompressionFlags.ETH_COMPRESSED:
                     moved = _wire_roundtrip(moved,
                                             self.wire_dtype_for(call.arithcfg))
@@ -1051,11 +1158,12 @@ class CudaEngine:
 
     def _end_stamp(self) -> int:
         """The device-end stamp: on the card a launch returns at enqueue,
-        so under tracing or ``profile_sync`` the stream is synchronized
-        first; otherwise the stamp is the enqueue's end."""
+        so under tracing or ``profile_sync`` the stream (every card's) is
+        synchronized first; otherwise the stamp is the enqueue's end."""
         if (self.profile_sync or _trace.enabled()) \
                 and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+            for dev in self.cards():
+                torch.cuda.current_stream(dev).synchronize()
         return time.perf_counter_ns()
 
     def _gang_plan(self, op: Operation, comm_id: int, gang: dict) -> dict:
@@ -1170,7 +1278,8 @@ class CudaEngine:
             "program": (None if op == Operation.barrier else
                         _collective_program(op, nranks, in_len, root,
                                             any_call.function, wire_dtype,
-                                            ring, fused)),
+                                            ring, fused,
+                                            self._placer(members))),
             # batching (tpu.py:1817-1826): gangs of one fn_key run the
             # same program; the address sets, keyed by (rank, address)
             # because every rank's allocator mints the same numbers,
@@ -1188,6 +1297,14 @@ class CudaEngine:
             while len(self._gang_plans) > self._GANG_PLANS_CAP:
                 self._gang_plans.popitem(last=False)
         return plan
+
+    def _placer(self, members) -> Optional[Callable]:
+        """The program's ``place`` over a comm's members (local ranks to
+        world ranks), or None on one card."""
+        if self.rank_devices is None:
+            return None
+        members = list(members)
+        return lambda t, src, dst: self._move(t, members[src], members[dst])
 
     def _run_collective(self, op: Operation, comm_id: int,
                         gang: dict) -> tuple:
@@ -1635,7 +1752,8 @@ class CudaEngine:
                     if call.compression_flags
                     & CompressionFlags.ETH_COMPRESSED else "")
 
-        return {"kind": "p2p", "src": sbuf, "soff": soff,
+        return {"kind": "p2p", "s_rank": s_rank, "d_rank": d_rank,
+                "src": sbuf, "soff": soff,
                 "n_send": s_call.count, "send_wire": wire(s_call),
                 "dst": dbuf, "doff": doff, "n_recv": d_call.count,
                 "recv_wire": wire(d_call)}
@@ -1769,6 +1887,8 @@ class CudaEngine:
             if src is dst:
                 data = data.clone()  # the eager send's captured payload
             data = _wire_roundtrip(data, slot["send_wire"])[:slot["n_recv"]]
+            if self.rank_devices is not None:
+                data = self._move(data, slot["s_rank"], slot["d_rank"])
             data = _wire_roundtrip(data, slot["recv_wire"])
             dst.dev[slot["doff"]:slot["doff"] + data.shape[0]].copy_(data)
 
@@ -1840,21 +1960,21 @@ class CudaEngine:
                             f"streams are not capturable — keep stream "
                             f"traffic eager")
 
-    def _event(self):
-        """An event recorded on the current stream (None off the card):
-        what a consumer on another stream waits for."""
-        if self.device.type != "cuda":
+    def _event(self, dev: torch.device):
+        """An event recorded on ``dev``'s current stream (None off the
+        card): what a consumer on another stream waits for."""
+        if dev.type != "cuda":
             return None
         ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+        ev.record(torch.cuda.current_stream(dev))
         return ev
 
     def _joined(self, item) -> torch.Tensor:
-        """A queue operand, with the current stream made to wait for its
-        host-to-device copy."""
+        """A queue operand, with its card's current stream made to wait
+        for its host-to-device copy."""
         t, ev = item[0], item[-1]
         if ev is not None:
-            stream = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.current_stream(t.device)
             stream.wait_event(ev)
             t.record_stream(stream)
         return t
@@ -1865,15 +1985,16 @@ class CudaEngine:
         self._refuse_capture("push_krnl")
         # a copy: the operand is what the array holds now
         arr = np.array(data).reshape(-1)
-        t = torch.from_numpy(arr).to(self.device)
-        self._krnl_in[rank].append((t, arr.dtype, self._event()))
+        dev = self.device_of(rank)
+        t = torch.from_numpy(arr).to(dev)
+        self._krnl_in[rank].append((t, arr.dtype, self._event(dev)))
 
     def _push_stream(self, rank: int, strm: int, data: torch.Tensor) -> None:
         """Deliver ``data`` into (rank, strm)'s kernel stream and wake the
         waiters: the one delivery point of every RES_STREAM path (local
         copy, stream_put, receive landing, gang results).  The message
         carries the event recorded after the work that made it."""
-        ev = self._event()
+        ev = self._event(data.device)
         with self._stream_cv:
             self._streams.setdefault((rank, strm), deque()).append(
                 (data, ev))
@@ -2174,15 +2295,20 @@ class CudaDeviceView(CCLODevice):
 
 
 class CudaWorld:
-    """N ranks on one device: per-rank ACCL handles over one CudaEngine,
-    and ``run(fn)``, which calls ``fn(accl, rank)`` on one thread per
-    rank.  ``device`` defaults to the card; without CUDA that raises."""
+    """N ranks: per-rank ACCL handles over one CudaEngine, and
+    ``run(fn)``, which calls ``fn(accl, rank)`` on one thread per rank.
+    The ranks share ``device`` (the card by default; without CUDA that
+    raises), or with ``devices`` rank r sits on ``devices[r]`` (the twin
+    of ``TpuWorld(nranks, devices=)``): at least ``nranks`` entries, one
+    card may hold several ranks, every pair of cards needs peer access;
+    ``["cpu"] * nranks`` runs that world's code path on the CPU."""
 
-    def __init__(self, nranks: int, device="cuda"):
-        dev = resolve_device(device, "CudaWorld")
+    def __init__(self, nranks: int, device="cuda", devices=None):
+        dev = (resolve_device(device, "CudaWorld") if devices is None
+               else None)
         self.nranks = nranks
         self.online_tuner = None
-        self.engine = CudaEngine(nranks, dev)
+        self.engine = CudaEngine(nranks, dev, devices)
         self.devices = [CudaDeviceView(self.engine, r) for r in range(nranks)]
         self.accls = [ACCL(d) for d in self.devices]
         self._pool = ThreadPoolExecutor(max_workers=nranks)
@@ -2220,8 +2346,9 @@ class CudaWorld:
         return [f.result(timeout=timeout) for f in futures]
 
     def _on_device(self, fn, accl, rank, *args):
-        if self.engine.device.type == "cuda":
-            torch.cuda.set_device(self.engine.device)
+        dev = self.engine.device_of(rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
         return fn(accl, rank, *args)
 
     def _watchdog_abort(self, comm_id: int, report: dict) -> None:

@@ -35,6 +35,12 @@ SIGNATURES = {
         "accl_ring_kernel_info": ([_i32, _i32, _i32, _i32, _vp], _i32),
         "accl_ring_launch": ([_i32, _i32, _vp, _vp, _i32, _i32, _i32, _vp, _vp,
                               _vp, _vp, _i32, _vp], _i32),
+        "accl_ring_enable_peers": ([_vp, _i32, _vp], _i32),
+        "accl_ring_join": ([_vp, _vp, _i32], _i32),
+        "accl_ring_gate_new": ([_vp], _i32),
+        "accl_ring_launch_cross": ([_i32, _i32, _vp, _vp, _i32, _vp, _i32,
+                                    _i32, _vp, _vp, _vp, _i32, _vp, _i32,
+                                    _vp, _i32, _vp], _i32),
     },
     "fused": {
         "accl_fused_error_string": ([_i32], ctypes.c_char_p),

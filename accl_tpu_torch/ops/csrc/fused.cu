@@ -437,9 +437,9 @@ fused_matmul_rs_kernel(PtrTable xs, PtrTable ws, OutTable outs, int64_t m, int64
     const float* lin = s < 0 ? nullptr : L(my, slot);
     bool waited = s < 0;
     auto wait_hop = [&]() {
-      wait_geq(F(my, slot), s / 2 + 1);  // left's hop s has landed
+      wait_geq<SCOPE_GPU>(F(my, slot), s / 2 + 1);  // left's hop s has landed
       // the right neighbour freed this slot at its fold of hop ns - 2
-      if (!last && rs_waits_ack(ns, P)) wait_geq(A(my, ns & 1), ns / 2);
+      if (!last && rs_waits_ack(ns, P)) wait_geq<SCOPE_GPU>(A(my, ns & 1), ns / 2);
     };
     for (int64_t t = t0; t < t1; ++t) {
       const int64_t row0 = (t / tiles_n) * FUSED_BM, col0 = (t % tiles_n) * BN;
@@ -454,11 +454,11 @@ fused_matmul_rs_kernel(PtrTable xs, PtrTable ws, OutTable outs, int64_t m, int64
     __syncthreads();
     if (threadIdx.x == 0) {
       if (s < 0) {
-        arrive_release(F(right, 0));
+        arrive_release<SCOPE_GPU>(F(right, 0));
       } else {
-        if (!last) arrive_release(F(right, ns & 1));
+        if (!last) arrive_release<SCOPE_GPU>(F(right, ns & 1));
         // landing[slot] consumed: free it for the left neighbour's hop s + 2
-        if (rs_signals_ack(s, P)) arrive_release(A(left, slot));
+        if (rs_signals_ack(s, P)) arrive_release<SCOPE_GPU>(A(left, slot));
       }
     }
   }

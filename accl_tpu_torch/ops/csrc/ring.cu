@@ -1,5 +1,7 @@
-// Ring reduce-scatter and ring all-gather over P ranks that share one card,
-// each one persistent launch that walks every segment of a call.
+// Ring reduce-scatter and ring all-gather over P ranks, each one
+// persistent launch per card that walks every segment of a call: one
+// launch when the ranks share one card, one per card in the cross-card
+// mode (below).
 //
 // Replaces the Pallas TPU kernels ring_reduce_scatter_pallas
 // (accl_tpu/ops/ring.py:274) and ring_all_gather_pallas
@@ -109,13 +111,35 @@
 // all V rows of the result.  The stamp rows are the reference's: V - 1
 // per segment, rank and both peers 0.
 //
+// Cross-card mode (ring_kernel_cross; the TPU kernels' own setting, each
+// rank a chip and each hop a remote DMA into its neighbour,
+// accl_tpu/ops/ring.py:218-233).  The ranks sit on several cards joined
+// by peer access.  Each card gets one launch holding its ranks' blocks
+// (any ranks: block b plays the rank its table names), all with the same
+// geometry and S.  Rank r's landing slots and flags are its own buffers
+// on its own card, reached through per-rank tables, so a hop is a store
+// over NVLink into the right neighbour's slot, published by a .sys
+// release reduction into its filled flag, and every wait is a .sys
+// acquire on the waiting rank's own card.  The fold chain, the tiles and
+// the ACK windows are the one-launch path's, so the results are bitwise
+// those of one launch; the entry handshake at ring_kernel_cross keeps
+// launches on different cards from overlapping on a rank's slots and
+// flags.  With every rank on one card it is the per-rank-table form of
+// one launch, which a one-card test can hold against the one-launch form.
+//
 // Correctness rules the design keeps:
-//  * all blocks spin on flags other blocks set, so the launch is
+//  * all blocks spin on flags other blocks set, so a launch is
 //    cooperative: the runtime refuses a grid that cannot be co-resident
-//    instead of letting it deadlock;
+//    instead of letting it deadlock (across cards each card's blocks are
+//    its own launch's, co-resident there);
 //  * every offset is 64-bit;
 //  * a wait that exceeds SPIN_TIMEOUT_NS traps, so a broken handshake
-//    fails the launch instead of hanging the card.
+//    fails the launch instead of hanging the card.  Across cards the
+//    wrapper joins the cards' streams before the launches and the blocks
+//    wait for the host's gate, so neither a neighbour's earlier work nor
+//    a neighbour launch that failed counts against the limit; work on
+//    other streams of a card is not joined, and a cooperative launch
+//    that waits for it to leave room does count.
 #include <cuda_fp16.h>
 #include <string.h>
 
@@ -192,7 +216,7 @@ __device__ __forceinline__ void load_batch(Vec<T> (&r)[BATCH], const T* p, bool 
 // of a is loaded before the waits, so its latency hides behind theirs.
 // With vec every pointer is 16-byte aligned and the vector body runs up
 // to the last whole vector; the tail is scalar.
-template <typename T, int OP>
+template <typename T, int OP, int SCOPE>
 __device__ __forceinline__ void pass(const T* a, bool a_l2, bool pre_a, const T* b, T* d0,
                                      T* d1, int64_t cnt, bool vec, const int* wait1,
                                      int target1, const int* wait2, int target2) {
@@ -200,8 +224,8 @@ __device__ __forceinline__ void pass(const T* a, bool a_l2, bool pre_a, const T*
   const int64_t nv = vec ? cnt / V : 0;
   Vec<T> ra[BATCH];
   if (pre_a) load_batch(ra, a, a_l2, threadIdx.x, nv);
-  if (wait1) wait_geq(wait1, target1);
-  if (wait2) wait_geq(wait2, target2);
+  if (wait1) wait_geq<SCOPE>(wait1, target1);
+  if (wait2) wait_geq<SCOPE>(wait2, target2);
   for (int64_t v0 = threadIdx.x; v0 < nv; v0 += (int64_t)THREADS * BATCH) {
     if (!pre_a || v0 != threadIdx.x) load_batch(ra, a, a_l2, v0, nv);
     if (OP != OP_COPY) {
@@ -248,6 +272,54 @@ static_assert(sizeof(Geometry) == GEOMETRY_WORDS * sizeof(int64_t), "geometry la
 __device__ __forceinline__ int64_t tiles_of(const Geometry& g, int S, int k) {
   return k < g.ntiles ? (g.ntiles - 1 - k) / S + 1 : 0;
 }
+
+// -- where the cross-card mode's landing slots and flags live ---------------
+// The cross-card mode's per-rank tables: rank r's slots[S][2][tw] and
+// flags live on rank r's card, the card that reads them.  Rank r's flags
+// are HS_WORDS head words, then filled[S][2], then ack[S][2].  The head:
+// the handshake counts (the blocks of its left, then of its right
+// neighbour that have ended a launch), then, used in the flags of a
+// launch's first rank only, that card's copy of the host's gate (the
+// launches its block 0 saw opened, and whether it saw one given up).
+#define HS_WORDS 4
+struct RankTables {
+  void* slots[MAXP];
+  int* flags[MAXP];
+  int rank[MAXP];  // the rank that block b of this launch plays: rank[b / S]
+  // The host's gate of these tables, two words of mapped host memory:
+  // gate[0] counts the launches the host has opened (every card's launch
+  // enqueued), gate[1] turns non-zero when it gave a launch up (a card's
+  // launch failed after another card's was enqueued).  seq: this launch.
+  const int* gate;
+  int seq;
+};
+// A block of the cross-card mode touches three ranks' tables: its own
+// (slots and flags), its right neighbour's (slots and filled) and its
+// left neighbour's (ack).  Thread 0 copies their bases into shared
+// memory at entry, and every use reads them from there (volatile: the
+// steps have no registers to spare for five pointers, and a copy the
+// compiler keeps in registers spills).
+struct CrossBases {
+  void* slot[2];   // mine, my right neighbour's
+  int* flags[3];   // mine, my right neighbour's, my left neighbour's
+};
+enum { MINE = 0, RIGHT = 1, LEFT = 2 };
+template <typename T> struct Tables {
+  volatile const CrossBases* b;
+  int S;
+  int64_t tw;
+  // slot: MINE or RIGHT; filled: MINE or RIGHT; ack: MINE or LEFT
+  __device__ __forceinline__ T* slot(int who, int k, int64_t hop) const {
+    return static_cast<T*>(b->slot[who]) + ((int64_t)k * 2 + (hop & 1)) * tw;
+  }
+  __device__ __forceinline__ int* filled(int who, int k, int64_t hop) const {
+    return b->flags[who] + HS_WORDS + (int64_t)k * 2 + (hop & 1);
+  }
+  __device__ __forceinline__ int* ack(int who, int k, int64_t hop) const {
+    return b->flags[who == LEFT ? 2 : 0] + HS_WORDS + (int64_t)S * 2 + (int64_t)k * 2 +
+           (hop & 1);
+  }
+};
 
 // ------------------------------------------------------------------------
 // Step q of tile u of stripe k, rank my (q = 0: the tile's first hop).
@@ -296,15 +368,15 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
     const int* ack0 = tile_waits_ack(h0, H) ? A(my, h0) : nullptr;
     if (AG) {
       T* own = O(my);
-      pass<T, OP_COPY>(X(my), false, true, nullptr, own == X(my) ? nullptr : own,
-                       SL(right, h0), cnt(my), vec, ack0, (int)(h0 / 2), nullptr, 0);
+      pass<T, OP_COPY, SCOPE_GPU>(X(my), false, true, nullptr, own == X(my) ? nullptr : own,
+                                  SL(right, h0), cnt(my), vec, ack0, (int)(h0 / 2), nullptr, 0);
     } else {
       const int c = pmod(my - 1, V);
-      pass<T, OP_COPY>(X(c), false, true, nullptr, SL(right, h0), nullptr, cnt(c), vec, ack0,
-                       (int)(h0 / 2), nullptr, 0);
+      pass<T, OP_COPY, SCOPE_GPU>(X(c), false, true, nullptr, SL(right, h0), nullptr, cnt(c),
+                                  vec, ack0, (int)(h0 / 2), nullptr, 0);
     }
     __syncthreads();
-    if (threadIdx.x == 0) arrive_release(F(right, h0));
+    if (threadIdx.x == 0) arrive_release<SCOPE_GPU>(F(right, h0));
     return;
   }
   const int64_t h = h0 + q - 1;  // the hop consumed at this step
@@ -315,18 +387,116 @@ __device__ __forceinline__ void ring_step(const PtrTable& xs, const OutTable& ou
   T* fwd = last ? nullptr : SL(right, h + 1);
   if (AG) {
     const int c = pmod(my - q, V);
-    pass<T, OP_COPY>(SL(my, h), true, false, nullptr, O(c), fwd, cnt(c), vec, F(my, h),
-                     (int)(h / 2 + 1), ackn, (int)((h + 1) / 2));
+    pass<T, OP_COPY, SCOPE_GPU>(SL(my, h), true, false, nullptr, O(c), fwd, cnt(c), vec,
+                                F(my, h), (int)(h / 2 + 1), ackn, (int)((h + 1) / 2));
   } else {
     const int c = pmod(my - 1 - q, V);
-    pass<T, OP>(X(c), false, true, SL(my, h), last ? O(my) : fwd, nullptr, cnt(c), vec,
-                F(my, h), (int)(h / 2 + 1), ackn, (int)((h + 1) / 2));
+    pass<T, OP, SCOPE_GPU>(X(c), false, true, SL(my, h), last ? O(my) : fwd, nullptr, cnt(c),
+                           vec, F(my, h), (int)(h / 2 + 1), ackn, (int)((h + 1) / 2));
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    if (!last) arrive_release(F(right, h + 1));
+    if (!last) arrive_release<SCOPE_GPU>(F(right, h + 1));
     // the landing of hop h is consumed: free its slot for hop h + 2
-    if (tile_signals_ack(h, H)) arrive_release(A(left, h));
+    if (tile_signals_ack(h, H)) arrive_release<SCOPE_GPU>(A(left, h));
+    if (STAMP && j0 == 0) {
+      // step q - 1 of the reference's kernel is done: its stamp row
+      const int64_t seg = (second ? g.part[0].nseg : 0) + i;
+      const int st = q - 1;
+      const int nbytes = (int)(p.w * (int64_t)sizeof(T));
+      int* row = stamps + ((seg * P + my) * (V - 1) + st) * STAMP_COLS;
+      row[0] = my;
+      row[1] = st;
+      row[2] = 3 * st;
+      row[3] = 3 * st + 1;
+      row[4] = 3 * st + 2;
+      row[5] = right;
+      row[6] = left;
+      row[7] = nbytes;
+      row[8] = nbytes;
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// ring_step of the cross-card mode: the same step over the per-rank
+// tables, its flags at .sys scope.  The one-launch path keeps its own
+// ring_step above, so that its compiled code stays what it was: one step
+// shared by both through an addressing template compiled every
+// one-launch instantiation to other machine code (PERF.md).
+// ------------------------------------------------------------------------
+template <typename T, int KIND, bool STAMP>
+__device__ __forceinline__ void ring_step_cross(const PtrTable& xs, const OutTable& outs,
+                                                const Geometry& g, int P, int S, int my, int k,
+                                                int64_t u, int q, const Tables<T>& sc,
+                                                int* stamps) {
+  const int V = P;
+  constexpr bool AG = (KIND == 2);
+  constexpr int OP = AG ? OP_COPY : (KIND == 1 ? OP_MAX : OP_SUM);
+  const int right = (my + 1) % P, left = (my + P - 1) % P;
+  const int64_t H = tiles_of(g, S, k) * (V - 1);
+  // mine (read here) and my neighbours' (written from here)
+  auto F_my = [&](int64_t hop) { return sc.filled(MINE, k, hop); };
+  auto F_right = [&](int64_t hop) { return sc.filled(RIGHT, k, hop); };
+  auto A_my = [&](int64_t hop) { return sc.ack(MINE, k, hop); };
+  auto A_left = [&](int64_t hop) { return sc.ack(LEFT, k, hop); };
+  auto SL_my = [&](int64_t hop) { return sc.slot(MINE, k, hop); };
+  auto SL_right = [&](int64_t hop) { return sc.slot(RIGHT, k, hop); };
+  const T* x = static_cast<const T*>(xs.p[my]);
+  T* out = static_cast<T*>(outs.p[my]);
+
+  const int64_t t = k + u * S;
+  const bool second = t >= g.part[1].first_tile;
+  const Part p = second ? g.part[1] : g.part[0];
+  const int64_t local = t - p.first_tile;
+  const int64_t i = local / p.tiles_per_seg;
+  const int64_t j0 = (local % p.tiles_per_seg) * g.tw;
+  const int64_t width = p.w - j0 < g.tw ? p.w - j0 : g.tw;
+  const bool vec = p.vec != 0;
+  auto X = [&](int c) { return x + p.x_off + i * p.x_seg + c * p.x_chunk + j0; };
+  auto O = [&](int c) { return out + p.o_off + i * p.o_seg + c * p.o_chunk + j0; };
+  auto cnt = [&](int c) {  // real columns of chunk c in this tile
+    const int64_t end = p.lim - c * p.w - j0;
+    return end < 0 ? (int64_t)0 : (end < width ? end : width);
+  };
+  const int64_t h0 = u * (V - 1);
+
+  if (q == 0) {
+    // hop h0: the local chunk (all-gather) or x[my-1] (reduce-scatter)
+    const int* ack0 = tile_waits_ack(h0, H) ? A_my(h0) : nullptr;
+    if (AG) {
+      T* own = O(my);
+      pass<T, OP_COPY, SCOPE_SYS>(X(my), false, true, nullptr, own == X(my) ? nullptr : own,
+                                  SL_right(h0), cnt(my), vec, ack0, (int)(h0 / 2), nullptr, 0);
+    } else {
+      const int c = pmod(my - 1, V);
+      pass<T, OP_COPY, SCOPE_SYS>(X(c), false, true, nullptr, SL_right(h0), nullptr, cnt(c),
+                                  vec, ack0, (int)(h0 / 2), nullptr, 0);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) arrive_release<SCOPE_SYS>(F_right(h0));
+    return;
+  }
+  const int64_t h = h0 + q - 1;  // the hop consumed at this step
+  const bool last = (q == V - 1);
+  // the landing of hop h, then (unless last) the ack that frees the
+  // right neighbour's slot for hop h + 1
+  const int* ackn = !last && tile_waits_ack(h + 1, H) ? A_my(h + 1) : nullptr;
+  T* fwd = last ? nullptr : SL_right(h + 1);
+  if (AG) {
+    const int c = pmod(my - q, V);
+    pass<T, OP_COPY, SCOPE_SYS>(SL_my(h), true, false, nullptr, O(c), fwd, cnt(c), vec,
+                                F_my(h), (int)(h / 2 + 1), ackn, (int)((h + 1) / 2));
+  } else {
+    const int c = pmod(my - 1 - q, V);
+    pass<T, OP, SCOPE_SYS>(X(c), false, true, SL_my(h), last ? O(my) : fwd, nullptr, cnt(c),
+                           vec, F_my(h), (int)(h / 2 + 1), ackn, (int)((h + 1) / 2));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (!last) arrive_release<SCOPE_SYS>(F_right(h + 1));
+    // the landing of hop h is consumed: free its slot for hop h + 2
+    if (tile_signals_ack(h, H)) arrive_release<SCOPE_SYS>(A_left(h));
     if (STAMP && j0 == 0) {
       // step q - 1 of the reference's kernel is done: its stamp row
       const int64_t seg = (second ? g.part[0].nseg : 0) + i;
@@ -368,34 +538,152 @@ ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int V, int S, T* slot
 }
 
 // ------------------------------------------------------------------------
+// The cross-card mode: one launch per card, holding the blocks of that
+// card's ranks (block b plays rank tabs.rank[b / S] on stripe b % S), in
+// a ring of V = P over every card.  Slots and flags come from the
+// per-rank tables, each on the receiving rank's card; a hop is a store
+// into the right neighbour's slot over NVLink, and every flag is .sys.
+//
+// Before a launch, the wrapper joins the cards' streams (accl_ring_join:
+// each card's stream waits for an event recorded on every other card's),
+// so no card's blocks start while another card's stream is still busy
+// with work queued before its launch: every wait below then counts
+// against SPIN_TIMEOUT_NS only the ring's own time.  The blocks also
+// wait for the host's gate (wait_gate), which the host opens once every
+// card's launch is enqueued, or gives up when one card's launch fails:
+// the blocks already on the other cards then end at once instead of
+// waiting for ranks that never start.
+//
+// The join already orders launch N + 1 on every card after launch N on
+// every card.  The entry handshake is the kernel's own guard of that
+// order, the TPU kernel's barrier, so that the kernel does not rest on
+// what its caller joins.  Without either, a fast card's next launch could store into a slot its neighbour has not read
+// yet, or count up a flag its neighbour is about to set back to 0.  The
+// entry handshake (the job of the TPU kernel's barrier semaphore with
+// both neighbours, accl_tpu/ops/ring.py:192-198) rules that out: every
+// block, as it ends, sets its own flags back to 0 and then counts
+// itself, with a release, into its left neighbour's second handshake
+// word and its right neighbour's first; every block, before anything
+// else, waits until both of its own words count every block of every
+// earlier launch on these tables (base: the wrapper's running sum of
+// their S).  A neighbour's block ends only after its last landing and
+// its last ack arrived and were read, so when the wait passes, nothing
+// of the last launch is still to be read or counted on this rank, and
+// its flags are 0.  The counts only grow (wrapping at 2^32), so no
+// launch relies on a word being set back.  A neighbour is therefore at
+// most one launch ahead, and only after this rank's blocks have ended.
+// (The right neighbour's word is the one the schedule needs: a rank
+// writes into its left neighbour's ack only after reading that
+// neighbour's landing of the same launch.  Both are waited for, as the
+// TPU kernel's barrier waits for both neighbours; tests/
+// test_torch_multicard.py replays the schedule with either.)
+// ------------------------------------------------------------------------
+__device__ __forceinline__ void store_release_sys(int* p, int v) {
+  asm volatile("st.release.sys.global.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+
+// Thread 0's wait for the word on launch seq, in the host's gate or a
+// card's copy of it (both hold the number of the last launch opened):
+// 1 when launch seq was opened (gate[0] has reached seq, a count that
+// may wrap), 0 when it was given up (gate[1] set).  gate[1] is read
+// first: every earlier launch is opened before one is given up, so a
+// launch that sees gate[1] set and gate[0] short of it is the one given
+// up.
+__device__ __forceinline__ int wait_gate(const int* gate, int seq) {
+  uint64_t t0 = global_ns();
+  for (;;) {
+    const int given_up = ld_acquire<SCOPE_SYS>(gate + 1);
+    if ((int)((unsigned)ld_acquire<SCOPE_SYS>(gate) - (unsigned)seq) >= 0) return 1;
+    if (given_up) return 0;
+    __nanosleep(64);
+    if (global_ns() - t0 > SPIN_TIMEOUT_NS) __trap();
+  }
+}
+
+template <typename T, int KIND, bool STAMP>
+__global__ void __launch_bounds__(THREADS, 2)
+ring_kernel_cross(PtrTable xs, OutTable outs, Geometry g, int P, int S, RankTables tabs,
+                  int base, int* stamps) {
+  const int my = tabs.rank[blockIdx.x / S], k = blockIdx.x % S;
+  const int left = (my + P - 1) % P, right = (my + 1) % P;
+  __shared__ CrossBases bases;
+  __shared__ int opened;
+  if (threadIdx.x == 0) {
+    // one block a card reads the host's gate over the bus and copies what
+    // it saw into the card's own words, which the other blocks wait on
+    // (hundreds of blocks polling host memory would crowd the bus the
+    // host's launches on the other cards go over)
+    int* card_gate = tabs.flags[tabs.rank[0]] + 2;
+    if (blockIdx.x == 0) {
+      opened = wait_gate(tabs.gate, tabs.seq);
+      store_release_sys(opened ? card_gate : card_gate + 1, opened ? tabs.seq : 1);
+    } else {
+      opened = wait_gate(card_gate, tabs.seq);
+    }
+    if (opened) {
+      const int* hs = tabs.flags[my];
+      wait_reached<SCOPE_SYS>(hs, base);
+      wait_reached<SCOPE_SYS>(hs + 1, base);
+      bases.slot[0] = tabs.slots[my];
+      bases.slot[1] = tabs.slots[right];
+      bases.flags[0] = tabs.flags[my];
+      bases.flags[1] = tabs.flags[right];
+      bases.flags[2] = tabs.flags[left];
+    }
+  }
+  __syncthreads();
+  if (!opened) return;  // given up: touch nothing, count nothing
+  const int64_t U = tiles_of(g, S, k);
+  const Tables<T> sc{&bases, S, g.tw};
+  for (int64_t u = 0; u < U; ++u)
+    for (int q = 0; q < P; ++q)
+      ring_step_cross<T, KIND, STAMP>(xs, outs, g, P, S, my, k, u, q, sc, stamps);
+  if (threadIdx.x == 0) {
+    if (U > 0) {
+      int* f = tabs.flags[my] + HS_WORDS;
+      f[k * 2] = f[k * 2 + 1] = f[S * 2 + k * 2] = f[S * 2 + k * 2 + 1] = 0;
+    }
+    arrive_release<SCOPE_SYS>(tabs.flags[left] + 1);
+    arrive_release<SCOPE_SYS>(tabs.flags[right]);
+  }
+}
+
+// ------------------------------------------------------------------------
 // host side: plain C interface, bound with ctypes
 // ------------------------------------------------------------------------
 enum { DT_F32 = 0, DT_F16 = 1, DT_F64 = 2, DT_I32 = 3, DT_I64 = 4 };
 
-template <typename T, bool STAMP>
+template <typename T, bool STAMP, bool CROSS>
 static void* kernel_of(int kind) {
   switch (kind) {
-    case 0: return (void*)ring_kernel<T, 0, STAMP>;
-    case 1: return (void*)ring_kernel<T, 1, STAMP>;
-    case 2: return (void*)ring_kernel<T, 2, STAMP>;
+    case 0: return CROSS ? (void*)ring_kernel_cross<T, 0, STAMP> : (void*)ring_kernel<T, 0, STAMP>;
+    case 1: return CROSS ? (void*)ring_kernel_cross<T, 1, STAMP> : (void*)ring_kernel<T, 1, STAMP>;
+    case 2: return CROSS ? (void*)ring_kernel_cross<T, 2, STAMP> : (void*)ring_kernel<T, 2, STAMP>;
   }
   return nullptr;
 }
 
-template <bool STAMP>
+template <bool STAMP, bool CROSS>
 static void* kernel_for(int kind, int dtype) {
   switch (dtype) {
-    case DT_F32: return kernel_of<float, STAMP>(kind);
-    case DT_F16: return kernel_of<__half, STAMP>(kind);
-    case DT_F64: return kernel_of<double, STAMP>(kind);
-    case DT_I32: return kernel_of<int, STAMP>(kind);
-    case DT_I64: return kernel_of<long long, STAMP>(kind);
+    case DT_F32: return kernel_of<float, STAMP, CROSS>(kind);
+    case DT_F16: return kernel_of<__half, STAMP, CROSS>(kind);
+    case DT_F64: return kernel_of<double, STAMP, CROSS>(kind);
+    case DT_I32: return kernel_of<int, STAMP, CROSS>(kind);
+    case DT_I64: return kernel_of<long long, STAMP, CROSS>(kind);
   }
   return nullptr;
 }
 
-static void* kernel_for(int kind, int dtype, int stamp) {
-  return stamp ? kernel_for<true>(kind, dtype) : kernel_for<false>(kind, dtype);
+// variant: bit 0 the device-trace instantiation, bit 1 the cross-card mode
+static void* kernel_for(int kind, int dtype, int variant) {
+  switch (variant) {
+    case 0: return kernel_for<false, false>(kind, dtype);
+    case 1: return kernel_for<true, false>(kind, dtype);
+    case 2: return kernel_for<false, true>(kind, dtype);
+    case 3: return kernel_for<true, true>(kind, dtype);
+  }
+  return nullptr;
 }
 
 extern "C" {
@@ -405,8 +693,9 @@ const char* accl_ring_error_string(int code) {
 }
 
 // Blocks of one kernel (kind 0 = reduce-scatter by sum, 1 = by max, 2 =
-// all-gather; stamp 1 = the device-trace instantiation) that can be
-// resident on the card together, or a negative CUDA error.
+// all-gather; variant bit 0 = the device-trace instantiation, bit 1 =
+// the cross-card mode) that can be resident on the card together, or a
+// negative CUDA error.
 int accl_ring_resident(int kind, int dtype, int stamp, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return -(int)e;
@@ -421,7 +710,7 @@ int accl_ring_resident(int kind, int dtype, int stamp, int device) {
 }
 
 // out[0..2]: registers, local (spill) bytes and blocks per SM of one
-// instantiation, as the runtime reports them.
+// instantiation (kind and variant as above), as the runtime reports them.
 int accl_ring_kernel_info(int kind, int dtype, int stamp, int device, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -452,7 +741,7 @@ int accl_ring_launch(int kind, int dtype, const void* const* xs, void* const* ou
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  void* fn = kernel_for(kind, dtype, stamps != nullptr);
+  void* fn = kernel_for(kind, dtype, stamps != nullptr ? 1 : 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   PtrTable xt;
   OutTable ot;
@@ -464,6 +753,137 @@ int accl_ring_launch(int kind, int dtype, const void* const* xs, void* const* ou
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Enable peer access between every pair of the n devices.  A pair the
+// hardware cannot join fails with cudaErrorPeerAccessUnsupported and its
+// two devices in pair[0..1]; access that is already enabled is no error.
+int accl_ring_enable_peers(const int* devices, int n, int* pair) {
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j) {
+      if (devices[i] == devices[j]) continue;
+      int can = 0;
+      cudaError_t e = cudaDeviceCanAccessPeer(&can, devices[i], devices[j]);
+      if (e != cudaSuccess) return (int)e;
+      if (!can) {
+        pair[0] = devices[i];
+        pair[1] = devices[j];
+        return (int)cudaErrorPeerAccessUnsupported;
+      }
+      e = cudaSetDevice(devices[i]);
+      if (e != cudaSuccess) return (int)e;
+      e = cudaDeviceEnablePeerAccess(devices[j], 0);
+      if (e == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();  // clear it: the access is there
+      } else if (e != cudaSuccess) {
+        pair[0] = devices[i];
+        pair[1] = devices[j];
+        return (int)e;
+      }
+    }
+  return 0;
+}
+
+// Join the streams of n cards before a cross-card launch: each stream
+// waits for an event recorded on every other one, so no card's launch
+// starts before every card's stream has reached it.  Nothing is waited
+// for on the host.
+// One event a device, made at first use and recorded again by every
+// join: a wait takes the record made before it.  Callers serialize the
+// joins (ops/ring.py holds one lock around a join and its launches).
+#define MAX_DEVICES 64
+static cudaEvent_t join_events[MAX_DEVICES];
+
+int accl_ring_join(const int* devices, void* const* streams, int n) {
+  if (n < 2) return 0;
+  for (int i = 0; i < n; ++i)
+    if (devices[i] < 0 || devices[i] >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  for (int i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaEvent_t* ev = &join_events[devices[i]];
+    e = cudaSetDevice(devices[i]);
+    if (e == cudaSuccess && *ev == nullptr)
+      e = cudaEventCreateWithFlags(ev, cudaEventDisableTiming);
+    if (e == cudaSuccess) e = cudaEventRecord(*ev, (cudaStream_t)streams[i]);
+  }
+  for (int i = 0; e == cudaSuccess && i < n; ++i) {
+    e = cudaSetDevice(devices[i]);
+    for (int j = 0; e == cudaSuccess && j < n; ++j)
+      if (j != i)
+        e = cudaStreamWaitEvent((cudaStream_t)streams[i], join_events[devices[j]], 0);
+  }
+  cudaSetDevice(prev);
+  return (int)e;
+}
+
+// Two words of mapped host memory, zero, for a set of tables' gate
+// (RankTables::gate).  Under unified addressing the kernels use the host
+// address itself.  Never freed: a launch given up may still read it.
+int accl_ring_gate_new(int** gate) {
+  int* p = nullptr;
+  cudaError_t e = cudaHostAlloc((void**)&p, 2 * sizeof(int),
+                                cudaHostAllocMapped | cudaHostAllocPortable);
+  if (e != cudaSuccess) return (int)e;
+  void* dp = nullptr;
+  e = cudaHostGetDevicePointer(&dp, p, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (dp != (void*)p) return (int)cudaErrorInvalidValue;
+  p[0] = p[1] = 0;
+  *gate = p;
+  return 0;
+}
+
+// One card's launch of the cross-card mode: n * S blocks, block b playing
+// rank ranks[b / S] of a ring of P over every card.  xs, outs, slots and
+// flags hold one entry per rank of the ring (rank r's slots S * 2 * tw
+// elements and flags HS_WORDS + S * 4 int32 on rank r's card, zero when
+// first made); base is the count of blocks
+// per rank of every earlier launch on these tables; the blocks start once
+// gate[0] reaches seq, and end at once if gate[1] is set first (gate from
+// accl_ring_gate_new).  A non-null stamps
+// (segments * P * (P - 1) * STAMP_COLS int32 on this card) takes the rows
+// of this card's ranks.
+int accl_ring_launch_cross(int kind, int dtype, const void* const* xs, void* const* outs,
+                           int P, const int* ranks, int n, int S, const int64_t* geo,
+                           void* const* slots, int* const* flags, int base,
+                           const int* gate, int seq, int* stamps, int device,
+                           void* stream) {
+  if (P < 2 || P > MAXP || n < 1 || n > P || S < 1 || gate == nullptr)
+    return (int)cudaErrorInvalidValue;
+  void* fn = kernel_for(kind, dtype, stamps != nullptr ? 3 : 2);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  PtrTable xt;
+  OutTable ot;
+  RankTables tabs;
+  for (int r = 0; r < P; ++r) {
+    xt.p[r] = xs[r];
+    ot.p[r] = outs[r];
+    tabs.slots[r] = slots[r];
+    tabs.flags[r] = flags[r];
+  }
+  tabs.gate = gate;
+  tabs.seq = seq;
+  for (int i = 0; i < n; ++i) {
+    if (ranks[i] < 0 || ranks[i] >= P) {
+      cudaSetDevice(prev);
+      return (int)cudaErrorInvalidValue;
+    }
+    tabs.rank[i] = ranks[i];
+  }
+  Geometry g;
+  memcpy(&g, geo, sizeof(Geometry));
+  void* args[] = {&xt, &ot, &g, &P, &S, &tabs, &base, &stamps};
+  e = cudaLaunchCooperativeKernel(fn, dim3(n * S), dim3(THREADS), args, 0,
+                                  (cudaStream_t)stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  cudaSetDevice(prev);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -2,6 +2,13 @@
 // per-rank pointer tables, the ACK-window algebra of the reference
 // (accl_tpu/ops/ring.py:132-148) and the release/acquire flags with
 // their wait, which traps when one wait passes SPIN_TIMEOUT_NS.
+//
+// The flags' memory scope is a template argument.  SCOPE_GPU (.gpu)
+// orders what the threads of one card see, and is the scope of fused.cu
+// and of a ring launch whose ranks share one card.  SCOPE_SYS (.sys)
+// also orders what a peer card writes over NVLink and reads back: the
+// scope of ring.cu's cross-card mode, whose hops store into another
+// card's memory.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,9 +33,15 @@ __host__ __device__ __forceinline__ bool tile_waits_ack(int64_t hop, int64_t H) 
 __host__ __device__ __forceinline__ bool tile_signals_ack(int64_t hop, int64_t H) { return hop <= H - 3; }
 
 // -- flags ----------------------------------------------------------------
+enum { SCOPE_GPU = 0, SCOPE_SYS = 1 };
+
+template <int SCOPE>
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  if (SCOPE == SCOPE_SYS)
+    asm volatile("ld.acquire.sys.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
@@ -38,8 +51,12 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 // count sees them all (the pattern of CUTLASS's GenericBarrier, whose
 // fence.acq_rel + red.relaxed is the same release; a __threadfence
 // before it, the heavier fence.sc, is not needed).
+template <int SCOPE>
 __device__ __forceinline__ void arrive_release(int* p) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" :: "l"(p) : "memory");
+  if (SCOPE == SCOPE_SYS)
+    asm volatile("red.release.sys.global.add.s32 [%0], 1;" :: "l"(p) : "memory");
+  else
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;" :: "l"(p) : "memory");
 }
 
 __device__ __forceinline__ uint64_t global_ns() {
@@ -51,15 +68,28 @@ __device__ __forceinline__ uint64_t global_ns() {
 // Block-wide wait until *p >= target.  Thread 0 spins; the barrier after
 // it orders every thread's later loads after the acquire.  The time limit
 // counts from the start of this wait, not from kernel entry.
+template <int SCOPE>
 __device__ __forceinline__ void wait_geq(const int* p, int target) {
   if (threadIdx.x == 0) {
     uint64_t t0 = global_ns();
-    while (ld_acquire(p) < target) {
+    while (ld_acquire<SCOPE>(p) < target) {
       __nanosleep(64);
       if (global_ns() - t0 > SPIN_TIMEOUT_NS) __trap();
     }
   }
   __syncthreads();
+}
+
+// Thread 0's wait until the count *p has reached target, for a count
+// that only grows and may wrap around 2^32: the difference is compared,
+// as in a sequence number.  No barrier: the caller's follows.
+template <int SCOPE>
+__device__ __forceinline__ void wait_reached(const int* p, int target) {
+  uint64_t t0 = global_ns();
+  while ((int)((unsigned)ld_acquire<SCOPE>(p) - (unsigned)target) < 0) {
+    __nanosleep(64);
+    if (global_ns() - t0 > SPIN_TIMEOUT_NS) __trap();
+  }
 }
 
 __device__ __forceinline__ int pmod(int a, int P) { return ((a % P) + P) % P; }

@@ -238,10 +238,10 @@ def chunked_ring_all_gather(xs: Sequence[torch.Tensor],
         per_chunk = [[q_ops.quantize_blockwise(v, block)[:2] for v in col]
                      for col in zip(*rows)]
         _trace_fused(collective, P, C, _wire_hop_bytes(m, block))
-        return [_deq_gathered(per_chunk, m)] * P
+        return q_ops._per_rank(_deq_gathered(per_chunk, m), xs)
     out = _ag_chains([list(x.reshape(C, m)) for x in xs]).reshape(-1)
     _trace_fused(collective, P, C, m * xs[0].element_size())
-    return [out] * P
+    return q_ops._per_rank(out, xs)
 
 
 def chunked_ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
@@ -269,11 +269,11 @@ def chunked_ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
         if xs[0].is_floating_point():
             out = out.to(xs[0].dtype)
         _trace_fused(collective, P, C, _wire_hop_bytes(m, block), phases=2)
-        return [out] * P
+        return q_ops._per_rank(out, xs)
     views = [_pad_flat(x, padN).reshape(P, C, m) for x in xs]
     parts = _rs_chains_fp(views, op, P, C)
     _trace_fused(collective, P, C, m * xs[0].element_size(), phases=2)
-    return [_ag_chains(parts).reshape(-1)[:N]] * P
+    return q_ops._per_rank(_ag_chains(parts).reshape(-1)[:N], xs)
 
 
 # ---------------------------------------------------------------------------

@@ -145,6 +145,14 @@ def _ring_reduce_scatter_q(xs: Sequence[torch.Tensor], block: int,
     return [(q, sc) for q, sc, _ in carry], n
 
 
+def _per_rank(out: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
+    """The one result every rank ends with, as each rank's own: on rank
+    r's device, ``like[r]``'s (the tensor itself wherever they share a
+    device, so on one card every rank holds the same tensor)."""
+    return [out if t.device == out.device else out.to(t.device)
+            for t in like]
+
+
 def _ring_all_gather_q(carries: Sequence[tuple], n: int) -> list:
     """Ring all-gather of already-quantized (q, scale) pairs -> flat
     [P * n] f32 per rank (rank-major), dequantized once at the end.  The
@@ -156,7 +164,7 @@ def _ring_all_gather_q(carries: Sequence[tuple], n: int) -> list:
     out_s = torch.stack([sc for _, sc in carries])
     deq = out_q.to(torch.float32) * out_s  # [P, rows, block]
     out = deq.reshape(P, -1)[:, :n].reshape(-1)
-    return [out] * P
+    return _per_rank(out, [q for q, _ in carries])
 
 
 def quantized_ring_reduce_scatter(xs: Sequence[torch.Tensor],

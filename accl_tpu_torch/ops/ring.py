@@ -1,11 +1,31 @@
-"""Ring collectives over P ranks held as separate tensors on one device.
+"""Ring collectives over P ranks held as separate tensors, on one card or
+on several.
 
 Port of ``accl_tpu/ops/ring.py``.  There each rank is a chip and the two
 Pallas kernels hop over inter-chip remote DMA, one launch per segment
-and phase; here every rank's buffer is a tensor on the same card, and
-the two hand-written CUDA kernels in ``csrc/ring.cu`` hop between
-regions of its memory through a table of per-rank pointers, one
-persistent launch per phase that walks every segment of a call.
+and phase; here every rank's buffer is a tensor, and the two
+hand-written CUDA kernels in ``csrc/ring.cu`` hop between the ranks'
+memory through a table of per-rank pointers, one persistent launch per
+phase and card that walks every segment of a call.
+
+Ranks on several cards (the cross-card mode): when the ranks' tensors
+sit on more than one card, each phase is one launch per card, holding
+that card's ranks (``card_groups``), with every rank's landing slots and
+flags on its own card (``_tables_for``) and each hop a store over NVLink
+into the right neighbour's slot.  Before the launches the cards'
+streams are joined (each waits for an event on every other), so no
+card's blocks start while another card is still busy with earlier work;
+the blocks then wait for the host's gate, which opens once every card's
+launch is enqueued or gives the launch up when one fails, and enter
+through a handshake with both neighbours (``csrc/ring.cu``
+``ring_kernel_cross``), whose count of earlier blocks the wrapper keeps
+per set of tables (``_Tables.base``).  The results are bitwise the
+one-card launch's.  ``rank_tables()`` runs the same mode on one card,
+for tests.  The cards must have peer access to each other
+(``enable_peers``); a cross-card launch cannot be captured in a CUDA
+graph (the gate and the handshake's count live on the host), and two
+threads that launch on the same cards must do so in one order, as with
+any collective library.
 
 Every function takes a list with one tensor per rank, in ring order.
 Beside each kernel wrapper sits its plain PyTorch version, a Python loop
@@ -186,6 +206,12 @@ def _ring_len(P: int, ring_size: Optional[int]) -> int:
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+def _at(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` on ``like``'s device: a hop from one rank's card to the
+    next's (``t`` itself when they share a device)."""
+    return t if t.device == like.device else t.to(like.device)
+
+
 def ring_reduce_scatter_plain(xs: Sequence[torch.Tensor], op: str = "sum",
                               out: Optional[Sequence[torch.Tensor]] = None,
                               ring_size: Optional[int] = None):
@@ -198,7 +224,7 @@ def ring_reduce_scatter_plain(xs: Sequence[torch.Tensor], op: str = "sum",
     V = _ring_len(P, ring_size)
     acc = [xs[r][(r - 1) % V].clone() for r in range(P)]
     for step in range(V - 1):
-        landing = [acc[(r - 1) % P] for r in range(P)]
+        landing = [_at(acc[(r - 1) % P], xs[r]) for r in range(P)]
         acc = [fold(xs[r][(r - 2 - step) % V], landing[r]) for r in range(P)]
     if out is None:
         return acc
@@ -223,7 +249,7 @@ def ring_all_gather_plain(xs: Sequence[torch.Tensor],
         out[r][r].copy_(xs[r])
         comm.append(xs[r].clone())
     for step in range(V - 1):
-        comm = [comm[(r - 1) % P] for r in range(P)]
+        comm = [_at(comm[(r - 1) % P], xs[r]) for r in range(P)]
         for r in range(P):
             out[r][(r - step - 1) % V].copy_(comm[r])
     return list(out)
@@ -332,19 +358,33 @@ def _geometry(parts, tw: int, ntiles: int, aligned: bool, V: int):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _check(xs, out, what: str):
+def _check(xs, out, what: str) -> Optional[tuple]:
+    """Ranks 1..MAX_RANKS, one dtype, every tensor on the CPU or every one
+    on a card; rank r's result on rank r's operand's device.  Returns
+    the layout (each rank's card) when the ranks sit on several cards,
+    else None."""
     if not 1 <= len(xs) <= MAX_RANKS:
         raise ValueError(f"{what}: {len(xs)} ranks (1..{MAX_RANKS} supported)")
     dev, dt = xs[0].device, xs[0].dtype
-    for t in (*xs, *(out or ())):
-        if t.device != dev or t.dtype != dt:
-            raise ValueError(f"{what}: every tensor must share device {dev} "
-                             f"and dtype {dt}, got {t.device} {t.dtype}")
+    spread = False
+    for t in xs:
+        if t.device != dev:
+            spread = True
+        if t.dtype != dt or (spread and t.device.type != dev.type):
+            raise ValueError(f"{what}: every tensor must share device type "
+                             f"{dev.type} and dtype {dt}, got {t.device} "
+                             f"{t.dtype}")
+    for r, t in enumerate(out or ()):
+        if t.device != (xs[r].device if spread else dev) or t.dtype != dt:
+            raise ValueError(f"{what}: rank {r}'s result must be on its "
+                             f"operand's device {xs[r].device} in {dt}, got "
+                             f"{t.device} {t.dtype}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: tensors on {dev} (cpu or cuda only)")
     if dev.type == "cuda" and dt not in KERNEL_DTYPES:
         raise ValueError(f"{what}: the CUDA kernel takes "
                          f"{sorted(str(d) for d in KERNEL_DTYPES)}, not {dt}")
+    return tuple(t.device.index for t in xs) if spread else None
 
 
 def _ptrs(ts) -> "ctypes.Array":
@@ -359,8 +399,10 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _resident(kind: int, dtype_code: int, device: int,
-              stamp: bool = False) -> int:
-    """Blocks of one kernel that fit on the card together (cached)."""
+              stamp: int = 0) -> int:
+    """Blocks of one kernel that fit on the card together (cached);
+    ``stamp``: bit 0 the device-trace instantiation, bit 1 the cross-card
+    mode."""
     lib = _build.load("ring")
     got = lib.accl_ring_resident(kind, dtype_code, int(stamp), device)
     if got < 0:
@@ -395,11 +437,12 @@ def _scratch_for(dev: torch.device, stream, nbytes: int, nflags: int):
         return cur
 
 
-def kernel_info(kind: int, dtype: torch.dtype, stamp: bool,
+def kernel_info(kind: int, dtype: torch.dtype, stamp: int,
                 device: int = 0) -> dict:
     """Registers, local (spill) bytes and blocks per SM of one
     ``ring_kernel`` instantiation (kind 0 reduce-scatter by sum, 1 by
-    max, 2 all-gather; ``stamp`` the device-trace one)."""
+    max, 2 all-gather; ``stamp`` bit 0 the device-trace one, bit 1 the
+    cross-card mode's ``ring_kernel_cross``)."""
     lib = _build.load("ring")
     out = (ctypes.c_int * 3)()
     _raise_on(lib, lib.accl_ring_kernel_info(kind, KERNEL_DTYPES[dtype],
@@ -410,25 +453,268 @@ def kernel_info(kind: int, dtype: torch.dtype, stamp: bool,
 
 @functools.lru_cache(maxsize=256)
 def _plan(parts: tuple, P: int, elem: int, k: int, code: int, device: int,
-          aligned: bool, stamp: bool = False):
+          aligned: bool, stamp: bool = False, layout: Optional[tuple] = None):
     """(stripes, geometry words, slot bytes) of one launch (cached: a
-    driver repeats the same few shapes)."""
-    tw, ntiles, S = tiling(parts, P, elem, _resident(k, code, device, stamp))
+    driver repeats the same few shapes).  With ``layout`` (the card of
+    each rank) the cross-card mode's: every card's launch has the same
+    stripes, as many as fit on the card that holds the most ranks, and
+    the slot bytes are one rank's."""
+    if layout is None:
+        tw, ntiles, S = tiling(parts, P, elem,
+                               _resident(k, code, device, stamp))
+        return S, _geometry(parts, tw, ntiles, aligned, 16 // elem), \
+            P * S * 2 * tw * elem
+    groups = card_groups(layout)
+    most = max(len(ranks) for _c, ranks in groups)
+    resident = min(_resident(k, code, c, int(stamp) | 2) for c, _r in groups)
+    tw, ntiles, S = tiling(parts, most, elem, resident)
+    S = min(S, MAX_STRIPES)
     return S, _geometry(parts, tw, ntiles, aligned, 16 // elem), \
-        P * S * 2 * tw * elem
+        S * 2 * tw * elem
 
 
-def _launch(kind: str, xs, outs, parts, op: str = "sum",
-            land: bool = True, V: Optional[int] = None) -> None:
+# ---------------------------------------------------------------------------
+# ranks on several cards: the per-card launch plan, pure functions of a
+# layout (the card of each rank, in rank order)
+# ---------------------------------------------------------------------------
+#: words at the head of a rank's flags (HS_WORDS in csrc/ring.cu): the
+#: handshake's two counts, then a card's copy of the host's gate
+HS_WORDS = 4
+#: stripes a rank's flags have room for in the cross-card mode
+MAX_STRIPES = 1024
+
+
+def card_groups(layout: Sequence[int]) -> list:
+    """[(card, [ranks])]: one launch per card, cards in the order of
+    their first rank, each card's ranks in rank order."""
+    groups: dict = {}
+    for r, c in enumerate(layout):
+        groups.setdefault(c, []).append(r)
+    return list(groups.items())
+
+
+def handshake_base(stripes: Sequence[int]) -> int:
+    """The count a launch's entry handshake waits for on each of a rank's
+    two words: the blocks one neighbour ran in every earlier launch on
+    the same tables (the stripes of each, summed), mod 2^32."""
+    return sum(stripes) & 0xFFFFFFFF
+
+
+#: the per-rank-table form on one card (``rank_tables``), per thread
+_form = threading.local()
+
+
+class rank_tables:
+    """``with rank_tables():`` launches this thread's ring kernels in the
+    cross-card mode's per-rank-table form even when every rank shares one
+    card (one launch, .sys flags, the entry handshake): the form a
+    one-card test holds against the one-launch form."""
+
+    def __enter__(self):
+        self._saved = getattr(_form, "tables", False)
+        _form.tables = True
+        return self
+
+    def __exit__(self, *exc):
+        _form.tables = self._saved
+
+
+class _Tables:
+    """The landing slots and flags of every rank of one layout on one set
+    of streams (each rank's on its own card), the handshake's count of
+    the blocks each rank ran in every launch on them so far, and the
+    host's gate (two words of mapped host memory: the launches opened,
+    and whether one was given up) with the number of the last launch."""
+
+    __slots__ = ("slots", "flags", "base", "gate", "seq")
+
+    def __init__(self, gate: int):
+        self.slots: list = []
+        self.flags: list = []
+        self.base = 0
+        self.gate = gate
+        self.seq = 0
+
+
+_tables_lock = threading.RLock()
+#: (layout, ((card, stream), ...)) -> _Tables
+_tables: dict = {}
+#: card sets whose pairs have peer access enabled
+_peers_enabled: set = set()
+
+
+def enable_peers(cards: Sequence[int]) -> None:
+    """Enable peer access between every pair of ``cards`` (once per set),
+    or raise naming a pair that has none: there is no staging through
+    the host."""
+    key = tuple(sorted(set(cards)))
+    if len(key) < 2 or key in _peers_enabled:
+        return
+    lib = _build.load("ring")
+    pair = (ctypes.c_int * 2)()
+    rc = lib.accl_ring_enable_peers((ctypes.c_int * len(key))(*key),
+                                    len(key), pair)
+    if rc != 0:
+        msg = lib.accl_ring_error_string(rc).decode()
+        raise RuntimeError(f"ring kernels: no peer access from cuda:{pair[0]}"
+                           f" to cuda:{pair[1]} (CUDA error {rc}: {msg})")
+    _peers_enabled.add(key)
+
+
+def _tables_key(layout: tuple, streams: dict) -> tuple:
+    return (layout, tuple(sorted((c, s.cuda_stream)
+                                 for c, s in streams.items())))
+
+
+def _tables_for(layout: tuple, streams: dict, slot_bytes: int) -> _Tables:
+    """The tables of ``layout`` on the cards' current ``streams``, each
+    rank's slots grown to ``slot_bytes``.  Whatever is made anew is made
+    on the rank's card and its stream is synchronized before any launch
+    can use it: a neighbour card writes into these buffers with no order
+    on this card's stream (a fresh zero must be in place, and no earlier
+    work on this stream may still hold the memory)."""
+    key = _tables_key(layout, streams)
+    with _tables_lock:
+        tabs = _tables.get(key)
+        if tabs is None:
+            lib = _build.load("ring")
+            gate = ctypes.c_void_p()
+            _raise_on(lib, lib.accl_ring_gate_new(ctypes.byref(gate)),
+                      "accl_ring_gate_new")
+            tabs = _tables[key] = _Tables(gate.value)
+            # slots and flags on the card of the rank that reads them
+            tabs.flags = [torch.zeros(HS_WORDS + 4 * MAX_STRIPES,
+                                      dtype=torch.int32, device=f"cuda:{c}")
+                          for c in layout]
+            tabs.slots = [None] * len(layout)
+            made = set(layout)
+        else:
+            made = set()
+        for r, c in enumerate(layout):
+            if tabs.slots[r] is None or tabs.slots[r].numel() < slot_bytes:
+                tabs.slots[r] = torch.empty(slot_bytes, dtype=torch.uint8,
+                                            device=f"cuda:{c}")
+                made.add(c)
+        for c in made:
+            streams[c].synchronize()
+        return tabs
+
+
+def _gate_word(tabs: _Tables, word: int, value: int) -> None:
+    """Store ``value`` (mod 2^32) into word ``word`` of ``tabs``' gate,
+    which the blocks read over the bus."""
+    ctypes.c_int32.from_address(tabs.gate + 4 * word).value = \
+        value - (1 << 32) if value >= 1 << 31 else value
+
+
+def _launch_cross(kind: str, xs, outs, parts, op: str, land: bool,
+                  layout: tuple) -> None:
+    """The cross-card mode of :func:`_launch`: one launch per card over
+    the per-rank tables, in the order of ``card_groups``, each on its
+    card's current stream, after those streams are joined
+    (``accl_ring_join``); opens the launch in the tables' gate once every
+    card's launch is enqueued, or gives it up there when one fails, so
+    the blocks already enqueued end at once.  Counts one launch per
+    card."""
+    P, elem = len(xs), xs[0].element_size()
+    code = KERNEL_DTYPES[xs[0].dtype]
+    k = 2 if kind == "ag" else int(op == "max")
+    groups = card_groups(layout)
+    streams = {c: torch.cuda.current_stream(c) for c, _r in groups}
+    for c in streams:
+        with torch.cuda.device(c):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "ring kernels: the host opens a cross-card launch (its "
+                    "gate and its entry handshake's count), which a CUDA "
+                    "graph capture cannot replay; run it eagerly")
+    enable_peers([c for c, _r in groups])
+    xp = [t.data_ptr() for t in xs]
+    op_ = [t.data_ptr() for t in outs]
+    aligned = all(a % 16 == 0 for a in xp + op_)
+    stamp = device_trace_enabled()
+    S, geo, slot_bytes = _plan(tuple(parts), P, elem, k, code, layout[0],
+                               aligned, stamp, layout)
+    nseg = sum(p.nseg for p in parts)
+    stamps = {c: torch.empty(nseg * P * (P - 1) * DEVICE_TRACE_COLS,
+                             dtype=torch.int32, device=f"cuda:{c}")
+              for c in streams} if stamp else {}
+    lib = _build.load("ring")
+    wrapper = ring_all_gather if kind == "ag" else ring_reduce_scatter
+    key_xs = (ctypes.c_void_p * P)(*xp)
+    key_outs = (ctypes.c_void_p * P)(*op_)
+    with _tables_lock:
+        tabs = _tables_for(layout, streams, slot_bytes)
+        slot_ptrs = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.slots])
+        flag_ptrs = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.flags])
+        base = tabs.base
+        base_c = base - (1 << 32) if base >= 1 << 31 else base
+        cards = list(streams)
+        _raise_on(lib, lib.accl_ring_join(
+            (ctypes.c_int * len(cards))(*cards),
+            (ctypes.c_void_p * len(cards))(*[streams[c].cuda_stream
+                                             for c in cards]),
+            len(cards)), "accl_ring_join")
+        seq = (tabs.seq + 1) & 0xFFFFFFFF
+        seq_c = seq - (1 << 32) if seq >= 1 << 31 else seq
+        for c, ranks in groups:
+            st = stamps.get(c)
+            rc = lib.accl_ring_launch_cross(
+                k, code, key_xs, key_outs, P,
+                (ctypes.c_int * len(ranks))(*ranks), len(ranks), S, geo,
+                slot_ptrs, flag_ptrs, base_c, tabs.gate, seq_c,
+                None if st is None else st.data_ptr(), c,
+                streams[c].cuda_stream)
+            if rc != 0:
+                # the blocks enqueued on earlier cards wait for the gate:
+                # give the launch up so they end at once, and make fresh
+                # tables for the next launch (these may hold its slots)
+                _gate_word(tabs, 1, 1)
+                _tables.pop(_tables_key(layout, streams), None)
+                _raise_on(lib, rc, wrapper.__name__)
+        tabs.seq = seq
+        _gate_word(tabs, 0, seq)
+        tabs.base = handshake_base((base, S))
+    wrapper.launches += len(groups)
+    wrapper.launches_cross += len(groups)
+    if stamps:
+        wrapper.launches_stamp += len(groups)
+        if land:
+            rows = torch.empty(nseg, P, P - 1, DEVICE_TRACE_COLS,
+                               dtype=torch.int32)
+            for c, ranks in groups:
+                streams[c].synchronize()
+                got = stamps[c].view(nseg, P, P - 1, DEVICE_TRACE_COLS)
+                rows[:, ranks] = got[:, ranks].cpu()
+            _record_rows(kind, rows)
+
+
+def _launch(kind: str, xs, outs, parts, layout: Optional[tuple],
+            op: str = "sum", land: bool = True,
+            V: Optional[int] = None) -> None:
     """One launch of csrc/ring.cu over ``parts``: kind "rs" (rank r's
     result at chunk r of the result layout) or "ag" (rank r's operand at
     chunk r of the operand layout), over a ring of V = P hops a tile, or
     the self-ring of one rank and V hops.  Counts it on its wrapper.
+    Ranks on several cards (``layout``, from :func:`_check`: each rank's
+    card, or None when they share one), or under ``rank_tables``, take
+    the cross-card mode, one launch per card (``_launch_cross``).
     With the device-trace gate on, launches the stamp instantiation into
     a buffer of its own and, after the stream has run it, lands the rows
     in the collector (which a CUDA graph capture cannot hold: it raises
     there); ``land=False`` drops them unsynchronized, for timing the
     instantiation alone."""
+    if layout is None and getattr(_form, "tables", False) \
+            and len(xs) > 1 and (V is None or V == len(xs)):
+        layout = tuple(t.device.index for t in xs)
+    if layout is not None:
+        return _launch_cross(kind, xs, outs, parts, op, land, layout)
+    return _launch_one(kind, xs, outs, parts, op, land, V)
+
+
+def _launch_one(kind: str, xs, outs, parts, op: str = "sum",
+                land: bool = True, V: Optional[int] = None) -> None:
+    """The one-card launch of :func:`_launch`."""
     dev, dt = xs[0].device, xs[0].dtype
     P, elem = len(xs), xs[0].element_size()
     V = P if V is None else V
@@ -479,7 +765,7 @@ def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
     columns contiguous) -> rank r's reduced chunk r, [n].  SUM or MAX.
     With ``ring_size=V`` on one rank (the self-ring mode): [V, n] -> [n],
     x[0] + (x[1] + (... + x[V - 1]))."""
-    _check(xs, out, "ring_reduce_scatter")
+    layout = _check(xs, out, "ring_reduce_scatter")
     _fold(op)
     P = len(xs)
     V = _ring_len(P, ring_size)
@@ -503,13 +789,13 @@ def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
         _trace_plain("rs", P, [n], xs[0].element_size(), V)
         return ring_reduce_scatter_plain(xs, op, out, ring_size)
     if out is None:
-        out = [torch.empty(n, dtype=xs[0].dtype, device=xs[0].device)
-               for _ in range(P)]
+        out = [torch.empty(n, dtype=x.dtype, device=x.device) for x in xs]
     if V == 1:
         out[0].copy_(xs[0][0])
         return list(out)
     if n:
-        _launch("rs", xs, out, [Part(1, n, 0, 0, row, 0, 0, 0)], op, V=V)
+        _launch("rs", xs, out, [Part(1, n, 0, 0, row, 0, 0, 0)], layout, op,
+                V=V)
     return list(out)
 
 
@@ -518,6 +804,8 @@ ring_reduce_scatter.launches = 0
 ring_reduce_scatter.launches_stamp = 0
 #: the launches in the self-ring mode, within ``launches``
 ring_reduce_scatter.launches_self = 0
+#: the launches in the cross-card mode (one per card), within ``launches``
+ring_reduce_scatter.launches_cross = 0
 
 
 def ring_all_gather(xs: Sequence[torch.Tensor],
@@ -527,7 +815,7 @@ def ring_all_gather(xs: Sequence[torch.Tensor],
     (output rows may be strided, columns contiguous).  With
     ``ring_size=V`` on one rank (the self-ring mode): [n] -> [V, n], the
     operand in every row."""
-    _check(xs, out, "ring_all_gather")
+    layout = _check(xs, out, "ring_all_gather")
     P = len(xs)
     V = _ring_len(P, ring_size)
     n = xs[0].shape[0]
@@ -546,19 +834,21 @@ def ring_all_gather(xs: Sequence[torch.Tensor],
         _trace_plain("ag", P, [n], xs[0].element_size(), V)
         return ring_all_gather_plain(xs, out, ring_size)
     if out is None:
-        out = [torch.empty((V, n), dtype=xs[0].dtype, device=xs[0].device)
-               for _ in range(P)]
+        out = [torch.empty((V, n), dtype=x.dtype, device=x.device)
+               for x in xs]
     if V == 1:
         out[0][0].copy_(xs[0])
         return list(out)
     if n:
-        _launch("ag", xs, out, [Part(1, n, 0, 0, 0, 0, 0, row)], V=V)
+        _launch("ag", xs, out, [Part(1, n, 0, 0, 0, 0, 0, row)], layout,
+                V=V)
     return list(out)
 
 
 ring_all_gather.launches = 0
 ring_all_gather.launches_stamp = 0
 ring_all_gather.launches_self = 0
+ring_all_gather.launches_cross = 0
 
 
 def _phases(plain: bool, ring_size: Optional[int] = None):
@@ -627,8 +917,10 @@ def alias_fault(xs, outs, in_place: bool = False) -> Optional[str]:
     return None
 
 
-def _flat_check(xs, out, what: str, out_len: int, in_place: bool = False):
-    _check(xs, out, what)
+def _flat_check(xs, out, what: str, out_len: int,
+                in_place: bool = False) -> Optional[tuple]:
+    """:func:`_check` for flat operands and results; returns its layout."""
+    layout = _check(xs, out, what)
     n = xs[0].shape[0]
     for x in xs:
         if x.dim() != 1 or x.shape[0] != n or not x.is_contiguous():
@@ -640,6 +932,7 @@ def _flat_check(xs, out, what: str, out_len: int, in_place: bool = False):
     fault = alias_fault(xs, out or (), in_place)
     if fault:
         raise ValueError(f"{what}: {fault}")
+    return layout
 
 
 def _segments_plain(xs, op, seg_elems):
@@ -704,7 +997,8 @@ def ring_all_reduce_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
     results disjoint from every operand (``alias_fault``)."""
     P = len(xs)
     N = xs[0].shape[0]
-    _flat_check(xs, out, "ring_all_reduce_segmented", N, in_place=True)
+    layout = _flat_check(xs, out, "ring_all_reduce_segmented", N,
+                         in_place=True)
     _fold(op)
     if P == 1:
         return _into(out, [xs[0].clone()])
@@ -715,8 +1009,8 @@ def ring_all_reduce_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
     if N == 0:
         return list(out)
     parts = allreduce_parts(N, P, seg_elems)
-    _launch("rs", xs, out, parts, op)
-    _launch("ag", out, out, parts)
+    _launch("rs", xs, out, parts, layout, op)
+    _launch("ag", out, out, parts, layout)
     return list(out)
 
 
@@ -731,7 +1025,7 @@ def ring_all_gather_segmented(xs: Sequence[torch.Tensor],
     operand and from each other."""
     P = len(xs)
     n = xs[0].shape[0]
-    _flat_check(xs, out, "ring_all_gather_segmented", P * n)
+    layout = _flat_check(xs, out, "ring_all_gather_segmented", P * n)
     if P == 1:
         return _into(out, [xs[0].clone()])
     if out is None:
@@ -742,7 +1036,8 @@ def ring_all_gather_segmented(xs: Sequence[torch.Tensor],
         return list(out)
     if not plain and xs[0].device.type == "cuda":
         if n:
-            _launch("ag", xs, out, segment_parts(n, seg_elems, n, "ag"))
+            _launch("ag", xs, out, segment_parts(n, seg_elems, n, "ag"),
+                    layout)
         return list(out)
     seg = min(seg_elems, n)
     off = 0
@@ -765,7 +1060,7 @@ def ring_reduce_scatter_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
     from every operand and from each other."""
     P = len(xs)
     n = xs[0].shape[0] // P
-    _flat_check(xs, out, "ring_reduce_scatter_segmented", n)
+    layout = _flat_check(xs, out, "ring_reduce_scatter_segmented", n)
     _fold(op)
     if P == 1:
         return _into(out, [xs[0].clone()])
@@ -776,7 +1071,8 @@ def ring_reduce_scatter_segmented(xs: Sequence[torch.Tensor], op: str = "sum",
         return ring_reduce_scatter([x.view(P, n) for x in xs], op, out=out)
     if not plain and xs[0].device.type == "cuda":
         if n:
-            _launch("rs", xs, out, segment_parts(n, seg_elems, n, "rs"), op)
+            _launch("rs", xs, out, segment_parts(n, seg_elems, n, "rs"),
+                    layout, op)
         return list(out)
     seg = min(seg_elems, n)
     off = 0

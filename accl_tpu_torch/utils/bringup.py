@@ -8,21 +8,24 @@ file, and `initialize_world` performing the full bring-up in one call
 
 - ``EMU_INPROC``: native engines in one process (AXIS3x loopback rung)
 - ``EMU_TCP``:    one native engine per process over sockets (TCP rung)
-- ``CUDA``:       the gang engine on one card, the ranks regions of its
-  memory (the JAX package's ``TPU`` rung)
+- ``CUDA``:       the gang engine, the ranks on one card or, with
+  ``devices=``, on several (the JAX package's ``TPU`` rung)
 
-The JAX package's ``initialize_multihost`` (``jax.distributed`` over TPU
-hosts) has no counterpart yet: it comes with multi-card worlds
-(ROADMAP.md Queue 1 item 13).
+``initialize_multihost`` is the twin of the JAX package's: the same
+arguments and environment, and in place of ``jax.distributed`` a
+rendezvous of the host processes on a ``torch.distributed.TCPStore`` at
+the coordinator.
 """
 from __future__ import annotations
 
 import enum
 import json
+import time
+from datetime import timedelta
 from typing import Optional, Sequence
 
 from ..communicator import Rank
-from ..constants import DEFAULT_EAGER_RX_BUF_SIZE
+from ..constants import DEFAULT_EAGER_RX_BUF_SIZE, ACCLError
 
 
 class Design(enum.Enum):
@@ -60,8 +63,9 @@ def initialize_world(design: Design | str, nranks: int, rank: int = 0,
     """One-call bring-up (reference: initialize_accl).
 
     EMU_INPROC / CUDA return a world object (all ranks, single process;
-    ``CudaWorld`` on the card unless ``device="cpu"`` is passed);
-    EMU_TCP returns this process's single-rank node."""
+    ``CudaWorld`` on the card unless ``device="cpu"`` is passed, its ranks
+    on ``devices=`` when given, one per rank); EMU_TCP returns this
+    process's single-rank node."""
     design = Design(design) if not isinstance(design, Design) else design
     if design == Design.EMU_INPROC:
         from ..backends.emu import EmuWorld
@@ -76,3 +80,102 @@ def initialize_world(design: Design | str, nranks: int, rank: int = 0,
 
         return CudaWorld(nranks, **kwargs)
     raise ValueError(f"unknown design {design}")
+
+
+#: this process's rendezvous store: process 0's hosts the others' (kept
+#: for the life of the process, as jax.distributed keeps its client)
+_STORE = None
+
+
+def initialize_multihost(coordinator_address: str | None = None,
+                         num_processes: int | None = None,
+                         process_id: int | None = None,
+                         local_device_ids=None,
+                         dry_run: bool = False,
+                         timeout_s: float = 300.0) -> dict:
+    """Multi-host bring-up, the twin of ``accl_tpu/utils/bringup.py``
+    ``initialize_multihost`` (the reference's MPI-launch role: one
+    process per host joins the others before any collective).
+
+    Arguments default from the environment, as there: ``ACCL_COORDINATOR``
+    (host:port of process 0), ``ACCL_NUM_PROCESSES``, ``ACCL_PROCESS_ID``;
+    explicit arguments win.  ``dry_run=True`` returns the resolved kwargs
+    (the JAX function's, ``local_device_ids`` as a list) and touches
+    nothing.  Otherwise the process joins a ``torch.distributed.TCPStore``
+    rendezvous at the coordinator: process 0 hosts the store, every
+    process checks in and waits until all ``num_processes`` have, and
+    process 0 returns only after every other process has seen them all
+    (so its store outlives their wait).  No process group and no
+    collective of any library is made.  A process that waits more than
+    ``timeout_s`` raises ``ACCLError`` naming the processes that never
+    checked in.  Where JAX auto-detects a TPU pod from its metadata, the
+    port has nothing to detect: the three values are required."""
+    import os
+
+    def _env_int(name):
+        val = os.environ.get(name)
+        return int(val) if val is not None else None
+
+    kwargs = {}
+    coordinator_address = (coordinator_address
+                           or os.environ.get("ACCL_COORDINATOR"))
+    num_processes = (num_processes if num_processes is not None
+                     else _env_int("ACCL_NUM_PROCESSES"))
+    process_id = (process_id if process_id is not None
+                  else _env_int("ACCL_PROCESS_ID"))
+    if coordinator_address is not None:
+        kwargs["coordinator_address"] = coordinator_address
+    if num_processes is not None:
+        kwargs["num_processes"] = num_processes
+    if process_id is not None:
+        kwargs["process_id"] = process_id
+    if local_device_ids is not None:
+        kwargs["local_device_ids"] = list(local_device_ids)
+    if dry_run:
+        return kwargs
+    missing = [k for k in ("coordinator_address", "num_processes",
+                           "process_id") if k not in kwargs]
+    if missing:
+        raise ACCLError(f"initialize_multihost: no {', '.join(missing)} "
+                        f"(pass them or set ACCL_COORDINATOR, "
+                        f"ACCL_NUM_PROCESSES, ACCL_PROCESS_ID)")
+    if not 0 <= process_id < num_processes:
+        raise ACCLError(f"initialize_multihost: process_id {process_id} "
+                        f"outside 0..{num_processes - 1}")
+    _rendezvous(coordinator_address, num_processes, process_id, timeout_s)
+    return kwargs
+
+
+def _rendezvous(address: str, n: int, pid: int, timeout_s: float) -> None:
+    """Check in at the store and wait for all ``n``; then check out, and
+    on process 0 wait until every process has checked out."""
+    global _STORE
+    from torch.distributed import TCPStore
+
+    host, _, port = address.rpartition(":")
+    deadline = time.monotonic() + timeout_s
+    try:
+        store = TCPStore(host, int(port), n, pid == 0,
+                         timedelta(seconds=timeout_s),
+                         wait_for_workers=False)
+    except (RuntimeError, OSError) as e:  # a refused or timed-out connect
+        raise ACCLError(f"initialize_multihost: process {pid} cannot reach "
+                        f"the coordinator at {address}: {e}") from e
+    _STORE = store
+    store.set(f"accl/joined/{pid}", "1")
+    for phase in ("joined", "left"):
+        if phase == "left":
+            store.set(f"accl/left/{pid}", "1")
+            if pid != 0:
+                return
+        while True:
+            absent = [i for i in range(n)
+                      if not store.check([f"accl/{phase}/{i}"])]
+            if not absent:
+                break
+            if time.monotonic() > deadline:
+                raise ACCLError(
+                    f"initialize_multihost: process {pid} waited "
+                    f"{timeout_s:.0f}s at {address}; process(es) {absent} "
+                    f"never checked in")
+            time.sleep(0.01)

@@ -356,6 +356,23 @@ Phases, each fatal on failure:
      kernels, the MoE step, a pipeline, zigzag and windowed sp attention,
      the driver collectives on CudaWorld(8) through the ring kernels),
      losses finite; its ring and flash launches join the kernels line;
+  7j. ranks on several cards (phase multi_card): the cards, their
+     peer-access matrix and `nvidia-smi topo -m`; on one card, always,
+     the ring kernels' per-rank-table form (ring.rank_tables: the
+     cross-card mode's tables, .sys flags and entry handshake in one
+     launch) over a ragged segmented allreduce in the five kernel
+     dtypes, SUM and MAX with NaN, three calls back to back, and at the
+     driver's segment shape, bitwise against the one-launch form and the
+     plain composition; with two or more cards, the cross-card ring lane
+     through CudaWorld(P, devices=), one rank a card at 4-256 MiB per
+     rank and two a card at 4 and 64 MiB, each rank's result on its own
+     card and bitwise the plain composition, and every small lane
+     (allreduce SUM and MAX, reduce, reduce_scatter, allgather, bcast,
+     scatter, gather, alltoall, fused, int8, send/recv) bitwise the same
+     calls on one card; with one card it prints that the cross-card part
+     did not run.  Its ring launches join rows 1-2 of the kernels line,
+     and rows ring_*_tables (ring_*_cross with two or more cards) time
+     the mode (bench/multicard.py);
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -4027,8 +4044,8 @@ def device_trace(world, mp, ring) -> dict:
             def ar_call():
                 # the segmented allreduce's two launches, the stamp rows
                 # left on the card, so the stream is never synchronized
-                ring._launch("rs", xs, outs, parts, "sum", land=False)
-                ring._launch("ag", outs, outs, parts, land=False)
+                ring._launch("rs", xs, outs, parts, None, "sum", land=False)
+                ring._launch("ag", outs, outs, parts, None, land=False)
 
             t = {}
             for on in (False, True, True, False):
@@ -4085,14 +4102,15 @@ def time_stamp_kernels(ring, launches, info) -> list:
         for name, call, launch, plain, got_of, lib, lib_call, kind in (
                 ("ring_reduce_scatter",
                  lambda: ring.ring_reduce_scatter(xs, out=outs),
-                 lambda: ring._launch("rs", xs, outs, rs_part, land=False),
+                 lambda: ring._launch("rs", xs, outs, rs_part, None,
+                                      land=False),
                  lambda: ring.ring_reduce_scatter_plain(xs),
                  lambda: outs,
                  lambda: torch.sum(stacked, dim=0),
                  "torch.sum(stack, dim=0): every rank's chunk", 0),
                 ("ring_all_gather",
                  lambda: ring.ring_all_gather(ag_in, out=ag_out),
-                 lambda: ring._launch("ag", ag_in, ag_out, ag_part,
+                 lambda: ring._launch("ag", ag_in, ag_out, ag_part, None,
                                       land=False),
                  lambda: ring.ring_all_gather_plain(ag_in),
                  lambda: ag_out,
@@ -6455,6 +6473,221 @@ def plan_path(world, ring, F) -> dict:
     return out
 
 
+def multi_card_phase(ring, CudaWorld, DataType) -> dict:
+    """Phase 7j (multi_card): see the module docstring.  The ring counts
+    are set to 0 just before and read just after; the per-rank-table
+    form (and, with two or more cards, the cross-card mode) must
+    launch."""
+    from accl_tpu_torch.bench import multicard as MC
+
+    t0 = time.perf_counter()
+    report = MC.card_report()
+    C = report["count"]
+    emit({"phase": "multi_card_cards", "count": C, "names": report["names"],
+          "peer_access": report["peer"]})
+    print(report["topo"].rstrip(), flush=True)
+    counters = (ring.ring_reduce_scatter, ring.ring_all_gather)
+    for fn in counters:
+        fn.launches = fn.launches_cross = 0
+    errs = {}
+    seg, N = 8 * 4099, 3 * 8 * 4099 + 13
+    for dtype in ring.KERNEL_DTYPES:
+        for op in ("sum", "max"):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+            xs = []
+            for r in range(P):
+                x = (torch.randn(N, generator=gen, device="cuda") * 1000
+                     ).to(dtype)
+                if op == "max" and dtype.is_floating_point:
+                    x[r::97] = float("nan")
+                xs.append(x)
+            want = ring.ring_all_reduce_segmented(xs, op, seg, plain=True)
+            one = ring.ring_all_reduce_segmented(xs, op, seg)
+            with ring.rank_tables():
+                calls = [ring.ring_all_reduce_segmented(xs, op, seg)
+                         for _ in range(3)]
+            key = f"tables_{str(dtype).split('.')[-1]}_{op}"
+            errs[key] = max(max_err(c[r], want[r]) for c in calls
+                            for r in range(P))
+            if not all(same_bits(c[r], want[r]) and same_bits(one[r], want[r])
+                       for c in calls for r in range(P)):
+                fail(f"per-rank-table form ({dtype}, {op}): not bitwise the "
+                     f"one-launch form and the plain composition")
+    n = ring.DEFAULT_SEG_ELEMS // P
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    xs = [rand((P, n), torch.float32, gen) for _ in range(P)]
+    with ring.rank_tables():
+        rs = ring.ring_reduce_scatter(xs)
+        ag = ring.ring_all_gather(rs)
+    if not (all(same_bits(a, b) for a, b in zip(
+            rs, ring.ring_reduce_scatter_plain(xs)))
+            and all(same_bits(a, b) for a, b in zip(
+                ag, ring.ring_all_gather_plain(rs)))):
+        fail("per-rank-table form at the segment shape: not bitwise the "
+             "plain versions")
+    del xs, rs, ag
+    cross = {}
+    if C >= 2:
+        cross = multi_card_cross(ring, CudaWorld, DataType, C, errs)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    tables = {fn.__name__: fn.launches_cross for fn in counters}
+    if 0 in tables.values():
+        fail(f"multi_card: the per-rank-table form did not launch both ring "
+             f"kernels: {tables}")
+    emit({"phase": "multi_card", "ok": True, "cards": C,
+          "seconds": time.perf_counter() - t0,
+          "cross_card": ("ran" if C >= 2 else
+                         "not run: this machine has one card"),
+          **cross, "launches": launches, "launches_tables": tables,
+          "max_abs_err": errs})
+    return {"launches": launches, "launches_tables": tables, "cards": C}
+
+
+def multi_card_cross(ring, CudaWorld, DataType, C, errs) -> dict:
+    """The cross-card part of phase multi_card (two or more cards)."""
+    one_a_card = [f"cuda:{c}" for c in range(C)]
+    two_a_card = [f"cuda:{c}" for c in range(C) for _ in range(2)]
+    out = {"ring_lane": [], "small_lanes": {}}
+    for label, devices, sizes in (("one_a_card", one_a_card, (4, 16, 64, 256)),
+                                  ("two_a_card", two_a_card, (4, 64))):
+        Pc = len(devices)
+        with CudaWorld(Pc, devices=devices) as w:
+            for mib in sizes:
+                count = mib * MIB // 4
+                gen = torch.Generator().manual_seed(SEED + mib)
+                bufs = [w.accls[r].create_buffer(count, np.float32)
+                        for r in range(Pc)]
+                res = [w.accls[r].create_buffer(count, np.float32)
+                       for r in range(Pc)]
+                for b in bufs:
+                    b.dev.copy_(torch.randn(count, generator=gen))
+                before = ring.ring_reduce_scatter.launches_cross
+                w.run(lambda a, r: a.allreduce(bufs[r], res[r], count,
+                                               from_fpga=True, to_fpga=True))
+                launched = ring.ring_reduce_scatter.launches_cross - before
+                want = ring.ring_all_reduce_segmented(
+                    [b.dev for b in bufs], "sum", plain=True)
+                for r in range(Pc):
+                    if res[r].dev.device != torch.device(devices[r]) or \
+                            not same_bits(res[r].dev, want[r]):
+                        fail(f"cross-card allreduce ({label}, {mib} MiB): "
+                             f"rank {r}'s result is not bitwise the plain "
+                             f"composition on its own card")
+                errs[f"cross_{label}_{mib}MiB"] = 0.0
+                if launched != C:
+                    fail(f"cross-card allreduce ({label}, {mib} MiB): "
+                         f"{launched} reduce-scatter launches, not one per "
+                         f"card ({C})")
+                out["ring_lane"].append({"layout": label, "mib_per_rank": mib,
+                                         "ranks": Pc,
+                                         "launches_per_phase": launched})
+                for b in bufs + res:
+                    b.free()
+                del bufs, res, want
+        out["small_lanes"][label] = multi_card_lanes(CudaWorld, DataType,
+                                                     devices)
+    return out
+
+
+def multi_card_lanes(CudaWorld, DataType, devices) -> list:
+    """Every small lane on CudaWorld(P, devices=) bitwise the same calls
+    on CudaWorld(P) on one card; returns the lanes checked."""
+    from accl_tpu_torch import ReduceFunction
+
+    Pc, n = len(devices), 4096
+
+    def lanes(accl, rank):
+        rng = np.random.default_rng(SEED + rank)
+        x = accl.create_buffer(n * Pc, np.float32)
+        x.host[:] = rng.standard_normal(n * Pc).astype(np.float32)
+        x.sync_to_device()
+        y = accl.create_buffer(n * Pc, np.float32)
+        got = {}
+        for name, kw in (("allreduce", {}),
+                         ("allreduce_max",
+                          {"function": ReduceFunction.MAX}),
+                         ("fused", {"fused": True}),
+                         ("int8", {"compress_dtype": DataType.int8})):
+            accl.allreduce(x, y, n * Pc, **kw)
+            got[name] = y.host.copy()
+        accl.reduce(x, y, n * Pc, root=1)
+        got["reduce"] = y.host.copy() if rank == 1 else None
+        accl.reduce_scatter(x, y, n)
+        got["reduce_scatter"] = y.host[:n].copy()
+        accl.allgather(x, y, n)
+        got["allgather"] = y.host.copy()
+        accl.scatter(x, y, n, root=2)
+        got["scatter"] = y.host[:n].copy()
+        accl.gather(x, y, n, root=0)
+        got["gather"] = y.host.copy() if rank == 0 else None
+        accl.alltoall(x, y, n)
+        got["alltoall"] = y.host.copy()
+        accl.bcast(x, n, root=1)
+        got["bcast"] = x.host[:n].copy()
+        accl.send(x, n, (rank + 1) % Pc, tag=5)
+        accl.recv(y, n, (rank - 1) % Pc, tag=5)
+        got["send_recv"] = y.host[:n].copy()
+        return got
+
+    with CudaWorld(Pc, devices=devices) as w:
+        got = w.run(lanes)
+        moves = w.engine.peer_moves
+    with CudaWorld(Pc) as w:
+        want = w.run(lanes)
+    for r in range(Pc):
+        for k, v in want[r].items():
+            g = got[r][k]
+            if (v is None) != (g is None) or (
+                    v is not None and g.tobytes() != v.tobytes()):
+                fail(f"multi_card small lane {k} (rank {r}, {Pc} ranks on "
+                     f"{devices}): not bitwise the one-card world's")
+    if not moves:
+        fail("multi_card small lanes: no peer move")
+    return sorted(want[0])
+
+
+def time_table_kernels(ring, launches_tables, C) -> list:
+    """Rows of the cross-card mode (bench/multicard.py ring_launch_rows):
+    on one card the per-rank-table form of 8 ranks at the driver's
+    segment shape, [8, 32768] fp32 per rank; with two or more cards also
+    the mode across them, one rank a card (its ms the slowest card's;
+    the nccl yardstick beside).  Launches: the multi_card phase's."""
+    from accl_tpu_torch.bench import multicard as MC
+
+    counts0 = {fn: (fn.launches, fn.launches_cross) for fn in (
+        ring.ring_reduce_scatter, ring.ring_all_gather)}
+    n = ring.DEFAULT_SEG_ELEMS // P
+    sets = [("_tables", ["cuda:0"] * P, True)]
+    if C >= 2:
+        sets.append(("_cross", [f"cuda:{c}" for c in range(C)], False))
+    rows = []
+    for suffix, devices, tables in sets:
+        for r in MC.ring_launch_rows(devices, n, 50, tables):
+            src = ("accl_tpu/ops/ring.py:274"
+                   if r["name"] == "ring_reduce_scatter" else
+                   "accl_tpu/ops/ring.py:151")
+            row = {"name": r["name"] + suffix, "route": "cuda",
+                   "source": "accl_tpu_torch/ops/csrc/ring.cu",
+                   "replaces": src,
+                   "launches": launches_tables[r["name"]],
+                   "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                   "ms_per_card": r["ms_per_card"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                   "library_call": r["library_call"],
+                   "library_note": r["library_note"], "checked": True,
+                   "shape": f"P={r['ranks']} on {r['cards']} card(s) x "
+                            f"[{r['n']}] fp32 chunks, {r['form']} form"}
+            if not r["bitwise"]:
+                fail(f"{row['name']}: not bitwise its plain version")
+            emit({"phase": "kernel_time", **row})
+            rows.append(row)
+    for fn, (a, b) in counts0.items():
+        fn.launches, fn.launches_cross = a, b
+    return rows
+
+
 def sweep_phase(world) -> dict:
     """Phase 8: bench/sweep.py's rows at SWEEP_WIDTHS on the 8-rank world
     (host-staged calls: each row includes the copies between host and
@@ -6663,10 +6896,12 @@ def main() -> int:
         onl = online_tuning_phase(ring, CudaWorld)
         utl = utils_phase(world, mp, ring, M, ar_device, trace)
         gft = graft_phase(ring, FL)
+        mc = multi_card_phase(ring, CudaWorld, DataType)
         for row in rows:
             row["launches"] += sum(part["launches"].get(row["name"], 0)
                                    for part in (obs, res, emu, dapi, tun,
-                                                onl, utl, gft))
+                                                onl, utl, gft, mc))
+        rows += time_table_kernels(ring, mc["launches_tables"], mc["cards"])
         sweep_phase(world)
         callrate_phase()
     finally:

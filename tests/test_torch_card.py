@@ -9,6 +9,8 @@ without JAX, bypassing tests/conftest.py (which pins JAX to the CPU):
 
 Without a card every test skips.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1745,3 +1747,271 @@ def test_traced_window_trace_holds_ring_kernels_on_card(tmp_path):
               if e.get("cat") == "kernel"
               and "ring_kernel" in e.get("name", "")]
     assert len(events) >= 2
+
+
+# ---------------------------------------------------------------------------
+# ranks on several cards: the ring kernels' cross-card mode, its
+# per-rank-table form on one card, and CudaWorld(devices=)
+# ---------------------------------------------------------------------------
+def _two_cards_or_skip() -> int:
+    """The card count, or a skip below two (decided in the test, never at
+    import: every worker must collect the same tests)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    return cards
+
+
+def _operands(P, N, dtype, op, seed, devices):
+    g = torch.Generator().manual_seed(seed)
+    xs = []
+    for r in range(P):
+        x = (torch.randn(N, generator=g) * 1000).to(dtype)
+        if op == "max" and dtype.is_floating_point:
+            x[r::97] = float("nan")
+        xs.append(x.to(devices[r]))
+    return xs
+
+
+def _cross_launches():
+    return (tring.ring_reduce_scatter.launches_cross,
+            tring.ring_all_gather.launches_cross)
+
+
+@pytest.mark.parametrize("dtype", list(tring.KERNEL_DTYPES))
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("N,seg", [(8 * 3 * 4096, 8 * 4096),
+                                   (3 * 8 * 4099 + 13, 8 * 4099),
+                                   (8 * 37 + 5, 16), (5, 1 << 18)])
+def test_rank_tables_form_matches_one_launch_on_card(dtype, op, N, seg):
+    """The cross-card mode's per-rank-table form, with every rank on one
+    card (one launch, .sys flags, the entry handshake), bitwise against
+    the one-launch form and the plain composition, three calls back to
+    back on the same tables (the handshake's count grows)."""
+    P = 8
+    xs = _operands(P, N, dtype, op, 12, ["cuda"] * P)
+    want = tring.ring_all_reduce_segmented(xs, op, seg, plain=True)
+    one = tring.ring_all_reduce_segmented(xs, op, seg)
+    before = _cross_launches()
+    with tring.rank_tables():
+        got = [tring.ring_all_reduce_segmented(xs, op, seg)
+               for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_cross_launches(), before)) == (3, 3)
+    for r in range(P):
+        assert _same_bits(one[r], want[r])
+        for call in got:
+            assert _same_bits(call[r], want[r])
+
+
+@pytest.mark.parametrize("dtype", list(tring.KERNEL_DTYPES))
+@pytest.mark.parametrize("n", [1, 4099, 3 * 32768 + 7])
+def test_rank_tables_one_segment_matches_plain_on_card(dtype, n):
+    """Both kernels of the per-rank-table form on one segment, with
+    strided operand and result rows, bitwise against the plain versions
+    and the one-launch form."""
+    P = 4
+    g = torch.Generator(device="cuda").manual_seed(13)
+    xs = [(torch.randn(P, n + 3, generator=g, device="cuda") * 1000)
+          .to(dtype)[:, :n] for _ in range(P)]
+    with tring.rank_tables():
+        got = tring.ring_reduce_scatter(xs, "sum")
+        outs = [torch.zeros(P, n + 5, dtype=dtype, device="cuda")[:, :n]
+                for _ in range(P)]
+        gathered = tring.ring_all_gather(got, out=outs)
+    one = tring.ring_reduce_scatter(xs, "sum")
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, tring.ring_reduce_scatter_plain(xs, "sum"), one):
+        assert _same_bits(a, b) and _same_bits(a, c)
+    for a, b in zip(gathered, tring.ring_all_gather_plain(got)):
+        assert _same_bits(a, b)
+
+
+def test_cross_card_instantiations_stay_two_blocks_an_sm_on_card():
+    """Every instantiation of the cross-card mode (plain and device-trace,
+    five dtypes, three kinds) keeps two blocks per SM, the co-residency
+    the stripe count assumes.  At the 128-register cap of two blocks an
+    SM it spills some bytes to local memory (PERF.md rows 1m-2m); the
+    one-launch instantiations of fp32 spill none (the stamp test)."""
+    for dtype in tring.KERNEL_DTYPES:
+        for kind in (0, 1, 2):
+            for variant in (2, 3):
+                info = tring.kernel_info(kind, dtype, variant)
+                assert info["blocks_per_sm"] >= 2, (dtype, kind, variant,
+                                                    info)
+
+
+def _layouts():
+    cards = _two_cards_or_skip()
+    one_a_card = [f"cuda:{c}" for c in range(cards)]
+    two_a_card = [f"cuda:{c}" for c in range(cards) for _ in range(2)]
+    interleaved = [f"cuda:{r % cards}" for r in range(2 * cards)]
+    return {"one_a_card": one_a_card, "two_a_card": two_a_card,
+            "interleaved": interleaved}
+
+
+@pytest.mark.parametrize("layout", ["one_a_card", "two_a_card",
+                                    "interleaved"])
+@pytest.mark.parametrize("dtype", list(tring.KERNEL_DTYPES))
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_cross_card_ring_matches_plain_on_cards(layout, dtype, op):
+    """The cross-card mode over every card (one rank a card, two, and
+    ranks dealt round the cards), ragged, NaN under MAX: one launch per
+    card and phase, each rank's result on its own card, bitwise the
+    plain composition's and the one-card launch's; ten calls back to
+    back on the same tables."""
+    devices = _layouts()[layout]
+    P = len(devices)
+    N = 3 * P * 4099 + 13
+    xs = _operands(P, N, dtype, op, 14, devices)
+    want = tring.ring_all_reduce_segmented(xs, op, 8 * 4099, plain=True)
+    one = tring.ring_all_reduce_segmented([x.to("cuda:0") for x in xs], op,
+                                          8 * 4099)
+    before = _cross_launches()
+    for _ in range(10):
+        got = tring.ring_all_reduce_segmented(xs, op, 8 * 4099)
+    torch.cuda.synchronize()
+    cards = len(set(devices))
+    assert tuple(a - b for a, b in zip(_cross_launches(), before)) \
+        == (10 * cards, 10 * cards)
+    for r in range(P):
+        assert got[r].device == torch.device(devices[r])
+        assert _same_bits(got[r], want[r])
+        assert _same_bits(got[r].cpu(), one[r].cpu())
+    # each rank's slots and flags on its own card, the one that reads them
+    layout = tuple(torch.device(d).index for d in devices)
+    tables = [t for key, t in tring._tables.items() if key[0] == layout]
+    assert tables
+    for tabs in tables:
+        assert [t.device.index for t in tabs.slots] == list(layout)
+        assert [t.device.index for t in tabs.flags] == list(layout)
+
+
+def test_cross_card_launch_given_up_ends_at_once_on_card(monkeypatch):
+    """A cross-card launch whose second launch fails after the first was
+    enqueued: the first's blocks wait for the host's gate, which gives the
+    launch up, so they end at once (no trap after SPIN_TIMEOUT_NS, the
+    card stays usable) and the next launch, on fresh tables, is bitwise
+    its plain version.  Played on one card: the per-rank-table form of two
+    ranks, split into one launch a rank."""
+    from accl_tpu_torch.ops import _build
+
+    P, n = 2, 3 * 4099
+    g = torch.Generator(device="cuda").manual_seed(16)
+    xs = [torch.randn(P, n, generator=g, device="cuda") for _ in range(P)]
+    lib = _build.load("ring")
+    real, calls = lib.accl_ring_launch_cross, []
+
+    def launch(*args):
+        calls.append(args)
+        return real(*args) if len(calls) == 1 else 1  # cudaErrorInvalidValue
+
+    tring._plan.cache_clear()
+    monkeypatch.setattr(tring, "card_groups",
+                        lambda layout: [(c, [r]) for r, c in enumerate(layout)])
+    monkeypatch.setattr(lib, "accl_ring_launch_cross", launch)
+    try:
+        with tring.rank_tables(), pytest.raises(RuntimeError,
+                                                match="CUDA error 1"):
+            tring.ring_reduce_scatter(xs, "sum")
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        assert time.perf_counter() - t0 < 2.0
+        assert len(calls) == 2
+    finally:
+        monkeypatch.undo()
+        tring._plan.cache_clear()
+    with tring.rank_tables():
+        got = tring.ring_reduce_scatter(xs, "sum")
+    torch.cuda.synchronize()
+    for a, b in zip(got, tring.ring_reduce_scatter_plain(xs, "sum")):
+        assert _same_bits(a, b)
+
+
+def _busy_for(seconds: float, device: int) -> None:
+    """Queue one kernel that spins for about ``seconds`` on ``device``'s
+    current stream (``torch.cuda._sleep``, scaled from a short one)."""
+    with torch.cuda.device(device):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        torch.cuda._sleep(10 ** 8)
+        end.record()
+        end.synchronize()
+        torch.cuda._sleep(int(10 ** 8 * seconds * 1e3
+                              / start.elapsed_time(end)))
+
+
+def test_cross_card_launch_waits_for_a_busy_card_on_cards():
+    """A cross-card allreduce whose last card's stream still holds a
+    kernel that runs past SPIN_TIMEOUT_NS (10 s) when the call is made:
+    the cards' streams are joined before the launches, so no card's
+    blocks start before that kernel ends, and the call is bitwise its
+    plain version instead of a trap on the other cards."""
+    cards = _two_cards_or_skip()
+    devices = [f"cuda:{c}" for c in range(cards)]
+    P = len(devices)
+    xs = _operands(P, 3 * P * 4099 + 13, torch.float32, "sum", 17, devices)
+    want = tring.ring_all_reduce_segmented(xs, "sum", 8 * 4099, plain=True)
+    # the tables exist before the busy kernel (making them synchronizes)
+    tring.ring_all_reduce_segmented(xs, "sum", 8 * 4099)
+    for c in range(cards):
+        torch.cuda.synchronize(c)
+    _busy_for(12.0, cards - 1)
+    t0 = time.perf_counter()
+    got = tring.ring_all_reduce_segmented(xs, "sum", 8 * 4099)
+    for c in range(cards):
+        torch.cuda.synchronize(c)
+    assert time.perf_counter() - t0 > 10.0  # the busy kernel was waited for
+    for r in range(P):
+        assert _same_bits(got[r], want[r])
+
+
+@pytest.mark.parametrize("layout", ["one_a_card", "two_a_card"])
+def test_cross_card_world_lanes_match_one_card_on_cards(layout):
+    """CudaWorld(P, devices=) over every card: each lane's results, on
+    each rank's own card, bitwise those of CudaWorld(P) on one card."""
+    from accl_tpu_torch import CudaWorld, DataType
+
+    devices = _layouts()[layout]
+    P, N = len(devices), 4096
+
+    def lanes(accl, rank):
+        rng = np.random.default_rng(100 + rank)
+        x = accl.create_buffer(N * P, np.float32)
+        x.host[:] = rng.standard_normal(N * P).astype(np.float32)
+        x.sync_to_device()
+        y = accl.create_buffer(N * P, np.float32)
+        out = {}
+        for name, kw in (("small", {}), ("fused", {"fused": True}),
+                         ("int8", {"compress_dtype": DataType.int8})):
+            accl.allreduce(x, y, N * P, **kw)
+            out[name] = y.host.copy()
+        accl.reduce_scatter(x, y, N)
+        out["rs"] = y.host[:N].copy()
+        accl.alltoall(x, y, N)
+        out["a2a"] = y.host.copy()
+        accl.bcast(x, N, root=1)
+        out["bcast"] = x.host[:N].copy()
+        accl.send(x, N, (rank + 1) % P, tag=5)
+        accl.recv(y, N, (rank - 1) % P, tag=5)
+        out["p2p"] = y.host[:N].copy()
+        return out
+
+    results = {}
+    for name, kw in (("one", {}), ("cards", {"devices": devices})):
+        with CudaWorld(P, **kw) as w:
+            results[name] = w.run(lanes)
+            w.engine.ring_threshold_bytes = 0
+            results[name + "_ring"] = w.run(lanes)
+            if name == "cards":
+                assert w.engine.peer_moves > 0
+                assert {b.dev.device for b in
+                        w.engine._buffers[P - 1].values()} \
+                    == {torch.device(devices[P - 1])}
+    for lane in ("", "_ring"):
+        for r in range(P):
+            for k, v in results["one" + lane][r].items():
+                np.testing.assert_array_equal(
+                    results["cards" + lane][r][k].view(np.uint32),
+                    v.view(np.uint32), err_msg=f"{lane} {k} rank {r}")

@@ -20,11 +20,7 @@ NO_TWIN = {
                          "has nothing for it to shim",
 }
 #: public functions of a twinned JAX module the port leaves out, and why
-NOT_PORTED = {
-    ("utils/bringup.py", "initialize_multihost"):
-        "jax.distributed over TPU hosts: comes with multi-card worlds, "
-        "ROADMAP.md Queue 1 item 13",
-}
+NOT_PORTED: dict = {}
 
 
 def _modules(pkg) -> list:

@@ -91,3 +91,34 @@ def test_analysis_exports_every_reference_export():
     for name in jax_all:
         obj = getattr(port, name)
         assert obj.__module__.startswith("accl_tpu_torch.analysis."), name
+
+
+#: (JAX module, JAX name) -> (port module, port name) of the multi-card
+#: entry points, whose parameters the port keeps (it may add some after)
+MULTI_CARD = {
+    ("accl_tpu.parallel.mesh", "make_hybrid_mesh"):
+        ("accl_tpu_torch.parallel.mesh", "make_hybrid_mesh"),
+    ("accl_tpu.utils.bringup", "initialize_multihost"):
+        ("accl_tpu_torch.utils.bringup", "initialize_multihost"),
+    ("accl_tpu.backends.tpu", "TpuWorld"):
+        ("accl_tpu_torch.backends.cuda", "CudaWorld"),
+    ("accl_tpu.backends.tpu", "TpuEngine"):
+        ("accl_tpu_torch.backends.cuda", "CudaEngine"),
+}
+
+
+@pytest.mark.parametrize("ref", sorted(MULTI_CARD))
+def test_multi_card_entry_points_keep_the_reference_parameters(ref):
+    import inspect
+
+    port_mod, port_name = MULTI_CARD[ref]
+    want = inspect.signature(getattr(importlib.import_module(ref[0]),
+                                     ref[1]))
+    got = inspect.signature(getattr(importlib.import_module(port_mod),
+                                    port_name))
+    names = [p for p in want.parameters if p not in ("self", "_ignored")]
+    for name in names:
+        assert name in got.parameters, (ref, name)
+        if want.parameters[name].default is not inspect.Parameter.empty:
+            assert got.parameters[name].default \
+                == want.parameters[name].default, (ref, name)
