@@ -2,7 +2,8 @@
 train step (tensor-, data- and sequence-parallel over rank lists), its
 serving path (KV-cache prefill, decode, generation), and the
 Mixture-of-Experts family (``moe``: forward, loss and the expert-parallel
-train step; ``moe_decode``: its serving path).  Port of
+train step; ``moe_decode``: its serving path).  ``place_params`` puts a
+model on the cards of a mesh over several cards.  Port of
 ``accl_tpu/models``."""
 
 from . import moe, moe_decode  # noqa: F401
@@ -15,10 +16,13 @@ from .decode import (  # noqa: F401
 )
 from .transformer import (  # noqa: F401
     ModelConfig,
+    PlacedParams,
+    Replicas,
     forward,
     init_params,
     loss_fn,
     make_train_step,
     param_specs,
+    place_params,
     shard_params,
 )

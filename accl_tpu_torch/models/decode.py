@@ -19,6 +19,15 @@ package.  Unlike the JAX package, the cache is written in place: the
 returned cache shares its tensors with the one passed in and only its
 ``pos`` is new.  The per-block projections and MLP are the training
 forward's (``block_qkv``, ``block_attn_out``, ``block_mlp``).
+
+Parameters placed on several cards (``transformer.place_params``): the
+cache is sharded over the kv heads as on one card, rank r's K/V on rank
+r's card (``init_kv_cache(devices=)``), each rank banks and attends
+there, and every card holds a residual stream of its own, as in the
+training forward; the logits are bitwise the one-card model's.  Across cards
+``generate`` runs the static step eagerly (``DecodeGraph.step``):
+``DecodeGraph.capture`` raises there, since a capture across cards is
+still open (ROADMAP item 13).
 """
 from __future__ import annotations
 
@@ -27,11 +36,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..constants import ACCLError
 from ..utils.device import resolve_device
 from .transformer import (
     ModelConfig,
     _mm,
+    _norm,
+    _places,
     _rmsnorm,
+    _spread,
     block_attn_out,
     block_mlp,
     block_qkv,
@@ -42,18 +55,24 @@ NEG_INF = -1e30
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
-                  device="cuda") -> dict:
+                  device="cuda", devices=None) -> dict:
     """Empty cache: per layer, per rank, K/V of [B, max_len, G / tp, Dh],
-    and the fill position."""
-    dev = resolve_device(device, "init_kv_cache")
+    and the fill position.  ``devices``: rank r's device, for ranks on
+    several cards (the ``places.devices`` of placed parameters)."""
     if cfg.kv_heads % tp != 0:
         raise ValueError(f"tensor-parallel extent {tp} must divide "
                          f"n_kv_heads={cfg.kv_heads}")
+    if devices is None:
+        devs = [resolve_device(device, "init_kv_cache")] * tp
+    else:
+        devs = [torch.device(d) for d in devices]
+        if len(devs) != tp:
+            raise ValueError(f"{len(devs)} devices for {tp} ranks")
     shape = (batch, max_len, cfg.kv_heads // tp, cfg.d_head)
 
     def zeros():
-        return [torch.zeros(shape, dtype=cfg.tdtype, device=dev)
-                for _ in range(tp)]
+        return [torch.zeros(shape, dtype=cfg.tdtype, device=d)
+                for d in devs]
 
     return {"pos": 0,
             "layers": [{"k": zeros(), "v": zeros()}
@@ -87,23 +106,32 @@ def _cached_forward(params, tokens, layers, pos0, cfg: ModelConfig,
     """The blocks over tokens [B, Tp] from position ``pos0`` (an int, or
     the static step's 0-dim device int tensor), banking their K/V in the
     cache ``layers`` in place with ``index_copy_`` at ``pos0 +
-    arange(Tp)`` -> logits [B, Tp, vocab]."""
+    arange(Tp)`` -> logits [B, Tp, vocab].  Placed parameters bank and
+    attend on each rank's card."""
+    places = _places(params)
     embed = params["embed"]
     Tp = tokens.shape[1]
     dt = cfg.tdtype
     x = embed[tokens].to(dt)
+    if places is not None:
+        x = _spread(x, places)
     offsets = pos0 + torch.arange(Tp, device=embed.device)
     for blk, layer in zip(params["blocks"], layers):
-        h = _rmsnorm(x, blk["ln1"])
-        qs, ks, vs = block_qkv(h, blk, cfg, offsets if cfg.rope else None)
+        h = _norm(x, blk["ln1"], places)
+        qs, ks, vs = block_qkv(h, blk, cfg, offsets if cfg.rope else None,
+                               places)
         attn = []
         for q, k, v, kc, vc in zip(qs, ks, vs, layer["k"], layer["v"]):
-            kc.index_copy_(1, offsets, k.to(dt))
-            vc.index_copy_(1, offsets, v.to(dt))
+            at = offsets.to(kc.device)
+            kc.index_copy_(1, at, k.to(dt))
+            vc.index_copy_(1, at, v.to(dt))
             attn.append(_grouped_cached_attention(
-                q, kc, vc, pos0, window=cfg.attn_window).to(dt))
-        x = block_attn_out(x, attn, blk, cfg, fused=fused)
-        x = block_mlp(x, blk, cfg, fused=fused)
+                q, kc, vc, pos0 if not isinstance(pos0, torch.Tensor)
+                else pos0.to(kc.device), window=cfg.attn_window).to(dt))
+        x = block_attn_out(x, attn, blk, cfg, fused=fused, places=places)
+        x = block_mlp(x, blk, cfg, fused=fused, places=places)
+    if places is not None:
+        x = x[0]
     x = _rmsnorm(x, params["ln_f"])
     return _mm(x, embed.to(dt).t())
 
@@ -221,6 +249,10 @@ class DecodeGraph:
     def capture(self) -> "DecodeGraph":
         """Warm up, then capture one step (see the class docstring)."""
         dev = self.token.device
+        if _places(self.params) is not None:
+            raise ACCLError("DecodeGraph.capture: a decode step over several "
+                            "cards cannot be captured yet (ROADMAP item 13, "
+                            "CUDA graph capture across cards); run step()")
         if dev.type != "cuda":
             raise ValueError(f"DecodeGraph.capture: CUDA graphs need a CUDA "
                              f"device, the parameters are on {dev}")
@@ -268,8 +300,9 @@ def generate(params, prompt, cfg: ModelConfig, max_new: int,
 
     After the prefill, the max_new - 1 decode steps run as ``DecodeGraph``
     steps: on a CUDA device one captured step replayed max_new - 1
-    times, on the CPU the static step eagerly.  ``graph=False`` runs the
-    eager loop of ``decode_step`` instead."""
+    times, on the CPU or with parameters placed on several cards the
+    static step eagerly.  ``graph=False`` runs the eager loop of
+    ``decode_step`` instead."""
     if top_k is not None and not 1 <= top_k <= cfg.vocab:
         raise ValueError(
             f"top_k must be in [1, vocab={cfg.vocab}], got {top_k}")
@@ -278,7 +311,9 @@ def generate(params, prompt, cfg: ModelConfig, max_new: int,
     B, Tp = prompt.shape
     if temperature != 0.0 and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    cache = init_kv_cache(cfg, B, Tp + max_new, tp_size(params), device=dev)
+    places = _places(params)
+    cache = init_kv_cache(cfg, B, Tp + max_new, tp_size(params), device=dev,
+                          devices=None if places is None else places.devices)
     logits, cache = prefill(params, prompt, cache, cfg, fused=fused)
     if max_new == 0:
         return torch.empty((B, 0), dtype=torch.int64, device=dev)
@@ -293,7 +328,7 @@ def generate(params, prompt, cfg: ModelConfig, max_new: int,
         stepper = DecodeGraph(params, cache, cfg, toks[0], fused=fused,
                               temperature=temperature, top_k=top_k,
                               generator=generator)
-        if dev.type == "cuda":
+        if dev.type == "cuda" and places is None:
             stepper.capture()
         advance = stepper.step if stepper.graph is None else stepper.replay
         for _ in range(max_new - 1):

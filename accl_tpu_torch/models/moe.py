@@ -16,6 +16,17 @@ load-balance aux loss, as each ``shard_map`` member does in the JAX
 package.  The expert products are ``torch.matmul``, as the JAX package
 leaves its einsums to XLA; attention is the dense reference.  GELU is the
 tanh approximation, ``jax.nn.gelu``'s default.
+
+Expert parallelism over several cards (a mesh with ``devices``, axes dp
+and ep): ``place_params`` puts member e's expert slice on the card of
+slot (d, e) of data member d and the other leaves on the card of (d, 0),
+the hub, which holds the residual stream, the attention and the routing.
+Member e's rows and expert indices go to its card, the dispatch and
+combine all-to-alls cross between the cards through the counted
+``parallel.collectives.move``, each expert runs on its own card, and the
+combined rows come back to the hub: the logits are bitwise the one-card
+model's.  The train step over such a mesh folds the members' gradients
+as the transformer's does (``transformer._mean_grads_cards``).
 """
 from __future__ import annotations
 
@@ -28,10 +39,21 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fused import fused_expert_ffn
+from ..parallel.collectives import move
 from ..parallel.ring_attention import _dense_attention
 from ..parallel.strategies import expert_combine, expert_dispatch
 from ..utils.device import resolve_device
-from .transformer import _mm, _rmsnorm, sum_count_device_step
+from .transformer import (
+    Places,
+    _mm,
+    _places,
+    _rmsnorm,
+    card_closures,
+    place_split,
+    placed_replicas,
+    sgd_cards,
+    sum_count_device_step,
+)
 
 
 @dataclass(frozen=True)
@@ -70,7 +92,18 @@ def ep_size(params: dict) -> int:
 
 def _bank(leaf) -> torch.Tensor:
     """A whole expert bank from its per-member slices."""
-    return leaf[0] if len(leaf) == 1 else torch.cat(leaf)
+    return leaf[0] if len(leaf) == 1 else torch.cat(
+        [t.to(leaf[0].device) for t in leaf])
+
+
+def place_params(params: dict, cfg: MoEConfig, mesh):
+    """``params`` (any device, banks split over any count) placed on the
+    cards of ``mesh``, a mesh over several cards with axes dp and ep
+    (``transformer.place_split``): expert member e's slice of the banks
+    of data member d on slot (d, e)'s card, every other leaf on (d,
+    0)'s."""
+    return place_split(shard_params(params, cfg, mesh.shape.get("ep", 1)),
+                       mesh, "ep")
 
 
 def shard_params(params: dict, cfg: MoEConfig, ep: int) -> dict:
@@ -150,7 +183,8 @@ def _expert(t, w1, w2):
 
 
 def _moe_ffn(h, blk, cfg: MoEConfig, ep: int = 1,
-             capacity: Optional[int] = None, fused: bool = False):
+             capacity: Optional[int] = None, fused: bool = False,
+             places: Optional[Places] = None):
     """Top-1 routed FFN on h [B, T, D] -> (y [B, T, D], aux).
 
     ``ep`` = 1: the dense reference, every expert on every token, aux a
@@ -159,7 +193,10 @@ def _moe_ffn(h, blk, cfg: MoEConfig, ep: int = 1,
     (``fused=True``: ``fused_expert_ffn``, bitwise the same), aux one
     scalar per member.  ``capacity`` overrides the per-expert budget
     ceil(tokens capacity_factor / E) of each member; serving passes a
-    member's token count, which makes the dispatch drop-free."""
+    member's token count, which makes the dispatch drop-free.  With
+    ``places`` (members on several cards) the routing stays on the hub,
+    member e's rows and indices move to its card, the all-to-alls cross
+    between the cards, and the combined rows come back to the hub."""
     B, T, D = h.shape
     dt = cfg.tdtype
     if ep == 1:
@@ -185,11 +222,20 @@ def _moe_ffn(h, blk, cfg: MoEConfig, ep: int = 1,
            int(np.ceil(b * T * cfg.capacity_factor / cfg.n_experts)))
     ffns = [functools.partial(_expert, w1=w1[0].to(dt), w2=w2[0].to(dt))
             for w1, w2 in zip(blk["we1"], blk["we2"])]
+    devs = None
+    if places is not None:
+        devs = places.devices
+        xs = [x if e == 0 else move(x, devs[e]) for e, x in enumerate(xs)]
+        idxs = [i if e == 0 else move(i, devs[e])
+                for e, i in enumerate(idxs)]
     if fused:
-        ys = fused_expert_ffn(xs, idxs, ffns, capacity=cap)
+        ys = fused_expert_ffn(xs, idxs, ffns, capacity=cap, devices=devs)
     else:
-        inputs, info = expert_dispatch(xs, idxs, capacity=cap)
-        ys = expert_combine([f(t) for f, t in zip(ffns, inputs)], info)
+        inputs, info = expert_dispatch(xs, idxs, capacity=cap, devices=devs)
+        ys = expert_combine([f(t) for f, t in zip(ffns, inputs)], info,
+                            devices=devs)
+    if devs is not None:
+        ys = [y if e == 0 else move(y, devs[0]) for e, y in enumerate(ys)]
     y = torch.cat([y * r[1].to(dt)[:, None] for y, r in zip(ys, routes)])
     return y.reshape(B, T, D), [r[2] for r in routes]
 
@@ -223,7 +269,9 @@ def forward(params, tokens, cfg: MoEConfig, ep: int = 1,
     """Token ids [B, T] -> (logits [B, T, vocab], aux summed over the
     layers), on the device the parameters live on.  ``ep`` > 1: the batch
     split over that many members, the banks one expert per member, and the
-    aux one float32 scalar per member (a list)."""
+    aux one float32 scalar per member (a list).  Parameters placed on
+    several cards (:func:`place_params`) run each expert on its card."""
+    places = _places(params, "we1")
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
     dt = cfg.tdtype
@@ -235,7 +283,7 @@ def forward(params, tokens, cfg: MoEConfig, ep: int = 1,
         attn = _dense_attention(q, k, v, causal=True)
         x = moe_block_attn_out(x, attn, blk, cfg)
         h = _rmsnorm(x, blk["ln2"])
-        m, aux = _moe_ffn(h, blk, cfg, ep, fused=fused)
+        m, aux = _moe_ffn(h, blk, cfg, ep, fused=fused, places=places)
         aux_total = _add_aux(aux_total, aux)
         x = x + m
     x = _rmsnorm(x, params["ln_f"])
@@ -284,7 +332,9 @@ def make_train_step(mesh, cfg: MoEConfig, lr: float = 1e-3,
     ``sum_count_device_step``, in place.  ``params`` must hold the banks
     split over the mesh's ep extent, which must equal ``n_experts``.
     Returns ``(step_fn, (param_specs, token_spec))``, ``token_spec`` the
-    axes the batch dimension splits over."""
+    axes the batch dimension splits over.  Over a mesh of several cards
+    ``params`` is what :func:`place_params` returns for it, and the
+    members' gradients fold as ``transformer._mean_grads_cards`` says."""
     shape = mesh.shape
     dp = dp if dp in shape else None
     ep = ep if ep in shape else None
@@ -294,7 +344,20 @@ def make_train_step(mesh, cfg: MoEConfig, lr: float = 1e-3,
     n_dp = shape[dp] if dp else 1
     n_ep = shape[ep] if ep else 1
 
+    cards = mesh.devices is not None
+
+    def card_step(params, tokens):
+        reps = placed_replicas(params, mesh, "ep", n_dp)
+        if torch.as_tensor(tokens).shape[0] % (n_dp * n_ep):
+            raise ValueError(f"batch {tokens.shape[0]} does not split over "
+                             f"{n_dp} dp x {n_ep} ep members")
+        return params, sgd_cards(card_closures(
+            reps, tokens, n_dp,
+            lambda p, t: loss_fn(p, t, cfg, n_ep, fused=fused)), reps, lr)
+
     def step_fn(params, tokens):
+        if cards:
+            return card_step(params, tokens)
         if ep_size(params) != n_ep:
             raise ValueError(f"expert banks are split over "
                              f"{ep_size(params)} ep members, the mesh has "

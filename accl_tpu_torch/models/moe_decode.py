@@ -11,6 +11,9 @@ members instead, each routing its share at a drop-free capacity: the
 same outputs, the same aux, 1/ep of the work.  The cache is written in
 place; the returned cache shares its tensors with the one passed in.
 Teacher-forced decode reproduces ``moe.forward`` position by position.
+With the banks placed on several cards (``moe.place_params``) the cache
+and attention stay on the hub and each member's share of the tokens runs
+its expert on its card, as in ``moe.forward``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from .moe import (
     MoEConfig,
     _add_aux,
     _moe_ffn,
+    _places,
     _route,
     moe_block_attn_out,
     moe_block_qkv,
@@ -68,7 +72,8 @@ def prefill(params, tokens, cache: dict, cfg: MoEConfig, ep: int = 1):
         x = moe_block_attn_out(x, attn, blk, cfg)
         h = _rmsnorm(x, blk["ln2"])
         if ep > 1:
-            m, aux = _moe_ffn_split(h, blk, cfg, ep)
+            m, aux = _moe_ffn_split(h, blk, cfg, ep,
+                                          _places(params, "we1"))
         else:
             m, aux = _moe_ffn(h, blk, cfg, capacity=B * Tp)
         aux_total = _add_aux(aux_total, aux)
@@ -78,7 +83,7 @@ def prefill(params, tokens, cache: dict, cfg: MoEConfig, ep: int = 1):
     return logits, aux_total, {"pos": pos0 + Tp, "layers": cache["layers"]}
 
 
-def _moe_ffn_split(h, blk, cfg: MoEConfig, ep: int):
+def _moe_ffn_split(h, blk, cfg: MoEConfig, ep: int, places=None):
     """The expert FFN of the serving path over ``ep`` members: the B Tp
     tokens split evenly over the members (zero rows pad them to a
     multiple of ep and are dropped after), each member routing its share
@@ -90,7 +95,8 @@ def _moe_ffn_split(h, blk, cfg: MoEConfig, ep: int):
     n = -(-N // ep)
     flat = h.reshape(N, D)
     padded = F.pad(flat, (0, 0, 0, n * ep - N)).reshape(ep, n, D)
-    m, _member_aux = _moe_ffn(padded, blk, cfg, ep, capacity=n)
+    m, _member_aux = _moe_ffn(padded, blk, cfg, ep, capacity=n,
+                              places=places)
     return m.reshape(-1, D)[:N].reshape(B, Tp, D), _route(flat, blk, cfg)[2]
 
 

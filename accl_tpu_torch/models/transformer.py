@@ -32,6 +32,38 @@ holds the residual stream once, and for each tp rank's heads runs
 ``ring_attention`` over the shards of its q/k/v.  The token-wise layers
 compute the same rows the members would.  ``loss_fn`` takes each shard's
 last label from the next shard, as the JAX package's sp arm does.
+
+Meshes over several cards (a ``RankMesh`` with ``devices``, the
+counterpart of the JAX package's ``Mesh`` over chips): ``place_params``
+(or ``init_params``/``shard_params`` with ``mesh=``) puts tp rank r's
+shards on the card of the mesh slot (d, r) of data member d, the
+replicated leaves on the card of rank 0, the member's hub, and a copy of
+each block's norms on every other card; the result is a
+``PlacedParams`` (the dict of the one-card layout, with its ``places``),
+or with a ``dp`` axis a ``Replicas`` list of one per member.
+``forward`` embeds on the hub and copies the residual stream to every
+card once; then each card norms its own stream, each rank projects,
+attends and multiplies on its own card (its flash kernels there), and
+every rank's row-parallel partial goes to every card, which sums the
+partials in rank order (the fold of the one-card combine) into its own
+stream, so every card's stream and the hub's logits are bitwise the
+one-card forward's.  Every crossing is a counted ``collectives.move``.
+The gradient runs through the hub's stream alone (the other cards'
+streams are computed without autograd): ``collectives.fan_out`` hands
+each rank one view per projection that reads its card's normed stream,
+and its backward sums their gradients on the hub in the order autograd
+accumulates the same projections of one tensor on one card (the last
+projection of the last rank first), whatever order the cards finish in;
+the partials' gradients cross back from the hub's sum
+(``collectives.fan_in``).  So a step over cards is bitwise the one-card
+step.  The train step over such a mesh (``make_train_step``)
+backpropagates each data member on its own cards, folds the members'
+gradients leaf by leaf in member order on member 0's cards (``(g0 + g1)
++ ...``, the one-card step's accumulation), and sends each member the
+mean, so every replica takes the same update and stays bitwise equal to
+the others.  Sequence
+parallelism over cards runs in ``parallel.ring_attention``; the model's
+sp axis over cards is still open (ROADMAP item 13).
 """
 from __future__ import annotations
 
@@ -45,8 +77,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash import flash_attention
 from ..ops.fused import fused_chunks, fused_matmul_allreduce
+from ..constants import ACCLError
 from ..optim import apply_updates
-from ..parallel.collectives import all_reduce
+from ..parallel.collectives import (all_reduce, fan_in, fan_out,
+                                    gather_sum, move)
 from ..parallel.ring_attention import (_dense_attention, expand_gqa_kv,
                                        ring_attention, zigzag_indices,
                                        zigzag_indices_inverse)
@@ -121,13 +155,19 @@ def tp_size(params: dict) -> int:
     return len(params["blocks"][0]["wq"]) if params["blocks"] else 1
 
 
-def shard_params(params: dict, cfg: ModelConfig, tp: int) -> dict:
+def shard_params(params: dict, cfg: ModelConfig, tp: int, mesh=None) -> dict:
     """Split ``params`` over ``tp`` ranks: each sharded leaf becomes a list
     of ``tp`` contiguous tensors (rank r holds the r-th slice of its
     split axis), replicated leaves stay single.  ``params`` may be the
     full layout (tensors everywhere) or already split over any rank
     count.  tp must divide n_kv_heads, as ``shard_params`` requires in
-    the JAX package."""
+    the JAX package.  With a ``mesh`` over several cards the split is
+    placed on its cards (:func:`place_params`; tp must be its extent)."""
+    if mesh is not None and mesh.devices is not None:
+        if mesh.shape.get("tp", 1) != tp:
+            raise ValueError(f"tp={tp}, the mesh's tp extent is "
+                             f"{mesh.shape.get('tp', 1)}")
+        return place_params(params, cfg, mesh)
     if cfg.kv_heads % tp != 0:
         raise ValueError(
             f"tensor-parallel extent {tp} must divide "
@@ -142,7 +182,8 @@ def shard_params(params: dict, cfg: ModelConfig, tp: int) -> dict:
             return leaf
         full = leaf
         if isinstance(leaf, list):
-            full = leaf[0] if len(leaf) == 1 else torch.cat(leaf, dim=axis)
+            full = leaf[0] if len(leaf) == 1 else torch.cat(
+                [t.to(leaf[0].device) for t in leaf], dim=axis)
         if tp == 1:
             return [full]
         return [c.contiguous() for c in torch.chunk(full, tp, dim=axis)]
@@ -156,12 +197,18 @@ def shard_params(params: dict, cfg: ModelConfig, tp: int) -> dict:
     }
 
 
-def init_params(rng, cfg: ModelConfig, tp: int = 1, device="cuda") -> dict:
+def init_params(rng, cfg: ModelConfig, tp: int = 1, device="cuda",
+                mesh=None) -> dict:
     """Parameters split over ``tp`` ranks, in the JAX package's draw
     order.  ``rng`` a ``numpy.random.Generator``: the JAX package's
     numbers (the same seed gives the same weights), drawn on the host;
     ``rng`` a ``torch.Generator`` on ``device``: drawn there, at the same
-    0.02 scale (the way to make a full-width model on the card)."""
+    0.02 scale (the way to make a full-width model on the card).  With a
+    ``mesh`` over several cards: drawn on its slot 0's device and placed
+    on its cards (:func:`place_params`)."""
+    if mesh is not None and mesh.devices is not None:
+        full = init_params(rng, cfg, 1, mesh.device)
+        return shard_params(full, cfg, tp, mesh=mesh)
     dev = resolve_device(device, "init_params")
 
     def g(*shape, scale=0.02):
@@ -190,6 +237,186 @@ def init_params(rng, cfg: ModelConfig, tp: int = 1, device="cuda") -> dict:
         blocks.append(blk)
     params = {"embed": g(cfg.vocab, D), "blocks": blocks, "ln_f": ones(D)}
     return shard_params(params, cfg, tp)
+
+
+@dataclass(eq=False)
+class Places:
+    """Where one replica's ranks live: rank r on ``devices[r]``, the mesh
+    slot ``slots[r]``.  Every card holds a residual stream of its own:
+    rank r reads its card's, the stream of rank ``homes[r]``, the first
+    rank on that card (on the CPU, which stands for as many cards as it
+    is named, every rank its own); ``cards`` are the ranks whose card
+    holds a stream, 0 first.  Rank 0's card, the hub, holds the
+    replicated leaves the ranks share and computes the logits; every
+    other card holds a copy of the replicated leaves its stream reads
+    (:meth:`copy`)."""
+    devices: tuple
+    slots: tuple
+
+    def __post_init__(self):
+        first = {}
+        self.homes = tuple(r if d.type == "cpu" else first.setdefault(d, r)
+                           for r, d in enumerate(self.devices))
+        self.cards = tuple(sorted(set(self.homes)))
+        self._copies = {}
+
+    def copy(self, leaf: torch.Tensor, r: int) -> torch.Tensor:
+        """The replicated ``leaf`` (the hub's) as rank r's card holds it:
+        ``leaf`` itself on the hub's card; elsewhere a copy, made with a
+        counted move, kept, and made again once ``leaf`` has changed in
+        place (an optimizer step bumps its version)."""
+        home = self.homes[r]
+        if home == 0:
+            return leaf
+        got = self._copies.get((home, id(leaf)))
+        if got is None or got[0] is not leaf or got[1] != leaf._version:
+            with torch.no_grad():
+                got = (leaf, leaf._version,
+                       move(leaf.detach(), self.devices[home]))
+            self._copies[(home, id(leaf))] = got
+        return got[2]
+
+
+class PlacedParams(dict):
+    """Parameters placed on a mesh's cards (:func:`place_params`): the
+    dict of the one-card layout, with the ``places`` of its ranks.
+    ``utils.tree.tree_map`` keeps the class and its ``places``."""
+
+    def __init__(self, *args, places: Optional[Places] = None, **kw):
+        super().__init__(*args, **kw)
+        self.places = places
+
+
+class Replicas(list):
+    """One placed parameter tree per data-parallel member of a mesh over
+    several cards (:func:`place_params`), in member order."""
+
+
+def _rank_tree(node):
+    """The rank each leaf of a parameter tree lives on, in its structure:
+    r for entry r of a rank list (a list of tensors), 0 for a replicated
+    leaf (the hub's)."""
+    if isinstance(node, dict):
+        return {k: _rank_tree(v) for k, v in node.items()}
+    if isinstance(node, list):
+        if node and all(isinstance(t, torch.Tensor) for t in node):
+            return list(range(len(node)))
+        return [_rank_tree(v) for v in node]
+    return 0
+
+
+def place_split(split: dict, mesh, inner: str):
+    """A tree already split over ``mesh``'s ``inner`` axis (rank lists of
+    its extent, replicated leaves single) placed on the mesh's cards: for
+    data member d, entry r of every rank list on the card of slot (d, r)
+    and every other leaf on the card of (d, 0).  Copies, so that every
+    replica is its own storage, apart from the input's.  Returns a
+    :class:`PlacedParams`, or with a dp axis a :class:`Replicas` list of
+    them."""
+    if mesh.devices is None:
+        raise ValueError("place_params: the mesh has every slot on one "
+                         "device; shard_params splits over it")
+    shape = mesh.shape
+    other = sorted(k for k in shape if k not in ("dp", inner))
+    if other:
+        raise ACCLError(f"place_params: axes {other} of the model over "
+                        f"several cards are not part of accl_tpu_torch yet "
+                        f"(ROADMAP item 13); the model places dp x {inner}")
+    n_dp, n = shape.get("dp", 1), shape.get(inner, 1)
+
+    def put(node, devs):
+        if isinstance(node, dict):
+            return {k: put(v, devs) for k, v in node.items()}
+        if isinstance(node, list) and node and isinstance(node[0], dict):
+            return [put(v, devs) for v in node]
+        if isinstance(node, list):
+            return [t.to(devs[r], copy=True) for r, t in enumerate(node)]
+        return node.to(devs[0], copy=True)
+
+    replicas = []
+    for d in range(n_dp):
+        slots = tuple(mesh.slot(**{"dp": d, inner: r}) for r in range(n))
+        devs = tuple(mesh.slot_device(s) for s in slots)
+        replicas.append(PlacedParams(put(split, devs),
+                                     places=Places(devs, slots)))
+    return replicas[0] if n_dp == 1 else Replicas(replicas)
+
+
+def place_params(params: dict, cfg: ModelConfig, mesh):
+    """``params`` (any device, full or split over any tp count) placed on
+    the cards of ``mesh``, a mesh over several cards with axes dp and tp
+    (:func:`place_split`): tp rank r's shards of data member d on slot
+    (d, r)'s card, the replicated leaves on (d, 0)'s, and a copy of each
+    block's norms on every other card of the member (``Places.copy``)."""
+    placed = place_split(shard_params(params, cfg, mesh.shape.get("tp", 1)),
+                         mesh, "tp")
+    for rep in placed if isinstance(placed, Replicas) else [placed]:
+        for blk in rep["blocks"]:
+            for c in rep.places.cards[1:]:
+                rep.places.copy(blk["ln1"], c)
+                rep.places.copy(blk["ln2"], c)
+    return placed
+
+
+def _places(params, leaf: str = "wq") -> Optional[Places]:
+    """The placement of ``params``' ranks: its ``places``, or, for a plain
+    dict whose tensors lie on several devices, each rank on its first
+    block's ``leaf`` entry's device; None on one card."""
+    if isinstance(params, Replicas):
+        raise ValueError("a Replicas list holds one tree per data member: "
+                         "pass one member's tree")
+    got = getattr(params, "places", None)
+    if got is not None or not params["blocks"]:
+        return got
+    devs = tuple(w.device for w in params["blocks"][0][leaf])
+    if len(set(devs) | {params["embed"].device}) <= 1:
+        return None
+    if params["embed"].device != devs[0]:
+        raise ValueError(f"the replicated leaves live on "
+                         f"{params['embed'].device}, rank 0 on {devs[0]}")
+    return Places(devs, tuple(range(len(devs))))
+
+
+def placed_replicas(params, mesh, inner: str, n_dp: int) -> list:
+    """The data members' trees of ``params`` (a :class:`Replicas` list, or
+    one tree), each checked to be placed on member d's slots of ``mesh``
+    along ``inner``."""
+    reps = list(params) if isinstance(params, Replicas) else [params]
+    if len(reps) != n_dp:
+        raise ValueError(f"{len(reps)} parameter replicas, the mesh has "
+                         f"{n_dp} dp members")
+    n = mesh.shape.get(inner, 1)
+    for d, rep in enumerate(reps):
+        want = tuple(mesh.slot(**{k: v for k, v in (("dp", d), (inner, r))
+                                  if k in mesh.shape}) for r in range(n))
+        got = getattr(rep, "places", None)
+        if got is None or tuple(got.slots) != want:
+            raise ValueError(f"replica {d} is not placed on this mesh's "
+                             f"slots {want} (place_params)")
+    return reps
+
+
+def card_closures(reps, tokens, n_dp: int, loss) -> list:
+    """One loss closure per data member: its rows of the batch, moved to
+    its hub, through ``loss(params, tokens)``."""
+    tokens = torch.as_tensor(tokens)
+    B = tokens.shape[0]
+    if B % n_dp:
+        raise ValueError(f"batch {B} does not split over {n_dp} dp members")
+    b = B // n_dp
+    return [(lambda p, t=tokens[d * b:(d + 1) * b].to(rep.places.devices[0]):
+             loss(p, t)) for d, rep in enumerate(reps)]
+
+
+def sgd_cards(closures, reps, lr: float):
+    """Plain SGD over :func:`_mean_grads_cards`, every replica in place
+    with the same arithmetic.  Returns the mean loss."""
+    g_means, mean_loss = _mean_grads_cards(closures, reps)
+    with torch.no_grad():
+        for rep, g_mean in zip(reps, g_means):
+            for p, g in zip(tree_leaves(rep), tree_leaves(g_mean)):
+                p.sub_(g * lr)
+    return mean_loss
 
 
 def _mm(a, b):
@@ -228,16 +455,79 @@ def _global_positions(T: int, cfg: ModelConfig, sp: int,
     return torch.arange(T, device=device)
 
 
-def block_qkv(h, blk, cfg: ModelConfig, positions):
+def _on_cards(places: Places, fn, *per_rank) -> list:
+    """``fn(*(a[c] for a in per_rank), c)`` on every card that holds a
+    residual stream (``places.cards``): the hub's with autograd, every
+    other card's without it.  Their values are the hub's, bit for bit
+    (the same operations on copies of the same operands); the gradient
+    runs through the hub's stream alone.  Returns the results per rank
+    (the ranks of one card share its result)."""
+    out = {}
+    for c in places.cards:
+        args = [a[c] for a in per_rank]
+        if c == 0:
+            out[c] = fn(*args, c)
+        else:
+            with torch.no_grad():
+                out[c] = fn(*args, c)
+    return [out[h] for h in places.homes]
+
+
+def _spread(x, places: Places) -> list:
+    """The hub's residual stream copied to every other card (a counted
+    move each): the streams per rank."""
+    return _on_cards(places, lambda c: x if c == 0 else
+                     move(x.detach(), places.devices[c]))
+
+
+def _norm(x, scale, places: Optional[Places]):
+    """``_rmsnorm`` of the residual stream: on one card, or on every
+    card's stream with that card's copy of ``scale``."""
+    if places is None:
+        return _rmsnorm(x, scale)
+    return _on_cards(places, lambda xc, c: _rmsnorm(xc, places.copy(scale, c)),
+                     x)
+
+
+def _sum_on_cards(parts, places: Places) -> list:
+    """The row-parallel partials summed in rank order on every card that
+    holds a stream, ((p0 + p1) + p2) + ..., the fold of the one-card
+    combine, each card's with the hub's bits (``gather_sum``: every
+    partial to every card by the ring all-gather); the hub's carries the
+    gradient, as ``fan_in``'s."""
+    if len(places.cards) == 1:
+        return [fan_in(parts, places.devices[0])] * len(parts)
+    by_card = dict(zip(places.cards, gather_sum(parts, places.cards)))
+    return [by_card[h] for h in places.homes]
+
+
+def _add_on_cards(x, s, places: Optional[Places]):
+    """The residual ``x + s``, on one card or on every card's stream."""
+    if places is None:
+        return x + s
+    return _on_cards(places, lambda xc, sc, c: xc + sc, x, s)
+
+
+def block_qkv(h, blk, cfg: ModelConfig, positions, places=None):
     """Per-rank q/k/v projections of one block's normed input [B, T, D]
-    (+ RoPE when ``positions`` is given): lists of [B, T, h_r, Dh]."""
-    B, T, D = h.shape
+    (+ RoPE when ``positions`` is given): lists of [B, T, h_r, Dh].  With
+    ``places`` ``h`` holds each card's normed stream (per rank) and rank
+    r's projections run on its card from its card's copy, with
+    ``fan_out``'s backward (the uses' gradients folded on the hub); the
+    positions, an index the hub computed, are copied along."""
+    B, T, D = (h if places is None else h[0]).shape
     dt = cfg.tdtype
     qs, ks, vs = [], [], []
-    for wq, wk, wv in zip(blk["wq"], blk["wk"], blk["wv"]):
-        q = _mm(h, wq.to(dt).reshape(D, -1)).reshape(B, T, wq.shape[1], -1)
-        k = _mm(h, wk.to(dt).reshape(D, -1)).reshape(B, T, wk.shape[1], -1)
-        v = _mm(h, wv.to(dt).reshape(D, -1)).reshape(B, T, wv.shape[1], -1)
+    hs = None if places is None else fan_out(h, uses=3)
+    hq = hk = hv = h if places is None else None
+    for r, (wq, wk, wv) in enumerate(zip(blk["wq"], blk["wk"], blk["wv"])):
+        if hs is not None:
+            hq, hk, hv = hs[3 * r:3 * r + 3]
+            if positions is not None:
+                positions = positions.to(hq.device)
+        q = _mm(hq, wq.to(dt).reshape(D, -1)).reshape(B, T, wq.shape[1], -1)
+        k = _mm(hk, wk.to(dt).reshape(D, -1)).reshape(B, T, wk.shape[1], -1)
+        v = _mm(hv, wv.to(dt).reshape(D, -1)).reshape(B, T, wv.shape[1], -1)
         if positions is not None:
             q = _rope(q, positions, cfg.rope_theta)
             k = _rope(k, positions, cfg.rope_theta)
@@ -247,49 +537,72 @@ def block_qkv(h, blk, cfg: ModelConfig, positions):
     return qs, ks, vs
 
 
-def _fused_row_combine(hs, ws, out_shape, dtype):
+def _fused_row_combine(hs, ws, out_shape, dtype, places=None):
     """The fused lane of the row-parallel projections: sum_r hs[r] @ ws[r]
     through the pipelined ``fused_matmul_allreduce`` (chunked ring, plain
-    matmuls), as the JAX package's ``_fused_row_combine``."""
-    out = fused_matmul_allreduce(hs, ws, use_pallas=False,
-                                 chunks=fused_chunks())[0]
-    return out.reshape(out_shape).to(dtype)
+    matmuls), as the JAX package's ``_fused_row_combine``; with
+    ``places`` over the ranks' cards, each card's result (per rank; the
+    hub's carries the gradient)."""
+    outs = fused_matmul_allreduce(
+        hs, ws, use_pallas=False, chunks=fused_chunks(),
+        devices=None if places is None else places.devices)
+    if places is None:
+        return outs[0].reshape(out_shape).to(dtype)
+    return _on_cards(places, lambda c: (outs[c] if c == 0 else
+                                        outs[c].detach())
+                     .reshape(out_shape).to(dtype))
 
 
-def block_attn_out(x, attn, blk, cfg: ModelConfig, fused: bool = False):
+def block_attn_out(x, attn, blk, cfg: ModelConfig, fused: bool = False,
+                   places=None):
     """Attention-out projection of the per-rank attention [B, T, h_r, Dh],
-    the row-parallel combine over the ranks, and the residual."""
+    the row-parallel combine over the ranks, and the residual.  With
+    ``places`` (``x`` each card's stream, per rank) each rank multiplies
+    on its card and every card sums the partials in rank order
+    (:func:`_sum_on_cards`) into its own stream."""
     dt = cfg.tdtype
     wo = [w.to(dt) for w in blk["wo"]]
-    B, T = x.shape[0], x.shape[1]
+    B, T = attn[0].shape[0], attn[0].shape[1]
     if fused and len(wo) > 1:
         hs = [a.reshape(B * T, -1) for a in attn]
         ws = [w.reshape(-1, w.shape[-1]) for w in wo]
-        return x + _fused_row_combine(hs, ws, (B, T, wo[0].shape[-1]), dt)
+        return _add_on_cards(x, _fused_row_combine(
+            hs, ws, (B, T, wo[0].shape[-1]), dt, places), places)
     parts = [_mm(a.reshape(B, T, -1), w.reshape(-1, w.shape[-1]))
              for a, w in zip(attn, wo)]
+    if places is not None:
+        return _add_on_cards(x, _sum_on_cards(parts, places), places)
     return x + all_reduce(parts)[0]
 
 
-def block_mlp(x, blk, cfg: ModelConfig, fused: bool = False):
+def block_mlp(x, blk, cfg: ModelConfig, fused: bool = False, places=None):
     """Post-attention MLP (gelu or swiglu) per rank over its hidden shard,
-    the row-parallel combine, and the residual."""
+    the row-parallel combine, and the residual.  With ``places`` each
+    card norms its own stream, rank r multiplies on its card, and every
+    card sums the partials, as in :func:`block_attn_out`."""
     dt = cfg.tdtype
-    h = _rmsnorm(x, blk["ln2"])
+    h = _norm(x, blk["ln2"], places)
+    uses = 2 if cfg.mlp == "swiglu" else 1
+    hs = [h] * (uses * len(blk["w1"])) if places is None \
+        else fan_out(h, uses=uses)
     ms = []
     for r, w1 in enumerate(blk["w1"]):
-        m = _mm(h, w1.to(dt))
+        m = _mm(hs[uses * r], w1.to(dt))
         if cfg.mlp == "swiglu":
-            m = F.silu(m) * _mm(h, blk["w3"][r].to(dt))
+            m = F.silu(m) * _mm(hs[uses * r + 1], blk["w3"][r].to(dt))
         else:
             m = F.gelu(m, approximate="tanh")
         ms.append(m)
     w2 = [w.to(dt) for w in blk["w2"]]
-    B, T = x.shape[0], x.shape[1]
+    B, T = ms[0].shape[0], ms[0].shape[1]
     if fused and len(w2) > 1:
         hs = [m.reshape(B * T, -1) for m in ms]
-        return x + _fused_row_combine(hs, w2, (B, T, w2[0].shape[-1]), dt)
-    return x + all_reduce([_mm(m, w) for m, w in zip(ms, w2)])[0]
+        return _add_on_cards(x, _fused_row_combine(
+            hs, w2, (B, T, w2[0].shape[-1]), dt, places), places)
+    parts = [_mm(m, w) for m, w in zip(ms, w2)]
+    if places is not None:
+        return _add_on_cards(x, _sum_on_cards(parts, places), places)
+    return x + all_reduce(parts)[0]
 
 
 def _local_attention(q, k, v, cfg: ModelConfig):
@@ -316,10 +629,12 @@ def _sp_attention(q, k, v, cfg: ModelConfig, sp: int):
     return torch.cat(outs, dim=1)
 
 
-def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool, sp: int = 1):
-    """One transformer block on the residual stream [B, T, D]."""
-    h = _rmsnorm(x, blk["ln1"])
-    qs, ks, vs = block_qkv(h, blk, cfg, rope_pos)
+def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool, sp: int = 1,
+           places=None):
+    """One transformer block on the residual stream [B, T, D] (with
+    ``places``, each card's, per rank)."""
+    h = _norm(x, blk["ln1"], places)
+    qs, ks, vs = block_qkv(h, blk, cfg, rope_pos, places)
     if sp > 1:
         if cfg.attn_window is not None and cfg.sp_schedule != \
                 "contiguous":
@@ -337,8 +652,8 @@ def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool, sp: int = 1):
     else:
         attn = [_local_attention(q, k, v, cfg)
                 for q, k, v in zip(qs, ks, vs)]
-    x = block_attn_out(x, attn, blk, cfg, fused=fused)
-    return block_mlp(x, blk, cfg, fused=fused)
+    x = block_attn_out(x, attn, blk, cfg, fused=fused, places=places)
+    return block_mlp(x, blk, cfg, fused=fused, places=places)
 
 
 def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
@@ -352,13 +667,21 @@ def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
     block inputs stay live across layers.  ``sp`` > 1 splits the
     sequence over that many members for ring attention (``cfg.attn``
     "dense"; the ring runs the flash kernels per hop on the card): the
-    tokens and logits are in the schedule's layout."""
+    tokens and logits are in the schedule's layout.  Parameters placed
+    on several cards (:func:`place_params`) run with a residual stream on
+    every card and each rank on its card; the logits are the hub's."""
     if cfg.sp_schedule == "zigzag" and sp <= 1:
         # the zigzag layout means something only under sequence
         # parallelism; without it the causal mask would read the permuted
         # sequence as natural order
         raise ValueError("sp_schedule='zigzag' requires an sp axis "
                          "(tokens are in zigzag order)")
+    places = _places(params)
+    if places is not None and sp > 1:
+        raise ACCLError("forward: sequence parallelism of the model over "
+                        "several cards is not part of accl_tpu_torch yet "
+                        "(ROADMAP item 13); parallel.ring_attention runs "
+                        "its members on their cards")
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
     T = tokens.shape[1]
@@ -366,14 +689,18 @@ def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
         raise ValueError(f"sequence length {T} does not split over {sp} "
                          f"sp members")
     x = embed[tokens].to(cfg.tdtype)
+    if places is not None:
+        x = _spread(x, places)
     rope_pos = (_global_positions(T, cfg, sp, embed.device) if cfg.rope
                 else None)
     for blk in params["blocks"]:
         if cfg.remat:
-            x = checkpoint(_block, x, blk, cfg, rope_pos, fused, sp,
+            x = checkpoint(_block, x, blk, cfg, rope_pos, fused, sp, places,
                            use_reentrant=False)
         else:
-            x = _block(x, blk, cfg, rope_pos, fused, sp)
+            x = _block(x, blk, cfg, rope_pos, fused, sp, places)
+    if places is not None:
+        x = x[0]
     x = _rmsnorm(x, params["ln_f"])
     return _mm(x, embed.to(cfg.tdtype).t())
 
@@ -438,6 +765,61 @@ def _mean_grads(loss_closures: Sequence[Callable], params):
     return tree_map(lambda p: grads[id(p)], params), loss_tot / denom
 
 
+def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
+    """:func:`_mean_grads` over a mesh of several cards: closure d runs on
+    data member d's replica (``replicas[d]``, on that member's cards) and
+    is backpropagated there.  The counts and losses, then each leaf's
+    gradients, are folded in member order on member 0's cards, ``(g0 +
+    g1) + ...`` as the one-card step accumulates them, divided by the
+    total count there, and the mean is sent to every member's copy of the
+    leaf (2 (dp - 1) counted moves a leaf; the total count goes to member
+    0's other cards once).  Returns ``(g_means, mean_loss)``: one
+    gradient tree per member, and the loss on member 0's hub; the leaves
+    are left without gradients."""
+    leaves = [tree_leaves(p) for p in replicas]
+    ranks = tree_leaves(_rank_tree(replicas[0]))
+    for ls in leaves:
+        for p in ls:
+            p.grad = None
+            p.requires_grad_(True)
+    try:
+        losses, counts = [], []
+        for closure, params in zip(loss_closures, replicas):
+            loss_sum, count = closure(params)
+            loss_sum.backward()
+            losses.append(loss_sum.detach())
+            counts.append(count.detach())
+        hub = replicas[0].places.devices
+        total, loss_tot = counts[0], losses[0]
+        for c, l in zip(counts[1:], losses[1:]):
+            total = total + move(c, hub[0])
+            loss_tot = loss_tot + move(l, hub[0])
+        denom = torch.clamp_min(total, 1.0)
+        denoms = [denom] + [move(denom, d) for d in hub[1:]]
+        means = [[] for _ in replicas]
+        for i, r in enumerate(ranks):
+            gs = [ls[i].grad if ls[i].grad is not None
+                  else torch.zeros_like(ls[i]) for ls in leaves]
+            dev = leaves[0][i].device
+            acc = gs[0]
+            for g in gs[1:]:
+                acc = acc + move(g, dev)
+            acc = acc / denoms[r]
+            means[0].append(acc)
+            for d in range(1, len(replicas)):
+                means[d].append(move(acc, leaves[d][i].device))
+    finally:
+        for ls in leaves:
+            for p in ls:
+                p.grad = None
+                p.requires_grad_(False)
+    trees = []
+    for params, ms in zip(replicas, means):
+        it = iter(ms)
+        trees.append(tree_map(lambda _leaf, it=it: next(it), params))
+    return trees, loss_tot / denom
+
+
 def sum_count_device_step(loss_closures: Sequence[Callable], params,
                           lr: float):
     """Plain SGD over :func:`_mean_grads`: p - lr g_mean for every leaf,
@@ -500,6 +882,14 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
     extent (``shard_params``) and live on its device.  ``token_spec``
     names the axes the token dimensions split over, as ``P(dp, sp)``.
 
+    Over a mesh of several cards (``mesh.devices``; axes dp and tp)
+    ``params`` is what :func:`place_params` returns for it (a
+    :class:`Replicas` list with a dp axis), each member's loss runs on
+    its own cards and the members' gradients fold as
+    :func:`_mean_grads_cards` says; every replica (and, with an
+    optimizer, its state, a list of one per member) is updated in place
+    with the same arithmetic.
+
     With an ``optimizer`` (``accl_tpu_torch.optim.adamw``, or any object
     with its ``init(params)`` and ``update(grads, state, params)``; it
     must be parameter-local, as in the JAX package) ``params`` is
@@ -509,7 +899,8 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
     init_opt)`` with ``step_fn(params, opt_state, tokens) -> (params,
     opt_state, mean_loss)`` over the same members and mean gradient, the
     parameters and the state's moments updated in place, and
-    ``init_opt(params)`` a fresh state on the parameters' device.
+    ``init_opt(params)`` a fresh state beside the parameters (each moment
+    on its leaf's card).
 
     Axes not in the mesh are dropped.  ``check_vma`` is accepted and
     changes nothing."""
@@ -525,6 +916,11 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
     n_tp = shape[tp] if tp else 1
     n_sp = shape[sp] if sp else 1
     specs = param_specs(cfg)
+    cards = mesh.devices is not None
+    if cards and n_sp > 1:
+        raise ACCLError("make_train_step: sequence parallelism of the model "
+                        "over several cards is not part of accl_tpu_torch "
+                        "yet (ROADMAP item 13)")
 
     def closures(params, tokens):
         if tp_size(params) != n_tp:
@@ -543,8 +939,15 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
                  loss_fn(p, t, cfg, fused=fused, sp=n_sp))
                 for d in range(n_dp)]
 
+    def loss(p, t):
+        return loss_fn(p, t, cfg, fused=fused)
+
     if optimizer is None:
         def step_fn(params, tokens):
+            if cards:
+                reps = placed_replicas(params, mesh, "tp", n_dp)
+                return params, sgd_cards(card_closures(reps, tokens, n_dp,
+                                                       loss), reps, lr)
             return sum_count_device_step(closures(params, tokens), params,
                                          lr)
 
@@ -554,12 +957,32 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
         raise ValueError("optimizer path needs `params` (a host or "
                          "sharded pytree) to derive optimizer-state "
                          "PartitionSpecs")
-    state_specs = opt_state_specs(optimizer, params, specs)
+    state_specs = opt_state_specs(
+        optimizer, params[0] if isinstance(params, Replicas) else params,
+        specs)
 
     def opt_step_fn(params, opt_state, tokens):
+        if cards:
+            reps = placed_replicas(params, mesh, "tp", n_dp)
+            states = list(opt_state) if isinstance(params, Replicas) \
+                else [opt_state]
+            g_means, mean_loss = _mean_grads_cards(
+                card_closures(reps, tokens, n_dp, loss), reps)
+            new = []
+            for rep, g_mean, state in zip(reps, g_means, states):
+                updates, state = optimizer.update(g_mean, state, rep)
+                apply_updates(rep, updates)
+                new.append(state)
+            return (params, new if isinstance(params, Replicas) else new[0],
+                    mean_loss)
         g_mean, mean_loss = _mean_grads(closures(params, tokens), params)
         updates, opt_state = optimizer.update(g_mean, opt_state, params)
         apply_updates(params, updates)
         return params, opt_state, mean_loss
 
-    return opt_step_fn, (specs, state_specs, (dp, sp)), optimizer.init
+    def init_opt(params):
+        if isinstance(params, Replicas):
+            return [optimizer.init(p) for p in params]
+        return optimizer.init(params)
+
+    return opt_step_fn, (specs, state_specs, (dp, sp)), init_opt

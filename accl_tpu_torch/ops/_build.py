@@ -51,6 +51,11 @@ SIGNATURES = {
         "accl_fused_matmul_rs": ([_vp, _vp, _vp, _i64, _i64, _i64, _i32,
                                   _i32, _i32, _i32, _vp, _vp, _i32, _vp],
                                  _i32),
+        "accl_fused_resident_mode": ([_i32, _i32, _i32], _i32),
+        "accl_fused_matmul_rs_cross": ([_vp, _vp, _vp, _i64, _i64, _i64,
+                                        _i32, _vp, _i32, _i32, _i32, _i32,
+                                        _vp, _vp, _i32, _vp, _i32, _i32,
+                                        _vp], _i32),
     },
     "flash": {
         "accl_flash_error_string": ([_i32], ctypes.c_char_p),

@@ -66,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "current_device.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -412,8 +414,9 @@ const char* accl_compression_error_string(int code) {
 // The kernel of (src, dst, stochastic, vec): out[0] registers a thread,
 // out[1] local bytes a thread, out[2] CTAs of THREADS that fit on one SM
 int accl_cast_kernel_info(int src, int dst, int stochastic, int vec, int device, int* out) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   void* fn = pick(src, dst, stochastic != 0, vec != 0);
   if (!fn) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
@@ -440,8 +443,9 @@ int accl_cast(const void* x, void* y, long long n, long long tile, int src, int 
   void* fn = pick(src, dst, stochastic != 0, vec != 0);
   if (!fn) return (int)cudaErrorInvalidValue;
   if (vec && !(aligned16(x) && aligned16(y))) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   if (n == 0) return (int)cudaSuccess;
   long long tl = tile;
   void* args[] = {(void*)&x, (void*)&y, (void*)&n, (void*)&tl, (void*)&seed};

@@ -100,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "current_device.cuh"
+
 namespace {
 
 constexpr int BQ = 64;           // q rows per tile (per warpgroup in flash_fwd_wgmma)
@@ -1071,8 +1073,8 @@ cudaError_t pick(const Params* p, int mxu_bf16, int heads, cudaStream_t st, int*
 // a launch when out is null, else the kernel's footprint into out[5]
 cudaError_t dispatch(const Params* p, int head_dim, int dtype, int mxu_bf16, int heads, int device,
                      void* stream, int* out) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return on.err;
   const cudaStream_t st = (cudaStream_t)stream;
 #define ACCL_FLASH_CASE(DIM)                                                            \
   case DIM:                                                                             \
@@ -1148,7 +1150,7 @@ int accl_flash_fwd(const void* q, const void* k, const void* v, void* out, float
   if (causal && T != Tk) return (int)cudaErrorInvalidValue;
   if (window < 0 || (window > 0 && !causal)) return (int)cudaErrorInvalidValue;
   if (!heads_ok(heads, p.group, mxu_bf16)) return (int)cudaErrorInvalidValue;
-  if (T == 0) return (int)cudaSetDevice(device);
+  if (T == 0) return (int)CurrentDevice(device).err;
   return (int)dispatch(&p, D, dtype, mxu_bf16, heads, device, stream, nullptr);
 }
 

@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "current_device.cuh"
+
 namespace {
 
 constexpr int BQ = 64;  // q rows per tile
@@ -922,8 +924,8 @@ cudaError_t pick(const Params* p, int which, int mxu_bf16, int grid, cudaStream_
 // the kernel's footprint into out[5]
 cudaError_t dispatch(const Params* p, int which, int head_dim, int dtype, int mxu_bf16, int grid,
                      int device, void* stream, int* out) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return on.err;
   const cudaStream_t st = (cudaStream_t)stream;
 #define ACCL_FLASH_BWD_CASE(DIM)                                                          \
   case DIM:                                                                               \

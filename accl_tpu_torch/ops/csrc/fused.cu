@@ -1,5 +1,7 @@
 // Tiled matmul, and the ring reduce-scatter of per-rank partial products
-// with the matmul inside the ring loop, over P ranks that share one card.
+// with the matmul inside the ring loop, over P ranks that share one card
+// (one launch) or sit on several cards (the cross-card mode, one launch
+// per card).
 //
 // Replaces the Pallas TPU kernels pallas_matmul (_matmul_kernel,
 // accl_tpu/ops/fused.py:341) and fused_matmul_reduce_scatter_pallas
@@ -100,6 +102,7 @@
 //  * every offset is 64-bit.
 #include <cuda_bf16.h>
 
+#include "current_device.cuh"
 #include "ring_sync.cuh"
 
 #define BN 128           // output tile columns
@@ -470,15 +473,146 @@ fused_matmul_rs_kernel(PtrTable xs, PtrTable ws, OutTable outs, int64_t m, int64
 }
 
 // ------------------------------------------------------------------------
+// The cross-card mode of accl_fused_matmul_rs (the TPU kernel's own
+// setting: each rank a chip, each hop a remote DMA into the right
+// neighbour's landing buffer with a semaphore signal on its chip,
+// accl_tpu/ops/fused.py:476-586).  The ranks sit on several cards joined
+// by peer access.  Each card gets one launch holding its ranks' blocks
+// (block b plays rank tabs.rank[b / S] on stripe b % S), all with the
+// same S and the same stripes.  Rank r's landing slots [2][m n] floats
+// and its flags (HS_WORDS head words, then filled[S][2], then ack[S][2])
+// are its own buffers on its own card, reached through per-rank tables,
+// so a hop is the epilogue's store over NVLink into the right
+// neighbour's slot, published by a .sys release reduction into its
+// filled flag, and every wait is a .sys acquire on the waiting rank's own
+// card.  The entry is ring_kernel_cross's (ring.cu): the wrapper joins
+// the cards' streams before the launches; one block a card waits for the
+// host's gate and copies what it saw into the card's word, the others
+// wait on that word; a launch given up touches nothing; then every block
+// waits until both of its rank's handshake words count every block of
+// every earlier launch on these tables (base), and as it ends it sets
+// its own four flags back to 0 and counts itself into its left
+// neighbour's second word and its right neighbour's first, with a
+// release (tests/test_torch_model_cards.py replays that schedule).  The
+// fold chain, the tiles and the ACK windows are the one-launch kernel's,
+// so the results are bitwise those of one launch.  The one-launch kernel
+// above keeps its own code: this is a function of its own, not a
+// template the two share (a shared step changed the one-launch ring
+// kernels' machine code, PERF.md).  With every rank on one card it is the
+// per-rank-table form, which a one-card check holds against the one
+// launch.
+// ------------------------------------------------------------------------
+struct FusedTables {
+  float* slots[MAXP];  // rank r's landing slots, [2][m n], on its card
+  int* flags[MAXP];    // rank r's flags, on its card
+  int rank[MAXP];      // the rank block b of this launch plays: rank[b / S]
+  const int* gate;     // the host's gate (ring.cu RankTables::gate)
+  int seq;             // this launch's number in the gate
+};
+// A block's three ranks: its own (slots, flags), its right neighbour's
+// (slots, filled) and its left neighbour's (ack).  Thread 0 copies their
+// bases into shared memory at entry and every use reads them there
+// (volatile: the mainloop leaves no registers for five pointers).
+struct FusedBases {
+  float* slot[2];  // mine, my right neighbour's
+  int* flags[3];   // mine, my right neighbour's, my left neighbour's
+};
+
+template <typename T>
+__global__ void __launch_bounds__(MM_THREADS, 1)
+fused_matmul_rs_cross_kernel(PtrTable xs, PtrTable ws, OutTable outs, int64_t m, int64_t n,
+                             int64_t k, int P, int S, int vec, FusedTables tabs, int base) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ FusedBases bases;
+  __shared__ int opened;
+  const int my = tabs.rank[blockIdx.x / S], st = blockIdx.x % S;
+  const int right = (my + 1) % P, left = (my + P - 1) % P;
+  if (threadIdx.x == 0) {
+    int* card_gate = tabs.flags[tabs.rank[0]] + 2;
+    if (blockIdx.x == 0) {
+      opened = wait_gate(tabs.gate, tabs.seq);
+      store_release_sys(opened ? card_gate : card_gate + 1, opened ? tabs.seq : 1);
+    } else {
+      opened = wait_gate(card_gate, tabs.seq);
+    }
+    if (opened) {
+      const int* hs = tabs.flags[my];
+      wait_reached<SCOPE_SYS>(hs, base);
+      wait_reached<SCOPE_SYS>(hs + 1, base);
+      bases.slot[0] = tabs.slots[my];
+      bases.slot[1] = tabs.slots[right];
+      bases.flags[0] = tabs.flags[my];
+      bases.flags[1] = tabs.flags[right];
+      bases.flags[2] = tabs.flags[left];
+    }
+  }
+  __syncthreads();
+  if (!opened) return;  // given up: touch nothing, count nothing
+  volatile const FusedBases* b = &bases;
+  const int64_t tiles_n = (n + BN - 1) / BN;
+  const int64_t tiles = ((m + FUSED_BM - 1) / FUSED_BM) * tiles_n;
+  const int64_t t0 = st * tiles / S, t1 = (st + 1) * tiles / S;
+  const int64_t mn = m * n;
+  // filled of mine or my right neighbour's (who 0 or 1); ack of mine or
+  // my left neighbour's (who 0 or 2); slots of mine or my right's
+  auto F = [&](int who, int slot) { return b->flags[who] + HS_WORDS + st * 2 + slot; };
+  auto A = [&](int who, int slot) {
+    return b->flags[who] + HS_WORDS + (int64_t)S * 2 + st * 2 + slot;
+  };
+  auto L = [&](int who, int slot) { return b->slot[who] + (int64_t)slot * mn; };
+  const T* x = static_cast<const T*>(xs.p[my]);
+  const T* w = static_cast<const T*>(ws.p[my]);
+  const int64_t xchunk = m * k;
+  float acc[FUSED_BM / 16][8];
+
+  for (int s = -1; s < P - 1; ++s) {
+    const T* xc = x + (int64_t)pmod(s < 0 ? my - 1 : my - 2 - s, P) * xchunk;
+    const bool last = s == P - 2;
+    const int slot = s & 1, ns = s + 1;
+    float* dst = s < 0 ? L(1, 0) : (last ? static_cast<float*>(outs.p[my]) : L(1, ns & 1));
+    const float* lin = s < 0 ? nullptr : L(0, slot);
+    bool waited = s < 0;
+    auto wait_hop = [&]() {
+      wait_geq<SCOPE_SYS>(F(0, slot), s / 2 + 1);  // left's hop s has landed
+      if (!last && rs_waits_ack(ns, P)) wait_geq<SCOPE_SYS>(A(0, ns & 1), ns / 2);
+    };
+    for (int64_t t = t0; t < t1; ++t) {
+      const int64_t row0 = (t / tiles_n) * FUSED_BM, col0 = (t % tiles_n) * BN;
+      tile_mainloop<T, FUSED_BM>(xc, w, m, n, k, row0, col0, 0, k, vec != 0, smem, acc);
+      if (!waited) {
+        wait_hop();
+        waited = true;
+      }
+      store_tile<FUSED_BM>(dst, lin, m, n, row0, col0, vec != 0, acc);
+    }
+    if (!waited) wait_hop();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (s < 0) {
+        arrive_release<SCOPE_SYS>(F(1, 0));
+      } else {
+        if (!last) arrive_release<SCOPE_SYS>(F(1, ns & 1));
+        if (rs_signals_ack(s, P)) arrive_release<SCOPE_SYS>(A(2, slot));
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    *F(0, 0) = *F(0, 1) = *A(0, 0) = *A(0, 1) = 0;
+    arrive_release<SCOPE_SYS>(tabs.flags[left] + 1);
+    arrive_release<SCOPE_SYS>(tabs.flags[right]);
+  }
+}
+
+// ------------------------------------------------------------------------
 // host side: plain C interface, bound with ctypes
 // ------------------------------------------------------------------------
 enum { DT_F32 = 0, DT_BF16 = 1 };
-#define N_KERNELS 6
+#define N_KERNELS 8
 #define MAX_DEVICES 64
 
 // 0-3: accl_matmul (f32 BM 128, f32 BM 64, bf16 BM 128, bf16 BM 64);
-// 4-5: accl_fused_matmul_rs (f32, bf16).  Each with its dynamic shared
-// memory in bytes.
+// 4-5: accl_fused_matmul_rs (f32, bf16); 6-7: its cross-card mode (f32,
+// bf16).  Each with its dynamic shared memory in bytes.
 static void* kernel_fn(int which, int* smem) {
   switch (which) {
     case 0: *smem = Tile<float, 128>::SMEM; return (void*)matmul_kernel<float, 128>;
@@ -489,6 +623,10 @@ static void* kernel_fn(int which, int* smem) {
     case 5:
       *smem = Tile<__nv_bfloat16, FUSED_BM>::SMEM;
       return (void*)fused_matmul_rs_kernel<__nv_bfloat16>;
+    case 6: *smem = Tile<float, FUSED_BM>::SMEM; return (void*)fused_matmul_rs_cross_kernel<float>;
+    case 7:
+      *smem = Tile<__nv_bfloat16, FUSED_BM>::SMEM;
+      return (void*)fused_matmul_rs_cross_kernel<__nv_bfloat16>;
   }
   return nullptr;
 }
@@ -524,8 +662,9 @@ const char* accl_fused_error_string(int code) {
 // shared memory, out[3] the dynamic shared memory it is launched with,
 // out[4] blocks resident per SM at that footprint.
 int accl_fused_kernel_info(int which, int device, int* out) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   void* fn;
   int smem;
   e = ready_kernel(which, device, &fn, &smem);
@@ -565,8 +704,9 @@ int accl_matmul(const void* x, const void* w, void* out, int64_t m, int64_t n, i
     return (int)cudaErrorInvalidValue;
   const int64_t gy = (m + bm - 1) / bm, gx = (n + BN - 1) / BN;
   if (gy > 65535 || gx > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   void* fn;
   int smem;
   e = ready_kernel(which, device, &fn, &smem);
@@ -580,15 +720,16 @@ int accl_matmul(const void* x, const void* w, void* out, int64_t m, int64_t n, i
   return (int)cudaGetLastError();
 }
 
-// Blocks of the fused kernel for dtype that fit on the card together at
-// the dynamic shared memory it is launched with, or a negative CUDA error.
-int accl_fused_resident(int dtype, int device) {
+// Blocks of the fused kernel for dtype (cross: its cross-card mode) that
+// fit on the card together at the dynamic shared memory it is launched
+// with, or a negative CUDA error.
+int accl_fused_resident_mode(int dtype, int cross, int device) {
   if (dtype != DT_F32 && dtype != DT_BF16) return -(int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return -(int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return -(int)on.err;
   void* fn;
   int smem;
-  e = ready_kernel(4 + dtype, device, &fn, &smem);
+  cudaError_t e = ready_kernel((cross ? 6 : 4) + dtype, device, &fn, &smem);
   if (e != cudaSuccess) return -(int)e;
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -596,6 +737,10 @@ int accl_fused_resident(int dtype, int device) {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, MM_THREADS, smem);
   if (e != cudaSuccess) return -(int)e;
   return sms * per_sm;
+}
+
+int accl_fused_resident(int dtype, int device) {
+  return accl_fused_resident_mode(dtype, 0, device);
 }
 
 // One cooperative launch of P * S blocks.  landing holds P * 2 * m * n
@@ -614,8 +759,9 @@ int accl_fused_matmul_rs(const void* const* xs, const void* const* ws, void* con
     for (int r = 0; r < P; ++r) ok = ok && aligned16(xs[r]) && aligned16(ws[r]) && aligned16(outs[r]);
     if (!ok) return (int)cudaErrorInvalidValue;
   }
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   void* fn;
   int smem;
   e = ready_kernel(4 + dtype, device, &fn, &smem);
@@ -626,6 +772,60 @@ int accl_fused_matmul_rs(const void* const* xs, const void* const* ws, void* con
   float* land = (float*)landing;
   void* args[] = {&xt, &wt, &ot, &m, &n, &k, &P, &S, &vec, &land, &flags};
   e = cudaLaunchCooperativeKernel(fn, dim3(P * S), dim3(MM_THREADS), args, (size_t)smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// One card's launch of the cross-card mode: nr * S blocks, block b
+// playing rank ranks[b / S] of a ring of P over every card.  xs, ws, outs,
+// slots and flags hold one entry per rank of the ring (rank r's slots
+// 2 m n floats and flags HS_WORDS + S * 4 int32 on rank r's card, the
+// flags zero when first made); base is the count of blocks per rank of
+// every earlier launch on these tables; the blocks start once gate[0]
+// reaches seq and end at once if gate[1] is set first (the gate of
+// accl_ring_gate_new in ring.cu).  The caller joins the cards' streams
+// first (accl_ring_join).
+int accl_fused_matmul_rs_cross(const void* const* xs, const void* const* ws, void* const* outs,
+                               int64_t m, int64_t n, int64_t k, int P, const int* ranks, int nr,
+                               int dtype, int S, int vec, void* const* slots, int* const* flags,
+                               int base, const int* gate, int seq, int device, void* stream) {
+  if (P < 2 || P > MAXP || nr < 1 || nr > P || S < 1 || m < 0 || n < 0 || k < 0 ||
+      gate == nullptr || (dtype != DT_F32 && dtype != DT_BF16))
+    return (int)cudaErrorInvalidValue;
+  const int64_t tiles = ((m + FUSED_BM - 1) / FUSED_BM) * ((n + BN - 1) / BN);
+  if (S > tiles) return (int)cudaErrorInvalidValue;  // every stripe holds a tile
+  const int V = dtype == DT_F32 ? 4 : 8;
+  if (vec) {
+    bool ok = k % V == 0 && n % V == 0;
+    for (int r = 0; r < P; ++r)
+      ok = ok && aligned16(xs[r]) && aligned16(ws[r]) && aligned16(outs[r]) && aligned16(slots[r]);
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  void* fn;
+  int smem;
+  cudaError_t e = ready_kernel(6 + dtype, device, &fn, &smem);
+  if (e != cudaSuccess) return (int)e;
+  PtrTable xt, wt;
+  OutTable ot;
+  FusedTables tabs;
+  for (int r = 0; r < P; ++r) {
+    xt.p[r] = xs[r];
+    wt.p[r] = ws[r];
+    ot.p[r] = outs[r];
+    tabs.slots[r] = (float*)slots[r];
+    tabs.flags[r] = flags[r];
+  }
+  for (int i = 0; i < nr; ++i) {
+    if (ranks[i] < 0 || ranks[i] >= P) return (int)cudaErrorInvalidValue;
+    tabs.rank[i] = ranks[i];
+  }
+  tabs.gate = gate;
+  tabs.seq = seq;
+  void* args[] = {&xt, &wt, &ot, &m, &n, &k, &P, &S, &vec, &tabs, &base};
+  e = cudaLaunchCooperativeKernel(fn, dim3(nr * S), dim3(MM_THREADS), args, (size_t)smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

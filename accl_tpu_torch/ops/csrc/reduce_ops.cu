@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "current_device.cuh"
+
 #include <type_traits>
 
 namespace {
@@ -181,8 +183,9 @@ const char* accl_reduce_ops_error_string(int code) {
 // The kernel of (dtype, is_max, vec): out[0] registers a thread, out[1]
 // local bytes a thread, out[2] CTAs of THREADS that fit on one SM
 int accl_combine_kernel_info(int dtype, int is_max, int vec, int device, int* out) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   int elem;
   void* fn = pick(dtype, is_max != 0, vec != 0, &elem);
   if (!fn) return (int)cudaErrorInvalidValue;
@@ -209,8 +212,9 @@ int accl_combine(const void* a, const void* b, void* out, long long n, int dtype
   void* fn = pick(dtype, is_max != 0, vec != 0, &elem);
   if (!fn) return (int)cudaErrorInvalidValue;
   if (vec && !(aligned16(a) && aligned16(b) && aligned16(out))) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   if (n == 0) return (int)cudaSuccess;
   long long units = vec ? n / (VEC_BYTES / elem) : n;
   void* args[] = {(void*)&a, (void*)&b, (void*)&out, (void*)&units};

@@ -143,6 +143,7 @@
 #include <cuda_fp16.h>
 #include <string.h>
 
+#include "current_device.cuh"
 #include "ring_sync.cuh"
 
 #define THREADS 256
@@ -281,7 +282,7 @@ __device__ __forceinline__ int64_t tiles_of(const Geometry& g, int S, int k) {
 // neighbour that have ended a launch), then, used in the flags of a
 // launch's first rank only, that card's copy of the host's gate (the
 // launches its block 0 saw opened, and whether it saw one given up).
-#define HS_WORDS 4
+// HS_WORDS is in ring_sync.cuh, shared with fused.cu's cross-card mode.
 struct RankTables {
   void* slots[MAXP];
   int* flags[MAXP];
@@ -578,27 +579,8 @@ ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int V, int S, T* slot
 // TPU kernel's barrier waits for both neighbours; tests/
 // test_torch_multicard.py replays the schedule with either.)
 // ------------------------------------------------------------------------
-__device__ __forceinline__ void store_release_sys(int* p, int v) {
-  asm volatile("st.release.sys.global.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
-}
-
-// Thread 0's wait for the word on launch seq, in the host's gate or a
-// card's copy of it (both hold the number of the last launch opened):
-// 1 when launch seq was opened (gate[0] has reached seq, a count that
-// may wrap), 0 when it was given up (gate[1] set).  gate[1] is read
-// first: every earlier launch is opened before one is given up, so a
-// launch that sees gate[1] set and gate[0] short of it is the one given
-// up.
-__device__ __forceinline__ int wait_gate(const int* gate, int seq) {
-  uint64_t t0 = global_ns();
-  for (;;) {
-    const int given_up = ld_acquire<SCOPE_SYS>(gate + 1);
-    if ((int)((unsigned)ld_acquire<SCOPE_SYS>(gate) - (unsigned)seq) >= 0) return 1;
-    if (given_up) return 0;
-    __nanosleep(64);
-    if (global_ns() - t0 > SPIN_TIMEOUT_NS) __trap();
-  }
-}
+// store_release_sys and wait_gate (the host's gate) are in ring_sync.cuh,
+// shared with fused.cu's cross-card mode.
 
 template <typename T, int KIND, bool STAMP>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -697,8 +679,9 @@ const char* accl_ring_error_string(int code) {
 // the cross-card mode) that can be resident on the card together, or a
 // negative CUDA error.
 int accl_ring_resident(int kind, int dtype, int stamp, int device) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return -(int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return -(int)on.err;
+  cudaError_t e;
   void* fn = kernel_for(kind, dtype, stamp);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   int sms = 0, per_sm = 0;
@@ -712,8 +695,9 @@ int accl_ring_resident(int kind, int dtype, int stamp, int device) {
 // out[0..2]: registers, local (spill) bytes and blocks per SM of one
 // instantiation (kind and variant as above), as the runtime reports them.
 int accl_ring_kernel_info(int kind, int dtype, int stamp, int device, int* out) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   void* fn = kernel_for(kind, dtype, stamp);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
@@ -739,8 +723,9 @@ int accl_ring_launch(int kind, int dtype, const void* const* xs, void* const* ou
                      int device, void* stream) {
   if (P < 1 || P > MAXP || V < 2 || (V != P && P != 1) || S < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaError_t e;
   void* fn = kernel_for(kind, dtype, stamps != nullptr ? 1 : 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   PtrTable xt;
@@ -759,6 +744,9 @@ int accl_ring_launch(int kind, int dtype, const void* const* xs, void* const* ou
 // hardware cannot join fails with cudaErrorPeerAccessUnsupported and its
 // two devices in pair[0..1]; access that is already enabled is no error.
 int accl_ring_enable_peers(const int* devices, int n, int* pair) {
+  if (n < 1) return 0;
+  const CurrentDevice keep(devices[0]);  // each i is made current below
+  if (keep.err != cudaSuccess) return (int)keep.err;
   for (int i = 0; i < n; ++i)
     for (int j = 0; j < n; ++j) {
       if (devices[i] == devices[j]) continue;
@@ -798,8 +786,8 @@ int accl_ring_join(const int* devices, void* const* streams, int n) {
   if (n < 2) return 0;
   for (int i = 0; i < n; ++i)
     if (devices[i] < 0 || devices[i] >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
-  int prev = 0;
-  cudaError_t e = cudaGetDevice(&prev);
+  const CurrentDevice keep(devices[0]);  // each i is made current below
+  cudaError_t e = keep.err;
   for (int i = 0; e == cudaSuccess && i < n; ++i) {
     cudaEvent_t* ev = &join_events[devices[i]];
     e = cudaSetDevice(devices[i]);
@@ -813,7 +801,6 @@ int accl_ring_join(const int* devices, void* const* streams, int n) {
       if (j != i)
         e = cudaStreamWaitEvent((cudaStream_t)streams[i], join_events[devices[j]], 0);
   }
-  cudaSetDevice(prev);
   return (int)e;
 }
 
@@ -853,11 +840,8 @@ int accl_ring_launch_cross(int kind, int dtype, const void* const* xs, void* con
     return (int)cudaErrorInvalidValue;
   void* fn = kernel_for(kind, dtype, stamps != nullptr ? 3 : 2);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  int prev = 0;
-  cudaError_t e = cudaGetDevice(&prev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   PtrTable xt;
   OutTable ot;
   RankTables tabs;
@@ -870,20 +854,16 @@ int accl_ring_launch_cross(int kind, int dtype, const void* const* xs, void* con
   tabs.gate = gate;
   tabs.seq = seq;
   for (int i = 0; i < n; ++i) {
-    if (ranks[i] < 0 || ranks[i] >= P) {
-      cudaSetDevice(prev);
-      return (int)cudaErrorInvalidValue;
-    }
+    if (ranks[i] < 0 || ranks[i] >= P) return (int)cudaErrorInvalidValue;
     tabs.rank[i] = ranks[i];
   }
   Geometry g;
   memcpy(&g, geo, sizeof(Geometry));
   void* args[] = {&xt, &ot, &g, &P, &S, &tabs, &base, &stamps};
-  e = cudaLaunchCooperativeKernel(fn, dim3(n * S), dim3(THREADS), args, 0,
-                                  (cudaStream_t)stream);
-  if (e == cudaSuccess) e = cudaGetLastError();
-  cudaSetDevice(prev);
-  return (int)e;
+  cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(n * S), dim3(THREADS), args, 0,
+                                              (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -7,8 +7,13 @@
 // orders what the threads of one card see, and is the scope of fused.cu
 // and of a ring launch whose ranks share one card.  SCOPE_SYS (.sys)
 // also orders what a peer card writes over NVLink and reads back: the
-// scope of ring.cu's cross-card mode, whose hops store into another
-// card's memory.
+// scope of the cross-card modes of ring.cu and fused.cu, whose hops
+// store into another card's memory.
+//
+// The cross-card modes also share the head of a rank's flags (HS_WORDS
+// words: the entry handshake's two counts, then a card's copy of the
+// host's gate) and the gate's wait (wait_gate): see ring.cu
+// ring_kernel_cross.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,3 +98,30 @@ __device__ __forceinline__ void wait_reached(const int* p, int target) {
 }
 
 __device__ __forceinline__ int pmod(int a, int P) { return ((a % P) + P) % P; }
+
+// -- the cross-card modes' entry ----------------------------------------------
+// Words at the head of a rank's flags in the cross-card modes (their
+// layout: ring.cu, RankTables).
+#define HS_WORDS 4
+
+__device__ __forceinline__ void store_release_sys(int* p, int v) {
+  asm volatile("st.release.sys.global.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+
+// Thread 0's wait for the word on launch seq, in the host's gate or a
+// card's copy of it (both hold the number of the last launch opened):
+// 1 when launch seq was opened (gate[0] has reached seq, a count that
+// may wrap), 0 when it was given up (gate[1] set).  gate[1] is read
+// first: every earlier launch is opened before one is given up, so a
+// launch that sees gate[1] set and gate[0] short of it is the one given
+// up.
+__device__ __forceinline__ int wait_gate(const int* gate, int seq) {
+  uint64_t t0 = global_ns();
+  for (;;) {
+    const int given_up = ld_acquire<SCOPE_SYS>(gate + 1);
+    if ((int)((unsigned)ld_acquire<SCOPE_SYS>(gate) - (unsigned)seq) >= 0) return 1;
+    if (given_up) return 0;
+    __nanosleep(64);
+    if (global_ns() - t0 > SPIN_TIMEOUT_NS) __trap();
+  }
+}

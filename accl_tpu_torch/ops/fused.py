@@ -27,7 +27,16 @@ rank, in ring order, and returns one per rank):
    ``accl_fused_matmul_rs`` (``csrc/fused.cu``): the ring reduce-scatter
    of sum_r x_r @ w_r with each hop's partial matmul inside the ring
    loop.  ``fused_matmul_allreduce_pallas`` is that kernel followed by
-   the ring all-gather kernel of ``ops/ring.py``.
+   the ring all-gather kernel of ``ops/ring.py``.  Ranks on several
+   cards take the kernel's cross-card mode (``accl_fused_matmul_rs_cross``,
+   one launch per card, counted in ``launches_cross``): every rank's
+   landing slots and flags on its own card (``_cross_tables``, the
+   tables of ``ops/ring.py``'s cross-card mode), the cards' streams
+   joined before the launches, the host's gate and the entry handshake
+   of the ring kernels' cross-card mode.  ``ring.rank_tables()`` runs
+   that mode on one card.  Across cards the plain version moves each
+   landing accumulator to its rank's card (a counted
+   ``parallel.collectives.move``).
 
 Beside each kernel wrapper sits its plain PyTorch version.  A wrapper
 runs the plain version only when it is given CPU tensors; given CUDA
@@ -54,6 +63,7 @@ part), on the overlapped logical clock.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 import threading
@@ -64,6 +74,7 @@ import torch
 from ..observability.trace import record_device_steps
 from . import _build
 from . import quantized as q_ops
+from . import ring as ring_ops
 from .ring import _fold, _ptrs, device_trace_enabled, ring_all_gather
 
 #: default pipeline depth of the fused lane — chunks per ring step
@@ -98,6 +109,20 @@ def _pick_chunks(n: int, requested: Optional[int]) -> int:
     while n % c:
         c -= 1
     return c
+
+
+def _rank_devices(xs, devices) -> Optional[list]:
+    """Each rank's device when the ranks are on several cards, as
+    ``parallel.collectives`` finds it (imported at call time: the parallel
+    package imports this one)."""
+    from ..parallel.collectives import _placement
+    return _placement(xs, devices)
+
+
+def _move(t: torch.Tensor, device) -> torch.Tensor:
+    """``parallel.collectives.move``: the counted crossing between ranks."""
+    from ..parallel.collectives import move
+    return move(t, device)
 
 
 def _pad_flat(x: torch.Tensor, length: int) -> torch.Tensor:
@@ -372,6 +397,28 @@ def _check_operands(ts, what: str) -> None:
                          f"bfloat16, not {dt}")
 
 
+def _check_rank_operands(xs, ws, what: str) -> Optional[tuple]:
+    """Each rank's operands contiguous on that rank's device, every
+    rank's on one device type, one dtype (one the kernels take on the
+    card).  Returns the layout (each rank's card) when the ranks sit on
+    several cards, else None."""
+    dev, dt = xs[0].device, xs[0].dtype
+    spread = False
+    for x, w in zip(xs, ws):
+        xd = x.device
+        for t in (x, w):
+            if t.device != xd or xd.type != dev.type or t.dtype != dt:
+                raise ValueError(f"{what}: every tensor must share device "
+                                 f"type {dev.type} and dtype {dt}, each "
+                                 f"rank's on one device, got {t.device} "
+                                 f"{t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{what}: operands must be contiguous")
+        spread = spread or xd != dev
+    _check_operands([xs[0]], what)
+    return tuple(x.device.index for x in xs) if spread else None
+
+
 def _vec(ts, k: int, n: int, elem: int) -> bool:
     """Whether the kernels may move 16 bytes at a time: every row of
     every operand and result starts on 16 bytes."""
@@ -388,6 +435,17 @@ def _sms(device: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def _plan(m: int, n: int, k: int, device: int) -> MatmulPlan:
     return matmul_plan(m, n, k, _sms(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_cross(dtype_code: int, device: int) -> int:
+    """Blocks of the fused kernel's cross-card mode that fit on the card
+    together (cached per device and dtype)."""
+    lib = _build.load("fused")
+    got = lib.accl_fused_resident_mode(dtype_code, 1, device)
+    if got < 0:
+        _raise_on(lib, -got, "accl_fused_resident_mode")
+    return got
 
 
 @functools.lru_cache(maxsize=None)
@@ -489,7 +547,8 @@ pallas_matmul.launches = 0
 def fused_matmul_allreduce(xs: Sequence[torch.Tensor],
                            ws: Sequence[torch.Tensor],
                            use_pallas: bool = True,
-                           chunks: Optional[int] = None) -> list:
+                           chunks: Optional[int] = None,
+                           devices=None) -> list:
     """Tensor-parallel contraction: rank r holds x_r [M, K] and the
     K-shard w_r [K, N]; every rank gets sum_r x_r @ w_r, [M, N] float32.
 
@@ -498,11 +557,25 @@ def fused_matmul_allreduce(xs: Sequence[torch.Tensor],
     reduce-scatter computes each local row-block partial just in time and
     folds ``partial + incoming``, then the all-gather relays the reduced
     product rows; rows are zero-padded to a P*C multiple internally.
-    ``use_pallas`` picks the matmul kernel over the plain product."""
+    ``use_pallas`` picks the matmul kernel over the plain product.
+
+    Ranks on several cards (their tensors on more than one device, or
+    ``devices=``): each rank multiplies on its own card, every crossing
+    is a counted ``parallel.collectives.move`` (a landing accumulator to
+    the right neighbour, the reduced rows to every rank; without chunks
+    the products to rank 0's card and the sum back out), with the same
+    folds, so each rank's result, on its card, is bitwise the one-card
+    form's."""
     P = len(xs)
     dot = pallas_matmul if use_pallas else pallas_matmul_plain
+    devs = _rank_devices(xs, devices)
     if chunks is None or chunks <= 1:
-        total = torch.stack([dot(x, w) for x, w in zip(xs, ws)]).sum(0)
+        prods = [dot(x, w) for x, w in zip(xs, ws)]
+        if devs is not None:
+            total = torch.stack([prods[0]] + [_move(p, devs[0])
+                                              for p in prods[1:]]).sum(0)
+            return [total] + [_move(total, d) for d in devs[1:]]
+        total = torch.stack(prods).sum(0)
         return [total] * P
     if P == 1:
         return [dot(xs[0], ws[0])]
@@ -516,10 +589,18 @@ def fused_matmul_allreduce(xs: Sequence[torch.Tensor],
             for r in range(P)]
     for s in range(P - 1):
         landed = [accs[(r - 1) % P] for r in range(P)]
+        if devs is not None:
+            landed = [[_move(a, devs[r]) for a in landed[r]]
+                      for r in range(P)]
         accs = [[dot(xv[r][(r - 2 - s) % P, c], ws[r]) + landed[r][c]
                  for c in range(C)] for r in range(P)]
-    out = _ag_chains(accs).reshape(padM, N)[:M]
     _trace_fused("fused_matmul_allreduce", P, C, mrows * N * 4, phases=2)
+    if devs is not None:
+        return [_ag_chains([accs[q] if q == r else
+                            [_move(a, devs[r]) for a in accs[q]]
+                            for q in range(P)]).reshape(padM, N)[:M]
+                for r in range(P)]
+    out = _ag_chains(accs).reshape(padM, N)[:M]
     return [out] * P
 
 
@@ -527,18 +608,91 @@ def fused_matmul_allreduce(xs: Sequence[torch.Tensor],
 # tier 3: the hand-scheduled fused matmul reduce-scatter
 # ---------------------------------------------------------------------------
 def fused_matmul_reduce_scatter_plain(xs: Sequence[torch.Tensor],
-                                      ws: Sequence[torch.Tensor]) -> list:
+                                      ws: Sequence[torch.Tensor],
+                                      devices=None) -> list:
     """Per rank x_r [P, m, K] and w_r [K, N] -> that rank's reduced
     [m, N] float32 block, hop by hop: acc starts as x_r[r - 1] @ w_r; at
     hop s the accumulator arrives from the left and acc = x_r[r - 2 - s]
-    @ w_r + arrival."""
+    @ w_r + arrival.  Ranks on several cards (their tensors on more than
+    one device, or ``devices=``): each hop's arrival is a counted
+    ``parallel.collectives.move`` onto its rank's card."""
     P = len(xs)
+    devs = _rank_devices(xs, devices)
     acc = [pallas_matmul_plain(xs[r][(r - 1) % P], ws[r]) for r in range(P)]
     for s in range(P - 1):
         landing = [acc[(r - 1) % P] for r in range(P)]
+        if devs is not None:
+            landing = [_move(a, d) for a, d in zip(landing, devs)]
         acc = [pallas_matmul_plain(xs[r][(r - 2 - s) % P], ws[r])
                + landing[r] for r in range(P)]
     return acc
+
+
+#: the cross-card mode's per-rank slots and flags: (layout, streams) ->
+#: ``ring._Tables``, guarded by ``ring._tables_lock``
+_cross_tables: dict = {}
+
+
+def _launch_rs_cross(xs, ws, out, m: int, N: int, K: int,
+                     layout: tuple) -> None:
+    """The cross-card mode of ``accl_fused_matmul_rs``: one launch per
+    card (``ring.card_groups``), each on its card's current stream, over
+    the per-rank tables of ``_cross_tables``, after the cards' streams
+    are joined; opens the launch in the tables' gate once every card's
+    launch is enqueued, or gives it up there when one fails.  Counts one
+    launch per card."""
+    P = len(xs)
+    dt = KERNEL_DTYPES[xs[0].dtype]
+    groups = ring_ops.card_groups(layout)
+    streams = {c: torch.cuda.current_stream(c) for c, _r in groups}
+    for c in streams:
+        with torch.cuda.device(c):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "fused_matmul_reduce_scatter: the host opens a "
+                    "cross-card launch (its gate and its entry handshake's "
+                    "count), which a CUDA graph capture cannot replay; run "
+                    "it eagerly")
+    ring_ops.enable_peers([c for c, _r in groups])
+    tiles = _cdiv(m, FUSED_TILE_M) * _cdiv(N, TILE_N)
+    S = min(min(fused_stripes(len(ranks), tiles, _resident_cross(dt, c))
+                for c, ranks in groups), ring_ops.MAX_STRIPES)
+    vec = _vec([*xs, *ws, *out], K, N, xs[0].element_size())
+    lib = _build.load("fused")
+    rlib = _build.load("ring")
+    with ring_ops._tables_lock:
+        tabs = ring_ops._tables_for(layout, streams, 2 * m * N * 4,
+                                    _cross_tables)
+        slot_ptrs = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.slots])
+        flag_ptrs = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.flags])
+        base = tabs.base
+        base_c = base - (1 << 32) if base >= 1 << 31 else base
+        cards = list(streams)
+        ring_ops._raise_on(rlib, rlib.accl_ring_join(
+            (ctypes.c_int * len(cards))(*cards),
+            (ctypes.c_void_p * len(cards))(*[streams[c].cuda_stream
+                                             for c in cards]),
+            len(cards)), "accl_ring_join")
+        seq = (tabs.seq + 1) & 0xFFFFFFFF
+        seq_c = seq - (1 << 32) if seq >= 1 << 31 else seq
+        for c, ranks in groups:
+            rc = lib.accl_fused_matmul_rs_cross(
+                _ptrs(xs), _ptrs(ws), _ptrs(out), m, N, K, P,
+                (ctypes.c_int * len(ranks))(*ranks), len(ranks), dt, S,
+                int(vec), slot_ptrs, flag_ptrs, base_c, tabs.gate, seq_c, c,
+                streams[c].cuda_stream)
+            if rc != 0:
+                # the blocks enqueued on earlier cards wait for the gate:
+                # give the launch up so they end at once, and make fresh
+                # tables for the next launch
+                ring_ops._gate_word(tabs, 1, 1)
+                _cross_tables.pop(ring_ops._tables_key(layout, streams), None)
+                _raise_on(lib, rc, "fused_matmul_reduce_scatter")
+        tabs.seq = seq
+        ring_ops._gate_word(tabs, 0, seq)
+        tabs.base = ring_ops.handshake_base((base, S))
+    fused_matmul_reduce_scatter.launches += len(groups)
+    fused_matmul_reduce_scatter.launches_cross += len(groups)
 
 
 def fused_matmul_reduce_scatter(xs: Sequence[torch.Tensor],
@@ -547,13 +701,15 @@ def fused_matmul_reduce_scatter(xs: Sequence[torch.Tensor],
                                 ) -> list:
     """Ring reduce-scatter of the partial products sum_r x_r @ w_r: rank
     r's x_r [P, m, K] (P row blocks of its activations) and K-shard w_r
-    [K, N] -> its reduced [m, N] float32 block (row block r of the sum).
-    On the card: one cooperative launch of ``accl_fused_matmul_rs``."""
+    [K, N] -> its reduced [m, N] float32 block (row block r of the sum),
+    on its own device.  On the card: one cooperative launch of
+    ``accl_fused_matmul_rs``, or with the ranks on several cards (or under
+    ``ring.rank_tables()``) one launch per card of its cross-card mode."""
     P = len(xs)
     if not 1 <= P <= MAX_RANKS or len(ws) != P:
         raise ValueError(f"fused_matmul_reduce_scatter: {P} ranks with "
                          f"{len(ws)} weights (1..{MAX_RANKS} ranks)")
-    _check_operands([*xs, *ws], "fused_matmul_reduce_scatter")
+    layout = _check_rank_operands(xs, ws, "fused_matmul_reduce_scatter")
     shape = tuple(xs[0].shape)
     if len(shape) != 3 or shape[0] != P:
         raise ValueError(f"fused_matmul_reduce_scatter: x must be [P={P}, "
@@ -565,11 +721,12 @@ def fused_matmul_reduce_scatter(xs: Sequence[torch.Tensor],
             raise ValueError(f"fused_matmul_reduce_scatter: every x must be "
                              f"{shape} and every w [{K}, N]")
     if out is not None:
-        for o in out:
+        for o, x in zip(out, xs):
             if (tuple(o.shape) != (m, N) or o.dtype != torch.float32
-                    or o.device != xs[0].device or not o.is_contiguous()):
+                    or o.device != x.device or not o.is_contiguous()):
                 raise ValueError(f"fused_matmul_reduce_scatter: outputs must "
-                                 f"be contiguous float32 [{m}, {N}]")
+                                 f"be contiguous float32 [{m}, {N}] on their "
+                                 f"rank's device")
     dev = xs[0].device
     if dev.type == "cpu":
         res = fused_matmul_reduce_scatter_plain(xs, ws)
@@ -580,9 +737,14 @@ def fused_matmul_reduce_scatter(xs: Sequence[torch.Tensor],
         return [pallas_matmul(xs[0][0], ws[0],
                               None if out is None else out[0])]
     if out is None:
-        out = [torch.empty((m, N), dtype=torch.float32, device=dev)
-               for _ in range(P)]
+        out = [torch.empty((m, N), dtype=torch.float32, device=x.device)
+               for x in xs]
     if m == 0 or N == 0:
+        return list(out)
+    if layout is None and getattr(ring_ops._form, "tables", False):
+        layout = tuple(x.device.index for x in xs)
+    if layout is not None:
+        _launch_rs_cross(xs, ws, out, m, N, K, layout)
         return list(out)
     dt = KERNEL_DTYPES[xs[0].dtype]
     device = dev.index or 0
@@ -605,6 +767,8 @@ def fused_matmul_reduce_scatter(xs: Sequence[torch.Tensor],
 
 
 fused_matmul_reduce_scatter.launches = 0
+#: the launches of the cross-card mode (one per card), within ``launches``
+fused_matmul_reduce_scatter.launches_cross = 0
 
 
 def fused_matmul_allreduce_pallas(xs: Sequence[torch.Tensor],
@@ -612,7 +776,8 @@ def fused_matmul_allreduce_pallas(xs: Sequence[torch.Tensor],
     """Allreduce-into-matmul, kernel form: sum_r x_r @ w_r for x_r
     [M, K] (M divisible by P) and K-shards w_r [K, N] — the fused
     reduce-scatter kernel, then the ring all-gather kernel relays the
-    reduced product rows.  Every rank gets [M, N] float32."""
+    reduced product rows.  Every rank gets [M, N] float32, on its own
+    device (ranks on several cards take both kernels' cross-card modes)."""
     P = len(xs)
     M, K = xs[0].shape
     if P == 1:
@@ -628,7 +793,8 @@ def fused_matmul_allreduce_pallas(xs: Sequence[torch.Tensor],
 
 def fused_expert_ffn(xs: Sequence[torch.Tensor],
                      expert_idxs: Sequence[torch.Tensor], ffn,
-                     capacity: int = 0, chunks: Optional[int] = None) -> list:
+                     capacity: int = 0, chunks: Optional[int] = None,
+                     devices=None) -> list:
     """Route each member's tokens to their expert and run the expert FFN
     with the capacity dimension split into C chunks: chunk c's dispatch
     all-to-all, the FFN on it, and its return all-to-all.  Same slotting
@@ -638,7 +804,9 @@ def fused_expert_ffn(xs: Sequence[torch.Tensor],
     ``xs[r]`` [N, D] and ``expert_idxs[r]`` [N] in [0, P): member r's
     tokens and their experts (one expert per member).  ``ffn``: member
     r's expert as ``ffn[r]`` ([T, D] -> [T, D] row-wise), or one callable
-    for all.  Returns one [N, D] per member."""
+    for all.  Returns one [N, D] per member.  Members on several cards
+    (``devices``, or the tokens' own devices): every chunk's all-to-alls
+    cross through the counted ``parallel.collectives.move``."""
     from ..parallel.collectives import all_to_all
     from ..parallel.strategies import _expert_buckets, _expert_unbucket
 
@@ -657,10 +825,12 @@ def fused_expert_ffn(xs: Sequence[torch.Tensor],
     back_parts = [[] for _ in range(P)]
     for c in range(C):
         recv = all_to_all([b[:, c * ck:(c + 1) * ck] for b in buckets],
-                          split_axis=0, concat_axis=0, tiled=False)
+                          split_axis=0, concat_axis=0, tiled=False,
+                          devices=devices)
         ys = [f(r.reshape(P * ck, D)).reshape(P, ck, D)
               for f, r in zip(ffns, recv)]
-        back = all_to_all(ys, split_axis=0, concat_axis=0, tiled=False)
+        back = all_to_all(ys, split_axis=0, concat_axis=0, tiled=False,
+                          devices=devices)
         for parts, y in zip(back_parts, back):
             parts.append(y)
     _trace_fused("fused_expert_ffn", P, C,

@@ -566,22 +566,26 @@ def _tables_key(layout: tuple, streams: dict) -> tuple:
                                  for c, s in streams.items())))
 
 
-def _tables_for(layout: tuple, streams: dict, slot_bytes: int) -> _Tables:
+def _tables_for(layout: tuple, streams: dict, slot_bytes: int,
+                registry: Optional[dict] = None) -> _Tables:
     """The tables of ``layout`` on the cards' current ``streams``, each
     rank's slots grown to ``slot_bytes``.  Whatever is made anew is made
     on the rank's card and its stream is synchronized before any launch
     can use it: a neighbour card writes into these buffers with no order
     on this card's stream (a fresh zero must be in place, and no earlier
-    work on this stream may still hold the memory)."""
+    work on this stream may still hold the memory).  ``registry``: where
+    the tables are kept (the ring kernels' ``_tables`` by default;
+    ``ops.fused`` keeps its own, which the same lock guards)."""
+    registry = _tables if registry is None else registry
     key = _tables_key(layout, streams)
     with _tables_lock:
-        tabs = _tables.get(key)
+        tabs = registry.get(key)
         if tabs is None:
             lib = _build.load("ring")
             gate = ctypes.c_void_p()
             _raise_on(lib, lib.accl_ring_gate_new(ctypes.byref(gate)),
                       "accl_ring_gate_new")
-            tabs = _tables[key] = _Tables(gate.value)
+            tabs = registry[key] = _Tables(gate.value)
             # slots and flags on the card of the rank that reads them
             tabs.flags = [torch.zeros(HS_WORDS + 4 * MAX_STRIPES,
                                       dtype=torch.int32, device=f"cuda:{c}")

@@ -79,8 +79,10 @@ class AdamW(NamedTuple):
                                              device=steps.device), steps)
             ups = []
             for m, v, pi in zip(mu, nu, p):
-                u = (m / bc1.to(m.dtype)) / (
-                    torch.sqrt(v / bc2.to(v.dtype) + self.eps_root)
+                # the corrections go to each moment's card (a mesh over
+                # several cards keeps each moment beside its shard)
+                u = (m / bc1.to(m.device, m.dtype)) / (
+                    torch.sqrt(v / bc2.to(v.device, v.dtype) + self.eps_root)
                     + self.eps)
                 u = u + pi * self.weight_decay
                 ups.append(u * -self.learning_rate)

@@ -1,7 +1,9 @@
-"""The SPMD layer over rank lists: meshes of rank slots on one card, the
-functional collectives, the parallelism strategies, and the
-sequence-parallel attention schedules (ring, zigzag, windowed and
-Ulysses) with their dense reference.  Port of ``accl_tpu/parallel``."""
+"""The SPMD layer over rank lists: meshes of rank slots on one card or on
+several (``make_mesh(devices=)``), the functional collectives (every
+crossing between members on several cards counted by ``moves``), the
+parallelism strategies, and the sequence-parallel attention schedules
+(ring, zigzag, windowed and Ulysses) with their dense reference.  Port
+of ``accl_tpu/parallel``."""
 
 from .collectives import (  # noqa: F401
     all_gather,
@@ -11,16 +13,24 @@ from .collectives import (  # noqa: F401
     broadcast,
     gather,
     hierarchical_all_reduce,
+    move,
+    moves,
     ppermute,
     reduce,
     reduce_scatter,
+    reset_moves,
     ring_all_gather,
     ring_all_reduce,
     ring_reduce_scatter,
     scatter,
     send_recv,
 )
-from .mesh import MeshConfig, RankMesh, make_mesh  # noqa: F401
+from .mesh import (  # noqa: F401
+    MeshConfig,
+    RankMesh,
+    make_hybrid_mesh,
+    make_mesh,
+)
 from .ring_attention import (  # noqa: F401
     expand_gqa_kv,
     ring_attention,

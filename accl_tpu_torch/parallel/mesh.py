@@ -1,22 +1,34 @@
-"""Logical parallelism axes over rank slots of one card.
+"""Logical parallelism axes over rank slots, on one card or on several.
 
 Port of ``accl_tpu/parallel/mesh.py``.  On the TPU a mesh binds the axes
-to chips; here the P rank slots of a mesh live on one device, and a
-function runs "over an axis" by taking one tensor per member of that axis
-(the rank-list convention of ``accl_tpu_torch/ops/fused.py``).  Axis
+to chips; here a mesh binds them to P rank slots, and a function runs
+"over an axis" by taking one tensor per member of that axis (the
+rank-list convention of ``accl_tpu_torch/ops/fused.py``).  Axis
 conventions are the JAX package's: ``dp``, ``fsdp``, ``tp``, ``sp``,
-``pp``, ``ep``.  ``make_hybrid_mesh`` lays dcn axes outside ici axes
-over the rank slots of one card; meshes over several cards come later.
+``pp``, ``ep``.  ``make_hybrid_mesh`` lays dcn axes outside ici axes.
+
+By default every slot lives on one device (``RankMesh.device``).  With
+``devices=`` (``make_mesh``, ``make_hybrid_mesh``) each slot has a
+device of its own, laid out row-major over the list as the JAX
+functions lay devices out over the grid: ``RankMesh.devices`` holds the
+slot -> device map in slot order, ``device_grid`` has the mesh's shape
+(the counterpart of ``Mesh.devices``).  One card may hold several slots.
+Every pair of the cards must have peer access, else the mesh raises
+(the rule of ``CudaWorld(devices=)``); nothing is staged through the
+host.  ``devices=["cpu"] * P`` builds such a mesh on the CPU, where the
+models and strategies take their several-cards code path, every
+crossing between two slots counted (``parallel.collectives.moves``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..constants import ACCLError
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, resolve_devices
 
 
 @dataclass
@@ -44,12 +56,16 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class RankMesh:
-    """The one-card counterpart of ``jax.sharding.Mesh``: named axes over
-    ``size`` rank slots on ``device``."""
+    """The counterpart of ``jax.sharding.Mesh``: named axes over ``size``
+    rank slots, all on ``device``, or with ``devices`` slot s on
+    ``devices[s]`` (``device`` is then slot 0's).  Two meshes compare by
+    their axes and ``device``, as before slot maps existed."""
 
     axis_names: tuple
     sizes: tuple
     device: torch.device
+    #: slot -> device, in slot order (None: every slot on ``device``)
+    devices: Optional[tuple] = field(default=None, compare=False)
 
     @property
     def shape(self) -> dict:
@@ -65,17 +81,71 @@ class RankMesh:
         order ``Mesh.devices`` holds the devices in)."""
         return np.arange(self.size).reshape(self.sizes)
 
+    @property
+    def device_grid(self) -> np.ndarray:
+        """Each mesh position's device, in the mesh's shape: the
+        counterpart of ``Mesh.devices``."""
+        grid = np.empty(self.size, dtype=object)
+        for s in range(self.size):
+            grid[s] = self.slot_device(s)
+        return grid.reshape(self.sizes)
+
+    def slot_device(self, slot: int) -> torch.device:
+        """Slot ``slot``'s device."""
+        return self.device if self.devices is None else self.devices[slot]
+
+    def slot(self, **coords) -> int:
+        """The slot at the given axis coordinates (axes left out at 0;
+        names not in the mesh must be 0)."""
+        index = []
+        for name in coords:
+            if name not in self.axis_names and coords[name]:
+                raise ValueError(f"mesh has no axis {name!r}")
+        for name in self.axis_names:
+            index.append(int(coords.get(name, 0)))
+        return int(self.ranks[tuple(index)]) if index else 0
+
+
+def _check_peers(devs: list, what: str) -> None:
+    """Every pair of distinct cards in ``devs`` must have peer access
+    (``cudaDeviceCanAccessPeer``), as ``CudaWorld(devices=)`` requires."""
+    cards = sorted({d.index for d in devs if d.type == "cuda"})
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                raise ACCLError(f"{what}: cuda:{a} has no peer access to "
+                                f"cuda:{b} (cudaDeviceCanAccessPeer): slots "
+                                f"on these cards cannot share a mesh")
+
+
+def _slot_devices(devices, need: int, what: str) -> tuple:
+    """The first ``need`` entries of ``devices``, resolved (a short list
+    raises ValueError, as the JAX functions raise), with every pair of
+    cards checked for peer access."""
+    devs = list(devices)
+    if len(devs) < need:
+        raise ValueError(f"{what} needs {need} devices, have {len(devs)}")
+    devs = resolve_devices(devs, need, what)
+    _check_peers(devs, what)
+    return tuple(devs)
+
 
 def make_mesh(config: MeshConfig | None = None, device="cuda",
-              **axis_sizes) -> RankMesh:
+              devices=None, **axis_sizes) -> RankMesh:
     """``make_mesh(dp=2, tp=4)`` -> a RankMesh with axes ("dp", "tp") over
     8 rank slots of ``device`` (the card by default; raises without one).
-    Axis order follows MeshConfig's declaration order."""
+    Axis order follows MeshConfig's declaration order.  ``devices``: a
+    list of at least that many devices, slot s (row-major over the axes)
+    on ``devices[s]``, as ``accl_tpu/parallel/mesh.py`` lays its device
+    list over the grid."""
     if config is None:
         config = MeshConfig(**axis_sizes)
     axes = config.axes() or {"dp": 1}
-    return RankMesh(tuple(axes), tuple(axes.values()),
-                    resolve_device(device, "make_mesh"))
+    names, shape = tuple(axes), tuple(axes.values())
+    if devices is None:
+        return RankMesh(names, shape, resolve_device(device, "make_mesh"))
+    devs = _slot_devices(devices, int(np.prod(shape)), "mesh")
+    return RankMesh(names, shape, devs[0], devs)
 
 
 def make_hybrid_mesh(ici: dict, dcn: dict, devices=None) -> RankMesh:
@@ -85,31 +155,19 @@ def make_hybrid_mesh(ici: dict, dcn: dict, devices=None) -> RankMesh:
     blocked row-major, so ``make_hybrid_mesh({"tp": 4}, {"dp": 2})`` has
     axes ("dp", "tp") and slot 4 d + t at position (d, t).
 
-    It returns a RankMesh on one card, as :func:`make_mesh` does.  A
-    process's cards are one host, and so one slice: the JAX function's
+    A process's cards are one host, and so one slice: the JAX function's
     multi-slice branch (devices grouped by ``slice_index``) has nothing to
-    group here and cannot be reached.  ``devices``: None (the card), a
-    device, or a list of the slots' devices, at least as many as the
-    mesh's slots (as the JAX function checks) and naming one device; a
-    list naming more than one card raises, since model meshes over
-    several cards come later."""
-    if devices is None:
-        devs = ["cuda"]
-    elif isinstance(devices, (str, torch.device)):
-        devs = [devices]
-    else:
-        devs = list(devices)
+    group here and cannot be reached.  ``devices``: None (the card) or a
+    device, every slot on it; or a list of at least as many devices as
+    the mesh has slots (as the JAX function checks), slot s on
+    ``devices[s]``, as the JAX function lays the list over its grid."""
     dcn_sizes = {k: v for k, v in dcn.items() if v > 1}
     ici_sizes = {k: v for k, v in ici.items() if v > 1}
     names = tuple(dcn_sizes) + tuple(ici_sizes)
     shape = tuple(dcn_sizes.values()) + tuple(ici_sizes.values())
     need = int(np.prod(shape)) if shape else 1
-    if isinstance(devices, (list, tuple)) and len(devs) < need:
-        raise ValueError(f"hybrid mesh needs {need} devices, have "
-                         f"{len(devs)}")
-    distinct = {str(torch.device(d)) for d in devs}
-    if len(distinct) > 1:
-        raise ACCLError(f"make_hybrid_mesh: devices {sorted(distinct)} name "
-                        f"more than one card; meshes over several cards are "
-                        f"not part of accl_tpu_torch yet")
-    return RankMesh(names, shape, resolve_device(devs[0], "make_hybrid_mesh"))
+    if devices is None or isinstance(devices, (str, torch.device)):
+        return RankMesh(names, shape, resolve_device(
+            "cuda" if devices is None else devices, "make_hybrid_mesh"))
+    devs = _slot_devices(devices, need, "hybrid mesh")
+    return RankMesh(names, shape, devs[0], devs)

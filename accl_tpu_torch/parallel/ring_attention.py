@@ -22,6 +22,16 @@ streaming-softmax reference, member by member, hop by hop.  Gradients are
 autograd through the hops (``ops.flash``'s ``_FlashPacked``, so an lse
 that feeds a merge brings its cotangent into the backward kernels), the
 merges and the rotations.
+
+Members on several cards (their shards on more than one device, or
+``devices=``): each member's shards, carries and output stay on its own
+card; a rotation is a counted ``collectives.move`` of every K/V shard to
+the next member's card (the windowed schedule moves only the tails); a
+flash hop is one launch per card over that card's live members, stacked
+as above, so each member's rows are bitwise what one launch over every
+card's members gives; Ulysses' two all-to-alls cross through the same
+move and its attention is one launch per card over that card's members.
+The results are bitwise the one-card schedules'.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .collectives import all_to_all
+from .collectives import _placement, all_to_all, move
 
 NEG_INF = -1e30
 
@@ -45,10 +55,14 @@ def _flash_defaults(q):
     return on_card, mxu
 
 
-def _rotate(xs: list) -> list:
+def _rotate(xs: list, devs: Optional[list] = None) -> list:
     """One ring hop: member i + 1 gets member i's value (``ppermute`` with
-    the pairs (i, i + 1 mod P))."""
-    return xs[-1:] + xs[:-1]
+    the pairs (i, i + 1 mod P)); with ``devs`` (members on several cards)
+    each value moves to its new member's card, counted."""
+    out = xs[-1:] + xs[:-1]
+    if devs is None:
+        return out
+    return [move(x, d) for x, d in zip(out, devs)]
 
 
 def _block_attn(q, k, v, bias):
@@ -97,7 +111,7 @@ def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
                    vs: Sequence[torch.Tensor], causal: bool = False,
                    impl: Optional[str] = None, schedule: str = "contiguous",
                    flash_opts: Optional[dict] = None,
-                   window: Optional[int] = None) -> list:
+                   window: Optional[int] = None, devices=None) -> list:
     """Exact attention over the sequence the members' shards make up.
 
     ``qs``, ``ks``, ``vs``: one [B, T_local, H, D] shard per member (K/V
@@ -111,10 +125,13 @@ def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     sequence permuted by :func:`zigzag_indices` and returns outputs in
     that order.  ``flash_opts`` go to every flash call.  ``window``
     (causal, contiguous, window <= T_local) is sliding-window attention:
-    the local windowed block plus one neighbour hop."""
+    the local windowed block plus one neighbour hop.  ``devices``: the
+    members' devices, for members on several cards (by default the
+    shards' own, when they lie on more than one)."""
     if schedule not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown ring_attention schedule {schedule!r}")
     qs, ks, vs = list(qs), list(ks), list(vs)
+    devs = _placement(qs, devices)
     if impl is None:
         impl = "flash" if _flash_defaults(qs[0])[0] else "dense"
     H = qs[0].shape[2]
@@ -140,7 +157,7 @@ def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
                 "windows span more than one neighbor shard (shard the "
                 "sequence into fewer, longer pieces)")
         return _ring_attention_windowed(qs, ks, vs, window, impl,
-                                        flash_opts=flash_opts)
+                                        flash_opts=flash_opts, devs=devs)
     if schedule == "zigzag":
         if not causal:
             raise ValueError("zigzag schedule only makes sense for causal "
@@ -148,13 +165,14 @@ def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
                              "balanced)")
         if impl == "flash":
             return _ring_attention_flash_zigzag(qs, ks, vs,
-                                                flash_opts=flash_opts)
+                                                flash_opts=flash_opts,
+                                                devs=devs)
         if impl != "dense":
             raise ValueError(f"unknown ring_attention impl {impl!r}")
-        return _ring_attention_dense_zigzag(qs, ks, vs)
+        return _ring_attention_dense_zigzag(qs, ks, vs, devs)
     if impl == "flash":
         return _ring_attention_flash(qs, ks, vs, causal,
-                                     flash_opts=flash_opts)
+                                     flash_opts=flash_opts, devs=devs)
     if impl != "dense":
         raise ValueError(f"unknown ring_attention impl {impl!r}")
     bias_fn = None
@@ -165,28 +183,32 @@ def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
         def bias_fn(idx, src):
             keep = (idx * Tl + ar)[:, None] >= (src * Tl + ar)[None, :]
             return torch.where(keep, 0.0, NEG_INF)
-    return _dense_ring_loop(qs, ks, vs, bias_fn)
+    return _dense_ring_loop(qs, ks, vs, bias_fn, devs)
 
 
-def _dense_ring_loop(qs, ks, vs, bias_fn: Optional[Callable]) -> list:
+def _dense_ring_loop(qs, ks, vs, bias_fn: Optional[Callable],
+                     devs: Optional[list] = None) -> list:
     """The dense ring schedule of the contiguous and zigzag layouts: K/V
     rotate around the ring and each member folds every arriving shard
     into a streaming-softmax accumulator.  ``bias_fn(idx, src)`` is the
     [Tl, Tl] additive mask of the shard that started at member ``src``,
-    seen from member ``idx`` (None: unmasked)."""
+    seen from member ``idx`` (None: unmasked); on several cards each
+    member's mask is copied to its card."""
     P = len(qs)
     B, Tl, H, _D = qs[0].shape
     dev = qs[0].device
     qf = [q.float() for q in qs]
     o = [torch.zeros_like(q) for q in qf]
-    m = [torch.full((B, H, Tl), NEG_INF, device=dev) for _ in qs]
-    lsum = [torch.zeros((B, H, Tl), device=dev) for _ in qs]
+    m = [torch.full((B, H, Tl), NEG_INF, device=q.device) for q in qs]
+    lsum = [torch.zeros((B, H, Tl), device=q.device) for q in qs]
     kc, vc = list(ks), list(vs)
     zero_bias = torch.zeros((Tl, Tl), device=dev)
     for s in range(P):
         for idx in range(P):
             src = (idx - s) % P
             bias = bias_fn(idx, src) if bias_fn is not None else zero_bias
+            if devs is not None:
+                bias = bias.to(qf[idx].device)
             m_blk, p, pv = _block_attn(qf[idx], kc[idx], vc[idx], bias)
             m_new = torch.maximum(m[idx], m_blk)
             # the all-dead case: exp(NEG_INF - NEG_INF) = 1
@@ -199,7 +221,7 @@ def _dense_ring_loop(qs, ks, vs, bias_fn: Optional[Callable]) -> list:
                       + pv * beta.transpose(1, 2)[..., None])
             m[idx] = m_new
         if s < P - 1:
-            kc, vc = _rotate(kc), _rotate(vc)
+            kc, vc = _rotate(kc, devs), _rotate(vc, devs)
     return [(oi / torch.clamp_min(li, 1e-30).transpose(1, 2)[..., None])
             .to(q.dtype) for oi, li, q in zip(o, lsum, qs)]
 
@@ -234,19 +256,28 @@ def _fold(carry, part):
 def _flash_hop(items, causal: bool, mxu, flash_opts) -> list:
     """One flash launch over ``items`` ((q, k, v) of one member each, all of
     one shape), stacked along the batch axis; returns each item's (out
-    [B, Tq, H, D], lse [B, H, Tq])."""
+    [B, Tq, H, D], lse [B, H, Tq]).  Items on several cards make one
+    launch per card, over that card's items."""
     from ..ops.flash import flash_attention_lse
 
     opts = dict(flash_opts or {})
     opts.setdefault("mxu_dtype", mxu)
-    q, k, v = (torch.cat([it[j] for it in items]) for j in range(3))
-    out, lse = flash_attention_lse(q, k, v, causal=causal, **opts)
     B = items[0][0].shape[0]
-    return list(zip(out.split(B), lse.split(B)))
+    groups: dict = {}
+    for i, it in enumerate(items):
+        groups.setdefault(it[0].device, []).append(i)
+    got = [None] * len(items)
+    for idxs in groups.values():
+        q, k, v = (torch.cat([items[i][j] for i in idxs]) for j in range(3))
+        out, lse = flash_attention_lse(q, k, v, causal=causal, **opts)
+        for i, part in zip(idxs, zip(out.split(B), lse.split(B))):
+            got[i] = part
+    return got
 
 
 def _ring_attention_flash(qs, ks, vs, causal: bool,
-                          flash_opts: Optional[dict] = None) -> list:
+                          flash_opts: Optional[dict] = None,
+                          devs: Optional[list] = None) -> list:
     """The contiguous flash ring: on hop s member idx holds the shard that
     started at src = (idx - s) mod P, which is the diagonal (s = 0, causal
     flash), in the past (src < idx, unmasked flash) or in the future (no
@@ -265,11 +296,12 @@ def _ring_attention_flash(qs, ks, vs, causal: bool,
         for idx, part in zip(live, parts):
             carry[idx] = _fold(carry[idx], part)
         if s < P - 1:
-            kc, vc = _rotate(kc), _rotate(vc)
+            kc, vc = _rotate(kc, devs), _rotate(vc, devs)
     return [c[0].to(q.dtype) for c, q in zip(carry, qs)]
 
 
-def _ring_attention_dense_zigzag(qs, ks, vs) -> list:
+def _ring_attention_dense_zigzag(qs, ks, vs,
+                                 devs: Optional[list] = None) -> list:
     """The dense zigzag schedule: the shared ring loop with the causal mask
     taken from the zigzag global positions of the local rows (chunk idx
     and its mirror 2P - 1 - idx)."""
@@ -287,11 +319,12 @@ def _ring_attention_dense_zigzag(qs, ks, vs) -> list:
         keep = positions(idx)[:, None] >= positions(src)[None, :]
         return torch.where(keep, 0.0, NEG_INF)
 
-    return _dense_ring_loop(qs, ks, vs, bias_fn)
+    return _dense_ring_loop(qs, ks, vs, bias_fn, devs)
 
 
 def _ring_attention_flash_zigzag(qs, ks, vs,
-                                 flash_opts: Optional[dict] = None) -> list:
+                                 flash_opts: Optional[dict] = None,
+                                 devs: Optional[list] = None) -> list:
     """The flash zigzag schedule.  Member idx holds chunks (idx, 2P-1-idx),
     q halves ql and qh of C = T_local / 2 rows.  With the arriving chunks
     (a, 2P-1-a), a = (idx - s) mod P, the live half-chunk pairs are:
@@ -343,7 +376,7 @@ def _ring_attention_flash_zigzag(qs, ks, vs,
             if ("he", idx) in parts:
                 hi[idx] = _fold(hi[idx], parts[("he", idx)])
         if s < P - 1:
-            kc, vc = _rotate(kc), _rotate(vc)
+            kc, vc = _rotate(kc, devs), _rotate(vc, devs)
     return [torch.cat([a[0], b[0]], dim=1).to(q.dtype)
             for a, b, q in zip(lo, hi, qs)]
 
@@ -382,7 +415,8 @@ def _banded_cross_lse(q, kk, vv, offset: int, window: int, live: bool):
 
 
 def _ring_attention_windowed(qs, ks, vs, window: int, impl: str,
-                             flash_opts: Optional[dict] = None) -> list:
+                             flash_opts: Optional[dict] = None,
+                             devs: Optional[list] = None) -> list:
     """Sliding-window attention over contiguous shards (causal, window <=
     T_local): a query's band lies in its own shard and the previous one,
     so the ring collapses to the local windowed block (one flash launch
@@ -409,8 +443,8 @@ def _ring_attention_windowed(qs, ks, vs, window: int, impl: str,
         return [o.to(q.dtype) for (o, _lse), q in zip(local, qs)]
     # the hop moves only the previous shard's last Wn rows, the only ones
     # any query here can see
-    ktail = _rotate([k[:, Tl - Wn:] for k in ks])
-    vtail = _rotate([v[:, Tl - Wn:] for v in vs])
+    ktail = _rotate([k[:, Tl - Wn:] for k in ks], devs)
+    vtail = _rotate([v[:, Tl - Wn:] for v in vs], devs)
     out = [local[0][0].to(qs[0].dtype)]
     for idx in range(1, P):
         o_loc, lse_loc = local[idx]
@@ -430,7 +464,8 @@ def _ring_attention_windowed(qs, ks, vs, window: int, impl: str,
 def ulysses_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
                       vs: Sequence[torch.Tensor], causal: bool = False,
                       attn_fn: Optional[Callable] = None,
-                      attn_fn_gqa_aware: bool = False) -> list:
+                      attn_fn_gqa_aware: bool = False,
+                      devices=None) -> list:
     """DeepSpeed-Ulysses sequence parallelism: an all-to-all reshards
     sequence to heads, so each member attends over the whole sequence on
     H / P of the heads, and a second one reshards back.  H % P == 0.
@@ -442,8 +477,12 @@ def ulysses_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     ``ops.flash.flash_attention`` on the card (one launch, grouped K/V in
     place) and the dense reference on the CPU.  A caller's ``attn_fn``
     gets K/V expanded to one head per q head unless
-    ``attn_fn_gqa_aware``."""
+    ``attn_fn_gqa_aware``.  Members on several cards (``devices``, or
+    the shards' own devices): the all-to-alls cross through the counted
+    move, and the attention runs once per card over that card's
+    members."""
     qs, ks, vs = list(qs), list(ks), list(vs)
+    devs = _placement(qs, devices)
     P = len(qs)
     B, Tl, H, D = qs[0].shape
     G = ks[0].shape[2]
@@ -453,14 +492,22 @@ def ulysses_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
         raise ValueError(f"K/V heads {G} must divide q heads {H} and "
                          f"be divisible by sp={P} for Ulysses GQA")
 
+    # the members of each card, in member order (one card: all of them)
+    groups: dict = {}
+    for r in range(P):
+        groups.setdefault(None if devs is None else devs[r], []).append(r)
+
     def seq_to_heads(xs):
-        # [B, Tl, h, D] -> [B, P Tl, h / P, D] (h: that tensor's heads)
+        # [B, Tl, h, D] -> per card [len(card) B, P Tl, h / P, D] (h: that
+        # tensor's heads)
         h = xs[0].shape[2]
         xs = all_to_all([x.reshape(B, Tl, P, h // P, D) for x in xs],
-                        split_axis=2, concat_axis=1, tiled=True)
-        return torch.cat([x.reshape(B, P * Tl, h // P, D) for x in xs])
+                        split_axis=2, concat_axis=1, tiled=True,
+                        devices=devs)
+        return [torch.cat([xs[r].reshape(B, P * Tl, h // P, D)
+                           for r in rs]) for rs in groups.values()]
 
-    qg, kg, vg = seq_to_heads(qs), seq_to_heads(ks), seq_to_heads(vs)
+    qgs, kgs, vgs = seq_to_heads(qs), seq_to_heads(ks), seq_to_heads(vs)
     wants_expansion = attn_fn is not None and not attn_fn_gqa_aware
     if attn_fn is None:
         on_card, mxu = _flash_defaults(qs[0])
@@ -474,11 +521,15 @@ def ulysses_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
             def attn_fn(q, k, v):
                 return _dense_attention(q, k, v, causal=causal)
             wants_expansion = True
-    if kg.shape[2] != qg.shape[2] and wants_expansion:
-        kg, vg = expand_gqa_kv(kg, vg, qg.shape[2])
-    og = attn_fn(qg, kg, vg)
-    back = [x.reshape(B, P * Tl, 1, H // P, D) for x in og.split(B)]
-    back = all_to_all(back, split_axis=1, concat_axis=2, tiled=True)
+    back = [None] * P
+    for rs, qg, kg, vg in zip(groups.values(), qgs, kgs, vgs):
+        if kg.shape[2] != qg.shape[2] and wants_expansion:
+            kg, vg = expand_gqa_kv(kg, vg, qg.shape[2])
+        og = attn_fn(qg, kg, vg)
+        for r, x in zip(rs, og.split(B)):
+            back[r] = x.reshape(B, P * Tl, 1, H // P, D)
+    back = all_to_all(back, split_axis=1, concat_axis=2, tiled=True,
+                      devices=devs)
     return [x.reshape(B, Tl, H, D) for x in back]
 
 

@@ -16,6 +16,16 @@ Values every member ends with alike are one object, repeated.
 
 A gradient "tree" is a tensor or any dict/list nesting of tensors (the
 model's parameter layout included).
+
+Members on several cards: every function takes ``devices=`` (member r's
+device; the tensors' own devices when they lie on more than one) and
+then runs the collectives' several-cards forms (``collectives.py``):
+each member's result its own tensor on its own card, every crossing a
+counted ``collectives.move``, the folds in rank order, so the results
+are bitwise the one-card forms.  ``sync_gradients(compress="int8")``
+gathers the members' leaves on member 0's card, runs the int8 ring
+there and sends each member the result, the hub path of ``CudaWorld``'s
+int8 lane (2 (P - 1) moves a leaf).
 """
 from __future__ import annotations
 
@@ -25,8 +35,14 @@ import torch
 
 from ..ops.quantized import quantized_all_reduce
 from ..utils.tree import tree_leaves, tree_map
-from .collectives import all_gather, all_reduce, all_to_all, ppermute, \
-    reduce_scatter
+from .collectives import _placement, all_gather, all_reduce, all_to_all, \
+    move, ppermute, reduce_scatter
+
+
+def _tree_devices(trees: Sequence, devices) -> Optional[list]:
+    """Each member's device when the members are on several cards, from
+    ``devices`` or from the trees' first leaves, else None."""
+    return _placement([tree_leaves(t)[0] for t in trees], devices)
 
 
 def _per_member(fn: Callable, trees: Sequence) -> list:
@@ -56,7 +72,8 @@ def _pad_to_multiple(flat: torch.Tensor, size: int) -> torch.Tensor:
 
 def sync_gradients(grads: Sequence, compress: Optional[str] = None,
                    mean: bool = True, error_feedback: bool = False,
-                   stochastic: bool = False, seed: int = 0) -> list:
+                   stochastic: bool = False, seed: int = 0,
+                   devices=None) -> list:
     """All-reduce per-member gradient trees across the data-parallel
     members (``grads[r]`` is member r's tree): the mean (or with
     ``mean=False`` the sum) of each leaf, in its dtype.
@@ -68,10 +85,14 @@ def sync_gradients(grads: Sequence, compress: Optional[str] = None,
     ``error_feedback``, ``stochastic`` and ``seed`` (those apply to the
     int8 lane only)."""
     size = len(grads)
+    devs = _tree_devices(grads, devices)
 
     def sync_leaf(gs):
         orig = gs[0].dtype
         if compress == "int8":
+            if devs is not None:  # the hub path: every leaf on member 0's
+                gs = [g if r == 0 else move(g, devs[0])
+                      for r, g in enumerate(gs)]
             flats = [_pad_to_multiple(g.float().reshape(-1), size)
                      for g in gs]
             out = quantized_all_reduce(flats, error_feedback=error_feedback,
@@ -79,27 +100,32 @@ def sync_gradients(grads: Sequence, compress: Optional[str] = None,
             if mean:
                 out = out / size
             res = out[:gs[0].numel()].reshape(gs[0].shape).to(orig)
+            if devs is not None:
+                return [res] + [move(res, d) for d in devs[1:]]
             return [res] * size
         if compress == "bf16":
             gs = [g.to(torch.bfloat16).float() for g in gs]
         elif compress == "f16":
             gs = [g.to(torch.float16).float() for g in gs]
-        out = all_reduce(gs, "mean" if mean else "sum")[0]
-        return [out.to(orig)] * size
+        outs = all_reduce(gs, "mean" if mean else "sum", devices=devs)
+        if devs is not None:
+            return [o.to(orig) for o in outs]
+        return [outs[0].to(orig)] * size
 
     return _per_member(sync_leaf, grads)
 
 
-def zero_shard_gradients(grads: Sequence) -> list:
+def zero_shard_gradients(grads: Sequence, devices=None) -> list:
     """ZeRO-1 style: reduce-scatter each flattened, zero-padded gradient
     leaf, so member r owns block r of the reduced values."""
     size = len(grads)
+    devs = _tree_devices(grads, devices)
     return _per_member(
         lambda gs: reduce_scatter([_pad_to_multiple(g.reshape(-1), size)
-                                   for g in gs]), grads)
+                                   for g in gs], devices=devs), grads)
 
 
-def zero_unshard_params(shards: Sequence, shapes) -> list:
+def zero_unshard_params(shards: Sequence, shapes, devices=None) -> list:
     """Inverse of :func:`zero_shard_gradients`: all-gather the owned
     blocks back into full leaves.  ``shapes`` is a tree of shape tuples in
     the shards' structure (tuples inside it are shapes, not nodes)."""
@@ -117,12 +143,16 @@ def zero_unshard_params(shards: Sequence, shapes) -> list:
 
     collect(shapes)
     it = iter(shape_list)
+    devs = _tree_devices(shards, devices)
 
     def gather_leaf(ss):
         shape = next(it)
         n = 1
         for d in shape:
             n *= d
+        if devs is not None:
+            return [f[:n].reshape(shape)
+                    for f in all_gather(list(ss), devices=devs)]
         full = all_gather(list(ss))[0]
         return [full[:n].reshape(shape)] * len(ss)
 
@@ -134,7 +164,7 @@ def zero_unshard_params(shards: Sequence, shapes) -> list:
 # ---------------------------------------------------------------------------
 def column_parallel(xs: Sequence[torch.Tensor],
                     w_shards: Sequence[torch.Tensor],
-                    gather_output: bool = False) -> list:
+                    gather_output: bool = False, devices=None) -> list:
     """y_r = x_r @ W[:, shard r] with float32 accumulation, in x's dtype;
     with ``gather_output`` every member gets the columns concatenated.
     (Megatron's column-parallel linear; no communication without the
@@ -142,17 +172,21 @@ def column_parallel(xs: Sequence[torch.Tensor],
     ys = [torch.matmul(x.float(), w.float()).to(x.dtype)
           for x, w in zip(xs, w_shards)]
     if gather_output:
-        return all_gather(ys, gather_axis=ys[0].dim() - 1)
+        return all_gather(ys, gather_axis=ys[0].dim() - 1, devices=devices)
     return ys
 
 
 def row_parallel(x_shards: Sequence[torch.Tensor],
-                 w_shards: Sequence[torch.Tensor]) -> list:
+                 w_shards: Sequence[torch.Tensor], devices=None) -> list:
     """y = sum_r x[shard r] @ W[shard r, :]: the float32 partial products
     all-reduce over the members (the fused matmul + allreduce pattern),
     cast to x's dtype."""
     partial = [torch.matmul(x.float(), w.float())
                for x, w in zip(x_shards, w_shards)]
+    devs = _placement(partial, devices)
+    if devs is not None:
+        return [o.to(x_shards[0].dtype)
+                for o in all_reduce(partial, devices=devs)]
     out = all_reduce(partial)[0].to(x_shards[0].dtype)
     return [out] * len(partial)
 
@@ -161,18 +195,29 @@ def row_parallel(x_shards: Sequence[torch.Tensor],
 # pipeline parallel
 # ---------------------------------------------------------------------------
 def pipeline_apply(stage_fn: Callable, params: Sequence,
-                   x_microbatches: torch.Tensor) -> list:
+                   x_microbatches: torch.Tensor, devices=None) -> list:
     """GPipe-style pipeline over P members, member i holding stage i's
     ``params[i]``.  ``x_microbatches`` [M, ...] enters stage 0; the
     schedule runs M + P - 1 ticks, each stage's output shifting to the
     next member every tick (no wraparound).  The last member gets the
-    outputs [M, ...]; every other member zeros."""
+    outputs [M, ...]; every other member zeros.  ``devices``: member i's
+    device, for stages on several cards (the microbatches go to member
+    0's; every shift is a counted move)."""
     P = len(params)
     M = x_microbatches.shape[0]
     fwd = [(i, i + 1) for i in range(P - 1)]
+    devs = None if devices is None else [torch.device(d) for d in devices]
+    if devs is not None:
+        x_microbatches = x_microbatches.to(devs[0])
     x0 = x_microbatches[0].float()
-    act = [torch.zeros_like(y) for y in ppermute(
-        [stage_fn(p, x0) for p in params], fwd)]
+    if devs is None:
+        act = [torch.zeros_like(y) for y in ppermute(
+            [stage_fn(p, x0) for p in params], fwd)]
+    else:  # the same zeros, each on its member's card, moving nothing
+        probe = [stage_fn(p, x0.to(d)) for p, d in zip(params, devs)]
+        act = [torch.zeros_like(probe[0])] + [
+            torch.zeros(probe[i - 1].shape, dtype=probe[i - 1].dtype,
+                        device=devs[i]) for i in range(1, P)]
     ys = [[] for _ in range(P)]
     for t in range(M + P - 1):
         mb = min(max(t, 0), M - 1)
@@ -180,8 +225,11 @@ def pipeline_apply(stage_fn: Callable, params: Sequence,
                          else act[i]) for i in range(P)]
         for i in range(P):
             ys[i].append(outs[i])
-        act = ppermute(outs, fwd)
+        act = ppermute(outs, fwd, devices=devs)
     last = torch.stack(ys[P - 1][P - 1:P - 1 + M])
+    if devs is not None:
+        return [torch.zeros(last.shape, dtype=last.dtype, device=d)
+                for d in devs[:-1]] + [last]
     return [torch.zeros_like(last)] * (P - 1) + [last]
 
 
@@ -224,7 +272,7 @@ def _expert_unbucket(backs: Sequence[torch.Tensor], infos: Sequence) -> list:
 
 def expert_dispatch(xs: Sequence[torch.Tensor],
                     expert_idxs: Sequence[torch.Tensor],
-                    capacity: int = 0) -> tuple:
+                    capacity: int = 0, devices=None) -> tuple:
     """Route each member's tokens to the member hosting their expert via
     all-to-all (one expert per member).  xs[r] [N, D], expert_idxs[r] [N]
     in [0, P).  Returns (expert inputs [P cap, D] per member, combine info
@@ -232,11 +280,13 @@ def expert_dispatch(xs: Sequence[torch.Tensor],
     P = len(xs)
     N, D = xs[0].shape
     buckets, infos = _expert_buckets(xs, expert_idxs, capacity or -(-N // P))
-    recv = all_to_all(buckets, split_axis=0, concat_axis=0, tiled=False)
+    recv = all_to_all(buckets, split_axis=0, concat_axis=0, tiled=False,
+                      devices=devices)
     return [r.reshape(-1, D) for r in recv], infos
 
 
-def expert_combine(ys: Sequence[torch.Tensor], infos: Sequence) -> list:
+def expert_combine(ys: Sequence[torch.Tensor], infos: Sequence,
+                   devices=None) -> list:
     """Inverse of :func:`expert_dispatch`: return the expert outputs
     [P cap, D] to their source members and scatter them back into token
     order."""
@@ -244,5 +294,5 @@ def expert_combine(ys: Sequence[torch.Tensor], infos: Sequence) -> list:
     cap = infos[0][3]
     D = ys[0].shape[-1]
     back = all_to_all([y.reshape(P, cap, D) for y in ys], split_axis=0,
-                      concat_axis=0, tiled=False)
+                      concat_axis=0, tiled=False, devices=devices)
     return _expert_unbucket(back, infos)

@@ -32,8 +32,9 @@ import numpy as np
 import torch
 
 from .constants import TuningKey
+from .models.moe import place_params as moe_place_params
 from .models.moe import shard_params as moe_shard_params
-from .models.transformer import shard_params
+from .models.transformer import Replicas, shard_params
 from .optim import AdamWState
 from .utils.device import resolve_device
 
@@ -88,12 +89,14 @@ def tp_weight_shards(w_full, P: int, device="cuda") -> list:
 
 
 def model_params_from_jax(params: dict, cfg, tp: int = 1,
-                          device="cuda") -> dict:
+                          device="cuda", mesh=None) -> dict:
     """The JAX package's parameter pytree (``{"embed", "blocks": [...],
     "ln_f"}``, numpy arrays) as the port's parameters on ``device``:
     replicated leaves once, sharded leaves split over ``tp`` ranks by
-    ``param_specs``."""
-    dev = resolve_device(device, "model_params_from_jax")
+    ``param_specs``.  With a ``mesh`` over several cards, placed on its
+    cards (``transformer.place_params``; tp is the mesh's extent)."""
+    dev = resolve_device(device if mesh is None else mesh.device,
+                         "model_params_from_jax")
 
     def conv(a):
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
@@ -101,7 +104,7 @@ def model_params_from_jax(params: dict, cfg, tp: int = 1,
     full = {"embed": conv(params["embed"]), "ln_f": conv(params["ln_f"]),
             "blocks": [{k: conv(v) for k, v in blk.items()}
                        for blk in params["blocks"]]}
-    return shard_params(full, cfg, tp)
+    return shard_params(full, cfg, tp, mesh=mesh)
 
 
 def model_params_to_numpy(params: dict, cfg) -> dict:
@@ -119,11 +122,13 @@ def model_params_to_numpy(params: dict, cfg) -> dict:
 
 
 def moe_params_from_jax(params: dict, cfg, ep: int = 1,
-                        device="cuda") -> dict:
+                        device="cuda", mesh=None) -> dict:
     """The JAX package's MoE parameter pytree (numpy arrays) as the port's
     MoE parameters on ``device``: the expert banks split over ``ep``
-    members, the other leaves once."""
-    dev = resolve_device(device, "moe_params_from_jax")
+    members, the other leaves once.  With a ``mesh`` over several cards,
+    placed on its cards (``moe.place_params``)."""
+    dev = resolve_device(device if mesh is None else mesh.device,
+                         "moe_params_from_jax")
 
     def conv(a):
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
@@ -131,6 +136,8 @@ def moe_params_from_jax(params: dict, cfg, ep: int = 1,
     full = {"embed": conv(params["embed"]), "ln_f": conv(params["ln_f"]),
             "blocks": [{k: conv(v) for k, v in blk.items()}
                        for blk in params["blocks"]]}
+    if mesh is not None and mesh.devices is not None:
+        return moe_place_params(full, cfg, mesh)
     return moe_shard_params(full, cfg, ep)
 
 
@@ -163,16 +170,29 @@ def _adam_node(opt_state):
 
 
 def adamw_state_from_optax(opt_state, cfg, tp: int = 1,
-                           device="cuda") -> AdamWState:
+                           device="cuda", mesh=None):
     """An ``optax.adamw`` state of the JAX model (its ``ScaleByAdamState``
     anywhere in the chain's tuple; arrays or numpy) as the port's
     ``AdamWState`` on ``device``: the moments in the port's parameter
-    layout, split over ``tp`` ranks, the count an int32 scalar."""
-    dev = resolve_device(device, "adamw_state_from_optax")
+    layout, split over ``tp`` ranks, the count an int32 scalar.  With a
+    ``mesh`` over several cards the moments are placed beside the shards
+    they mirror (``model_params_from_jax(mesh=)``), the count on each
+    member's hub; with a dp axis, one state per data member (a list)."""
     node = _adam_node(opt_state)
     if node is None:
         raise ValueError("adamw_state_from_optax: no state with count, mu "
                          "and nu in the optimizer state")
+    if mesh is not None and mesh.devices is not None:
+        mu = model_params_from_jax(node.mu, cfg, tp, mesh=mesh)
+        nu = model_params_from_jax(node.nu, cfg, tp, mesh=mesh)
+        count = int(np.asarray(node.count))
+        states = [AdamWState(count=torch.tensor(count, dtype=torch.int32,
+                                                device=m.places.devices[0]),
+                             mu=m, nu=n)
+                  for m, n in zip(*((t if isinstance(t, Replicas) else [t])
+                                    for t in (mu, nu)))]
+        return states if isinstance(mu, Replicas) else states[0]
+    dev = resolve_device(device, "adamw_state_from_optax")
     return AdamWState(
         count=torch.tensor(int(np.asarray(node.count)), dtype=torch.int32,
                            device=dev),

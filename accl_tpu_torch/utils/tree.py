@@ -23,7 +23,12 @@ def tree_map(fn: Callable, tree, *rest):
         # visit the leaves in tree_leaves' order, keep the dict's own
         done = {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
-        return {k: done[k] for k in tree}
+        out = {k: done[k] for k in tree}
+        if type(tree) is not dict:  # a dict subclass keeps its attributes
+            kept = type(tree)(out)
+            kept.__dict__.update(tree.__dict__)
+            return kept
+        return out
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)

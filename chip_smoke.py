@@ -373,6 +373,29 @@ Phases, each fatal on failure:
      did not run.  Its ring launches join rows 1-2 of the kernels line,
      and rows ring_*_tables (ring_*_cross with two or more cards) time
      the mode (bench/multicard.py);
+  7k. model meshes over several cards (phase model_cards, run after
+     moe_path, before part a's world): with two or more cards, over
+     min(4, count) of them: Llama-3-8B at full width and all 32 layers,
+     bf16, tp = 4 (one shard a card; parallel.make_mesh(devices=),
+     models.place_params): the 2 x 4096 forward and greedy generate of
+     MC_NEW tokens from MC_PROMPT-token prompts; a dp 2 x tp 2 AdamW step
+     at 2 layers, fp32; ring attention at sp = 4 over MC_SP_TOKENS tokens
+     at Llama's heads, bf16, contiguous and zigzag; Switch-Base-8 at ep =
+     8, two experts a card; and the TP contraction
+     fused_matmul_allreduce_pallas at Llama's TP = 4 MLP-down, fp32, one
+     rank a card (the fused kernel's cross-card mode) and on card 0 in
+     its per-rank-table form (ring.rank_tables).  Each is held bitwise
+     against the same mesh with every slot on card 0.  On one card the
+     same meshes run with every slot on card 0, the model cut to 2
+     layers, each held bitwise against the one-card forms (shard_params,
+     the one-card ring, the one-launch kernels), and the phase prints
+     that the cross-card part did not run.  The counts are set to 0 just
+     before the per-card meshes are driven and read just after: the
+     flash forward and backward kernels, the ring all-gather and the
+     fused kernel's per-rank-table form (and, across cards, its
+     cross-card mode) must launch, and across cards a counted move must
+     cross.  Rows fused_matmul_reduce_scatter_tables (and _cross with two
+     or more cards) time the mode (bench/model_cards.py);
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -812,7 +835,9 @@ def check_flash_fwd_sass(lib_path) -> dict:
 FUSED_KERNEL_NAMES = ("matmul_kernel<float, 128>", "matmul_kernel<float, 64>",
                       "matmul_kernel<bf16, 128>", "matmul_kernel<bf16, 64>",
                       "fused_matmul_rs_kernel<float>",
-                      "fused_matmul_rs_kernel<bf16>")
+                      "fused_matmul_rs_kernel<bf16>",
+                      "fused_matmul_rs_cross_kernel<float>",
+                      "fused_matmul_rs_cross_kernel<bf16>")
 
 
 def fused_kernel_info(F) -> dict:
@@ -6688,6 +6713,261 @@ def time_table_kernels(ring, launches_tables, C) -> list:
     return rows
 
 
+#: phase model_cards: the Llama-3-8B model's depth over several cards (all
+#: 32 layers) and on one card's per-card list (cut to 2); the prompt and
+#: new tokens of its greedy generate; the sp members' tokens; the AdamW
+#: step's tokens (a dp member's rows x length)
+MC_LAYERS = {"cards": 32, "one": 2}
+MC_PROMPT = 128
+MC_NEW = 4
+MC_SP_TOKENS = 32768
+MC_STEP_TOKENS = (2, 1024)
+
+
+def _sync_all(C: int) -> None:
+    for c in range(C):
+        torch.cuda.synchronize(c)
+
+
+def model_cards_phase(ring, F, FL, M, MM, S, RA, T_) -> dict:
+    """Phase 7k (model_cards): see the module docstring.  Every count is
+    set to 0 just before the per-card meshes are driven and read just
+    after; the references run after that."""
+    from accl_tpu_torch.bench import model_cards as MCB
+    from accl_tpu_torch.optim import adamw
+
+    C = torch.cuda.device_count()
+    n = min(4, C)
+    cross = n >= 2
+    t0 = time.perf_counter()
+    slot4, slot8 = MCB._slots(n, 4), MCB._slots(n, 8)
+    layers = MC_LAYERS["cards" if cross else "one"]
+    cfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": layers,
+                           "dtype": "bfloat16"})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    torch.cuda.empty_cache()
+    full = MCB.llama_bf16(M, cfg, gen)
+    tokens = torch.randint(0, cfg.vocab, (2, TOKENS), generator=gen,
+                           device="cuda")
+    scfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": 2})
+    base = M.init_params(gen, scfg, tp=1)
+    stoks = torch.randint(0, scfg.vocab,
+                          (2 * MC_STEP_TOKENS[0], MC_STEP_TOKENS[1]),
+                          generator=gen, device="cuda")
+    G, H, D = LLAMA3_8B["n_kv_heads"], LLAMA3_8B["n_heads"], D_HEAD
+    Tl = MC_SP_TOKENS // 4
+    qkv = [torch.randn(1, MC_SP_TOKENS, h, D, generator=gen, device="cuda"
+                       ).to(torch.bfloat16) for h in (H, G, G)]
+    mcfg = MM.MoEConfig(**SWITCH_BASE_8)
+    mfull = MM.init_params(gen, mcfg, ep=1)
+    mtoks = torch.randint(0, mcfg.vocab, MOE_TOKENS, generator=gen,
+                          device="cuda")
+    m_, K_, N_ = MCB.tp_shapes(4)["mlp_down"]
+    tp_x = [torch.randn(4 * m_, K_, generator=gen, device="cuda")
+            for _ in range(4)]
+    tp_w = [torch.randn(K_, N_, generator=gen, device="cuda") * 0.02
+            for _ in range(4)]
+
+    def shards(t, devs):
+        return [c.to(d) for c, d in zip(t.chunk(4, dim=1), devs)]
+
+    def tp_operands(devs):
+        return ([x.to(d) for x, d in zip(tp_x, devs)],
+                [w.to(d) for w, d in zip(tp_w, devs)])
+
+    placed = M.place_params(full, cfg, S.make_mesh(tp=4, devices=slot4))
+    del full  # the references are placed from `placed` (peak memory)
+    smesh = S.make_mesh(dp=2, tp=2, devices=slot4)
+    reps = M.place_params(base, scfg, smesh)
+    step, _specs, init = M.make_train_step(
+        smesh, scfg, optimizer=adamw(ADAMW_LR), params=reps)
+    state = init(reps)
+    sp_args = [shards(t, slot4) for t in qkv]
+    zz = RA.zigzag_indices(MC_SP_TOKENS, 4).cuda()
+    zz_args = [shards(t[:, zz], slot4) for t in qkv]
+    mplaced = MM.place_params(mfull, mcfg, S.make_mesh(ep=8, devices=slot8))
+    tp_cards = tp_operands(slot4)
+    tp_card0 = tp_operands(["cuda:0"] * 4)
+    _sync_all(C)
+
+    # the per-card meshes, counted
+    reset_counts(ring, F, FL)
+    for fn in (ring.ring_reduce_scatter, ring.ring_all_gather,
+               F.fused_matmul_reduce_scatter):
+        fn.launches_cross = 0
+    S.reset_moves()
+    runs = {}
+
+    def run(name, fn):
+        _sync_all(C)
+        t = time.perf_counter()
+        out = fn()
+        _sync_all(C)
+        runs[name] = time.perf_counter() - t
+        return out
+
+    with torch.no_grad():
+        logits = run("forward", lambda: M.forward(placed, tokens, cfg))
+        gen_out = run("generate", lambda: M.generate(
+            placed, tokens[:, :MC_PROMPT], cfg, MC_NEW))
+        sp_out = run("sp_contiguous", lambda: RA.ring_attention(
+            *sp_args, causal=True, devices=slot4))
+        zz_out = run("sp_zigzag", lambda: RA.ring_attention(
+            *zz_args, causal=True, schedule="zigzag", devices=slot4))
+        moe_lg, _aux = run("moe_forward", lambda: MM.forward(
+            mplaced, mtoks, mcfg, ep=8))
+    _p, state, loss = run("adamw_step", lambda: step(reps, state, stoks))
+    tables_before = F.fused_matmul_reduce_scatter.launches_cross
+    with ring.rank_tables():
+        tp_tab = run("tp_tables", lambda: F.fused_matmul_allreduce_pallas(
+            *tp_card0))
+    tables = F.fused_matmul_reduce_scatter.launches_cross - tables_before
+    tp_cross = None
+    if cross:
+        tp_cross = run("tp_cross", lambda: F.fused_matmul_allreduce_pallas(
+            *tp_cards))
+    launches = read_counts(ring, F, FL)
+    moves = S.moves()
+    cross_launches = {fn.__name__: fn.launches_cross for fn in (
+        ring.ring_all_gather, F.fused_matmul_reduce_scatter)}
+    # row 7 counts the one-launch kernel; the mode has rows of its own
+    launches["fused_matmul_reduce_scatter"] -= \
+        cross_launches["fused_matmul_reduce_scatter"]
+    need = ("flash_fwd_resident", "flash_bwd_dq", "flash_bwd_dkv",
+            "ring_all_gather")
+    missing = [k for k in need if not launches.get(k)]
+    if missing or not tables or 0 in cross_launches.values():
+        fail(f"model_cards: kernels of the path not launched: {missing}, "
+             f"per-rank-table launches {tables}, cross {cross_launches}")
+    if cross and not moves:
+        fail("model_cards: no counted move across the cards")
+
+    # the references: the same meshes with every slot on card 0 (with one
+    # card: the one-card forms); bitwise
+    card0 = ["cuda:0"] * 4
+    ref_params = (M.place_params(placed, cfg, S.make_mesh(tp=4, devices=card0))
+                  if cross else M.shard_params(placed, cfg, 4))
+    del placed
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        checks = {
+            "forward": torch.equal(logits, M.forward(ref_params, tokens,
+                                                     cfg)),
+            "generate": torch.equal(gen_out, M.generate(
+                ref_params, tokens[:, :MC_PROMPT], cfg, MC_NEW)),
+            "finite_logits": bool(torch.isfinite(logits).all())}
+    del ref_params, logits
+    torch.cuda.empty_cache()
+    ref_devs = card0 if cross else None
+    with torch.no_grad():
+        for name, got, args, kw in (
+                ("sp_contiguous", sp_out, [shards(t, card0) for t in qkv],
+                 {}),
+                ("sp_zigzag", zz_out, [shards(t[:, zz], card0) for t in qkv],
+                 {"schedule": "zigzag"})):
+            want = RA.ring_attention(*args, causal=True, devices=ref_devs,
+                                     **kw)
+            checks[name] = all(torch.equal(a.to("cuda:0"), b)
+                               for a, b in zip(got, want))
+        mref = (MM.place_params(mfull, mcfg, S.make_mesh(
+            ep=8, devices=["cuda:0"] * 8)) if cross else
+            MM.shard_params(mfull, mcfg, 8))
+        checks["moe_forward"] = torch.equal(
+            moe_lg, MM.forward(mref, mtoks, mcfg, ep=8)[0])
+    del mref, mplaced, sp_out, zz_out
+    if cross:
+        rmesh = S.make_mesh(dp=2, tp=2, devices=card0)
+        rreps = M.place_params(base, scfg, rmesh)
+        rstep, _s, rinit = M.make_train_step(
+            rmesh, scfg, optimizer=adamw(ADAMW_LR), params=rreps)
+        _r, _rs, rloss = rstep(rreps, rinit(rreps), stoks)
+        got_leaves = [M.shard_params(r, scfg, 2) for r in reps]
+        want_leaves = [M.shard_params(r, scfg, 2) for r in rreps]
+    else:
+        ref = M.shard_params(base, scfg, 2)
+        rstep, _s, rinit = M.make_train_step(
+            S.make_mesh(dp=2, tp=2), scfg, optimizer=adamw(ADAMW_LR),
+            params=ref)
+        _r, _rs, rloss = rstep(ref, rinit(ref), stoks)
+        got_leaves = [M.shard_params(r, scfg, 2) for r in reps]
+        want_leaves = [ref, ref]
+    checks["adamw_step"] = torch.equal(loss, rloss) and all(
+        torch.equal(a.to("cuda:0"), b)
+        for g, w in zip(got_leaves, want_leaves)
+        for a, b in zip(T_.tree_leaves(g), T_.tree_leaves(w)))
+    _r = _rs = rreps = ref = rstep = None  # the reference's replicas, states
+    one = F.fused_matmul_allreduce_pallas(*tp_card0)
+    checks["tp_tables"] = all(torch.equal(a, b) for a, b in zip(tp_tab, one))
+    if cross:
+        checks["tp_cross"] = all(torch.equal(a.to("cuda:0"), b)
+                                 for a, b in zip(tp_cross, one))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"model_cards: not bitwise the same mesh on card 0 (one card: "
+             f"the one-card forms): {bad}")
+    # nothing of this phase stays in the allocator's cache for the phases
+    # after it
+    del reps, state, base, mfull, mtoks, stoks, tokens, qkv, sp_args, \
+        zz_args, tp_x, tp_w, tp_cards, tp_card0, tp_tab, tp_cross, gen_out, \
+        moe_lg, one, got_leaves, want_leaves
+    torch.cuda.empty_cache()
+    out = {"launches": launches, "tables": tables,
+           "cross": cross_launches["fused_matmul_reduce_scatter"] - tables,
+           "cards": n}
+    emit({"phase": "model_cards", "ok": True, "cards": n,
+          "seconds": time.perf_counter() - t0, "layers": layers,
+          "slots": {"tp4": slot4, "ep8": slot8},
+          "cross_card": ("ran" if cross else
+                         "not run: this machine has one card (the "
+                         "per-card lists ran with every slot on card 0, "
+                         "against the one-card forms)"),
+          "s": runs, "checks": sorted(checks), "moves": moves,
+          "launches": launches, "launches_cross": cross_launches,
+          "launches_tables": tables, "loss": float(loss)})
+    return out
+
+
+def time_model_card_kernels(F, mc) -> list:
+    """Rows of the fused kernel's cross-card mode (bench/model_cards.py
+    fused_rows) at Llama-3-8B's MLP-down at TP = 4, fp32: its
+    per-rank-table form of 4 ranks on card 0, and with two or more cards
+    the mode across them, one rank a card (its ms the slowest card's; the
+    nccl yardstick beside).  Launches: the model_cards phase's."""
+    from accl_tpu_torch.bench import model_cards as MCB
+
+    counts0 = (F.fused_matmul_reduce_scatter.launches,
+               F.fused_matmul_reduce_scatter.launches_cross)
+    sets = [("_tables", MCB._slots(1, 4), mc["tables"])]
+    if mc["cards"] >= 2:
+        sets.append(("_cross", [f"cuda:{c}" for c in range(mc["cards"])],
+                     mc["cross"]))
+    rows = []
+    for suffix, devices, launched in sets:
+        r = MCB.fused_rows(devices, "mlp_down", torch.float32, 5)
+        row = {"name": r["name"] + suffix, "route": "cuda",
+               "source": "accl_tpu_torch/ops/csrc/fused.cu",
+               "kernel": "accl_fused_matmul_rs_cross",
+               "replaces": "accl_tpu/ops/fused.py:476",
+               "launches": launched, "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "ms_per_card": r["ms_per_card"],
+               "one_launch_ms": r["one_launch_ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "library_call": r["library_call"],
+               "library_note": r["library_note"], "checked": True,
+               "shape": f"P={r['ranks']} on {r['cards']} card(s) x "
+                        f"[{r['ranks']},{r['m']},{r['K']}] @ "
+                        f"[{r['K']},{r['N']}] fp32, {r['form']} form"}
+        if not (r["bitwise_integers"] and r["bitwise_one_launch"]):
+            fail(f"{row['name']}: not bitwise its plain version on integers "
+                 f"and the one-launch form")
+        emit({"phase": "kernel_time", **row})
+        rows.append(row)
+    (F.fused_matmul_reduce_scatter.launches,
+     F.fused_matmul_reduce_scatter.launches_cross) = counts0
+    return rows
+
+
 def sweep_phase(world) -> dict:
     """Phase 8: bench/sweep.py's rows at SWEEP_WIDTHS on the 8-rank world
     (host-staged calls: each row includes the copies between host and
@@ -6827,6 +7107,7 @@ def main() -> int:
     spt = sp_train(ring, F, FL, M, S, T_)
     uly = ulysses_phase(ring, F, FL, RA)
     moe = moe_path(ring, F, FL, MM, MD, S, T_)
+    mcp = model_cards_phase(ring, F, FL, M, MM, S, RA, T_)
     mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
@@ -6841,11 +7122,11 @@ def main() -> int:
         # the main path's launches: the sum over its parts (the self-ring
         # launches have rows of their own)
         parts = (mp, tp, lanes, serve, train, adamw, sp, spt, uly, moe,
-                 plugin, plan)
+                 plugin, plan, mcp)
         launches = {k: sum(part["launches"].get(k, 0) for part in parts)
                     for k in mp["launches"]}
         launches.update({k: sum(part["launches"].get(k, 0) for part in (
-            serve, train, adamw, sp, spt, uly, moe, plugin))
+            serve, train, adamw, sp, spt, uly, moe, plugin, mcp))
             for k in FLASH_KERNELS})
         launches.update({k: plugin["launches"][k] for k in PL})
         if args.no_timing:
@@ -6857,6 +7138,7 @@ def main() -> int:
                                        sizes[-1], sizes)
         rows += time_fused_kernels(ring, F, errs, launches,
                                    tp["per_call_mlp_down"])
+        rows += time_model_card_kernels(F, mcp)
         rows += time_flash_kernels(FL, errs, launches, serve["per_forward"])
         rows += time_flash_bwd_kernels(FL, errs, launches, train["per_step"])
         rows += time_selfring_kernels(ring, SR, selfring["launches"])

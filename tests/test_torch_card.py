@@ -2015,3 +2015,217 @@ def test_cross_card_world_lanes_match_one_card_on_cards(layout):
                 np.testing.assert_array_equal(
                     results["cards" + lane][r][k].view(np.uint32),
                     v.view(np.uint32), err_msg=f"{lane} {k} rank {r}")
+
+
+# ---------------------------------------------------------------------------
+# model meshes over several cards: the fused kernel's cross-card mode, its
+# per-rank-table form on one card, and the models on per-card lists
+# ---------------------------------------------------------------------------
+def _fused_operands(P, m, K, N, dtype, seed, devices, ints=True):
+    g = torch.Generator().manual_seed(seed)
+    if ints:
+        xs = [torch.randint(-3, 4, (P, m, K), generator=g) for _ in devices]
+        ws = [torch.randint(-3, 4, (K, N), generator=g) for _ in devices]
+    else:
+        xs = [torch.randn(P, m, K, generator=g) for _ in devices]
+        ws = [torch.randn(K, N, generator=g) * 0.05 for _ in devices]
+    return ([x.to(dtype).to(d) for x, d in zip(xs, devices)],
+            [w.to(dtype).to(d) for w, d in zip(ws, devices)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,m,K,N", [(2, 128, 64, 128), (3, 100, 40, 72),
+                                     (4, 256, 96, 384), (8, 125, 333, 777)])
+def test_fused_rank_tables_form_matches_one_launch_on_card(dtype, P, m, K,
+                                                           N):
+    """The fused kernel's cross-card mode in its per-rank-table form, every
+    rank on one card: bitwise the plain version on integers and the
+    one-launch kernel on random data, three calls back to back on the
+    same tables (the handshake's count grows), one launch each."""
+    devices = ["cuda:0"] * P
+    xs, ws = _fused_operands(P, m, K, N, dtype, 21, devices)
+    want = TF.fused_matmul_reduce_scatter_plain(xs, ws)
+    before = TF.fused_matmul_reduce_scatter.launches_cross
+    with tring.rank_tables():
+        for _ in range(3):
+            got = [t.clone() for t in TF.fused_matmul_reduce_scatter(xs, ws)]
+    torch.cuda.synchronize()
+    assert TF.fused_matmul_reduce_scatter.launches_cross - before == 3
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    xs, ws = _fused_operands(P, m, K, N, dtype, 22, devices, ints=False)
+    one = TF.fused_matmul_reduce_scatter(xs, ws)
+    with tring.rank_tables():
+        got = TF.fused_matmul_reduce_scatter(xs, ws)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(got, one))
+
+
+def test_fused_cross_instantiations_fit_one_block_an_sm_on_card():
+    """The cross-card mode's instantiations run at one block an SM, with
+    no spill, as the one-launch kernel does."""
+    import ctypes
+
+    from accl_tpu_torch.ops import _build
+
+    lib = _build.load("fused")
+    for which in (6, 7):
+        out = (ctypes.c_int * 5)()
+        assert lib.accl_fused_kernel_info(which, 0, out) == 0
+        assert out[1] == 0 and out[4] == 1, list(out)
+
+
+@pytest.mark.parametrize("layout", ["one_a_card", "two_a_card",
+                                    "interleaved"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_cross_card_matches_plain_on_cards(layout, dtype):
+    """The fused kernel over every card: one launch per card, each rank's
+    block on its own card, bitwise the plain version on integers and the
+    one-launch kernel on random data; five calls back to back; the
+    allreduce form with the ring all-gather's cross-card mode."""
+    devices = _layouts()[layout]
+    P = len(devices)
+    xs, ws = _fused_operands(P, 128, 72, 256, dtype, 23, devices)
+    want = TF.fused_matmul_reduce_scatter_plain(xs, ws)
+    before = TF.fused_matmul_reduce_scatter.launches_cross
+    for _ in range(5):
+        got = TF.fused_matmul_reduce_scatter(xs, ws)
+    torch.cuda.synchronize()
+    cards = len(set(devices))
+    assert TF.fused_matmul_reduce_scatter.launches_cross - before == 5 * cards
+    for r in range(P):
+        assert got[r].device == torch.device(devices[r])
+        assert _same_bits(got[r], want[r])
+    xs, ws = _fused_operands(P, 128, 72, 256, dtype, 24, devices, ints=False)
+    one = TF.fused_matmul_reduce_scatter([x.to("cuda:0") for x in xs],
+                                         [w.to("cuda:0") for w in ws])
+    got = TF.fused_matmul_reduce_scatter(xs, ws)
+    assert all(_same_bits(a.to("cuda:0"), b) for a, b in zip(got, one))
+    full = [x.reshape(P * 128, 72).contiguous() for x in xs]
+    ar = TF.fused_matmul_allreduce_pallas(full, ws)
+    ar_one = TF.fused_matmul_allreduce_pallas([x.to("cuda:0") for x in full],
+                                              [w.to("cuda:0") for w in ws])
+    assert all(a.device == torch.device(d) and _same_bits(a.to("cuda:0"), b)
+               for a, b, d in zip(ar, ar_one, devices))
+
+
+def _card_slots(n):
+    """n mesh slots over the cards in contiguous groups (card 0 alone
+    holds them all on a one-card machine)."""
+    cards = min(4, torch.cuda.device_count())
+    return [f"cuda:{r * cards // n}" for r in range(n)]
+
+
+def _small_model():
+    cfg = TT.ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=8,
+                         n_kv_heads=4, d_head=32, d_ff=512, mlp="swiglu",
+                         rope=True, attn="flash")
+    return cfg, TT.init_params(np.random.default_rng(3), cfg, tp=1,
+                               device="cuda:0")
+
+
+def test_model_forward_generate_and_step_over_cards_on_cards():
+    """The transformer over per-card lists (all on card 0 with one card):
+    the forward, greedy generate and a dp 2 x tp 2 AdamW step, bitwise
+    the one-card forms; the decode graph refuses to capture."""
+    from accl_tpu_torch import ACCLError, optim
+    from accl_tpu_torch.models import decode as TD
+    from accl_tpu_torch.parallel import make_mesh
+    from accl_tpu_torch.utils.tree import tree_leaves
+
+    cfg, full = _small_model()
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (4, 64))).to("cuda:0")
+    placed = TT.place_params(full, cfg, make_mesh(tp=4,
+                                                  devices=_card_slots(4)))
+    one = TT.shard_params(full, cfg, 4)
+    torch.cuda.set_device(0)
+    assert torch.equal(TT.forward(placed, tok, cfg).cpu(),
+                       TT.forward(one, tok, cfg).cpu())
+    # a kernel launched on another card leaves the current card as it was
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(TD.generate(placed, tok[:, :8], cfg, 5).cpu(),
+                       TD.generate(one, tok[:, :8], cfg, 5).cpu())
+    cache = TD.init_kv_cache(cfg, 4, 16, 4, devices=placed.places.devices)
+    _lg, cache = TD.prefill(placed, tok[:, :8], cache, cfg)
+    g = TD.DecodeGraph(placed, cache, cfg, tok[:, 8])
+    with pytest.raises(ACCLError, match="ROADMAP item 13"):
+        g.capture()
+    mesh = make_mesh(dp=2, tp=2, devices=_card_slots(4))
+    reps = TT.place_params(full, cfg, mesh)
+    ref = TT.shard_params(full, cfg, 2)
+    opt = optim.adamw(1e-3)
+    sc, _s, ic = TT.make_train_step(mesh, cfg, optimizer=opt, params=reps)
+    s1, _s, i1 = TT.make_train_step(make_mesh(dp=2, tp=2), cfg,
+                                    optimizer=opt, params=ref)
+    stc, st1 = ic(reps), i1(ref)
+    for _ in range(2):
+        _p, stc, lc = sc(reps, stc, tok)
+        _p, st1, l1 = s1(ref, st1, tok)
+        assert torch.equal(lc.cpu(), l1.cpu())
+    for rep in reps:
+        for a, b in zip(tree_leaves(TT.shard_params(rep, cfg, 2)),
+                        tree_leaves(ref)):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("schedule", ["contiguous", "zigzag", "windowed"])
+def test_ring_attention_over_cards_on_cards(schedule):
+    """Ring attention with the sp members on per-card lists (a flash launch
+    per card and hop), bitwise the one-card ring, with gradients."""
+    import importlib
+
+    RA = importlib.import_module("accl_tpu_torch.parallel.ring_attention")
+    devs = _card_slots(4)
+    g = torch.Generator().manual_seed(5)
+    base = [torch.randn(1, 4 * 256, h, 64, generator=g) for h in (8, 2, 2)]
+    kw = {"causal": True}
+    if schedule == "zigzag":
+        kw["schedule"] = "zigzag"
+    if schedule == "windowed":
+        kw["window"] = 100
+
+    def run(devices):
+        # devices=None: the one-card ring, every member on card 0
+        ts = [b.to("cuda:0").requires_grad_(True) for b in base]
+        args = [[c.to(d) for c, d in zip(t.chunk(4, 1),
+                                         devices or ["cuda:0"] * 4)]
+                for t in ts]
+        outs = RA.ring_attention(*args, impl="flash", devices=devices, **kw)
+        sum((o.to("cuda:0") * (i + 1)).sum()
+            for i, o in enumerate(outs)).backward()
+        return [o.to("cuda:0") for o in outs], [t.grad for t in ts]
+
+    got, gg = run(devs)
+    want, gw = run(None)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    assert all(_same_bits(a, b) for a, b in zip(gg, gw))
+
+
+def test_moe_over_cards_on_cards():
+    """The MoE model with its experts on per-card lists (two a card on
+    four cards), forward and one SGD step, bitwise the one-card forms."""
+    from accl_tpu_torch.models import moe as TMO
+    from accl_tpu_torch.parallel import make_mesh
+    from accl_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TMO.MoEConfig(vocab=256, d_model=64, n_layers=2, n_heads=4,
+                        d_head=16, d_ff=128, n_experts=8)
+    full = TMO.init_params(np.random.default_rng(6), cfg, ep=1,
+                           device="cuda:0")
+    tok = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (8, 32))).to("cuda:0")
+    mesh = make_mesh(ep=8, devices=_card_slots(8))
+    placed = TMO.place_params(full, cfg, mesh)
+    one = TMO.shard_params(full, cfg, 8)
+    for fused in (False, True):
+        a, _ = TMO.forward(placed, tok, cfg, ep=8, fused=fused)
+        b, _ = TMO.forward(one, tok, cfg, ep=8, fused=fused)
+        assert torch.equal(a.cpu(), b.cpu())
+    sc, _ = TMO.make_train_step(mesh, cfg, lr=0.1)
+    s1, _ = TMO.make_train_step(make_mesh(ep=8), cfg, lr=0.1)
+    _p, lc = sc(placed, tok)
+    _p, l1 = s1(one, tok)
+    assert torch.equal(lc.cpu(), l1.cpu())
+    for a, b in zip(tree_leaves(TMO.shard_params(placed, cfg, 8)),
+                    tree_leaves(one)):
+        assert torch.equal(a.cpu(), b.cpu())

@@ -484,9 +484,20 @@ def test_kernel_source_holds_the_replayed_handshake():
         step = src[src.index(f"void {name}"):]
         step = step[:step.index("\n}\n")]
         assert scope in step and other not in step, name
-    assert f"#define HS_WORDS {tring.HS_WORDS}" in src
+    # the flags' head is defined once, in the header both sources share
+    assert '#include "ring_sync.cuh"' in src and "#define HS_WORDS" not in src
+    assert f"#define HS_WORDS {tring.HS_WORDS}" in \
+        (RING_CU.parent / "ring_sync.cuh").read_text()
+    # fused.cu's one-launch kernel keeps .gpu; its cross-card mode, a
+    # function of its own, is .sys throughout
     fused = FUSED_CU.read_text()
-    assert "SCOPE_SYS" not in fused
+    one = fused[fused.index("fused_matmul_rs_kernel(PtrTable"):]
+    one = one[:one.index("\n}\n")]
+    assert "SCOPE_SYS" not in one
+    assert len(re.findall(r"<SCOPE_GPU>", one)) == 5
+    fcross = fused[fused.index("fused_matmul_rs_cross_kernel(PtrTable"):]
+    fcross = fcross[:fcross.index("\n}\n")]
+    assert "SCOPE_GPU" not in fcross
     assert len(re.findall(r"<SCOPE_GPU>", fused)) == 5
 
 
@@ -737,10 +748,28 @@ def test_make_hybrid_mesh_matches_jax(ici, dcn):
     assert listed == got
 
 
-def test_make_hybrid_mesh_refuses_several_cards_and_short_lists():
-    with pytest.raises(ACCLError, match="more than one card"):
-        make_hybrid_mesh({"tp": 2}, {"dp": 1},
-                         devices=["cuda:0", "cuda:1"])
+def test_make_hybrid_mesh_refuses_several_cards_and_short_lists(
+        monkeypatch):
+    # a list naming several cards maps slot s to devices[s], as the JAX
+    # function lays its device list over the grid (the cards are
+    # resolved and checked for peer access as on a host that has them)
+    from accl_tpu_torch.parallel import mesh as tmesh
+    monkeypatch.setattr(tmesh, "resolve_devices",
+                        lambda devs, n, what: [torch.device(d)
+                                               for d in list(devs)[:n]])
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: True)
+    for ici, dcn in (({"tp": 2}, {"dp": 1}), ({"tp": 2}, {"dp": 2}),
+                     ({"tp": 4}, {"dp": 2})):
+        n = int(np.prod(list(ici.values()) + list(dcn.values())))
+        want = jax_hybrid_mesh(ici, dcn, devices=jax.devices()[:n])
+        got = make_hybrid_mesh(ici, dcn,
+                               devices=[f"cuda:{i}" for i in range(n)])
+        assert got.axis_names == tuple(want.axis_names)
+        cards = np.vectorize(lambda d: d.index)(got.device_grid)
+        np.testing.assert_array_equal(
+            cards, np.vectorize(lambda d: d.id)(want.devices))
+        assert got.device == torch.device("cuda:0")
     with pytest.raises(ValueError, match="needs 8 devices, have 2"):
         make_hybrid_mesh({"tp": 4}, {"dp": 2}, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="needs 8 devices, have 2"):
