@@ -2,7 +2,7 @@
 mode, timed.
 
     python -m accl_tpu_torch.bench.model_cards [--iters 10] [--layers 32]
-        [--out FILE]
+        [--sp-layers 8] [--out FILE]
 
 It prints one JSON line per measurement and, last, the card's name and
 power limit:
@@ -30,7 +30,15 @@ power limit:
   against the same mesh with every slot on card 0, logits bitwise; a dp
   2 x tp 2 AdamW step at 2 layers, fp32, 1 x 2048 tokens a member, s per
   step (the first and the second) over the cards against the same mesh
-  on card 0, the updated parameters bitwise.
+  on card 0, the updated parameters bitwise;
+- ``model_sp``: the model's sp axis over the cards: Llama-3-8B at full
+  width and ``--sp-layers`` layers, bf16, attn="dense" (the ring's flash
+  hops), sp = 4 over 1 x 32768 tokens (one sp member a card on four,
+  each holding a replica of the weights): s per forward over the cards
+  against the same mesh with every slot on card 0, logits bitwise; a tp
+  2 x sp 2 AdamW step at 2 layers, fp32, 1 x 8192 tokens, s per step
+  (the first and the second) against the same mesh on card 0, the
+  updated parameters bitwise.
 
 With one card it times the per-rank-table form (``ring.rank_tables``)
 of 4 ranks on that card, and the model rows with the one-card mesh in
@@ -312,10 +320,91 @@ def model_rows(C: int, layers: int) -> list:
     return rows
 
 
+#: the sp rows: the forward's sp extent and tokens, the step's mesh and
+#: tokens
+SP_FORWARD = (4, 32768)
+SP_STEP = ({"tp": 2, "sp": 2}, 8192)
+
+
+def sp_rows(C: int, layers: int) -> list:
+    """The Llama-3-8B forward at sp = 4 over the C cards and the tp 2 x
+    sp 2 AdamW step over them, each against the same mesh with every
+    slot on card 0 (with one card the two are the same mesh)."""
+    from accl_tpu_torch import models as M
+    from accl_tpu_torch import optim
+    from accl_tpu_torch.parallel import make_mesh
+    from accl_tpu_torch.utils.tree import tree_leaves
+
+    cards = list(range(C))
+    sp, T = SP_FORWARD
+    cfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": layers,
+                           "attn": "dense", "dtype": "bfloat16"})
+    gen = torch.Generator(device="cuda:0").manual_seed(23)
+    full = llama_bf16(M, cfg, gen)
+    tokens = torch.randint(0, cfg.vocab, (1, T), generator=gen,
+                           device="cuda:0")
+    res = {}
+    for label, d in (("cards", _slots(C, sp)), ("card0", ["cuda:0"] * sp)):
+        params = M.place_params(full, cfg, make_mesh(sp=sp, devices=d))
+        with torch.no_grad():
+            s, samples, lg = _wall(lambda: M.forward(params, tokens, cfg,
+                                                     sp=sp), cards)
+        res[label] = (s, samples, lg)
+        del params, lg
+        torch.cuda.empty_cache()
+    rows = [{"what": "sp_forward", "config": "Llama-3-8B", "layers": layers,
+             "dtype": "bfloat16", "sp": sp, "tokens": [1, T],
+             "devices": _slots(C, sp), "s_cards": res["cards"][0],
+             "s_cards_samples": res["cards"][1], "s_card0": res["card0"][0],
+             "s_card0_samples": res["card0"][1],
+             "bitwise": torch.equal(res["cards"][2], res["card0"][2])}]
+    del full, res
+    torch.cuda.empty_cache()
+    axes, T = SP_STEP
+    scfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": 2, "attn": "dense"})
+    base = M.init_params(torch.Generator(device="cuda:0").manual_seed(24),
+                         scfg, tp=1)
+    toks = torch.randint(0, scfg.vocab, (1, T),
+                         generator=torch.Generator(device="cuda:0")
+                         .manual_seed(25), device="cuda:0")
+    out = {}
+    for label, d in (("cards", _slots(C, 4)), ("card0", ["cuda:0"] * 4)):
+        mesh = make_mesh(devices=d, **axes)
+        reps = M.place_params(base, scfg, mesh)
+        step, _specs, init = M.make_train_step(
+            mesh, scfg, optimizer=optim.adamw(1e-4), params=reps)
+        state = init(reps)
+        times = []
+        for _ in range(2):
+            t = time.perf_counter()
+            _p, state, loss = step(reps, state, toks)
+            for c in cards:
+                torch.cuda.synchronize(c)
+            times.append(time.perf_counter() - t)
+        out[label] = (times, float(loss),
+                      [x.to("cuda:0") for x in tree_leaves(
+                          M.shard_params(reps[1], scfg, 2))])
+        del reps, state, step
+        torch.cuda.empty_cache()
+    rows.append({"what": "sp_adamw_step", "config": "Llama-3-8B",
+                 "layers": 2, "dtype": "float32", "mesh": axes,
+                 "tokens": [1, T], "devices": _slots(C, 4),
+                 "s_steps_cards": out["cards"][0],
+                 "s_steps_card0": out["card0"][0],
+                 "loss": out["cards"][1],
+                 "bitwise": out["cards"][1] == out["card0"][1] and all(
+                     torch.equal(a, b) for a, b in zip(out["cards"][2],
+                                                       out["card0"][2]))})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--sp-layers", type=int, default=8,
+                    help="depth of the sp = 4 forward (every card, and "
+                         "card 0 four times over, holds the weights)")
     ap.add_argument("--out", help="also write the rows to this JSON file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -333,6 +422,9 @@ def main() -> int:
             print(json.dumps(rows[-1]), flush=True)
     for row in model_rows(C, args.layers):
         rows.append({"phase": "model", **row})
+        print(json.dumps(rows[-1]), flush=True)
+    for row in sp_rows(C, args.sp_layers):
+        rows.append({"phase": "model_sp", **row})
         print(json.dumps(rows[-1]), flush=True)
     if C == 1:
         rows.append({"phase": "cross_card", "ran": False,

@@ -18,11 +18,14 @@ from .transformer import (  # noqa: F401
     ModelConfig,
     PlacedParams,
     Replicas,
+    SpReplicas,
     forward,
     init_params,
     loss_fn,
     make_train_step,
+    nest_as,
     param_specs,
     place_params,
+    placed_trees,
     shard_params,
 )

@@ -61,9 +61,22 @@ backpropagates each data member on its own cards, folds the members'
 gradients leaf by leaf in member order on member 0's cards (``(g0 + g1)
 + ...``, the one-card step's accumulation), and sends each member the
 mean, so every replica takes the same update and stays bitwise equal to
-the others.  Sequence
-parallelism over cards runs in ``parallel.ring_attention``; the model's
-sp axis over cards is still open (ROADMAP item 13).
+the others.
+
+A mesh with an sp axis over cards (dp x tp x sp) places one tree per
+(data member d, sp member s), an :class:`SpReplicas` per data member:
+tp rank r's shards on slot (d, r, s)'s card.  Member s's residual
+stream is its shard of the sequence (the schedule's layout), held on
+the cards of its tp group as above; the attention of tp rank r is
+``ring_attention`` over the sp group (d, r, ·), each member on its card;
+the row-parallel combines never leave a tp group.  ``loss_fn`` sums each
+shard on its hub, its labels split from the whole sequence's as its
+tokens are.  The step runs one backward over a data member's shard
+losses and folds every leaf's gradients over the (d, s) trees in order
+on the first tree's cards, then sends the mean to every copy.  The
+forward is bitwise the one-card ``forward(sp=)``; the loss and the
+gradients fold per shard, a different summation from the one-card
+step's single sum and full-sequence products.
 """
 from __future__ import annotations
 
@@ -162,7 +175,10 @@ def shard_params(params: dict, cfg: ModelConfig, tp: int, mesh=None) -> dict:
     full layout (tensors everywhere) or already split over any rank
     count.  tp must divide n_kv_heads, as ``shard_params`` requires in
     the JAX package.  With a ``mesh`` over several cards the split is
-    placed on its cards (:func:`place_params`; tp must be its extent)."""
+    placed on its cards (:func:`place_params`; tp must be its extent).  A
+    placed container (:class:`Replicas`, :class:`SpReplicas`) stands for
+    its first tree: every tree holds the same values."""
+    params = placed_trees(params)[0]
     if mesh is not None and mesh.devices is not None:
         if mesh.shape.get("tp", 1) != tp:
             raise ValueError(f"tp={tp}, the mesh's tp extent is "
@@ -289,7 +305,42 @@ class PlacedParams(dict):
 
 class Replicas(list):
     """One placed parameter tree per data-parallel member of a mesh over
-    several cards (:func:`place_params`), in member order."""
+    several cards (:func:`place_params`), in member order; with an sp
+    axis each member's entry is an :class:`SpReplicas`."""
+
+
+class SpReplicas(list):
+    """One data member's parameters over the sp members of a mesh over
+    several cards (:func:`place_params` on a mesh with an sp axis): entry
+    s is the :class:`PlacedParams` tree of sp member s, its tp rank r's
+    shards on slot (d, r, s)'s card and its replicated leaves on (d, 0,
+    s)'s, in ring order.  Every tree is its own storage and holds the
+    same values.  ``forward``, ``loss_fn`` and ``make_train_step`` run
+    member s on its shard of the sequence with these parameters; the
+    train step folds the trees' gradients over sp (and dp), the psum
+    over the data axes that the JAX package's replication-aware
+    transpose makes, and updates every tree alike."""
+
+
+def placed_trees(params) -> list:
+    """The placed trees of ``params`` in (dp, sp) order: a
+    :class:`Replicas` list member by member, each :class:`SpReplicas` sp
+    member by sp member, and any lists nested as they are (``init_opt``'s
+    states); a single tree as a list of one."""
+    if isinstance(params, list):
+        return [t for p in params for t in placed_trees(p)]
+    return [params]
+
+
+def nest_as(params, flat):
+    """``flat``, one entry per tree of ``params`` in :func:`placed_trees`'
+    order, nested in lists as the trees are; one tree's entry itself."""
+    it = iter(flat)
+
+    def build(p):
+        return [build(x) for x in p] if isinstance(p, list) else next(it)
+
+    return build(params)
 
 
 def _rank_tree(node):
@@ -305,24 +356,29 @@ def _rank_tree(node):
     return 0
 
 
-def place_split(split: dict, mesh, inner: str):
+def place_split(split: dict, mesh, inner: str, seq: Optional[str] = None):
     """A tree already split over ``mesh``'s ``inner`` axis (rank lists of
     its extent, replicated leaves single) placed on the mesh's cards: for
-    data member d, entry r of every rank list on the card of slot (d, r)
-    and every other leaf on the card of (d, 0).  Copies, so that every
+    data member d (and sp member s of the ``seq`` axis, when the mesh
+    has it), entry r of every rank list on the card of slot (d, r, s) and
+    every other leaf on the card of (d, 0, s).  Copies, so that every
     replica is its own storage, apart from the input's.  Returns a
-    :class:`PlacedParams`, or with a dp axis a :class:`Replicas` list of
-    them."""
+    :class:`PlacedParams`, with a ``seq`` axis an :class:`SpReplicas`
+    list of one per sp member, and with a dp axis a :class:`Replicas`
+    list of one of those per data member."""
     if mesh.devices is None:
         raise ValueError("place_params: the mesh has every slot on one "
                          "device; shard_params splits over it")
     shape = mesh.shape
-    other = sorted(k for k in shape if k not in ("dp", inner))
+    placed_axes = ("dp", inner) + ((seq,) if seq else ())
+    other = sorted(k for k in shape if k not in placed_axes)
     if other:
         raise ACCLError(f"place_params: axes {other} of the model over "
                         f"several cards are not part of accl_tpu_torch yet "
-                        f"(ROADMAP item 13); the model places dp x {inner}")
-    n_dp, n = shape.get("dp", 1), shape.get(inner, 1)
+                        f"(ROADMAP item 13); the model places "
+                        f"{' x '.join(placed_axes)}")
+    n_dp = shape.get("dp", 1)
+    n_seq = shape.get(seq, 1) if seq else 1
 
     def put(node, devs):
         if isinstance(node, dict):
@@ -335,22 +391,28 @@ def place_split(split: dict, mesh, inner: str):
 
     replicas = []
     for d in range(n_dp):
-        slots = tuple(mesh.slot(**{"dp": d, inner: r}) for r in range(n))
-        devs = tuple(mesh.slot_device(s) for s in slots)
-        replicas.append(PlacedParams(put(split, devs),
-                                     places=Places(devs, slots)))
+        members = []
+        for s in range(n_seq):
+            at = {"dp": d, **({seq: s} if seq else {})}
+            slots = mesh.group(inner, **at)
+            devs = tuple(mesh.slot_device(x) for x in slots)
+            members.append(PlacedParams(put(split, devs),
+                                        places=Places(devs, slots)))
+        replicas.append(members[0] if n_seq == 1 else SpReplicas(members))
     return replicas[0] if n_dp == 1 else Replicas(replicas)
 
 
-def place_params(params: dict, cfg: ModelConfig, mesh):
-    """``params`` (any device, full or split over any tp count) placed on
-    the cards of ``mesh``, a mesh over several cards with axes dp and tp
-    (:func:`place_split`): tp rank r's shards of data member d on slot
-    (d, r)'s card, the replicated leaves on (d, 0)'s, and a copy of each
-    block's norms on every other card of the member (``Places.copy``)."""
+def place_params(params, cfg: ModelConfig, mesh):
+    """``params`` (any device, full or split over any tp count; a placed
+    container stands for its first tree) placed on the cards of ``mesh``,
+    a mesh over several cards with axes dp, tp and sp
+    (:func:`place_split`): tp rank r's shards of data member d and sp
+    member s on slot (d, r, s)'s card, the replicated leaves on (d, 0,
+    s)'s, and a copy of each block's norms on every other card of that
+    tp group (``Places.copy``)."""
     placed = place_split(shard_params(params, cfg, mesh.shape.get("tp", 1)),
-                         mesh, "tp")
-    for rep in placed if isinstance(placed, Replicas) else [placed]:
+                         mesh, "tp", seq="sp")
+    for rep in placed_trees(placed):
         for blk in rep["blocks"]:
             for c in rep.places.cards[1:]:
                 rep.places.copy(blk["ln1"], c)
@@ -377,43 +439,53 @@ def _places(params, leaf: str = "wq") -> Optional[Places]:
     return Places(devs, tuple(range(len(devs))))
 
 
-def placed_replicas(params, mesh, inner: str, n_dp: int) -> list:
-    """The data members' trees of ``params`` (a :class:`Replicas` list, or
-    one tree), each checked to be placed on member d's slots of ``mesh``
-    along ``inner``."""
+def placed_replicas(params, mesh, inner: str, n_dp: int,
+                    seq: Optional[str] = None) -> list:
+    """The data members' entries of ``params`` (a :class:`Replicas` list,
+    or one member's), each checked to be placed on member d's slots of
+    ``mesh`` along ``inner`` (with a ``seq`` axis: an
+    :class:`SpReplicas` whose tree s lies on the slots (d, ·, s))."""
     reps = list(params) if isinstance(params, Replicas) else [params]
     if len(reps) != n_dp:
         raise ValueError(f"{len(reps)} parameter replicas, the mesh has "
                          f"{n_dp} dp members")
-    n = mesh.shape.get(inner, 1)
+    n_seq = mesh.shape.get(seq, 1) if seq else 1
     for d, rep in enumerate(reps):
-        want = tuple(mesh.slot(**{k: v for k, v in (("dp", d), (inner, r))
-                                  if k in mesh.shape}) for r in range(n))
-        got = getattr(rep, "places", None)
-        if got is None or tuple(got.slots) != want:
-            raise ValueError(f"replica {d} is not placed on this mesh's "
-                             f"slots {want} (place_params)")
+        trees = list(rep) if isinstance(rep, SpReplicas) else [rep]
+        if len(trees) != n_seq:
+            raise ValueError(f"replica {d} holds {len(trees)} sp trees, "
+                             f"the mesh has {n_seq} sp members "
+                             f"(place_params)")
+        for s, tree in enumerate(trees):
+            want = mesh.group(inner, dp=d, **({seq: s} if seq else {}))
+            got = getattr(tree, "places", None)
+            if got is None or tuple(got.slots) != want:
+                which = f"replica {d}" + (f", sp member {s}," if n_seq > 1
+                                          else "")
+                raise ValueError(f"{which} is not placed on this mesh's "
+                                 f"slots {want} (place_params)")
     return reps
 
 
 def card_closures(reps, tokens, n_dp: int, loss) -> list:
     """One loss closure per data member: its rows of the batch, moved to
-    its hub, through ``loss(params, tokens)``."""
+    its hub (its first tree's), through ``loss(params, tokens)``."""
     tokens = torch.as_tensor(tokens)
     B = tokens.shape[0]
     if B % n_dp:
         raise ValueError(f"batch {B} does not split over {n_dp} dp members")
     b = B // n_dp
-    return [(lambda p, t=tokens[d * b:(d + 1) * b].to(rep.places.devices[0]):
-             loss(p, t)) for d, rep in enumerate(reps)]
+    return [(lambda p, t=tokens[d * b:(d + 1) * b].to(
+        placed_trees(rep)[0].places.devices[0]): loss(p, t))
+        for d, rep in enumerate(reps)]
 
 
 def sgd_cards(closures, reps, lr: float):
-    """Plain SGD over :func:`_mean_grads_cards`, every replica in place
-    with the same arithmetic.  Returns the mean loss."""
+    """Plain SGD over :func:`_mean_grads_cards`, every replica's tree in
+    place with the same arithmetic.  Returns the mean loss."""
     g_means, mean_loss = _mean_grads_cards(closures, reps)
     with torch.no_grad():
-        for rep, g_mean in zip(reps, g_means):
+        for rep, g_mean in zip(placed_trees(reps), g_means):
             for p, g in zip(tree_leaves(rep), tree_leaves(g_mean)):
                 p.sub_(g * lr)
     return mean_loss
@@ -629,6 +701,21 @@ def _sp_attention(q, k, v, cfg: ModelConfig, sp: int):
     return torch.cat(outs, dim=1)
 
 
+def _sp_refusals(cfg: ModelConfig) -> None:
+    """The JAX package's refusals under sequence parallelism, with its
+    texts."""
+    if cfg.attn_window is not None and cfg.sp_schedule != "contiguous":
+        raise ValueError(
+            "attn_window under sequence parallelism requires "
+            "the contiguous schedule (the zigzag layout's "
+            "split chunks break the one-neighbor-hop bound)")
+    if cfg.attn == "flash":
+        raise ValueError(
+            "attn='flash' is the single-shard attention kernel; "
+            "with sequence parallelism the ring layer owns the "
+            "attention schedule — use attn='dense' when sp is on")
+
+
 def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool, sp: int = 1,
            places=None):
     """One transformer block on the residual stream [B, T, D] (with
@@ -636,17 +723,7 @@ def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool, sp: int = 1,
     h = _norm(x, blk["ln1"], places)
     qs, ks, vs = block_qkv(h, blk, cfg, rope_pos, places)
     if sp > 1:
-        if cfg.attn_window is not None and cfg.sp_schedule != \
-                "contiguous":
-            raise ValueError(
-                "attn_window under sequence parallelism requires "
-                "the contiguous schedule (the zigzag layout's "
-                "split chunks break the one-neighbor-hop bound)")
-        if cfg.attn == "flash":
-            raise ValueError(
-                "attn='flash' is the single-shard attention kernel; "
-                "with sequence parallelism the ring layer owns the "
-                "attention schedule — use attn='dense' when sp is on")
+        _sp_refusals(cfg)
         attn = [_sp_attention(q, k, v, cfg, sp)
                 for q, k, v in zip(qs, ks, vs)]
     else:
@@ -654,6 +731,87 @@ def _block(x, blk, cfg: ModelConfig, rope_pos, fused: bool, sp: int = 1,
                 for q, k, v in zip(qs, ks, vs)]
     x = block_attn_out(x, attn, blk, cfg, fused=fused, places=places)
     return block_mlp(x, blk, cfg, fused=fused, places=places)
+
+
+def _sp_block(xs, blks, cfg: ModelConfig, positions, fused: bool,
+              places):
+    """One transformer block over the sp members of a mesh of cards: sp
+    member s's residual stream ``xs[s]`` is its shard of the sequence,
+    held on every card of its tp group (per rank, as :func:`_block`'s
+    ``x`` with ``places[s]``), ``blks[s]`` its tree's block,
+    ``positions[s]`` its rows' global positions (RoPE) or None.  Each
+    rank's q/k/v, attention-out and MLP run on its card for its shard;
+    the attention of tp rank r is ``ring_attention`` over the sp group
+    (d, r, ·), each member on its card; the row-parallel combines stay
+    inside each tp group.  Returns the streams, as ``xs``."""
+    _sp_refusals(cfg)
+    qkv = [block_qkv(_norm(x, b["ln1"], p), b, cfg, pos, p)
+           for x, b, pos, p in zip(xs, blks, positions, places)]
+    attn = [[None] * len(qkv[0][0]) for _ in xs]
+    for r in range(len(qkv[0][0])):
+        outs = ring_attention(
+            [m[0][r] for m in qkv], [m[1][r] for m in qkv],
+            [m[2][r] for m in qkv], causal=True, schedule=cfg.sp_schedule,
+            window=cfg.attn_window, devices=[p.devices[r] for p in places])
+        for s, o in enumerate(outs):
+            attn[s][r] = o
+    return [block_mlp(block_attn_out(x, a, b, cfg, fused=fused, places=p),
+                      b, cfg, fused=fused, places=p)
+            for x, a, b, p in zip(xs, attn, blks, places)]
+
+
+def _shard_tokens(trees, tokens) -> list:
+    """The global tokens [B, T] (the schedule's layout), or their labels
+    or mask, split into the sp members' shards, each on its member's hub
+    (the batch arriving split ``P(dp, sp)``)."""
+    tokens = torch.as_tensor(tokens)
+    S, T = len(trees), tokens.shape[1]
+    if T % S:
+        raise ValueError(f"sequence length {T} does not split over {S} "
+                         f"sp members")
+    Tl = T // S
+    return [tokens[:, s * Tl:(s + 1) * Tl].to(t.places.devices[0])
+            for s, t in enumerate(trees)]
+
+
+def _forward_shards(trees, toks, cfg: ModelConfig, fused: bool) -> list:
+    """The forward over the sp members of a mesh of cards: ``trees`` an
+    :class:`SpReplicas`, ``toks`` its members' token shards
+    (:func:`_shard_tokens`).  Member s embeds its shard on its hub,
+    spreads the stream over its tp group's cards and runs the blocks
+    (:func:`_sp_block`; with ``cfg.remat`` each block over all members
+    is one checkpoint, the ring coupling them).  Returns each member's
+    logits [B, T / sp, vocab] on its hub."""
+    S = len(trees)
+    places = [t.places for t in trees]
+    Tl = toks[0].shape[1]
+    xs = [_spread(t["embed"][tok].to(cfg.tdtype), p)
+          for t, tok, p in zip(trees, toks, places)]
+    # each shard's global positions, computed on its hub (JAX's
+    # _global_positions under the member's axis index)
+    positions = [(_global_positions(S * Tl, cfg, S, tok.device)
+                  [s * Tl:(s + 1) * Tl] if cfg.rope else None)
+                 for s, tok in enumerate(toks)]
+    for i in range(cfg.n_layers):
+        blks = [t["blocks"][i] for t in trees]
+        if cfg.remat:
+            xs = checkpoint(_sp_block, xs, blks, cfg, positions, fused,
+                            places, use_reentrant=False)
+        else:
+            xs = _sp_block(xs, blks, cfg, positions, fused, places)
+    return [_mm(_rmsnorm(x[0], t["ln_f"]), t["embed"].to(cfg.tdtype).t())
+            for x, t in zip(xs, trees)]
+
+
+def _sp_params(params, sp: int) -> bool:
+    """Whether ``params`` are placed over sp members (an
+    :class:`SpReplicas`), checked against ``sp``."""
+    if not isinstance(params, SpReplicas):
+        return False
+    if sp != len(params):
+        raise ValueError(f"the parameters are placed over {len(params)} sp "
+                         f"members; sp={sp}")
+    return True
 
 
 def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
@@ -669,19 +827,25 @@ def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
     "dense"; the ring runs the flash kernels per hop on the card): the
     tokens and logits are in the schedule's layout.  Parameters placed
     on several cards (:func:`place_params`) run with a residual stream on
-    every card and each rank on its card; the logits are the hub's."""
+    every card and each rank on its card; the logits are the hub's.
+    Parameters placed over the sp members of such a mesh (an
+    :class:`SpReplicas`; ``sp`` its length) run each member on its shard
+    of the sequence on its tp group's cards, attention by the ring over
+    the sp cards (:func:`_forward_shards`); the members' logits are
+    gathered on member 0's hub, in the schedule's layout."""
     if cfg.sp_schedule == "zigzag" and sp <= 1:
         # the zigzag layout means something only under sequence
         # parallelism; without it the causal mask would read the permuted
         # sequence as natural order
         raise ValueError("sp_schedule='zigzag' requires an sp axis "
                          "(tokens are in zigzag order)")
+    if _sp_params(params, sp):
+        shards = _forward_shards(params, _shard_tokens(params, tokens), cfg,
+                                 fused)
+        hub = shards[0].device
+        return torch.cat([shards[0]] + [move(lg, hub) for lg in shards[1:]],
+                         dim=1)
     places = _places(params)
-    if places is not None and sp > 1:
-        raise ACCLError("forward: sequence parallelism of the model over "
-                        "several cards is not part of accl_tpu_torch yet "
-                        "(ROADMAP item 13); parallel.ring_attention runs "
-                        "its members on their cards")
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
     T = tokens.shape[1]
@@ -711,9 +875,33 @@ def loss_fn(params, tokens, cfg: ModelConfig, fused: bool = False,
     label and is masked.  Returns (sum_loss, count), float32 scalars local
     to the caller (the sum-and-count discipline).  With ``sp`` > 1 the
     tokens are in the schedule's layout and each member's shard takes its
-    last label from the shard holding its global successor."""
+    last label from the shard holding its global successor.  Parameters
+    placed over sp members (an :class:`SpReplicas`): each member's sum
+    and count on its hub (:func:`_loss_shards`), folded in member order
+    on member 0's."""
+    if _sp_params(params, sp):
+        sums, counts = _loss_shards(params, tokens, cfg, fused)
+        hub = sums[0].device
+        total, count = sums[0], counts[0]
+        for s_, c in zip(sums[1:], counts[1:]):
+            total = total + move(s_, hub)
+            count = count + move(c, hub)
+        return total, count
     logits = forward(params, tokens, cfg, fused=fused, sp=sp).float()
-    tokens = torch.as_tensor(tokens, device=logits.device).long()
+    labels, valid = _labels(torch.as_tensor(tokens, device=logits.device),
+                            cfg, sp)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return torch.sum(nll), torch.sum(valid.float())
+
+
+def _labels(tokens, cfg: ModelConfig, sp: int):
+    """The next-token labels (int64) and their valid mask, [B, T] each,
+    of tokens [B, T] in the schedule's layout: each position's label is
+    its global successor's token; the global last position has none and
+    is masked."""
+    tokens = tokens.long()
     B, T = tokens.shape
     zigzag = sp > 1 and cfg.sp_schedule == "zigzag"
     if zigzag:
@@ -721,15 +909,34 @@ def loss_fn(params, tokens, cfg: ModelConfig, fused: bool = False,
         # each chunk's last label is its global successor's token
         tokens = tokens[:, zigzag_indices_inverse(T, sp).to(tokens.device)]
     labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
-    valid = torch.ones((B, T), dtype=torch.bool, device=logits.device)
+    valid = torch.ones((B, T), dtype=torch.bool, device=tokens.device)
     valid[:, -1] = False
     if zigzag:
         perm = zigzag_indices(T, sp).to(tokens.device)
         labels, valid = labels[:, perm], valid[:, perm]
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
-    return torch.sum(nll), torch.sum(valid.float())
+    return labels, valid
+
+
+def _loss_shards(params, tokens, cfg: ModelConfig, fused: bool = False):
+    """``loss_fn`` over the sp members of a mesh of cards (``params`` an
+    :class:`SpReplicas`): each member's (sum, count) of its shard's
+    next-token cross entropy on its hub, from its own logits (no
+    gather).  Returns (sums, counts), one per member; their sum is a
+    different summation from the one-card loss's single sum over [B, T]
+    (the same terms, folded per shard)."""
+    tokens = torch.as_tensor(tokens)
+    logits = _forward_shards(params, _shard_tokens(params, tokens), cfg,
+                             fused)
+    # the labels and mask of the whole sequence, split as the tokens are
+    labels, valid = [_shard_tokens(params, t)
+                     for t in _labels(tokens, cfg, len(params))]
+    sums, counts = [], []
+    for lg, lab, ok in zip(logits, labels, valid):
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+        sums.append(torch.sum(torch.where(ok, nll, 0.0)))
+        counts.append(torch.sum(ok.float()))
+    return sums, counts
 
 
 def _mean_grads(loss_closures: Sequence[Callable], params):
@@ -768,16 +975,23 @@ def _mean_grads(loss_closures: Sequence[Callable], params):
 def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
     """:func:`_mean_grads` over a mesh of several cards: closure d runs on
     data member d's replica (``replicas[d]``, on that member's cards) and
-    is backpropagated there.  The counts and losses, then each leaf's
-    gradients, are folded in member order on member 0's cards, ``(g0 +
-    g1) + ...`` as the one-card step accumulates them, divided by the
-    total count there, and the mean is sent to every member's copy of the
-    leaf (2 (dp - 1) counted moves a leaf; the total count goes to member
-    0's other cards once).  Returns ``(g_means, mean_loss)``: one
-    gradient tree per member, and the loss on member 0's hub; the leaves
-    are left without gradients."""
-    leaves = [tree_leaves(p) for p in replicas]
-    ranks = tree_leaves(_rank_tree(replicas[0]))
+    is backpropagated there.  A member placed over sp members (an
+    :class:`SpReplicas`) has one tree per sp member and its closure
+    returns one (sum, count) per tree: they take one backward together,
+    since the ring couples the shards.  The counts and losses, then each
+    leaf's gradients, are folded over the trees in (dp, sp) order on the
+    first tree's cards, ``((g00 + g01) + ...) + g10 ...``, as the one-card
+    step accumulates its dp members (over sp the fold adds per-shard
+    gradients, a different summation from the one-card step's full-T
+    products), divided by the total count there, and the mean is sent to
+    every tree's copy of the leaf (2 (n - 1) counted moves a leaf over n
+    trees; the total count goes to the first tree's other cards once).
+    Returns ``(g_means, mean_loss)``: one gradient tree per tree, in
+    (dp, sp) order, and the loss on the first tree's hub; the leaves are
+    left without gradients."""
+    trees = placed_trees(replicas)
+    leaves = [tree_leaves(p) for p in trees]
+    ranks = tree_leaves(_rank_tree(trees[0]))
     for ls in leaves:
         for p in ls:
             p.grad = None
@@ -786,17 +1000,19 @@ def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
         losses, counts = [], []
         for closure, params in zip(loss_closures, replicas):
             loss_sum, count = closure(params)
-            loss_sum.backward()
-            losses.append(loss_sum.detach())
-            counts.append(count.detach())
-        hub = replicas[0].places.devices
+            if isinstance(loss_sum, torch.Tensor):
+                loss_sum, count = [loss_sum], [count]
+            torch.autograd.backward(list(loss_sum))
+            losses += [t.detach() for t in loss_sum]
+            counts += [t.detach() for t in count]
+        hub = trees[0].places.devices
         total, loss_tot = counts[0], losses[0]
         for c, l in zip(counts[1:], losses[1:]):
             total = total + move(c, hub[0])
             loss_tot = loss_tot + move(l, hub[0])
         denom = torch.clamp_min(total, 1.0)
         denoms = [denom] + [move(denom, d) for d in hub[1:]]
-        means = [[] for _ in replicas]
+        means = [[] for _ in trees]
         for i, r in enumerate(ranks):
             gs = [ls[i].grad if ls[i].grad is not None
                   else torch.zeros_like(ls[i]) for ls in leaves]
@@ -806,18 +1022,18 @@ def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
                 acc = acc + move(g, dev)
             acc = acc / denoms[r]
             means[0].append(acc)
-            for d in range(1, len(replicas)):
-                means[d].append(move(acc, leaves[d][i].device))
+            for j in range(1, len(trees)):
+                means[j].append(move(acc, leaves[j][i].device))
     finally:
         for ls in leaves:
             for p in ls:
                 p.grad = None
                 p.requires_grad_(False)
-    trees = []
-    for params, ms in zip(replicas, means):
+    out = []
+    for params, ms in zip(trees, means):
         it = iter(ms)
-        trees.append(tree_map(lambda _leaf, it=it: next(it), params))
-    return trees, loss_tot / denom
+        out.append(tree_map(lambda _leaf, it=it: next(it), params))
+    return out, loss_tot / denom
 
 
 def sum_count_device_step(loss_closures: Sequence[Callable], params,
@@ -882,13 +1098,14 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
     extent (``shard_params``) and live on its device.  ``token_spec``
     names the axes the token dimensions split over, as ``P(dp, sp)``.
 
-    Over a mesh of several cards (``mesh.devices``; axes dp and tp)
+    Over a mesh of several cards (``mesh.devices``; axes dp, tp and sp)
     ``params`` is what :func:`place_params` returns for it (a
-    :class:`Replicas` list with a dp axis), each member's loss runs on
-    its own cards and the members' gradients fold as
-    :func:`_mean_grads_cards` says; every replica (and, with an
-    optimizer, its state, a list of one per member) is updated in place
-    with the same arithmetic.
+    :class:`Replicas` list with a dp axis, of :class:`SpReplicas` with an
+    sp axis), each member's loss runs on its own cards (with sp, one
+    backward over its shards' losses) and the trees' gradients fold as
+    :func:`_mean_grads_cards` says; every tree (and, with an optimizer,
+    its state, nested as the trees are: a list of one per dp member, of
+    one per sp member) is updated in place with the same arithmetic.
 
     With an ``optimizer`` (``accl_tpu_torch.optim.adamw``, or any object
     with its ``init(params)`` and ``update(grads, state, params)``; it
@@ -917,10 +1134,6 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
     n_sp = shape[sp] if sp else 1
     specs = param_specs(cfg)
     cards = mesh.devices is not None
-    if cards and n_sp > 1:
-        raise ACCLError("make_train_step: sequence parallelism of the model "
-                        "over several cards is not part of accl_tpu_torch "
-                        "yet (ROADMAP item 13)")
 
     def closures(params, tokens):
         if tp_size(params) != n_tp:
@@ -940,12 +1153,14 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
                 for d in range(n_dp)]
 
     def loss(p, t):
+        if isinstance(p, SpReplicas):
+            return _loss_shards(p, t, cfg, fused)
         return loss_fn(p, t, cfg, fused=fused)
 
     if optimizer is None:
         def step_fn(params, tokens):
             if cards:
-                reps = placed_replicas(params, mesh, "tp", n_dp)
+                reps = placed_replicas(params, mesh, "tp", n_dp, seq=sp)
                 return params, sgd_cards(card_closures(reps, tokens, n_dp,
                                                        loss), reps, lr)
             return sum_count_device_step(closures(params, tokens), params,
@@ -957,32 +1172,28 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
         raise ValueError("optimizer path needs `params` (a host or "
                          "sharded pytree) to derive optimizer-state "
                          "PartitionSpecs")
-    state_specs = opt_state_specs(
-        optimizer, params[0] if isinstance(params, Replicas) else params,
-        specs)
+    state_specs = opt_state_specs(optimizer, placed_trees(params)[0],
+                                  specs)
 
     def opt_step_fn(params, opt_state, tokens):
         if cards:
-            reps = placed_replicas(params, mesh, "tp", n_dp)
-            states = list(opt_state) if isinstance(params, Replicas) \
-                else [opt_state]
+            reps = placed_replicas(params, mesh, "tp", n_dp, seq=sp)
             g_means, mean_loss = _mean_grads_cards(
                 card_closures(reps, tokens, n_dp, loss), reps)
             new = []
-            for rep, g_mean, state in zip(reps, g_means, states):
-                updates, state = optimizer.update(g_mean, state, rep)
-                apply_updates(rep, updates)
+            for tree, g_mean, state in zip(placed_trees(params), g_means,
+                                           placed_trees(opt_state)):
+                updates, state = optimizer.update(g_mean, state, tree)
+                apply_updates(tree, updates)
                 new.append(state)
-            return (params, new if isinstance(params, Replicas) else new[0],
-                    mean_loss)
+            return params, nest_as(params, new), mean_loss
         g_mean, mean_loss = _mean_grads(closures(params, tokens), params)
         updates, opt_state = optimizer.update(g_mean, opt_state, params)
         apply_updates(params, updates)
         return params, opt_state, mean_loss
 
     def init_opt(params):
-        if isinstance(params, Replicas):
-            return [optimizer.init(p) for p in params]
-        return optimizer.init(params)
+        return nest_as(params, [optimizer.init(t)
+                                for t in placed_trees(params)])
 
     return opt_step_fn, (specs, state_specs, (dp, sp)), init_opt

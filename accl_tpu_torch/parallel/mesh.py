@@ -105,6 +105,15 @@ class RankMesh:
             index.append(int(coords.get(name, 0)))
         return int(self.ranks[tuple(index)]) if index else 0
 
+    def group(self, axis: str, **coords) -> tuple:
+        """The slots along ``axis`` at the other axes' ``coords`` (axes
+        left out at 0), in the axis's order: ``group("tp", dp=d, sp=s)``
+        is the tp group of data member d's sp member s,
+        ``group("sp", dp=d, tp=t)`` the sp group of its tp rank t, in ring
+        order.  An axis not in the mesh is a group of one slot."""
+        n = self.shape.get(axis, 1)
+        return tuple(self.slot(**{**coords, axis: i}) for i in range(n))
+
 
 def _check_peers(devs: list, what: str) -> None:
     """Every pair of distinct cards in ``devs`` must have peer access

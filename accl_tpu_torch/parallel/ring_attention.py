@@ -29,9 +29,16 @@ card; a rotation is a counted ``collectives.move`` of every K/V shard to
 the next member's card (the windowed schedule moves only the tails); a
 flash hop is one launch per card over that card's live members, stacked
 as above, so each member's rows are bitwise what one launch over every
-card's members gives; Ulysses' two all-to-alls cross through the same
-move and its attention is one launch per card over that card's members.
-The results are bitwise the one-card schedules'.
+member gives.  Where a backward will run (autograd records the hop),
+each live member's hop is a launch of its own instead, so that its
+gradients are the same bits whichever members share its card (the
+backward's plan depends on the launch's size).  Ulysses' two
+all-to-alls cross through the same move and its attention is one launch
+per card over that card's members.  The outputs are bitwise the
+one-card schedules'.  The gradients are too where the backward's plan
+cuts the one-card ring's stacked launch as it cuts each member's own
+(short shards, every cut at the plan's minimum); at long shards the
+split tiles' fp32 partials round apart.
 """
 from __future__ import annotations
 
@@ -253,19 +260,29 @@ def _fold(carry, part):
     return _lse_merge(carry[0], carry[1], o_i, lse_i)
 
 
-def _flash_hop(items, causal: bool, mxu, flash_opts) -> list:
-    """One flash launch over ``items`` ((q, k, v) of one member each, all of
-    one shape), stacked along the batch axis; returns each item's (out
-    [B, Tq, H, D], lse [B, H, Tq]).  Items on several cards make one
-    launch per card, over that card's items."""
+def _flash_hop(items, causal: bool, mxu, flash_opts,
+               members: Optional[list] = None) -> list:
+    """One flash launch over ``items`` ((q, k, v), all of one shape),
+    stacked along the batch axis; returns each item's (out [B, Tq, H, D],
+    lse [B, H, Tq]).  Items on several cards make one launch per card,
+    over that card's items.  ``members``: each item's member, when the
+    members are on several cards: where autograd records the hop, each
+    member's items make a launch of their own, on its card, whichever
+    other members share that card.  The backward kernels' plan cuts its
+    work by the launch's size, so a member's gradients are the same bits
+    on any placement only when its launches are its own; the forward's
+    rows are the same bits in any stack."""
     from ..ops.flash import flash_attention_lse
 
     opts = dict(flash_opts or {})
     opts.setdefault("mxu_dtype", mxu)
     B = items[0][0].shape[0]
+    own = members is not None and torch.is_grad_enabled() and any(
+        t.requires_grad for it in items for t in it)
     groups: dict = {}
     for i, it in enumerate(items):
-        groups.setdefault(it[0].device, []).append(i)
+        groups.setdefault(members[i] if own else it[0].device,
+                          []).append(i)
     got = [None] * len(items)
     for idxs in groups.values():
         q, k, v = (torch.cat([items[i][j] for i in idxs]) for j in range(3))
@@ -292,7 +309,8 @@ def _ring_attention_flash(qs, ks, vs, causal: bool,
         live = [idx for idx in range(P)
                 if not causal or s == 0 or (idx - s) % P < idx]
         parts = _flash_hop([(qs[i], kc[i], vc[i]) for i in live],
-                           causal and s == 0, mxu, flash_opts)
+                           causal and s == 0, mxu, flash_opts,
+                           None if devs is None else live)
         for idx, part in zip(live, parts):
             carry[idx] = _fold(carry[idx], part)
         if s < P - 1:
@@ -367,7 +385,8 @@ def _ring_attention_flash_zigzag(qs, ks, vs,
         for items, causal in ((causal_items, True), (full_items, False)):
             if items:
                 outs = _flash_hop([it for _key, it in items], causal, mxu,
-                                  flash_opts)
+                                  flash_opts, None if devs is None else
+                                  [key[1] for key, _it in items])
                 parts.update(zip((key for key, _it in items), outs))
         for idx in range(P):
             if ("li", idx) in parts:
@@ -430,7 +449,8 @@ def _ring_attention_windowed(qs, ks, vs, window: int, impl: str,
         opts = dict(flash_opts or {})
         opts["window"] = window
         local = [(o.float(), lse) for o, lse in _flash_hop(
-            list(zip(qs, ks, vs)), True, _flash_defaults(qs[0])[1], opts)]
+            list(zip(qs, ks, vs)), True, _flash_defaults(qs[0])[1], opts,
+            None if devs is None else list(range(P)))]
     elif impl == "dense":
         # the same banded helper at offset 0: its d >= 0 arm is the causal
         # mask

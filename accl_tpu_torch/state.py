@@ -34,7 +34,7 @@ import torch
 from .constants import TuningKey
 from .models.moe import place_params as moe_place_params
 from .models.moe import shard_params as moe_shard_params
-from .models.transformer import Replicas, shard_params
+from .models.transformer import nest_as, placed_trees, shard_params
 from .optim import AdamWState
 from .utils.device import resolve_device
 
@@ -109,7 +109,9 @@ def model_params_from_jax(params: dict, cfg, tp: int = 1,
 
 def model_params_to_numpy(params: dict, cfg) -> dict:
     """The port's parameters, split over any rank count, back in the JAX
-    pytree's layout as numpy arrays."""
+    pytree's layout as numpy arrays.  A placed container (``Replicas``,
+    ``SpReplicas``) gives its first tree: every tree holds the same
+    values."""
     full = shard_params(params, cfg, 1)
 
     def conv(leaf):
@@ -177,7 +179,9 @@ def adamw_state_from_optax(opt_state, cfg, tp: int = 1,
     layout, split over ``tp`` ranks, the count an int32 scalar.  With a
     ``mesh`` over several cards the moments are placed beside the shards
     they mirror (``model_params_from_jax(mesh=)``), the count on each
-    member's hub; with a dp axis, one state per data member (a list)."""
+    member's hub; one state per placed tree, nested as the trees are (with
+    a dp axis a list of one per data member, with an sp axis a list of one
+    per sp member)."""
     node = _adam_node(opt_state)
     if node is None:
         raise ValueError("adamw_state_from_optax: no state with count, mu "
@@ -186,12 +190,9 @@ def adamw_state_from_optax(opt_state, cfg, tp: int = 1,
         mu = model_params_from_jax(node.mu, cfg, tp, mesh=mesh)
         nu = model_params_from_jax(node.nu, cfg, tp, mesh=mesh)
         count = int(np.asarray(node.count))
-        states = [AdamWState(count=torch.tensor(count, dtype=torch.int32,
-                                                device=m.places.devices[0]),
-                             mu=m, nu=n)
-                  for m, n in zip(*((t if isinstance(t, Replicas) else [t])
-                                    for t in (mu, nu)))]
-        return states if isinstance(mu, Replicas) else states[0]
+        return nest_as(mu, [AdamWState(count=torch.tensor(
+            count, dtype=torch.int32, device=m.places.devices[0]), mu=m, nu=n)
+            for m, n in zip(placed_trees(mu), placed_trees(nu))])
     dev = resolve_device(device, "adamw_state_from_optax")
     return AdamWState(
         count=torch.tensor(int(np.asarray(node.count)), dtype=torch.int32,

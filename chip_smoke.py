@@ -333,7 +333,8 @@ Phases, each fatal on failure:
      the world's own tuner at an hour's loop interval: the sentinel fires,
      step() closes episodes with decisions in DECISIONS (each A/B's busbw
      pair printed), an install clears the hysteresis, the p50 after the
-     decisions is within ONLINE_HYSTERESIS of the degraded p50; then a
+     decisions is within ONLINE_HYSTERESIS of the degraded p50, the two
+     read in ONLINE_ROUNDS interleaved rounds (never_slower); then a
      scripted episode installs compress_fp16 on the 16 MiB cell every run
      (a plan captured before it raises on replay, a re-capture replays
      bitwise, its p50 within 1.5 x the p50 before it), and every installed
@@ -395,7 +396,15 @@ Phases, each fatal on failure:
      fused kernel's per-rank-table form (and, across cards, its
      cross-card mode) must launch, and across cards a counted move must
      cross.  Rows fused_matmul_reduce_scatter_tables (and _cross with two
-     or more cards) time the mode (bench/model_cards.py);
+     or more cards) time the mode (bench/model_cards.py).  Then the
+     model's sp axis over the same slots (phase model_cards_sp,
+     MC_SP_MESH = tp 2 x sp 2, 2 layers, attn="dense"): the bf16 forward
+     over MC_SP_TOKENS tokens and one fp32 AdamW step over SP_TRAIN_TOKENS,
+     each counted on its own (flash forward, backward and cross-card ring
+     all-gather launches against sp_mesh_schedule) and held to the
+     one-card sp forms (the forward bitwise, the step's moments and
+     updates by relative L2 per leaf, adamw_readings), and across cards
+     bitwise to the same mesh on card 0;
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -419,6 +428,7 @@ line, the card's name and power limit, and last {"ok": true, "device":
 {...}}.  Without CUDA it exits 2 and prints no result.
 """
 import argparse
+import copy
 import importlib
 import itertools
 import json
@@ -2379,6 +2389,28 @@ def leaf_norms(a_tree, b_tree, T_) -> list:
     return out
 
 
+def update_floors(ref, p0, T_) -> list:
+    """Per leaf the reference step's update ||p' - p0|| and the fp32
+    rounding floor of an update, 2 ||ulp(p0) / 2|| / ||p' - p0||."""
+    return [(d, 2 * u / max(d, 1e-300)) for d, _n, u in leaf_norms(ref, p0,
+                                                                   T_)]
+
+
+def adamw_readings(params, state, ref, ref_state, floors, T_) -> tuple:
+    """An AdamW step held to a reference step from the same start: per
+    leaf (||p - p_ref|| / the reference's update, its floor from
+    update_floors), each moment's relative L2 error per leaf, and whether
+    an update is past ADAMW_UPDATE_BOUND plus its floor or a moment past
+    its ADAMW_MOMENT_BOUND."""
+    upd = [(d / max(nd, 1e-300), floor) for (d, _n, _u), (nd, floor) in
+           zip(leaf_norms(params, ref, T_), floors)]
+    moments = {k: [d / max(n, 1e-300) for d, n, _u in leaf_norms(
+        getattr(state, k), getattr(ref_state, k), T_)] for k in ("mu", "nu")}
+    off = max(d - (ADAMW_UPDATE_BOUND + f) for d, f in upd) > 0 or any(
+        max(v) > ADAMW_MOMENT_BOUND[k] for k, v in moments.items())
+    return upd, moments, off
+
+
 def train_adamw(ring, F, FL, M, S, T_, OPT, sgd) -> dict:
     """Phase 4e's AdamW arm (phase train_adamw): make_train_step with
     optimizer=adamw(ADAMW_LR) on make_mesh(dp=2, tp=4) at the training
@@ -2427,10 +2459,8 @@ def train_adamw(ring, F, FL, M, S, T_, OPT, sgd) -> dict:
     ref = M.shard_params(ref, cfg, tp)
     ref_state = ref_state._replace(mu=M.shard_params(ref_state.mu, cfg, tp),
                                    nu=M.shard_params(ref_state.nu, cfg, tp))
-    # each leaf's reference update ||p' - p0|| and the fp32 rounding floor
-    # of an update, 2 ||ulp(p0) / 2|| / ||p' - p0||, before p0 is stepped
-    ref_upd = [(d, 2 * u / max(d, 1e-300))
-               for d, _n, u in leaf_norms(ref, p0, T_)]
+    # before p0 is stepped
+    ref_upd = update_floors(ref, p0, T_)
     torch.cuda.empty_cache()
 
     # -- the dp x tp AdamW run, in place on p0 ----------------------------
@@ -2444,13 +2474,9 @@ def train_adamw(ring, F, FL, M, S, T_, OPT, sgd) -> dict:
     peak_step = (torch.cuda.max_memory_allocated() - held) / 1e9
     losses = [float(loss)]
     loss_err = abs(losses[0] - float(ref_loss)) / abs(float(ref_loss))
-    upd = [(d / max(nd, 1e-300), floor) for (d, _n, _u), (nd, floor) in
-           zip(leaf_norms(params, ref, T_), ref_upd)]
-    moments = {k: [d / max(n, 1e-300) for d, n, _u in leaf_norms(
-        getattr(state, k), getattr(ref_state, k), T_)] for k in ("mu", "nu")}
-    worst_upd = max(d - (ADAMW_UPDATE_BOUND + f) for d, f in upd)
-    if loss_err > TRAIN_LOSS_BOUND or worst_upd > 0 or any(
-            max(v) > ADAMW_MOMENT_BOUND[k] for k, v in moments.items()):
+    upd, moments, off = adamw_readings(params, state, ref, ref_state,
+                                       ref_upd, T_)
+    if loss_err > TRAIN_LOSS_BOUND or off:
         fail(f"the dp x tp AdamW step is off the single-device one: loss "
              f"{loss_err} (bound {TRAIN_LOSS_BOUND}), updates "
              f"{[d for d, _f in upd]} (bound {ADAMW_UPDATE_BOUND}), "
@@ -5730,6 +5756,12 @@ ONLINE_HYSTERESIS = 1.05
 #: the after/degraded ratio of an unchanged dispatch spread 0.98-1.07 on
 #: the card, past the hysteresis it is held to (PERF.md section 6)
 ONLINE_CALLS = 48
+#: the never-slower gate's rounds: ONLINE_CALLS calls a side, the
+#: degraded dispatch and the one after the decisions alternating over
+#: this many rounds (bench/online_spread.py interleaved_p50s), so drift
+#: over the phase falls on both sides alike; two p50s one after the other
+#: read an unchanged dispatch 1.063 x apart once (PERF.md section 6)
+ONLINE_ROUNDS = 6
 
 
 def _tuner_threads() -> list:
@@ -5834,6 +5866,39 @@ def scripted_install(ring, world, tuner) -> dict:
             "recaptured_bitwise": True}
 
 
+def never_slower(world, tuner, before: dict) -> dict:
+    """The online phase's gate reading: the p50s of the degraded dispatch
+    (every cell whose entry differs from ``before`` set back to it) and
+    of the dispatch after the decisions, over ONLINE_ROUNDS alternating
+    rounds of ONLINE_CALLS calls a side (the drill's call), the cells
+    left as the decisions set them.  Nothing to set when no cell
+    changed."""
+    from accl_tpu_torch.bench import online_spread as OSP
+    from accl_tpu_torch.observability import flight as FLT
+
+    after = copy.deepcopy(tuner.table.entries)
+    changed = sorted(k for k in set(before) | set(after)
+                     if before.get(k) != after.get(k))
+
+    def setter(entries):
+        if not changed:
+            return None
+        return lambda: [tuner._apply_swap(k, entries.get(k),
+                                          event=FLT.RETUNE_EVENT)
+                        for k in changed]
+
+    try:
+        deg, post = OSP.interleaved_p50s(
+            world, ONLINE_CALLS, ONLINE_ROUNDS, setter(before),
+            setter(after), count=ONLINE_COUNT)
+    finally:
+        if changed:
+            setter(after)()
+    return {"p50_degraded_us": deg, "p50_post_us": post,
+            "ratio": post / deg, "rounds": ONLINE_ROUNDS,
+            "calls_a_side": ONLINE_CALLS, "cells_toggled": changed}
+
+
 def online_tuning_phase(ring, CudaWorld) -> dict:
     """Phase 7g: the online tuner on the card, with ACCL_FABRIC=8 (one
     axis: no composed lane).  (a) ACCL_TUNE_ONLINE=1 makes a fresh
@@ -5846,7 +5911,8 @@ def online_tuning_phase(ring, CudaWorld) -> dict:
     and step() closes episodes whose decisions are in DECISIONS; an
     installed challenger beat its incumbent by ONLINE_HYSTERESIS in the
     A/B; the p50 after the decisions is within ONLINE_HYSTERESIS of the
-    degraded p50 (when nothing installed, the dispatch is unchanged and
+    degraded p50, both read in ONLINE_ROUNDS interleaved rounds
+    (never_slower; when nothing installed, the dispatch is unchanged and
     this guards only against noise).  Then scripted_install's episode
     installs SCRIPTED_LANE on the SCRIPTED_BUCKET cell (its fenced
     replay, re-capture and p50 checked there), and each installed cell's
@@ -5907,6 +5973,7 @@ def online_tuning_phase(ring, CudaWorld) -> dict:
         forced = None
         try:
             tuner = world.online_tuner
+            before = copy.deepcopy(tuner.table.entries)
             lines = []
             t = time.perf_counter()
             try:
@@ -5937,12 +6004,18 @@ def online_tuning_phase(ring, CudaWorld) -> dict:
                         ab["incumbent_busbw_GBps"] * ONLINE_HYSTERESIS:
                     fail(f"online_tuning: episode {ep['seq']} installed "
                          f"without clearing the hysteresis: {ab}")
-            if out["p50_post_us"] > out["p50_degraded_us"] * \
+            # never-slower, in interleaved rounds: the cells the
+            # decisions changed set back to their entries before the drill
+            # (the degraded dispatch) and to those after, in turns, the
+            # straggler still applied; with no change, one dispatch
+            gate = never_slower(world, tuner, before)
+            if gate["p50_post_us"] > gate["p50_degraded_us"] * \
                     ONLINE_HYSTERESIS:
                 fail(f"online_tuning: p50 after the decisions "
-                     f"{out['p50_post_us']:.0f} us is more than "
+                     f"{gate['p50_post_us']:.0f} us is more than "
                      f"{ONLINE_HYSTERESIS} x the degraded "
-                     f"{out['p50_degraded_us']:.0f} us")
+                     f"{gate['p50_degraded_us']:.0f} us (interleaved "
+                     f"rounds: {gate})")
 
             # an install on every run, its fence and its p50
             scripted = scripted_install(ring, world, tuner)
@@ -6052,6 +6125,9 @@ def online_tuning_phase(ring, CudaWorld) -> dict:
           "p50_warm_us": out["p50_warm_us"],
           "p50_degraded_us": out["p50_degraded_us"],
           "p50_post_us": out["p50_post_us"],
+          "drill_post_over_degraded": out["p50_post_us"]
+          / out["p50_degraded_us"],
+          "never_slower_gate": gate,
           "drift": out["summary"]["drift"],
           "episodes": len(episodes),
           "decisions": [ep["decision"] for ep in episodes],
@@ -6927,6 +7003,216 @@ def model_cards_phase(ring, F, FL, M, MM, S, RA, T_) -> dict:
     return out
 
 
+#: phase model_cards_sp: the model's sp axis over the phase's slots, a
+#: tp 2 x sp 2 mesh (slot (t, s) = 2 t + s: with four cards each tp
+#: group and each sp group spans two)
+MC_SP_MESH = {"tp": 2, "sp": 2}
+
+
+def sp_mesh_schedule(trees, layers: int) -> dict:
+    """The launches one pass over the sp mesh of placed ``trees`` (an
+    SpReplicas) makes by the schedule: the contiguous causal ring of each
+    tp rank launches the flash forward once a hop for each card of its
+    live members (hop 0 every member, hop h the members h..), and where
+    autograd records the hop (the step) once for each live member, on
+    its card, whichever share it; a step's backward launches dQ and
+    dK/dV once for each of its forward launches; each block's two
+    row-parallel combines launch the ring all-gather's cross-card mode
+    once a card of every tp group spread over several cards (a group on
+    one card sums in place, no launch)."""
+    S, tp = len(trees), len(trees[0].places.devices)
+
+    def hops(key) -> int:
+        return layers * sum(len({key(s, r) for s in range(h, S)})
+                            for r in range(tp) for h in range(S))
+
+    spread = sum(len(t.places.cards) for t in trees
+                 if len(t.places.cards) > 1)
+    return {"flash_fwd": hops(lambda s, r: str(trees[s].places.devices[r])),
+            "flash_step": hops(lambda s, r: s),
+            "ring_all_gather_cross": 2 * layers * spread}
+
+
+def model_cards_sp(ring, F, FL, M, S, T_) -> dict:
+    """Phase model_cards_sp: the model's sp axis over the model_cards
+    slots (MC_SP_MESH, every slot on card 0 with one card), Llama-3-8B
+    width cut to 2 layers, attn="dense" (the ring owns attention and
+    runs the flash kernels per hop): the bf16 forward over 1 x
+    MC_SP_TOKENS tokens and one fp32 AdamW step over 1 x SP_TRAIN_TOKENS,
+    each driven with the counts set to 0 just before it and read just
+    after, its flash forward (and backward) launches and cross-card ring
+    all-gathers held to sp_mesh_schedule.  Each is held to the one-card
+    sp form of the same weights: the forward bitwise forward(sp=2) on the
+    tp = 2 split (its max abs error reported, within SP_BOUND); the step
+    against make_train_step on the one-card tp 2 x sp 2 mesh, its loss
+    within TRAIN_LOSS_BOUND, each leaf's moments within
+    ADAMW_MOMENT_BOUND and its update within ADAMW_UPDATE_BOUND
+    (adamw_readings; the per-shard gradient fold is another summation).
+    With two or more cards both are bitwise the same mesh with every slot
+    on card 0."""
+    from accl_tpu_torch.bench import model_cards as MCB
+    from accl_tpu_torch.optim import adamw
+
+    C = torch.cuda.device_count()
+    n = min(4, C)
+    cross = n >= 2
+    t0 = time.perf_counter()
+    slots = MCB._slots(n, 4)
+    L = MC_LAYERS["one"]
+    cfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": L, "attn": "dense",
+                           "dtype": "bfloat16"})
+    scfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": L, "attn": "dense"})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    torch.cuda.empty_cache()
+    mesh = S.make_mesh(devices=slots, **MC_SP_MESH)
+    one_mesh = S.make_mesh(**MC_SP_MESH)
+    card0 = S.make_mesh(devices=["cuda:0"] * 4, **MC_SP_MESH)
+    tp, sp = MC_SP_MESH["tp"], MC_SP_MESH["sp"]
+    full = MCB.llama_bf16(M, cfg, gen)
+    tokens = torch.randint(0, cfg.vocab, (1, MC_SP_TOKENS), generator=gen,
+                           device="cuda")
+    placed = M.place_params(full, cfg, mesh)
+    want = sp_mesh_schedule(placed, L)
+    runs, launches, checks, errs = {}, {}, {}, {}
+
+    def counted(name, fn):
+        """fn() with the counts set to 0 just before and read just
+        after; its flash and cross-card all-gather launches."""
+        _sync_all(C)
+        reset_counts(ring, F, FL)
+        ring.ring_all_gather.launches_cross = 0
+        t = time.perf_counter()
+        out = fn()
+        _sync_all(C)
+        runs[name] = time.perf_counter() - t
+        got = read_counts(ring, F, FL)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name + "_launches"] = {k: v for k, v in got.items() if v}
+        runs[name + "_cross"] = ring.ring_all_gather.launches_cross
+        return out, got
+
+    def err_vs(a, b):
+        e = 0.0
+        for i in range(0, a.shape[1], 4096):
+            e = max(e, float((a[:, i:i + 4096].float()
+                              - b[:, i:i + 4096].float()).abs().max()))
+        return e
+
+    with torch.no_grad():
+        logits, got = counted("forward", lambda: M.forward(placed, tokens,
+                                                           cfg, sp=sp))
+    fwd = got["flash_fwd_resident"] + got["flash_fwd_grid"]
+    if fwd != want["flash_fwd"] or \
+            runs["forward_cross"] != want["ring_all_gather_cross"]:
+        fail(f"model_cards_sp forward: flash forward launches {fwd}, cross "
+             f"all-gathers {runs['forward_cross']}, the schedule's {want}")
+    if tuple(logits.shape) != (1, MC_SP_TOKENS, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        fail(f"model_cards_sp forward: logits {tuple(logits.shape)} not "
+             f"finite")
+    with torch.no_grad():
+        ref = M.forward(M.shard_params(full, cfg, tp), tokens, cfg, sp=sp)
+        errs["forward"] = err_vs(logits, ref)
+        checks["forward_bitwise_one_card"] = torch.equal(logits, ref)
+        del ref
+        if cross:
+            ref = M.forward(M.place_params(full, cfg, card0), tokens, cfg,
+                            sp=sp)
+            checks["forward_bitwise_card0"] = torch.equal(
+                logits.to("cuda:0"), ref)
+            del ref
+    del logits, placed, full
+    torch.cuda.empty_cache()
+
+    base = M.init_params(gen, scfg, tp=1)
+    stoks = torch.randint(0, scfg.vocab, (1, SP_TRAIN_TOKENS), generator=gen,
+                          device="cuda")
+
+    def adamw_step(m, params):
+        step, _specs, init = M.make_train_step(
+            m, scfg, optimizer=adamw(ADAMW_LR), params=params)
+        state = init(params)
+        _p, state, loss = step(params, state, stoks)
+        return loss, state
+
+    def on_card0(tree):
+        return [t.to("cuda:0") for t in T_.tree_leaves(
+            M.shard_params(tree, scfg, tp))]
+
+    reps = M.place_params(base, scfg, mesh)
+    (loss, state), got = counted("adamw_step",
+                                 lambda: adamw_step(mesh, reps))
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if got[k] != want["flash_step"]:
+            fail(f"model_cards_sp step: {k} launched {got[k]} times, the "
+                 f"schedule's {want['flash_step']}")
+    if got["flash_fwd_resident"] + got["flash_fwd_grid"] != \
+            want["flash_step"] or \
+            runs["adamw_step_cross"] != want["ring_all_gather_cross"]:
+        fail(f"model_cards_sp step: launches {runs['adamw_step_launches']}, "
+             f"cross {runs['adamw_step_cross']}, the schedule's {want}")
+    trees = [on_card0(r) for r in reps]
+    if any(not all(torch.equal(a, b) for a, b in zip(t, trees[0]))
+           for t in trees[1:]):
+        fail("model_cards_sp step: the sp trees took different updates")
+    st = M.placed_trees(state)[0]
+    st = st._replace(mu=on_card0(st.mu), nu=on_card0(st.nu))
+    del reps, state
+    torch.cuda.empty_cache()
+    # a copy: shard_params keeps the leaves it need not split (an
+    # in-place step on them would move `base`, the card-0 mesh's start)
+    ref = M.shard_params(T_.tree_map(torch.clone, base), scfg, tp)
+    rloss, rstate = adamw_step(one_mesh, ref)
+    upd, moments, off = adamw_readings(trees[0], st, ref, rstate,
+                                       update_floors(ref, M.shard_params(
+                                           base, scfg, tp), T_), T_)
+    errs["update_rel_l2_max"] = max(d for d, _f in upd)
+    errs["rounding_floor_max"] = max(f for _d, f in upd)
+    errs["moment_rel_l2_max"] = {k: max(v) for k, v in moments.items()}
+    errs["adamw_loss_rel"] = abs(float(loss) - float(rloss)) / abs(
+        float(rloss))
+    checks["step_bitwise_one_card"] = torch.equal(loss, rloss) and all(
+        torch.equal(a, b) for a, b in zip(trees[0], T_.tree_leaves(ref)))
+    del ref, rstate
+    if cross:
+        rreps = M.place_params(base, scfg, card0)
+        closs, cstate = adamw_step(card0, rreps)
+        cst = M.placed_trees(cstate)[0]
+        checks["step_bitwise_card0"] = torch.equal(
+            loss.to("cuda:0"), closs) and all(
+            torch.equal(a, b) for a, b in zip(
+                trees[0] + st.mu + st.nu,
+                on_card0(rreps) + on_card0(cst.mu) + on_card0(cst.nu)))
+        del rreps, cstate, cst
+    del base, trees, st
+    torch.cuda.empty_cache()
+    bounds = {"forward": SP_BOUND[torch.bfloat16],
+              "adamw_loss_rel": TRAIN_LOSS_BOUND,
+              "update": ADAMW_UPDATE_BOUND, "moments": ADAMW_MOMENT_BOUND}
+    if off or not errs["forward"] <= bounds["forward"] or \
+            not errs["adamw_loss_rel"] <= bounds["adamw_loss_rel"]:
+        fail(f"model_cards_sp: off the one-card sp forms: {errs}, updates "
+             f"{upd}, moments {moments}, bounds {bounds}")
+    if not checks["forward_bitwise_one_card"]:
+        fail(f"model_cards_sp: the forward is not bitwise the one-card "
+             f"forward(sp={sp}): max abs err {errs['forward']}")
+    if cross and not (checks["forward_bitwise_card0"]
+                      and checks["step_bitwise_card0"]):
+        fail(f"model_cards_sp: not bitwise the same mesh on card 0: {checks}")
+    emit({"phase": "model_cards_sp", "ok": True, "cards": n,
+          "mesh": MC_SP_MESH, "slots": slots, "layers": L,
+          "reduced": "n_layers 32 -> 2",
+          "tokens": {"forward": [1, MC_SP_TOKENS],
+                     "adamw_step": [1, SP_TRAIN_TOKENS]},
+          "dtype": {"forward": "bfloat16", "adamw_step": "float32"},
+          "s": runs, "schedule": want, "errors": errs,
+          "update_per_leaf": [d for d, _f in upd],
+          "bounds": bounds, "checks": checks, "loss": float(loss),
+          "seconds": time.perf_counter() - t0})
+    return {"launches": launches}
+
+
 def time_model_card_kernels(F, mc) -> list:
     """Rows of the fused kernel's cross-card mode (bench/model_cards.py
     fused_rows) at Llama-3-8B's MLP-down at TP = 4, fp32: its
@@ -7108,6 +7394,7 @@ def main() -> int:
     uly = ulysses_phase(ring, F, FL, RA)
     moe = moe_path(ring, F, FL, MM, MD, S, T_)
     mcp = model_cards_phase(ring, F, FL, M, MM, S, RA, T_)
+    mcs = model_cards_sp(ring, F, FL, M, S, T_)
     mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
@@ -7122,11 +7409,11 @@ def main() -> int:
         # the main path's launches: the sum over its parts (the self-ring
         # launches have rows of their own)
         parts = (mp, tp, lanes, serve, train, adamw, sp, spt, uly, moe,
-                 plugin, plan, mcp)
+                 plugin, plan, mcp, mcs)
         launches = {k: sum(part["launches"].get(k, 0) for part in parts)
                     for k in mp["launches"]}
         launches.update({k: sum(part["launches"].get(k, 0) for part in (
-            serve, train, adamw, sp, spt, uly, moe, plugin, mcp))
+            serve, train, adamw, sp, spt, uly, moe, plugin, mcp, mcs))
             for k in FLASH_KERNELS})
         launches.update({k: plugin["launches"][k] for k in PL})
         if args.no_timing:

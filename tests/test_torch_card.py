@@ -2170,8 +2170,9 @@ def test_model_forward_generate_and_step_over_cards_on_cards():
 
 @pytest.mark.parametrize("schedule", ["contiguous", "zigzag", "windowed"])
 def test_ring_attention_over_cards_on_cards(schedule):
-    """Ring attention with the sp members on per-card lists (a flash launch
-    per card and hop), bitwise the one-card ring, with gradients."""
+    """Ring attention with the sp members on per-card lists (under
+    autograd a flash launch per member and hop), bitwise the one-card
+    ring, with gradients."""
     import importlib
 
     RA = importlib.import_module("accl_tpu_torch.parallel.ring_attention")

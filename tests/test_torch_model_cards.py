@@ -415,8 +415,12 @@ def test_place_params_puts_each_shard_on_its_slot(monkeypatch):
     # tree_map keeps the placement
     from accl_tpu_torch.utils.tree import tree_map
     assert tree_map(lambda t: t, single).places == single.places
+    # an sp axis is placed (tests/test_torch_sp_cards.py); an axis the
+    # model does not place keeps its refusal
+    assert isinstance(TT.place_params(one, tcfg, make_mesh(
+        tp=2, sp=2, devices=_cpus(4))), TT.SpReplicas)
     with pytest.raises(ACCLError, match="not part of accl_tpu_torch yet"):
-        TT.place_params(one, tcfg, make_mesh(tp=2, sp=2, devices=_cpus(4)))
+        TT.place_params(one, tcfg, make_mesh(fsdp=2, tp=2, devices=_cpus(4)))
     with pytest.raises(ValueError, match="every slot on one device"):
         TT.place_params(one, tcfg, make_mesh(tp=2, device="cpu"))
 
@@ -612,8 +616,14 @@ def test_train_step_over_cards_checks_the_placement():
     other[1].places = TT.Places(other[1].places.devices, (0, 1))
     with pytest.raises(ValueError, match="replica 1 is not placed"):
         step(other, toks)
-    with pytest.raises(ACCLError, match="sequence parallelism"):
-        TT.make_train_step(make_mesh(tp=2, sp=2, devices=_cpus(4)), tcfg)
+    # the sp axis over cards runs (tests/test_torch_sp_cards.py); its
+    # step takes the sp placement
+    sp_mesh = make_mesh(tp=2, sp=2, devices=_cpus(4))
+    sp_step, _ = TT.make_train_step(sp_mesh, tcfg)
+    _p, loss = sp_step(TT.place_params(one, tcfg, sp_mesh), toks)
+    assert torch.isfinite(loss)
+    with pytest.raises(ACCLError, match="not part of accl_tpu_torch yet"):
+        TT.place_params(one, tcfg, make_mesh(ep=2, tp=2, devices=_cpus(4)))
     with pytest.raises(ValueError, match="pass one member's tree"):
         TT.forward(other, toks, tcfg)
 
