@@ -2,7 +2,7 @@
 mode, timed.
 
     python -m accl_tpu_torch.bench.model_cards [--iters 10] [--layers 32]
-        [--sp-layers 8] [--out FILE]
+        [--sp-layers 8] [--rows fused,model,sp,steps] [--out FILE]
 
 It prints one JSON line per measurement and, last, the card's name and
 power limit:
@@ -27,18 +27,22 @@ power limit:
   at full width and
   ``--layers`` layers, bf16, tp = 4 over the cards (one shard a card on
   four): s per 2 x 4096 forward
-  against the same mesh with every slot on card 0, logits bitwise; a dp
-  2 x tp 2 AdamW step at 2 layers, fp32, 1 x 2048 tokens a member, s per
-  step (the first and the second) over the cards against the same mesh
-  on card 0, the updated parameters bitwise;
+  against the same mesh with every slot on card 0, logits bitwise;
 - ``model_sp``: the model's sp axis over the cards: Llama-3-8B at full
   width and ``--sp-layers`` layers, bf16, attn="dense" (the ring's flash
   hops), sp = 4 over 1 x 32768 tokens (one sp member a card on four,
   each holding a replica of the weights): s per forward over the cards
-  against the same mesh with every slot on card 0, logits bitwise; a tp
-  2 x sp 2 AdamW step at 2 layers, fp32, 1 x 8192 tokens, s per step
-  (the first and the second) against the same mesh on card 0, the
-  updated parameters bitwise.
+  against the same mesh with every slot on card 0, logits bitwise;
+- ``model_step``: the train steps (``step_rows``), STEPS of each, s a
+  step, each card's peak allocated GiB and, in one more step under
+  torch.profiler, each card's device-busy share: the dp 2 x tp 2 AdamW step
+  at Llama-3-8B width, 2 layers, fp32, 1 x 2048 tokens a member; the tp
+  2 x sp 2 AdamW step, attn="dense", 1 x 8192 tokens; the Switch-Base-8
+  dp 2 x ep 8 SGD step, fp32, 16 x 1024 tokens.  Over the cards and
+  with every slot on card 0; the updated parameters bitwise the card-0
+  mesh's.  The file
+  runs unchanged in an earlier tree (copy it there) to set two trees
+  side by side in one call.
 
 With one card it times the per-rank-table form (``ring.rank_tables``)
 of 4 ranks on that card, and the model rows with the one-card mesh in
@@ -50,6 +54,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import sys
@@ -232,15 +237,13 @@ def _slots(C: int, n: int) -> list:
 
 
 def model_rows(C: int, layers: int) -> list:
-    """The Llama-3-8B forward at tp = 4 over the C cards and the dp 2 x
-    tp 2 AdamW step over them, each against the same mesh with every slot
-    on card 0 (with one card: the per-card list on card 0 against the
-    one-card mesh)."""
+    """The Llama-3-8B forward at tp = 4 over the C cards against the same
+    mesh with every slot on card 0 (with one card: the per-card list on
+    card 0 against the one-card mesh), and one row-parallel combine's
+    crossings."""
     from accl_tpu_torch import models as M
-    from accl_tpu_torch import optim
     from accl_tpu_torch.parallel import make_mesh
     from accl_tpu_torch.models.transformer import Places, _sum_on_cards
-    from accl_tpu_torch.utils.tree import tree_leaves
 
     cards = list(range(C))
     devs = _slots(C, 4)
@@ -283,40 +286,6 @@ def model_rows(C: int, layers: int) -> list:
              "bitwise": torch.equal(res["cards"][2], res["card0"][2])})
     del full, res, h, parts
     torch.cuda.empty_cache()
-    scfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": 2})
-    base = M.init_params(torch.Generator(device="cuda:0").manual_seed(21),
-                         scfg, tp=1)
-    toks = torch.randint(0, scfg.vocab, (2, 2048),
-                         generator=torch.Generator(device="cuda:0")
-                         .manual_seed(22), device="cuda:0")
-    out = {}
-    for label, d in (("cards", _slots(C, 4)), ("card0", ["cuda:0"] * 4)):
-        mesh = make_mesh(dp=2, tp=2, devices=d)
-        reps = M.place_params(base, scfg, mesh)
-        step, _specs, init = M.make_train_step(
-            mesh, scfg, optimizer=optim.adamw(1e-4), params=reps)
-        state = init(reps)
-        times = []
-        for _ in range(2):
-            t = time.perf_counter()
-            _p, state, loss = step(reps, state, toks)
-            for c in cards:
-                torch.cuda.synchronize(c)
-            times.append(time.perf_counter() - t)
-        out[label] = (times, float(loss),
-                      [x.to("cuda:0") for x in tree_leaves(
-                          M.shard_params(reps[1], scfg, 2))])
-        del reps, state, step
-        torch.cuda.empty_cache()
-    rows.append({"what": "adamw_step", "config": "Llama-3-8B", "layers": 2,
-                 "dtype": "float32", "mesh": {"dp": 2, "tp": 2},
-                 "tokens_a_member": [1, 2048], "devices": _slots(C, 4),
-                 "s_steps_cards": out["cards"][0],
-                 "s_steps_card0": out["card0"][0],
-                 "loss": out["cards"][1],
-                 "bitwise": out["cards"][1] == out["card0"][1] and all(
-                     torch.equal(a, b) for a, b in zip(out["cards"][2],
-                                                       out["card0"][2]))})
     return rows
 
 
@@ -360,41 +329,181 @@ def sp_rows(C: int, layers: int) -> list:
              "bitwise": torch.equal(res["cards"][2], res["card0"][2])}]
     del full, res
     torch.cuda.empty_cache()
-    axes, T = SP_STEP
-    scfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": 2, "attn": "dense"})
-    base = M.init_params(torch.Generator(device="cuda:0").manual_seed(24),
-                         scfg, tp=1)
-    toks = torch.randint(0, scfg.vocab, (1, T),
-                         generator=torch.Generator(device="cuda:0")
-                         .manual_seed(25), device="cuda:0")
-    out = {}
-    for label, d in (("cards", _slots(C, 4)), ("card0", ["cuda:0"] * 4)):
-        mesh = make_mesh(devices=d, **axes)
-        reps = M.place_params(base, scfg, mesh)
-        step, _specs, init = M.make_train_step(
-            mesh, scfg, optimizer=optim.adamw(1e-4), params=reps)
-        state = init(reps)
-        times = []
-        for _ in range(2):
-            t = time.perf_counter()
-            _p, state, loss = step(reps, state, toks)
-            for c in cards:
-                torch.cuda.synchronize(c)
-            times.append(time.perf_counter() - t)
-        out[label] = (times, float(loss),
-                      [x.to("cuda:0") for x in tree_leaves(
-                          M.shard_params(reps[1], scfg, 2))])
-        del reps, state, step
+    return rows
+
+
+#: Switch-Base-8 (google/switch-base-8's config.json: d_model 768, 12
+#: heads of 64, d_ff 3072, 8 experts, capacity factor 1.25), as
+#: chip_smoke.py's moe_path runs it; the step's dp x ep mesh and tokens
+SWITCH_BASE_8 = dict(vocab=32128, d_model=768, n_layers=4, n_heads=12,
+                     d_head=64, d_ff=3072, n_experts=8,
+                     capacity_factor=1.25, dtype="float32")
+MOE_STEP = ({"dp": 2, "ep": 8}, (16, 1024))
+#: the steps' repetitions (the first includes the kernels' first calls)
+STEPS = 3
+
+
+def _busy(run, cards) -> tuple:
+    """One more call of ``run`` under torch.profiler: its result, and its
+    s with each card's device-busy s (the summed times of the kernels and
+    copies the profiler saw on it; a card's work runs on one stream, so
+    they do not overlap) as a share of that s."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = run()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        wall = time.perf_counter() - t
+    busy = {f"cuda:{c}": 0.0 for c in cards}
+    for e in prof.events():
+        key = f"cuda:{e.device_index}"
+        if e.device_type == DeviceType.CUDA and key in busy:
+            busy[key] += e.time_range.elapsed_us() * 1e-6
+    return out, {"s_profiled": wall, "busy_s": busy,
+                 "busy_share": {k: v / wall for k, v in busy.items()}}
+
+
+def _timed_steps(make, devs, cards) -> tuple:
+    """The mesh ``make(devs)`` builds, then STEPS calls of its step, each
+    to every card's synchronize, and one more under the profiler
+    (``_busy``): (s a step, each card's peak allocated GiB from before
+    the mesh was built to the last timed step's end, less what the card
+    held before: the mesh's parameters, state and steps; the profiled
+    step's device-busy shares; the last loss, the mesh's updated
+    leaves)."""
+    gc.collect()  # the meshes before: their reference cycles go now
+    base = {}
+    for c in cards:
+        torch.cuda.synchronize(c)
+        base[c] = torch.cuda.memory_allocated(c)
+        torch.cuda.reset_peak_memory_stats(c)
+    run, leaves = make(devs)
+    times = []
+    for _ in range(STEPS):
+        t = time.perf_counter()
+        run()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        times.append(time.perf_counter() - t)
+    peak = {f"cuda:{c}": (torch.cuda.max_memory_allocated(c) - base[c])
+            / 2 ** 30 for c in cards}
+    loss, busy = _busy(run, cards)
+    return times, peak, busy, float(loss), leaves()
+
+
+def step_rows(C: int) -> list:
+    """The train steps over the C cards against the same mesh with every
+    slot on card 0: the dp 2 x tp 2 AdamW step at Llama-3-8B width, 2
+    layers, fp32, 1 x 2048 tokens a member; the tp 2 x sp 2 AdamW step,
+    attn="dense", 1 x 8192 tokens; the Switch-Base-8 dp 2 x ep 8 SGD
+    step, fp32, 16 x 1024 tokens (four ep members a card on four).
+    The card-0 mesh first, then over the cards, STEPS steps each, with
+    each card's peak allocated memory (``_timed_steps``); the loss and
+    updated parameters over the cards bitwise the card-0 mesh's or
+    not."""
+    from accl_tpu_torch import models as M
+    from accl_tpu_torch import optim
+    from accl_tpu_torch.models import moe as MM
+    from accl_tpu_torch.parallel import make_mesh
+    from accl_tpu_torch.utils.tree import tree_leaves
+
+    cards = list(range(C))
+    rows = []
+
+    def dense(axes, T, seed, attn):
+        scfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": 2, "attn": attn})
+        base = M.init_params(torch.Generator(device="cuda:0").manual_seed(
+            seed), scfg, tp=1)
+        n_dp = axes.get("dp", 1)
+        toks = torch.randint(0, scfg.vocab, (n_dp, T),
+                             generator=torch.Generator(device="cuda:0")
+                             .manual_seed(seed + 1), device="cuda:0")
+
+        def make(devs):
+            mesh = make_mesh(devices=devs, **axes)
+            reps = M.place_params(base, scfg, mesh)
+            step, _specs, init = M.make_train_step(
+                mesh, scfg, optimizer=optim.adamw(1e-4), params=reps)
+            state = [init(reps)]
+
+            def run():
+                _p, state[0], loss = step(reps, state[0], toks)
+                return loss
+
+            def leaves():
+                return [x.to("cuda:0") for x in tree_leaves(
+                    M.shard_params(M.placed_trees(reps)[-1], scfg, 2))]
+
+            return run, leaves
+
+        return make
+
+    def moe():
+        axes, shape = MOE_STEP
+        cfg = MM.MoEConfig(**SWITCH_BASE_8)
+        full = MM.init_params(torch.Generator(device="cuda:0").manual_seed(
+            26), cfg, ep=1)
+        toks = torch.randint(0, cfg.vocab, shape,
+                             generator=torch.Generator(device="cuda:0")
+                             .manual_seed(27), device="cuda:0")
+
+        def make(devs):
+            mesh = make_mesh(devices=devs, **axes)
+            reps = MM.place_params(full, cfg, mesh)
+            step, _ = MM.make_train_step(mesh, cfg, lr=1e-4)
+
+            def run():
+                return step(reps, toks)[1]
+
+            def leaves():
+                return [x.to("cuda:0") for x in tree_leaves(
+                    MM.shard_params(reps[-1], cfg, axes["ep"]))]
+
+            return run, leaves
+
+        return make
+
+    specs = {"adamw_step": ({"dp": 2, "tp": 2}, 4,
+                            lambda: dense({"dp": 2, "tp": 2}, 2048, 21,
+                                          "flash"),
+                            {"config": "Llama-3-8B", "layers": 2,
+                             "dtype": "float32", "optimizer": "adamw",
+                             "tokens_a_member": [1, 2048]}),
+             "sp_adamw_step": (SP_STEP[0], 4,
+                               lambda: dense(SP_STEP[0], SP_STEP[1], 24,
+                                             "dense"),
+                               {"config": "Llama-3-8B", "layers": 2,
+                                "dtype": "float32", "optimizer": "adamw",
+                                "tokens": [1, SP_STEP[1]]}),
+             "moe_step": (MOE_STEP[0], 16, moe,
+                          {"config": "Switch-Base-8",
+                           "layers": SWITCH_BASE_8["n_layers"],
+                           "dtype": "float32", "optimizer": "sgd",
+                           "tokens": list(MOE_STEP[1])})}
+    for kind, (axes, slots, build, about) in specs.items():
+        make = build()
+        row = {"what": kind, **about, "mesh": axes,
+               "devices": _slots(C, slots)}
+        # the card-0 mesh first: its leaves stay for the bitwise checks
+        times, peak, busy, want_loss, want = _timed_steps(
+            make, ["cuda:0"] * slots, cards)
+        row.update(s_steps_card0=times, peak_gib_card0=peak, busy_card0=busy)
         torch.cuda.empty_cache()
-    rows.append({"what": "sp_adamw_step", "config": "Llama-3-8B",
-                 "layers": 2, "dtype": "float32", "mesh": axes,
-                 "tokens": [1, T], "devices": _slots(C, 4),
-                 "s_steps_cards": out["cards"][0],
-                 "s_steps_card0": out["card0"][0],
-                 "loss": out["cards"][1],
-                 "bitwise": out["cards"][1] == out["card0"][1] and all(
-                     torch.equal(a, b) for a, b in zip(out["cards"][2],
-                                                       out["card0"][2]))})
+        times, peak, busy, loss, got = _timed_steps(make, _slots(C, slots),
+                                                    cards)
+        row.update(s_steps_cards=times, peak_gib_cards=peak,
+                   busy_cards=busy, loss=loss,
+                   bitwise=loss == want_loss and all(
+                       torch.equal(a, b) for a, b in zip(got, want)))
+        del got
+        torch.cuda.empty_cache()
+        rows.append(row)
+        del make, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -405,8 +514,12 @@ def main() -> int:
     ap.add_argument("--sp-layers", type=int, default=8,
                     help="depth of the sp = 4 forward (every card, and "
                          "card 0 four times over, holds the weights)")
+    ap.add_argument("--rows", default="fused,model,sp,steps",
+                    help="which rows: fused, model, sp, steps (comma "
+                         "separated)")
     ap.add_argument("--out", help="also write the rows to this JSON file")
     args = ap.parse_args()
+    want = set(args.rows.split(","))
     if not torch.cuda.is_available():
         print("model_cards: no CUDA device; nothing to run", file=sys.stderr)
         return 2
@@ -415,16 +528,19 @@ def main() -> int:
     C = min(4, torch.cuda.device_count())
     rows = []
     devices = [f"cuda:{c}" for c in range(C)] if C > 1 else _slots(1, 4)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16) if "fused" in want else ():
         for shape in ("mlp_down", "attn_out"):
             rows.append({"phase": "fused_launch",
                          **fused_rows(devices, shape, dt, args.iters)})
             print(json.dumps(rows[-1]), flush=True)
-    for row in model_rows(C, args.layers):
+    for row in model_rows(C, args.layers) if "model" in want else ():
         rows.append({"phase": "model", **row})
         print(json.dumps(rows[-1]), flush=True)
-    for row in sp_rows(C, args.sp_layers):
+    for row in sp_rows(C, args.sp_layers) if "sp" in want else ():
         rows.append({"phase": "model_sp", **row})
+        print(json.dumps(rows[-1]), flush=True)
+    for row in step_rows(C) if "steps" in want else ():
+        rows.append({"phase": "model_step", **row})
         print(json.dumps(rows[-1]), flush=True)
     if C == 1:
         rows.append({"phase": "cross_card", "ran": False,

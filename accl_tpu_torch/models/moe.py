@@ -19,14 +19,24 @@ tanh approximation, ``jax.nn.gelu``'s default.
 
 Expert parallelism over several cards (a mesh with ``devices``, axes dp
 and ep): ``place_params`` puts member e's expert slice on the card of
-slot (d, e) of data member d and the other leaves on the card of (d, 0),
-the hub, which holds the residual stream, the attention and the routing.
-Member e's rows and expert indices go to its card, the dispatch and
-combine all-to-alls cross between the cards through the counted
-``parallel.collectives.move``, each expert runs on its own card, and the
-combined rows come back to the hub: the logits are bitwise the one-card
-model's.  The train step over such a mesh folds the members' gradients
-as the transformer's does (``transformer._mean_grads_cards``).
+slot (d, e) of data member d, the other leaves on the card of (d, 0),
+the hub, and member e's own tensor of each of them over its card's copy,
+one copy a card (``transformer.Places.own``).  Member e runs its B / ep rows on its card
+from the embedding to the logits and its loss, as each ``shard_map``
+member does in the JAX package: the dispatch and combine all-to-alls,
+through the counted ``parallel.collectives.move``, are the only
+crossings of the forward, each expert runs on its own card, and the
+combined rows stay on the member's card.  The forward gathers the
+logits on the hub.  The train step backpropagates every member's loss
+on its card, folds the members' losses and counts in member order on
+the hub, and each replicated leaf's gradients over the members' tensors
+in member order along their cards, then over the data members as the transformer's does
+(``transformer._mean_grads_cards``); the banks keep their own
+gradients, and the copies are made again from the updated leaves.  A
+member's products run over its own rows, so the step is another
+summation of the replicated leaves' gradients than the one-card step's
+(tests/test_torch_model_cards.py states the bounds); the banks' are the
+one-card step's.
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ from .transformer import (
     card_closures,
     place_split,
     placed_replicas,
+    placed_trees,
     sgd_cards,
     sum_count_device_step,
 )
@@ -101,9 +112,31 @@ def place_params(params: dict, cfg: MoEConfig, mesh):
     cards of ``mesh``, a mesh over several cards with axes dp and ep
     (``transformer.place_split``): expert member e's slice of the banks
     of data member d on slot (d, e)'s card, every other leaf on (d,
-    0)'s."""
-    return place_split(shard_params(params, cfg, mesh.shape.get("ep", 1)),
-                       mesh, "ep")
+    0)'s, the hub, and member e's own tensor of each of those over its
+    card's copy, one copy a card (``Places.own``: made again once the
+    hub's leaf changes)."""
+    placed = place_split(shard_params(params, cfg, mesh.shape.get("ep", 1)),
+                         mesh, "ep")
+    for rep in placed_trees(placed):
+        for e in range(1, len(rep.places.devices)):
+            _member_tree(rep, rep.places, e)
+    return placed
+
+
+def _member_block(blk: dict, places: Places, e: int) -> dict:
+    """Member e's block: its own tensor of every replicated leaf
+    (``Places.own``), the expert banks' rank lists as they are (every
+    member's tokens reach every bank by the all-to-alls)."""
+    return {k: v if isinstance(v, list) else places.own(v, e)
+            for k, v in blk.items()}
+
+
+def _member_tree(params, places: Places, e: int) -> dict:
+    """Member e's tree (:func:`_member_block` for every block)."""
+    return {"embed": places.own(params["embed"], e),
+            "ln_f": places.own(params["ln_f"], e),
+            "blocks": [_member_block(b, places, e)
+                       for b in params["blocks"]]}
 
 
 def shard_params(params: dict, cfg: MoEConfig, ep: int) -> dict:
@@ -182,6 +215,32 @@ def _expert(t, w1, w2):
     return _mm(F.gelu(_mm(t, w1), approximate="tanh"), w2)
 
 
+def _expert_members(xs, blks, cfg: MoEConfig, capacity: int,
+                    fused: bool = False, devs=None) -> tuple:
+    """The routed FFN of the ep members: member e's rows ``xs[e]`` [n, D]
+    routed with ``blks[e]``'s router to the members' experts by the
+    all-to-all pair (``fused=True``: ``fused_expert_ffn``, bitwise the
+    same) at ``capacity`` a member and expert, gated.  ``devs``: the
+    members' cards (each member's rows, router and result on its own; the
+    all-to-alls cross between them), or None on one device.  Returns
+    (each member's [n, D], each member's aux)."""
+    dt = cfg.tdtype
+    routes = [_route(x, b, cfg) for x, b in zip(xs, blks)]
+    idxs = [r[0] for r in routes]
+    ffns = [functools.partial(_expert, w1=w1[0].to(dt), w2=w2[0].to(dt))
+            for w1, w2 in zip(blks[0]["we1"], blks[0]["we2"])]
+    if fused:
+        ys = fused_expert_ffn(xs, idxs, ffns, capacity=capacity,
+                              devices=devs)
+    else:
+        inputs, info = expert_dispatch(xs, idxs, capacity=capacity,
+                                       devices=devs)
+        ys = expert_combine([f(t) for f, t in zip(ffns, inputs)], info,
+                            devices=devs)
+    return ([y * r[1].to(dt)[:, None] for y, r in zip(ys, routes)],
+            [r[2] for r in routes])
+
+
 def _moe_ffn(h, blk, cfg: MoEConfig, ep: int = 1,
              capacity: Optional[int] = None, fused: bool = False,
              places: Optional[Places] = None):
@@ -189,14 +248,13 @@ def _moe_ffn(h, blk, cfg: MoEConfig, ep: int = 1,
 
     ``ep`` = 1: the dense reference, every expert on every token, aux a
     scalar.  ``ep`` > 1: the batch splits over the members, each routing
-    its own B / ep rows to the members' experts by the all-to-all pair
-    (``fused=True``: ``fused_expert_ffn``, bitwise the same), aux one
-    scalar per member.  ``capacity`` overrides the per-expert budget
-    ceil(tokens capacity_factor / E) of each member; serving passes a
-    member's token count, which makes the dispatch drop-free.  With
-    ``places`` (members on several cards) the routing stays on the hub,
-    member e's rows and indices move to its card, the all-to-alls cross
-    between the cards, and the combined rows come back to the hub."""
+    its own B / ep rows to the members' experts (:func:`_expert_members`),
+    aux one scalar per member.  ``capacity`` overrides the per-expert
+    budget ceil(tokens capacity_factor / E) of each member; serving passes
+    a member's token count, which makes the dispatch drop-free.  With
+    ``places`` (members on several cards; ``h`` on the hub, as the
+    serving path holds it) member e's rows move to its card, are routed
+    there with its own router and come back to the hub."""
     B, T, D = h.shape
     dt = cfg.tdtype
     if ep == 1:
@@ -216,28 +274,23 @@ def _moe_ffn(h, blk, cfg: MoEConfig, ep: int = 1,
                          f"(banks split over {len(blk['we1'])})")
     b = B // ep
     xs = list(h.reshape(ep, b * T, D))
-    routes = [_route(x, blk, cfg) for x in xs]
-    idxs = [r[0] for r in routes]
-    cap = (capacity if capacity is not None else
-           int(np.ceil(b * T * cfg.capacity_factor / cfg.n_experts)))
-    ffns = [functools.partial(_expert, w1=w1[0].to(dt), w2=w2[0].to(dt))
-            for w1, w2 in zip(blk["we1"], blk["we2"])]
-    devs = None
+    blks, devs = [blk] * ep, None
     if places is not None:
         devs = places.devices
         xs = [x if e == 0 else move(x, devs[e]) for e, x in enumerate(xs)]
-        idxs = [i if e == 0 else move(i, devs[e])
-                for e, i in enumerate(idxs)]
-    if fused:
-        ys = fused_expert_ffn(xs, idxs, ffns, capacity=cap, devices=devs)
-    else:
-        inputs, info = expert_dispatch(xs, idxs, capacity=cap, devices=devs)
-        ys = expert_combine([f(t) for f, t in zip(ffns, inputs)], info,
-                            devices=devs)
+        blks = [_member_block(blk, places, e) for e in range(ep)]
+    ys, aux = _expert_members(xs, blks, cfg, _capacity(cfg, b * T, capacity),
+                              fused, devs)
     if devs is not None:
         ys = [y if e == 0 else move(y, devs[0]) for e, y in enumerate(ys)]
-    y = torch.cat([y * r[1].to(dt)[:, None] for y, r in zip(ys, routes)])
-    return y.reshape(B, T, D), [r[2] for r in routes]
+    return torch.cat(ys).reshape(B, T, D), aux
+
+
+def _capacity(cfg: MoEConfig, n: int, capacity: Optional[int]) -> int:
+    """A member's per-expert budget over its n tokens: ``capacity``, or
+    ceil(n capacity_factor / E)."""
+    return (capacity if capacity is not None else
+            int(np.ceil(n * cfg.capacity_factor / cfg.n_experts)))
 
 
 def moe_block_qkv(h, blk, cfg: MoEConfig):
@@ -264,14 +317,58 @@ def _add_aux(total, aux):
     return total + aux
 
 
+def _forward_members(params, places: Places, tokens, cfg: MoEConfig,
+                     fused: bool = False) -> tuple:
+    """The forward over the ep members' cards: member e's B / ep rows of
+    ``tokens`` on its card from the embedding to the logits, with its own
+    copies of the replicated leaves; the expert all-to-alls are the only
+    crossings.  Returns (each member's logits [B / ep, T, vocab], each
+    member's aux summed over the layers), each on its member's card."""
+    devs = places.devices
+    ep = len(devs)
+    B, T = tokens.shape
+    if B % ep:
+        raise ValueError(f"batch {B} does not split over {ep} ep members")
+    if ep != cfg.n_experts:
+        raise ValueError(f"expert parallelism over {ep} members needs the "
+                         f"{cfg.n_experts} experts split one per member")
+    b, D, dt = B // ep, cfg.d_model, cfg.tdtype
+    trees = [_member_tree(params, places, e) for e in range(ep)]
+    xs = [t["embed"][tokens[e * b:(e + 1) * b].to(devs[e])].to(dt)
+          for e, t in enumerate(trees)]
+    cap = _capacity(cfg, b * T, None)
+    aux_total = None
+    for i in range(cfg.n_layers):
+        blks = [t["blocks"][i] for t in trees]
+        hs = []
+        for e, blk in enumerate(blks):
+            q, k, v = moe_block_qkv(_rmsnorm(xs[e], blk["ln1"]), blk, cfg)
+            xs[e] = moe_block_attn_out(
+                xs[e], _dense_attention(q, k, v, causal=True), blk, cfg)
+            hs.append(_rmsnorm(xs[e], blk["ln2"]).reshape(b * T, D))
+        ys, aux = _expert_members(hs, blks, cfg, cap, fused, devs)
+        xs = [x + y.reshape(b, T, D) for x, y in zip(xs, ys)]
+        aux_total = _add_aux(aux_total, aux)
+    return ([_mm(_rmsnorm(x, t["ln_f"]), t["embed"].to(dt).t())
+             for x, t in zip(xs, trees)], aux_total)
+
+
 def forward(params, tokens, cfg: MoEConfig, ep: int = 1,
             fused: bool = False):
     """Token ids [B, T] -> (logits [B, T, vocab], aux summed over the
     layers), on the device the parameters live on.  ``ep`` > 1: the batch
     split over that many members, the banks one expert per member, and the
     aux one float32 scalar per member (a list).  Parameters placed on
-    several cards (:func:`place_params`) run each expert on its card."""
+    several cards (:func:`place_params`) run each member's rows on its
+    card (:func:`_forward_members`), its aux there; the logits are
+    gathered on the hub."""
     places = _places(params, "we1")
+    if places is not None:
+        logits, aux = _forward_members(params, places,
+                                       torch.as_tensor(tokens), cfg, fused)
+        hub = places.devices[0]
+        return torch.cat([logits[0]] + [move(lg, hub) for lg in logits[1:]]
+                         ), aux
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
     dt = cfg.tdtype
@@ -283,7 +380,7 @@ def forward(params, tokens, cfg: MoEConfig, ep: int = 1,
         attn = _dense_attention(q, k, v, causal=True)
         x = moe_block_attn_out(x, attn, blk, cfg)
         h = _rmsnorm(x, blk["ln2"])
-        m, aux = _moe_ffn(h, blk, cfg, ep, fused=fused, places=places)
+        m, aux = _moe_ffn(h, blk, cfg, ep, fused=fused)
         aux_total = _add_aux(aux_total, aux)
         x = x + m
     x = _rmsnorm(x, params["ln_f"])
@@ -297,17 +394,20 @@ def loss_fn(params, tokens, cfg: MoEConfig, ep: int = 1,
     the transformer's ``loss_fn``.  The aux enters count-weighted
     (``router_aux_weight * aux * count``) per member, so that after the
     division by the global count it is the token-weighted mean of the
-    members' aux losses."""
+    members' aux losses.  Parameters placed on several cards: each
+    member's sum and count on its card (:func:`_loss_members`), folded in
+    member order on the hub."""
+    if _places(params, "we1") is not None:
+        sums, counts = _loss_members(params, tokens, cfg, fused)
+        hub = sums[0].device
+        total, count = sums[0], counts[0]
+        for s_, c in zip(sums[1:], counts[1:]):
+            total = total + move(s_, hub)
+            count = count + move(c, hub)
+        return total, count
     logits, aux = forward(params, tokens, cfg, ep, fused=fused)
-    logits = logits.float()
-    tokens = torch.as_tensor(tokens, device=logits.device).long()
-    B, T = tokens.shape
-    labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
-    valid = torch.ones((B, T), dtype=torch.bool, device=logits.device)
-    valid[:, -1] = False
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
+    nll, valid = _nll(logits, torch.as_tensor(tokens, device=logits.device))
+    B = nll.shape[0]
     if ep == 1:
         count = torch.sum(valid.float())
         return (torch.sum(nll) + cfg.router_aux_weight * aux * count,
@@ -320,6 +420,36 @@ def loss_fn(params, tokens, cfg: MoEConfig, ep: int = 1,
         loss_sum = s if loss_sum is None else loss_sum + s
         count = c if count is None else count + c
     return loss_sum, count
+
+
+def _nll(logits, tokens) -> tuple:
+    """Next-token negative log-likelihood [B, T] of tokens [B, T] (0 at
+    the masked last position) and its valid mask."""
+    tokens = tokens.long()
+    B, T = tokens.shape
+    labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+    valid = torch.ones((B, T), dtype=torch.bool, device=logits.device)
+    valid[:, -1] = False
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0), valid
+
+
+def _loss_members(params, tokens, cfg: MoEConfig, fused: bool = False):
+    """``loss_fn`` over the ep members' cards: each member's (sum,
+    count) of its rows on its card, the aux count-weighted as
+    :func:`loss_fn` weighs it.  Returns (sums, counts), one per member."""
+    places = _places(params, "we1")
+    tokens = torch.as_tensor(tokens)
+    logits, aux = _forward_members(params, places, tokens, cfg, fused)
+    b = tokens.shape[0] // len(logits)
+    sums, counts = [], []
+    for e, (lg, a) in enumerate(zip(logits, aux)):
+        nll, valid = _nll(lg, tokens[e * b:(e + 1) * b].to(lg.device))
+        c = torch.sum(valid.float())
+        sums.append(torch.sum(nll) + cfg.router_aux_weight * a * c)
+        counts.append(c)
+    return sums, counts
 
 
 def make_train_step(mesh, cfg: MoEConfig, lr: float = 1e-3,
@@ -353,7 +483,7 @@ def make_train_step(mesh, cfg: MoEConfig, lr: float = 1e-3,
                              f"{n_dp} dp x {n_ep} ep members")
         return params, sgd_cards(card_closures(
             reps, tokens, n_dp,
-            lambda p, t: loss_fn(p, t, cfg, n_ep, fused=fused)), reps, lr)
+            lambda p, t: _loss_members(p, t, cfg, fused=fused)), reps, lr)
 
     def step_fn(params, tokens):
         if cards:

@@ -12,8 +12,10 @@ same outputs, the same aux, 1/ep of the work.  The cache is written in
 place; the returned cache shares its tensors with the one passed in.
 Teacher-forced decode reproduces ``moe.forward`` position by position.
 With the banks placed on several cards (``moe.place_params``) the cache
-and attention stay on the hub and each member's share of the tokens runs
-its expert on its card, as in ``moe.forward``.
+and attention stay on the hub (a decode batch need not split over the
+members) and each member's share of the tokens goes to its card, is
+routed there with the member's own router copy and runs the experts as
+in ``moe.forward``, and comes back to the hub.
 """
 from __future__ import annotations
 

@@ -48,15 +48,22 @@ every rank's row-parallel partial goes to every card, which sums the
 partials in rank order (the fold of the one-card combine) into its own
 stream, so every card's stream and the hub's logits are bitwise the
 one-card forward's.  Every crossing is a counted ``collectives.move``.
-The gradient runs through the hub's stream alone (the other cards'
-streams are computed without autograd): ``collectives.fan_out`` hands
-each rank one view per projection that reads its card's normed stream,
-and its backward sums their gradients on the hub in the order autograd
-accumulates the same projections of one tensor on one card (the last
-projection of the last rank first), whatever order the cards finish in;
-the partials' gradients cross back from the hub's sum
-(``collectives.fan_in``).  So a step over cards is bitwise the one-card
-step.  The train step over such a mesh (``make_train_step``)
+Every card's stream carries a gradient of its own and every card runs
+its own backward, as every chip does under ``shard_map``: the hub's last
+stream goes on to the final norm and the logits through
+``collectives.collect``, whose backward hands the stream's gradient to
+every card once; ``collectives.fan_out`` hands each rank one view per
+projection that reads its card's normed stream, and its backward folds
+their gradients in the order autograd accumulates the same projections
+of one tensor on one card (the last projection of the last rank first),
+along the cards from the last rank's to the hub, then gives the fold
+back to every card; each rank's row-parallel partial takes the gradient
+of its own card's sum (``collectives.gather_sum``, a psum's transpose);
+the spread of the embedded stream passes the hub's gradient alone into
+the embedding.  Every card's stream gradient is the one-card model's
+bit for bit, and only the hub's norm scales collect gradients (the other
+cards' copies are detached).  So a step over cards is bitwise the
+one-card step.  The train step over such a mesh (``make_train_step``)
 backpropagates each data member on its own cards, folds the members'
 gradients leaf by leaf in member order on member 0's cards (``(g0 + g1)
 + ...``, the one-card step's accumulation), and sends each member the
@@ -92,8 +99,8 @@ from ..ops.flash import flash_attention
 from ..ops.fused import fused_chunks, fused_matmul_allreduce
 from ..constants import ACCLError
 from ..optim import apply_updates
-from ..parallel.collectives import (all_reduce, fan_in, fan_out,
-                                    gather_sum, move)
+from ..parallel.collectives import (all_reduce, card_homes, collect, fan_in,
+                                    fan_out, gather_sum, move, spread)
 from ..parallel.ring_attention import (_dense_attention, expand_gqa_kv,
                                        ring_attention, zigzag_indices,
                                        zigzag_indices_inverse)
@@ -265,16 +272,17 @@ class Places:
     holds a stream, 0 first.  Rank 0's card, the hub, holds the
     replicated leaves the ranks share and computes the logits; every
     other card holds a copy of the replicated leaves its stream reads
-    (:meth:`copy`)."""
+    (:meth:`copy`), or, where each rank computes on rows of its own (the
+    ep members of ``models.moe``), each rank its own tensor of them
+    (:meth:`own`)."""
     devices: tuple
     slots: tuple
 
     def __post_init__(self):
-        first = {}
-        self.homes = tuple(r if d.type == "cpu" else first.setdefault(d, r)
-                           for r, d in enumerate(self.devices))
+        self.homes = tuple(card_homes(self.devices))
         self.cards = tuple(sorted(set(self.homes)))
         self._copies = {}
+        self._own = {}
 
     def copy(self, leaf: torch.Tensor, r: int) -> torch.Tensor:
         """The replicated ``leaf`` (the hub's) as rank r's card holds it:
@@ -291,6 +299,39 @@ class Places:
                        move(leaf.detach(), self.devices[home]))
             self._copies[(home, id(leaf))] = got
         return got[2]
+
+    def own(self, leaf: torch.Tensor, r: int) -> torch.Tensor:
+        """Rank r's own tensor of the replicated ``leaf`` (the hub's), one
+        that collects rank r's gradient: ``leaf`` itself for rank 0; for
+        any other rank a tensor of its own over its card's copy of the
+        leaf (one copy a card, made with a counted move by the first rank
+        on the card; on the hub's card the leaf's own storage), kept,
+        made again once ``leaf`` has changed in place, and requiring a
+        gradient while ``leaf`` does (:meth:`owned`)."""
+        if r == 0:
+            return leaf
+        mine = self._own.setdefault(id(leaf), {})
+        got = mine.get(r)
+        if got is None or got[0] is not leaf or got[1] != leaf._version:
+            home = self.homes[r]
+            with torch.no_grad():
+                if home != r:  # the card's copy, its storage shared
+                    t = self.own(leaf, home).detach()
+                else:
+                    t = move(leaf.detach(), self.devices[r])
+            got = (leaf, leaf._version, t)
+            mine[r] = got
+        return got[2].requires_grad_(leaf.requires_grad)
+
+    def owned(self, leaf: Optional[torch.Tensor] = None) -> list:
+        """The other ranks' own tensors of ``leaf`` (:meth:`own`) as
+        (rank, tensor) pairs in rank order; the tensors of every leaf
+        with ``leaf`` None."""
+        if leaf is None:
+            return [got[2] for mine in self._own.values()
+                    for got in mine.values()]
+        mine = self._own.get(id(leaf), {})
+        return [(r, mine[r][2]) for r in sorted(mine) if mine[r][0] is leaf]
 
 
 class PlacedParams(dict):
@@ -529,27 +570,34 @@ def _global_positions(T: int, cfg: ModelConfig, sp: int,
 
 def _on_cards(places: Places, fn, *per_rank) -> list:
     """``fn(*(a[c] for a in per_rank), c)`` on every card that holds a
-    residual stream (``places.cards``): the hub's with autograd, every
-    other card's without it.  Their values are the hub's, bit for bit
-    (the same operations on copies of the same operands); the gradient
-    runs through the hub's stream alone.  Returns the results per rank
-    (the ranks of one card share its result)."""
-    out = {}
-    for c in places.cards:
-        args = [a[c] for a in per_rank]
-        if c == 0:
-            out[c] = fn(*args, c)
-        else:
-            with torch.no_grad():
-                out[c] = fn(*args, c)
-    return [out[h] for h in places.homes]
+    residual stream (``places.cards``), each with autograd: the same
+    operations on copies of the same operands, so every card's values,
+    and in the backward its gradients, are the hub's bit for bit.
+    Returns the results per rank (the ranks of one card share its
+    result)."""
+    return _per_rank(places, [fn(*[a[c] for a in per_rank], c)
+                              for c in places.cards])
+
+
+def _per_rank(places: Places, by_card) -> list:
+    """Per-card values (``places.cards`` order) as the ranks hold them."""
+    got = dict(zip(places.cards, by_card))
+    return [got[h] for h in places.homes]
 
 
 def _spread(x, places: Places) -> list:
     """The hub's residual stream copied to every other card (a counted
-    move each): the streams per rank."""
-    return _on_cards(places, lambda c: x if c == 0 else
-                     move(x.detach(), places.devices[c]))
+    move each; ``collectives.spread``: in the backward the hub's gradient
+    alone goes on into the embedding): the streams per rank."""
+    return _per_rank(places, spread(x, [places.devices[c]
+                                        for c in places.cards]))
+
+
+def _collect(x, places: Places):
+    """The hub's stream of the streams per rank ``x``, on to the final
+    norm and the logits (``collectives.collect``: its gradient goes back
+    to every card's stream, a counted move each)."""
+    return collect([x[c] for c in places.cards])
 
 
 def _norm(x, scale, places: Optional[Places]):
@@ -565,12 +613,14 @@ def _sum_on_cards(parts, places: Places) -> list:
     """The row-parallel partials summed in rank order on every card that
     holds a stream, ((p0 + p1) + p2) + ..., the fold of the one-card
     combine, each card's with the hub's bits (``gather_sum``: every
-    partial to every card by the ring all-gather); the hub's carries the
-    gradient, as ``fan_in``'s."""
+    partial to every card by the ring all-gather); each card's sum
+    carries the gradient of its stream, and each partial takes that of
+    its own card's sum (no crossing)."""
     if len(places.cards) == 1:
         return [fan_in(parts, places.devices[0])] * len(parts)
-    by_card = dict(zip(places.cards, gather_sum(parts, places.cards)))
-    return [by_card[h] for h in places.homes]
+    return _per_rank(places, gather_sum(
+        parts, places.cards,
+        homes=[places.cards.index(h) for h in places.homes]))
 
 
 def _add_on_cards(x, s, places: Optional[Places]):
@@ -585,8 +635,9 @@ def block_qkv(h, blk, cfg: ModelConfig, positions, places=None):
     (+ RoPE when ``positions`` is given): lists of [B, T, h_r, Dh].  With
     ``places`` ``h`` holds each card's normed stream (per rank) and rank
     r's projections run on its card from its card's copy, with
-    ``fan_out``'s backward (the uses' gradients folded on the hub); the
-    positions, an index the hub computed, are copied along."""
+    ``fan_out``'s backward (the uses' gradients folded along the cards,
+    the fold given to every card); the positions, an index the hub
+    computed, are copied along."""
     B, T, D = (h if places is None else h[0]).shape
     dt = cfg.tdtype
     qs, ks, vs = [], [], []
@@ -613,16 +664,14 @@ def _fused_row_combine(hs, ws, out_shape, dtype, places=None):
     """The fused lane of the row-parallel projections: sum_r hs[r] @ ws[r]
     through the pipelined ``fused_matmul_allreduce`` (chunked ring, plain
     matmuls), as the JAX package's ``_fused_row_combine``; with
-    ``places`` over the ranks' cards, each card's result (per rank; the
-    hub's carries the gradient)."""
+    ``places`` over the ranks' cards, each card's result (per rank), each
+    with the gradient of its card's stream."""
     outs = fused_matmul_allreduce(
         hs, ws, use_pallas=False, chunks=fused_chunks(),
         devices=None if places is None else places.devices)
     if places is None:
         return outs[0].reshape(out_shape).to(dtype)
-    return _on_cards(places, lambda c: (outs[c] if c == 0 else
-                                        outs[c].detach())
-                     .reshape(out_shape).to(dtype))
+    return _on_cards(places, lambda c: outs[c].reshape(out_shape).to(dtype))
 
 
 def block_attn_out(x, attn, blk, cfg: ModelConfig, fused: bool = False,
@@ -799,8 +848,8 @@ def _forward_shards(trees, toks, cfg: ModelConfig, fused: bool) -> list:
                             places, use_reentrant=False)
         else:
             xs = _sp_block(xs, blks, cfg, positions, fused, places)
-    return [_mm(_rmsnorm(x[0], t["ln_f"]), t["embed"].to(cfg.tdtype).t())
-            for x, t in zip(xs, trees)]
+    return [_mm(_rmsnorm(_collect(x, t.places), t["ln_f"]),
+                t["embed"].to(cfg.tdtype).t()) for x, t in zip(xs, trees)]
 
 
 def _sp_params(params, sp: int) -> bool:
@@ -864,7 +913,7 @@ def forward(params, tokens, cfg: ModelConfig, fused: bool = False,
         else:
             x = _block(x, blk, cfg, rope_pos, fused, sp, places)
     if places is not None:
-        x = x[0]
+        x = _collect(x, places)
     x = _rmsnorm(x, params["ln_f"])
     return _mm(x, embed.to(cfg.tdtype).t())
 
@@ -977,15 +1026,23 @@ def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
     data member d's replica (``replicas[d]``, on that member's cards) and
     is backpropagated there.  A member placed over sp members (an
     :class:`SpReplicas`) has one tree per sp member and its closure
-    returns one (sum, count) per tree: they take one backward together,
-    since the ring couples the shards.  The counts and losses, then each
-    leaf's gradients, are folded over the trees in (dp, sp) order on the
-    first tree's cards, ``((g00 + g01) + ...) + g10 ...``, as the one-card
-    step accumulates its dp members (over sp the fold adds per-shard
-    gradients, a different summation from the one-card step's full-T
-    products), divided by the total count there, and the mean is sent to
-    every tree's copy of the leaf (2 (n - 1) counted moves a leaf over n
-    trees; the total count goes to the first tree's other cards once).
+    returns one (sum, count) per tree (or per ep member of its tree):
+    they take one backward together, since the ring (the all-to-alls)
+    couples them.  The counts and losses, then each leaf's gradients, are
+    folded over the trees in (dp, sp) order on the first tree's cards,
+    ``((g00 + g01) + ...) + g10 ...``, as the one-card step accumulates
+    its dp members (over sp the fold adds per-shard gradients, a
+    different summation from the one-card step's full-T products),
+    divided by the total count there, and the mean is sent to every
+    tree's copy of the leaf (2 (n - 1) counted moves a leaf over n trees;
+    the total count goes to the first tree's other cards once).  Each
+    leaf is gathered whole on the first tree's card.  A tree whose ranks
+    hold their own copies of a replicated leaf (``Places.own``, the MoE
+    members) first folds their gradients in rank order, the hub's first,
+    along its cards: the partial fold crosses to each next rank's card
+    where it differs (a counted move) and, in the first tree, back to the
+    hub; the copies are made again from the updated leaf at their next
+    use.
     Returns ``(g_means, mean_loss)``: one gradient tree per tree, in
     (dp, sp) order, and the loss on the first tree's hub; the leaves are
     left without gradients."""
@@ -996,6 +1053,18 @@ def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
         for p in ls:
             p.grad = None
             p.requires_grad_(True)
+
+    def grad(tree, p):
+        """p's gradient and its ranks' own copies', folded in rank order
+        along the cards; with the card it ends on."""
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        homes, at = tree.places.homes, 0
+        for r, c in tree.places.owned(p):
+            if homes[r] != at:
+                g, at = move(g, c.device), homes[r]
+            g = g + (c.grad if c.grad is not None else torch.zeros_like(c))
+        return g, at
+
     try:
         losses, counts = [], []
         for closure, params in zip(loss_closures, replicas):
@@ -1014,19 +1083,20 @@ def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
         denoms = [denom] + [move(denom, d) for d in hub[1:]]
         means = [[] for _ in trees]
         for i, r in enumerate(ranks):
-            gs = [ls[i].grad if ls[i].grad is not None
-                  else torch.zeros_like(ls[i]) for ls in leaves]
+            gs = [grad(t, ls[i]) for t, ls in zip(trees, leaves)]
             dev = leaves[0][i].device
-            acc = gs[0]
-            for g in gs[1:]:
+            acc, at = gs[0]
+            if at != 0:  # the first tree's fold back to its hub
+                acc = move(acc, dev)
+            for g, _at in gs[1:]:
                 acc = acc + move(g, dev)
             acc = acc / denoms[r]
             means[0].append(acc)
             for j in range(1, len(trees)):
                 means[j].append(move(acc, leaves[j][i].device))
     finally:
-        for ls in leaves:
-            for p in ls:
+        for ls, t in zip(leaves, trees):
+            for p in ls + t.places.owned():
                 p.grad = None
                 p.requires_grad_(False)
     out = []

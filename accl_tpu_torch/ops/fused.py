@@ -562,19 +562,34 @@ def fused_matmul_allreduce(xs: Sequence[torch.Tensor],
     Ranks on several cards (their tensors on more than one device, or
     ``devices=``): each rank multiplies on its own card, every crossing
     is a counted ``parallel.collectives.move`` (a landing accumulator to
-    the right neighbour, the reduced rows to every rank; without chunks
+    the right neighbour, the reduced rows to every card; without chunks
     the products to rank 0's card and the sum back out), with the same
-    folds, so each rank's result, on its card, is bitwise the one-card
-    form's."""
+    folds, so each card's result is bitwise the one-card form's.  The
+    ranks of one card share its result (every CPU rank is a card of its
+    own).  Each card's result carries a gradient, the transpose of a
+    psum: the rows rank r reduced (without chunks: its product) take the
+    gradient of the result on rank r's own card, so every card's result
+    must reach the loss."""
     P = len(xs)
     dot = pallas_matmul if use_pallas else pallas_matmul_plain
     devs = _rank_devices(xs, devices)
+    if devs is not None:
+        # imported at call time: the parallel package imports this one
+        from ..parallel.collectives import card_homes, own_card_sums
+        homes = card_homes(devs)
+        cards = sorted(set(homes))
     if chunks is None or chunks <= 1:
         prods = [dot(x, w) for x, w in zip(xs, ws)]
         if devs is not None:
-            total = torch.stack([prods[0]] + [_move(p, devs[0])
-                                              for p in prods[1:]]).sum(0)
-            return [total] + [_move(total, d) for d in devs[1:]]
+
+            def combine(ps):
+                total = torch.stack([ps[0]] + [_move(p, devs[0])
+                                               for p in ps[1:]]).sum(0)
+                return [total] + [_move(total, devs[c]) for c in cards[1:]]
+
+            sums = own_card_sums(combine, prods,
+                                 [cards.index(h) for h in homes])
+            return [sums[cards.index(h)] for h in homes]
         total = torch.stack(prods).sum(0)
         return [total] * P
     if P == 1:
@@ -596,10 +611,14 @@ def fused_matmul_allreduce(xs: Sequence[torch.Tensor],
                  for c in range(C)] for r in range(P)]
     _trace_fused("fused_matmul_allreduce", P, C, mrows * N * 4, phases=2)
     if devs is not None:
-        return [_ag_chains([accs[q] if q == r else
-                            [_move(a, devs[r]) for a in accs[q]]
-                            for q in range(P)]).reshape(padM, N)[:M]
-                for r in range(P)]
+        # each card's rows: its own ranks' carry their gradient, the other
+        # cards' arrive without one (their card's result carries it)
+        outs = {h: _ag_chains([accs[q] if q == h else
+                               [_move(a if homes[q] == h else a.detach(),
+                                      devs[h]) for a in accs[q]]
+                               for q in range(P)]).reshape(padM, N)[:M]
+                for h in cards}
+        return [outs[h] for h in homes]
     out = _ag_chains(accs).reshape(padM, N)[:M]
     return [out] * P
 

@@ -24,9 +24,12 @@ the members that need it (P (P - 1) moves); a broadcast and a scatter
 move P - 1 tensors from the root.  The ``ring_*`` schedules reach the
 ring kernels' cross-card mode (``ops/ring.py``), whose hops are stores
 over NVLink inside the kernel: they move nothing through :func:`move`.
-:func:`fan_out`, :func:`fan_in` and :func:`gather_sum` are the
-crossings of the models' layers over cards, each with a backward that
-folds in a fixed order.
+:func:`spread`, :func:`fan_out`, :func:`gather_sum` (and
+:func:`own_card_sums`) and :func:`collect` are the crossings of a value
+every card holds in the models' layers over cards (:func:`fan_in` where
+one card sums): each card's copy carries a gradient, and the backwards
+fold in a fixed order, so each card's gradient is bitwise the one-card
+model's.
 """
 from __future__ import annotations
 
@@ -64,19 +67,26 @@ def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t if t.device == device else t.to(device)
 
 
+def _cross(t: torch.Tensor, device, src, dst) -> torch.Tensor:
+    """Every counted crossing: ``t`` to ``device``, from card ``src`` to
+    card ``dst`` (the cards' indices where the caller knows them, cards
+    numbered in the order of their first rank, 0 the hub; else the
+    devices)."""
+    _count()
+    return _to(t, device)
+
+
 class _Move(torch.autograd.Function):
     """A counted crossing; its gradient crosses back, counted too."""
 
     @staticmethod
     def forward(ctx, t, device):
         ctx.src = t.device
-        _count()
-        return _to(t, device)
+        return _cross(t, device, t.device, device)
 
     @staticmethod
     def backward(ctx, g):
-        _count()
-        return _to(g, ctx.src), None
+        return _cross(g, ctx.src, g.device, ctx.src), None
 
 
 def move(t: torch.Tensor, device) -> torch.Tensor:
@@ -89,45 +99,95 @@ def move(t: torch.Tensor, device) -> torch.Tensor:
     return _Move.apply(t, torch.device(device))
 
 
+def card_homes(devices) -> list:
+    """Each rank's card, named by the first rank on it; every CPU rank is
+    a card of its own (the CPU stands for as many cards as it is
+    named)."""
+    first = {}
+    return [r if torch.device(d).type == "cpu"
+            else first.setdefault(torch.device(d), r)
+            for r, d in enumerate(devices)]
+
+
+def _cards_of(copies) -> tuple:
+    """The distinct tensors of ``copies`` (one a card: ranks that share a
+    card share its tensor), in the order of their first rank, and each
+    rank's index among them."""
+    uniq, idx = [], []
+    for t in copies:
+        for i, u in enumerate(uniq):
+            if u is t:
+                idx.append(i)
+                break
+        else:
+            idx.append(len(uniq))
+            uniq.append(t)
+    return uniq, tuple(idx)
+
+
+def _fold_chain(grads, idx, uses, devices) -> list:
+    """The uses' gradients folded in the one-card order, the last use of
+    the last rank first, along the cards: the fold crosses to the next
+    rank's card wherever it differs from the fold's (a counted move), and
+    ends on rank 0's card; then it goes back along the cards, card 1 from
+    card 0, card 2 from card 1, ..., so that every card holds it."""
+    total, at = None, None
+    for i in reversed(range(len(grads))):
+        c = idx[i // uses]
+        if total is not None and c != at:
+            total = _cross(total, devices[c], at, c)
+        total = grads[i] if total is None else total + grads[i]
+        at = c
+    out = [total]
+    for c in range(1, len(devices)):
+        out.append(_cross(out[-1], devices[c], c - 1, c))
+    return out
+
+
 class _FanOut(torch.autograd.Function):
-    """Each member's copy, ``uses`` views a member; the backward folds
-    every use's gradient on member 0's card, the last use of the last
-    member first, into member 0's copy."""
+    """Each rank's ``uses`` views of its card's copy; the backward folds
+    every use's gradient in the one-card order and gives the fold to
+    every card's copy (:func:`_fold_chain`)."""
 
     @staticmethod
-    def forward(ctx, t, copies, uses):
-        ctx.hub, ctx.uses = t.device, uses
-        return tuple(c.view_as(c) for c in (t,) + copies
+    def forward(ctx, idx, uses, *cards):
+        ctx.idx, ctx.uses = idx, uses
+        ctx.devices = [t.device for t in cards]
+        return tuple(cards[c].view_as(cards[c]) for c in idx
                      for _ in range(uses))
 
     @staticmethod
     def backward(ctx, *grads):
-        total = None
-        for i in reversed(range(len(grads))):
-            g = grads[i]
-            if i >= ctx.uses:  # another member's use crosses back
-                _count()
-                g = _to(g, ctx.hub)
-            total = g if total is None else total + g
-        return total, None, None
+        return (None, None,
+                *_fold_chain(grads, ctx.idx, ctx.uses, ctx.devices))
 
 
 def fan_out(copies: Sequence[torch.Tensor], uses: int = 1) -> list:
-    """One tensor as the members hold it, ``copies[r]`` on member r's
-    card (the same values; member 0's carries the gradient, the others
-    none), handed to its consumers: member r's entries are
-    ``out[r * uses:(r + 1) * uses]``, one view of its copy for each of
-    its ``uses`` consumers, in the order it consumes them.  Nothing moves
-    forward.  The backward brings every use's gradient to member 0's
-    card (a counted move each, apart from member 0's) and sums them
-    there in one fixed order, the last use of the last member first: the
-    order in which autograd accumulates the uses of one tensor consumed
-    on one card by the same consumers, so the fold is the one-card
-    model's and does not depend on the order in which the cards finish
-    their backward work."""
+    """One tensor as the ranks hold it, ``copies[r]`` on rank r's card
+    (the same values; ranks that share a card pass the same tensor),
+    handed to its consumers: rank r's entries are ``out[r * uses:(r + 1)
+    * uses]``, one view of its copy for each of its ``uses`` consumers,
+    in the order it consumes them.  Nothing moves forward.
+
+    The backward folds every use's gradient in one fixed order, the last
+    use of the last rank first: the order in which autograd accumulates
+    the uses of one tensor consumed on one card by the same consumers,
+    so the fold is the one-card model's and does not depend on the order
+    in which the cards finish their backward work.  Every card's copy
+    gets the whole fold as its gradient (the gradient of a replicated
+    value, psummed over the ranks, stays on each card).  The fold runs
+    along the cards in rank order: the card of the last rank folds its
+    ranks' uses and hands the partial fold to the card of the rank
+    before, and so on to rank 0's card, which holds the whole fold (a
+    counted move wherever the next rank's card differs; ranks that share
+    a card fold there without one); then the fold goes back along the
+    cards, a counted move a card.  (An all-gather of every use's
+    gradient, folded on each card, moves P - 1 times the bytes and timed
+    no faster on four H100s: ``bench/model_cards.py``.)"""
     if len(copies) == 1 and uses == 1:
         return [copies[0]]
-    return list(_FanOut.apply(copies[0], tuple(copies[1:]), uses))
+    uniq, idx = _cards_of(copies)
+    return list(_FanOut.apply(idx, uses, *uniq))
 
 
 def fan_in(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
@@ -141,45 +201,109 @@ def fan_in(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
     return total
 
 
-class _GatherSum(torch.autograd.Function):
-    """Every member's part to the members ``at`` by the ring all-gather,
-    summed there in member order; the first sum carries the gradient."""
+class _OwnCard(torch.autograd.Function):
+    """Per-card results of ``combine(parts)`` (computed without
+    autograd); the backward gives each part the gradient of the result on
+    its own card (``homes[r]``: the index of rank r's card among the
+    results), with no crossing: the transpose of a psum, whose gradient
+    stays on each chip."""
 
     @staticmethod
-    def forward(ctx, at, *parts):
-        ctx.devices = [p.device for p in parts]
-        n, shape, dt = parts[0].numel(), parts[0].shape, parts[0].dtype
-        # the all-gather moves bits: 32-bit words whatever the dtype
-        words = [p.contiguous().reshape(-1).view(torch.int32) for p in parts]
-        gathered = ring_ops.ring_all_gather(words)
-        sums = []
-        for a in at:
-            g = gathered[a].view(dt)
-            total = g[0]
-            for r in range(1, len(parts)):
-                total = total + g[r]
-            sums.append(total.view(shape))
-        ctx.mark_non_differentiable(*sums[1:])
-        return tuple(sums)
+    def forward(ctx, combine, homes, *parts):
+        ctx.homes = homes
+        return tuple(combine(parts))
 
     @staticmethod
-    def backward(ctx, g, *_others):
-        grads = [g]
-        for d in ctx.devices[1:]:  # fan_in's backward: the sum's crosses
-            _count()
-            grads.append(_to(g, d))
-        return (None, *grads)
+    def backward(ctx, *grads):
+        return (None, None, *(grads[h] for h in ctx.homes))
 
 
-def gather_sum(parts: Sequence[torch.Tensor], at: Sequence[int]) -> list:
+def own_card_sums(combine, parts: Sequence[torch.Tensor],
+                  homes: Sequence[int]) -> list:
+    """``combine(parts)``, a list of results one a card, each result with
+    a gradient: part r takes that of result ``homes[r]``, on its own
+    card (the same value on every card).  Every result must then reach
+    the loss, as every card's stream does."""
+    return list(_OwnCard.apply(combine, tuple(homes), *parts))
+
+
+def _gather_sums(at, parts) -> list:
+    n, shape, dt = parts[0].numel(), parts[0].shape, parts[0].dtype
+    # the all-gather moves bits: 32-bit words whatever the dtype
+    words = [p.contiguous().reshape(-1).view(torch.int32) for p in parts]
+    gathered = ring_ops.ring_all_gather(words)
+    sums = []
+    for a in at:
+        g = gathered[a].view(dt)
+        total = g[0]
+        for r in range(1, len(parts)):
+            total = total + g[r]
+        sums.append(total.view(shape))
+    return sums
+
+
+def gather_sum(parts: Sequence[torch.Tensor], at: Sequence[int],
+               homes: Sequence[int]) -> list:
     """The members' ``parts`` summed in member order, ((p0 + p1) + p2) +
     ..., on the card of each member in ``at`` (``at[0]`` = 0): every part
     reaches those cards by the ring all-gather (on several cards its
     cross-card mode, one launch a card; its hops move nothing through
-    :func:`move`).  The sums have :func:`fan_in`'s bits; the first
-    carries the gradient, as :func:`fan_in`'s does (the others none).
-    The parts' bytes must be a whole number of 32-bit words."""
-    return list(_GatherSum.apply(tuple(at), *parts))
+    :func:`move`).  The sums have :func:`fan_in`'s bits.  Every sum
+    carries a gradient: part r takes that of the sum on its own card,
+    ``at[homes[r]]``, with no crossing, as a psum's gradient stays on
+    each chip; so every sum must reach the loss.  The parts' bytes must
+    be a whole number of 32-bit words."""
+    at = tuple(at)
+    return own_card_sums(lambda ps: _gather_sums(at, ps), parts, homes)
+
+
+class _Spread(torch.autograd.Function):
+    """The hub's tensor copied to every other card; the backward passes
+    the hub's gradient alone."""
+
+    @staticmethod
+    def forward(ctx, x, devices):
+        out = [x.view_as(x)]
+        for c in range(1, len(devices)):
+            t = _cross(x, devices[c], 0, c)
+            out.append(t.view_as(t) if t is x else t)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, g, *_others):
+        return g, None
+
+
+def spread(x: torch.Tensor, devices: Sequence) -> list:
+    """``x`` (on ``devices[0]``, the hub) as every card holds it: ``x``
+    on the hub, a copy on each other card of ``devices`` (a counted move
+    each).  Each copy carries a gradient, but the backward passes on the
+    hub's alone: the others are the same value (every card's stream
+    folds the same gradient), so nothing is counted twice and nothing
+    crosses."""
+    return list(_Spread.apply(x, tuple(torch.device(d) for d in devices)))
+
+
+class _Collect(torch.autograd.Function):
+    """The hub's copy forward; its gradient to every copy."""
+
+    @staticmethod
+    def forward(ctx, *copies):
+        ctx.devices = [c.device for c in copies]
+        return copies[0].view_as(copies[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(_cross(g, d, 0, c)
+                     for c, d in enumerate(ctx.devices) if c))
+
+
+def collect(copies: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The hub's copy of a value every card holds (``copies[0]``), on to
+    what the hub alone computes.  The backward hands its gradient to
+    every copy (a counted move each but the hub's): every card's copy
+    reaches the loss, so every card runs its own backward."""
+    return _Collect.apply(*copies)
 
 
 def _placement(xs: Sequence[torch.Tensor], devices) -> Optional[list]:

@@ -395,8 +395,19 @@ Phases, each fatal on failure:
      flash forward and backward kernels, the ring all-gather and the
      fused kernel's per-rank-table form (and, across cards, its
      cross-card mode) must launch, and across cards a counted move must
-     cross.  Rows fused_matmul_reduce_scatter_tables (and _cross with two
-     or more cards) time the mode (bench/model_cards.py).  Then the
+     cross.  Every card's stream runs its own backward: the AdamW step's
+     crossings of the stream between cards (the spread, fan_out's fold
+     down the cards and back, the exit's gradient to every card) are
+     recorded and held to stream_schedule, card 0 receiving one a fold;
+     with one card the phase prints that this cross-card backward did
+     not run.  A Switch-Base-8 ep = 8 SGD step (each member's rows on its
+     card from the embedding to the loss) is held bitwise to the same
+     mesh on card 0, with one card to the one-card ep step (each leaf's
+     update within MOE_UPDATE_BOUND, the loss within TRAIN_LOSS_BOUND),
+     and the MoE forward is bitwise the same mesh on card 0, with one
+     card the one-card ep forward.  Rows
+     fused_matmul_reduce_scatter_tables (and _cross with two or more
+     cards) time the mode (bench/model_cards.py).  Then the
      model's sp axis over the same slots (phase model_cards_sp,
      MC_SP_MESH = tp 2 x sp 2, 2 layers, attn="dense"): the bf16 forward
      over MC_SP_TOKENS tokens and one fp32 AdamW step over SP_TRAIN_TOKENS,
@@ -404,7 +415,8 @@ Phases, each fatal on failure:
      all-gather launches against sp_mesh_schedule) and held to the
      one-card sp forms (the forward bitwise, the step's moments and
      updates by relative L2 per leaf, adamw_readings), and across cards
-     bitwise to the same mesh on card 0;
+     bitwise to the same mesh on card 0, the step's stream crossings
+     held to stream_schedule (with one card: reported as not run);
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -6805,6 +6817,66 @@ def _sync_all(C: int) -> None:
         torch.cuda.synchronize(c)
 
 
+#: the MoE step of phase model_cards: SGD at an lr of 1, so that the
+#: update p' - p is the mean gradient itself; held to the one-card ep
+#: step (one card) by relative L2 per leaf of the update within
+#: MOE_UPDATE_BOUND (each ep member multiplies its own rows: another
+#: summation of the replicated leaves' gradients), the loss within
+#: TRAIN_LOSS_BOUND; its forward's logits bitwise
+MOE_STEP_LR = 1.0
+MOE_UPDATE_BOUND = 1e-3
+
+
+def card_crossings(S):
+    """A recorder of the crossings between cards that the model's stream
+    makes (``collectives._cross`` calls with card indices: the spread,
+    ``fan_out``'s fold and ``collect``), and a function that stops it and
+    returns them as (source card, destination card) pairs."""
+    C = S.collectives
+    real, log = C._cross, []
+
+    def cross(t, device, src, dst):
+        if isinstance(src, int):
+            log.append((src, dst))
+        return real(t, device, src, dst)
+
+    C._cross = cross
+
+    def stop():
+        C._cross = real
+        return list(log)
+
+    return stop
+
+
+def stream_schedule(trees, layers: int) -> dict:
+    """The stream's crossings a train step makes over the placed
+    ``trees`` (one per data member, or per (data, sp) member) by the
+    schedule: forward, the spread from each tree's hub to its other cards
+    (cards - 1); backward, the exit's gradient from the hub to every
+    other card (cards - 1) and, each layer, ``fan_out``'s two folds
+    down the cards and back (2 (cards - 1) each; the ranks of a tp group
+    on contiguous cards in rank order).  Nothing on one card."""
+    fwd = back = 0
+    for t in trees:
+        k = len(t.places.cards) - 1
+        fwd += k
+        back += k + layers * 2 * 2 * k
+    return {"forward": fwd, "backward": back}
+
+
+def moe_update_readings(got, p0, ref, r0, T_) -> list:
+    """Relative L2 per leaf of the update got - p0 against ref - r0,
+    float64."""
+    out = []
+    for a, a0, b, b0 in zip(T_.tree_leaves(got), T_.tree_leaves(p0),
+                            T_.tree_leaves(ref), T_.tree_leaves(r0)):
+        du = a.double().to(b.device) - a0.double().to(b.device)
+        dw = b.double() - b0.double()
+        out.append(float((du - dw).norm() / max(float(dw.norm()), 1e-30)))
+    return out
+
+
 def model_cards_phase(ring, F, FL, M, MM, S, RA, T_) -> dict:
     """Phase 7k (model_cards): see the module docstring.  Every count is
     set to 0 just before the per-card meshes are driven and read just
@@ -6892,7 +6964,16 @@ def model_cards_phase(ring, F, FL, M, MM, S, RA, T_) -> dict:
             *zz_args, causal=True, schedule="zigzag", devices=slot4))
         moe_lg, _aux = run("moe_forward", lambda: MM.forward(
             mplaced, mtoks, mcfg, ep=8))
+    stop = card_crossings(S)
     _p, state, loss = run("adamw_step", lambda: step(reps, state, stoks))
+    crossings = stop()
+    crossings_want = stream_schedule(M.placed_trees(reps),
+                                     scfg.n_layers)
+    mstep_mesh = S.make_mesh(ep=8, devices=slot8)
+    mstep_p = MM.place_params(mfull, mcfg, mstep_mesh)
+    mstep_p0 = T_.tree_map(torch.clone, MM.shard_params(mstep_p, mcfg, 8))
+    mstep, _ms = MM.make_train_step(mstep_mesh, mcfg, lr=MOE_STEP_LR)
+    _p, mloss = run("moe_step", lambda: mstep(mstep_p, mtoks))
     tables_before = F.fused_matmul_reduce_scatter.launches_cross
     with ring.rank_tables():
         tp_tab = run("tp_tables", lambda: F.fused_matmul_allreduce_pallas(
@@ -6917,6 +6998,12 @@ def model_cards_phase(ring, F, FL, M, MM, S, RA, T_) -> dict:
              f"per-rank-table launches {tables}, cross {cross_launches}")
     if cross and not moves:
         fail("model_cards: no counted move across the cards")
+    if len(crossings) != sum(crossings_want.values()) or (
+            crossings and sum(dst == 0 for _src, dst in crossings)
+            != 2 * scfg.n_layers * sum(len(t.places.cards) > 1
+                                       for t in M.placed_trees(reps))):
+        fail(f"model_cards: the step's stream crossings {crossings} are "
+             f"not the schedule's {crossings_want}")
 
     # the references: the same meshes with every slot on card 0 (with one
     # card: the one-card forms); bitwise
@@ -6948,9 +7035,38 @@ def model_cards_phase(ring, F, FL, M, MM, S, RA, T_) -> dict:
         mref = (MM.place_params(mfull, mcfg, S.make_mesh(
             ep=8, devices=["cuda:0"] * 8)) if cross else
             MM.shard_params(mfull, mcfg, 8))
-        checks["moe_forward"] = torch.equal(
-            moe_lg, MM.forward(mref, mtoks, mcfg, ep=8)[0])
+        want = MM.forward(mref, mtoks, mcfg, ep=8)[0]
+        moe_err = float((moe_lg.to("cuda:0") - want).abs().max())
+        # across cards: bitwise the card-0 mesh; on one card bitwise the
+        # one-card ep forward
+        moe_bitwise = torch.equal(moe_lg.to("cuda:0"), want)
+        checks["moe_forward"] = moe_bitwise
+        del want
     del mref, mplaced, sp_out, zz_out
+    # the MoE step against the same mesh on card 0 (one card: the
+    # one-card ep step, within MOE_UPDATE_BOUND a leaf)
+    if cross:
+        r0 = MM.place_params(mfull, mcfg, S.make_mesh(
+            ep=8, devices=["cuda:0"] * 8))
+        rstep, _s = MM.make_train_step(S.make_mesh(
+            ep=8, devices=["cuda:0"] * 8), mcfg, lr=MOE_STEP_LR)
+    else:
+        r0 = T_.tree_map(torch.clone, MM.shard_params(mfull, mcfg, 8))
+        rstep, _s = MM.make_train_step(S.make_mesh(ep=8), mcfg,
+                                       lr=MOE_STEP_LR)
+    rp0 = T_.tree_map(torch.clone, MM.shard_params(r0, mcfg, 8))
+    _r, rmloss = rstep(r0, mtoks)
+    got_m, want_m = MM.shard_params(mstep_p, mcfg, 8), MM.shard_params(
+        r0, mcfg, 8)
+    moe_upd = moe_update_readings(got_m, mstep_p0, want_m, rp0, T_)
+    moe_loss_rel = abs(float(mloss) - float(rmloss)) / abs(float(rmloss))
+    moe_step_bitwise = torch.equal(mloss.to("cuda:0"), rmloss) and all(
+        torch.equal(a.to("cuda:0"), b) for a, b in zip(
+            T_.tree_leaves(got_m), T_.tree_leaves(want_m)))
+    checks["moe_step"] = moe_step_bitwise or (
+        not cross and max(moe_upd) <= MOE_UPDATE_BOUND
+        and moe_loss_rel <= TRAIN_LOSS_BOUND)
+    del r0, rp0, got_m, want_m, mstep_p, mstep_p0, _r
     if cross:
         rmesh = S.make_mesh(dp=2, tp=2, devices=card0)
         rreps = M.place_params(base, scfg, rmesh)
@@ -6997,6 +7113,19 @@ def model_cards_phase(ring, F, FL, M, MM, S, RA, T_) -> dict:
                          "not run: this machine has one card (the "
                          "per-card lists ran with every slot on card 0, "
                          "against the one-card forms)"),
+          "cross_card_backward": (
+              {"crossings": len(crossings), "schedule": crossings_want,
+               "into_card0": sum(d == 0 for _s, d in crossings)}
+              if cross else "not run: this machine has one card (every "
+              "slot on card 0: each tree's Places.cards is (0,), the "
+              "stream crosses nothing)"),
+          "moe": {"forward_bitwise": moe_bitwise,
+                  "forward_max_abs_err": moe_err,
+                  "step_bitwise": moe_step_bitwise,
+                  "step_loss_rel": moe_loss_rel,
+                  "step_update_rel_l2_max": max(moe_upd),
+                  "bounds": {"update": MOE_UPDATE_BOUND,
+                             "loss": TRAIN_LOSS_BOUND}},
           "s": runs, "checks": sorted(checks), "moves": moves,
           "launches": launches, "launches_cross": cross_launches,
           "launches_tables": tables, "loss": float(loss)})
@@ -7141,8 +7270,14 @@ def model_cards_sp(ring, F, FL, M, S, T_) -> dict:
             M.shard_params(tree, scfg, tp))]
 
     reps = M.place_params(base, scfg, mesh)
+    stop = card_crossings(S)
     (loss, state), got = counted("adamw_step",
                                  lambda: adamw_step(mesh, reps))
+    crossings = stop()
+    crossings_want = stream_schedule(M.placed_trees(reps), L)
+    if len(crossings) != sum(crossings_want.values()):
+        fail(f"model_cards_sp step: the stream's crossings {crossings} are "
+             f"not the schedule's {crossings_want}")
     for k in ("flash_bwd_dq", "flash_bwd_dkv"):
         if got[k] != want["flash_step"]:
             fail(f"model_cards_sp step: {k} launched {got[k]} times, the "
@@ -7206,6 +7341,11 @@ def model_cards_sp(ring, F, FL, M, S, T_) -> dict:
           "tokens": {"forward": [1, MC_SP_TOKENS],
                      "adamw_step": [1, SP_TRAIN_TOKENS]},
           "dtype": {"forward": "bfloat16", "adamw_step": "float32"},
+          "cross_card_backward": (
+              {"crossings": len(crossings), "schedule": crossings_want}
+              if cross else "not run: this machine has one card (every "
+              "slot on card 0: each tree's Places.cards is (0,), the "
+              "stream crosses nothing)"),
           "s": runs, "schedule": want, "errors": errs,
           "update_per_leaf": [d for d, _f in upd],
           "bounds": bounds, "checks": checks, "loss": float(loss),

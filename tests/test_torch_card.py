@@ -2202,12 +2202,26 @@ def test_ring_attention_over_cards_on_cards(schedule):
     assert all(_same_bits(a, b) for a, b in zip(gg, gw))
 
 
-def test_moe_over_cards_on_cards():
-    """The MoE model with its experts on per-card lists (two a card on
-    four cards), forward and one SGD step, bitwise the one-card forms."""
+#: test_moe_over_cards_on_cards: the logits of each member's rows run on
+#: their own against the one-card ep forward, which multiplies every
+#: member's rows at once (cuBLAS may take another kernel for fewer rows):
+#: read 3.58e-7 on an H100 at 700 W, fused or not; bitwise four cards
+#: against their card-0 mesh
+MOE_MEMBER_LOGITS_TOL = 1e-5
+
+
+def test_moe_over_cards_on_cards(record_property):
+    """The MoE model with each ep member's rows on its card (two members
+    a card on four cards), forward and one SGD step: bitwise the same
+    mesh with every slot on card 0; against the one-card ep forms the
+    logits within MOE_MEMBER_LOGITS_TOL (recorded as a property of the
+    test), and, since each member folds its own rows' share of the
+    replicated leaves' gradients, the loss within 1e-5 and each leaf's
+    update (lr 1: the mean gradient) within 1e-3 relative L2
+    (chip_smoke.py's MOE_UPDATE_BOUND)."""
     from accl_tpu_torch.models import moe as TMO
     from accl_tpu_torch.parallel import make_mesh
-    from accl_tpu_torch.utils.tree import tree_leaves
+    from accl_tpu_torch.utils.tree import tree_leaves, tree_map
 
     cfg = TMO.MoEConfig(vocab=256, d_model=64, n_layers=2, n_heads=4,
                         d_head=16, d_ff=128, n_experts=8)
@@ -2216,17 +2230,36 @@ def test_moe_over_cards_on_cards():
     tok = torch.from_numpy(np.random.default_rng(7).integers(
         0, 256, (8, 32))).to("cuda:0")
     mesh = make_mesh(ep=8, devices=_card_slots(8))
+    card0 = make_mesh(ep=8, devices=["cuda:0"] * 8)
     placed = TMO.place_params(full, cfg, mesh)
-    one = TMO.shard_params(full, cfg, 8)
+    on0 = TMO.place_params(full, cfg, card0)
+    one = tree_map(torch.clone, TMO.shard_params(full, cfg, 8))
+    # one copy of a replicated leaf a card, each member's tensor over it
+    pl, emb = placed.places, placed["embed"]
+    owns = [pl.own(emb, e) for e in range(8)]
+    assert all(t.device == torch.device(d) for t, d in zip(owns, pl.devices))
+    assert len({t.data_ptr() for t in owns}) == len(pl.cards)
     for fused in (False, True):
         a, _ = TMO.forward(placed, tok, cfg, ep=8, fused=fused)
-        b, _ = TMO.forward(one, tok, cfg, ep=8, fused=fused)
+        b, _ = TMO.forward(on0, tok, cfg, ep=8, fused=fused)
+        c, _ = TMO.forward(one, tok, cfg, ep=8, fused=fused)
         assert torch.equal(a.cpu(), b.cpu())
-    sc, _ = TMO.make_train_step(mesh, cfg, lr=0.1)
-    s1, _ = TMO.make_train_step(make_mesh(ep=8), cfg, lr=0.1)
+        err = float((a.cpu() - c.cpu()).abs().max())
+        record_property(f"logits_max_abs_err_fused_{fused}", err)
+        assert err <= MOE_MEMBER_LOGITS_TOL, err
+    p0 = [t.clone() for t in tree_leaves(one)]
+    sc, _ = TMO.make_train_step(mesh, cfg, lr=1.0)
+    s0, _ = TMO.make_train_step(card0, cfg, lr=1.0)
+    s1, _ = TMO.make_train_step(make_mesh(ep=8), cfg, lr=1.0)
     _p, lc = sc(placed, tok)
+    _p, l0 = s0(on0, tok)
     _p, l1 = s1(one, tok)
-    assert torch.equal(lc.cpu(), l1.cpu())
-    for a, b in zip(tree_leaves(TMO.shard_params(placed, cfg, 8)),
-                    tree_leaves(one)):
+    assert torch.equal(lc.cpu(), l0.cpu())
+    assert abs(float(lc) - float(l1)) <= 1e-5 * abs(float(l1))
+    got = tree_leaves(TMO.shard_params(placed, cfg, 8))
+    for a, b, c, c0 in zip(got, tree_leaves(TMO.shard_params(on0, cfg, 8)),
+                           tree_leaves(one), p0):
         assert torch.equal(a.cpu(), b.cpu())
+        du, dw = a.double().cpu() - c0.double().cpu(), \
+            c.double().cpu() - c0.double().cpu()
+        assert float((du - dw).norm() / dw.norm()) <= 1e-3

@@ -267,12 +267,22 @@ def test_collective_per_card_matches_jax(name, jfn):
         np.testing.assert_array_equal(got[r].numpy(), want[r])
 
 
+def _chain_moves(P, cards=None):
+    """fan_out's backward crossings ("chain"): the fold crosses wherever
+    the next rank (walking down from the last) lies on another card, then
+    the fold goes back along the distinct cards, one move a card after
+    the first.  ``cards[r]``: rank r's card (default: its own)."""
+    cards = list(range(P)) if cards is None else cards
+    return (sum(cards[r] != cards[r - 1] for r in range(1, P))
+            + len(set(cards)) - 1)
+
+
 def test_fan_out_and_fan_in_fold_in_fixed_order():
-    """fan_out's backward folds every use's gradient into member 0's
-    copy, the last use of the last member first; fan_in sums in member
-    order; both count."""
-    x = torch.arange(6.0, requires_grad=True)
-    copies = [x] + [x.detach().clone() for _ in range(2)]
+    """fan_out's backward folds every use's gradient, the last use of the
+    last member first, along the cards, and every member's copy gets the
+    fold; fan_in sums in member order; both count."""
+    x = torch.arange(6.0)
+    copies = [x.clone().requires_grad_(True) for _ in range(3)]
     outs, n = _counted(lambda: TC.fan_out(copies, uses=2))
     assert n == 0 and len(outs) == 6
     assert all(o.data_ptr() == copies[i // 2].data_ptr()
@@ -280,8 +290,9 @@ def test_fan_out_and_fan_in_fold_in_fixed_order():
     loss = sum((o * (i + 1)).sum() for i, o in enumerate(outs))
     TC.reset_moves()
     loss.backward()
-    assert TC.moves() == 4  # the uses of members 1 and 2 cross back
-    assert torch.equal(x.grad, torch.full((6,), 21.0))
+    # the fold crosses to members 1 and 0, then goes back to 1 and 2
+    assert TC.moves() == _chain_moves(3) == 4
+    assert all(torch.equal(c.grad, torch.full((6,), 21.0)) for c in copies)
     parts = [_ints((4,), s) for s in range(3)]
     got, n = _counted(lambda: TC.fan_in(parts, "cpu"))
     assert n == 2 and torch.equal(got, TC.all_reduce(parts)[0])
@@ -290,22 +301,23 @@ def test_fan_out_and_fan_in_fold_in_fixed_order():
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_gather_sum_is_fan_in_on_every_card(dt):
     """gather_sum: every member's part on the cards of ``at`` by the ring
-    all-gather, each sum fan_in's bits; only the first carries the
-    gradient, and its backward is fan_in's (P - 1 counted moves)."""
+    all-gather, each sum fan_in's bits; every sum carries a gradient, and
+    each part takes that of the sum on its own card (``homes``), with no
+    crossing: a psum's backward."""
     g = torch.Generator().manual_seed(5)
     base = [torch.randn(3, 8, generator=g).to(dt) for _ in range(4)]
     want = TC.fan_in(base, "cpu")
     parts = [b.clone().requires_grad_(True) for b in base]
-    sums, n = _counted(lambda: TC.gather_sum(parts, (0, 2, 3)))
+    homes = (0, 0, 1, 2)  # members 0 and 1 share the first card
+    sums, n = _counted(lambda: TC.gather_sum(parts, (0, 2, 3), homes))
     assert n == 0 and len(sums) == 3
     assert all(_same(s_, want) for s_ in sums)
-    assert sums[0].requires_grad and not any(s_.requires_grad
-                                             for s_ in sums[1:])
-    up = torch.randn(3, 8, generator=g).to(dt)
+    assert all(s_.requires_grad for s_ in sums)
+    ups = [torch.randn(3, 8, generator=g).to(dt) for _ in sums]
     TC.reset_moves()
-    (sums[0] * up).sum().backward()
-    assert TC.moves() == 3
-    assert all(torch.equal(p_.grad, up) for p_ in parts)
+    sum((s_ * u).sum() for s_, u in zip(sums, ups)).backward()
+    assert TC.moves() == 0
+    assert all(torch.equal(p_.grad, ups[h]) for p_, h in zip(parts, homes))
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +466,16 @@ def _forward_moves(tp):
     return tp - 1
 
 
+def _stream_back_moves(cards, layers):
+    """A backward's counted crossings of the residual stream's gradient
+    over one tp group's cards (every rank its own card): each block's two
+    ``fan_out`` folds along the cards and back (``_chain_moves``; the
+    row-parallel sums' partials take their own card's gradient, no
+    crossing), and the exit's gradient from the hub to every other card
+    once (``collect``)."""
+    return 2 * layers * _chain_moves(cards) + (cards - 1)
+
+
 def _jax_single_step(params, tokens, cfg):
     (loss_sum, count), grads = jax.value_and_grad(
         lambda p: JT.loss_fn(p, jnp.asarray(tokens), cfg), has_aux=True)(
@@ -504,11 +526,11 @@ def test_sgd_step_over_cards_is_the_one_card_step_and_jax(axes, kw):
     leaves = len(tree_leaves(one))
     if kw == {}:
         # forward and backward crossings of every member (the forward's;
-        # back, a block's q/k/v uses, its MLP use and its two sums cross
-        # to the hub, which alone carries the gradient), then the fold:
-        # counts and losses (2 (dp - 1)), the total count to member 0's
-        # other cards (tp - 1), each leaf 2 (dp - 1)
-        per_member = _forward_moves(n_tp) + 6 * BASE["n_layers"] * (n_tp - 1)
+        # back, the stream's, _stream_back_moves), then the fold: counts
+        # and losses (2 (dp - 1)), the total count to member 0's other
+        # cards (tp - 1), each leaf 2 (dp - 1)
+        per_member = _forward_moves(n_tp) + _stream_back_moves(
+            n_tp, BASE["n_layers"])
         want = n_dp * per_member + 2 * (n_dp - 1) + (n_tp - 1) \
             + leaves * 2 * (n_dp - 1)
         assert n == want, (n, want)
@@ -1098,8 +1120,62 @@ def _moe_setup(seed=0, b=8):
     return jcfg, tcfg, jp, tokens
 
 
+#: the MoE step over cards against the one-card ep step: each ep member
+#: multiplies its own rows, so the replicated leaves' gradients fold per
+#: member (a different summation from one product over the B rows): the
+#: loss within rtol MOE_LOSS_TOL, each replicated leaf's mean gradient
+#: within a relative L2 error of MOE_GRAD_TOL (read on the CPU: 1.1e-7
+#: and 1.6e-7), its update within tests/test_torch_sp_cards.py's
+#: UPDATE_TOL (the update p' - p of float32 parameters carries their
+#: rounding, up to 2.3e-5 here); the expert banks bitwise (their rows are
+#: the one-card step's).
+MOE_LOSS_TOL = 1e-6
+MOE_GRAD_TOL = 1e-6
+MOE_UPDATE_TOL = 2e-4
+
+
+def _moe_replicated(cfg):
+    """Each leaf of a MoE tree (``tree_leaves`` order): replicated (True)
+    or an entry of an expert bank's rank list (False)."""
+    specs = TMO.param_specs(cfg)
+    return [v for v in tree_leaves({
+        "embed": True, "ln_f": True,
+        "blocks": [{k: (True if spec is None else [False] * cfg.n_experts)
+                    for k, spec in blk.items()} for blk in specs["blocks"]]})]
+
+
+def _moe_forward_moves(P, layers):
+    """A MoE forward's counted crossings over P ep cards: a layer's two
+    all-to-alls, P (P - 1) each (every member on its card from the
+    embedding to the logits); the logits of members 1.. to the hub."""
+    return layers * 2 * P * (P - 1) + (P - 1)
+
+
+def _moe_step_moves(n_dp, P, layers, again):
+    """A MoE SGD step's counted crossings: every data member's all-to-alls
+    forward and back (no logits gathered: each member's loss stays on its
+    card) and, with ``again``, each member's own copy of every replicated
+    leaf made again after the last step (P - 1 a leaf); then the fold:
+    the n = dp P members' counts and losses to the first hub (2 (n - 1)),
+    the total count to the first tree's other cards (P - 1), every
+    replicated leaf's fold over its tree's members' copies along their
+    cards (P - 1 a leaf and tree, every member a card of its own) and, in
+    the first tree, back to the hub (1 a leaf), every leaf over the dp
+    trees and the mean back (2 (dp - 1) a leaf)."""
+    R = 2 + 7 * layers
+    leaves = R + 2 * layers * P
+    per = 2 * layers * 2 * P * (P - 1) + (R * (P - 1) if again else 0)
+    n = n_dp * P
+    return (n_dp * per + 2 * (n - 1) + (P - 1) + n_dp * R * (P - 1) + R
+            + leaves * 2 * (n_dp - 1))
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_moe_forward_over_cards_is_the_one_card_forward_and_jax(fused):
+    """Each ep member's rows on its card from the embedding to the
+    logits: bitwise the one-card ep forward on the CPU (the products of
+    a member's rows are the rows of the product over every member's),
+    its aux one scalar a member."""
     jcfg, tcfg, jp, tokens = _moe_setup()
     one = moe_params_from_jax(jp, tcfg, 4, device="cpu")
     placed = moe_params_from_jax(jp, tcfg, 4,
@@ -1109,8 +1185,14 @@ def test_moe_forward_over_cards_is_the_one_card_forward_and_jax(fused):
     (lg, aux), n = _counted(lambda: TMO.forward(
         placed, torch.from_numpy(tokens), tcfg, 4, fused=fused))
     assert torch.equal(lg, lg1) and _same(aux, aux1)
-    if not fused:  # rows and indices out, two all-to-alls, rows back
-        assert n == MOE["n_layers"] * (3 * 2 + 2 * 4 * 3 + 3)
+    if not fused:
+        assert n == _moe_forward_moves(4, MOE["n_layers"])
+    # every member's replicated leaves are its own copies
+    for e in range(1, 4):
+        tree = TMO._member_tree(placed, placed.places, e)
+        for a, b, rep in zip(tree_leaves(tree), tree_leaves(placed),
+                             _moe_replicated(tcfg)):
+            assert (a is not b) == rep and torch.equal(a, b)
     mesh = jax_make_mesh(ep=4)
     fn = jax.jit(jax.shard_map(
         lambda p, t: JM.forward(p, t, jcfg, ep_axis="ep", fused=fused)[0],
@@ -1121,8 +1203,91 @@ def test_moe_forward_over_cards_is_the_one_card_forward_and_jax(fused):
     np.testing.assert_allclose(lg.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-300))
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_moe_gradients_over_cards_fold_in_member_order(dp):
+    """The step's mean gradients: each member's on its card, the
+    replicated leaves' folded over the members' own copies in member
+    order on the hub, then over the dp trees; against the one-card ep
+    step's, the banks bitwise and every replicated leaf within
+    MOE_GRAD_TOL."""
+    _jcfg, tcfg, jp, tokens = _moe_setup(b=8 * dp)
+    one = moe_params_from_jax(jp, tcfg, 4, device="cpu")
+    mesh = make_mesh(dp=dp, ep=4, devices=_cpus(4 * dp))
+    reps = TT.placed_replicas(moe_params_from_jax(jp, tcfg, 4, mesh=mesh),
+                              mesh, "ep", dp)
+    toks = torch.from_numpy(tokens)
+    g1, l1 = TT._mean_grads(
+        [lambda p, t=toks[d * 8:(d + 1) * 8]: TMO.loss_fn(p, t, tcfg, 4)
+         for d in range(dp)], one)
+    gc, lc = TT._mean_grads_cards(TT.card_closures(
+        reps, toks, dp, lambda p, t: TMO._loss_members(p, t, tcfg)), reps)
+    np.testing.assert_allclose(float(lc), float(l1), rtol=MOE_LOSS_TOL)
+    for tree in gc[1:]:
+        assert _same(tree_leaves(tree), tree_leaves(gc[0]))
+    for i, (a, b, rep) in enumerate(zip(tree_leaves(gc[0]), tree_leaves(g1),
+                                        _moe_replicated(tcfg))):
+        if rep:
+            assert _rel(a, b) <= MOE_GRAD_TOL, (i, _rel(a, b))
+        else:
+            assert torch.equal(a, b), f"bank leaf {i}"
+    # the members' copies were left without gradients
+    for tree in reps:
+        assert all(c.grad is None and not c.requires_grad
+                   for c in tree.places.owned())
+
+
+def test_moe_members_sharing_a_card_share_its_copy(monkeypatch):
+    """Members that share a card (faked: members 0 and 1 on the hub's
+    card, 2 and 3 on another) hold one copy of each replicated leaf a
+    card: member 1 a tensor of its own over the hub's leaf, member 3 one
+    over member 2's copy, made with one counted move a leaf; the step's
+    fold of their gradients crosses once to the second card and once
+    back to the hub.  Against every member on a card of its own (3 copies
+    a leaf, a fold of 3 crossings and 1 back), 4 fewer moves a replicated
+    leaf, and the mean gradients and loss bitwise the same."""
+    _jcfg, tcfg, jp, tokens = _moe_setup()
+    toks = torch.from_numpy(tokens)
+    mesh = make_mesh(ep=4, devices=_cpus(4))
+
+    def run():
+        placed = moe_params_from_jax(jp, tcfg, 4, mesh=mesh)
+        reps = TT.placed_replicas(placed, mesh, "ep", 1)
+        return placed, TT._mean_grads_cards(TT.card_closures(
+            reps, toks, 1, lambda p, t: TMO._loss_members(p, t, tcfg)),
+            reps)
+
+    (_, (g_own, l_own)), n_own = _counted(run)
+    monkeypatch.setattr(TT, "card_homes", lambda devs: [0, 0, 2, 2])
+    (placed, (g_sh, l_sh)), n_sh = _counted(run)
+    R = sum(_moe_replicated(tcfg))
+    assert n_own - n_sh == 4 * R, (n_own, n_sh)
+    assert torch.equal(l_own, l_sh)
+    assert _same(tree_leaves(g_own[0]), tree_leaves(g_sh[0]))
+    pl = placed.places
+    assert pl.homes == (0, 0, 2, 2)
+    for leaf, rep in zip(tree_leaves(placed), _moe_replicated(tcfg)):
+        if rep:
+            t1, t2, t3 = (pl.own(leaf, r) for r in (1, 2, 3))
+            assert t1 is not leaf and t1.data_ptr() == leaf.data_ptr()
+            assert t3 is not t2 and t3.data_ptr() == t2.data_ptr()
+
+
 @pytest.mark.parametrize("dp", [1, 2])
 def test_moe_train_step_over_cards_is_the_one_card_step_and_jax(dp):
+    """Each member's loss and gradients on its card, folded in member
+    order on the hub: against the one-card ep step the loss within
+    MOE_LOSS_TOL, each replicated leaf's update within MOE_UPDATE_TOL by
+    relative L2, the expert banks bitwise (first step; the second starts
+    from the first's slightly different replicated leaves, every leaf
+    then within MOE_UPDATE_TOL); the members' copies made again from the
+    updated leaves; every replica bitwise the others; the
+    JAX package's dp x ep mesh step at tests/test_torch_moe.py's
+    tolerances; the moves as ``_moe_step_moves``."""
     jcfg, tcfg, jp, tokens = _moe_setup(b=8 * dp)
     one = moe_params_from_jax(jp, tcfg, 4, device="cpu")
     mesh = make_mesh(dp=dp, ep=4, devices=_cpus(4 * dp))
@@ -1130,22 +1295,36 @@ def test_moe_train_step_over_cards_is_the_one_card_step_and_jax(dp):
     s1, _ = TMO.make_train_step(make_mesh(dp=dp, ep=4, device="cpu"), tcfg,
                                 lr=LR)
     sc, _ = TMO.make_train_step(mesh, tcfg, lr=LR)
-    # the JAX package's dp x ep mesh step, at tests/test_torch_moe.py's
-    # tolerances
     jmesh = jax_make_mesh(dp=dp, ep=4)
     jstep, (_s, jtok) = JM.make_train_step(jmesh, jcfg, lr=LR)
     jnew = JM.shard_params(jp, jmesh, jcfg)
     jtokens = jax.device_put(jnp.asarray(tokens), NamedSharding(jmesh, jtok))
-    for _ in range(2):
+    reps = placed if isinstance(placed, TT.Replicas) else [placed]
+    replicated = _moe_replicated(tcfg)
+    for step in range(2):
+        before = [t.clone() for t in tree_leaves(one)]
+        mine = [t.clone() for t in tree_leaves(
+            TMO.shard_params(reps[0], tcfg, 4))]
         _, l1 = s1(one, torch.from_numpy(tokens))
-        _, lc = sc(placed, torch.from_numpy(tokens))
-        assert torch.equal(lc, l1)
+        (_, lc), n = _counted(lambda: sc(placed, torch.from_numpy(tokens)))
+        np.testing.assert_allclose(float(lc), float(l1), rtol=MOE_LOSS_TOL)
+        assert n == _moe_step_moves(dp, 4, MOE["n_layers"], step > 0), n
+        got = tree_leaves(TMO.shard_params(reps[0], tcfg, 4))
+        for i, (a, b, a0, b0, rep) in enumerate(zip(
+                got, tree_leaves(one), mine, before, replicated)):
+            if step == 0 and not rep:
+                assert torch.equal(a, b), f"bank leaf {i}"
+            else:
+                rel = _rel(a - a0, b - b0)
+                assert rel <= MOE_UPDATE_TOL, (step, i, rel)
+        for rep in reps[1:]:
+            assert _same(tree_leaves(rep), tree_leaves(reps[0]))
         jnew, jloss = jstep(jnew, jtokens)
         np.testing.assert_allclose(float(lc), float(jloss), rtol=1e-5)
-    reps = placed if isinstance(placed, TT.Replicas) else [placed]
-    for rep in reps:
-        assert _same(tree_leaves(TMO.shard_params(rep, tcfg, 4)),
-                     tree_leaves(one))
+    for rep in reps:  # each member's copies read the updated leaves
+        for e in range(1, 4):
+            assert _same(tree_leaves(TMO._member_tree(rep, rep.places, e)),
+                         tree_leaves(rep))
     for a, b in zip(_flat(moe_params_to_numpy(reps[-1], tcfg)),
                     _flat(_np(jnew))):
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5)
@@ -1163,8 +1342,12 @@ def test_moe_decode_over_cards_is_the_one_card_decode_and_jax():
     # forward's (tests/test_torch_moe.py's decode tolerance)
     want = np.asarray(JM.forward(jp, jnp.asarray(tokens[:2, :8]), jcfg)[0])
     l1, a1, c1 = TMD.prefill(one, tok[:, :5], c1, tcfg, ep=4)
-    l2, a2, c2 = TMD.prefill(placed, tok[:, :5], c2, tcfg, ep=4)
+    (l2, a2, c2), n = _counted(lambda: TMD.prefill(placed, tok[:, :5], c2,
+                                                   tcfg, ep=4))
     assert torch.equal(l1, l2) and torch.equal(a1, a2)
+    # the cache and attention on the hub: each member's share of the
+    # tokens to its card and back, the two all-to-alls between
+    assert n == MOE["n_layers"] * (2 * 3 + 2 * 4 * 3)
     np.testing.assert_allclose(l2.numpy(), want[:, :5], rtol=3e-5,
                                atol=3e-5)
     for t in range(5, 8):

@@ -171,22 +171,30 @@ def _forward_moves(n_tp, n_sp, layers, window=False):
             + (n_sp - 1))
 
 
-def _step_moves(axes, schedule, impl, layers, leaves, mlp_uses=1,
-                window=False):
+def _stream_back(n_tp, layers):
+    """A backward's crossings of one sp member's stream gradient over its
+    tp group's cards: each block's two ``fan_out`` folds down the cards
+    and back up (2 (tp - 1) each), and the exit's gradient from the hub
+    to the group's other cards (tp - 1); the row-parallel sums' partials
+    take their own card's gradient and the spread passes the hub's alone
+    (no crossing)."""
+    return (2 * layers * 2 + 1) * (n_tp - 1)
+
+
+def _step_moves(axes, schedule, impl, layers, leaves, window=False):
     """An SGD step's counted crossings.  Every data member: its forward
     less the logits' gather (each sp member's loss stays on its hub, its
     labels split from the sequence's as its tokens are); back, the ring's
-    crossings that carry a gradient
-    and, on each tp group's hub, a block's q/k/v uses (3 a rank), its MLP
-    uses and its two combines' partials (one a rank) (the streams'
-    spread is detached).  Then the fold over the n = dp sp trees: their
-    counts and losses to the first hub (2 (n - 1)), the total count to
-    the first tree's other cards (tp - 1), every leaf to the first
-    tree's card and the mean back (2 (n - 1) a leaf)."""
+    crossings that carry a gradient and each sp member's stream gradient
+    over its tp group (:func:`_stream_back`, whatever the MLP's uses).
+    Then the fold over the n = dp sp trees: their counts and losses to
+    the first hub (2 (n - 1)), the total count to the first tree's other
+    cards (tp - 1), every leaf to the first tree's card and the mean back
+    (2 (n - 1) a leaf)."""
     n_dp, n_tp, n_sp = _n(axes)
     fwd = _forward_moves(n_tp, n_sp, layers, window) - (n_sp - 1)
     back = (layers * n_tp * 2 * _rotations_back(n_sp, schedule, impl, window)
-            + n_sp * layers * (5 + mlp_uses) * (n_tp - 1))
+            + n_sp * _stream_back(n_tp, layers))
     n = n_dp * n_sp
     return (n_dp * (fwd + back)
             + 2 * (n - 1) + (n_tp - 1) + leaves * 2 * (n - 1))
@@ -425,7 +433,6 @@ def _sgd_case(kw, axes, schedule, seed, impl):
         assert _same(tree_leaves(tree), tree_leaves(trees[0]))
     leaves = len(tree_leaves(one))
     assert n == _step_moves(axes, schedule, impl, BASE["n_layers"], leaves,
-                            mlp_uses=2 if kw.get("mlp") == "swiglu" else 1,
                             window=kw.get("attn_window") is not None), n
     got = (model_params_to_numpy(placed, tcfg), float(lc))
     if n_sp == 1:
