@@ -2,7 +2,7 @@
 mode, timed.
 
     python -m accl_tpu_torch.bench.model_cards [--iters 10] [--layers 32]
-        [--sp-layers 8] [--rows fused,model,sp,steps] [--out FILE]
+        [--sp-layers 8] [--rows fused,model,sp,steps,decode] [--out FILE]
 
 It prints one JSON line per measurement and, last, the card's name and
 power limit:
@@ -40,9 +40,17 @@ power limit:
   2 x sp 2 AdamW step, attn="dense", 1 x 8192 tokens; the Switch-Base-8
   dp 2 x ep 8 SGD step, fp32, 16 x 1024 tokens.  Over the cards and
   with every slot on card 0; the updated parameters bitwise the card-0
-  mesh's.  The file
-  runs unchanged in an earlier tree (copy it there) to set two trees
-  side by side in one call.
+  mesh's;
+- ``decode``: Llama-3-8B at full width and ``--layers`` layers, bf16,
+  tp = 4 over the cards (with every slot on card 0 beside): ms per
+  decode step of 2 requests after MC_PROMPT-token prompts, teacher-forced
+  over DECODE_STEPS tokens, replayed from one ``DecodeGraph`` (its
+  capture over every card of the mesh) and eager (``decode_step``); the
+  replayed logits bitwise the eager ones, and over the cards bitwise the
+  card-0 mesh's (``decode_steps``).
+The file runs unchanged in an earlier tree (copy it there) to set two
+trees side by side in one call; the decode rows need a tree whose
+``DecodeGraph`` captures over cards.
 
 With one card it times the per-rank-table form (``ring.rank_tables``)
 of 4 ranks on that card, and the model rows with the one-card mesh in
@@ -507,6 +515,113 @@ def step_rows(C: int) -> list:
     return rows
 
 
+#: the decode rows: the prompt's tokens, and the teacher-forced steps
+MC_PROMPT = 128
+DECODE_STEPS = 8
+
+
+def _sync(cards) -> None:
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def decode_steps(M, params, cfg, prompt, cont, graph: bool, cards,
+                 profile: bool = False) -> tuple:
+    """(median ms, every step's ms, the steps' logits [steps, B, vocab],
+    extras) of the decode steps of ``params`` after ``prompt``'s prefill
+    [B, Tp], teacher-forced with the tokens ``cont`` [B, steps]: each
+    step replayed from one ``DecodeGraph`` captured after the prefill
+    (``graph``), or an eager ``decode_step``; each step timed to every
+    card's synchronize.  extras: with the graph, the ring all-gather's
+    cross-card launches a step (counted at the capture); with
+    ``profile``, one more step under torch.profiler (``_busy``)."""
+    from accl_tpu_torch.ops import ring
+
+    places = getattr(params, "places", None)
+    B, Tp = prompt.shape
+    steps = cont.shape[1]
+    cache = M.init_kv_cache(cfg, B, Tp + steps + int(profile),
+                            len(params["blocks"][0]["wq"]),
+                            devices=None if places is None else places.devices)
+    _lg, cache = M.prefill(params, prompt, cache, cfg)
+    extras = {}
+    stepper = None
+    if graph:
+        before = ring.ring_all_gather.launches_cross
+        stepper = M.DecodeGraph(params, cache, cfg, cont[:, 0]).capture()
+        # the warm-up step and the captured one count alike
+        extras["captured_all_gather_cross_launches"] = (
+            ring.ring_all_gather.launches_cross - before) // 2
+    times, logits = [], []
+
+    def one(t):
+        nonlocal cache
+        if graph:
+            stepper.token.copy_(cont[:, t])
+            return stepper.replay()
+        lg, cache = M.decode_step(params, cont[:, t], cache, cfg)
+        return lg
+
+    for t in range(steps):
+        _sync(cards)
+        t0 = time.perf_counter()
+        lg = one(t)
+        _sync(cards)
+        times.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg.clone())
+    if profile:
+        _lg, extras["profiled"] = _busy(lambda: one(steps - 1), cards)
+    return statistics.median(times), times, torch.stack(logits), extras
+
+
+def decode_rows(C: int, layers: int) -> list:
+    """The decode step of Llama-3-8B at tp = 4 over the C cards (with one
+    card: the per-card lists on card 0) and with every slot on card 0,
+    replayed and eager (``decode_steps``)."""
+    from accl_tpu_torch import models as M
+    from accl_tpu_torch.parallel import make_mesh
+
+    cards = list(range(C))
+    cfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": layers,
+                           "dtype": "bfloat16"})
+    gen = torch.Generator(device="cuda:0").manual_seed(23)
+    full = llama_bf16(M, cfg, gen)
+    prompt = torch.randint(0, cfg.vocab, (2, MC_PROMPT), generator=gen,
+                           device="cuda:0")
+    cont = torch.randint(0, cfg.vocab, (2, DECODE_STEPS), generator=gen,
+                         device="cuda:0")
+    got = {}
+    for label, d in (("cards", _slots(C, 4)), ("card0", ["cuda:0"] * 4)):
+        params = M.place_params(full, cfg, make_mesh(tp=4, devices=d))
+        with torch.no_grad():
+            for graph in (True, False):
+                got[label, graph] = decode_steps(M, params, cfg, prompt,
+                                                 cont, graph, cards,
+                                                 profile=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    del full
+    torch.cuda.empty_cache()
+    row = {"what": "decode", "config": "Llama-3-8B", "layers": layers,
+           "dtype": "bfloat16", "tp": 4, "batch": 2, "prompt": MC_PROMPT,
+           "steps": DECODE_STEPS,
+           "devices": _slots(C, 4) if C > 1 else "per-card lists on card 0"}
+    for label in ("cards", "card0"):
+        for graph, key in ((True, "replayed"), (False, "eager")):
+            ms, samples, _lg, extras = got[label, graph]
+            row[f"ms_{key}_{label}"] = ms
+            row[f"ms_{key}_{label}_samples"] = samples
+            row[f"profiled_{key}_{label}"] = extras["profiled"]
+        row[f"all_gather_cross_launches_a_step_{label}"] = got[
+            label, True][3]["captured_all_gather_cross_launches"]
+        row[f"bitwise_replayed_eager_{label}"] = torch.equal(
+            got[label, True][2], got[label, False][2])
+    row["bitwise_cards_card0"] = torch.equal(got["cards", True][2],
+                                             got["card0", True][2])
+    return [row]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
@@ -514,9 +629,9 @@ def main() -> int:
     ap.add_argument("--sp-layers", type=int, default=8,
                     help="depth of the sp = 4 forward (every card, and "
                          "card 0 four times over, holds the weights)")
-    ap.add_argument("--rows", default="fused,model,sp,steps",
-                    help="which rows: fused, model, sp, steps (comma "
-                         "separated)")
+    ap.add_argument("--rows", default="fused,model,sp,steps,decode",
+                    help="which rows: fused, model, sp, steps, decode "
+                         "(comma separated)")
     ap.add_argument("--out", help="also write the rows to this JSON file")
     args = ap.parse_args()
     want = set(args.rows.split(","))
@@ -541,6 +656,9 @@ def main() -> int:
         print(json.dumps(rows[-1]), flush=True)
     for row in step_rows(C) if "steps" in want else ():
         rows.append({"phase": "model_step", **row})
+        print(json.dumps(rows[-1]), flush=True)
+    for row in decode_rows(C, args.layers) if "decode" in want else ():
+        rows.append({"phase": "model_decode", **row})
         print(json.dumps(rows[-1]), flush=True)
     if C == 1:
         rows.append({"phase": "cross_card", "ran": False,

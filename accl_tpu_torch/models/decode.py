@@ -24,19 +24,20 @@ Parameters placed on several cards (``transformer.place_params``): the
 cache is sharded over the kv heads as on one card, rank r's K/V on rank
 r's card (``init_kv_cache(devices=)``), each rank banks and attends
 there, and every card holds a residual stream of its own, as in the
-training forward; the logits are bitwise the one-card model's.  Across cards
-``generate`` runs the static step eagerly (``DecodeGraph.step``):
-``DecodeGraph.capture`` raises there, since a capture across cards is
-still open (ROADMAP item 13).
+training forward; the logits are bitwise the one-card model's.
+``DecodeGraph`` captures that step too, over every card of the
+placement, as one CUDA graph (the ring kernels' cross-card launches
+count their handshake on the card, so a replay waits for its own), and
+``generate`` replays it there as on one card.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..constants import ACCLError
 from ..utils.device import resolve_device
 from .transformer import (
     ModelConfig,
@@ -201,16 +202,24 @@ class DecodeGraph:
 
     ``step()`` runs the step eagerly (any device).  ``capture()`` (a CUDA
     device) runs the step once as a warm-up on a side stream, so that
-    first-call work (kernel builds, cached plans, cuBLAS workspaces) is
-    done outside the capture, restores the position, the token and the
-    generator state the warm-up consumed, and captures one step into
-    ``self.graph`` on that stream; ``replay()`` then runs it.  The
-    warm-up's cache write is rewritten by the first replay with the same
-    values.  A capture that fails raises: nothing falls back to eager
-    steps.  With ``ACCL_DEVICE_TRACE`` set, a ring kernel launched in the
-    step raises at capture (its stamp rows land after a synchronize).
-    Kernel wrappers count their launches only at capture, so a replayed
-    step's launches are the captured step's, ``replays`` times.
+    first-call work (kernel builds, cached plans, cuBLAS workspaces, the
+    cross-card kernels' tables) is done outside the capture, restores the
+    position, the token and the generator state the warm-up consumed, and
+    captures one step into ``self.graph`` on that stream; ``replay()``
+    then runs it on the current stream.  The warm-up's cache write is
+    rewritten by the first replay with the same values.  A capture that
+    fails raises: nothing falls back to eager steps.  Parameters placed
+    on several cards are captured over every card of the placement in
+    one graph: each card gets a side stream, current there for the
+    warm-up and the capture, forked from the first card's at the start
+    of the capture and joined back to it at its end; what the step
+    allocates on the other cards comes from a ``torch.cuda.MemPool`` of
+    each card (``use_mem_pool``), held with the graph, so that no
+    allocation outside the graph reuses it while the graph lives.  With
+    ``ACCL_DEVICE_TRACE`` set, a ring kernel launched in the step raises
+    at capture (its stamp rows land after a synchronize).  Kernel
+    wrappers count their launches only at capture, so a replayed step's
+    launches are the captured step's, ``replays`` times.
     Sampling with a generator needs
     ``CUDAGraph.register_generator_state`` (recent PyTorch) and raises
     without it; greedy decoding needs nothing."""
@@ -230,6 +239,10 @@ class DecodeGraph:
             torch.int64).clone()
         self.logits: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        #: the cards of the captured step (the hub's first), and the other
+        #: cards' memory pools
+        self._cards: list = []
+        self._pools: dict = {}
         self.replays = 0
 
     def _step(self) -> torch.Tensor:
@@ -249,10 +262,6 @@ class DecodeGraph:
     def capture(self) -> "DecodeGraph":
         """Warm up, then capture one step (see the class docstring)."""
         dev = self.token.device
-        if _places(self.params) is not None:
-            raise ACCLError("DecodeGraph.capture: a decode step over several "
-                            "cards cannot be captured yet (ROADMAP item 13, "
-                            "CUDA graph capture across cards); run step()")
         if dev.type != "cuda":
             raise ValueError(f"DecodeGraph.capture: CUDA graphs need a CUDA "
                              f"device, the parameters are on {dev}")
@@ -264,29 +273,91 @@ class DecodeGraph:
                     "CUDAGraph.register_generator_state, which this "
                     "PyTorch lacks; decode greedily or with graph=False")
             graph.register_generator_state(self.generator)
+        cards = _cards(self.params, dev)
+        pools = _card_pools(cards[1:])
         pos, token = self.cache["pos"].clone(), self.token.clone()
         gen_state = (self.generator.get_state()
                      if self.generator is not None else None)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        sides = {d: torch.cuda.Stream(d) for d in cards}
+        for d, side in sides.items():
+            side.wait_stream(torch.cuda.current_stream(d))
+        with _current(sides, dev):
             self._step()
             self.cache["pos"].copy_(pos)
             self.token.copy_(token)
-        side.synchronize()
+        for side in sides.values():
+            side.synchronize()
         if gen_state is not None:
             self.generator.set_state(gen_state)
-        with torch.cuda.graph(graph, stream=side):
-            self.logits = self._step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = graph
+        hub = sides[dev]
+        with torch.cuda.graph(graph, stream=hub):
+            with _current(sides, dev), contextlib.ExitStack() as stack:
+                for d, pool in pools.items():
+                    stack.enter_context(torch.cuda.use_mem_pool(pool, d))
+                for d in cards[1:]:
+                    sides[d].wait_stream(hub)
+                self.logits = self._step()
+                for d in cards[1:]:
+                    hub.wait_stream(sides[d])
+        for d, side in sides.items():
+            torch.cuda.current_stream(d).wait_stream(side)
+        self.graph, self._cards, self._pools = graph, cards, pools
         return self
 
     def replay(self) -> torch.Tensor:
-        """One replayed step: advances the position and the token."""
+        """One replayed step: advances the position and the token.  Over
+        several cards, each other card's current stream then waits for
+        the hub's (the graph's end follows every card's work), so what
+        is queued there next follows the step."""
         self.graph.replay()
+        hub = torch.cuda.current_stream(self._cards[0])
+        for d in self._cards[1:]:
+            torch.cuda.current_stream(d).wait_stream(hub)
         self.replays += 1
         return self.logits
+
+
+def _cards(params, dev: torch.device) -> list:
+    """The CUDA devices a decode step of ``params`` runs on: ``dev`` (the
+    hub's) first, then the other cards of their placement, in order."""
+    places = _places(params)
+    devs = [dev] if places is None else [places.devices[c]
+                                          for c in places.cards]
+    return list(dict.fromkeys(torch.device(d) for d in [dev, *devs]))
+
+
+def _card_pools(cards: list) -> dict:
+    """A ``torch.cuda.MemPool`` made on each of ``cards`` (a pool belongs
+    to the device current when it is made), or raise where this PyTorch
+    has none."""
+    if cards and not (hasattr(torch.cuda, "MemPool")
+                      and hasattr(torch.cuda, "use_mem_pool")):
+        raise RuntimeError(
+            "DecodeGraph.capture: a step over several cards needs "
+            "torch.cuda.MemPool and torch.cuda.use_mem_pool, which this "
+            "PyTorch lacks; decode with graph=False")
+    pools = {}
+    for d in cards:
+        with torch.cuda.device(d):
+            pools[d] = torch.cuda.MemPool()
+    return pools
+
+
+@contextlib.contextmanager
+def _current(sides: dict, dev: torch.device):
+    """Each card's side stream made current on its card, ``dev`` the
+    current device."""
+    with contextlib.ExitStack() as stack:
+        for d, side in sides.items():
+            if d != dev:
+                stack.enter_context(torch.cuda.stream(side))
+        stack.enter_context(torch.cuda.stream(sides[dev]))
+        yield
+
+
+def _captures(dev: torch.device) -> bool:
+    """Whether ``generate`` captures its decode step: on a CUDA device."""
+    return dev.type == "cuda"
 
 
 def generate(params, prompt, cfg: ModelConfig, max_new: int,
@@ -299,8 +370,8 @@ def generate(params, prompt, cfg: ModelConfig, max_new: int,
     ``torch.Generator`` on that device; seeded 0 when None).
 
     After the prefill, the max_new - 1 decode steps run as ``DecodeGraph``
-    steps: on a CUDA device one captured step replayed max_new - 1
-    times, on the CPU or with parameters placed on several cards the
+    steps: on a CUDA device one captured step replayed max_new - 1 times
+    (over every card, for parameters placed on several), on the CPU the
     static step eagerly.  ``graph=False`` runs the eager loop of
     ``decode_step`` instead."""
     if top_k is not None and not 1 <= top_k <= cfg.vocab:
@@ -328,7 +399,7 @@ def generate(params, prompt, cfg: ModelConfig, max_new: int,
         stepper = DecodeGraph(params, cache, cfg, toks[0], fused=fused,
                               temperature=temperature, top_k=top_k,
                               generator=generator)
-        if dev.type == "cuda" and places is None:
+        if _captures(dev):
             stepper.capture()
         advance = stepper.step if stepper.graph is None else stepper.replay
         for _ in range(max_new - 1):

@@ -36,11 +36,12 @@ SIGNATURES = {
         "accl_ring_launch": ([_i32, _i32, _vp, _vp, _i32, _i32, _i32, _vp, _vp,
                               _vp, _vp, _i32, _vp], _i32),
         "accl_ring_enable_peers": ([_vp, _i32, _vp], _i32),
-        "accl_ring_join": ([_vp, _vp, _i32], _i32),
+        "accl_ring_join": ([_vp, _vp, _i32, _i32], _i32),
+        "accl_ring_join_back": ([_vp, _vp, _i32], _i32),
         "accl_ring_gate_new": ([_vp], _i32),
         "accl_ring_launch_cross": ([_i32, _i32, _vp, _vp, _i32, _vp, _i32,
-                                    _i32, _vp, _vp, _vp, _i32, _vp, _i32,
-                                    _vp, _i32, _vp], _i32),
+                                    _i32, _vp, _vp, _vp, _vp, _i32, _vp,
+                                    _i32, _vp], _i32),
     },
     "fused": {
         "accl_fused_error_string": ([_i32], ctypes.c_char_p),
@@ -54,8 +55,8 @@ SIGNATURES = {
         "accl_fused_resident_mode": ([_i32, _i32, _i32], _i32),
         "accl_fused_matmul_rs_cross": ([_vp, _vp, _vp, _i64, _i64, _i64,
                                         _i32, _vp, _i32, _i32, _i32, _i32,
-                                        _vp, _vp, _i32, _vp, _i32, _i32,
-                                        _vp], _i32),
+                                        _vp, _vp, _vp, _i32, _i32, _vp],
+                                       _i32),
     },
     "flash": {
         "accl_flash_error_string": ([_i32], ctypes.c_char_p),

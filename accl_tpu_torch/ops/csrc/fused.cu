@@ -485,15 +485,19 @@ fused_matmul_rs_kernel(PtrTable xs, PtrTable ws, OutTable outs, int64_t m, int64
 // so a hop is the epilogue's store over NVLink into the right
 // neighbour's slot, published by a .sys release reduction into its
 // filled flag, and every wait is a .sys acquire on the waiting rank's own
-// card.  The entry is ring_kernel_cross's (ring.cu): the wrapper joins
-// the cards' streams before the launches; one block a card waits for the
-// host's gate and copies what it saw into the card's word, the others
-// wait on that word; a launch given up touches nothing; then every block
-// waits until both of its rank's handshake words count every block of
-// every earlier launch on these tables (base), and as it ends it sets
-// its own four flags back to 0 and counts itself into its left
-// neighbour's second word and its right neighbour's first, with a
-// release (tests/test_torch_model_cards.py replays that schedule).  The
+// card.  The entry and exit are ring_kernel_cross's (ring.cu,
+// cross_entry and count_out in ring_sync.cuh): the wrapper joins the
+// cards' streams before the launches and back after them; in an eager
+// launch one block a card waits for the host's gate and copies what it
+// saw into the card's word, the others wait on that word, and a launch
+// given up touches nothing (a launch captured in a CUDA graph has no
+// gate); then every block waits until both of its rank's handshake words
+// count every block of every earlier launch on these tables (its rank's
+// HS_DONE, kept on the card), and as it ends it sets its own four flags
+// back to 0, counts itself into its left neighbour's second word and its
+// right neighbour's first, with a release, and out of its rank's launch,
+// the rank's last block advancing HS_DONE (tests/test_torch_model_cards.py
+// replays that schedule, eager and replayed launches interleaved).  The
 // fold chain, the tiles and the ACK windows are the one-launch kernel's,
 // so the results are bitwise those of one launch.  The one-launch kernel
 // above keeps its own code: this is a function of its own, not a
@@ -506,7 +510,8 @@ struct FusedTables {
   float* slots[MAXP];  // rank r's landing slots, [2][m n], on its card
   int* flags[MAXP];    // rank r's flags, on its card
   int rank[MAXP];      // the rank block b of this launch plays: rank[b / S]
-  const int* gate;     // the host's gate (ring.cu RankTables::gate)
+  const int* gate;     // the host's gate (ring.cu RankTables::gate), null
+                       // for a launch captured in a CUDA graph
   int seq;             // this launch's number in the gate
 };
 // A block's three ranks: its own (slots, flags), its right neighbour's
@@ -521,24 +526,15 @@ struct FusedBases {
 template <typename T>
 __global__ void __launch_bounds__(MM_THREADS, 1)
 fused_matmul_rs_cross_kernel(PtrTable xs, PtrTable ws, OutTable outs, int64_t m, int64_t n,
-                             int64_t k, int P, int S, int vec, FusedTables tabs, int base) {
+                             int64_t k, int P, int S, int vec, FusedTables tabs) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ FusedBases bases;
   __shared__ int opened;
   const int my = tabs.rank[blockIdx.x / S], st = blockIdx.x % S;
   const int right = (my + 1) % P, left = (my + P - 1) % P;
   if (threadIdx.x == 0) {
-    int* card_gate = tabs.flags[tabs.rank[0]] + 2;
-    if (blockIdx.x == 0) {
-      opened = wait_gate(tabs.gate, tabs.seq);
-      store_release_sys(opened ? card_gate : card_gate + 1, opened ? tabs.seq : 1);
-    } else {
-      opened = wait_gate(card_gate, tabs.seq);
-    }
+    opened = cross_entry(tabs.gate, tabs.seq, tabs.flags[tabs.rank[0]] + 2, tabs.flags[my]);
     if (opened) {
-      const int* hs = tabs.flags[my];
-      wait_reached<SCOPE_SYS>(hs, base);
-      wait_reached<SCOPE_SYS>(hs + 1, base);
       bases.slot[0] = tabs.slots[my];
       bases.slot[1] = tabs.slots[right];
       bases.flags[0] = tabs.flags[my];
@@ -600,6 +596,7 @@ fused_matmul_rs_cross_kernel(PtrTable xs, PtrTable ws, OutTable outs, int64_t m,
     *F(0, 0) = *F(0, 1) = *A(0, 0) = *A(0, 1) = 0;
     arrive_release<SCOPE_SYS>(tabs.flags[left] + 1);
     arrive_release<SCOPE_SYS>(tabs.flags[right]);
+    count_out(tabs.flags[my], S);
   }
 }
 
@@ -781,17 +778,18 @@ int accl_fused_matmul_rs(const void* const* xs, const void* const* ws, void* con
 // playing rank ranks[b / S] of a ring of P over every card.  xs, ws, outs,
 // slots and flags hold one entry per rank of the ring (rank r's slots
 // 2 m n floats and flags HS_WORDS + S * 4 int32 on rank r's card, the
-// flags zero when first made); base is the count of blocks per rank of
-// every earlier launch on these tables; the blocks start once gate[0]
-// reaches seq and end at once if gate[1] is set first (the gate of
-// accl_ring_gate_new in ring.cu).  The caller joins the cards' streams
-// first (accl_ring_join).
+// flags zero when first made; their head keeps the handshake's count);
+// an eager launch passes its gate (accl_ring_gate_new in ring.cu): its
+// blocks start once gate[0] reaches seq and end at once if gate[1] is
+// set first; a launch captured in a CUDA graph passes a null gate.  The
+// caller joins the cards' streams before (accl_ring_join) and after
+// (accl_ring_join_back).
 int accl_fused_matmul_rs_cross(const void* const* xs, const void* const* ws, void* const* outs,
                                int64_t m, int64_t n, int64_t k, int P, const int* ranks, int nr,
                                int dtype, int S, int vec, void* const* slots, int* const* flags,
-                               int base, const int* gate, int seq, int device, void* stream) {
+                               const int* gate, int seq, int device, void* stream) {
   if (P < 2 || P > MAXP || nr < 1 || nr > P || S < 1 || m < 0 || n < 0 || k < 0 ||
-      gate == nullptr || (dtype != DT_F32 && dtype != DT_BF16))
+      (dtype != DT_F32 && dtype != DT_BF16))
     return (int)cudaErrorInvalidValue;
   const int64_t tiles = ((m + FUSED_BM - 1) / FUSED_BM) * ((n + BN - 1) / BN);
   if (S > tiles) return (int)cudaErrorInvalidValue;  // every stripe holds a tile
@@ -824,7 +822,7 @@ int accl_fused_matmul_rs_cross(const void* const* xs, const void* const* ws, voi
   }
   tabs.gate = gate;
   tabs.seq = seq;
-  void* args[] = {&xt, &wt, &ot, &m, &n, &k, &P, &S, &vec, &tabs, &base};
+  void* args[] = {&xt, &wt, &ot, &m, &n, &k, &P, &S, &vec, &tabs};
   e = cudaLaunchCooperativeKernel(fn, dim3(nr * S), dim3(MM_THREADS), args, (size_t)smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

@@ -279,18 +279,22 @@ __device__ __forceinline__ int64_t tiles_of(const Geometry& g, int S, int k) {
 // flags live on rank r's card, the card that reads them.  Rank r's flags
 // are HS_WORDS head words, then filled[S][2], then ack[S][2].  The head:
 // the handshake counts (the blocks of its left, then of its right
-// neighbour that have ended a launch), then, used in the flags of a
-// launch's first rank only, that card's copy of the host's gate (the
-// launches its block 0 saw opened, and whether it saw one given up).
-// HS_WORDS is in ring_sync.cuh, shared with fused.cu's cross-card mode.
+// neighbour that have ended a launch); used in the flags of a launch's
+// first rank only, that card's copy of the host's gate (the launches its
+// block 0 saw opened, and whether it saw one given up); the blocks of
+// rank r that ended every earlier launch (HS_DONE) and that have ended
+// the launch under way (HS_ENDED).  HS_WORDS and the words' offsets are
+// in ring_sync.cuh, shared with fused.cu's cross-card mode.
 struct RankTables {
   void* slots[MAXP];
   int* flags[MAXP];
   int rank[MAXP];  // the rank that block b of this launch plays: rank[b / S]
   // The host's gate of these tables, two words of mapped host memory:
-  // gate[0] counts the launches the host has opened (every card's launch
-  // enqueued), gate[1] turns non-zero when it gave a launch up (a card's
-  // launch failed after another card's was enqueued).  seq: this launch.
+  // gate[0] counts the eager launches the host has opened (every card's
+  // launch enqueued), gate[1] turns non-zero when it gave one up (a
+  // card's launch failed after another card's was enqueued).  seq: this
+  // launch's number.  Null for a launch captured in a CUDA graph, which
+  // has no gate (cross_entry).
   const int* gate;
   int seq;
 };
@@ -546,16 +550,20 @@ ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int V, int S, T* slot
 // into the right neighbour's slot over NVLink, and every flag is .sys.
 //
 // Before a launch, the wrapper joins the cards' streams (accl_ring_join:
-// each card's stream waits for an event recorded on every other card's),
+// each card's stream waits for the work queued on every other card's),
 // so no card's blocks start while another card's stream is still busy
 // with work queued before its launch: every wait below then counts
-// against SPIN_TIMEOUT_NS only the ring's own time.  The blocks also
-// wait for the host's gate (wait_gate), which the host opens once every
+// against SPIN_TIMEOUT_NS only the ring's own time; after the launches
+// the first card's stream waits for every card's (accl_ring_join_back),
+// so work queued there after the launch (a graph's end, under capture)
+// follows every card's blocks.  The blocks of an eager launch also wait
+// for the host's gate (wait_gate), which the host opens once every
 // card's launch is enqueued, or gives up when one card's launch fails:
 // the blocks already on the other cards then end at once instead of
-// waiting for ranks that never start.
+// waiting for ranks that never start.  A launch captured in a CUDA graph
+// has no gate: a graph launch enqueues all of its kernels or none.
 //
-// The join already orders launch N + 1 on every card after launch N on
+// The joins already order launch N + 1 on every card after launch N on
 // every card.  The entry handshake is the kernel's own guard of that
 // order, the TPU kernel's barrier, so that the kernel does not rest on
 // what its caller joins.  Without either, a fast card's next launch could store into a slot its neighbour has not read
@@ -566,46 +574,44 @@ ring_kernel(PtrTable xs, OutTable outs, Geometry g, int P, int V, int S, T* slot
 // itself, with a release, into its left neighbour's second handshake
 // word and its right neighbour's first; every block, before anything
 // else, waits until both of its own words count every block of every
-// earlier launch on these tables (base: the wrapper's running sum of
-// their S).  A neighbour's block ends only after its last landing and
-// its last ack arrived and were read, so when the wait passes, nothing
-// of the last launch is still to be read or counted on this rank, and
-// its flags are 0.  The counts only grow (wrapping at 2^32), so no
-// launch relies on a word being set back.  A neighbour is therefore at
-// most one launch ahead, and only after this rank's blocks have ended.
+// earlier launch on these tables.  A neighbour's block ends only after
+// its last landing and its last ack arrived and were read, so when the
+// wait passes, nothing of the last launch is still to be read or counted
+// on this rank, and its flags are 0.  The counts only grow (wrapping at
+// 2^32), so no launch relies on a word being set back.  A neighbour is
+// therefore at most one launch ahead, and only after this rank's blocks
+// have ended.
+//
+// The count the handshake waits for is kept on the card, not by the
+// host, so that a launch replayed from a CUDA graph, whose arguments are
+// fixed at capture, waits for the right one: each rank's HS_DONE counts
+// its blocks that ended every earlier launch on these tables; every
+// block reads it at entry (cross_entry), and the rank's last block to
+// end advances it by S (count_out), after every block of the rank has
+// read it.  The launches on one set of tables follow each other on each
+// card (the card's stream, or the graph's edges; the joins order a graph
+// between eager launches), so a launch reads the count its predecessor
+// left, whether each was launched eagerly or replayed, in any order.
 // (The right neighbour's word is the one the schedule needs: a rank
 // writes into its left neighbour's ack only after reading that
 // neighbour's landing of the same launch.  Both are waited for, as the
 // TPU kernel's barrier waits for both neighbours; tests/
 // test_torch_multicard.py replays the schedule with either.)
 // ------------------------------------------------------------------------
-// store_release_sys and wait_gate (the host's gate) are in ring_sync.cuh,
-// shared with fused.cu's cross-card mode.
+// cross_entry (the gate and the handshake) and count_out are in
+// ring_sync.cuh, shared with fused.cu's cross-card mode.
 
 template <typename T, int KIND, bool STAMP>
 __global__ void __launch_bounds__(THREADS, 2)
 ring_kernel_cross(PtrTable xs, OutTable outs, Geometry g, int P, int S, RankTables tabs,
-                  int base, int* stamps) {
+                  int* stamps) {
   const int my = tabs.rank[blockIdx.x / S], k = blockIdx.x % S;
   const int left = (my + P - 1) % P, right = (my + 1) % P;
   __shared__ CrossBases bases;
   __shared__ int opened;
   if (threadIdx.x == 0) {
-    // one block a card reads the host's gate over the bus and copies what
-    // it saw into the card's own words, which the other blocks wait on
-    // (hundreds of blocks polling host memory would crowd the bus the
-    // host's launches on the other cards go over)
-    int* card_gate = tabs.flags[tabs.rank[0]] + 2;
-    if (blockIdx.x == 0) {
-      opened = wait_gate(tabs.gate, tabs.seq);
-      store_release_sys(opened ? card_gate : card_gate + 1, opened ? tabs.seq : 1);
-    } else {
-      opened = wait_gate(card_gate, tabs.seq);
-    }
+    opened = cross_entry(tabs.gate, tabs.seq, tabs.flags[tabs.rank[0]] + 2, tabs.flags[my]);
     if (opened) {
-      const int* hs = tabs.flags[my];
-      wait_reached<SCOPE_SYS>(hs, base);
-      wait_reached<SCOPE_SYS>(hs + 1, base);
       bases.slot[0] = tabs.slots[my];
       bases.slot[1] = tabs.slots[right];
       bases.flags[0] = tabs.flags[my];
@@ -627,6 +633,7 @@ ring_kernel_cross(PtrTable xs, OutTable outs, Geometry g, int P, int S, RankTabl
     }
     arrive_release<SCOPE_SYS>(tabs.flags[left] + 1);
     arrive_release<SCOPE_SYS>(tabs.flags[right]);
+    count_out(tabs.flags[my], S);
   }
 }
 
@@ -772,35 +779,69 @@ int accl_ring_enable_peers(const int* devices, int n, int* pair) {
   return 0;
 }
 
-// Join the streams of n cards before a cross-card launch: each stream
-// waits for an event recorded on every other one, so no card's launch
-// starts before every card's stream has reached it.  Nothing is waited
-// for on the host.
-// One event a device, made at first use and recorded again by every
-// join: a wait takes the record made before it.  Callers serialize the
-// joins (ops/ring.py holds one lock around a join and its launches).
+// Joins of the streams of n cards around a cross-card launch, the first
+// stream (streams[0], on devices[0]) the root.  Nothing is waited for on
+// the host.  One event a device, made at first use and recorded again by
+// every join: a wait takes the record made before it.  Callers serialize
+// the joins (ops/ring.py holds one lock around a launch and its joins).
 #define MAX_DEVICES 64
 static cudaEvent_t join_events[MAX_DEVICES];
 
-int accl_ring_join(const int* devices, void* const* streams, int n) {
-  if (n < 2) return 0;
+// Stream j waits for what was queued on stream i so far, for each j in
+// to[0..nto) (indices into devices and streams).
+static cudaError_t wait_for(const int* devices, void* const* streams, int i, const int* to,
+                            int nto) {
+  cudaEvent_t* ev = &join_events[devices[i]];
+  cudaError_t e = cudaSetDevice(devices[i]);
+  if (e == cudaSuccess && *ev == nullptr) e = cudaEventCreateWithFlags(ev, cudaEventDisableTiming);
+  if (e == cudaSuccess) e = cudaEventRecord(*ev, (cudaStream_t)streams[i]);
+  for (int t = 0; e == cudaSuccess && t < nto; ++t) {
+    e = cudaSetDevice(devices[to[t]]);
+    if (e == cudaSuccess) e = cudaStreamWaitEvent((cudaStream_t)streams[to[t]], *ev, 0);
+  }
+  return e;
+}
+
+static cudaError_t check_devices(const int* devices, int n) {
   for (int i = 0; i < n; ++i)
-    if (devices[i] < 0 || devices[i] >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
-  const CurrentDevice keep(devices[0]);  // each i is made current below
-  cudaError_t e = keep.err;
-  for (int i = 0; e == cudaSuccess && i < n; ++i) {
-    cudaEvent_t* ev = &join_events[devices[i]];
-    e = cudaSetDevice(devices[i]);
-    if (e == cudaSuccess && *ev == nullptr)
-      e = cudaEventCreateWithFlags(ev, cudaEventDisableTiming);
-    if (e == cudaSuccess) e = cudaEventRecord(*ev, (cudaStream_t)streams[i]);
-  }
-  for (int i = 0; e == cudaSuccess && i < n; ++i) {
-    e = cudaSetDevice(devices[i]);
-    for (int j = 0; e == cudaSuccess && j < n; ++j)
-      if (j != i)
-        e = cudaStreamWaitEvent((cudaStream_t)streams[i], join_events[devices[j]], 0);
-  }
+    if (devices[i] < 0 || devices[i] >= MAX_DEVICES) return cudaErrorInvalidValue;
+  return n > MAXP ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// Before a cross-card launch: every stream waits for what was queued on
+// every other one, so no card's launch starts before every card's stream
+// has reached it: the root waits for each of the others, then each of
+// them for the root.  With fork, the others first wait for the root:
+// under CUDA graph capture on the root's stream, that forks the streams
+// not yet capturing into the capture (a stream that is not capturing may
+// not be waited for from one that is).
+int accl_ring_join(const int* devices, void* const* streams, int n, int fork) {
+  if (n < 2) return 0;
+  cudaError_t e = check_devices(devices, n);
+  if (e != cudaSuccess) return (int)e;
+  int others[MAXP], root = 0;
+  for (int i = 1; i < n; ++i) others[i - 1] = i;
+  const CurrentDevice keep(devices[0]);  // each card is made current below
+  e = keep.err;
+  if (e == cudaSuccess && fork) e = wait_for(devices, streams, 0, others, n - 1);
+  for (int i = 1; e == cudaSuccess && i < n; ++i) e = wait_for(devices, streams, i, &root, 1);
+  if (e == cudaSuccess) e = wait_for(devices, streams, 0, others, n - 1);
+  return (int)e;
+}
+
+// After a cross-card launch: the root waits for every other card's
+// stream, so what is queued on the root after the launch follows every
+// card's blocks (a later launch on the same tables, a graph replayed on
+// the root's stream; under capture, the other streams' launches are
+// joined back into the root's).
+int accl_ring_join_back(const int* devices, void* const* streams, int n) {
+  if (n < 2) return 0;
+  cudaError_t e = check_devices(devices, n);
+  if (e != cudaSuccess) return (int)e;
+  const int root = 0;
+  const CurrentDevice keep(devices[0]);
+  e = keep.err;
+  for (int i = 1; e == cudaSuccess && i < n; ++i) e = wait_for(devices, streams, i, &root, 1);
   return (int)e;
 }
 
@@ -825,19 +866,18 @@ int accl_ring_gate_new(int** gate) {
 // rank ranks[b / S] of a ring of P over every card.  xs, outs, slots and
 // flags hold one entry per rank of the ring (rank r's slots S * 2 * tw
 // elements and flags HS_WORDS + S * 4 int32 on rank r's card, zero when
-// first made); base is the count of blocks
-// per rank of every earlier launch on these tables; the blocks start once
-// gate[0] reaches seq, and end at once if gate[1] is set first (gate from
-// accl_ring_gate_new).  A non-null stamps
+// first made; the flags' head keeps the handshake's count, so every launch
+// on one set of tables passes the same flags).  An eager launch passes
+// its gate (from accl_ring_gate_new): its blocks start once gate[0]
+// reaches seq, and end at once if gate[1] is set first.  A launch
+// captured in a CUDA graph passes a null gate.  A non-null stamps
 // (segments * P * (P - 1) * STAMP_COLS int32 on this card) takes the rows
 // of this card's ranks.
 int accl_ring_launch_cross(int kind, int dtype, const void* const* xs, void* const* outs,
                            int P, const int* ranks, int n, int S, const int64_t* geo,
-                           void* const* slots, int* const* flags, int base,
-                           const int* gate, int seq, int* stamps, int device,
-                           void* stream) {
-  if (P < 2 || P > MAXP || n < 1 || n > P || S < 1 || gate == nullptr)
-    return (int)cudaErrorInvalidValue;
+                           void* const* slots, int* const* flags, const int* gate,
+                           int seq, int* stamps, int device, void* stream) {
+  if (P < 2 || P > MAXP || n < 1 || n > P || S < 1) return (int)cudaErrorInvalidValue;
   void* fn = kernel_for(kind, dtype, stamps != nullptr ? 3 : 2);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const CurrentDevice on(device);
@@ -859,7 +899,7 @@ int accl_ring_launch_cross(int kind, int dtype, const void* const* xs, void* con
   }
   Geometry g;
   memcpy(&g, geo, sizeof(Geometry));
-  void* args[] = {&xt, &ot, &g, &P, &S, &tabs, &base, &stamps};
+  void* args[] = {&xt, &ot, &g, &P, &S, &tabs, &stamps};
   cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(n * S), dim3(THREADS), args, 0,
                                               (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

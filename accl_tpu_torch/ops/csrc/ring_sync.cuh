@@ -11,9 +11,10 @@
 // store into another card's memory.
 //
 // The cross-card modes also share the head of a rank's flags (HS_WORDS
-// words: the entry handshake's two counts, then a card's copy of the
-// host's gate) and the gate's wait (wait_gate): see ring.cu
-// ring_kernel_cross.
+// words: the entry handshake's two counts, a card's copy of the host's
+// gate, and the rank's own count of its ended blocks), the gate's wait
+// (wait_gate), a block's entry (cross_entry) and its count at its end
+// (count_out): see ring.cu ring_kernel_cross.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,10 +100,16 @@ __device__ __forceinline__ void wait_reached(const int* p, int target) {
 
 __device__ __forceinline__ int pmod(int a, int P) { return ((a % P) + P) % P; }
 
-// -- the cross-card modes' entry ----------------------------------------------
+// -- the cross-card modes' entry and exit -------------------------------------
 // Words at the head of a rank's flags in the cross-card modes (their
-// layout: ring.cu, RankTables).
-#define HS_WORDS 4
+// layout: ring.cu, RankTables): 0 and 1 the handshake's counts, 2 and 3
+// a card's copy of the host's gate, HS_DONE the blocks of this rank that
+// ended every earlier launch on these tables (the count the handshake
+// waits for), HS_ENDED the blocks of this rank that have ended the
+// launch under way.
+#define HS_WORDS 6
+#define HS_DONE 4
+#define HS_ENDED 5
 
 __device__ __forceinline__ void store_release_sys(int* p, int v) {
   asm volatile("st.release.sys.global.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
@@ -123,5 +130,55 @@ __device__ __forceinline__ int wait_gate(const int* gate, int seq) {
     if (given_up) return 0;
     __nanosleep(64);
     if (global_ns() - t0 > SPIN_TIMEOUT_NS) __trap();
+  }
+}
+
+// Thread 0's entry of a block in the cross-card modes, for the rank whose
+// flags start at head.  An eager launch (gate non-null) first waits for
+// the host's gate on launch seq: block 0 of the card reads it over the
+// bus and copies what it saw into the card's words card_gate (words 2
+// and 3 of the card's first rank), the other blocks wait on those
+// (hundreds of blocks polling host memory would crowd the bus the host's
+// launches on the other cards go over).  A captured launch (gate null)
+// has no gate: a graph launch enqueues every card's kernel or none.  Then
+// the handshake: both of the rank's words must count every block of
+// every earlier launch on these tables, which the rank's HS_DONE holds
+// (count_out), so the count comes from the card and a replayed launch
+// reads the count of its replay.  Returns 0 for a launch given up: its
+// block then touches nothing and counts nothing.
+__device__ __forceinline__ int cross_entry(const int* gate, int seq, int* card_gate,
+                                           const int* head) {
+  if (gate != nullptr) {
+    int opened;
+    if (blockIdx.x == 0) {
+      opened = wait_gate(gate, seq);
+      store_release_sys(opened ? card_gate : card_gate + 1, opened ? seq : 1);
+    } else {
+      opened = wait_gate(card_gate, seq);
+    }
+    if (!opened) return 0;
+  }
+  const int base = ld_acquire<SCOPE_GPU>(head + HS_DONE);
+  wait_reached<SCOPE_SYS>(head, base);
+  wait_reached<SCOPE_SYS>(head + 1, base);
+  return 1;
+}
+
+// Thread 0 of a block of rank r as it ends, after its handshake counts:
+// counts the block out of the launch in r's HS_ENDED (on r's card, the
+// card of the launch), and r's last block to end sets that count back to
+// 0 and advances r's HS_DONE by S, the count that the next launch's
+// blocks of r read at entry.  Every block of r read HS_DONE before it
+// counted itself out (acq_rel), so none of this launch reads the
+// advanced count; the card's stream, or a graph's edges, order the next
+// launch on these tables on this card after this one ended.  The count
+// wraps at 2^32, as the handshake's do.
+__device__ __forceinline__ void count_out(int* head, int S) {
+  int ended;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(ended) : "l"(head + HS_ENDED) : "memory");
+  if (ended == S - 1) {
+    head[HS_ENDED] = 0;
+    head[HS_DONE] = (int)((unsigned)head[HS_DONE] + (unsigned)S);
   }
 }

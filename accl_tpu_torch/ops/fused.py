@@ -32,11 +32,12 @@ rank, in ring order, and returns one per rank):
    one launch per card, counted in ``launches_cross``): every rank's
    landing slots and flags on its own card (``_cross_tables``, the
    tables of ``ops/ring.py``'s cross-card mode), the cards' streams
-   joined before the launches, the host's gate and the entry handshake
-   of the ring kernels' cross-card mode.  ``ring.rank_tables()`` runs
-   that mode on one card.  Across cards the plain version moves each
-   landing accumulator to its rank's card (a counted
-   ``parallel.collectives.move``).
+   joined around the launches, the host's gate of an eager launch and
+   the entry handshake counted on the card, as in the ring kernels'
+   cross-card mode, so that it too can be captured in a CUDA graph and
+   replayed.  ``ring.rank_tables()`` runs that mode on one card.
+   Across cards the plain version moves each landing accumulator to its
+   rank's card (a counted ``parallel.collectives.move``).
 
 Beside each kernel wrapper sits its plain PyTorch version.  A wrapper
 runs the plain version only when it is given CPU tensors; given CUDA
@@ -656,60 +657,29 @@ def _launch_rs_cross(xs, ws, out, m: int, N: int, K: int,
                      layout: tuple) -> None:
     """The cross-card mode of ``accl_fused_matmul_rs``: one launch per
     card (``ring.card_groups``), each on its card's current stream, over
-    the per-rank tables of ``_cross_tables``, after the cards' streams
-    are joined; opens the launch in the tables' gate once every card's
-    launch is enqueued, or gives it up there when one fails.  Counts one
-    launch per card."""
+    the per-rank tables of ``_cross_tables`` (``ring._launch_on_cards``:
+    the joins, the gate of an eager launch, none under CUDA graph
+    capture).  Counts one launch per card."""
     P = len(xs)
     dt = KERNEL_DTYPES[xs[0].dtype]
     groups = ring_ops.card_groups(layout)
     streams = {c: torch.cuda.current_stream(c) for c, _r in groups}
-    for c in streams:
-        with torch.cuda.device(c):
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    "fused_matmul_reduce_scatter: the host opens a "
-                    "cross-card launch (its gate and its entry handshake's "
-                    "count), which a CUDA graph capture cannot replay; run "
-                    "it eagerly")
     ring_ops.enable_peers([c for c, _r in groups])
     tiles = _cdiv(m, FUSED_TILE_M) * _cdiv(N, TILE_N)
     S = min(min(fused_stripes(len(ranks), tiles, _resident_cross(dt, c))
                 for c, ranks in groups), ring_ops.MAX_STRIPES)
     vec = _vec([*xs, *ws, *out], K, N, xs[0].element_size())
     lib = _build.load("fused")
-    rlib = _build.load("ring")
-    with ring_ops._tables_lock:
-        tabs = ring_ops._tables_for(layout, streams, 2 * m * N * 4,
-                                    _cross_tables)
-        slot_ptrs = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.slots])
-        flag_ptrs = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.flags])
-        base = tabs.base
-        base_c = base - (1 << 32) if base >= 1 << 31 else base
-        cards = list(streams)
-        ring_ops._raise_on(rlib, rlib.accl_ring_join(
-            (ctypes.c_int * len(cards))(*cards),
-            (ctypes.c_void_p * len(cards))(*[streams[c].cuda_stream
-                                             for c in cards]),
-            len(cards)), "accl_ring_join")
-        seq = (tabs.seq + 1) & 0xFFFFFFFF
-        seq_c = seq - (1 << 32) if seq >= 1 << 31 else seq
-        for c, ranks in groups:
-            rc = lib.accl_fused_matmul_rs_cross(
-                _ptrs(xs), _ptrs(ws), _ptrs(out), m, N, K, P,
-                (ctypes.c_int * len(ranks))(*ranks), len(ranks), dt, S,
-                int(vec), slot_ptrs, flag_ptrs, base_c, tabs.gate, seq_c, c,
-                streams[c].cuda_stream)
-            if rc != 0:
-                # the blocks enqueued on earlier cards wait for the gate:
-                # give the launch up so they end at once, and make fresh
-                # tables for the next launch
-                ring_ops._gate_word(tabs, 1, 1)
-                _cross_tables.pop(ring_ops._tables_key(layout, streams), None)
-                _raise_on(lib, rc, "fused_matmul_reduce_scatter")
-        tabs.seq = seq
-        ring_ops._gate_word(tabs, 0, seq)
-        tabs.base = ring_ops.handshake_base((base, S))
+
+    def launch(c, ranks, slots, flags, gate, seq):
+        return lib.accl_fused_matmul_rs_cross(
+            _ptrs(xs), _ptrs(ws), _ptrs(out), m, N, K, P,
+            (ctypes.c_int * len(ranks))(*ranks), len(ranks), dt, S,
+            int(vec), slots, flags, gate, seq, c, streams[c].cuda_stream)
+
+    ring_ops._launch_on_cards(layout, streams, 2 * m * N * 4,
+                              _cross_tables, launch,
+                              "fused_matmul_reduce_scatter")
     fused_matmul_reduce_scatter.launches += len(groups)
     fused_matmul_reduce_scatter.launches_cross += len(groups)
 

@@ -13,19 +13,25 @@ sit on more than one card, each phase is one launch per card, holding
 that card's ranks (``card_groups``), with every rank's landing slots and
 flags on its own card (``_tables_for``) and each hop a store over NVLink
 into the right neighbour's slot.  Before the launches the cards'
-streams are joined (each waits for an event on every other), so no
-card's blocks start while another card is still busy with earlier work;
-the blocks then wait for the host's gate, which opens once every card's
-launch is enqueued or gives the launch up when one fails, and enter
-through a handshake with both neighbours (``csrc/ring.cu``
-``ring_kernel_cross``), whose count of earlier blocks the wrapper keeps
-per set of tables (``_Tables.base``).  The results are bitwise the
-one-card launch's.  ``rank_tables()`` runs the same mode on one card,
-for tests.  The cards must have peer access to each other
-(``enable_peers``); a cross-card launch cannot be captured in a CUDA
-graph (the gate and the handshake's count live on the host), and two
-threads that launch on the same cards must do so in one order, as with
-any collective library.
+streams are joined (each waits for every other), so no card's blocks
+start while another card is still busy with earlier work, and after
+them the first card's stream waits for every card's; the blocks of an
+eager launch then wait for the host's gate, which opens once every
+card's launch is enqueued or gives the launch up when one fails, and
+every block enters through a handshake with both neighbours
+(``csrc/ring.cu`` ``ring_kernel_cross``), whose count of earlier blocks
+each rank keeps on its card.  The results are bitwise the one-card
+launch's.  ``rank_tables()`` runs the same mode on one card, for tests.
+The cards must have peer access to each other (``enable_peers``).  A
+cross-card launch can be captured in a CUDA graph and replayed, between
+eager launches on the same tables in any order: a captured launch has
+no gate, and its handshake reads its count from the card.  Under capture
+the tables must already exist at their size (an eager warm-up on the
+same streams makes them), every card's current stream must be one that
+can join the capture (not its default stream), and the capture's owner
+joins the other cards' streams back before it ends.  Two threads that
+launch on the same cards must do so in one order, as with any
+collective library.
 
 Every function takes a list with one tensor per rank, in ring order.
 Beside each kernel wrapper sits its plain PyTorch version, a Python loop
@@ -477,9 +483,13 @@ def _plan(parts: tuple, P: int, elem: int, k: int, code: int, device: int,
 # ranks on several cards: the per-card launch plan, pure functions of a
 # layout (the card of each rank, in rank order)
 # ---------------------------------------------------------------------------
-#: words at the head of a rank's flags (HS_WORDS in csrc/ring.cu): the
-#: handshake's two counts, then a card's copy of the host's gate
-HS_WORDS = 4
+#: words at the head of a rank's flags (HS_WORDS in csrc/ring_sync.cuh):
+#: the handshake's two counts, a card's copy of the host's gate, and the
+#: rank's count of its blocks that ended every earlier launch (HS_DONE)
+#: and the launch under way (HS_ENDED)
+HS_WORDS = 6
+HS_DONE = 4
+HS_ENDED = 5
 #: stripes a rank's flags have room for in the cross-card mode
 MAX_STRIPES = 1024
 
@@ -491,13 +501,6 @@ def card_groups(layout: Sequence[int]) -> list:
     for r, c in enumerate(layout):
         groups.setdefault(c, []).append(r)
     return list(groups.items())
-
-
-def handshake_base(stripes: Sequence[int]) -> int:
-    """The count a launch's entry handshake waits for on each of a rank's
-    two words: the blocks one neighbour ran in every earlier launch on
-    the same tables (the stripes of each, summed), mod 2^32."""
-    return sum(stripes) & 0xFFFFFFFF
 
 
 #: the per-rank-table form on one card (``rank_tables``), per thread
@@ -521,24 +524,32 @@ class rank_tables:
 
 class _Tables:
     """The landing slots and flags of every rank of one layout on one set
-    of streams (each rank's on its own card), the handshake's count of
-    the blocks each rank ran in every launch on them so far, and the
-    host's gate (two words of mapped host memory: the launches opened,
-    and whether one was given up) with the number of the last launch."""
+    of streams (each rank's on its own card; the flags' head keeps the
+    handshake's count), and the host's gate of the eager launches (two
+    words of mapped host memory: the launches opened, and whether one
+    was given up) with the number of the last one.  Once a launch on them
+    was captured in a CUDA graph (``captured``), no buffer of theirs is
+    freed: slots outgrown are ``held``, and tables dropped after a launch
+    was given up are kept in ``_held_tables``, since a replay still
+    writes them."""
 
-    __slots__ = ("slots", "flags", "base", "gate", "seq")
+    __slots__ = ("slots", "flags", "gate", "seq", "captured", "held")
 
     def __init__(self, gate: int):
         self.slots: list = []
         self.flags: list = []
-        self.base = 0
         self.gate = gate
         self.seq = 0
+        self.captured = False
+        self.held: list = []
 
 
 _tables_lock = threading.RLock()
 #: (layout, ((card, stream), ...)) -> _Tables
 _tables: dict = {}
+#: tables dropped after a launch was given up whose buffers a captured
+#: launch still writes
+_held_tables: list = []
 #: card sets whose pairs have peer access enabled
 _peers_enabled: set = set()
 
@@ -567,7 +578,8 @@ def _tables_key(layout: tuple, streams: dict) -> tuple:
 
 
 def _tables_for(layout: tuple, streams: dict, slot_bytes: int,
-                registry: Optional[dict] = None) -> _Tables:
+                registry: Optional[dict] = None, capturing: bool = False,
+                what: str = "ring kernels") -> _Tables:
     """The tables of ``layout`` on the cards' current ``streams``, each
     rank's slots grown to ``slot_bytes``.  Whatever is made anew is made
     on the rank's card and its stream is synchronized before any launch
@@ -575,11 +587,24 @@ def _tables_for(layout: tuple, streams: dict, slot_bytes: int,
     on this card's stream (a fresh zero must be in place, and no earlier
     work on this stream may still hold the memory).  ``registry``: where
     the tables are kept (the ring kernels' ``_tables`` by default;
-    ``ops.fused`` keeps its own, which the same lock guards)."""
+    ``ops.fused`` keeps its own, which the same lock guards).  Under CUDA
+    graph capture (``capturing``) nothing may be made or synchronized:
+    tables missing or too small raise, naming the eager warm-up."""
     registry = _tables if registry is None else registry
     key = _tables_key(layout, streams)
     with _tables_lock:
         tabs = registry.get(key)
+        if capturing:
+            if tabs is None or any(t is None or t.numel() < slot_bytes
+                                   for t in tabs.slots):
+                raise RuntimeError(
+                    f"{what}: a cross-card launch under CUDA graph capture "
+                    f"needs its tables, made by an eager launch of the same "
+                    f"size (or larger) on the same streams: run the step "
+                    f"once eagerly on those streams before capturing (a "
+                    f"warm-up)")
+            tabs.captured = True
+            return tabs
         if tabs is None:
             lib = _build.load("ring")
             gate = ctypes.c_void_p()
@@ -596,6 +621,8 @@ def _tables_for(layout: tuple, streams: dict, slot_bytes: int,
             made = set()
         for r, c in enumerate(layout):
             if tabs.slots[r] is None or tabs.slots[r].numel() < slot_bytes:
+                if tabs.captured and tabs.slots[r] is not None:
+                    tabs.held.append(tabs.slots[r])
                 tabs.slots[r] = torch.empty(slot_bytes, dtype=torch.uint8,
                                             device=f"cuda:{c}")
                 made.add(c)
@@ -604,39 +631,120 @@ def _tables_for(layout: tuple, streams: dict, slot_bytes: int,
         return tabs
 
 
+def _c_int(value: int) -> int:
+    """``value`` mod 2^32 as the C int that holds its bits."""
+    value &= 0xFFFFFFFF
+    return value - (1 << 32) if value >= 1 << 31 else value
+
+
 def _gate_word(tabs: _Tables, word: int, value: int) -> None:
     """Store ``value`` (mod 2^32) into word ``word`` of ``tabs``' gate,
     which the blocks read over the bus."""
-    ctypes.c_int32.from_address(tabs.gate + 4 * word).value = \
-        value - (1 << 32) if value >= 1 << 31 else value
+    ctypes.c_int32.from_address(tabs.gate + 4 * word).value = _c_int(value)
+
+
+def _capturing_cards(streams: dict) -> list:
+    """The cards among ``streams`` (card -> its current stream) whose
+    stream is capturing a CUDA graph.  A default stream never captures,
+    and is not asked: asking it while a capture is under way elsewhere
+    would make it depend on that capture, which CUDA refuses."""
+    got = []
+    for c, s in streams.items():
+        if s.cuda_stream == 0:
+            continue
+        with torch.cuda.device(c):
+            if torch.cuda.is_current_stream_capturing():
+                got.append(c)
+    return got
+
+
+def _launch_on_cards(layout: tuple, streams: dict, slot_bytes: int,
+                    registry: dict, launch, what: str) -> None:
+    """One launch of a cross-card mode (the ring kernels', or
+    ``ops.fused``'s with its ``registry``) over the tables of ``layout``
+    on the cards' current ``streams``: ``launch(card, ranks, slots,
+    flags, gate, seq)`` enqueues one card's launch (``slots`` and
+    ``flags`` the per-rank pointer tables) and returns its CUDA error
+    code.  The cards' streams are joined before the launches
+    (``accl_ring_join``) and the first card's waits for every card's
+    after them (``accl_ring_join_back``).  An eager launch passes the
+    tables' gate and its number, and opens it once every card's launch is
+    enqueued, or gives it up when one fails, so that the blocks already
+    enqueued end at once.  Under CUDA graph capture on any card's stream,
+    the launch passes no gate (a graph launch enqueues every card's
+    kernel or none) and reads nothing of the host's gate count; the
+    capturing card's stream leads the joins, which first fork the others
+    into the capture where they do not capture yet."""
+    groups = card_groups(layout)
+    cards = [c for c, _r in groups]
+    capturing = _capturing_cards(streams)
+    if capturing:
+        idle = [c for c in cards
+                if c not in capturing and streams[c].cuda_stream == 0]
+        if idle:
+            raise RuntimeError(
+                f"{what}: under CUDA graph capture every card's current "
+                f"stream must be able to join the capture; cuda:{idle[0]}'s "
+                f"is its default stream (make a side stream current there)")
+        cards = capturing[:1] + [c for c in cards if c != capturing[0]]
+    lib = _build.load("ring")
+    with _tables_lock:
+        tabs = _tables_for(layout, streams, slot_bytes, registry,
+                           bool(capturing), what)
+        P = len(layout)
+        slots = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.slots])
+        flags = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.flags])
+        n = len(cards)
+        if n > 1:
+            join = ((ctypes.c_int * n)(*cards), (ctypes.c_void_p * n)(
+                *[streams[c].cuda_stream for c in cards]), n)
+            _raise_on(lib, lib.accl_ring_join(
+                *join, int(0 < len(capturing) < n)), "accl_ring_join")
+        gate, seq = None, 0
+        if not capturing:
+            gate, seq = tabs.gate, (tabs.seq + 1) & 0xFFFFFFFF
+        for c, ranks in groups:
+            rc = launch(c, ranks, slots, flags, gate, _c_int(seq))
+            if rc != 0:
+                if not capturing:
+                    # the blocks enqueued on earlier cards wait for the
+                    # gate: give the launch up so they end at once, and
+                    # make fresh tables for the next launch (these may
+                    # hold its slots)
+                    _gate_word(tabs, 1, 1)
+                    registry.pop(_tables_key(layout, streams), None)
+                    if tabs.captured:
+                        _held_tables.append(tabs)
+                _raise_on(lib, rc, what)
+        if not capturing:
+            tabs.seq = seq
+            _gate_word(tabs, 0, seq)
+        if n > 1:
+            _raise_on(lib, lib.accl_ring_join_back(*join),
+                      "accl_ring_join_back")
 
 
 def _launch_cross(kind: str, xs, outs, parts, op: str, land: bool,
                   layout: tuple) -> None:
     """The cross-card mode of :func:`_launch`: one launch per card over
     the per-rank tables, in the order of ``card_groups``, each on its
-    card's current stream, after those streams are joined
-    (``accl_ring_join``); opens the launch in the tables' gate once every
-    card's launch is enqueued, or gives it up there when one fails, so
-    the blocks already enqueued end at once.  Counts one launch per
-    card."""
+    card's current stream (:func:`_launch_on_cards`).  Counts one launch
+    per card."""
     P, elem = len(xs), xs[0].element_size()
     code = KERNEL_DTYPES[xs[0].dtype]
     k = 2 if kind == "ag" else int(op == "max")
     groups = card_groups(layout)
     streams = {c: torch.cuda.current_stream(c) for c, _r in groups}
-    for c in streams:
-        with torch.cuda.device(c):
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    "ring kernels: the host opens a cross-card launch (its "
-                    "gate and its entry handshake's count), which a CUDA "
-                    "graph capture cannot replay; run it eagerly")
+    stamp = device_trace_enabled()
+    if stamp and land and _capturing_cards(streams):
+        raise RuntimeError(
+            "ring kernels: ACCL_DEVICE_TRACE lands its stamp rows after "
+            "a synchronize, which a CUDA graph capture cannot hold; unset "
+            "it to capture")
     enable_peers([c for c, _r in groups])
     xp = [t.data_ptr() for t in xs]
     op_ = [t.data_ptr() for t in outs]
     aligned = all(a % 16 == 0 for a in xp + op_)
-    stamp = device_trace_enabled()
     S, geo, slot_bytes = _plan(tuple(parts), P, elem, k, code, layout[0],
                                aligned, stamp, layout)
     nseg = sum(p.nseg for p in parts)
@@ -647,38 +755,17 @@ def _launch_cross(kind: str, xs, outs, parts, op: str, land: bool,
     wrapper = ring_all_gather if kind == "ag" else ring_reduce_scatter
     key_xs = (ctypes.c_void_p * P)(*xp)
     key_outs = (ctypes.c_void_p * P)(*op_)
-    with _tables_lock:
-        tabs = _tables_for(layout, streams, slot_bytes)
-        slot_ptrs = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.slots])
-        flag_ptrs = (ctypes.c_void_p * P)(*[t.data_ptr() for t in tabs.flags])
-        base = tabs.base
-        base_c = base - (1 << 32) if base >= 1 << 31 else base
-        cards = list(streams)
-        _raise_on(lib, lib.accl_ring_join(
-            (ctypes.c_int * len(cards))(*cards),
-            (ctypes.c_void_p * len(cards))(*[streams[c].cuda_stream
-                                             for c in cards]),
-            len(cards)), "accl_ring_join")
-        seq = (tabs.seq + 1) & 0xFFFFFFFF
-        seq_c = seq - (1 << 32) if seq >= 1 << 31 else seq
-        for c, ranks in groups:
-            st = stamps.get(c)
-            rc = lib.accl_ring_launch_cross(
-                k, code, key_xs, key_outs, P,
-                (ctypes.c_int * len(ranks))(*ranks), len(ranks), S, geo,
-                slot_ptrs, flag_ptrs, base_c, tabs.gate, seq_c,
-                None if st is None else st.data_ptr(), c,
-                streams[c].cuda_stream)
-            if rc != 0:
-                # the blocks enqueued on earlier cards wait for the gate:
-                # give the launch up so they end at once, and make fresh
-                # tables for the next launch (these may hold its slots)
-                _gate_word(tabs, 1, 1)
-                _tables.pop(_tables_key(layout, streams), None)
-                _raise_on(lib, rc, wrapper.__name__)
-        tabs.seq = seq
-        _gate_word(tabs, 0, seq)
-        tabs.base = handshake_base((base, S))
+
+    def launch(c, ranks, slots, flags, gate, seq):
+        st = stamps.get(c)
+        return lib.accl_ring_launch_cross(
+            k, code, key_xs, key_outs, P,
+            (ctypes.c_int * len(ranks))(*ranks), len(ranks), S, geo,
+            slots, flags, gate, seq, None if st is None else st.data_ptr(),
+            c, streams[c].cuda_stream)
+
+    _launch_on_cards(layout, streams, slot_bytes, _tables, launch,
+                    wrapper.__name__)
     wrapper.launches += len(groups)
     wrapper.launches_cross += len(groups)
     if stamps:

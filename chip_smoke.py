@@ -417,6 +417,28 @@ Phases, each fatal on failure:
      updates by relative L2 per leaf, adamw_readings), and across cards
      bitwise to the same mesh on card 0, the step's stream crossings
      held to stream_schedule (with one card: reported as not run);
+  7l. cross-card launches under CUDA graph capture (phase cross_capture,
+     after model_cards_sp, on card 0 in the per-rank-table form,
+     ring.rank_tables, which launches the cross-card kernels): one graph
+     captures a ring_reduce_scatter by sum and by max (P=8 x [8, n] fp32,
+     n = DEFAULT_SEG_ELEMS / 8), a ring_all_gather ([n] a rank) and
+     fused_matmul_allreduce_pallas at Llama-3-8B's TP = 4 MLP-down (fp32
+     integers: the fused kernel, then the all-gather); the counts are
+     set to 0 just before the capture and read just after (2, 2 and 1
+     launches).  After an eager warm-up that makes the tables on the
+     capture stream, the graph is replayed CAPTURE_REPLAYS times with
+     eager launches on the same tables after each replay; every replay
+     and every eager launch is bitwise its plain version and the first
+     eager launch.  ms per replay and per eager run of the four, and of
+     each alone in its own graph (rows ring_*_tables and
+     fused_matmul_reduce_scatter_tables gain these launches and ms).
+     Then generate on the card-0 Llama-3-8B bf16 tp = 4 placed mesh
+     (MC_LAYERS["one"] layers, model_cards' slots) under rank_tables:
+     its decode step captured once (DecodeGraph over the placement's
+     cards) and replayed, its tokens those of graph=False; GRAPH_STEPS
+     teacher-forced steps replayed and eager, ms per step, logits
+     bitwise (or within LOGIT_BOUND, with a control that moves the last
+     block's w2 by a bf16 ulp outside it);
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -7353,6 +7375,228 @@ def model_cards_sp(ring, F, FL, M, S, T_) -> dict:
     return {"launches": launches}
 
 
+#: phase cross_capture: the replays of the captured per-rank-table
+#: launches (eager launches on the same tables before, between and after
+#: them), the timing windows, and the teacher-forced decode steps
+CAPTURE_REPLAYS = 3
+CAPTURE_ITERS = 10
+
+
+def cross_capture_phase(ring, F, M, S) -> dict:
+    """Phase 7l (cross_capture): see the module docstring.  The launch
+    counts are set to 0 just before the capture and read just after (a
+    wrapper counts a launch at capture; a replay launches the captured
+    ones again)."""
+    from accl_tpu_torch.bench import model_cards as MCB
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    n = ring.DEFAULT_SEG_ELEMS // P
+    xs = [rand((P, n), torch.float32, gen) for _ in range(P)]
+    ys = [rand((n,), torch.float32, gen) for _ in range(P)]
+    m_, K_, N_ = MCB.tp_shapes(4)["mlp_down"]
+    tx = [ints((4 * m_, K_), torch.float32, gen) for _ in range(4)]
+    tw = [ints((K_, N_), torch.float32, gen) for _ in range(4)]
+    ops = {"ring_reduce_scatter_sum": lambda: ring.ring_reduce_scatter(xs),
+           "ring_reduce_scatter_max": lambda: ring.ring_reduce_scatter(
+               xs, "max"),
+           "ring_all_gather": lambda: ring.ring_all_gather(ys),
+           "fused_matmul_allreduce_pallas":
+               lambda: F.fused_matmul_allreduce_pallas(tx, tw)}
+    mine = F.fused_matmul_reduce_scatter_plain(
+        [x.view(4, m_, K_) for x in tx], tw)
+    want = {"ring_reduce_scatter_sum": ring.ring_reduce_scatter_plain(xs),
+            "ring_reduce_scatter_max": ring.ring_reduce_scatter_plain(
+                xs, "max"),
+            "ring_all_gather": ring.ring_all_gather_plain(ys),
+            "fused_matmul_allreduce_pallas": [
+                g.view(4 * m_, N_) for g in ring.ring_all_gather_plain(
+                    [b.view(-1) for b in mine])]}
+    del mine
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+
+    def eager(which=ops):
+        with ring.rank_tables(), torch.cuda.stream(side):
+            out = {k: f() for k, f in which.items()}
+        side.synchronize()
+        return out
+
+    def capture(which):
+        graph = torch.cuda.CUDAGraph()
+        with ring.rank_tables():
+            with torch.cuda.graph(graph, stream=side):
+                out = {k: f() for k, f in which.items()}
+        return graph, out
+
+    def replay(graph, out):
+        with torch.cuda.stream(side):
+            for ts in out.values():
+                for t in ts:
+                    t.zero_()  # a replay that ran nothing shows
+            graph.replay()
+        side.synchronize()
+        return out
+
+    def held(got, first, what):
+        for k, ts in got.items():
+            if not all(same_bits(a, b) and same_bits(a, c)
+                       for a, b, c in zip(ts, want[k], first[k])):
+                fail(f"cross_capture: {k} ({what}) is not bitwise its "
+                     f"plain version and the eager launch")
+
+    first = eager()  # the warm-up: makes the per-rank tables on `side`
+    held(first, first, "eager, before the capture")
+    counters = (ring.ring_reduce_scatter, ring.ring_all_gather,
+                F.fused_matmul_reduce_scatter)
+    saved = {fn: (fn.launches, fn.launches_cross) for fn in counters}
+    for fn in counters:
+        fn.launches = fn.launches_cross = 0
+    graph, static = capture(ops)
+    captured = {fn.__name__: fn.launches_cross for fn in counters}
+    if captured != {"ring_reduce_scatter": 2, "ring_all_gather": 2,
+                    "fused_matmul_reduce_scatter": 1} or any(
+            fn.launches != fn.launches_cross for fn in counters):
+        fail(f"cross_capture: the graph must hold the per-rank-table "
+             f"launches 2 reduce-scatters, 2 all-gathers and 1 fused: "
+             f"{captured}")
+    order = ["eager"]
+    for i in range(CAPTURE_REPLAYS):
+        held(replay(graph, static), first, f"replay {i + 1}")
+        held(eager(), first, f"eager, after replay {i + 1}")
+        order += [f"replay {i + 1}", "eager"]
+    with torch.cuda.stream(side):
+        ms_replay = cuda_ms(graph.replay, CAPTURE_ITERS)
+        with ring.rank_tables():
+            ms_eager = cuda_ms(lambda: [f() for f in ops.values()],
+                               CAPTURE_ITERS)
+    side.synchronize()
+    held(eager(), first, "eager, after the timed replays")
+    per_op = {}
+    for name, f in ops.items():
+        g1, out1 = capture({name: f})
+        with torch.cuda.stream(side):
+            r_ms = cuda_ms(g1.replay, CAPTURE_ITERS)
+            with ring.rank_tables():
+                e_ms = cuda_ms(f, CAPTURE_ITERS)
+        side.synchronize()
+        held(replay(g1, out1), first, "its own graph, after timing")
+        per_op[name] = {"ms_replayed": r_ms, "ms_eager": e_ms}
+        del g1, out1
+    for fn, (a, b) in saved.items():
+        fn.launches, fn.launches_cross = a, b
+    del graph, static, first, xs, ys, tx, tw, want
+    torch.cuda.empty_cache()
+    emit({"phase": "cross_capture_kernels", "ok": True,
+          "form": "per-rank tables on one card (ring.rank_tables)",
+          "shapes": {"ring": f"P={P} x [{P}, {n}] fp32 (reduce-scatter), "
+                             f"[{n}] (all-gather)",
+                     "fused": f"P=4 x [4 x {m_}, {K_}] @ [{K_}, {N_}] fp32 "
+                              f"integers, then the all-gather"},
+          "captured_launches": captured, "replays": CAPTURE_REPLAYS,
+          "order": order, "bitwise_plain_and_eager": True,
+          "ms_per_replay": ms_replay, "ms_per_eager": ms_eager,
+          "per_op": per_op, "seconds": time.perf_counter() - t0})
+
+    # (b) the decode step of the card-0 placed mesh, with the graph
+    t1 = time.perf_counter()
+    cfg = M.ModelConfig(**{**LLAMA3_8B, "n_layers": MC_LAYERS["one"],
+                           "dtype": "bfloat16"})
+    full = MCB.llama_bf16(M, cfg, gen)
+    placed = M.place_params(full, cfg, S.make_mesh(
+        tp=4, devices=MCB._slots(1, 4)))
+    del full
+    prompt = torch.randint(0, cfg.vocab, (2, MC_PROMPT), generator=gen,
+                           device="cuda")
+    cont = torch.randint(0, cfg.vocab, (2, GRAPH_STEPS), generator=gen,
+                         device="cuda")
+    captures = []
+    capture_fn = M.DecodeGraph.capture
+
+    def counted(self):
+        captures.append(self.params is placed)
+        return capture_fn(self)
+
+    M.DecodeGraph.capture = counted
+    try:
+        with torch.no_grad(), ring.rank_tables():
+            toks = M.generate(placed, prompt, cfg, MC_NEW)
+    finally:
+        M.DecodeGraph.capture = capture_fn
+    with torch.no_grad(), ring.rank_tables():
+        toks_eager = M.generate(placed, prompt, cfg, MC_NEW, graph=False)
+    if captures != [True] or not torch.equal(toks, toks_eager):
+        fail(f"cross_capture: generate on the placed mesh must capture its "
+             f"step once ({captures}) and give graph=False's tokens")
+    with torch.no_grad(), ring.rank_tables():
+        ms_g, samples_g, lg_g, _x = MCB.decode_steps(
+            M, placed, cfg, prompt, cont, True, [0])
+        ms_e, samples_e, lg_e, _x = MCB.decode_steps(
+            M, placed, cfg, prompt, cont, False, [0])
+    res = {"ms_per_decode_step_replayed": ms_g,
+           "ms_per_decode_step_eager": ms_e,
+           "samples_replayed": samples_g, "samples_eager": samples_e,
+           "logits_bitwise": bool(torch.equal(lg_g, lg_e))}
+    if not res["logits_bitwise"]:
+        # the weights are bf16 already: the control moves the last block's
+        # w2 by about one bf16 ulp
+        err = float((lg_g.float() - lg_e.float()).abs().max())
+        blk = placed["blocks"][-1]
+        ctl = copy.copy(placed)
+        ctl["blocks"] = placed["blocks"][:-1] + [{
+            **blk, "w2": [(w.float() * (1 + 2 ** -7)).to(w.dtype)
+                          for w in blk["w2"]]}]
+        with torch.no_grad():
+            _ms, _s, lg_c, _x = MCB.decode_steps(M, ctl, cfg, prompt,
+                                                 cont, False, [0])
+        ctl_err = float((lg_c.float() - lg_e.float()).abs().max())
+        res.update({"note": "other kernels ran under capture: logits held "
+                            "within LOGIT_BOUND",
+                    "max_abs_err": err, "bound": LOGIT_BOUND,
+                    "control_max_abs_err": ctl_err})
+        if err > LOGIT_BOUND or ctl_err <= LOGIT_BOUND:
+            fail(f"cross_capture: the replayed decode step's logits are "
+                 f"{err} off the eager step's (bound {LOGIT_BOUND}; the "
+                 f"control {ctl_err} must exceed it)")
+    del placed, lg_g, lg_e
+    torch.cuda.empty_cache()
+    emit({"phase": "cross_capture_decode", "ok": True,
+          "config": "Llama-3-8B", "layers": MC_LAYERS["one"],
+          "dtype": "bfloat16", "tp": 4, "slots": MCB._slots(1, 4),
+          "prompt": MC_PROMPT, "new": MC_NEW, "steps": GRAPH_STEPS,
+          "tokens_equal_graph_false": True,
+          "ring_launches": "none: on one card each tp group of the "
+                           "card-0 mesh sums in place",
+          **res, "seconds": time.perf_counter() - t1})
+    return {"captured": captured, "per_op": per_op,
+            "replays": CAPTURE_REPLAYS}
+
+
+def captured_rows(rows, ccap) -> None:
+    """Rows ring_*_tables and fused_matmul_reduce_scatter_tables gain the
+    launches phase cross_capture captured (each replayed
+    CAPTURE_REPLAYS times) and the ms a launch replayed from its own
+    graph beside the eager ms at the same shape."""
+    ops = {"ring_reduce_scatter": ("ring_reduce_scatter_sum",
+                                   "ring_reduce_scatter_max"),
+           "ring_all_gather": ("ring_all_gather",),
+           "fused_matmul_reduce_scatter": ("fused_matmul_allreduce_pallas",)}
+    for row in rows:
+        name = row["name"][:-len("_tables")]
+        if not row["name"].endswith("_tables") or name not in ops:
+            continue
+        row["launches"] += ccap["captured"][name]
+        row["captured"] = {
+            "launches": ccap["captured"][name], "replays": ccap["replays"],
+            **{op: ccap["per_op"][op] for op in ops[name]}}
+        if name == "fused_matmul_reduce_scatter":
+            row["captured"]["note"] = ("ms of the graph of "
+                                       "fused_matmul_allreduce_pallas: the "
+                                       "fused launch and the all-gather")
+        emit({"phase": "kernel_time_captured", "name": row["name"],
+              **row["captured"]})
+
+
 def time_model_card_kernels(F, mc) -> list:
     """Rows of the fused kernel's cross-card mode (bench/model_cards.py
     fused_rows) at Llama-3-8B's MLP-down at TP = 4, fp32: its
@@ -7535,6 +7779,7 @@ def main() -> int:
     moe = moe_path(ring, F, FL, MM, MD, S, T_)
     mcp = model_cards_phase(ring, F, FL, M, MM, S, RA, T_)
     mcs = model_cards_sp(ring, F, FL, M, S, T_)
+    ccap = cross_capture_phase(ring, F, M, S)
     mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
@@ -7611,6 +7856,7 @@ def main() -> int:
                                    for part in (obs, res, emu, dapi, tun,
                                                 onl, utl, gft, mc))
         rows += time_table_kernels(ring, mc["launches_tables"], mc["cards"])
+        captured_rows(rows, ccap)
         sweep_phase(world)
         callrate_phase()
     finally:

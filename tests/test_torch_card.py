@@ -9,6 +9,7 @@ without JAX, bypassing tests/conftest.py (which pins JAX to the CPU):
 
 Without a card every test skips.
 """
+import contextlib
 import time
 
 import numpy as np
@@ -2126,8 +2127,9 @@ def _small_model():
 def test_model_forward_generate_and_step_over_cards_on_cards():
     """The transformer over per-card lists (all on card 0 with one card):
     the forward, greedy generate and a dp 2 x tp 2 AdamW step, bitwise
-    the one-card forms; the decode graph refuses to capture."""
-    from accl_tpu_torch import ACCLError, optim
+    the one-card forms; the decode graph captures over the cards and
+    replays the eager static step."""
+    from accl_tpu_torch import optim
     from accl_tpu_torch.models import decode as TD
     from accl_tpu_torch.parallel import make_mesh
     from accl_tpu_torch.utils.tree import tree_leaves
@@ -2147,9 +2149,13 @@ def test_model_forward_generate_and_step_over_cards_on_cards():
                        TD.generate(one, tok[:, :8], cfg, 5).cpu())
     cache = TD.init_kv_cache(cfg, 4, 16, 4, devices=placed.places.devices)
     _lg, cache = TD.prefill(placed, tok[:, :8], cache, cfg)
-    g = TD.DecodeGraph(placed, cache, cfg, tok[:, 8])
-    with pytest.raises(ACCLError, match="ROADMAP item 13"):
-        g.capture()
+    eager = TD.DecodeGraph(placed, {**cache, "layers": [
+        {k: [t.clone() for t in v] for k, v in layer.items()}
+        for layer in cache["layers"]]}, cfg, tok[:, 8])
+    g = TD.DecodeGraph(placed, cache, cfg, tok[:, 8]).capture()
+    for _ in range(3):
+        assert torch.equal(g.replay().cpu(), eager.step().cpu())
+        assert torch.equal(g.token.cpu(), eager.token.cpu())
     mesh = make_mesh(dp=2, tp=2, devices=_card_slots(4))
     reps = TT.place_params(full, cfg, mesh)
     ref = TT.shard_params(full, cfg, 2)
@@ -2166,6 +2172,256 @@ def test_model_forward_generate_and_step_over_cards_on_cards():
         for a, b in zip(tree_leaves(TT.shard_params(rep, cfg, 2)),
                         tree_leaves(ref)):
             assert torch.equal(a.cpu(), b.cpu())
+
+
+def _table_ops(P, seed):
+    """The per-rank-table forms' launches of chip_smoke.py's
+    cross_capture phase at a small size: (name -> call, name -> plain
+    result)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, m, K, N = 3 * 4099, 64, 96, 128
+    xs = [torch.randn(P, n, generator=g, device="cuda") for _ in range(P)]
+    ys = [torch.randn(n, generator=g, device="cuda") for _ in range(P)]
+    tx = [torch.randint(-3, 4, (P * m, K), generator=g, device="cuda")
+          .float() for _ in range(P)]
+    tw = [torch.randint(-3, 4, (K, N), generator=g, device="cuda").float()
+          for _ in range(P)]
+    ops = {"rs_sum": lambda: tring.ring_reduce_scatter(xs),
+           "rs_max": lambda: tring.ring_reduce_scatter(xs, "max"),
+           "ag": lambda: tring.ring_all_gather(ys),
+           "tp": lambda: TF.fused_matmul_allreduce_pallas(tx, tw)}
+    mine = TF.fused_matmul_reduce_scatter_plain(
+        [x.view(P, m, K) for x in tx], tw)
+    want = {"rs_sum": tring.ring_reduce_scatter_plain(xs),
+            "rs_max": tring.ring_reduce_scatter_plain(xs, "max"),
+            "ag": tring.ring_all_gather_plain(ys),
+            "tp": [t.view(P * m, N) for t in tring.ring_all_gather_plain(
+                [b.view(-1) for b in mine])]}
+    return ops, want
+
+
+def test_rank_tables_forms_replay_in_a_cuda_graph_on_card():
+    """The cross-card modes' per-rank-table forms (ring reduce-scatter by
+    sum and max, all-gather, fused_matmul_allreduce_pallas) captured in
+    one graph and replayed 4 times, with eager launches on the same
+    tables (the capture stream's) before, between and after: every
+    replay and eager launch bitwise the plain versions; the wrappers
+    count the captured launches once."""
+    P = 4
+    ops, want = _table_ops(P, 41)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+
+    def eager():
+        with tring.rank_tables(), torch.cuda.stream(side):
+            out = {k: f() for k, f in ops.items()}
+        side.synchronize()
+        return out
+
+    def held(got):
+        for k, ts in got.items():
+            for a, b in zip(ts, want[k]):
+                assert _same_bits(a, b), k
+
+    held(eager())
+    counters = (tring.ring_reduce_scatter, tring.ring_all_gather,
+                TF.fused_matmul_reduce_scatter)
+    before = [fn.launches_cross for fn in counters]
+    graph = torch.cuda.CUDAGraph()
+    with tring.rank_tables():
+        with torch.cuda.graph(graph, stream=side):
+            static = {k: f() for k, f in ops.items()}
+    assert [fn.launches_cross - b for fn, b in zip(counters, before)] \
+        == [2, 2, 1]
+    for _ in range(4):
+        with torch.cuda.stream(side):
+            for ts in static.values():
+                for t in ts:
+                    t.zero_()
+            graph.replay()
+        side.synchronize()
+        held(static)
+        held(eager())
+        held(eager())
+
+
+def test_cross_capture_needs_the_eager_warm_up_on_card():
+    """A cross-card launch under capture on tables no eager launch made
+    (or made too small) raises naming the warm-up."""
+    P = 4
+    g = torch.Generator(device="cuda").manual_seed(42)
+    xs = [torch.randn(P, 1 << 20, generator=g, device="cuda")
+          for _ in range(P)]
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="warm-up"):
+        with tring.rank_tables():
+            with torch.cuda.graph(graph, stream=side):
+                tring.ring_reduce_scatter(xs)
+
+
+def test_cross_card_launches_replay_in_a_cuda_graph_on_cards():
+    """Across the cards (one rank a card): the ring reduce-scatter,
+    all-gather and fused_matmul_allreduce_pallas captured in one graph
+    with a side stream current on every card (forked into the capture by
+    the launches' join and joined back to the capturing card's), replayed
+    on that card's stream between eager launches on the same streams:
+    bitwise the plain versions, each result on its rank's card."""
+    cards = _two_cards_or_skip()
+    P = cards
+    devs = [torch.device("cuda", c) for c in range(cards)]
+    # each rank's operands on its own card
+    g = torch.Generator(device="cuda").manual_seed(44)
+    n, m, K, N = 3 * 4099, 64, 96, 128
+    xs = [torch.randn(P, n, generator=g, device="cuda").to(d) for d in devs]
+    ys = [torch.randn(n, generator=g, device="cuda").to(d) for d in devs]
+    tx = [torch.randint(-3, 4, (P * m, K), generator=g, device="cuda")
+          .float().to(d) for d in devs]
+    tw = [torch.randint(-3, 4, (K, N), generator=g, device="cuda").float()
+          .to(d) for d in devs]
+    ops_cards = {"rs": lambda: tring.ring_reduce_scatter(xs),
+                 "ag": lambda: tring.ring_all_gather(ys),
+                 "tp": lambda: TF.fused_matmul_allreduce_pallas(tx, tw)}
+    want_cards = {k: [t.to("cuda:0") for t in f()]
+                  for k, f in {"rs": lambda: tring.ring_reduce_scatter(
+                      [x.to("cuda:0") for x in xs]),
+                      "ag": lambda: tring.ring_all_gather(
+                          [y.to("cuda:0") for y in ys]),
+                      "tp": lambda: TF.fused_matmul_allreduce_pallas(
+                          [x.to("cuda:0") for x in tx],
+                          [w.to("cuda:0") for w in tw])}.items()}
+    sides = [torch.cuda.Stream(d) for d in devs]
+    for d, sd in zip(devs, sides):
+        sd.wait_stream(torch.cuda.current_stream(d))
+
+    def current():
+        stack = contextlib.ExitStack()
+        for sd in sides[::-1]:
+            stack.enter_context(torch.cuda.stream(sd))
+        return stack
+
+    def sync():
+        for sd in sides:
+            sd.synchronize()
+
+    def held(got):
+        for k, ts in got.items():
+            for r, (a, b) in enumerate(zip(ts, want_cards[k])):
+                assert a.device == devs[r], k
+                assert _same_bits(a.to("cuda:0"), b), k
+
+    def eager():
+        with current():
+            out = {k: f() for k, f in ops_cards.items()}
+        sync()
+        return out
+
+    held(eager())
+    graph = torch.cuda.CUDAGraph()
+    pools = {}
+    for d in devs[1:]:
+        with torch.cuda.device(d):
+            pools[d] = torch.cuda.MemPool()
+    with torch.cuda.graph(graph, stream=sides[0]):
+        with current(), contextlib.ExitStack() as stack:
+            # as DecodeGraph.capture: the other cards' memory from pools
+            # the graph holds, their streams forked into the capture first
+            for d, pool in pools.items():
+                stack.enter_context(torch.cuda.use_mem_pool(pool, d))
+            for sd in sides[1:]:
+                sd.wait_stream(sides[0])
+            static = {k: f() for k, f in ops_cards.items()}
+            for sd in sides[1:]:
+                sides[0].wait_stream(sd)
+    for _ in range(3):
+        with torch.cuda.stream(sides[0]):
+            graph.replay()
+        sides[0].synchronize()
+        held(static)
+        held(eager())
+
+
+def test_cross_card_capture_forks_the_other_cards_on_cards():
+    """A capture on card 0's side stream of cross-card launches whose
+    outputs exist (nothing allocated on the other cards): the launches'
+    join forks the other cards' side streams into the capture and joins
+    them back, so the capture needs nothing else; replays bitwise the
+    plain versions.  With an other card's default stream current the
+    launch raises instead."""
+    cards = _two_cards_or_skip()
+    devs = [torch.device("cuda", c) for c in range(cards)]
+    g = torch.Generator(device="cuda").manual_seed(45)
+    n = 3 * 4099
+    xs = [torch.randn(cards, n, generator=g, device="cuda").to(d)
+          for d in devs]
+    rs = [torch.empty(n, device=d) for d in devs]
+    ag = [torch.empty(cards, n, device=d) for d in devs]
+    want_rs = tring.ring_reduce_scatter_plain(xs)
+    want_ag = tring.ring_all_gather_plain(want_rs)
+    sides = [torch.cuda.Stream(d) for d in devs]
+    for d, sd in zip(devs, sides):
+        sd.wait_stream(torch.cuda.current_stream(d))
+
+    def step():
+        tring.ring_reduce_scatter(xs, out=rs)
+        tring.ring_all_gather(rs, out=ag)
+
+    def current():
+        stack = contextlib.ExitStack()
+        for sd in sides[::-1]:
+            stack.enter_context(torch.cuda.stream(sd))
+        return stack
+
+    with current():
+        step()  # the warm-up: the tables of these streams
+    for sd in sides:
+        sd.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=sides[0]):
+        with current():
+            step()
+    for _ in range(3):
+        for t in rs + ag:
+            t.zero_()
+        for d in devs:
+            torch.cuda.synchronize(d)
+        with torch.cuda.stream(sides[0]):
+            graph.replay()
+        sides[0].synchronize()
+        for a, b in zip(rs + ag, want_rs + want_ag):
+            assert _same_bits(a, b.to(a.device))
+    with pytest.raises(RuntimeError, match="default stream"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=sides[0]):
+            step()
+
+
+def test_decode_graph_over_card0_mesh_is_the_eager_step_on_card():
+    """DecodeGraph on a tp = 4 mesh with every slot on card 0 (a placed
+    tree: the capture path over the placement's cards, one here):
+    captured and replayed 4 times, each step bitwise the eager static
+    step on a copy of the cache; generate with the graph gives
+    graph=False's tokens."""
+    from accl_tpu_torch.models import decode as TD
+    from accl_tpu_torch.parallel import make_mesh
+
+    cfg, full = _small_model()
+    placed = TT.place_params(full, cfg, make_mesh(tp=4,
+                                                  devices=["cuda:0"] * 4))
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (2, 12))).to("cuda:0")
+    cache = TD.init_kv_cache(cfg, 2, 20, 4, devices=placed.places.devices)
+    _lg, cache = TD.prefill(placed, tok[:, :8], cache, cfg)
+    copy = {**cache, "layers": [{k: [t.clone() for t in v]
+                                 for k, v in layer.items()}
+                                for layer in cache["layers"]]}
+    eager = TD.DecodeGraph(placed, copy, cfg, tok[:, 8])
+    g = TD.DecodeGraph(placed, cache, cfg, tok[:, 8]).capture()
+    for t in range(4):
+        g.token.copy_(tok[:, 8 + t])
+        eager.token.copy_(tok[:, 8 + t])
+        assert torch.equal(g.replay(), eager.step())
+    assert torch.equal(TD.generate(placed, tok[:, :8], cfg, 5),
+                       TD.generate(placed, tok[:, :8], cfg, 5, graph=False))
 
 
 @pytest.mark.parametrize("schedule", ["contiguous", "zigzag", "windowed"])

@@ -702,16 +702,68 @@ def test_prefill_and_decode_over_cards_bank_on_each_card(tp):
         TD.init_kv_cache(tcfg, 2, 10, 4, devices=_cpus(2))
 
 
-def test_decode_graph_capture_over_cards_names_the_open_item():
-    _jcfg, tcfg, jp, prompt = _gen_setup({})
-    placed = model_params_from_jax(jp, tcfg, 2,
-                                   mesh=make_mesh(tp=2, devices=_cpus(2)))
-    cache = TD.init_kv_cache(tcfg, 2, 8, 2, devices=_cpus(2))
-    _lg, cache = TD.prefill(placed, torch.from_numpy(prompt), cache, tcfg)
-    g = TD.DecodeGraph(placed, cache, tcfg, torch.zeros(2, dtype=torch.long))
-    with pytest.raises(ACCLError, match="ROADMAP item 13"):
+def _greedy_steps(params, tcfg, prompt, n, devices=None):
+    """Prefill, then n ``DecodeGraph`` static steps run eagerly: (every
+    step's logits, the greedy tokens, prefill's first)."""
+    tp = len(params["blocks"][0]["wq"])
+    cache = TD.init_kv_cache(tcfg, 2, 6 + n + 1, tp, "cpu", devices=devices)
+    lg, cache = TD.prefill(params, torch.from_numpy(prompt), cache, tcfg)
+    first = lg[:, -1].argmax(-1)
+    g = TD.DecodeGraph(params, cache, tcfg, first)
+    logits, toks = [], [first]
+    for _ in range(n):
+        logits.append(g.step().clone())
+        toks.append(g.token.clone())
+    return g, logits, torch.stack(toks, dim=1)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_decode_graph_over_cards_captures_on_a_card_only(tp):
+    """A placed tree's ``DecodeGraph.capture`` no longer refuses the
+    cards: on the CPU it reaches the device check.  Its static step, run
+    eagerly, is bitwise the one-card static step, and its greedy tokens
+    are the JAX ``generate``'s."""
+    jcfg, tcfg, jp, prompt = _gen_setup({})
+    placed = model_params_from_jax(jp, tcfg, tp,
+                                   mesh=make_mesh(tp=tp, devices=_cpus(tp)))
+    one = model_params_from_jax(jp, tcfg, tp, device="cpu")
+    g, got, toks = _greedy_steps(placed, tcfg, prompt, 4,
+                                 placed.places.devices)
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
         g.capture()
-    g.step()  # the eager static step runs
+    _g, want, want_toks = _greedy_steps(one, tcfg, prompt, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(toks, want_toks)
+    ref = np.asarray(JD.generate(jp, jnp.asarray(prompt), jcfg, max_new=5))
+    np.testing.assert_array_equal(toks.numpy(), ref)
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_generate_takes_the_graph_for_placed_parameters_on_cuda(
+        monkeypatch, tp):
+    """On a CUDA device ``generate`` captures its decode step whether or
+    not the parameters are placed on several cards (a spy on
+    ``DecodeGraph.capture``, the device type faked; the spy captures
+    nothing, so the steps run eagerly and still give JAX's tokens)."""
+    jcfg, tcfg, jp, prompt = _gen_setup({})
+    params = (model_params_from_jax(jp, tcfg, tp, mesh=make_mesh(
+        tp=tp, devices=_cpus(tp))) if tp > 1 else
+        model_params_from_jax(jp, tcfg, 1, device="cpu"))
+    captured = []
+
+    def spy(self):
+        captured.append(self.params)
+        return self
+
+    monkeypatch.setattr(TD, "_captures", lambda dev: dev.type == "cpu")
+    monkeypatch.setattr(TD.DecodeGraph, "capture", spy)
+    got = TD.generate(params, torch.from_numpy(prompt), tcfg, 5)
+    assert len(captured) == 1 and captured[0] is params
+    ref = np.asarray(JD.generate(jp, jnp.asarray(prompt), jcfg, max_new=5))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    monkeypatch.undo()
+    assert not TD._captures(torch.device("cpu"))
+    assert TD._captures(torch.device("cuda", 0))
 
 
 # ---------------------------------------------------------------------------
@@ -774,37 +826,41 @@ def test_fused_wrappers_take_ranks_on_their_own_devices():
 
 
 def test_fused_kernel_source_holds_the_replayed_handshake():
-    """fused_matmul_rs_cross_kernel: its entry (the host's gate, then both
-    handshake words of its rank at ``base``), its flags at .sys scope on
-    the per-rank tables, and its exit (own flags to 0, then counted into
-    the left neighbour's word 1 and the right's word 0): what the replay
-    below runs."""
+    """fused_matmul_rs_cross_kernel: its entry (ring_sync.cuh cross_entry:
+    the host's gate of an eager launch, then both handshake words of its
+    rank at the rank's count of its ended blocks, read on the card), its
+    flags at .sys scope on the per-rank tables, and its exit (own flags
+    to 0, counted into the left neighbour's word 1 and the right's word
+    0, then out of its rank's launch, count_out): what the replay below
+    runs."""
     src = FUSED_CU.read_text()
     cross = src[src.index("fused_matmul_rs_cross_kernel(PtrTable"):]
     cross = cross[:cross.index("\n}\n")]
     assert "const int my = tabs.rank[blockIdx.x / S], st = blockIdx.x % S;" \
         in cross
-    assert cross.index("if (blockIdx.x == 0) {") \
-        < cross.index("opened = wait_gate(tabs.gate, tabs.seq);") \
-        < cross.index("opened = wait_gate(card_gate, tabs.seq);") \
-        < cross.index("wait_reached<SCOPE_SYS>(hs, base);") \
+    assert "FusedTables tabs) {" in cross and "int base" not in cross
+    assert cross.index("opened = cross_entry(tabs.gate, tabs.seq, "
+                       "tabs.flags[tabs.rank[0]] + 2, tabs.flags[my]);") \
         < cross.index("if (!opened) return;") \
         < cross.index("tile_mainloop")
-    assert "wait_reached<SCOPE_SYS>(hs + 1, base);" in cross
-    assert "int* card_gate = tabs.flags[tabs.rank[0]] + 2;" in cross
     end = cross[cross.rindex("*F(0, 0) = *F(0, 1) = *A(0, 0) = *A(0, 1) = 0;"):]
     assert end.index("arrive_release<SCOPE_SYS>(tabs.flags[left] + 1);") \
-        < end.index("arrive_release<SCOPE_SYS>(tabs.flags[right]);")
+        < end.index("arrive_release<SCOPE_SYS>(tabs.flags[right]);") \
+        < end.index("count_out(tabs.flags[my], S);")
     assert "SCOPE_GPU" not in cross
     assert "wait_geq<SCOPE_SYS>(F(0, slot), s / 2 + 1);" in cross
     assert "rs_waits_ack(ns, P)) wait_geq<SCOPE_SYS>(A(0, ns & 1), " \
         "ns / 2);" in cross
     assert "if (rs_signals_ack(s, P)) arrive_release<SCOPE_SYS>(A(2, " \
         "slot));" in cross
-    # the handshake head is the ring kernels' (one definition, shared)
-    assert re.search(r"#define HS_WORDS %d\b" % tring.HS_WORDS,
-                     (ROOT / "accl_tpu_torch" / "ops" / "csrc"
-                      / "ring_sync.cuh").read_text())
+    # the handshake head, entry and exit are the ring kernels' (one
+    # definition, shared)
+    sync = (ROOT / "accl_tpu_torch" / "ops" / "csrc"
+            / "ring_sync.cuh").read_text()
+    assert re.search(r"#define HS_WORDS %d\b" % tring.HS_WORDS, sync)
+    assert "int cross_entry(" in sync and "void count_out(" in sync
+    assert "cross_entry(" not in src.replace(
+        "opened = cross_entry(", "", 1)
 
 
 def test_c_entries_restore_the_callers_device():
@@ -832,12 +888,12 @@ def _entry_waits(my, P, base):
     return [(0, base), (1, base)]
 
 
-def _stripe_program(P, my, base, entry_waits):
-    """One block (rank ``my``, one stripe) of the cross-card fused kernel,
-    from the port's ACK-window predicates: hop label s + 1 goes into the
-    right neighbour's slot (s + 1) % 2 at iteration s."""
-    ops = [("hs", word, target) for word, target in entry_waits(my, P, base)]
-    ops.append(("send", 0))                        # s = -1
+def _stripe_program(P):
+    """One block (one stripe) of the cross-card fused kernel, from the
+    port's ACK-window predicates: its entry (the handshake's waits, which
+    the replay inserts once the block has its count), then hop label
+    s + 1 into the right neighbour's slot (s + 1) % 2 at iteration s."""
+    ops = [("entry",), ("send", 0)]                # s = -1
     for s in range(P - 1):
         last = s == P - 2
         ns = s + 1
@@ -856,31 +912,61 @@ def _stripe_program(P, my, base, entry_waits):
 #: stripes of the launches on one set of tables (they change from launch
 #: to launch, and the flags' addresses with them)
 FUSED_LAUNCHES = [2, 1, 3, 2]
+#: eager launches interleaved with the replays of captured ones (as
+#: tests/test_torch_multicard.py CAPTURED, in stripes): ("eager", S),
+#: ("capture", graph, [S, ...]), ("replay", graph), ("given_up", S)
+FUSED_CAPTURED = [("eager", 2), ("capture", "g", [1, 3]), ("replay", "g"),
+                  ("eager", 2), ("replay", "g"), ("replay", "g"),
+                  ("given_up", 3), ("eager", 1), ("capture", "h", [2]),
+                  ("replay", "g"), ("replay", "h"), ("eager", 3),
+                  ("replay", "h"), ("replay", "h")]
+MASK = 0xFFFFFFFF
 
 
-def _fused_replay(P, layout, launches=FUSED_LAUNCHES,
-                  entry_waits=_entry_waits):
+def _fused_order(seq, host_count):
+    """[(stripes, count, given_up)] the cards run for ``seq``: count None
+    where the blocks read it on the card, else the host's running sum
+    fixed at the call (the design before, as a mutation)."""
+    out, graphs, host = [], {}, 0
+    for item in seq:
+        if item[0] in ("eager", "given_up"):
+            gone = item[0] == "given_up"
+            out.append((item[1], host if host_count else None, gone))
+            host += 0 if gone else item[1]
+        elif item[0] == "capture":
+            graphs[item[1]] = []
+            for S in item[2]:
+                graphs[item[1]].append((S, host if host_count else None,
+                                        False))
+                host += S
+        else:
+            out.extend(graphs[item[1]])
+    return out
+
+
+def _fused_replay(P, layout, seq=None, entry_waits=_entry_waits,
+                  host_count=False, start=0):
     """Every card starts its next launch the moment its last one ended;
     cards take turns, each as far as it can, from each card first and in
-    both block orders.  Returns the violations."""
-    HS = tring.HS_WORDS
+    both block orders.  Each rank's handshake words and its count of
+    ended blocks start at ``start``.  Returns the violations."""
+    HS, DONE, ENDED = tring.HS_WORDS, tring.HS_DONE, tring.HS_ENDED
+    launches = _fused_order([("eager", S) for S in FUSED_LAUNCHES]
+                            if seq is None else seq, host_count)
     groups = tring.card_groups(layout)
-    bases, acc = [], 0
-    for S in launches:
-        bases.append(tring.handshake_base([acc]))
-        acc += S
+    acc = sum(S for S, _b, gone in launches if not gone)
     violations = []
     for rotation in range(len(groups)):
         for reverse in (False, True):
-            words = [dict() for _ in range(P)]
+            words = [{0: start, 1: start, DONE: start} for _ in range(P)]
             slots = {}
             cur = {c: 0 for c, _r in groups}
 
             def blocks_of(card, e):
-                S = launches[e]
+                S, base, gone = launches[e]
                 return [{"rank": r, "k": k, "e": e, "S": S, "pc": 0,
-                         "ops": _stripe_program(P, r, bases[e],
-                                                entry_waits)}
+                         "base": base,
+                         "ops": [] if gone else _stripe_program(P)}
                         for r in dict(groups)[card] for k in range(S)]
 
             running = {c: blocks_of(c, 0) for c, _r in groups}
@@ -898,8 +984,13 @@ def _fused_replay(P, layout, launches=FUSED_LAUNCHES,
                 r, k, e, S = b["rank"], b["k"], b["e"], b["S"]
                 w = words[r]
                 tag = f"P={P} layout={layout}: launch {e} rank {r} stripe {k}"
-                if op[0] == "hs":
-                    if w.get(op[1], 0) < op[2]:
+                if op[0] == "entry":
+                    base = w[DONE] if b["base"] is None else b["base"] + start
+                    b["ops"][b["pc"] + 1:b["pc"] + 1] = [
+                        ("hs", word, target & MASK)
+                        for word, target in entry_waits(r, P, base)]
+                elif op[0] == "hs":
+                    if (w.get(op[1], 0) - op[2]) & MASK >= 1 << 31:
                         return False
                 elif op[0] == "wait_ack":
                     if w.get(ack(k, op[1] % 2, S), 0) < op[1] // 2:
@@ -944,8 +1035,13 @@ def _fused_replay(P, layout, launches=FUSED_LAUNCHES,
                                     f"{w.get(addr, 0)} at its end, not "
                                     f"{want}: a count is lost")
                             w[addr] = 0
-                    words[(r - 1) % P][1] = words[(r - 1) % P].get(1, 0) + 1
-                    words[(r + 1) % P][0] = words[(r + 1) % P].get(0, 0) + 1
+                    for q, word in (((r - 1) % P, 1), ((r + 1) % P, 0)):
+                        words[q][word] = (words[q][word] + 1) & MASK
+                    # count_out: the rank's last block advances its count
+                    w[ENDED] = w.get(ENDED, 0) + 1
+                    if w[ENDED] == S:
+                        w[ENDED] = 0
+                        w[DONE] = (w[DONE] + S) & MASK
                 b["pc"] += 1
                 return True
 
@@ -977,15 +1073,17 @@ def _fused_replay(P, layout, launches=FUSED_LAUNCHES,
                     violations.append(f"P={P} layout={layout}: DEADLOCK at "
                                       f"{[(c, cur[c]) for c in cur]}")
                     return violations
+            end = (start + acc) & MASK
             for r in range(P):
                 left = {k: v for k, v in words[r].items() if k >= HS and v}
                 if left:
                     violations.append(f"P={P} layout={layout}: rank {r} "
                                       f"ends with flags {left}")
-                if (words[r].get(0), words[r].get(1)) != (acc, acc):
+                got = (words[r][0], words[r][1], words[r][DONE])
+                if got != (end,) * 3 or words[r].get(ENDED, 0):
                     violations.append(f"P={P} layout={layout}: rank {r}'s "
-                                      f"handshake words {words[r].get(0)}, "
-                                      f"{words[r].get(1)}, not {acc}")
+                                      f"handshake words and count {got}, "
+                                      f"not {end}")
     return violations
 
 
@@ -1016,6 +1114,33 @@ def test_fused_cross_card_replay_catches_a_broken_handshake(P, group,
     violations = _fused_replay(P, _contiguous(P, group),
                                entry_waits=FUSED_MUTATIONS[mutation])
     assert violations, f"{mutation} went undetected at P={P}, group={group}"
+
+
+@pytest.mark.parametrize("P", range(2, 9))
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_fused_cross_card_replay_of_captured_launches(P, group):
+    """Eager launches interleaved with the replays of captured ones (each
+    at least 3 times), a launch given up among them, from counts about
+    to wrap at 2^32: the count read on the card holds each launch to its
+    predecessor."""
+    for layout in (_contiguous(P, group),
+                   [r % -(-P // group) for r in range(P)]):
+        for start in (0, MASK - 2):
+            violations = _fused_replay(P, layout, FUSED_CAPTURED,
+                                       start=start)
+            assert not violations, "\n".join(violations[:5])
+
+
+@pytest.mark.parametrize("P,group", [(2, 1), (3, 1), (4, 1), (4, 2),
+                                     (8, 2)])
+def test_fused_cross_card_replay_catches_the_count_fixed_at_capture(P,
+                                                                    group):
+    """The host's count fixed in the arguments at capture (the design
+    before) overruns or deadlocks once launches are replayed; eager
+    launches alone pass with it."""
+    layout = _contiguous(P, group)
+    assert not _fused_replay(P, layout, host_count=True)
+    assert _fused_replay(P, layout, FUSED_CAPTURED, host_count=True)
 
 
 def test_fused_one_card_layout_needs_no_handshake():

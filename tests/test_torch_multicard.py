@@ -22,8 +22,11 @@ cross-card mode, make_hybrid_mesh, initialize_multihost) on the CPU.
   plus the entry handshake, the flags' reset at a block's end and cards
   that start their next launch as soon as their last one ends): no slot
   is overwritten before it is read, no landing is read from another
-  launch, no flag count is lost, for P = 2..8 in groups of 1-4 ranks;
-  and a broken handshake is caught.
+  launch, no flag count is lost, for P = 2..8 in groups of 1-4 ranks,
+  eager launches alone and eager launches interleaved with the replays
+  of launches captured in a CUDA graph (the handshake's count read on
+  the card, wrapping at 2^32); and a broken handshake, a count fixed at
+  capture by the host and a launch given up that counts are caught.
 - ``make_hybrid_mesh`` and ``initialize_multihost`` against the JAX
   functions, and a two-process rendezvous on localhost.
 """
@@ -409,9 +412,7 @@ def test_per_card_launch_plan(layout, groups, monkeypatch):
         blocks = _block_ranks(ranks, 3)
         assert len(blocks) == 3 * len(ranks)
         assert blocks == [r for r in ranks for _ in range(3)]
-    assert tring.handshake_base([]) == 0
-    assert tring.handshake_base([3, 5, 1]) == 9
-    assert tring.handshake_base([1 << 31, 1 << 31, 4]) == 4
+    assert (tring.HS_DONE, tring.HS_ENDED) == (4, 5) < (tring.HS_WORDS,) * 2
     taken = []
     monkeypatch.setattr(tring, "_launch_cross",
                         lambda *a: taken.append(("tables", a[-1])))
@@ -452,53 +453,92 @@ def test_cross_card_plan_fits_the_card_with_most_ranks(monkeypatch):
     assert paired[0] <= spread[0]
 
 
+def _body(src: str, head: str) -> str:
+    got = src[src.index(head):]
+    return got[:got.index("\n}\n")]
+
+
 def test_kernel_source_holds_the_replayed_handshake():
-    """ring_kernel_cross waits on both of its own handshake words for
-    ``base`` and counts itself into its left neighbour's word 1 and its
-    right neighbour's word 0, at .sys scope, as does its step; the
-    one-launch step and fused.cu keep .gpu."""
+    """ring_kernel_cross enters through cross_entry (the host's gate of an
+    eager launch, none for a captured one; then both of its rank's
+    handshake words at the rank's own count, read on the card) and, as it
+    ends, counts itself into its left neighbour's word 1 and its right
+    neighbour's word 0, then out of its rank's launch (count_out: the
+    rank's last block advances that count by S), at .sys scope, as does
+    its step; the one-launch step and fused.cu's one launch keep .gpu."""
     src = RING_CU.read_text()
-    cross = src[src.index("ring_kernel_cross(PtrTable"):]
-    cross = cross[:cross.index("\n}\n")]
+    sync = (RING_CU.parent / "ring_sync.cuh").read_text()
+    cross = _body(src, "ring_kernel_cross(PtrTable")
     assert "const int my = tabs.rank[blockIdx.x / S], k = blockIdx.x % S;" \
         in cross  # the block's rank: _block_ranks
+    assert "int base" not in cross and "base" not in cross.split("{")[0]
     assert _entry_waits(2, 5, 7) == [(0, 7), (1, 7)]
-    # the host's gate comes first, read by one block a card (the others
-    # wait on that card's copy), and a launch given up touches nothing
-    assert cross.index("if (blockIdx.x == 0) {") \
-        < cross.index("opened = wait_gate(tabs.gate, tabs.seq);") \
-        < cross.index("opened = wait_gate(card_gate, tabs.seq);") \
-        < cross.index("wait_reached<SCOPE_SYS>(hs, base);") \
+    assert cross.index("opened = cross_entry(tabs.gate, tabs.seq, "
+                       "tabs.flags[tabs.rank[0]] + 2, tabs.flags[my]);") \
         < cross.index("if (!opened) return;") \
         < cross.index("ring_step_cross<T, KIND, STAMP>")
-    assert "int* card_gate = tabs.flags[tabs.rank[0]] + 2;" in cross
-    assert "wait_reached<SCOPE_SYS>(hs, base);" in cross
-    assert "wait_reached<SCOPE_SYS>(hs + 1, base);" in cross
+    # the entry: the gate only for an eager launch, read by one block a
+    # card (the others wait on that card's copy); then the count the
+    # handshake waits for, from the rank's own flags on the card
+    entry = _body(sync, "int cross_entry(")
+    assert entry.index("if (gate != nullptr) {") \
+        < entry.index("if (blockIdx.x == 0) {") \
+        < entry.index("opened = wait_gate(gate, seq);") \
+        < entry.index("opened = wait_gate(card_gate, seq);") \
+        < entry.index("if (!opened) return 0;") \
+        < entry.index("const int base = ld_acquire<SCOPE_GPU>(head + "
+                      "HS_DONE);") \
+        < entry.index("wait_reached<SCOPE_SYS>(head, base);") \
+        < entry.index("wait_reached<SCOPE_SYS>(head + 1, base);")
     assert _exit_counts(2, 5) == [(1, 1), (3, 0)]
-    assert "arrive_release<SCOPE_SYS>(tabs.flags[left] + 1);" in cross
-    assert "arrive_release<SCOPE_SYS>(tabs.flags[right]);" in cross
+    end = cross[cross.rindex("if (threadIdx.x == 0) {"):]
+    assert end.index("arrive_release<SCOPE_SYS>(tabs.flags[left] + 1);") \
+        < end.index("arrive_release<SCOPE_SYS>(tabs.flags[right]);") \
+        < end.index("count_out(tabs.flags[my], S);")
+    out = _body(sync, "void count_out(")
+    assert "atom.acq_rel.gpu.global.add.u32" in out
+    assert "head + HS_ENDED" in out
+    assert out.index("if (ended == S - 1) {") \
+        < out.index("head[HS_ENDED] = 0;") \
+        < out.index("head[HS_DONE] = (int)((unsigned)head[HS_DONE] + "
+                    "(unsigned)S);")
     assert "SCOPE_GPU" not in cross
     for name, scope, other in (("ring_step(", "SCOPE_GPU", "SCOPE_SYS"),
                                ("ring_step_cross(", "SCOPE_SYS",
                                 "SCOPE_GPU")):
-        step = src[src.index(f"void {name}"):]
-        step = step[:step.index("\n}\n")]
+        step = _body(src, f"void {name}")
         assert scope in step and other not in step, name
     # the flags' head is defined once, in the header both sources share
     assert '#include "ring_sync.cuh"' in src and "#define HS_WORDS" not in src
-    assert f"#define HS_WORDS {tring.HS_WORDS}" in \
-        (RING_CU.parent / "ring_sync.cuh").read_text()
+    for name in ("HS_WORDS", "HS_DONE", "HS_ENDED"):
+        assert f"#define {name} {getattr(tring, name)}\n" in sync, name
     # fused.cu's one-launch kernel keeps .gpu; its cross-card mode, a
     # function of its own, is .sys throughout
     fused = FUSED_CU.read_text()
-    one = fused[fused.index("fused_matmul_rs_kernel(PtrTable"):]
-    one = one[:one.index("\n}\n")]
+    one = _body(fused, "fused_matmul_rs_kernel(PtrTable")
     assert "SCOPE_SYS" not in one
     assert len(re.findall(r"<SCOPE_GPU>", one)) == 5
-    fcross = fused[fused.index("fused_matmul_rs_cross_kernel(PtrTable"):]
-    fcross = fcross[:fcross.index("\n}\n")]
+    fcross = _body(fused, "fused_matmul_rs_cross_kernel(PtrTable")
     assert "SCOPE_GPU" not in fcross
     assert len(re.findall(r"<SCOPE_GPU>", fused)) == 5
+
+
+def _c_params(src: str, name: str) -> int:
+    """The parameters of the C entry ``name`` in ``src``."""
+    sig = re.search(rf"[\s*]{name}\(([^)]*)\)\s*{{", src).group(1)
+    return len([p for p in sig.split(",") if p.strip()])
+
+
+def test_c_entries_take_what_the_bindings_pass():
+    """Every entry point ops/_build.py binds takes as many parameters in
+    its source as the binding passes (a mismatch shows only on the card,
+    as a fault)."""
+    from accl_tpu_torch.ops import _build
+
+    for lib, entries in _build.SIGNATURES.items():
+        src = (_build.CSRC / f"{lib}.cu").read_text()
+        for name, (argtypes, _restype) in entries.items():
+            assert _c_params(src, name) == len(argtypes), (lib, name)
 
 
 # ---------------------------------------------------------------------------
@@ -508,11 +548,12 @@ def _tiles_of(ntiles, S, k):
     return (ntiles - 1 - k) // S + 1 if k < ntiles else 0
 
 
-def _block_program(P, my, U, base, entry_waits):
-    """Block ``my`` of ``ring_kernel_cross`` over U tiles, read from the
-    port's window predicates and the handshake (one stripe's)."""
-    ops = [("hs", word, target)
-           for word, target in entry_waits(my, P, base)]
+def _block_program(P, U):
+    """A block of ``ring_kernel_cross`` over U tiles, read from the port's
+    window predicates (one stripe's): its entry (the handshake, whose
+    waits the replay inserts once the block has its count) and its
+    exit."""
+    ops = [("entry",)]
     H = U * (P - 1)
     for u in range(U):
         h0 = u * (P - 1)
@@ -538,34 +579,80 @@ def _block_program(P, my, U, base, entry_waits):
 #: launch to launch (the flags' addresses with them), and the last one
 #: has stripes with no tile
 LAUNCHES = [(3, 2), (1, 1), (4, 3), (2, 4)]
+#: eager launches interleaved with the replays of launches captured in a
+#: CUDA graph, in the order the cards' streams run them: ("eager",
+#: (tiles, stripes)); ("capture", graph, [(tiles, stripes), ...]), which
+#: runs nothing; ("replay", graph); ("given_up", (tiles, stripes)), an
+#: eager launch given up, whose blocks end at once
+CAPTURED = [("eager", (3, 2)), ("capture", "g", [(1, 1), (4, 3)]),
+            ("replay", "g"), ("eager", (2, 4)), ("replay", "g"),
+            ("replay", "g"), ("given_up", (2, 3)), ("eager", (1, 1)),
+            ("capture", "h", [(2, 2)]), ("replay", "g"), ("replay", "h"),
+            ("eager", (3, 2)), ("replay", "h"), ("replay", "h")]
+MASK = 0xFFFFFFFF
 
 
-def _replay(P, layout, launches=LAUNCHES, entry_waits=_entry_waits):
+def _run_order(seq, host_count=False):
+    """[(tiles, stripes, count, given_up)]: the launches the cards run for
+    ``seq``, each with the count its handshake waits for: None where the
+    blocks read it on the card (the kernels), else the host's running sum
+    of the stripes of its earlier calls, fixed at the call (the design
+    before the count moved to the card, as a mutation: a captured launch
+    keeps its capture's count in every replay, and the capture itself
+    counts as a launch)."""
+    out, graphs, host = [], {}, 0
+    for item in seq:
+        if item[0] in ("eager", "given_up"):
+            nt, S = item[1]
+            given_up = item[0] == "given_up"
+            out.append((nt, S, host if host_count else None, given_up))
+            host += 0 if given_up else S
+        elif item[0] == "capture":
+            graphs[item[1]] = []
+            for nt, S in item[2]:
+                graphs[item[1]].append((nt, S, host if host_count else None,
+                                        False))
+                host += S
+        else:
+            out.extend(graphs[item[1]])
+    return out
+
+
+def _reached(word, target):
+    """A count that wraps at 2^32 has reached ``target`` (wait_reached)."""
+    return (word - target) & MASK < 1 << 31
+
+
+def _replay(P, layout, seq=None, entry_waits=_entry_waits, host_count=False,
+            start=0, given_up_counts=False):
     """Every card starts its next launch the moment its last one ended
     (the blocks of one launch run together); cards take turns, each as
-    far as it can, from each card first and in both block orders.
-    Returns the violations."""
-    HS = tring.HS_WORDS
+    far as it can, from each card first and in both block orders.  Each
+    rank's handshake words and its count of ended blocks (HS_DONE) start
+    at ``start``.  Returns the violations."""
+    HS, DONE, ENDED = tring.HS_WORDS, tring.HS_DONE, tring.HS_ENDED
+    launches = _run_order([("eager", ln) for ln in LAUNCHES]
+                          if seq is None else seq, host_count)
     groups = tring.card_groups(layout)
-    bases, acc = [], 0
-    for _nt, S in launches:
-        bases.append(tring.handshake_base([acc]))
-        acc += S
+    acc = sum(S for _nt, S, _b, gone in launches if not gone)
     violations = []
     for rotation in range(len(groups)):
         for reverse in (False, True):
-            words = [dict() for _ in range(P)]
+            words = [{0: start, 1: start, DONE: start} for _ in range(P)]
             slots = {}
             cur = {c: 0 for c, _r in groups}
 
             def blocks_of(card, e):
-                ntiles, S = launches[e]
+                ntiles, S, base, gone = launches[e]
                 ranks = dict(groups)[card]
+                if gone:  # given up: no entry, no exit
+                    return [{"rank": r, "k": k, "e": e, "S": S, "pc": 0,
+                             "ops": [("count_out",)] if given_up_counts
+                             else []}
+                            for r in ranks for k in range(S)]
                 return [{"rank": r, "k": k, "e": e, "S": S, "pc": 0,
-                         "U": _tiles_of(ntiles, S, k),
-                         "ops": _block_program(
-                             P, r, _tiles_of(ntiles, S, k), bases[e],
-                             entry_waits)}
+                         "base": base,
+                         "ops": _block_program(P, _tiles_of(ntiles, S, k))}
                         for r in ranks for k in range(S)]
 
             running = {c: blocks_of(c, 0) for c, _r in groups}
@@ -576,6 +663,12 @@ def _replay(P, layout, launches=LAUNCHES, entry_waits=_entry_waits):
             def ack(r, k, s, S):
                 return HS + 2 * S + 2 * k + s
 
+            def count_out(w, S):
+                w[ENDED] = w.get(ENDED, 0) + 1
+                if w[ENDED] == S:
+                    w[ENDED] = 0
+                    w[DONE] = (w[DONE] + S) & MASK
+
             def step(b):
                 if b["pc"] >= len(b["ops"]):
                     return False
@@ -584,8 +677,13 @@ def _replay(P, layout, launches=LAUNCHES, entry_waits=_entry_waits):
                 w = words[r]
                 tag = f"P={P} layout={layout} rot={rotation}: launch {e} " \
                       f"rank {r} stripe {k}"
-                if op[0] == "hs":
-                    if w.get(op[1], 0) < op[2]:
+                if op[0] == "entry":
+                    base = w[DONE] if b["base"] is None else b["base"] + start
+                    b["ops"][b["pc"] + 1:b["pc"] + 1] = [
+                        ("hs", word, target & MASK)
+                        for word, target in entry_waits(r, P, base)]
+                elif op[0] == "hs":
+                    if not _reached(w.get(op[1], 0), op[2]):
                         return False
                 elif op[0] == "wait_ack":
                     if w.get(ack(r, k, op[1] % 2, S), 0) < op[1] // 2:
@@ -633,7 +731,10 @@ def _replay(P, layout, launches=LAUNCHES, entry_waits=_entry_waits):
                                         f"{want}: a count is lost")
                                 w[addr] = 0
                     for rank, word in _exit_counts(r, P):
-                        words[rank][word] = words[rank].get(word, 0) + 1
+                        words[rank][word] = (words[rank][word] + 1) & MASK
+                    count_out(w, S)
+                elif op[0] == "count_out":
+                    count_out(w, S)
                 b["pc"] += 1
                 return True
 
@@ -666,15 +767,18 @@ def _replay(P, layout, launches=LAUNCHES, entry_waits=_entry_waits):
                     violations.append(f"P={P} layout={layout} rot="
                                       f"{rotation}: DEADLOCK at {stuck}")
                     return violations
+            end = (start + acc) & MASK
             for r in range(P):
                 left = {k: v for k, v in words[r].items() if k >= HS and v}
                 if left:
                     violations.append(f"P={P} layout={layout}: rank {r} "
                                       f"ends with flags {left}")
-                if (words[r].get(0), words[r].get(1)) != (acc, acc):
+                got = (words[r][0], words[r][1], words[r][DONE])
+                if got != (end,) * 3 or words[r].get(ENDED, 0):
                     violations.append(f"P={P} layout={layout}: rank {r}'s "
-                                      f"handshake words {words[r].get(0)}, "
-                                      f"{words[r].get(1)}, not {acc}")
+                                      f"handshake words and count {got}, "
+                                      f"{words[r].get(ENDED)} ended, not "
+                                      f"{end}")
     return violations
 
 
@@ -689,6 +793,20 @@ def test_per_card_schedule_replay(P, group):
                    [r % -(-P // group) for r in range(P)]):
         violations = _replay(P, layout)
         assert not violations, "\n".join(violations[:5])
+
+
+@pytest.mark.parametrize("P", range(2, 9))
+@pytest.mark.parametrize("group", range(1, 5))
+def test_per_card_replay_of_captured_launches(P, group):
+    """Eager launches and the replays of captured ones (each replayed at
+    least 3 times) on one set of tables, a launch given up among them,
+    from counts about to wrap at 2^32: the count read on the card holds
+    every launch to its predecessor."""
+    for layout in (_contiguous(P, group),
+                   [r % -(-P // group) for r in range(P)]):
+        for start in (0, MASK - 2):
+            violations = _replay(P, layout, CAPTURED, start=start)
+            assert not violations, "\n".join(violations[:5])
 
 
 #: a broken entry handshake, and configurations where it must show
@@ -707,6 +825,28 @@ def test_per_card_replay_catches_a_broken_handshake(P, group, mutation):
     assert violations, f"{mutation} went undetected at P={P}, group={group}"
 
 
+@pytest.mark.parametrize("P,group", [(2, 1), (3, 1), (4, 1), (4, 2),
+                                     (8, 2), (8, 1)])
+def test_per_card_replay_catches_the_count_fixed_at_capture(P, group):
+    """The count kept by the host and fixed in a launch's arguments at
+    capture (the design before): a replay waits for its capture's count,
+    and the launches after a capture for one the replays never match, so
+    the schedule deadlocks or overruns; eager launches alone pass."""
+    layout = _contiguous(P, group)
+    assert not _replay(P, layout, host_count=True)
+    violations = _replay(P, layout, CAPTURED, host_count=True)
+    assert violations, f"the host's count went undetected at P={P}"
+
+
+@pytest.mark.parametrize("P,group", [(3, 1), (4, 2), (8, 1)])
+def test_per_card_replay_catches_a_given_up_launch_that_counts(P, group):
+    """A launch given up touches nothing: were its blocks counted out,
+    the next launch would wait for blocks that never ran."""
+    violations = _replay(P, _contiguous(P, group), CAPTURED,
+                         given_up_counts=True)
+    assert any("DEADLOCK" in v for v in violations), violations[:3]
+
+
 @pytest.mark.parametrize("P,group", [(3, 1), (4, 2), (8, 2), (8, 1)])
 def test_per_card_replay_needs_the_right_neighbours_word(P, group):
     """What the schedule needs of the handshake is the right neighbour's
@@ -722,6 +862,8 @@ def test_per_card_replay_of_the_one_card_layout_needs_no_handshake():
     """With one card, its stream orders the launches: the replay passes
     even with no handshake (the one-launch path has none)."""
     assert not _replay(4, [0, 0, 0, 0], entry_waits=MUTATIONS["none"])
+    assert not _replay(4, [0, 0, 0, 0], CAPTURED,
+                       entry_waits=MUTATIONS["none"])
 
 
 # ---------------------------------------------------------------------------
