@@ -30,13 +30,19 @@ card, ops/ring.py).  The torch-op lanes keep their arithmetic and fold
 order: an operand that meets another rank's crosses to that rank's card
 by one explicit copy, and each rank's result lands on its own card,
 through :meth:`CudaEngine._move`, the one point where a tensor goes from
-one rank to another (``peer_moves`` counts them).  The reductions, the
-gathers and the fused and int8 lanes gather the operands on one hub
-rank's card (the root, else the comm's first member) and send each rank
-its result from there; a broadcast moves along its binomial tree; an
-alltoall moves each block straight to its receiver; a send moves its
-payload once, to the receiver.  With ``devices`` left out the engine
-takes the one-card path, with no move at all.
+one rank to another (``peer_moves`` counts them).  The fused lane and
+the int8 ring lane are rings across the cards, as the reference's
+``ppermute`` lanes are: each rank quantizes and folds on its own card,
+and only one hop's carry crosses to the right neighbour (each fused
+chunk's accumulator, or its int8 ``(q, scale)``; ops/fused.py,
+ops/quantized.py), so no card holds another rank's operand.  The plain
+reductions and gathers below the ring threshold (the int8 and cast
+roundtrip lanes among them) gather the operands on one hub rank's card
+(the root, else the comm's first member) and send each rank its result
+from there; a broadcast moves along its binomial tree; an alltoall moves
+each block straight to its receiver; a send moves its payload once, to
+the receiver.  With ``devices`` left out the engine takes the one-card
+path, with no move at all.
 
 Observability, as in tpu.py: each request's flight record and span are
 stamped at gang-ready and at dispatch, with the lane that ran it
@@ -353,7 +359,8 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
     ``place(t, src, dst)`` (local ranks) is given when the gang's ranks
     sit on several cards: every torch-op lane then moves each operand it
     combines, and each result it hands out, through it (module
-    docstring), and computes exactly what it computes on one card."""
+    docstring), and computes exactly what it computes on one card; the
+    fused and quantized rings move only each hop's carry through it."""
     n = in_len // nranks if op in (Operation.scatter, Operation.reduce_scatter,
                                    Operation.alltoall) else in_len
     is_max = func == int(ReduceFunction.MAX)
@@ -378,10 +385,13 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
 
     def q_ring_body(vs: list) -> list:
         if op == Operation.allreduce:
-            return q_ops.quantized_all_reduce(vs, wire_block, wire_ef)
+            return q_ops.quantized_all_reduce(vs, wire_block, wire_ef,
+                                              place=place)
         if op == Operation.allgather:
-            return q_ops.quantized_ring_all_gather(vs, wire_block)
-        return q_ops.quantized_ring_reduce_scatter(vs, wire_block, wire_ef)
+            return q_ops.quantized_ring_all_gather(vs, wire_block,
+                                                   place=place)
+        return q_ops.quantized_ring_reduce_scatter(vs, wire_block, wire_ef,
+                                                   place=place)
 
     def fused_body(vs: list) -> list:
         # the fused lane owns its wire hops end to end: int8 inside the
@@ -389,25 +399,31 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
         # (tpu.py:2177-2199)
         if fused_q:
             w = (wire_block, wire_ef)
-            vf = [v.to(torch.float32) for v in vs]
+            vf = [v.to(torch.float32) for v in vs]  # each on its own card
             if op == Operation.allreduce:
-                outs = fused_ops.chunked_ring_all_reduce(vf, wire=w)
+                outs = fused_ops.chunked_ring_all_reduce(vf, wire=w,
+                                                         place=place)
             elif op == Operation.allgather:
-                outs = fused_ops.chunked_ring_all_gather(vf, wire=w)
+                outs = fused_ops.chunked_ring_all_gather(vf, wire=w,
+                                                         place=place)
             else:
-                outs = fused_ops.chunked_ring_reduce_scatter(vf, wire=w)
+                outs = fused_ops.chunked_ring_reduce_scatter(vf, wire=w,
+                                                             place=place)
             return [o.to(vs[0].dtype) for o in outs]
         vs = [quant(v) for v in vs]
         if op == Operation.allreduce:
-            outs = fused_ops.chunked_ring_all_reduce(vs, red)
+            outs = fused_ops.chunked_ring_all_reduce(vs, red, place=place)
         elif op == Operation.allgather:
-            outs = fused_ops.chunked_ring_all_gather(vs)
+            outs = fused_ops.chunked_ring_all_gather(vs, place=place)
         else:
-            outs = fused_ops.chunked_ring_reduce_scatter(vs, red)
+            outs = fused_ops.chunked_ring_reduce_scatter(vs, red,
+                                                         place=place)
         return [quant(o) for o in outs]
 
     # ranks on several cards (``place`` given): the same arithmetic, with
-    # every crossing made explicit; the hub is the rank whose card combines
+    # every crossing made explicit; the fused and quantized rings hop from
+    # card to card through ``place`` themselves; below the threshold the
+    # hub is the rank whose card combines
     hub = root if op in (Operation.reduce, Operation.gather,
                          Operation.scatter) else 0
 
@@ -426,11 +442,11 @@ def _collective_program(op: Operation, nranks: int, in_len: int, root: int,
         """``outs``: per-rank result views the ring drivers may write
         into directly (lossless ring lane only, see ``_direct_outs``)."""
         if fused:
-            return scatter(fused_body(gather(vs, hub)), hub)
+            return fused_body(vs)
         if q_ring:
             dt = vs[0].dtype
-            return scatter([o.to(dt) for o in q_ring_body(
-                [v.to(torch.float32) for v in gather(vs, hub)])], hub)
+            return [o.to(dt) for o in q_ring_body(
+                [v.to(torch.float32) for v in vs])]
         vs = [quant(v) for v in vs]
         if ring:  # across cards the kernels' cross-card mode moves each hop
             if op == Operation.allreduce:

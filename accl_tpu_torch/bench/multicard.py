@@ -2,7 +2,8 @@
 timed.
 
     python -m accl_tpu_torch.bench.multicard [--sizes 4,16,64,256]
-        [--iters 20] [--out FILE]
+        [--iters 20] [--lanes ring,fused,int8,fused_int8] [--driver-only]
+        [--out FILE]
 
 It prints one JSON line per measurement and, last, the card's name and
 power limit:
@@ -22,9 +23,15 @@ power limit:
   same per-card tensors, where the build has them;
 - ``driver_allreduce``: the driver's fp32 SUM allreduce on
   ``CudaWorld(C, devices=...)``, one rank a card, at each size in MiB per
-  rank: s a call (median of 3 runs of 5 calls), busbw (nccl-tests:
-  algbw x 2 (P - 1) / P), and every rank's result bitwise the plain
-  composition's.
+  rank and in each lane of ``--lanes`` (``ring``, ``fused``, ``int8``,
+  ``fused_int8``: ``fused=True``, ``compress_dtype=int8``, both): s a
+  call (median of 3 runs of 5 calls), busbw (nccl-tests: algbw x 2 (P -
+  1) / P), the crossings a call through the engine's ``_move`` and the
+  bytes of them between two cards (MiB too; the ring lane's kernels hop
+  across the cards themselves), the link twin's bytes a call (compressed
+  on the int8 lanes), and every rank's result bitwise: the ring lane's
+  the plain composition's, the others' the same calls' on
+  ``CudaWorld(C)`` on one card.  ``--driver-only`` skips the launch rows.
 
 With one card it times the per-rank-table form (``ring.rank_tables``) of
 8 ranks on that card beside the one-launch form, and says that the
@@ -201,17 +208,59 @@ def _library_call(kind: str, cards: int, P: int) -> str:
             else "torch.cuda.nccl.all_gather")
 
 
-def driver_rows(devices: list, sizes: list, check: bool = True) -> list:
-    """The driver's allreduce on CudaWorld(devices=): s a call, busbw, and
-    (``check``) every result bitwise the plain composition's."""
+#: driver lane -> the allreduce's keywords
+DRIVER_LANES = {"ring": {}, "fused": {"fused": True},
+                "int8": {"compress": True},
+                "fused_int8": {"fused": True, "compress": True}}
+
+
+class MoveCount:
+    """Wraps one engine's ``_move`` (the one point where a tensor goes
+    from rank to rank): the crossings, their bytes, and the bytes of
+    those between two cards."""
+
+    def __init__(self, engine):
+        self.engine, self.inner = engine, engine._move
+        self.crossings = self.bytes = self.card_bytes = 0
+        engine._move = self
+
+    def __call__(self, t, src, dst):
+        nbytes = t.numel() * t.element_size()
+        self.crossings += 1
+        self.bytes += nbytes
+        if t.device != self.engine.rank_devices[dst]:
+            self.card_bytes += nbytes
+        return self.inner(t, src, dst)
+
+
+def _link_bytes(engine, P: int, field: str) -> int:
+    """The link twin's ``field`` summed over every rank's rows."""
+    return sum(row[field] for r in range(P)
+               for row in engine.link_stats_for(r))
+
+
+def driver_rows(devices: list, sizes: list, check: bool = True,
+                lane: str = "ring") -> list:
+    """The driver's allreduce on CudaWorld(devices=) in one lane
+    (``DRIVER_LANES``): s a call, busbw, the crossings a call through the
+    engine's ``_move`` and the bytes of them between two cards (the ring
+    lane's kernels hop across the cards themselves: none), the link
+    twin's bytes a call, and (``check``) every result bitwise: the ring
+    lane's against the plain composition, the others' against the same
+    calls on CudaWorld(P) on one card."""
     import numpy as np
 
-    from accl_tpu_torch import CudaWorld
+    from accl_tpu_torch import CudaWorld, DataType
     from accl_tpu_torch.ops import ring
 
     P = len(devices)
+    kw = dict(DRIVER_LANES[lane])
+    if kw.pop("compress", False):
+        kw["compress_dtype"] = DataType.int8
+    field = "comp_tx_bytes" if "compress_dtype" in kw else "tx_bytes"
     rows = []
     with CudaWorld(P, devices=devices) as world:
+        spy = MoveCount(world.engine)
         for mib in sizes:
             count = mib * MIB // 4
             bufs = [world.accls[r].create_buffer(count, np.float32)
@@ -224,22 +273,30 @@ def driver_rows(devices: list, sizes: list, check: bool = True) -> list:
 
             def call(accl, r):
                 accl.allreduce(bufs[r], outs[r], count, from_fpga=True,
-                               to_fpga=True)
+                               to_fpga=True, **kw)
 
             before = (ring.ring_reduce_scatter.launches_cross,
                       ring.ring_all_gather.launches_cross)
+            moved = (spy.crossings, spy.bytes, spy.card_bytes,
+                     _link_bytes(world.engine, P, field))
             world.run(call)
             for d in world.engine.cards():
                 torch.cuda.synchronize(d)
             launched = [ring.ring_reduce_scatter.launches_cross - before[0],
                         ring.ring_all_gather.launches_cross - before[1]]
+            crossings = spy.crossings - moved[0]
+            moved_bytes = spy.bytes - moved[1]
+            card_bytes = spy.card_bytes - moved[2]
+            twin = _link_bytes(world.engine, P, field) - moved[3]
             bitwise = None
-            if check:
+            if check and lane == "ring":
                 want = ring.ring_all_reduce_segmented(
                     [b.dev for b in bufs], "sum", plain=True)
                 bitwise = all(torch.equal(o.dev, w)
                               for o, w in zip(outs, want))
                 del want
+            elif check:
+                bitwise = _one_card_same(P, bufs, outs, count, kw)
             samples = []
             for _ in range(3):
                 t = time.perf_counter()
@@ -250,12 +307,17 @@ def driver_rows(devices: list, sizes: list, check: bool = True) -> list:
                 samples.append((time.perf_counter() - t) / 5)
             s = statistics.median(samples)
             algbw = mib * MIB / s / 1e9
-            rows.append({"mib_per_rank": mib, "ranks": P,
+            rows.append({"lane": lane, "mib_per_rank": mib, "ranks": P,
                          "devices": [str(d) for d in devices],
                          "s_per_call": s, "s_samples": samples,
                          "algbw_GBps": algbw,
                          "busbw_GBps": algbw * 2 * (P - 1) / P,
                          "cross_launches_per_call": launched,
+                         "moves_per_call": crossings,
+                         "moved_bytes_per_call": moved_bytes,
+                         "card_bytes_per_call": card_bytes,
+                         "card_MiB_per_call": card_bytes / MIB,
+                         "link_twin_bytes_per_call": twin,
                          "bitwise": bitwise})
             for b in bufs + outs:
                 b.free()
@@ -263,11 +325,40 @@ def driver_rows(devices: list, sizes: list, check: bool = True) -> list:
     return rows
 
 
+def _one_card_same(P: int, bufs, outs, count: int, kw: dict) -> bool:
+    """The same allreduce on CudaWorld(P) on one card, from the same
+    operands: is every rank's result bitwise ``outs``'?"""
+    import numpy as np
+
+    from accl_tpu_torch import CudaWorld
+
+    with CudaWorld(P) as one:
+        src = [one.accls[r].create_buffer(count, np.float32)
+               for r in range(P)]
+        dst = [one.accls[r].create_buffer(count, np.float32)
+               for r in range(P)]
+        for a, b in zip(src, bufs):
+            a.dev.copy_(b.dev)
+        one.run(lambda accl, r: accl.allreduce(src[r], dst[r], count,
+                                               from_fpga=True, to_fpga=True,
+                                               **kw))
+        same = all(torch.equal(d.dev, o.dev.to(d.dev.device))
+                   for d, o in zip(dst, outs))
+        for b in src + dst:
+            b.free()
+    return same
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="4,16,64,256")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", help="also write the rows to this JSON file")
+    ap.add_argument("--lanes", default="ring",
+                    help="the driver rows' lanes, comma-separated, of "
+                         + ", ".join(DRIVER_LANES))
+    ap.add_argument("--driver-only", action="store_true",
+                    help="only the driver rows (no ring_launch rows)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("multicard: no CUDA device; nothing to run", file=sys.stderr)
@@ -280,7 +371,7 @@ def main() -> int:
     layouts = ([("one_a_card", [f"cuda:{c}" for c in range(C)]),
                 ("two_a_card", [f"cuda:{c}" for c in range(C)
                                 for _ in range(2)])] if C > 1 else [])
-    for n in (SEG_N, BIG_N):
+    for n in (() if args.driver_only else (SEG_N, BIG_N)):
         if C == 1:
             for tables in (False, True):
                 for row in ring_launch_rows(["cuda:0"] * 8, n, args.iters,
@@ -293,9 +384,11 @@ def main() -> int:
                 print(json.dumps(rows[-1]), flush=True)
     if C > 1:
         sizes = [int(v) for v in args.sizes.split(",")]
-        for row in driver_rows([f"cuda:{c}" for c in range(C)], sizes):
-            rows.append({"phase": "driver_allreduce", **row})
-            print(json.dumps(rows[-1]), flush=True)
+        for lane in args.lanes.split(","):
+            for row in driver_rows([f"cuda:{c}" for c in range(C)], sizes,
+                                   lane=lane):
+                rows.append({"phase": "driver_allreduce", **row})
+                print(json.dumps(rows[-1]), flush=True)
     else:
         rows.append({"phase": "cross_card", "ran": False,
                      "reason": "one card: the cross-card rows need two or "

@@ -14,7 +14,13 @@ rank, in ring order, and returns one per rank):
    P*C and the ring runs as one segment.  ``wire=(block, error_feedback)``
    runs the int8 quantize/dequantize of ``ops/quantized.py`` inside the
    chunk loop.  These are jnp in the JAX package, not Pallas, so here
-   they are torch ops.
+   they are torch ops.  Ranks on several cards pass ``place(t, src,
+   dst)`` (``ops/quantized.py``): each rank folds on its own card, and
+   each chunk's accumulator (on the int8 wire its ``(q, scale)``)
+   crosses to the right neighbour once a step, as the reference
+   ``ppermute``s it; the all-gather relays the chunks and every rank
+   stacks, or dequantizes, its own result.  The hop bytes of the trace
+   rows are then what crosses.
 
 2. ``fused_matmul_allreduce`` — allreduce-into-matmul: with ``chunks=C``
    the reduce-scatter computes each local partial product just in time
@@ -174,53 +180,85 @@ def _trace_fused(collective: str, P: int, C: int, hop_bytes: int,
 # ---------------------------------------------------------------------------
 # tier 1: chunked ring collectives — the driver's fused lane
 # ---------------------------------------------------------------------------
-def _rs_chains_fp(views, op: str, P: int, C: int) -> list:
+def _rs_chains_fp(views, op: str, P: int, C: int,
+                  place: Optional[q_ops.Place] = None) -> list:
     """C reduce-scatter chains per rank over views[r] [P, C, m]; returns
-    rank r's list of C reduced accumulators."""
+    rank r's list of C reduced accumulators.  With ``place`` each
+    chunk's accumulator crosses to the right neighbour once a step."""
     fold = _fold(op)
     accs = [[views[r][(r - 1) % P, c] for c in range(C)] for r in range(P)]
     for s in range(P - 1):
         landed = [accs[(r - 1) % P] for r in range(P)]
+        if place is not None:
+            landed = [[place(a, (r - 1) % P, r) for a in row]
+                      for r, row in enumerate(landed)]
         # local + incoming: the ring's fold order
         accs = [[fold(views[r][(r - 2 - s) % P, c], landed[r][c])
                  for c in range(C)] for r in range(P)]
     return accs
 
 
-def _rs_chains_q(views, C: int, block: int, error_feedback: bool) -> list:
+def _rs_chains_q(views, C: int, block: int, error_feedback: bool,
+                 place: Optional[q_ops.Place] = None) -> list:
     """C quantized reduce-scatter chains over views[r] [P, C, m]: chunk c
-    is one ring of ops/quantized.py over the ranks' [P, m] slices.
-    Returns, per chunk, the ranks' wire-form (q, scale) carries, the seam
-    feed for the gather."""
+    is one ring of ops/quantized.py over the ranks' [P, m] slices, its
+    (q, scale) crossing through ``place`` when given.  Returns, per
+    chunk, the ranks' wire-form (q, scale) carries, the seam feed for
+    the gather."""
     return [q_ops._ring_reduce_scatter_q([v[:, c].reshape(-1) for v in views],
-                                         block, error_feedback)[0]
+                                         block, error_feedback,
+                                         place=place)[0]
             for c in range(C)]
 
 
-def _ag_chains(parts) -> torch.Tensor:
+def _ag_chains(parts, place: Optional[q_ops.Place] = None):
     """C all-gather chains: parts[r] is rank r's list of C per-chunk
     tensors; the result is [P, C, ...] with origin-major placement.  The
     relay moves values unchanged, so every rank ends with this same
-    tensor whatever the hop order: it is built once and shared."""
+    tensor whatever the hop order: on one card it is built once and
+    shared.  With ``place`` the chunks are relayed across the cards
+    (``quantized.relay``) and each rank stacks its own: a list, one
+    tensor a rank."""
+    if place is not None:
+        return [torch.stack([torch.stack(list(row)) for row in got])
+                for got in q_ops.relay(parts, place)]
     return torch.stack([torch.stack(list(row)) for row in parts])
 
 
-def _deq_gathered(per_chunk, m: int) -> torch.Tensor:
+def _deq_gathered(per_chunk, m: int, place: Optional[q_ops.Place] = None):
     """Gather each chunk's wire-form carries and dequantize once -> flat
-    [P * C * m] (origin-major, then chunk)."""
+    [P * C * m] (origin-major, then chunk).  With ``place`` the carries
+    are relayed across the cards and each rank dequantizes its own: a
+    list, one tensor a rank."""
     P = len(per_chunk[0])
+    if place is not None:
+        per_rank = [q_ops._ring_all_gather_q(carries, m, place)
+                    for carries in per_chunk]
+        return [torch.stack([g[r].view(P, m) for g in per_rank],
+                            dim=1).reshape(-1) for r in range(P)]
     return torch.stack([q_ops._ring_all_gather_q(carries, m)[0].view(P, m)
                         for carries in per_chunk], dim=1).reshape(-1)
+
+
+def _own(out, xs: Sequence[torch.Tensor], fn=lambda t: t) -> list:
+    """Each rank's result: ``fn`` of each rank's own tensor when the lane
+    ran across cards (``out`` a list), else ``fn`` of the one shared
+    result, handed to every rank (``quantized._per_rank``)."""
+    if isinstance(out, list):
+        return [fn(o) for o in out]
+    return q_ops._per_rank(fn(out), xs)
 
 
 def chunked_ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
                                 chunks: Optional[int] = None,
                                 wire: Optional[tuple] = None,
-                                collective: str = "fused_reduce_scatter"
+                                collective: str = "fused_reduce_scatter",
+                                place: Optional[q_ops.Place] = None
                                 ) -> list:
     """Per rank flat [P * n] -> that rank's reduced [n], as C per-chunk
     ring chains.  ``wire=(block, error_feedback)`` rides the int8 wire
-    with per-hop requantization inside the loop."""
+    with per-hop requantization inside the loop.  ``place``: the ranks
+    sit on several cards (``ops/quantized.py``)."""
     P = len(xs)
     if P == 1:
         return list(xs)
@@ -236,19 +274,20 @@ def chunked_ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
             raise ValueError("int8 wire lane carries sums, not max")
         block, ef = wire
         views = [x.to(torch.float32).reshape(P, C, m) for x in xs]
-        per_chunk = _rs_chains_q(views, C, block, ef)
+        per_chunk = _rs_chains_q(views, C, block, ef, place)
         _trace_fused(collective, P, C, _wire_hop_bytes(m, block))
         return [torch.cat([q_ops.dequantize_blockwise(*chunk[r], m)
                            for chunk in per_chunk]) for r in range(P)]
     views = [x.reshape(P, C, m) for x in xs]
     _trace_fused(collective, P, C, m * xs[0].element_size())
-    return [torch.cat(row) for row in _rs_chains_fp(views, op, P, C)]
+    return [torch.cat(row) for row in _rs_chains_fp(views, op, P, C, place)]
 
 
 def chunked_ring_all_gather(xs: Sequence[torch.Tensor],
                             chunks: Optional[int] = None,
                             wire: Optional[tuple] = None,
-                            collective: str = "fused_all_gather") -> list:
+                            collective: str = "fused_all_gather",
+                            place: Optional[q_ops.Place] = None) -> list:
     """Per rank flat [n] -> [P * n] (rank-major), as C per-chunk relay
     chains.  On the int8 lane each contribution is quantized once and
     relayed in wire form."""
@@ -264,16 +303,17 @@ def chunked_ring_all_gather(xs: Sequence[torch.Tensor],
         per_chunk = [[q_ops.quantize_blockwise(v, block)[:2] for v in col]
                      for col in zip(*rows)]
         _trace_fused(collective, P, C, _wire_hop_bytes(m, block))
-        return q_ops._per_rank(_deq_gathered(per_chunk, m), xs)
-    out = _ag_chains([list(x.reshape(C, m)) for x in xs]).reshape(-1)
+        return _own(_deq_gathered(per_chunk, m, place), xs)
+    out = _ag_chains([list(x.reshape(C, m)) for x in xs], place)
     _trace_fused(collective, P, C, m * xs[0].element_size())
-    return q_ops._per_rank(out, xs)
+    return _own(out, xs, lambda t: t.reshape(-1))
 
 
 def chunked_ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
                             chunks: Optional[int] = None,
                             wire: Optional[tuple] = None,
-                            collective: str = "fused_allreduce") -> list:
+                            collective: str = "fused_allreduce",
+                            place: Optional[q_ops.Place] = None) -> list:
     """Per rank flat [N] -> [N] allreduced: chunked reduce-scatter
     feeding chunked all-gather, padded internally to a P*C multiple; on
     the int8 lane the wire-form carry crosses the seam without a
@@ -291,15 +331,17 @@ def chunked_ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
         block, ef = wire
         views = [_pad_flat(x, padN).to(torch.float32).reshape(P, C, m)
                  for x in xs]
-        out = _deq_gathered(_rs_chains_q(views, C, block, ef), m)[:N]
-        if xs[0].is_floating_point():
-            out = out.to(xs[0].dtype)
+        dt = xs[0].dtype if xs[0].is_floating_point() else None
+        out = _deq_gathered(_rs_chains_q(views, C, block, ef, place), m,
+                            place)
         _trace_fused(collective, P, C, _wire_hop_bytes(m, block), phases=2)
-        return q_ops._per_rank(out, xs)
+        return _own(out, xs, lambda t: t[:N] if dt is None
+                    else t[:N].to(dt))
     views = [_pad_flat(x, padN).reshape(P, C, m) for x in xs]
-    parts = _rs_chains_fp(views, op, P, C)
+    parts = _rs_chains_fp(views, op, P, C, place)
     _trace_fused(collective, P, C, m * xs[0].element_size(), phases=2)
-    return q_ops._per_rank(_ag_chains(parts).reshape(-1)[:N], xs)
+    return _own(_ag_chains(parts, place), xs,
+                lambda t: t.reshape(-1)[:N])
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,18 @@ scaling); accumulation stays fp32.  The JAX module is jnp inside
 ops over per-rank lists, as ``ops/ring.py``'s plain versions are: every
 function takes a list with one tensor per rank, in ring order.
 
+Ranks on several cards: the ring entries take ``place(t, src, dst)``,
+the hook that carries rank ``src``'s tensor to rank ``dst`` (the
+engine's counted ``CudaEngine._move``, ``parallel.collectives.move`` in
+``parallel/``).  Each rank's quantize, fold, error carry and hop
+generator then run on its own tensor's card, and the only tensors that
+cross are what the reference ``ppermute``s: at each hop the left
+neighbour's ``q`` and ``scale``, two crossings.  The all-gather relays
+the wire form P - 1 hops and every rank dequantizes its own
+``[P, rows, block]`` stack once, so no rank ever holds another's fp32
+operand.  With ``place`` left out (one card) the functions compute what
+they always did, the gathered result built once and shared.
+
 Error model: one quantization rounds to within scale/2 = absmax/254 per
 element.  The ring reduce-scatter requantizes the running partial each
 hop, so the worst-case error grows linearly in P; ``error_feedback``
@@ -18,16 +30,24 @@ Stochastic rounding (``stochastic=True``) draws its uniforms from a
 ``torch.Generator`` seeded per (seed, rank, hop), the role ``_hop_key``
 plays in the JAX module.  The two generators give different bits, so
 stochastic results are held to an error bound, not to the JAX package's
-values.
+values.  Each rank's generator is made on its own tensor's device; a
+draw there depends only on the seed and the shape, so a rank on a card
+of its own draws the bits it draws on a card shared with the others
+(``chip_smoke.py`` phase multi_card holds the two bitwise across
+cards).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 DEFAULT_BLOCK = 256
+
+#: ``place(t, src, dst)``: rank ``src``'s tensor ``t`` as rank ``dst``
+#: receives it, one counted crossing (module docstring)
+Place = Callable[[torch.Tensor, int, int], torch.Tensor]
 
 #: 1/127 rounded to float32.  XLA compiles the JAX module's
 #: ``amax / 127.0`` into ``amax * f32(1/127)`` (its simplifier turns a
@@ -99,7 +119,8 @@ def hop_generator(seed: int, rank: int, hop: int,
 
 def _ring_reduce_scatter_q(xs: Sequence[torch.Tensor], block: int,
                            error_feedback: bool = False,
-                           stochastic: bool = False, seed: int = 0):
+                           stochastic: bool = False, seed: int = 0,
+                           place: Optional[Place] = None):
     """Quantized ring reduce-scatter returning each rank's WIRE-FORM
     carry (q, scale) of its reduced chunk, and the chunk length n, so
     the all-reduce feeds it straight into the gather without a
@@ -108,7 +129,9 @@ def _ring_reduce_scatter_q(xs: Sequence[torch.Tensor], block: int,
     Rank r starts with its chunk (r - 1) quantized; at hop s it receives
     the left neighbour's (q, scale), folds acc = dequant + chunk
     (r - 2 - s) (+ its own carried error with ``error_feedback``) and
-    requantizes.  The error carry stays with the rank that made it."""
+    requantizes.  The error carry stays with the rank that made it.
+    With ``place`` the left neighbour's (q, scale) cross to rank r
+    through it, two crossings a rank and hop."""
     P = len(xs)
     N = xs[0].shape[0]
     if N % P:
@@ -133,6 +156,8 @@ def _ring_reduce_scatter_q(xs: Sequence[torch.Tensor], block: int,
         nxt = []
         for r in range(P):
             q, sc, _ = carry[(r - 1) % P]  # arrives from the left
+            if place is not None:
+                q, sc = place(q, (r - 1) % P, r), place(sc, (r - 1) % P, r)
             err = carry[r][2]
             acc = dequantize_add(q, sc, n, chunks[r][(r - 2 - s) % P])
             if error_feedback:
@@ -153,17 +178,47 @@ def _per_rank(out: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
             for t in like]
 
 
-def _ring_all_gather_q(carries: Sequence[tuple], n: int) -> list:
+def relay(parts: Sequence[tuple], place: Place) -> list:
+    """Ring relay across cards: ``parts[r]`` (a tuple of rank r's
+    tensors) travels P - 1 hops to the right, each tensor one crossing
+    through ``place`` a hop, as the reference ``ppermute``s it.  Returns,
+    per rank, every origin's parts in origin order, each on that rank's
+    card."""
+    P = len(parts)
+    got = [[None] * P for _ in range(P)]
+    for r in range(P):
+        got[r][r] = tuple(parts[r])
+    carry = [tuple(p) for p in parts]
+    for s in range(P - 1):
+        carry = [tuple(place(t, (r - 1) % P, r) for t in carry[(r - 1) % P])
+                 for r in range(P)]
+        for r in range(P):
+            got[r][(r - 1 - s) % P] = carry[r]
+    return got
+
+
+def _deq_stack(qs: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
+               n: int) -> torch.Tensor:
+    """Origin-major (q, scale) carries -> flat [P * n] f32, dequantized
+    once."""
+    # [P, rows, block]
+    deq = torch.stack(list(qs)).to(torch.float32) * torch.stack(list(scales))
+    return deq.reshape(len(qs), -1)[:, :n].reshape(-1)
+
+
+def _ring_all_gather_q(carries: Sequence[tuple], n: int,
+                       place: Optional[Place] = None) -> list:
     """Ring all-gather of already-quantized (q, scale) pairs -> flat
     [P * n] f32 per rank (rank-major), dequantized once at the end.  The
     relay moves the wire form unchanged, so every rank ends with the
-    same [P, rows, block] stack whatever the hop order: it is built
-    once and shared."""
-    P = len(carries)
-    out_q = torch.stack([q for q, _ in carries])
-    out_s = torch.stack([sc for _, sc in carries])
-    deq = out_q.to(torch.float32) * out_s  # [P, rows, block]
-    out = deq.reshape(P, -1)[:, :n].reshape(-1)
+    same [P, rows, block] stack whatever the hop order: on one card it
+    is built once and shared.  With ``place`` the carries are relayed
+    across the cards (:func:`relay`) and each rank dequantizes its own
+    stack on its own card."""
+    if place is not None:
+        return [_deq_stack([q for q, _ in got], [sc for _, sc in got], n)
+                for got in relay(carries, place)]
+    out = _deq_stack([q for q, _ in carries], [sc for _, sc in carries], n)
     return _per_rank(out, [q for q, _ in carries])
 
 
@@ -171,18 +226,20 @@ def quantized_ring_reduce_scatter(xs: Sequence[torch.Tensor],
                                   block: int = DEFAULT_BLOCK,
                                   error_feedback: bool = False,
                                   stochastic: bool = False,
-                                  seed: int = 0) -> list:
+                                  seed: int = 0,
+                                  place: Optional[Place] = None) -> list:
     """Per rank flat [P * n] -> that rank's reduced chunk [n] f32, with
     int8 + per-block-scale wire traffic on every hop."""
     carries, n = _ring_reduce_scatter_q(xs, block, error_feedback,
-                                        stochastic, seed)
+                                        stochastic, seed, place)
     return [dequantize_blockwise(q, sc, n) for q, sc in carries]
 
 
 def quantized_ring_all_gather(xs: Sequence[torch.Tensor],
                               block: int = DEFAULT_BLOCK,
                               stochastic: bool = False,
-                              seed: int = 0) -> list:
+                              seed: int = 0,
+                              place: Optional[Place] = None) -> list:
     """Per rank flat [n] -> [P * n] f32 (rank-major).  Each contribution
     is quantized once and relayed, so the error is one round trip
     whatever P is."""
@@ -191,16 +248,17 @@ def quantized_ring_all_gather(xs: Sequence[torch.Tensor],
         g = hop_generator(seed, r, 0, x.device) if stochastic else None
         q, sc, _ = quantize_blockwise(x.to(torch.float32), block, g)
         carries.append((q, sc))
-    return _ring_all_gather_q(carries, xs[0].shape[0])
+    return _ring_all_gather_q(carries, xs[0].shape[0], place)
 
 
 def quantized_all_reduce(xs: Sequence[torch.Tensor],
                          block: int = DEFAULT_BLOCK,
                          error_feedback: bool = False,
-                         stochastic: bool = False, seed: int = 0) -> list:
+                         stochastic: bool = False, seed: int = 0,
+                         place: Optional[Place] = None) -> list:
     """Per rank flat [P * n] -> [P * n] f32: quantized ring
     reduce-scatter whose wire-form carry feeds the quantized ring
     all-gather directly."""
     carries, n = _ring_reduce_scatter_q(xs, block, error_feedback,
-                                        stochastic, seed)
-    return _ring_all_gather_q(carries, n)
+                                        stochastic, seed, place)
+    return _ring_all_gather_q(carries, n, place)

@@ -23,9 +23,11 @@ then runs the collectives' several-cards forms (``collectives.py``):
 each member's result its own tensor on its own card, every crossing a
 counted ``collectives.move``, the folds in rank order, so the results
 are bitwise the one-card forms.  ``sync_gradients(compress="int8")``
-gathers the members' leaves on member 0's card, runs the int8 ring
-there and sends each member the result, the hub path of ``CudaWorld``'s
-int8 lane (2 (P - 1) moves a leaf).
+runs the int8 ring across the members' cards, as the reference runs it
+over dp: each member pads, quantizes, folds and dequantizes its own leaf
+on its own card, and only each hop's int8 payload and its scales cross
+to the next member (``ops/quantized.py`` with ``place``; 4 P (P - 1)
+moves a leaf: two tensors a member and hop, 2 (P - 1) hops).
 """
 from __future__ import annotations
 
@@ -86,23 +88,27 @@ def sync_gradients(grads: Sequence, compress: Optional[str] = None,
     int8 lane only)."""
     size = len(grads)
     devs = _tree_devices(grads, devices)
+    # the int8 ring's crossing from member src to member dst
+    place = None if devs is None else (
+        lambda t, src, dst: move(t, devs[dst]))
 
     def sync_leaf(gs):
         orig = gs[0].dtype
         if compress == "int8":
-            if devs is not None:  # the hub path: every leaf on member 0's
-                gs = [g if r == 0 else move(g, devs[0])
-                      for r, g in enumerate(gs)]
             flats = [_pad_to_multiple(g.float().reshape(-1), size)
                      for g in gs]
-            out = quantized_all_reduce(flats, error_feedback=error_feedback,
-                                       stochastic=stochastic, seed=seed)[0]
-            if mean:
-                out = out / size
-            res = out[:gs[0].numel()].reshape(gs[0].shape).to(orig)
-            if devs is not None:
-                return [res] + [move(res, d) for d in devs[1:]]
-            return [res] * size
+            outs = quantized_all_reduce(flats, error_feedback=error_feedback,
+                                        stochastic=stochastic, seed=seed,
+                                        place=place)
+
+            def finish(out):
+                if mean:
+                    out = out / size
+                return out[:gs[0].numel()].reshape(gs[0].shape).to(orig)
+
+            if devs is not None:  # each member's own result, on its card
+                return [finish(o) for o in outs]
+            return [finish(outs[0])] * size
         if compress == "bf16":
             gs = [g.to(torch.bfloat16).float() for g in gs]
         elif compress == "f16":

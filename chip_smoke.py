@@ -371,9 +371,22 @@ Phases, each fatal on failure:
      (allreduce SUM and MAX, reduce, reduce_scatter, allgather, bcast,
      scatter, gather, alltoall, fused, int8, send/recv) bitwise the same
      calls on one card; with one card it prints that the cross-card part
-     did not run.  Its ring launches join rows 1-2 of the kernels line,
-     and rows ring_*_tables (ring_*_cross with two or more cards) time
-     the mode (bench/multicard.py);
+     did not run.  The fused and int8 lanes as rings across the cards
+     (lane_cards lines): on one card, always, CudaWorld(8, devices=
+     ["cuda:0"] * 8) (the per-hop path, every move on one card) against
+     CudaWorld(8) at LANE_CARDS_MIB a rank: the fused allreduce,
+     reduce-scatter and all-gather, the fused allreduce over the int8
+     wire and the int8 ring allreduce (threshold 0), then
+     sync_gradients(compress="int8", devices=) over a Llama-3-8B
+     MLP-down leaf ([4096, 14336] fp32, error feedback off and on,
+     stochastic), each result bitwise, with its crossings and bytes a
+     call; with two or more cards the same one rank a card, and the
+     driver's four lanes (bench/multicard.py driver_rows: ring, fused,
+     int8, fused_int8) at LANE_CARDS_MIB, bitwise, with their MiB
+     between cards a call (lane_cards_driver lines).  Its ring launches
+     join rows 1-2 of the kernels line, and rows ring_*_tables
+     (ring_*_cross with two or more cards) time the mode
+     (bench/multicard.py);
   7k. model meshes over several cards (phase model_cards, run after
      moe_path, before part a's world): with two or more cards, over
      min(4, count) of them: Llama-3-8B at full width and all 32 layers,
@@ -6661,6 +6674,7 @@ def multi_card_phase(ring, CudaWorld, DataType) -> dict:
         fail("per-rank-table form at the segment shape: not bitwise the "
              "plain versions")
     del xs, rs, ag
+    lane_cards(CudaWorld, DataType, ["cuda:0"] * P)
     cross = {}
     if C >= 2:
         cross = multi_card_cross(ring, CudaWorld, DataType, C, errs)
@@ -6681,6 +6695,8 @@ def multi_card_phase(ring, CudaWorld, DataType) -> dict:
 
 def multi_card_cross(ring, CudaWorld, DataType, C, errs) -> dict:
     """The cross-card part of phase multi_card (two or more cards)."""
+    from accl_tpu_torch.bench import multicard as MC
+
     one_a_card = [f"cuda:{c}" for c in range(C)]
     two_a_card = [f"cuda:{c}" for c in range(C) for _ in range(2)]
     out = {"ring_lane": [], "small_lanes": {}}
@@ -6722,6 +6738,16 @@ def multi_card_cross(ring, CudaWorld, DataType, C, errs) -> dict:
                 del bufs, res, want
         out["small_lanes"][label] = multi_card_lanes(CudaWorld, DataType,
                                                      devices)
+    lane_cards(CudaWorld, DataType, one_a_card)
+    out["lane_rows"] = []
+    for lane in MC.DRIVER_LANES:
+        for row in MC.driver_rows(one_a_card, [LANE_CARDS_MIB], lane=lane):
+            if row["bitwise"] is not True:
+                fail(f"driver lane {lane} across {C} cards: not bitwise")
+            emit({"phase": "lane_cards_driver", **row})
+            out["lane_rows"].append({k: row[k] for k in (
+                "lane", "s_per_call", "busbw_GBps", "moves_per_call",
+                "card_MiB_per_call")})
     return out
 
 
@@ -6780,6 +6806,125 @@ def multi_card_lanes(CudaWorld, DataType, devices) -> list:
     if not moves:
         fail("multi_card small lanes: no peer move")
     return sorted(want[0])
+
+
+#: the lane_cards part of phase multi_card: MiB a rank, and the leaf of
+#: its sync_gradients (Llama-3-8B's MLP-down weight, [hidden, ffn])
+LANE_CARDS_MIB = 64
+LANE_CARDS_LEAF = (4096, 14336)
+
+
+def lane_cards(CudaWorld, DataType, devices) -> dict:
+    """The fused and int8 lanes with each rank on ``devices[r]`` (phase
+    multi_card): the fused allreduce, reduce-scatter and all-gather, the
+    fused allreduce over the int8 wire and the int8 ring allreduce
+    (threshold 0) at LANE_CARDS_MIB a rank on CudaWorld(P, devices=),
+    each rank's result bitwise the same call's on CudaWorld(P) on one
+    card, with the crossings and bytes a call through the engine's
+    ``_move``; then sync_gradients(compress="int8", devices=) over one
+    LANE_CARDS_LEAF leaf a member, error feedback off and on and
+    stochastic, bitwise the one-card call, with its collectives.move
+    crossings.  Emits one lane_cards line."""
+    from accl_tpu_torch import parallel as S
+    from accl_tpu_torch.bench import multicard as MC
+
+    t0 = time.perf_counter()
+    Pc = len(devices)
+    count = LANE_CARDS_MIB * MIB // 4
+    lanes = {"fused_allreduce": ("allreduce", {"fused": True}),
+             "fused_reduce_scatter": ("reduce_scatter", {"fused": True}),
+             "fused_allgather": ("allgather", {"fused": True}),
+             "fused_int8_allreduce": ("allreduce", {
+                 "fused": True, "compress_dtype": DataType.int8}),
+             "int8_ring_allreduce": ("allreduce", {
+                 "compress_dtype": DataType.int8})}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    data = [torch.randn(count, generator=gen, device="cuda")
+            for _ in range(Pc)]
+    rows = {}
+    with CudaWorld(Pc, devices=devices) as w, CudaWorld(Pc) as one:
+        spy = MC.MoveCount(w.engine)
+        for world in (w, one):
+            world.engine.ring_threshold_bytes = 0
+        for name, (kind, kw) in lanes.items():
+            n_in = count // Pc if kind == "allgather" else count
+            n_out = count // Pc if kind == "reduce_scatter" else count
+            res = {}
+            for label, world in (("cards", w), ("one", one)):
+                ins = [world.accls[r].create_buffer(n_in, np.float32)
+                       for r in range(Pc)]
+                outs = [world.accls[r].create_buffer(n_out, np.float32)
+                        for r in range(Pc)]
+                for b, x in zip(ins, data):
+                    b.dev.copy_(x[:n_in])
+
+                def call(accl, r):
+                    arg = n_out if kind == "reduce_scatter" else n_in
+                    getattr(accl, kind)(ins[r], outs[r], arg, from_fpga=True,
+                                        to_fpga=True, **kw)
+
+                before = (spy.crossings, spy.bytes, spy.card_bytes)
+                samples = []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    world.run(call)
+                    for d in world.engine.cards():
+                        torch.cuda.synchronize(d)
+                    samples.append(time.perf_counter() - t)
+                if label == "cards":
+                    rows[name] = {
+                        "moves_per_call": (spy.crossings - before[0]) // 3,
+                        "bytes_per_call": (spy.bytes - before[1]) // 3,
+                        "card_bytes_per_call":
+                            (spy.card_bytes - before[2]) // 3,
+                        "s_per_call": statistics.median(samples)}
+                else:
+                    rows[name]["one_card_s_per_call"] = \
+                        statistics.median(samples)
+                res[label] = outs
+                for b in ins:
+                    b.free()
+            for r in range(Pc):
+                got, want = res["cards"][r].dev, res["one"][r].dev
+                if got.device != torch.device(devices[r]) or \
+                        not same_bits(got.to(want.device), want):
+                    fail(f"lane_cards {name} (rank {r} of {Pc} on "
+                         f"{sorted(set(devices))}): not bitwise the one-card "
+                         f"world's, or not on its own card")
+            for b in res["cards"] + res["one"]:
+                b.free()
+    del data
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    leaves = [torch.randn(LANE_CARDS_LEAF, generator=gen, device="cuda")
+              for _ in range(Pc)]
+    placed = [{"w": g.to(d)} for g, d in zip(leaves, devices)]
+    for name, kw in (("sync_int8", {}),
+                     ("sync_int8_ef", {"error_feedback": True}),
+                     ("sync_int8_stochastic", {"stochastic": True,
+                                               "seed": 7})):
+        S.collectives.reset_moves()
+        t = time.perf_counter()
+        got = S.sync_gradients(placed, compress="int8", devices=devices, **kw)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        s_cards = time.perf_counter() - t
+        moves = S.collectives.moves()
+        want = S.sync_gradients([{"w": g} for g in leaves],
+                                compress="int8", **kw)
+        for r in range(Pc):
+            if got[r]["w"].device != torch.device(devices[r]) or \
+                    not same_bits(got[r]["w"].to(want[r]["w"].device),
+                                  want[r]["w"]):
+                fail(f"lane_cards {name} (member {r} of {Pc}): not bitwise "
+                     f"the one-card sync_gradients")
+        rows[name] = {"moves_per_call": moves, "s_per_call": s_cards}
+        del got, want
+    del leaves, placed
+    out = {"ranks": Pc, "cards": len(set(devices)),
+           "mib_per_rank": LANE_CARDS_MIB, "leaf": list(LANE_CARDS_LEAF),
+           "lanes": rows, "seconds": time.perf_counter() - t0}
+    emit({"phase": "lane_cards", **out})
+    return out
 
 
 def time_table_kernels(ring, launches_tables, C) -> list:

@@ -337,9 +337,10 @@ def test_sync_gradients_per_card(compress, P):
                                                 devices=_cpus(P)))
     for r in range(P):
         assert _same(tree_leaves(got[r]), tree_leaves(one[r]))
-    # two leaves, each folded on member 0 and sent back (the int8 lane's
-    # hub path moves as many)
-    assert n == 2 * 2 * (P - 1)
+    # two leaves, each folded on member 0 and sent back; the int8 lane is
+    # a ring across the members' cards: 2 (P - 1) hops, each member
+    # receiving an int8 payload and its scales a hop
+    assert n == 2 * (4 * P * (P - 1) if compress == "int8" else 2 * (P - 1))
 
 
 def test_zero_shard_and_unshard_per_card():

@@ -57,6 +57,7 @@ from accl_tpu_torch import (
     load_world_state,
 )
 from accl_tpu_torch.device_api import ACCLCommand, ACCLData
+from accl_tpu_torch.ops import fused as tfused
 from accl_tpu_torch.ops import ring as tring
 from accl_tpu_torch.parallel.mesh import make_hybrid_mesh
 from accl_tpu_torch.utils import bringup
@@ -239,6 +240,20 @@ def _hub(P):
     return 2 * (P - 1)
 
 
+def _ring(P, tensors=1, chunks=1, phases=1):
+    """A ring across the cards: at each of phases (P - 1) hops every rank
+    receives ``tensors`` tensors (an int8 payload and its scales: 2) of
+    each of ``chunks`` chunks from its left neighbour."""
+    return P * (P - 1) * phases * chunks * tensors
+
+
+def _chunks(n=None):
+    """The fused lane's chunks: the allreduce's, or a reduce-scatter's or
+    all-gather's of n elements a rank."""
+    return tfused.fused_chunks() if n is None else tfused._pick_chunks(n,
+                                                                       None)
+
+
 #: lane -> (threshold, function, moves at P ranks)
 LANES = {
     "ring_allreduce": (RING, _coll("allreduce", N * NR), lambda P: 0),
@@ -257,12 +272,14 @@ LANES = {
     "gather": (PLAIN, _coll("gather", N), lambda P: P - 1),
     "alltoall": (PLAIN, _coll("alltoall", N), lambda P: P * (P - 1)),
     "fused_allreduce": (PLAIN, _coll("allreduce", N * NR, fused=True),
-                        _hub),
+                        lambda P: _ring(P, chunks=_chunks(), phases=2)),
     "fused_reduce_scatter": (PLAIN, _coll("reduce_scatter", N, fused=True),
-                             _hub),
-    "fused_allgather": (PLAIN, _coll("allgather", N, fused=True), _hub),
+                             lambda P: _ring(P, chunks=_chunks(N))),
+    "fused_allgather": (PLAIN, _coll("allgather", N, fused=True),
+                        lambda P: _ring(P, chunks=_chunks(N))),
     "int8_ring_allreduce": (RING, _coll("allreduce", N * NR,
-                                        compress_dtype="int8"), _hub),
+                                        compress_dtype="int8"),
+                            lambda P: _ring(P, tensors=2, phases=2)),
     "int8_small_allreduce": (PLAIN, _coll("allreduce", N * NR,
                                           compress_dtype="int8"), _hub),
     "fp16_ring_allreduce": (RING, _coll("allreduce", N * NR,
@@ -293,7 +310,8 @@ def test_lane_matches_tpu_world_and_the_one_card_world(worlds, lane):
 def test_moves_per_lane(worlds, lane):
     """One row per lane: what the lane moves from rank to rank through
     the engine's move function (none on the ring lane, whose kernels hop
-    across cards themselves)."""
+    across cards themselves; one hop's carry a rank and hop on the fused
+    and int8 ring lanes; two ways through a hub below the threshold)."""
     threshold, fn, moves = LANES[lane]
     inputs = {r: [_ints(N * NR, r, 2)] for r in range(NR)}
     _j, _o, _c, made = _run_all(worlds, inputs, fn, threshold)
@@ -334,11 +352,13 @@ def test_per_rank_world_matches_one_card_world_at_p(P):
                 w.engine.ring_threshold_bytes = thr
                 got[name, thr] = w.run(fn, timeout=T)
                 moves = w.engine.peer_moves
-            # the allreduce gathers to a hub below the threshold only, the
-            # fused and int8 lanes always; alltoall P (P - 1); a send 1
-            hubs = 3 if thr == PLAIN else 2
-            assert moves == (hubs * _hub(P) + P * (P - 1) + P
-                             if name == "cards" else 0)
+            # the allreduce and the int8 roundtrip gather to a hub below the
+            # threshold, the int8 ring hops (q, scale) above it; the fused
+            # lane hops each chunk; alltoall P (P - 1); a send 1
+            lanes = (2 * _hub(P) if thr == PLAIN
+                     else _ring(P, tensors=2, phases=2))
+            assert moves == (lanes + _ring(P, chunks=_chunks(), phases=2)
+                             + P * (P - 1) + P if name == "cards" else 0)
     for thr in (PLAIN, RING):
         _bitwise(got["one", thr], got["cards", thr], f"P={P}")
 
