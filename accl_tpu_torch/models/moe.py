@@ -63,6 +63,7 @@ from .transformer import (
     placed_replicas,
     placed_trees,
     sgd_cards,
+    tree_devices,
     sum_count_device_step,
 )
 
@@ -118,6 +119,8 @@ def place_params(params: dict, cfg: MoEConfig, mesh):
     placed = place_split(shard_params(params, cfg, mesh.shape.get("ep", 1)),
                          mesh, "ep")
     for rep in placed_trees(placed):
+        if rep is None:  # another process's member
+            continue
         for e in range(1, len(rep.places.devices)):
             _member_tree(rep, rep.places, e)
     return placed
@@ -483,7 +486,8 @@ def make_train_step(mesh, cfg: MoEConfig, lr: float = 1e-3,
                              f"{n_dp} dp x {n_ep} ep members")
         return params, sgd_cards(card_closures(
             reps, tokens, n_dp,
-            lambda p, t: _loss_members(p, t, cfg, fused=fused)), reps, lr)
+            lambda p, t: _loss_members(p, t, cfg, fused=fused)), reps, lr,
+            tree_devices(mesh, "ep"))
 
     def step_fn(params, tokens):
         if cards:

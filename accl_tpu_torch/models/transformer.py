@@ -99,11 +99,13 @@ from ..ops.flash import flash_attention
 from ..ops.fused import fused_chunks, fused_matmul_allreduce
 from ..constants import ACCLError
 from ..optim import apply_updates
-from ..parallel.collectives import (all_reduce, card_homes, collect, fan_in,
-                                    fan_out, gather_sum, move, spread)
+from ..parallel.collectives import (_both, _move, all_reduce, card_homes,
+                                    collect, fan_in, fan_out, gather_sum,
+                                    move, spread)
 from ..parallel.ring_attention import (_dense_attention, expand_gqa_kv,
                                        ring_attention, zigzag_indices,
                                        zigzag_indices_inverse)
+from ..utils import ipc
 from ..utils.device import resolve_device
 from ..utils.tree import tree_leaves, tree_map
 
@@ -418,6 +420,7 @@ def place_split(split: dict, mesh, inner: str, seq: Optional[str] = None):
                         f"several cards are not part of accl_tpu_torch yet "
                         f"(ROADMAP item 13); the model places "
                         f"{' x '.join(placed_axes)}")
+    check_process_axes(mesh, (inner,) + ((seq,) if seq else ()))
     n_dp = shape.get("dp", 1)
     n_seq = shape.get(seq, 1) if seq else 1
 
@@ -437,6 +440,9 @@ def place_split(split: dict, mesh, inner: str, seq: Optional[str] = None):
             at = {"dp": d, **({seq: s} if seq else {})}
             slots = mesh.group(inner, **at)
             devs = tuple(mesh.slot_device(x) for x in slots)
+            if not mesh.is_local(slots[0]):  # another process's member
+                members.append(None)
+                continue
             members.append(PlacedParams(put(split, devs),
                                         places=Places(devs, slots)))
         replicas.append(members[0] if n_seq == 1 else SpReplicas(members))
@@ -450,10 +456,15 @@ def place_params(params, cfg: ModelConfig, mesh):
     (:func:`place_split`): tp rank r's shards of data member d and sp
     member s on slot (d, r, s)'s card, the replicated leaves on (d, 0,
     s)'s, and a copy of each block's norms on every other card of that
-    tp group (``Places.copy``)."""
+    tp group (``Places.copy``).  On a mesh over several processes each
+    process places its own data members only: another process's member
+    is ``None`` (an :class:`SpReplicas` of ``None`` with an sp axis); a
+    tp or sp group over several processes raises ``ACCLError``."""
     placed = place_split(shard_params(params, cfg, mesh.shape.get("tp", 1)),
                          mesh, "tp", seq="sp")
     for rep in placed_trees(placed):
+        if rep is None:
+            continue
         for blk in rep["blocks"]:
             for c in rep.places.cards[1:]:
                 rep.places.copy(blk["ln1"], c)
@@ -480,18 +491,51 @@ def _places(params, leaf: str = "wq") -> Optional[Places]:
     return Places(devs, tuple(range(len(devs))))
 
 
+def check_process_axes(mesh, axes) -> None:
+    """Raise ``ACCLError`` naming an axis of ``axes`` whose groups span
+    several processes: only the dp axis may cross them."""
+    for axis in axes:
+        if axis and mesh.group_processes(axis):
+            raise ACCLError(
+                f"the {axis} axis spans several processes (its group "
+                f"{mesh.group_processes(axis)[0]} does): a {axis} group "
+                f"across processes is not part of accl_tpu_torch yet "
+                f"(ROADMAP item 13e); only dp may cross processes")
+
+
+def tree_devices(mesh, inner: str, seq: Optional[str] = None) -> list:
+    """The slot devices of every placed tree of ``mesh`` in (dp, sp)
+    order (:func:`placed_trees`' order), each along ``inner``: what
+    :func:`_mean_grads_cards` needs of a tree another process holds."""
+    shape = mesh.shape
+    out = []
+    for d in range(shape.get("dp", 1)):
+        for s in range(shape.get(seq, 1) if seq else 1):
+            slots = mesh.group(inner, dp=d, **({seq: s} if seq else {}))
+            out.append(tuple(mesh.slot_device(x) for x in slots))
+    return out
+
+
 def placed_replicas(params, mesh, inner: str, n_dp: int,
                     seq: Optional[str] = None) -> list:
     """The data members' entries of ``params`` (a :class:`Replicas` list,
     or one member's), each checked to be placed on member d's slots of
     ``mesh`` along ``inner`` (with a ``seq`` axis: an
-    :class:`SpReplicas` whose tree s lies on the slots (d, ·, s))."""
+    :class:`SpReplicas` whose tree s lies on the slots (d, ·, s)); on a
+    mesh over several processes, ``None`` exactly for the members other
+    processes hold."""
     reps = list(params) if isinstance(params, Replicas) else [params]
     if len(reps) != n_dp:
         raise ValueError(f"{len(reps)} parameter replicas, the mesh has "
                          f"{n_dp} dp members")
     n_seq = mesh.shape.get(seq, 1) if seq else 1
     for d, rep in enumerate(reps):
+        local = mesh.is_local(mesh.group(inner, dp=d)[0])
+        if not local:
+            if any(t is not None for t in placed_trees(rep)):
+                raise ValueError(f"replica {d} belongs to another process: "
+                                 f"pass None (place_params)")
+            continue
         trees = list(rep) if isinstance(rep, SpReplicas) else [rep]
         if len(trees) != n_seq:
             raise ValueError(f"replica {d} holds {len(trees)} sp trees, "
@@ -510,23 +554,29 @@ def placed_replicas(params, mesh, inner: str, n_dp: int,
 
 def card_closures(reps, tokens, n_dp: int, loss) -> list:
     """One loss closure per data member: its rows of the batch, moved to
-    its hub (its first tree's), through ``loss(params, tokens)``."""
+    its hub (its first tree's), through ``loss(params, tokens)``; ``None``
+    for a member of another process (every process passes the whole
+    batch)."""
     tokens = torch.as_tensor(tokens)
     B = tokens.shape[0]
     if B % n_dp:
         raise ValueError(f"batch {B} does not split over {n_dp} dp members")
     b = B // n_dp
-    return [(lambda p, t=tokens[d * b:(d + 1) * b].to(
-        placed_trees(rep)[0].places.devices[0]): loss(p, t))
-        for d, rep in enumerate(reps)]
+    return [None if placed_trees(rep)[0] is None else
+            (lambda p, t=tokens[d * b:(d + 1) * b].to(
+                placed_trees(rep)[0].places.devices[0]): loss(p, t))
+            for d, rep in enumerate(reps)]
 
 
-def sgd_cards(closures, reps, lr: float):
-    """Plain SGD over :func:`_mean_grads_cards`, every replica's tree in
-    place with the same arithmetic.  Returns the mean loss."""
-    g_means, mean_loss = _mean_grads_cards(closures, reps)
+def sgd_cards(closures, reps, lr: float, devices=None):
+    """Plain SGD over :func:`_mean_grads_cards`, every replica's tree of
+    this process in place with the same arithmetic.  Returns the mean
+    loss."""
+    g_means, mean_loss = _mean_grads_cards(closures, reps, devices)
     with torch.no_grad():
         for rep, g_mean in zip(placed_trees(reps), g_means):
+            if rep is None:
+                continue
             for p, g in zip(tree_leaves(rep), tree_leaves(g_mean)):
                 p.sub_(g * lr)
     return mean_loss
@@ -1021,7 +1071,8 @@ def _mean_grads(loss_closures: Sequence[Callable], params):
     return tree_map(lambda p: grads[id(p)], params), loss_tot / denom
 
 
-def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
+def _mean_grads_cards(loss_closures: Sequence[Callable], replicas,
+                      devices=None):
     """:func:`_mean_grads` over a mesh of several cards: closure d runs on
     data member d's replica (``replicas[d]``, on that member's cards) and
     is backpropagated there.  A member placed over sp members (an
@@ -1043,14 +1094,27 @@ def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
     where it differs (a counted move) and, in the first tree, back to the
     hub; the copies are made again from the updated leaf at their next
     use.
+
+    Over several processes (``replicas`` with ``None`` for the members
+    of other processes, their closures ``None``; ``devices``: every
+    tree's slot devices, :func:`tree_devices`) the fold is the same, in
+    the process of the first tree, each crossing between processes a
+    :func:`move` that both run; the mean loss is then sent to each other
+    process's first tree's hub (one crossing a process), so every process
+    returns it.
     Returns ``(g_means, mean_loss)``: one gradient tree per tree, in
-    (dp, sp) order, and the loss on the first tree's hub; the leaves are
-    left without gradients."""
+    (dp, sp) order (``None`` for another process's), and the loss on
+    this process's first tree's hub; the leaves are left without
+    gradients."""
     trees = placed_trees(replicas)
-    leaves = [tree_leaves(p) for p in trees]
-    ranks = tree_leaves(_rank_tree(trees[0]))
+    devs = (list(devices) if devices is not None
+            else [t.places.devices for t in trees])
+    mine = [t for t in trees if t is not None]
+    leaves = [None if p is None else tree_leaves(p) for p in trees]
+    ranks = tree_leaves(_rank_tree(mine[0]))
+    add = _both(torch.add)
     for ls in leaves:
-        for p in ls:
+        for p in ls or ():
             p.grad = None
             p.requires_grad_(True)
 
@@ -1066,44 +1130,70 @@ def _mean_grads_cards(loss_closures: Sequence[Callable], replicas):
         return g, at
 
     try:
-        losses, counts = [], []
+        got, first = [], 0
         for closure, params in zip(loss_closures, replicas):
+            src = devs[first][0]  # where another process's member sums
+            first += len(placed_trees(params))
+            if closure is None:  # another process's member
+                got.append((None, src))
+                continue
             loss_sum, count = closure(params)
             if isinstance(loss_sum, torch.Tensor):
                 loss_sum, count = [loss_sum], [count]
             torch.autograd.backward(list(loss_sum))
-            losses += [t.detach() for t in loss_sum]
-            counts += [t.detach() for t in count]
-        hub = trees[0].places.devices
+            got.append(((loss_sum, count), src))
+        # every member returns as many (sum, count) pairs as this one's
+        k = len(next(m for m, _src in got if m is not None)[0])
+        losses, counts, srcs = [], [], []
+        for m, src in got:
+            loss_sum, count = m if m is not None else ([None] * k,) * 2
+            losses += [t if t is None else t.detach() for t in loss_sum]
+            counts += [t if t is None else t.detach() for t in count]
+            srcs += [src] * k
+        hub = devs[0]
         total, loss_tot = counts[0], losses[0]
-        for c, l in zip(counts[1:], losses[1:]):
-            total = total + move(c, hub[0])
-            loss_tot = loss_tot + move(l, hub[0])
-        denom = torch.clamp_min(total, 1.0)
-        denoms = [denom] + [move(denom, d) for d in hub[1:]]
+        for c, loss, src in zip(counts[1:], losses[1:], srcs[1:]):
+            total = add(total, _move(c, hub[0], src))
+            loss_tot = add(loss_tot, _move(loss, hub[0], src))
+        denom = None if total is None else torch.clamp_min(total, 1.0)
+        denoms = [denom] + [_move(denom, d, hub[0]) for d in hub[1:]]
         means = [[] for _ in trees]
         for i, r in enumerate(ranks):
-            gs = [grad(t, ls[i]) for t, ls in zip(trees, leaves)]
-            dev = leaves[0][i].device
+            gs = [(None, 0) if t is None else grad(t, ls[i])
+                  for t, ls in zip(trees, leaves)]
+            dev = devs[0][r]
             acc, at = gs[0]
             if at != 0:  # the first tree's fold back to its hub
                 acc = move(acc, dev)
-            for g, _at in gs[1:]:
-                acc = acc + move(g, dev)
-            acc = acc / denoms[r]
+            for j, (g, _at) in enumerate(gs[1:], 1):
+                acc = add(acc, _move(g, dev, devs[j][r]))
+            acc = None if acc is None else acc / denoms[r]
             means[0].append(acc)
             for j in range(1, len(trees)):
-                means[j].append(move(acc, leaves[j][i].device))
+                means[j].append(_move(acc, devs[j][r], dev))
     finally:
         for ls, t in zip(leaves, trees):
+            if t is None:
+                continue
             for p in ls + t.places.owned():
                 p.grad = None
                 p.requires_grad_(False)
+    mean_loss = None if loss_tot is None else loss_tot / denom
+    seen = {ipc.process_of(hub[0])}
+    for j in range(1, len(trees)):
+        q = ipc.process_of(devs[j][0])
+        if q not in seen:  # another process's first tree: send it the loss
+            seen.add(q)
+            sent = _move(mean_loss, devs[j][0], hub[0])
+            mean_loss = mean_loss if sent is None else sent
     out = []
     for params, ms in zip(trees, means):
+        if params is None:
+            out.append(None)
+            continue
         it = iter(ms)
         out.append(tree_map(lambda _leaf, it=it: next(it), params))
-    return out, loss_tot / denom
+    return out, mean_loss
 
 
 def sum_count_device_step(loss_closures: Sequence[Callable], params,
@@ -1204,6 +1294,8 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
     n_sp = shape[sp] if sp else 1
     specs = param_specs(cfg)
     cards = mesh.devices is not None
+    check_process_axes(mesh, (tp, sp))
+    tree_devs = tree_devices(mesh, "tp", sp) if cards else None
 
     def closures(params, tokens):
         if tp_size(params) != n_tp:
@@ -1232,7 +1324,8 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
             if cards:
                 reps = placed_replicas(params, mesh, "tp", n_dp, seq=sp)
                 return params, sgd_cards(card_closures(reps, tokens, n_dp,
-                                                       loss), reps, lr)
+                                                       loss), reps, lr,
+                                         tree_devs)
             return sum_count_device_step(closures(params, tokens), params,
                                          lr)
 
@@ -1242,17 +1335,21 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
         raise ValueError("optimizer path needs `params` (a host or "
                          "sharded pytree) to derive optimizer-state "
                          "PartitionSpecs")
-    state_specs = opt_state_specs(optimizer, placed_trees(params)[0],
-                                  specs)
+    state_specs = opt_state_specs(
+        optimizer, next(t for t in placed_trees(params) if t is not None),
+        specs)
 
     def opt_step_fn(params, opt_state, tokens):
         if cards:
             reps = placed_replicas(params, mesh, "tp", n_dp, seq=sp)
             g_means, mean_loss = _mean_grads_cards(
-                card_closures(reps, tokens, n_dp, loss), reps)
+                card_closures(reps, tokens, n_dp, loss), reps, tree_devs)
             new = []
             for tree, g_mean, state in zip(placed_trees(params), g_means,
                                            placed_trees(opt_state)):
+                if tree is None:  # another process's member
+                    new.append(None)
+                    continue
                 updates, state = optimizer.update(g_mean, state, tree)
                 apply_updates(tree, updates)
                 new.append(state)
@@ -1263,7 +1360,7 @@ def make_train_step(mesh, cfg: ModelConfig, lr: float = 1e-3,
         return params, opt_state, mean_loss
 
     def init_opt(params):
-        return nest_as(params, [optimizer.init(t)
+        return nest_as(params, [None if t is None else optimizer.init(t)
                                 for t in placed_trees(params)])
 
     return opt_step_fn, (specs, state_specs, (dp, sp)), init_opt

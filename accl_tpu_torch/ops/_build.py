@@ -42,6 +42,13 @@ SIGNATURES = {
         "accl_ring_launch_cross": ([_i32, _i32, _vp, _vp, _i32, _vp, _i32,
                                     _i32, _vp, _vp, _vp, _vp, _i32, _vp,
                                     _i32, _vp], _i32),
+        "accl_ipc_handle_bytes": ([], _i32),
+        "accl_ipc_malloc": ([_ll, _i32, _vp], _i32),
+        "accl_ipc_free": ([_vp, _i32], _i32),
+        "accl_ipc_export": ([_vp, _i32, _vp], _i32),
+        "accl_ipc_open": ([_vp, _i32, _vp], _i32),
+        "accl_ipc_close": ([_vp, _i32], _i32),
+        "accl_ipc_copy": ([_vp, _vp, _ll, _i32, _vp], _i32),
     },
     "fused": {
         "accl_fused_error_string": ([_i32], ctypes.c_char_p),

@@ -906,4 +906,78 @@ int accl_ring_launch_cross(int kind, int dtype, const void* const* xs, void* con
   return (int)cudaGetLastError();
 }
 
+// -- buffers shared with other processes (CUDA IPC) ---------------------------
+// The cross-process form of the cross-card mode (ops/ring.py) keeps each
+// rank's slots and flags in an allocation of its own, made here with
+// cudaMalloc, so that an IPC handle names the buffer's own base: a
+// tensor of PyTorch's caching allocator is a sub-block of a cached
+// segment (its handle would name the segment, and an offset would have
+// to travel with it), and memory of expandable segments cannot be
+// exported this way at all.  Another process opens the handle
+// (accl_ipc_open) and its kernels store into the buffer as a neighbour
+// card's do over NVLink.  The same entries serve the staging buffers of
+// utils/ipc.py, which carry a tensor from one process to another.
+
+// Bytes of one cudaIpcMemHandle_t.
+int accl_ipc_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+// nbytes of device memory on device, zeroed, in *ptr.
+int accl_ipc_malloc(long long nbytes, int device, void** ptr) {
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  void* p = nullptr;
+  cudaError_t e = cudaMalloc(&p, (size_t)nbytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemset(p, 0, (size_t)nbytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e != cudaSuccess) {
+    cudaFree(p);
+    return (int)e;
+  }
+  *ptr = p;
+  return 0;
+}
+
+// Frees what accl_ipc_malloc made (after every process that opened it
+// has closed it).
+int accl_ipc_free(void* ptr, int device) {
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  return (int)cudaFree(ptr);
+}
+
+// The IPC handle of ptr (the base of an accl_ipc_malloc buffer), written
+// into handle (accl_ipc_handle_bytes bytes).
+int accl_ipc_export(void* ptr, int device, void* handle) {
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  return (int)cudaIpcGetMemHandle((cudaIpcMemHandle_t*)handle, ptr);
+}
+
+// Opens another process's handle on device, its address in *ptr; peer
+// access to the exporting card is enabled as the mapping needs it.
+int accl_ipc_open(const void* handle, int device, void** ptr) {
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+// Unmaps what accl_ipc_open mapped.
+int accl_ipc_close(void* ptr, int device) {
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+// nbytes from src to dst (device memory of this process, or opened from
+// another's) on stream, ordered as any work on it.
+int accl_ipc_copy(void* dst, const void* src, long long nbytes, int device, void* stream) {
+  const CurrentDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  return (int)cudaMemcpyAsync(dst, src, (size_t)nbytes, cudaMemcpyDeviceToDevice,
+                              (cudaStream_t)stream);
+}
+
 }  // extern "C"

@@ -76,17 +76,54 @@ order (which the kernel's pointer-and-stride geometry cannot express
 without a rotated copy of the input) and V distinct results where the
 reference has one.  The stamp rows are the reference's: V - 1 per call,
 rank and both peers 0.
+
+Ranks in several processes (the cross-process form of the cross-card
+mode, after ``utils.bringup.initialize_multihost``): ``ring_reduce_scatter``,
+``ring_all_gather`` and ``ring_all_reduce`` (and their plain versions)
+take ``devices=``, each rank's device in ring order, a
+``ProcessDevice`` for a rank of another process, and operand lists with
+``None`` for those ranks; they return this process's ranks' results
+(``None`` elsewhere).  Every process must make the same calls in the
+same order.  On the card each process launches ``ring_kernel_cross``
+once a card for its own ranks (counted in ``launches_cross`` and
+``launches_procs`` of this process), over tables whose every rank's
+slots and flags are an allocation of their owner's ``cudaMalloc``,
+exported by a CUDA IPC handle and opened by the other processes
+(``utils/ipc.py``; the kernel reads only its own ranks' operand and
+result pointers, so the others' are null).  The launch agrees across
+the processes through the transport's board: each process synchronizes
+its cards' current streams, posts the launch (its number, a signature of
+the call and whether its pointers are 16-byte aligned) and waits until
+every process has; the plan (stripes, tile width, vector access) is then
+derived from what every process knows, the layout and the agreed
+alignment and resident blocks.  After enqueueing, each process posts that
+and waits until every process has, and only then opens its own gate, so
+a process whose launch failed (it gives up, process-wide) makes every
+other process's blocks end at once and its host raise ``ACCLError``
+naming it.  The stream synchronization before the barrier stands in for
+the joins of the one-process mode (``accl_ring_join``): no process's
+blocks start while another process's stream still holds earlier work,
+and no interprocess event is needed; the entry handshake guards the
+order of launches on the tables as it does across cards.  A table's
+slots that a larger call outgrows are kept until the transport closes
+(a peer may have them mapped).  On the CPU the plain versions make the
+same hops, each hop between two processes a message of the transport
+(a shared file under ``/dev/shm``).  Not across processes: CUDA graph
+capture, and the device-trace rows (both raise).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
+import json
 import os
 import threading
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..constants import ACCLError
 from ..observability.trace import DEVICE_TRACE_FIELDS, record_device_steps
 from . import _build
 
@@ -220,45 +257,122 @@ def _at(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def ring_reduce_scatter_plain(xs: Sequence[torch.Tensor], op: str = "sum",
                               out: Optional[Sequence[torch.Tensor]] = None,
-                              ring_size: Optional[int] = None):
+                              ring_size: Optional[int] = None, devices=None):
     """Per rank [V, n] -> that rank's reduced [n], hop by hop over a ring
     of V = P ranks (or the self-ring of ``ring_size`` on one rank): acc
     starts as chunk (my - 1); at step s the accumulator arrives from the
-    left and acc = x[(my - 2 - s) % V] + arrival."""
+    left and acc = x[(my - 2 - s) % V] + arrival.  With ``devices`` naming
+    ranks of other processes (``None`` in ``xs``), each hop between two
+    processes goes through the transport."""
     fold = _fold(op)
     P = len(xs)
     V = _ring_len(P, ring_size)
-    acc = [xs[r][(r - 1) % V].clone() for r in range(P)]
+    layout = _process_layout(xs, devices, "ring_reduce_scatter")
+    hops = _hops(layout, xs, "ring_reduce_scatter")
+    acc = [x if x is None else x[(r - 1) % V].clone()
+           for r, x in enumerate(xs)]
     for step in range(V - 1):
-        landing = [_at(acc[(r - 1) % P], xs[r]) for r in range(P)]
-        acc = [fold(xs[r][(r - 2 - step) % V], landing[r]) for r in range(P)]
+        landing = hops(acc)
+        acc = [x if x is None else fold(x[(r - 2 - step) % V], landing[r])
+               for r, x in enumerate(xs)]
     if out is None:
         return acc
     for o, a in zip(out, acc):
-        o.copy_(a)
+        if o is not None:
+            o.copy_(a)
     return list(out)
 
 
 def ring_all_gather_plain(xs: Sequence[torch.Tensor],
                           out: Optional[Sequence[torch.Tensor]] = None,
-                          ring_size: Optional[int] = None):
+                          ring_size: Optional[int] = None, devices=None):
     """Per rank [n] -> [V, n], hop by hop over a ring of V = P ranks (or
     the self-ring of ``ring_size`` on one rank): the local block goes to
     out[my]; at step s the newest chunk arrives from the left and is
-    placed at out[(my - s - 1) % V]."""
+    placed at out[(my - s - 1) % V].  ``devices``: as for
+    :func:`ring_reduce_scatter_plain`."""
     P = len(xs)
     V = _ring_len(P, ring_size)
+    layout = _process_layout(xs, devices, "ring_all_gather")
+    hops = _hops(layout, xs, "ring_all_gather")
     if out is None:
-        out = [x.new_empty((V,) + tuple(x.shape)) for x in xs]
+        out = [x if x is None else x.new_empty((V,) + tuple(x.shape))
+               for x in xs]
     comm = []
     for r in range(P):
-        out[r][r].copy_(xs[r])
-        comm.append(xs[r].clone())
+        if xs[r] is not None:
+            out[r][r].copy_(xs[r])
+        comm.append(xs[r] if xs[r] is None else xs[r].clone())
     for step in range(V - 1):
-        comm = [_at(comm[(r - 1) % P], xs[r]) for r in range(P)]
+        comm = hops(comm)
         for r in range(P):
-            out[r][(r - step - 1) % V].copy_(comm[r])
+            if xs[r] is not None:
+                out[r][(r - step - 1) % V].copy_(comm[r])
     return list(out)
+
+
+# ---------------------------------------------------------------------------
+# ranks in several processes: the layout, the plain hops over the transport
+# ---------------------------------------------------------------------------
+def _process_layout(xs, devices, what: str) -> Optional[tuple]:
+    """((process, device), ...) per rank when ``devices`` names a rank of
+    another process (its operand ``None``), else None.  Every rank of this
+    process must have its tensor, on its device."""
+    from ..utils import ipc
+
+    if devices is None:
+        if any(x is None for x in xs):
+            raise ValueError(f"{what}: a None operand needs devices= naming "
+                             f"its rank's process")
+        return None
+    if len(devices) != len(xs):
+        raise ValueError(f"{what}: {len(xs)} ranks, {len(devices)} devices")
+    if not any(ipc.is_remote(d) for d in devices):
+        return None
+    layout = []
+    for r, (x, d) in enumerate(zip(xs, devices)):
+        remote = ipc.is_remote(d)
+        if remote != (x is None):
+            raise ValueError(f"{what}: rank {r} on {d} needs "
+                             f"{'None' if remote else 'its tensor'}")
+        if not remote and x.device != ipc.local(d):
+            raise ValueError(f"{what}: rank {r}'s tensor is on {x.device}, "
+                             f"its device {d}")
+        layout.append((ipc.process_of(d), ipc.local(d)))
+    return tuple(layout)
+
+
+def _hops(layout: Optional[tuple], xs, what: str):
+    """``hops(vals)``: each rank's left neighbour's value on the rank's
+    device, one step of the plain versions.  Across processes (``layout``)
+    the values leaving this process are sent first, in rank order, then
+    those arriving are received, in rank order, so the k-th message from
+    one process to another is the same rank's in both."""
+    P = len(xs)
+    if layout is None:
+        return lambda vals: [_at(vals[(r - 1) % P], xs[r]) for r in range(P)]
+    from ..utils import bringup, ipc
+
+    me = bringup.process_index()
+
+    def hops(vals):
+        tr = ipc.transport()
+        for r in range(P):
+            lp, rp = layout[(r - 1) % P][0], layout[r][0]
+            if lp == me and rp != me:
+                tr.send(vals[(r - 1) % P], rp, what)
+        out = []
+        for r in range(P):
+            lp, rp = layout[(r - 1) % P][0], layout[r][0]
+            if rp != me:
+                out.append(None)
+            elif lp == me:
+                out.append(_at(vals[(r - 1) % P], xs[r]))
+            else:
+                out.append(tr.recv(lp, layout[r][1], what))
+        return out
+
+    return hops
 
 
 # ---------------------------------------------------------------------------
@@ -780,6 +894,194 @@ def _launch_cross(kind: str, xs, outs, parts, op: str, land: bool,
             _record_rows(kind, rows)
 
 
+class _ProcTables:
+    """The tables of one layout across processes on this process's
+    streams: each rank's slots and flags as pointers (this process's
+    ranks' from its own ``cudaMalloc``, the others' opened from their IPC
+    handles), this process's gate of its eager launches and the number of
+    the last one, ``tid`` the number of this layout's table sets (the same
+    in every process: they make them in one order), the slots' bytes, and
+    the other processes' slots this process opened (``opened``: (handle,
+    card) pairs, unmapped when the slots grow)."""
+
+    __slots__ = ("slots", "flags", "gate", "seq", "tid", "gen",
+                 "slot_bytes", "opened")
+
+    def __init__(self, gate: int, tid: int, P: int):
+        self.slots, self.flags = [0] * P, [0] * P
+        self.gate, self.seq, self.tid, self.gen = gate, 0, tid, 0
+        self.slot_bytes = 0
+        self.opened: list = []
+
+
+#: (layout, ((card, stream), ...)) -> _ProcTables
+_proc_tables: dict = {}
+#: layout -> table sets made for it
+_proc_table_ids: dict = {}
+#: (layout, kind, dtype code) -> the fewest co-resident blocks of any
+#: process's cards
+_proc_resident: dict = {}
+#: the bytes of a rank's flags (HS_WORDS + 4 MAX_STRIPES int32)
+FLAG_BYTES = 4 * (HS_WORDS + 4 * MAX_STRIPES)
+
+
+def _proc_tables_for(tr, layout: tuple, streams: dict,
+                     slot_bytes: int) -> _ProcTables:
+    """The tables of ``layout`` across processes on this process's
+    ``streams``, each rank's slots at least ``slot_bytes`` (made and
+    exchanged with every process: the plan agrees, so every process
+    decides alike).  Called after the launch barrier, when no launch on
+    them is in flight in any process; slots outgrown stay allocated until
+    the transport closes."""
+    me = tr.process
+    key = _tables_key(layout, streams)
+    tabs = _proc_tables.get(key)
+    card = min(streams)
+    if tabs is None:
+        lib = _build.load("ring")
+        gate = ctypes.c_void_p()
+        _raise_on(lib, lib.accl_ring_gate_new(ctypes.byref(gate)),
+                  "accl_ring_gate_new")
+        tid = _proc_table_ids.get(layout, 0)
+        _proc_table_ids[layout] = tid + 1
+        tabs = _proc_tables[key] = _ProcTables(gate.value, tid, len(layout))
+        mine = {r: (tr.malloc(FLAG_BYTES, dev.index), dev.index)
+                for r, (p, dev) in enumerate(layout) if p == me}
+        tabs.flags, _opened = _shared_ptrs(tr, len(layout),
+                                           f"ring/{tid}/flags", mine, card)
+    if tabs.slot_bytes < slot_bytes:
+        for handle, dev in tabs.opened:
+            tr.unmap(handle, dev)
+        mine = {r: (tr.malloc(slot_bytes, dev.index), dev.index)
+                for r, (p, dev) in enumerate(layout) if p == me}
+        tabs.slots, tabs.opened = _shared_ptrs(
+            tr, len(layout), f"ring/{tabs.tid}/slots/{tabs.gen}", mine, card)
+        tabs.gen += 1
+        tabs.slot_bytes = slot_bytes
+    return tabs
+
+
+def _shared_ptrs(tr, P: int, key: str, mine: dict, card: int) -> tuple:
+    """Every rank's pointer of one kind of buffer, and the (handle, card)
+    pairs opened: this process's ranks' (``mine``: rank -> (pointer,
+    card)) and every other process's, whose IPC handles are exchanged
+    under ``key`` and opened on ``card``."""
+    got = tr.exchange(key, json.dumps({
+        str(r): tr.export(ptr, c).hex() for r, (ptr, c) in mine.items()
+    }).encode())
+    ptrs, opened = [0] * P, []
+    for r, (ptr, _c) in mine.items():
+        ptrs[r] = ptr
+    for v in got:
+        for r, h in json.loads(v).items():
+            if int(r) not in mine:
+                handle = bytes.fromhex(h)
+                ptrs[int(r)] = tr.open(handle, card)
+                opened.append((handle, card))
+    return ptrs, opened
+
+
+def _plan_procs(tr, parts, layout: tuple, elem: int, k: int, code: int,
+                aligned: bool):
+    """(stripes, geometry words, slot bytes) of a cross-process launch,
+    from what every process knows: the stripes as many as fit beside the
+    most ranks any process holds on one card, on the card with the fewest
+    co-resident blocks of any process (exchanged once a layout and
+    kernel), and the agreed alignment."""
+    rkey = (layout, k, code)
+    if rkey not in _proc_resident:
+        mine = min(_resident(k, code, dev.index, 2)
+                   for p, dev in layout if p == tr.process)
+        got = tr.exchange(f"resident/{_digest(rkey)}", str(mine).encode())
+        _proc_resident[rkey] = min(int(v) for v in got)
+    per: dict = {}
+    for p, dev in layout:
+        per[(p, str(dev))] = per.get((p, str(dev)), 0) + 1
+    tw, ntiles, S = tiling(parts, max(per.values()), elem,
+                           _proc_resident[rkey])
+    S = min(S, MAX_STRIPES)
+    return S, _geometry(parts, tw, ntiles, aligned, 16 // elem), \
+        S * 2 * tw * elem
+
+
+def _digest(obj) -> str:
+    return hashlib.sha256(repr(obj).encode()).hexdigest()[:16]
+
+
+def _launch_procs(kind: str, xs, outs, parts, op: str,
+                  layout: tuple) -> None:
+    """The cross-process form of :func:`_launch_cross` (module
+    docstring): this process's launches, one a card of its ranks, after
+    the transport's barrier, its gate opened once every process has
+    enqueued.  Counts one launch a card of this process."""
+    from ..utils import ipc
+
+    tr = ipc.transport()
+    me = tr.process
+    wrapper = ring_all_gather if kind == "ag" else ring_reduce_scatter
+    what = wrapper.__name__
+    P = len(layout)
+    mine = [r for r in range(P) if layout[r][0] == me]
+    elem, code = xs[mine[0]].element_size(), KERNEL_DTYPES[xs[mine[0]].dtype]
+    k = 2 if kind == "ag" else int(op == "max")
+    groups: dict = {}
+    for r in mine:
+        groups.setdefault(layout[r][1].index, []).append(r)
+    streams = {c: torch.cuda.current_stream(c) for c in groups}
+    if device_trace_enabled():
+        raise ACCLError(f"{what}: ACCL_DEVICE_TRACE's stamp rows are not "
+                        f"landed across processes (unset it)")
+    if _capturing_cards(streams):
+        raise ACCLError(f"{what}: a launch across processes cannot be "
+                        f"captured in a CUDA graph yet (ROADMAP item 13e): "
+                        f"each process's gate is opened by its host after "
+                        f"every process enqueued")
+    enable_peers(list(groups))
+    xp = [0] * P
+    op_ = [0] * P
+    for r in mine:
+        xp[r], op_[r] = xs[r].data_ptr(), outs[r].data_ptr()
+    aligned = all(a % 16 == 0 for a in xp + op_ if a)
+    sig = int(_digest((kind, k, code, tuple(parts), tuple(
+        (p, str(d)) for p, d in layout))), 16) >> 1
+    for st in streams.values():
+        st.synchronize()
+    lib = _build.load("ring")
+    with _tables_lock:
+        tr.launches = seq = getattr(tr, "launches", 0) + 1
+        aligned = tr.arrive(seq, sig, aligned, what)
+        S, geo, slot_bytes = _plan_procs(tr, parts, layout, elem, k, code,
+                                         aligned)
+        tabs = _proc_tables_for(tr, layout, streams, slot_bytes)
+        slots = (ctypes.c_void_p * P)(*tabs.slots)
+        flags = (ctypes.c_void_p * P)(*tabs.flags)
+        key_xs = (ctypes.c_void_p * P)(*xp)
+        key_outs = (ctypes.c_void_p * P)(*op_)
+        gseq = (tabs.seq + 1) & 0xFFFFFFFF
+        for c, ranks in groups.items():
+            rc = lib.accl_ring_launch_cross(
+                k, code, key_xs, key_outs, P,
+                (ctypes.c_int * len(ranks))(*ranks), len(ranks), S, geo,
+                slots, flags, tabs.gate, _c_int(gseq), None, c,
+                streams[c].cuda_stream)
+            if rc != 0:
+                _gate_word(tabs, 1, 1)
+                _proc_tables.pop(_tables_key(layout, streams), None)
+                tr.give_up()
+                _raise_on(lib, rc, what)
+        try:
+            tr.enqueued(seq, what)
+        except ACCLError:
+            _gate_word(tabs, 1, 1)
+            _proc_tables.pop(_tables_key(layout, streams), None)
+            raise
+        tabs.seq = gseq
+        _gate_word(tabs, 0, gseq)
+    wrapper.launches += len(groups)
+    wrapper.launches_cross += len(groups)
+    wrapper.launches_procs += len(groups)
+
+
 def _launch(kind: str, xs, outs, parts, layout: Optional[tuple],
             op: str = "sum", land: bool = True,
             V: Optional[int] = None) -> None:
@@ -849,13 +1151,89 @@ def _launch_one(kind: str, xs, outs, parts, op: str = "sum",
                                            DEVICE_TRACE_COLS).cpu())
 
 
+def _local_check(xs, out, layout, what: str) -> list:
+    """:func:`_check` over this process's ranks of a cross-process call;
+    returns their indices."""
+    mine = [r for r, x in enumerate(xs) if x is not None]
+    if out is not None and any((out[r] is None) != (xs[r] is None)
+                               for r in range(len(xs))):
+        raise ValueError(f"{what}: results None exactly where operands are")
+    _check([xs[r] for r in mine], None if out is None else
+           [out[r] for r in mine], what)
+    return mine
+
+
+def _reduce_scatter_procs(xs, op, out, layout, devices):
+    """:func:`ring_reduce_scatter` across processes."""
+    what = "ring_reduce_scatter"
+    mine = _local_check(xs, out, layout, what)
+    _fold(op)
+    P = len(xs)
+    x0 = xs[mine[0]]
+    if x0.dim() != 2 or x0.shape[0] != P:
+        raise ValueError(f"{what}: operands must be [P={P}, n], got "
+                         f"{tuple(x0.shape)}")
+    n, row = x0.shape[1], x0.stride(0)
+    for r in mine:
+        if xs[r].shape != x0.shape or xs[r].stride() != (row, 1):
+            raise ValueError(f"{what}: operands need one shape and strides "
+                             f"(row, 1)")
+        if out is not None and (out[r].shape != (n,)
+                                or not out[r].is_contiguous()):
+            raise ValueError(f"{what}: outputs must be contiguous [{n}]")
+    if x0.device.type == "cpu":
+        return ring_reduce_scatter_plain(xs, op, out, devices=devices)
+    if out is None:
+        out = [None if x is None else torch.empty(n, dtype=x.dtype,
+                                                  device=x.device)
+               for x in xs]
+    if n:
+        _launch_procs("rs", xs, out, [Part(1, n, 0, 0, row, 0, 0, 0)], op,
+                      layout)
+    return list(out)
+
+
+def _all_gather_procs(xs, out, layout, devices):
+    """:func:`ring_all_gather` across processes."""
+    what = "ring_all_gather"
+    mine = _local_check(xs, out, layout, what)
+    P = len(xs)
+    x0 = xs[mine[0]]
+    n = x0.shape[0]
+    row = n if out is None else out[mine[0]].stride(0)
+    for r in mine:
+        if tuple(xs[r].shape) != (n,) or not xs[r].is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous [{n}]")
+        if out is not None and (tuple(out[r].shape) != (P, n)
+                                or out[r].stride() != (row, 1)):
+            raise ValueError(f"{what}: outputs must be [{P}, {n}] with "
+                             f"strides (row, 1)")
+    if x0.device.type == "cpu":
+        return ring_all_gather_plain(xs, out, devices=devices)
+    if out is None:
+        out = [None if x is None else torch.empty((P, n), dtype=x.dtype,
+                                                  device=x.device)
+               for x in xs]
+    if n:
+        _launch_procs("ag", xs, out, [Part(1, n, 0, 0, 0, 0, 0, row)], "sum",
+                      layout)
+    return list(out)
+
+
 def ring_reduce_scatter(xs: Sequence[torch.Tensor], op: str = "sum",
                         out: Optional[Sequence[torch.Tensor]] = None,
-                        ring_size: Optional[int] = None):
+                        ring_size: Optional[int] = None, devices=None):
     """Ring reduce-scatter: rank r's [P, n] operand (rows may be strided,
     columns contiguous) -> rank r's reduced chunk r, [n].  SUM or MAX.
     With ``ring_size=V`` on one rank (the self-ring mode): [V, n] -> [n],
-    x[0] + (x[1] + (... + x[V - 1]))."""
+    x[0] + (x[1] + (... + x[V - 1])).  ``devices``: each rank's device,
+    naming the ranks of other processes (module docstring)."""
+    procs = _process_layout(xs, devices, "ring_reduce_scatter")
+    if procs is not None:
+        if ring_size not in (None, len(xs)):
+            raise ValueError("ring_reduce_scatter: no self-ring across "
+                             "processes")
+        return _reduce_scatter_procs(xs, op, out, procs, devices)
     layout = _check(xs, out, "ring_reduce_scatter")
     _fold(op)
     P = len(xs)
@@ -897,15 +1275,25 @@ ring_reduce_scatter.launches_stamp = 0
 ring_reduce_scatter.launches_self = 0
 #: the launches in the cross-card mode (one per card), within ``launches``
 ring_reduce_scatter.launches_cross = 0
+#: the launches across processes (one per card of this process), within
+#: ``launches_cross``
+ring_reduce_scatter.launches_procs = 0
 
 
 def ring_all_gather(xs: Sequence[torch.Tensor],
                     out: Optional[Sequence[torch.Tensor]] = None,
-                    ring_size: Optional[int] = None):
+                    ring_size: Optional[int] = None, devices=None):
     """Ring all-gather: rank r's contiguous [n] -> [P, n] on every rank
     (output rows may be strided, columns contiguous).  With
     ``ring_size=V`` on one rank (the self-ring mode): [n] -> [V, n], the
-    operand in every row."""
+    operand in every row.  ``devices``: as for
+    :func:`ring_reduce_scatter`."""
+    procs = _process_layout(xs, devices, "ring_all_gather")
+    if procs is not None:
+        if ring_size not in (None, len(xs)):
+            raise ValueError("ring_all_gather: no self-ring across "
+                             "processes")
+        return _all_gather_procs(xs, out, procs, devices)
     layout = _check(xs, out, "ring_all_gather")
     P = len(xs)
     V = _ring_len(P, ring_size)
@@ -940,35 +1328,42 @@ ring_all_gather.launches = 0
 ring_all_gather.launches_stamp = 0
 ring_all_gather.launches_self = 0
 ring_all_gather.launches_cross = 0
+ring_all_gather.launches_procs = 0
 
 
-def _phases(plain: bool, ring_size: Optional[int] = None):
+def _phases(plain: bool, ring_size: Optional[int] = None, devices=None):
     """(reduce-scatter, all-gather): the kernel wrappers, or with
     ``plain=True`` the plain versions on any device (how chip_smoke.py
     composes the reference result on the card); each called with
-    ``ring_size``."""
+    ``ring_size`` and ``devices``."""
     rs, ag = ((ring_reduce_scatter_plain, ring_all_gather_plain) if plain
               else (ring_reduce_scatter, ring_all_gather))
-    return (functools.partial(rs, ring_size=ring_size),
-            functools.partial(ag, ring_size=ring_size))
+    return (functools.partial(rs, ring_size=ring_size, devices=devices),
+            functools.partial(ag, ring_size=ring_size, devices=devices))
 
 
 def ring_all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
                     out: Optional[Sequence[torch.Tensor]] = None,
-                    plain: bool = False, ring_size: Optional[int] = None):
+                    plain: bool = False, ring_size: Optional[int] = None,
+                    devices=None):
     """Ring allreduce = ring reduce-scatter then ring all-gather.
     Per rank [P * n] -> the same shape, reduced.  With ``ring_size=V`` on
     one rank (the self-ring mode): [V * n] -> the V chunks' fold, tiled V
-    times."""
+    times.  ``devices``: as for :func:`ring_reduce_scatter` (``None`` for
+    the operands and results of other processes' ranks)."""
     P = len(xs)
     V = _ring_len(P, ring_size)
     if V == 1:
         return [xs[0].clone()] if out is None else [out[0].copy_(xs[0])]
-    rs, ag = _phases(plain, ring_size)
-    n = xs[0].shape[0] // V
-    mine = rs([x.view(V, n) for x in xs], op)
-    gathered = ag(mine, None if out is None else [o.view(V, n) for o in out])
-    return [g.reshape(-1) for g in gathered]
+    rs, ag = _phases(plain, ring_size, devices)
+    n = next(x for x in xs if x is not None).shape[0] // V
+
+    def view(ts):
+        return [t if t is None else t.view(V, n) for t in ts]
+
+    mine = rs(view(xs), op)
+    gathered = ag(mine, None if out is None else view(out))
+    return [g if g is None else g.reshape(-1) for g in gathered]
 
 
 # ---------------------------------------------------------------------------

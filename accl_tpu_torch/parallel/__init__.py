@@ -16,6 +16,7 @@ from .collectives import (  # noqa: F401
     move,
     moves,
     ppermute,
+    process_moves,
     reduce,
     reduce_scatter,
     reset_moves,

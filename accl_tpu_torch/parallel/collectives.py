@@ -30,6 +30,32 @@ every card holds in the models' layers over cards (:func:`fan_in` where
 one card sums): each card's copy carries a gradient, and the backwards
 fold in a fixed order, so each card's gradient is bitwise the one-card
 model's.
+
+Members in several processes (a mesh over processes, after
+``utils.bringup.initialize_multihost``): every function takes one entry
+per member as before, ``None`` for a member another process holds (the
+counterpart of a global ``jax.Array``'s addressable shards), with
+``devices=`` naming every member's device (the mesh's ``devices``: a
+``ProcessDevice`` for another process's member), and returns its own
+members' results (``None`` for the others').  Every process must make
+the same calls in the same order over the same lists, as with any
+collective library (a mismatch raises ``ACCLError`` at its first
+crossing).  Each crossing between two processes is a :func:`move` that
+both run: the sender sees a local source and a remote destination, the
+receiver the reverse (``utils/ipc.py``: a shared file on the CPU, a CUDA
+IPC staging buffer on the card).  It is counted in :func:`moves` by each
+of the two processes, and also in :func:`process_moves`; a crossing
+between two members of another process is nobody's here.  The folds and
+their order are the one-process forms', so the results are bitwise the
+one-process mesh's.  Across processes, with k members outside member
+0's process (``root``'s for a broadcast and a scatter): an all-reduce
+makes 2 k crossings between processes (its fold on member 0's card, its
+result sent back); a broadcast and a scatter k; an all-gather, a
+reduce-scatter and an all-to-all one for each pair of members in two
+processes, both ways.  The ``ring_*`` schedules cross in the kernels
+(the cross-process form of ``ops/ring.py``) on the card, and as
+messages of the transport in their plain versions on the CPU, none of
+them a :func:`move`.
 """
 from __future__ import annotations
 
@@ -38,29 +64,41 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..constants import ACCLError
 from ..ops import ring as ring_ops
+from ..utils import ipc
 
 _moves_lock = threading.Lock()
 _moves = 0
+_process_moves = 0
 
 
 def moves() -> int:
     """Crossings from one member to another since the last
-    :func:`reset_moves` (forward and backward)."""
+    :func:`reset_moves` (forward and backward) that this process took
+    part in."""
     return _moves
 
 
+def process_moves() -> int:
+    """Of :func:`moves`, the crossings between this process and another
+    one."""
+    return _process_moves
+
+
 def reset_moves() -> None:
-    """Set the count of :func:`moves` to 0."""
-    global _moves
+    """Set the counts of :func:`moves` and :func:`process_moves` to 0."""
+    global _moves, _process_moves
     with _moves_lock:
-        _moves = 0
+        _moves = _process_moves = 0
 
 
-def _count(n: int = 1) -> None:
-    global _moves
+def _count(n: int = 1, across: bool = False) -> None:
+    global _moves, _process_moves
     with _moves_lock:
         _moves += n
+        if across:
+            _process_moves += n
 
 
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -89,14 +127,52 @@ class _Move(torch.autograd.Function):
         return _cross(g, ctx.src, g.device, ctx.src), None
 
 
-def move(t: torch.Tensor, device) -> torch.Tensor:
+def move(t: Optional[torch.Tensor], device, src=None):
     """The one point where a tensor goes from one member to another: a
     copy onto ``device`` when ``t`` lies elsewhere (a peer copy, which
     PyTorch orders after both cards' current streams), ``t`` itself when
     it lies there already.  Counted in :func:`moves` either way, so a
     test on the CPU can count what each function moves.  Differentiable:
-    the gradient crosses back, counted."""
-    return _Move.apply(t, torch.device(device))
+    the gradient crosses back, counted.
+
+    Across processes ``device``, or the source (``t``'s device, or
+    ``src`` where ``t`` is ``None``, another process's member), is a
+    ``ProcessDevice`` of another process: the crossing is a send (``t``
+    here, ``device`` there: returns ``None``), a receive (``t`` ``None``,
+    ``src`` there, ``device`` here: returns the tensor), or nothing of
+    this process's (both there: ``None``).  Both processes run it, in the
+    same order (module docstring).  No gradient crosses processes."""
+    source = t.device if t is not None else src
+    if source is None:
+        raise ValueError("move(None, ...) needs src=, the member's device")
+    there, here = ipc.is_remote(source), not ipc.is_remote(device)
+    if not there and here:
+        if t is None:
+            raise ValueError(f"move: no tensor for the member on {source}")
+        return _Move.apply(t, ipc.local(device))
+    if there and not here:
+        return None
+    _count(across=True)
+    tr = ipc.transport()
+    if not there:
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ACCLError("move: a tensor that requires a gradient cannot "
+                            "cross processes (no gradient crosses them)")
+        tr.send(t, device.process_index)
+        return None
+    return tr.recv(source.process_index, ipc.local(device))
+
+
+def _move(t: Optional[torch.Tensor], device, src):
+    """:func:`move` of a member's value ``t`` (``None``: another
+    process's, on ``src``)."""
+    return move(t, device) if t is not None else move(t, device, src)
+
+
+def _both(fold):
+    """``fold`` of two values of one member, ``None`` where another
+    process holds it."""
+    return lambda a, b: None if a is None or b is None else fold(a, b)
 
 
 def card_homes(devices) -> list:
@@ -309,12 +385,20 @@ def collect(copies: Sequence[torch.Tensor]) -> torch.Tensor:
 def _placement(xs: Sequence[torch.Tensor], devices) -> Optional[list]:
     """Each member's device when the members are on several cards
     (``devices`` given, or the tensors on more than one device), else
-    None: the one-card path."""
+    None: the one-card path.  Another process's member keeps its
+    ``ProcessDevice`` (its entry of ``xs`` must be ``None``)."""
     if devices is not None:
-        devs = [torch.device(d) for d in devices]
+        devs = [d if ipc.is_remote(d) else ipc.local(d) for d in devices]
         if len(devs) != len(xs):
             raise ValueError(f"{len(xs)} members, {len(devs)} devices")
+        for r, (x, d) in enumerate(zip(xs, devs)):
+            if (x is None) != ipc.is_remote(d):
+                raise ValueError(f"member {r} on {d}: "
+                                 f"{'None' if x is None else 'a tensor'} "
+                                 f"given")
         return devs
+    if any(x is None for x in xs):
+        raise ValueError("a None member needs devices= naming its process")
     devs = [x.device for x in xs]
     return devs if len(set(devs)) > 1 else None
 
@@ -337,13 +421,13 @@ def all_reduce(xs: Sequence[torch.Tensor], op: str = "sum",
         raise ValueError(f"unknown reduce op {op!r}")
     devs = _placement(xs, devices)
     if devs is not None:
-        fold = _fold_op(op)
+        fold = _both(_fold_op(op))
         total = xs[0]
-        for x in xs[1:]:
-            total = fold(total, move(x, devs[0]))
-        if op == "mean":
+        for s, x in enumerate(xs[1:], 1):
+            total = fold(total, _move(x, devs[0], devs[s]))
+        if op == "mean" and total is not None:
             total = total / len(xs)
-        return [total] + [move(total, d) for d in devs[1:]]
+        return [total] + [_move(total, d, devs[0]) for d in devs[1:]]
     total = xs[0]
     for x in xs[1:]:
         if op == "max":
@@ -364,11 +448,13 @@ def reduce(xs: Sequence[torch.Tensor], root: int, op: str = "sum",
     return all_reduce(xs, op, devices)
 
 
-def _gathered(xs, devs, r: int, combine) -> torch.Tensor:
+def _gathered(xs, devs, r: int, combine) -> Optional[torch.Tensor]:
     """Member r's ``combine`` of every member's value, each other
-    member's moved straight to it."""
-    return combine([x if s == r else move(x, devs[r])
-                    for s, x in enumerate(xs)])
+    member's moved straight to it (``None`` for another process's
+    member)."""
+    parts = [x if s == r else _move(x, devs[r], devs[s])
+             for s, x in enumerate(xs)]
+    return None if any(p is None for p in parts) else combine(parts)
 
 
 def all_gather(xs: Sequence[torch.Tensor], tiled: bool = True,
@@ -393,13 +479,19 @@ def reduce_scatter(xs: Sequence[torch.Tensor], scatter_axis: int = 0,
     devs = _placement(xs, devices)
     if devs is not None:
         P = len(xs)
-        blocks = [torch.chunk(x, P, dim=scatter_axis) for x in xs]
+        blocks = [None if x is None else torch.chunk(x, P, dim=scatter_axis)
+                  for x in xs]
+        add = _both(torch.add)
+
+        def block(s, r):
+            b = None if blocks[s] is None else blocks[s][r]
+            return b if s == r else _move(b, devs[r], devs[s])
+
         out = []
         for r in range(P):
-            total = blocks[0][r] if r == 0 else move(blocks[0][r], devs[r])
+            total = block(0, r)
             for s in range(1, P):
-                b = blocks[s][r]
-                total = total + (b if s == r else move(b, devs[r]))
+                total = add(total, block(s, r))
             out.append(total)
         return out
     total = all_reduce(xs)[0]
@@ -416,27 +508,31 @@ def all_to_all(xs: Sequence[torch.Tensor], split_axis: int = 0,
     P = len(xs)
     devs = _placement(xs, devices)
     if tiled:
-        parts = [torch.chunk(x, P, dim=split_axis) for x in xs]
+        parts = [None if x is None else torch.chunk(x, P, dim=split_axis)
+                 for x in xs]
     else:
-        parts = [[x.select(split_axis, r) for r in range(P)] for x in xs]
+        parts = [None if x is None else
+                 [x.select(split_axis, r) for r in range(P)] for x in xs]
 
     def block(s: int, r: int) -> torch.Tensor:
-        b = parts[s][r]
-        return b if devs is None or s == r else move(b, devs[r])
+        b = None if parts[s] is None else parts[s][r]
+        return b if devs is None or s == r else _move(b, devs[r], devs[s])
 
-    if tiled:
-        return [torch.cat([block(s, r) for s in range(P)], dim=concat_axis)
-                for r in range(P)]
-    return [torch.stack([block(s, r) for s in range(P)], dim=concat_axis)
-            for r in range(P)]
+    join = torch.cat if tiled else torch.stack
+    out = []
+    for r in range(P):
+        got = [block(s, r) for s in range(P)]
+        out.append(None if any(b is None for b in got)
+                   else join(got, dim=concat_axis))
+    return out
 
 
 def broadcast(xs: Sequence[torch.Tensor], root: int, devices=None) -> list:
     """Every member gets the root's value."""
     devs = _placement(xs, devices)
     if devs is not None:
-        return [xs[root] if r == root else move(xs[root], devs[r])
-                for r in range(len(xs))]
+        return [xs[root] if r == root else
+                _move(xs[root], devs[r], devs[root]) for r in range(len(xs))]
     return [xs[root]] * len(xs)
 
 
@@ -444,7 +540,10 @@ def scatter(xs: Sequence[torch.Tensor], root: int, devices=None) -> list:
     """Member i gets block i of the root's value (leading dim = P)."""
     devs = _placement(xs, devices)
     if devs is not None:
-        return [xs[root][i] if i == root else move(xs[root][i], devs[i])
+        src = xs[root]
+        blocks = [None] * len(xs) if src is None else list(src)
+        return [blocks[i] if i == root else
+                _move(blocks[i], devs[i], devs[root])
                 for i in range(len(xs))]
     return [xs[root][i] for i in range(len(xs))]
 
@@ -458,10 +557,10 @@ def ppermute(xs: Sequence[torch.Tensor], perm, devices=None) -> list:
     """Point-to-point permutation: ``dst`` gets ``src``'s value for each
     (src, dst) pair; members that receive nothing get zeros."""
     devs = _placement(xs, devices)
-    out = [torch.zeros_like(x) for x in xs]
+    out = [None if x is None else torch.zeros_like(x) for x in xs]
     for src, dst in perm:
         out[dst] = (xs[src] if devs is None or src == dst
-                    else move(xs[src], devs[dst]))
+                    else _move(xs[src], devs[dst], devs[src]))
     return out
 
 
@@ -476,7 +575,8 @@ def barrier(xs: Sequence[torch.Tensor], devices=None) -> list:
     gets the member count."""
     devs = _placement(xs, devices)
     if devs is not None:
-        return all_reduce([torch.ones((), dtype=torch.int32, device=d)
+        return all_reduce([None if ipc.is_remote(d) else
+                           torch.ones((), dtype=torch.int32, device=d)
                            for d in devs], devices=devs)
     one = torch.ones((), dtype=torch.int32, device=xs[0].device)
     return all_reduce([one] * len(xs))
@@ -485,32 +585,39 @@ def barrier(xs: Sequence[torch.Tensor], devices=None) -> list:
 # ---------------------------------------------------------------------------
 # explicit ring schedules
 # ---------------------------------------------------------------------------
-def ring_reduce_scatter(xs: Sequence[torch.Tensor]) -> list:
+def _first(xs) -> torch.Tensor:
+    return next(x for x in xs if x is not None)
+
+
+def ring_reduce_scatter(xs: Sequence[torch.Tensor], devices=None) -> list:
     """Ring reduce-scatter: each member's [P * n, ...] -> its reduced chunk
     [n, ...], P - 1 steps of the ring (ops/ring.py; members on several
-    cards take the kernels' cross-card mode)."""
+    cards take the kernels' cross-card mode, members of several processes
+    its cross-process form, with ``devices``)."""
     P = len(xs)
-    shape = xs[0].shape
+    shape = _first(xs).shape
     n = shape[0] // P
-    flat = [x.contiguous().reshape(P, -1) for x in xs]
-    return [o.reshape((n,) + tuple(shape[1:]))
-            for o in ring_ops.ring_reduce_scatter(flat)]
+    flat = [None if x is None else x.contiguous().reshape(P, -1) for x in xs]
+    return [None if o is None else o.reshape((n,) + tuple(shape[1:]))
+            for o in ring_ops.ring_reduce_scatter(flat, devices=devices)]
 
 
-def ring_all_gather(xs: Sequence[torch.Tensor]) -> list:
+def ring_all_gather(xs: Sequence[torch.Tensor], devices=None) -> list:
     """Ring all-gather: each member's [n, ...] -> [P * n, ...] in rank
     order, P - 1 relay steps (ops/ring.py; members on several cards take
-    the kernels' cross-card mode)."""
+    the kernels' cross-card mode, members of several processes its
+    cross-process form, with ``devices``)."""
     P = len(xs)
-    shape = xs[0].shape
-    flat = [x.contiguous().reshape(-1) for x in xs]
-    return [o.reshape((P * shape[0],) + tuple(shape[1:]))
-            for o in ring_ops.ring_all_gather(flat)]
+    shape = _first(xs).shape
+    flat = [None if x is None else x.contiguous().reshape(-1) for x in xs]
+    return [None if o is None else o.reshape((P * shape[0],)
+                                             + tuple(shape[1:]))
+            for o in ring_ops.ring_all_gather(flat, devices=devices)]
 
 
-def ring_all_reduce(xs: Sequence[torch.Tensor]) -> list:
+def ring_all_reduce(xs: Sequence[torch.Tensor], devices=None) -> list:
     """Ring reduce-scatter then ring all-gather; P divides x.shape[0]."""
-    return ring_all_gather(ring_reduce_scatter(xs))
+    return ring_all_gather(ring_reduce_scatter(xs, devices), devices)
 
 
 def hierarchical_all_reduce(xs, devices=None) -> list:
@@ -518,11 +625,16 @@ def hierarchical_all_reduce(xs, devices=None) -> list:
     over the fast one): reduce-scatter inside each fast group, all-reduce
     the shards across groups, all-gather back inside each group.
     ``devices[d][i]``: member (d, i)'s device, for members on several
-    cards."""
+    cards or processes (``None`` in ``xs`` for another process's member;
+    with the slow axis over the processes, the all-reduce across groups
+    makes every crossing between them: 2 k per fast member i, k the slow
+    members outside member (0, i)'s process)."""
     D, F = len(xs), len(xs[0])
     devs = devices
     if devs is None and len({x.device for row in xs for x in row}) > 1:
         devs = [[x.device for x in row] for row in xs]
+    if devs is None and any(x is None for row in xs for x in row):
+        raise ValueError("a None member needs devices= naming its process")
     if devs is None:
         shards = [reduce_scatter(row) for row in xs]
         across = [all_reduce([shards[d][i] for d in range(D)])[0]

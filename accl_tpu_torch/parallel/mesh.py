@@ -18,16 +18,33 @@ Every pair of the cards must have peer access, else the mesh raises
 host.  ``devices=["cpu"] * P`` builds such a mesh on the CPU, where the
 models and strategies take their several-cards code path, every
 crossing between two slots counted (``parallel.collectives.moves``).
+
+Over several processes (after ``utils.bringup.initialize_multihost``
+joined more than one), ``devices=`` is this process's own devices, every
+process passing its own list in the same call: the mesh's global device
+list is every process's list in process order (the order of
+``jax.devices()``), its slots blocked row-major over it as above, so a
+dcn axis of ``make_hybrid_mesh`` lands over the processes as the JAX
+function's does (accl_tpu/parallel/mesh.py:116-120).  Each process holds
+its own slots (``local_slots``); ``devices`` names every other slot by
+a ``ProcessDevice`` (its process and its device there), and the
+collectives take ``None`` for a member another process holds.  On the
+CPU a process's devices are ``["cpu"] * k``.  Only this process's cards
+are checked for peer access: other processes' are reached through CUDA
+IPC (``utils/ipc.py``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional
 
+import json
+
 import numpy as np
 import torch
 
 from ..constants import ACCLError
+from ..utils import bringup
 from ..utils.device import resolve_device, resolve_devices
 
 
@@ -58,14 +75,20 @@ class MeshConfig:
 class RankMesh:
     """The counterpart of ``jax.sharding.Mesh``: named axes over ``size``
     rank slots, all on ``device``, or with ``devices`` slot s on
-    ``devices[s]`` (``device`` is then slot 0's).  Two meshes compare by
-    their axes and ``device``, as before slot maps existed."""
+    ``devices[s]`` (``device`` is then slot 0's, over several processes
+    this process's first slot's).  Two meshes compare by their axes and
+    ``device``, as before slot maps existed.  ``processes``: slot ->
+    process, for a mesh over several processes (None: every slot in this
+    one); a slot of another process has a ``ProcessDevice`` in
+    ``devices``."""
 
     axis_names: tuple
     sizes: tuple
     device: torch.device
     #: slot -> device, in slot order (None: every slot on ``device``)
     devices: Optional[tuple] = field(default=None, compare=False)
+    #: slot -> process, in slot order (None: every slot in this process)
+    processes: Optional[tuple] = field(default=None, compare=False)
 
     @property
     def shape(self) -> dict:
@@ -91,8 +114,33 @@ class RankMesh:
         return grid.reshape(self.sizes)
 
     def slot_device(self, slot: int) -> torch.device:
-        """Slot ``slot``'s device."""
+        """Slot ``slot``'s device (a ``ProcessDevice`` for a slot of another
+        process)."""
         return self.device if self.devices is None else self.devices[slot]
+
+    def slot_process(self, slot: int) -> int:
+        """The process that holds slot ``slot``."""
+        if self.processes is None:
+            return bringup.process_index()
+        return self.processes[slot]
+
+    def is_local(self, slot: int) -> bool:
+        """Whether this process holds slot ``slot``."""
+        return self.slot_process(slot) == bringup.process_index()
+
+    @property
+    def local_slots(self) -> tuple:
+        """The slots this process holds, in slot order."""
+        return tuple(s for s in range(self.size) if self.is_local(s))
+
+    def group_processes(self, axis: str) -> list:
+        """The groups along ``axis`` (at every coordinate of the other
+        axes) whose slots more than one process holds."""
+        if self.processes is None or axis not in self.axis_names:
+            return []
+        moved = np.moveaxis(self.ranks, self.axis_names.index(axis), -1)
+        return [tuple(int(s) for s in g) for g in moved.reshape(
+            -1, self.shape[axis]) if len({self.processes[s] for s in g}) > 1]
 
     def slot(self, **coords) -> int:
         """The slot at the given axis coordinates (axes left out at 0;
@@ -127,16 +175,54 @@ def _check_peers(devs: list, what: str) -> None:
                                 f"on these cards cannot share a mesh")
 
 
+#: meshes over several processes made by this process (their exchange's
+#: number: every process makes them in the same order)
+_process_meshes = [0]
+
+
 def _slot_devices(devices, need: int, what: str) -> tuple:
-    """The first ``need`` entries of ``devices``, resolved (a short list
-    raises ValueError, as the JAX functions raise), with every pair of
-    cards checked for peer access."""
+    """(slot devices, slot processes): the first ``need`` entries of
+    ``devices``, resolved (a short list raises ValueError, as the JAX
+    functions raise), with every pair of cards checked for peer access,
+    and no process map.  Over several processes, ``devices`` is this
+    process's own list: the slots are the first ``need`` of every
+    process's lists in process order (exchanged through the store), each
+    other process's as a ``ProcessDevice``, with their process map."""
     devs = list(devices)
+    if bringup.process_count() > 1:
+        from ..utils import ipc
+
+        devs = resolve_devices(devs, len(devs), what)
+        _check_peers(devs, what)
+        n = _process_meshes[0]
+        _process_meshes[0] += 1
+        got = ipc.transport().exchange(
+            f"mesh/{n}", json.dumps([str(d) for d in devs]).encode())
+        me = bringup.process_index()
+        every = [(q, torch.device(d)) for q, v in enumerate(got)
+                 for d in json.loads(v)]
+        if len(every) < need:
+            raise ValueError(f"{what} needs {need} devices, the processes "
+                             f"have {len(every)}")
+        every = every[:need]
+        if not any(q == me for q, _d in every):
+            raise ACCLError(f"{what}: process {me} holds none of its "
+                            f"{need} slots")
+        return (tuple(d if q == me else bringup.ProcessDevice(q, d)
+                      for q, d in every), tuple(q for q, _d in every))
     if len(devs) < need:
         raise ValueError(f"{what} needs {need} devices, have {len(devs)}")
     devs = resolve_devices(devs, need, what)
     _check_peers(devs, what)
-    return tuple(devs)
+    return tuple(devs), None
+
+
+def _mesh_over(names, shape, devs, procs) -> RankMesh:
+    """The mesh over slot devices ``devs`` (and processes ``procs``):
+    ``device`` is this process's first slot's."""
+    first = next(d for d in devs
+                 if not isinstance(d, bringup.ProcessDevice))
+    return RankMesh(names, shape, first, devs, procs)
 
 
 def make_mesh(config: MeshConfig | None = None, device="cuda",
@@ -146,15 +232,16 @@ def make_mesh(config: MeshConfig | None = None, device="cuda",
     Axis order follows MeshConfig's declaration order.  ``devices``: a
     list of at least that many devices, slot s (row-major over the axes)
     on ``devices[s]``, as ``accl_tpu/parallel/mesh.py`` lays its device
-    list over the grid."""
+    list over the grid.  Over several processes ``devices`` is this
+    process's own list (module docstring)."""
     if config is None:
         config = MeshConfig(**axis_sizes)
     axes = config.axes() or {"dp": 1}
     names, shape = tuple(axes), tuple(axes.values())
     if devices is None:
         return RankMesh(names, shape, resolve_device(device, "make_mesh"))
-    devs = _slot_devices(devices, int(np.prod(shape)), "mesh")
-    return RankMesh(names, shape, devs[0], devs)
+    return _mesh_over(names, shape, *_slot_devices(
+        devices, int(np.prod(shape)), "mesh"))
 
 
 def make_hybrid_mesh(ici: dict, dcn: dict, devices=None) -> RankMesh:
@@ -169,7 +256,10 @@ def make_hybrid_mesh(ici: dict, dcn: dict, devices=None) -> RankMesh:
     group here and cannot be reached.  ``devices``: None (the card) or a
     device, every slot on it; or a list of at least as many devices as
     the mesh has slots (as the JAX function checks), slot s on
-    ``devices[s]``, as the JAX function lays the list over its grid."""
+    ``devices[s]``, as the JAX function lays the list over its grid.
+    Over several processes the list is this process's own devices and
+    the slots block row-major over every process's, so the dcn axes land
+    over the processes (module docstring)."""
     dcn_sizes = {k: v for k, v in dcn.items() if v > 1}
     ici_sizes = {k: v for k, v in ici.items() if v > 1}
     names = tuple(dcn_sizes) + tuple(ici_sizes)
@@ -178,5 +268,5 @@ def make_hybrid_mesh(ici: dict, dcn: dict, devices=None) -> RankMesh:
     if devices is None or isinstance(devices, (str, torch.device)):
         return RankMesh(names, shape, resolve_device(
             "cuda" if devices is None else devices, "make_hybrid_mesh"))
-    devs = _slot_devices(devices, need, "hybrid mesh")
-    return RankMesh(names, shape, devs[0], devs)
+    return _mesh_over(names, shape, *_slot_devices(devices, need,
+                                                   "hybrid mesh"))

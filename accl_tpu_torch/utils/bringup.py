@@ -14,15 +14,23 @@ file, and `initialize_world` performing the full bring-up in one call
 ``initialize_multihost`` is the twin of the JAX package's: the same
 arguments and environment, and in place of ``jax.distributed`` a
 rendezvous of the host processes on a ``torch.distributed.TCPStore`` at
-the coordinator.
+the coordinator.  What it keeps is read back by the counterparts of
+JAX's process functions: :func:`process_index`, :func:`process_count`,
+:func:`local_devices` and :func:`devices` (the global list, in process
+order, each entry a :class:`ProcessDevice`).  Without it they describe
+one process, as JAX's do.  The processes' meshes, collectives and ring
+kernels go through ``utils/ipc.py`` over the same store.
 """
 from __future__ import annotations
 
 import enum
 import json
 import time
+from dataclasses import dataclass
 from datetime import timedelta
 from typing import Optional, Sequence
+
+import torch
 
 from ..communicator import Rank
 from ..constants import DEFAULT_EAGER_RX_BUF_SIZE, ACCLError
@@ -85,6 +93,83 @@ def initialize_world(design: Design | str, nranks: int, rank: int = 0,
 #: this process's rendezvous store: process 0's hosts the others' (kept
 #: for the life of the process, as jax.distributed keeps its client)
 _STORE = None
+#: what initialize_multihost keeps besides the store: this process's id,
+#: the process count, the coordinator's address, this process's devices
+#: and (read at first use) every process's
+_PROCESS = {"id": 0, "count": 1, "address": None, "local": None,
+            "all": None}
+
+
+@dataclass(frozen=True)
+class ProcessDevice:
+    """A device as every process of a multi-process run names it: the
+    process that holds it (``process_index``, as a JAX device's) and the
+    device there.  A mesh's slots of other processes hold one of these
+    (``RankMesh.devices``); its own slots hold the ``torch.device``."""
+
+    process_index: int
+    device: torch.device
+
+    def __str__(self) -> str:
+        return f"{self.device}@process{self.process_index}"
+
+    __repr__ = __str__
+
+    @property
+    def type(self) -> str:
+        return self.device.type
+
+
+def process_index() -> int:
+    """This process's id (``jax.process_index()``): 0 without
+    :func:`initialize_multihost`."""
+    return _PROCESS["id"]
+
+
+def process_count() -> int:
+    """The processes that joined (``jax.process_count()``): 1 without
+    :func:`initialize_multihost`."""
+    return _PROCESS["count"]
+
+
+def store():
+    """The rendezvous store of :func:`initialize_multihost`, or None."""
+    return _STORE
+
+
+def _visible(ids=None) -> list:
+    if torch.cuda.is_available():
+        ids = range(torch.cuda.device_count()) if ids is None else ids
+        return [torch.device("cuda", int(i)) for i in ids]
+    return [torch.device("cpu")]
+
+
+def local_devices() -> list:
+    """This process's devices (``jax.local_devices()``): the cards of
+    ``local_device_ids``, by default every card it sees; the CPU on a
+    machine without one."""
+    if _PROCESS["local"] is None:
+        _PROCESS["local"] = _visible()
+    return list(_PROCESS["local"])
+
+
+def devices() -> list:
+    """Every process's devices, process 0's first (``jax.devices()``),
+    each a :class:`ProcessDevice`; read from the store at first use."""
+    if _PROCESS["all"] is None:
+        if _STORE is None:
+            _PROCESS["all"] = [ProcessDevice(0, d) for d in local_devices()]
+        else:
+            from .ipc import store_wait
+
+            out = []
+            for p in range(process_count()):
+                key = f"accl/devices/{p}"
+                store_wait(_STORE, key, p, "devices()")
+                out += [ProcessDevice(p, torch.device(d))
+                        for d in json.loads(_STORE.get(key))]
+            _PROCESS["all"] = out
+    return list(_PROCESS["all"])
 
 
 def initialize_multihost(coordinator_address: str | None = None,
@@ -109,7 +194,16 @@ def initialize_multihost(coordinator_address: str | None = None,
     collective of any library is made.  A process that waits more than
     ``timeout_s`` raises ``ACCLError`` naming the processes that never
     checked in.  Where JAX auto-detects a TPU pod from its metadata, the
-    port has nothing to detect: the three values are required."""
+    port has nothing to detect: the three values are required.
+
+    Afterwards the process keeps its id, the process count, the store and
+    its devices (``local_device_ids``: its cards, by default every card
+    it sees; the CPU without one), read by :func:`process_index`,
+    :func:`process_count`, :func:`local_devices` and :func:`devices`.
+    Meshes over the processes (``make_mesh``/``make_hybrid_mesh`` with
+    ``devices=``) and every collective over them need each process to
+    make the same calls in the same order, as any collective library
+    does."""
     import os
 
     def _env_int(name):
@@ -143,6 +237,11 @@ def initialize_multihost(coordinator_address: str | None = None,
         raise ACCLError(f"initialize_multihost: process_id {process_id} "
                         f"outside 0..{num_processes - 1}")
     _rendezvous(coordinator_address, num_processes, process_id, timeout_s)
+    _PROCESS.update(id=process_id, count=num_processes,
+                    address=coordinator_address,
+                    local=_visible(local_device_ids), all=None)
+    _STORE.set(f"accl/devices/{process_id}",
+               json.dumps([str(d) for d in _PROCESS["local"]]))
     return kwargs
 
 

@@ -452,6 +452,22 @@ Phases, each fatal on failure:
      teacher-forced steps replayed and eager, ms per step, logits
      bitwise (or within LOGIT_BOUND, with a control that moves the last
      block's w2 by a bf16 ulp outside it);
+  7m. a mesh over two processes on card 0 (phase multi_process, after
+     cross_capture): the parent makes its one-process references (the
+     dp 2 x tp 2 AdamW step at Llama-3-8B width, MC_LAYERS["one"]
+     layers, MP_STEPS steps; the per-rank-table ring allreduce's times
+     at MP_MIB MiB a rank), frees them, then starts two children of
+     accl_tpu_torch/scripts/run_multihost_rank.py (--mode ring,step,
+     MP_RANKS ranks each, make_hybrid_mesh's dcn axis over the
+     processes).  Each child runs the ring allreduce across the
+     processes at MP_MIB (ring_kernel_cross over CUDA IPC tables), each
+     bitwise its one-process per-rank-table form, its counts set to 0
+     just before and read just after (launches_procs must be > 0 in
+     each; rows ring_*_procs carry their sum), hierarchical_all_reduce
+     bitwise, each kernel alone at [8, n] beside its plain version
+     across the processes, and the dp step, whose losses and every
+     leaf's fingerprint must be bitwise the parent's.  A child's failure
+     fails the phase, its output on the lines before;
   8. bench/sweep.py (phase sweep): run_sweep at SWEEP_WIDTHS and
      run_compression_sweep's allreduce at 2^24 elements, one JSON line a
      row (host-staged calls, not the resident driver numbers);
@@ -7742,6 +7758,163 @@ def captured_rows(rows, ccap) -> None:
               **row["captured"]})
 
 
+#: phase multi_process: ranks a process (two processes on card 0), the
+#: ring allreduce's MiB a rank, the AdamW steps of the dp 2 x tp 2 step
+#: (dp over the processes), and the children's time limit
+MP_RANKS = 4
+MP_MIB = (4, 64)
+MP_STEPS = 2
+MP_TIMEOUT_S = 420
+
+
+def _allreduce_ms(call, reps: int) -> tuple:
+    """(host ms, device ms) of one call: medians over ``reps`` calls after
+    one warm-up, the device's between CUDA events on the current stream,
+    each call ending in a synchronize."""
+    call()
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        call()
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        dev.append(a.elapsed_time(b))
+    return statistics.median(host), statistics.median(dev)
+
+
+def multi_process_phase(ring, M, S) -> dict:
+    """Phase 7m (multi_process): see the module docstring.  The parent
+    makes its one-process references first (the dp 2 x tp 2 AdamW step
+    on card 0, the per-rank-table allreduce's times), frees them, then
+    starts the two children of scripts/run_multihost_rank.py on card 0;
+    each sets the ring counts to 0 just before its counted allreduces and
+    reads them just after.  A child's failure fails the phase, with its
+    output on the lines before."""
+    import gc
+
+    from accl_tpu_torch.bench import multicard as MC
+    from accl_tpu_torch.bench import multiprocess as MPB
+    from accl_tpu_torch.scripts import run_multihost_rank as RUN
+
+    t0 = time.perf_counter()
+    P2 = 2 * MP_RANKS
+    n = ring.DEFAULT_SEG_ELEMS // P2
+    cfg = RUN.step_config(M, "llama3-8b", MC_LAYERS["one"])
+    params, tokens = RUN.step_inputs(M, cfg, "llama3-8b", "cuda:0")
+    mesh = S.make_mesh(dp=2, tp=2, devices=["cuda:0"] * 4)
+    ref = RUN.run_steps(M, mesh, cfg, params, tokens, MP_STEPS, ("adamw",))
+    ref = ref["adamw"]
+    ref_prints = [{k: RUN.fingerprint(t) for k, t in RUN.step_leaves(
+        M, cfg, ref["trees"][d], ref["state"][d]).items()} for d in range(2)]
+    ref_bits = [int(v.view(torch.int32)) for v in ref["losses"]]
+    ref_s = ref["s_per_step"]
+    del ref, params, tokens, mesh
+    one = {}
+    for mib in MP_MIB:
+        xs = [torch.randn(mib * MIB // 4, device="cuda") for _ in range(P2)]
+
+        def tables(xs=xs):
+            with ring.rank_tables():
+                return ring.ring_all_reduce(xs)
+
+        one[mib] = _allreduce_ms(tables, 5 if mib <= 16 else 3)
+        del xs, tables
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_children = time.perf_counter()
+    try:
+        results = MPB.children(2, [
+            "--device", "cuda:0", "--ranks", str(MP_RANKS),
+            "--mode", "ring,step", "--mib", ",".join(map(str, MP_MIB)),
+            "--kernel-n", str(n), "--config", "llama3-8b",
+            "--layers", str(MC_LAYERS["one"]), "--steps", str(MP_STEPS),
+            "--opts", "adamw"], MP_TIMEOUT_S)
+    except RuntimeError as e:
+        print(e, flush=True)
+        fail("multi_process: a child failed (its output above)")
+    children_s = time.perf_counter() - t_children
+    names = ("ring_reduce_scatter", "ring_all_gather")
+    for p, r in enumerate(results):
+        rr = r["ring"]
+        if min(rr["launches_cross"][k] for k in names) <= 0 or \
+                min(rr["launches_procs"][k] for k in names) <= 0:
+            fail(f"multi_process: child {p} launched no cross-process ring "
+                 f"kernel: {rr['launches_procs']}")
+        if not rr["hierarchical_all_reduce"]["bitwise"]:
+            fail(f"multi_process: child {p}'s hierarchical_all_reduce")
+        st = r["step"]["adamw"]
+        if st["loss_bits"] != ref_bits:
+            fail(f"multi_process: child {p}'s losses {st['losses']} are not "
+                 f"bitwise the one-process step's")
+        want = ref_prints[st["member"]]
+        bad = [k for k in want if st["fingerprints"].get(k) != want[k]]
+        if bad or len(st["fingerprints"]) != len(want):
+            fail(f"multi_process: child {p}'s dp member {st['member']} is not "
+                 f"bitwise the one-process step's: leaves {bad[:8]}")
+    sizes = []
+    for i, mib in enumerate(MP_MIB):
+        row = {"mib_per_rank": mib, "ranks": P2,
+               "one_process_host_ms": one[mib][0],
+               "one_process_device_ms": one[mib][1]}
+        for p, r in enumerate(results):
+            got = r["ring"]["sizes"][i]
+            row[f"child{p}_host_ms"] = got["host_ms"]
+            row[f"child{p}_device_ms"] = got["device_ms"]
+        sizes.append(row)
+        emit({"phase": "multi_process_allreduce", **row})
+    launches = {k: sum(r["ring"]["launches_procs"][k] for r in results)
+                for k in names}
+    rows = []
+    for k in names:
+        got = [next(x for x in r["ring"]["kernels"] if x["name"] == k)
+               for r in results]
+        if not all(g["bitwise"] for g in got):
+            fail(f"multi_process: {k} across processes is not bitwise its "
+                 f"plain version")
+        b_ms, b_by = MC.bound_ms(P2, n, P2, 1)
+        row = {"name": k + "_procs", "route": "cuda",
+               "source": "accl_tpu_torch/ops/csrc/ring.cu",
+               "replaces": ("accl_tpu/ops/ring.py:274"
+                            if k == "ring_reduce_scatter" else
+                            "accl_tpu/ops/ring.py:151"),
+               "launches": launches[k],
+               "launches_per_call": {"per_process": 1, "processes": 2},
+               "max_abs_err": max(g["max_abs_err"] for g in got),
+               "ms": max(g["ms"] for g in got),
+               "host_ms": max(g["host_ms"] for g in got),
+               "plain_ms": max(g["plain_ms"] for g in got),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "library_note": ("torch.cuda.nccl runs inside one process; "
+                                "across processes NCCL takes one rank a "
+                                "card, and these 8 ranks share one card"),
+               "checked": True,
+               "shape": f"P={P2} in 2 processes on 1 card x [{n}] fp32 "
+                        f"chunks, cross-process form"}
+        emit({"phase": "kernel_time", **row})
+        rows.append(row)
+    emit({"phase": "multi_process", "ok": True,
+          "seconds": time.perf_counter() - t0, "children_s": children_s,
+          "processes": 2, "ranks": P2,
+          "launches_cross": [r["ring"]["launches_cross"] for r in results],
+          "launches_procs": [r["ring"]["launches_procs"] for r in results],
+          "hierarchical_all_reduce": "bitwise",
+          "step": {"config": "Llama-3-8B", "layers": MC_LAYERS["one"],
+                   "mesh": "dp 2 (over the processes) x tp 2",
+                   "optimizer": "adamw", "bitwise": True,
+                   "losses": results[0]["step"]["adamw"]["losses"],
+                   "one_process_s_per_step": ref_s,
+                   "children_s_per_step": [
+                       r["step"]["adamw"]["s_per_step"] for r in results]},
+          "process_crossings": [r["process_crossings"] for r in results]})
+    return {"rows": rows, "launches": launches}
+
+
 def time_model_card_kernels(F, mc) -> list:
     """Rows of the fused kernel's cross-card mode (bench/model_cards.py
     fused_rows) at Llama-3-8B's MLP-down at TP = 4, fp32: its
@@ -7925,6 +8098,7 @@ def main() -> int:
     mcp = model_cards_phase(ring, F, FL, M, MM, S, RA, T_)
     mcs = model_cards_sp(ring, F, FL, M, S, T_)
     ccap = cross_capture_phase(ring, F, M, S)
+    mpp = multi_process_phase(ring, M, S)
     mp = main_path(ring, F, CudaWorld, ReduceFunction, sizes)
     world = mp["world"]
     try:
@@ -8002,6 +8176,7 @@ def main() -> int:
                                                 onl, utl, gft, mc))
         rows += time_table_kernels(ring, mc["launches_tables"], mc["cards"])
         captured_rows(rows, ccap)
+        rows += mpp["rows"]
         sweep_phase(world)
         callrate_phase()
     finally:
